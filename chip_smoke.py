@@ -1,0 +1,589 @@
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printing JSON lines; any failure exits non-zero:
+  1. device   — the card (torch and nvidia-smi); no CUDA device fails.
+  2. build    — compile every kernel in shellac_tpu_torch/csrc/ from source
+                (nvcc -Xptxas -v register/shared-memory/spill lines).
+  3. kernels  — each kernel against its plain PyTorch version on the card,
+                at the shapes of the main path, in bf16 and fp32.
+  4. generate — shellac-1b (full width and depth, random weights from
+                --seed) through Engine.generate: 8 ragged prompts padded to
+                512, 64 new tokens, greedy; prefill logits of the kernels
+                against the plain attention; kernel launch counts of the
+                run; a depth-cut fp32 run whose greedy tokens must equal
+                the plain path's.
+  5. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
+                events; the eager time beside it) against its bound, its
+                plain version and one PyTorch library call computing the
+                same.
+Then the card's name and power limit, one {"kernels": [...]} line, and as
+the last line {"ok": true, "device": {...}}.
+
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+PROMPTS, PAD, NEW_TOKENS, MAX_LEN = 8, 512, 64, 2048
+LEN_LO, LEN_HI = 128, 512
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# kernels under test
+# --------------------------------------------------------------------------
+
+
+def kernel_table():
+    from shellac_tpu_torch.ops import decode_attention as da
+    from shellac_tpu_torch.ops import flash_attention as fa
+    from shellac_tpu_torch.ops import norms
+
+    return [
+        {"name": "rms_norm", "route": "cuda",
+         "source": "shellac_tpu_torch/csrc/rms_norm.cu",
+         "replaces": "shellac_tpu/ops/norms.py:50",
+         "wrapper": norms.rms_norm_cuda},
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "shellac_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "shellac_tpu/ops/flash_attention.py:226",
+         "wrapper": fa.flash_attention_cuda},
+        {"name": "decode_attention_dense", "route": "cuda",
+         "source": "shellac_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "shellac_tpu/ops/decode_attention.py:315",
+         "wrapper": da.decode_attention_cuda},
+    ]
+
+
+def reset_counts(table):
+    for k in table:
+        k["wrapper"].launches = 0
+
+
+def read_counts(table):
+    return {k["name"]: k["wrapper"].launches for k in table}
+
+
+# Tolerances: fp32 is the algorithm check (summation order only differs:
+# 2e-5 as the JAX package's attention tests use, 1e-5 for a norm); bf16
+# outputs are rounded to bf16 (2^-8 relative) and attention rounds p to
+# bf16 too, so a few output ulps: atol + rtol * |ref|.
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def compare(out, ref, dtype):
+    atol, rtol = TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    bound = atol + rtol * ref.float().abs()
+    rel = (err / ref.float().abs().clamp_min(1e-6)).max().item()
+    return {
+        "max_abs_err": err.max().item(),
+        "max_rel_err": rel,
+        "atol": atol, "rtol": rtol,
+        "ok": bool(torch.isfinite(out.float()).all().item()
+                   and (err <= bound).all().item()),
+    }
+
+
+def main_shapes(seed, dev):
+    """Shapes the shellac-1b main path gives each kernel; the decode
+    index is ragged in [LEN_LO, LEN_HI + 64], as the decode steps see."""
+    idx = torch.from_numpy(
+        np.random.default_rng(seed)
+        .integers(LEN_LO, LEN_HI + NEW_TOKENS + 1, size=PROMPTS)
+        .astype(np.int32)
+    ).to(dev)
+    return {
+        "rms_prefill": (PROMPTS * PAD, 2048),
+        "rms_decode": (PROMPTS, 2048),
+        "flash": dict(b=PROMPTS, s=PAD, h=16, hkv=8, d=128),
+        "decode": dict(b=PROMPTS, s=1, h=16, hkv=8, L=MAX_LEN, d=128,
+                       index=idx),
+    }
+
+
+def randn(gen, shape, dtype, dev, std=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+
+def rms_inputs(gen, rows, d, dtype, dev):
+    return randn(gen, (rows, d), dtype, dev), randn(
+        gen, (d,), torch.float32, dev, 0.1)
+
+
+def flash_inputs(gen, dtype, dev, b, s, h, hkv, d):
+    return (randn(gen, (b, s, h, d), dtype, dev),
+            randn(gen, (b, s, hkv, d), dtype, dev),
+            randn(gen, (b, s, hkv, d), dtype, dev))
+
+
+def decode_inputs(gen, dtype, dev, b, s, h, hkv, L, d, index):
+    return (randn(gen, (b, s, h, d), dtype, dev),
+            randn(gen, (b, hkv, L, d), dtype, dev),
+            randn(gen, (b, hkv, L, d), dtype, dev), index)
+
+
+def phase_kernels(gen, dev, shapes):
+    from shellac_tpu_torch.ops.decode_attention import (
+        _decode_ref,
+        decode_attention_cuda,
+    )
+    from shellac_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_ref,
+    )
+    from shellac_tpu_torch.ops.norms import rms_norm_cuda, rms_norm_ref
+
+    results, failed = {}, []
+
+    def record(kernel, case, dtype, out, ref, main=False):
+        torch.cuda.synchronize()
+        res = compare(out, ref, dtype)
+        emit("kernels", kernel=kernel, case=case, dtype=str(dtype), **res)
+        if main:
+            results[kernel] = res["max_abs_err"]
+        if not res["ok"]:
+            failed.append((kernel, case, str(dtype)))
+
+    sinks16 = randn(gen, (16,), torch.float32, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        for case in ("rms_prefill", "rms_decode"):
+            x, sc = rms_inputs(gen, *shapes[case], dtype, dev)
+            record("rms_norm", case, dtype, rms_norm_cuda(x, sc, 1e-5),
+                   rms_norm_ref(x, sc, 1e-5), main and case == "rms_prefill")
+        x, sc = rms_inputs(gen, 37, 1000, dtype, dev)
+        record("rms_norm", "ragged_37x1000", dtype, rms_norm_cuda(x, sc),
+               rms_norm_ref(x, sc))
+
+        fs = shapes["flash"]
+        q, k, v = flash_inputs(gen, dtype, dev, **fs)
+        record("flash_attention_fwd", "main_causal", dtype,
+               flash_attention_cuda(q, k, v, causal=True),
+               flash_attention_ref(q, k, v, causal=True), main)
+        kw = dict(causal=True, window=128, softcap=50.0, sinks=sinks16)
+        record("flash_attention_fwd", "window_softcap_sinks", dtype,
+               flash_attention_cuda(q, k, v, **kw),
+               flash_attention_ref(q, k, v, **kw))
+        q, k, v = flash_inputs(gen, dtype, dev, **{**fs, "d": 64, "s": 333})
+        record("flash_attention_fwd", "d64_ragged_s333", dtype,
+               flash_attention_cuda(q, k, v, causal=True),
+               flash_attention_ref(q, k, v, causal=True))
+        q, k, v = flash_inputs(gen, dtype, dev, **{**fs, "b": 2})
+        record("flash_attention_fwd", "noncausal_b2", dtype,
+               flash_attention_cuda(q, k, v, causal=False),
+               flash_attention_ref(q, k, v, causal=False))
+
+        ds = shapes["decode"]
+        q, ck, cv, idx = decode_inputs(gen, dtype, dev, **ds)
+        scale = ds["d"] ** -0.5
+        record("decode_attention_dense", "main_ragged", dtype,
+               decode_attention_cuda(q, ck, cv, idx),
+               _decode_ref(q, ck, cv, idx, None, scale), main)
+        record("decode_attention_dense", "window_softcap_sinks", dtype,
+               decode_attention_cuda(q, ck, cv, idx, window=200,
+                                     softcap=50.0, sinks=sinks16),
+               _decode_ref(q, ck, cv, idx, 200, scale, softcap=50.0,
+                           sinks=sinks16))
+        q, ck, cv, idx = decode_inputs(gen, dtype, dev, **{**ds, "d": 64})
+        record("decode_attention_dense", "d64", dtype,
+               decode_attention_cuda(q, ck, cv, idx),
+               _decode_ref(q, ck, cv, idx, None, 64 ** -0.5))
+        q, ck, cv, idx = decode_inputs(gen, dtype, dev, **{**ds, "s": 4})
+        record("decode_attention_dense", "s4_causal_rows", dtype,
+               decode_attention_cuda(q, ck, cv, idx),
+               _decode_ref(q, ck, cv, idx, None, scale))
+    if failed:
+        raise SystemExit(f"kernels disagree with their plain versions: "
+                         f"{failed}")
+    return results
+
+
+# --------------------------------------------------------------------------
+# main path
+# --------------------------------------------------------------------------
+
+
+def prompts(seed, vocab, dev):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(LEN_LO, LEN_HI + 1, size=PROMPTS).astype(np.int32)
+    toks = rng.integers(0, vocab, size=(PROMPTS, PAD)).astype(np.int64)
+    return torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def phase_generate(seed, dev, table, card):
+    from shellac_tpu_torch import Engine, get_model_config
+    from shellac_tpu_torch.inference.cache import init_cache
+    from shellac_tpu_torch.models import transformer
+
+    cfg = get_model_config("shellac-1b")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    emit("generate", step="init_params", model="shellac-1b",
+         params=transformer.num_params(params),
+         seconds=time.perf_counter() - t0)
+    toks, lens = prompts(seed, cfg.vocab_size, dev)
+
+    # Prefill logits through the kernels against the plain attention.
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("auto", "ref"):
+            cache = init_cache(cfg, PROMPTS, MAX_LEN, dev)
+            logits[impl], _ = transformer.forward_with_cache(
+                cfg, params, toks, cache, new_tokens_len=lens,
+                fresh_cache=True, attn_impl=impl,
+            )
+            del cache
+    got, ref = logits["auto"], logits["ref"]
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    ok = bool(torch.isfinite(got).all().item()) and err <= 5e-2 * scale
+    rows = torch.arange(PROMPTS, device=dev)
+    last = (lens - 1).long()
+    agree = (got[rows, last].argmax(-1) == ref[rows, last].argmax(-1))
+    emit("generate", step="prefill_logits_auto_vs_ref",
+         shape=list(got.shape), max_abs_err=err, ref_max_abs=scale,
+         tol="max_abs_err <= 5e-2 * max|ref|",
+         last_argmax_agree=int(agree.sum().item()), ok=ok)
+    if not ok:
+        raise SystemExit("prefill logits: kernels disagree with plain path")
+    del logits, got, ref
+
+    engine = Engine(cfg, params, max_len=MAX_LEN, temperature=0.0,
+                    device=dev)
+    engine.generate(toks, lens, max_new_tokens=4)  # warm-up (cuBLAS init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts(table)
+    t0 = time.perf_counter()
+    res = engine.generate(toks, lens, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts(table)
+    peak = torch.cuda.max_memory_allocated()
+
+    expect = {
+        "rms_norm": (2 * cfg.n_layers + 1) * NEW_TOKENS,
+        "flash_attention_fwd": cfg.n_layers,
+        "decode_attention_dense": cfg.n_layers * (NEW_TOKENS - 1),
+    }
+    tokens_ok = (tuple(res.tokens.shape) == (PROMPTS, NEW_TOKENS)
+                 and bool(((res.tokens >= 0)
+                           & (res.tokens < cfg.vocab_size)).all().item())
+                 and bool(torch.isfinite(res.logprobs).all().item())
+                 and bool((res.logprobs <= 1e-6).all().item()))
+    emit("generate", step="main_path", launches=counts, expected=expect,
+         tokens_shape=list(res.tokens.shape), tokens_ok=tokens_ok,
+         total_s=total_s, tokens_per_s=PROMPTS * NEW_TOKENS / total_s,
+         max_memory_allocated=peak, card=card)
+    if counts != expect or not tokens_ok:
+        raise SystemExit("main path: wrong launch counts or bad tokens")
+
+    # Split timing of the same run: prefill, then the decode loop.
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, cache, seen = engine._prefill_impl(toks, lens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        res2 = engine._decode_impl(first, cache, NEW_TOKENS, gen, seen)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        # One decode step captured in a CUDA graph: its device time, set
+        # against the eager step's wall time, is the host's share.
+        tok = res.tokens[:, :1].long()
+        step_ms = graph_ms(
+            lambda: transformer.forward_with_cache(cfg, params, tok, cache),
+            [()], 1)
+        profile_step(cfg, params, toks, lens, engine, dev)
+    same = bool(torch.equal(res2.tokens, res.tokens))
+    emit("generate", step="timing", prefill_ms=(t1 - t0) * 1e3,
+         decode_ms_per_token=(t2 - t1) * 1e3 / (NEW_TOKENS - 1),
+         decode_step_device_ms=step_ms,
+         tokens_per_s=PROMPTS * NEW_TOKENS / (t2 - t0),
+         max_memory_allocated=peak, rerun_tokens_equal=same, card=card)
+    if not same:
+        raise SystemExit("greedy generation is not deterministic")
+    del engine, params, cache, first, seen
+    torch.cuda.empty_cache()
+
+    # Depth-cut fp32 copy: greedy tokens of the kernels must equal the
+    # plain path's (fp32 kernels differ from it by summation order only).
+    cfg32 = cfg.replace(n_layers=2, dtype="float32")
+    p32 = transformer.init_params(cfg32, seed=seed, device=dev)
+    out = {}
+    for impl in ("auto", "ref"):
+        eng = Engine(cfg32, p32, max_len=MAX_LEN, temperature=0.0,
+                     attn_impl=impl, device=dev)
+        out[impl] = eng.generate(toks, lens, max_new_tokens=16)
+    eq = bool(torch.equal(out["auto"].tokens, out["ref"].tokens))
+    lp_err = (out["auto"].logprobs - out["ref"].logprobs).abs().max().item()
+    emit("generate", step="fp32_depth2_auto_vs_ref_tokens", equal=eq,
+         logprob_max_abs_err=lp_err, tol_logprob=1e-3)
+    if not eq or lp_err > 1e-3:
+        raise SystemExit("fp32 greedy tokens differ between kernels and "
+                         "plain path")
+    del p32, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_step(cfg, params, toks, lens, engine, dev):
+    """Device time by kernel for one prefill and one decode step, from
+    torch.profiler (CUPTI); a trace with no device time fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shellac_tpu_torch.models import transformer
+
+    first, cache, _ = engine._prefill_impl(toks, lens)
+    tok = first.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    steps = {
+        "prefill": lambda: engine._prefill_impl(toks, lens),
+        "decode_step": lambda: transformer.forward_with_cache(
+            cfg, params, tok, cache),
+    }
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages() if e.self_device_time_total > 0]
+        device_us = sum(r[1] for r in rows)
+        if device_us <= 0:
+            raise SystemExit(f"profile {name}: the trace holds no device time")
+        rows.sort(key=lambda r: -r[1])
+        emit("generate", step=f"profile_{name}", wall_ms=wall * 1e3,
+             device_ms=device_us / 1e3, device_busy_share=device_us / 1e3
+             / (wall * 1e3), launches=sum(r[2] for r in rows),
+             top=[{"kernel": k[:80], "ms": us / 1e3, "count": n,
+                   "share": us / device_us} for k, us, n in rows[:12]])
+
+
+# --------------------------------------------------------------------------
+# timings
+# --------------------------------------------------------------------------
+
+
+def eager_ms(fn, arg_sets, iters):
+    """Mean ms per eager call by CUDA events, cycling through arg_sets.
+    Includes the host's launch cost wherever that outruns the device."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, arg_sets, iters):
+    """Mean device ms per call: `iters` calls (cycling arg_sets) captured
+    in one CUDA graph, replayed, timed by CUDA events. No host launch
+    cost is left in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in arg_sets:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / iters
+    del graph
+    return ms
+
+
+def copies(make, min_bytes=256 << 20):
+    first = make()
+    nbytes = sum(t.numel() * t.element_size() for t in first
+                 if isinstance(t, torch.Tensor))
+    n = max(1, -(-min_bytes // max(nbytes, 1)))
+    return [first] + [make() for _ in range(min(n, 16) - 1)]
+
+
+def bound(nbytes, flops, dtype):
+    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS_S[dtype]
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def phase_timings(gen, dev, shapes, card):
+    from shellac_tpu_torch.ops.decode_attention import (
+        _decode_ref,
+        decode_attention_cuda,
+    )
+    from shellac_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_ref,
+    )
+    from shellac_tpu_torch.ops.norms import rms_norm_cuda, rms_norm_ref
+
+    bf = torch.bfloat16
+    rows_out = {}
+
+    def measure(fn, sets, iters):
+        return graph_ms(fn, sets, iters), eager_ms(fn, sets, iters)
+
+    def record(name, case, kernel, plain, library, nbytes, flops, shape):
+        bms, by = bound(nbytes, flops, bf)
+        row = {"ms": kernel[0], "plain_ms": plain[0], "bound_ms": bms,
+               "bound_by": by, "library_ms": library[0], "shape": shape}
+        emit("timings", kernel=name, case=case, dtype="bf16",
+             bytes=nbytes, flops=flops, roofline_share=bms / kernel[0],
+             eager_ms=kernel[1], plain_eager_ms=plain[1],
+             library_eager_ms=library[1], card=card, **row)
+        rows_out.setdefault(name, row)
+
+    for case in ("rms_prefill", "rms_decode"):
+        rows, d = shapes[case]
+
+        def make():
+            x, sc = rms_inputs(gen, rows, d, bf, dev)
+            return x, sc, (1.0 + sc).to(bf)  # the library call's weight
+
+        sets = copies(make)
+        k = measure(lambda x, s, w: rms_norm_cuda(x, s, 1e-5), sets, 200)
+        p = measure(lambda x, s, w: rms_norm_ref(x, s, 1e-5), sets, 50)
+        lib = measure(lambda x, s, w: F.rms_norm(x, (d,), w, 1e-5), sets, 200)
+        record("rms_norm", case, k, p, lib, 2 * rows * d * 2 + d * 4,
+               4 * rows * d, [rows, d])
+
+    fs = shapes["flash"]
+    b, s, h, hkv, d = fs["b"], fs["s"], fs["h"], fs["hkv"], fs["d"]
+    sets = copies(lambda: flash_inputs(gen, bf, dev, **fs))
+    k = measure(lambda q, k, v: flash_attention_cuda(q, k, v), sets, 20)
+    p = measure(lambda q, k, v: flash_attention_ref(q, k, v), sets[:2], 4)
+    lib = measure(
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True),
+        sets, 20)
+    pairs = b * h * s * (s + 1) // 2  # causal (q, k) pairs this run needs
+    record("flash_attention_fwd", "main_causal", k, p, lib,
+           (2 * b * s * h * d + 2 * b * s * hkv * d) * 2, 4 * d * pairs,
+           [b, s, h, hkv, d])
+
+    ds = shapes["decode"]
+    b, h, hkv, L, d, idx = (ds["b"], ds["h"], ds["hkv"], ds["L"], ds["d"],
+                            ds["index"])
+    sets = copies(lambda: decode_inputs(gen, bf, dev, **ds))
+    live = int((idx + 1).sum().item())  # kv positions this step reads
+    mask = (torch.arange(L, device=dev)[None, :]
+            < (idx + 1)[:, None].long())[:, None, None, :]
+    k = measure(lambda q, ck, cv, i: decode_attention_cuda(q, ck, cv, i),
+                sets, 200)
+    p = measure(lambda q, ck, cv, i: _decode_ref(q, ck, cv, i, None,
+                                                 d ** -0.5), sets, 50)
+    lib = measure(
+        lambda q, ck, cv, i: F.scaled_dot_product_attention(
+            q.transpose(1, 2), ck, cv, attn_mask=mask, enable_gqa=True),
+        sets, 200)
+    record("decode_attention_dense", "main_ragged", k, p, lib,
+           2 * b * h * d * 2 + 2 * live * hkv * d * 2 + b * 4,
+           4 * d * h * live, [b, 1, h, hkv, L, d])
+    return rows_out
+
+
+# --------------------------------------------------------------------------
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from shellac_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    emit("device", kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), nvidia_smi=card,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    info = _build.build_info()
+    emit("build", seconds=time.perf_counter() - t0, built=info["built"],
+         nvcc_seconds=info["seconds"], dir=info["dir"], ptxas=info["ptxas"])
+
+    table = kernel_table()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    shapes = main_shapes(args.seed, dev)
+    errs = phase_kernels(gen, dev, shapes)
+    counts = phase_generate(args.seed, dev, table, card)
+    times = phase_timings(gen, dev, shapes, card)
+
+    kernels = []
+    for k in table:
+        n = k["name"]
+        kernels.append({
+            "name": n, "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"], "launches": counts[n],
+            "max_abs_err": errs[n], **times[n],
+        })
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

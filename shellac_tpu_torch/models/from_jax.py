@@ -1,0 +1,64 @@
+"""Parameters of the JAX package, as numpy arrays, into the port's layout.
+
+The JAX package keeps a dense model's layers stacked along a leading
+axis ({"layers": {name: (L, ...)}}); the port keeps a list of per-layer
+dictionaries. `params_from_jax` takes the JAX params tree with every leaf
+already on the host as numpy (`jax.tree.map(np.asarray, params)`), so
+this module needs no JAX, and stores each leaf in the dtype the port's
+forward reads it in (see models/transformer.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from shellac_tpu_torch.config import ModelConfig
+from shellac_tpu_torch.models.transformer import (
+    Params,
+    check_supported,
+    layer_shapes,
+    to_storage,
+)
+from shellac_tpu_torch.ops.dispatch import DeviceLike, resolve_device
+
+
+def params_from_jax(cfg: ModelConfig, tree, device: DeviceLike = None) -> Params:
+    """Convert a JAX params tree of numpy arrays to port parameters."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shapes = layer_shapes(cfg)
+    top = {"embed", "layers", "final_norm"}
+    if not cfg.tie_embeddings:
+        top.add("lm_head")
+    if set(tree) != top:
+        raise ValueError(f"params keys {sorted(tree)} != {sorted(top)}")
+    stack = tree["layers"]
+    if set(stack) != set(shapes):
+        raise ValueError(
+            f"layer keys {sorted(stack)} != {sorted(shapes)} for this config"
+        )
+
+    def conv(name, arr, shape):
+        a = np.asarray(arr)
+        if a.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {a.shape} != {tuple(shape)}")
+        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+        return to_storage(cfg, name, t).to(dev)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        layers.append({
+            name: conv(name, stack[name][i], shp)
+            for name, (shp, _) in shapes.items()
+        })
+    params: Params = {
+        "embed": conv("embed", tree["embed"], (cfg.vocab_size, cfg.d_model)),
+        "layers": layers,
+        "final_norm": conv("final_norm", tree["final_norm"], (cfg.d_model,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = conv(
+            "lm_head", tree["lm_head"], (cfg.d_model, cfg.vocab_size)
+        )
+    return params

@@ -1,0 +1,43 @@
+"""Device resolution for the port's entry points.
+
+The port's kernels run on an NVIDIA Hopper card. Entry points default to
+the card and raise when there is none; they run on the CPU only when the
+caller asks for it, and then every kernel wrapper takes its plain PyTorch
+version because the tensors it is given lie on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: "cuda" unless told otherwise.
+
+    Raises RuntimeError when a CUDA device is asked for (explicitly or by
+    default) and none is present; there is no silent CPU fallback.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU"
+            )
+        return dev
+    if dev.type == "cpu":
+        return dev
+    raise ValueError(f"unsupported device {dev}; have cuda, cpu")
+
+
+def check_on(device: torch.device, **tensors: Optional[torch.Tensor]) -> None:
+    """Raise unless every given tensor lies on `device`."""
+    for name, t in tensors.items():
+        if t is not None and t.device.type != device.type:
+            raise ValueError(
+                f"{name} is on {t.device}, expected {device}"
+            )

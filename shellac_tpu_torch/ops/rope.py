@@ -1,0 +1,115 @@
+"""Rotary position embeddings (non-interleaved / NeoX half-rotation form).
+
+Frequencies are computed in fp32 regardless of compute dtype: bf16 loses
+precision at long positions. Same numerics as the JAX package's
+`ops/rope.py`, including the yarn, llama3 and linear scalings.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 10000.0,
+                yarn=None, llama3=None, linear=None):
+    """cos/sin tables for given absolute positions.
+
+    positions: int tensor, any shape (typically (B, S) or (S,)).
+    Returns (cos, sin) with shape positions.shape + (head_dim // 2,), fp32.
+    """
+    half = head_dim // 2
+    scale = 1.0
+    dev = positions.device
+    if yarn is not None:
+        freq, scale = _yarn_inv_freq(head_dim, theta, yarn)
+        freq = freq.to(dev)
+    else:
+        freq = 1.0 / (
+            theta ** (torch.arange(0, half, dtype=torch.float32, device=dev)
+                      / half)
+        )
+        if llama3 is not None:
+            freq = _llama3_inv_freq(freq, llama3)
+        if linear is not None:
+            freq = freq / linear
+    ang = positions.float()[..., None] * freq
+    return torch.cos(ang) * scale, torch.sin(ang) * scale
+
+
+def _llama3_inv_freq(inv_freq: torch.Tensor, l3) -> torch.Tensor:
+    """Llama-3.1 banded frequency scaling (HF _compute_llama3_parameters)."""
+    old = l3.original_max_position_embeddings
+    low_wl = old / l3.low_freq_factor
+    high_wl = old / l3.high_freq_factor
+    wavelen = 2 * math.pi / inv_freq
+    scaled = torch.where(wavelen > low_wl, inv_freq / l3.factor, inv_freq)
+    smooth = (old / wavelen - l3.low_freq_factor) / (
+        l3.high_freq_factor - l3.low_freq_factor
+    )
+    smoothed = (1 - smooth) * scaled / l3.factor + smooth * scaled
+    medium = (~(wavelen < high_wl)) & (~(wavelen > low_wl))
+    return torch.where(medium, smoothed, scaled)
+
+
+def _yarn_inv_freq(dim: int, base: float, yarn):
+    """Yarn inverse frequencies + attention factor (static, numpy)."""
+    factor = yarn.factor
+    attention_factor = yarn.attention_factor
+
+    def get_mscale(scale, mscale=1.0):
+        if scale <= 1:
+            return 1.0
+        return 0.1 * mscale * math.log(scale) + 1.0
+
+    if attention_factor is None:
+        if yarn.mscale and yarn.mscale_all_dim:
+            attention_factor = float(
+                get_mscale(factor, yarn.mscale)
+                / get_mscale(factor, yarn.mscale_all_dim)
+            )
+        else:
+            attention_factor = get_mscale(factor)
+
+    def correction_dim(num_rot):
+        return (dim * math.log(
+            yarn.original_max_position_embeddings / (num_rot * 2 * math.pi)
+        )) / (2 * math.log(base))
+
+    low = correction_dim(yarn.beta_fast)
+    high = correction_dim(yarn.beta_slow)
+    if yarn.truncate:
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, dim - 1)
+    if low == high:
+        high += 0.001
+
+    pos_freqs = base ** (np.arange(0, dim, 2, dtype=np.float32) / dim)
+    extrap = 1.0 / pos_freqs
+    interp = 1.0 / (factor * pos_freqs)
+    ramp = np.clip(
+        (np.arange(dim // 2, dtype=np.float32) - low) / (high - low), 0, 1
+    )
+    extrap_factor = 1.0 - ramp
+    inv_freq = interp * (1 - extrap_factor) + extrap * extrap_factor
+    return (torch.from_numpy(np.asarray(inv_freq, np.float32)),
+            float(attention_factor))
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the head dimension of x.
+
+    x: (..., S, H, D). cos/sin: broadcastable to (..., S, 1, D/2) — e.g.
+    shape (B, S, D/2) or (S, D/2).
+    """
+    half = x.shape[-1] // 2
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    x1f = x[..., :half].float()
+    x2f = x[..., half:].float()
+    out1 = x1f * c - x2f * s
+    out2 = x2f * c + x1f * s
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)

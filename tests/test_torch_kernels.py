@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked `gpu`: each test skips in its body when no CUDA device is present
+(the decision is made at run time, never at import, so every test worker
+collects the same tests). On a card:
+
+    python -m pytest -m gpu tests/test_torch_kernels.py
+
+Tolerances: fp32 atol/rtol 2e-5 (summation order only); bf16 atol 2e-2
+plus rtol 2e-2 (outputs are rounded to bf16, and attention rounds p to
+bf16 before the p.V product).
+"""
+
+import pytest
+import torch
+
+from shellac_tpu_torch.ops import decode_attention as da
+from shellac_tpu_torch.ops import flash_attention as fa
+from shellac_tpu_torch.ops import norms
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _close(out, ref, dtype):
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(4096, 2048), (8, 2048), (37, 1000),
+                                    (5, 128)])
+def test_rms_norm_kernel(dtype, rows, d):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(rows + d)
+    x = _randn(gen, (rows, d), dtype, dev)
+    scale = 0.1 * _randn(gen, (d,), torch.float32, dev)
+    before = norms.rms_norm_cuda.launches
+    out = norms.rms_norm(x, scale, 1e-5)
+    assert norms.rms_norm_cuda.launches == before + 1
+    _close(out, norms.rms_norm_ref(x, scale, 1e-5), dtype)
+
+
+_FLASH = {
+    "main_causal": dict(b=2, s=512, h=16, hkv=8, d=128, causal=True),
+    "ragged_d64": dict(b=2, s=333, h=4, hkv=2, d=64, causal=True),
+    "noncausal": dict(b=2, s=200, h=4, hkv=4, d=128, causal=False),
+    "window_softcap_sinks": dict(b=2, s=300, h=4, hkv=2, d=128, causal=True,
+                                 window=70, softcap=30.0, sinks=True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_FLASH))
+def test_flash_attention_kernel(dtype, case):
+    dev = _card()
+    c = dict(_FLASH[case])
+    b, s, h, hkv, d = (c.pop(k) for k in ("b", "s", "h", "hkv", "d"))
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q = _randn(gen, (b, s, h, d), dtype, dev)
+    k = _randn(gen, (b, s, hkv, d), dtype, dev)
+    v = _randn(gen, (b, s, hkv, d), dtype, dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    before = fa.flash_attention_cuda.launches
+    out = fa.flash_attention(q, k, v, **c)
+    assert fa.flash_attention_cuda.launches == before + 1
+    _close(out, fa.flash_attention_ref(q, k, v, **c), dtype)
+
+
+_DECODE = {
+    "main_s1": dict(s=1, h=16, hkv=8, L=2048, d=128),
+    "s4_d64": dict(s=4, h=8, hkv=4, L=300, d=64),
+    "window_softcap_sinks": dict(s=1, h=16, hkv=8, L=1000, d=128,
+                                 window=100, softcap=30.0, sinks=True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_DECODE))
+def test_decode_attention_kernel(dtype, case):
+    dev = _card()
+    c = dict(_DECODE[case])
+    s, h, hkv, L, d = (c.pop(k) for k in ("s", "h", "hkv", "L", "d"))
+    b = 4
+    gen = torch.Generator(device=dev).manual_seed(L)
+    q = _randn(gen, (b, s, h, d), dtype, dev)
+    ck = _randn(gen, (b, hkv, L, d), dtype, dev)
+    cv = _randn(gen, (b, hkv, L, d), dtype, dev)
+    index = torch.tensor([0, 37, L // 2 + 3, L - s], dtype=torch.int32,
+                         device=dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    before = da.decode_attention_cuda.launches
+    out = da.decode_attention(q, ck, cv, index, **c)
+    assert da.decode_attention_cuda.launches == before + 1
+    ref = da._decode_ref(q, ck, cv, index, c.get("window"), d ** -0.5,
+                         softcap=c.get("softcap"), sinks=c.get("sinks"))
+    _close(out, ref, dtype)
+
+
+def test_decode_kernel_reads_nothing_past_length():
+    """Poison past each slot's length must not reach the output."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _randn(gen, (2, 1, 8, 128), torch.bfloat16, dev)
+    ck = _randn(gen, (2, 4, 256, 128), torch.bfloat16, dev)
+    cv = _randn(gen, (2, 4, 256, 128), torch.bfloat16, dev)
+    index = torch.tensor([10, 130], dtype=torch.int32, device=dev)
+    out1 = da.decode_attention(q, ck, cv, index)
+    for bi, n in enumerate((11, 131)):
+        ck[bi, :, n:] = float("nan")
+        cv[bi, :, n:] = float("nan")
+    out2 = da.decode_attention(q, ck, cv, index)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _card()
+    x = torch.zeros(2, 16, 4, 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(x, x, x)
+    h = torch.zeros(4, 8, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        norms.rms_norm(h, torch.zeros(8, device=dev))
+    q = torch.zeros(1, 1, 32, 128, device=dev, dtype=torch.bfloat16)
+    c = torch.zeros(1, 1, 64, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="rows per kv head"):
+        da.decode_attention(q, c, c, torch.zeros(1, dtype=torch.int32,
+                                                 device=dev))

@@ -1,0 +1,283 @@
+"""The PyTorch port's model and engine against the JAX package's, on the CPU.
+
+Parameters come from the JAX package's init_params (made non-trivial
+with seeded numpy noise on norms, biases and sinks), cross to the port as
+numpy through `params_from_jax`, and both packages run the same token
+inputs in fp32. Logits agree to atol 1e-4 (fp32 through a few layers,
+summation order only differs). Greedy tokens are compared where the JAX
+top-2 logit margin is at least twice that tolerance — there logits
+within 1e-4 cannot swap the argmax — up to each row's first step below
+it, and most steps must qualify; a mismatch is then a real divergence,
+not backend greedy drift.
+"""
+
+import os
+import subprocess
+import sys
+import zlib
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shellac_tpu.inference.engine import Engine as JEngine
+from shellac_tpu.inference.kvcache import init_cache as jinit_cache
+from shellac_tpu.models import transformer as jt
+from shellac_tpu.models.registry import get_model_config as jget
+from shellac_tpu_torch.inference.cache import init_cache
+from shellac_tpu_torch.inference.engine import Engine
+from shellac_tpu_torch.models import transformer as tt
+from shellac_tpu_torch.models.from_jax import params_from_jax
+from shellac_tpu_torch.models.registry import get_model_config
+
+REPO = Path(__file__).resolve().parent.parent
+LOGIT_ATOL = 1e-4
+MARGIN = 2 * LOGIT_ATOL
+CPU = "cpu"
+
+
+def _rng(*key):
+    return np.random.default_rng(zlib.crc32(repr(key).encode()))
+
+
+def _pair(name, **over):
+    """(jax cfg, port cfg, jax params, port params) for a preset in fp32."""
+    jc = jget(name).replace(dtype="float32", **over)
+    tc = get_model_config(name).replace(dtype="float32", **over)
+    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    rng = _rng("params", name)
+    for k, v in p["layers"].items():
+        if k in ("sinks", "bq", "bk", "bv", "bo") or k.endswith("norm"):
+            p["layers"][k] = (0.3 * rng.standard_normal(v.shape)).astype(
+                np.float32)
+    p["final_norm"] = (0.3 * rng.standard_normal(
+        p["final_norm"].shape)).astype(np.float32)
+    return jc, tc, jax.tree.map(jnp.asarray, p), params_from_jax(tc, p, CPU)
+
+
+def _tokens(rng, vocab, b, s):
+    return rng.integers(0, vocab, size=(b, s)).astype(np.int32)
+
+
+def test_params_from_jax_round_trip():
+    """Every JAX leaf lands, per layer, with the storage dtype the port's
+    forward reads (matmul weights in the compute dtype, norms fp32)."""
+    name = "tiny-gemma2"
+    jc = jget(name)  # bf16 compute, fp32 master params
+    tc = get_model_config(name)
+    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(1)))
+    tp = params_from_jax(tc, p, CPU)
+    assert len(tp["layers"]) == tc.n_layers
+    np.testing.assert_array_equal(
+        tp["embed"].float().numpy(),
+        p["embed"].astype(jnp.bfloat16).astype(np.float32))
+    for i, lp in enumerate(tp["layers"]):
+        assert set(lp) == set(p["layers"])
+        for k, t in lp.items():
+            src = p["layers"][k][i]
+            if k in tt.FP32_KEYS:
+                assert t.dtype == torch.float32
+                np.testing.assert_array_equal(t.numpy(), src)
+            else:
+                assert t.dtype == torch.bfloat16
+                np.testing.assert_array_equal(
+                    t.float().numpy(),
+                    src.astype(jnp.bfloat16).astype(np.float32))
+    bad = dict(p, layers={k: v for k, v in p["layers"].items()
+                          if k != "wq"})
+    with pytest.raises(ValueError):
+        params_from_jax(tc, bad, CPU)
+
+
+def test_init_params_layout_matches_jax():
+    jc, tc = jget("tiny-gemma3"), get_model_config("tiny-gemma3")
+    jp = jt.init_params(jc, jax.random.PRNGKey(0))
+    tp = tt.init_params(tc, seed=0, device=CPU)
+    assert tp["embed"].shape == jp["embed"].shape
+    for k, v in jp["layers"].items():
+        assert tuple(tp["layers"][0][k].shape) == v.shape[1:], k
+    assert tt.num_params(tp) == sum(x.size for x in jax.tree.leaves(jp))
+
+
+_PRESETS = ["tiny", "tiny-gqa", "tiny-gemma2", "tiny-gemma3"]
+
+
+@pytest.mark.parametrize("name", _PRESETS)
+def test_forward_and_cached_logits_match_jax(name):
+    jc, tc, jp, tp = _pair(name)
+    rng = _rng("fwd", name)
+    b, s, max_len = 2, 24, 40
+    toks = _tokens(rng, tc.vocab_size, b, s)
+    want = np.asarray(jt.forward(jc, jp, jnp.asarray(toks)))
+    got = tt.forward(tc, tp, torch.from_numpy(toks), device=CPU).numpy()
+    np.testing.assert_allclose(got, want, atol=LOGIT_ATOL)
+
+    # Ragged prefill into an empty cache, then single-token decode steps.
+    plen = np.array([s, 13], np.int32)
+    jcache = jinit_cache(jc, b, max_len)
+    tcache = init_cache(tc, b, max_len, torch.device(CPU))
+    jl, jcache = jt.forward_with_cache(
+        jc, jp, jnp.asarray(toks), jcache, new_tokens_len=jnp.asarray(plen),
+        fresh_cache=True)
+    tl, tcache = tt.forward_with_cache(
+        tc, tp, torch.from_numpy(toks), tcache,
+        new_tokens_len=torch.from_numpy(plen), fresh_cache=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL)
+    for _ in range(3):
+        nxt = _tokens(rng, tc.vocab_size, b, 1)
+        jl, jcache = jt.forward_with_cache(jc, jp, jnp.asarray(nxt), jcache)
+        tl, tcache = tt.forward_with_cache(tc, tp, torch.from_numpy(nxt),
+                                           tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_ATOL)
+    np.testing.assert_array_equal(tcache.lengths.numpy(),
+                                  np.asarray(jcache.lengths))
+    # The port writes the cache in place, in the JAX head-major layout.
+    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k),
+                               atol=1e-5)
+
+
+def _greedy_margins(jc, jp, toks, plen, gen_tokens, penalty):
+    """The JAX top-2 margin of the (penalized) logits behind every greedy
+    token, from one full forward of each row's prompt plus its generated
+    tokens (right-padded into one batch; causal rows ignore the pad)."""
+    from shellac_tpu.ops.sampling import repetition_penalty
+
+    b, steps = gen_tokens.shape
+    seqs = np.zeros((b, toks.shape[1] + steps - 1), np.int32)
+    for r in range(b):
+        n = int(plen[r])
+        seqs[r, :n + steps - 1] = np.concatenate(
+            [toks[r, :n], gen_tokens[r, :-1]])
+    logits = np.asarray(jt.forward(jc, jp, jnp.asarray(seqs)))
+    margins = np.zeros((b, steps), np.float32)
+    for r in range(b):
+        n = int(plen[r])
+        for t in range(steps):
+            seen = np.zeros(jc.vocab_size, bool)
+            seen[seqs[r, :n + t]] = True
+            row = np.asarray(repetition_penalty(
+                jnp.asarray(logits[r, n - 1 + t]), jnp.asarray(seen),
+                penalty))
+            top2 = np.sort(row)[-2:]
+            margins[r, t] = top2[1] - top2[0]
+    return margins
+
+
+@pytest.mark.parametrize("name,penalty", [("tiny", 1.0), ("tiny-gqa", 1.0),
+                                          ("tiny-gqa", 1.3)])
+def test_engine_greedy_matches_jax(name, penalty):
+    jc, tc, jp, tp = _pair(name)
+    rng = _rng("gen", name, penalty)
+    b, s, steps = 3, 16, 8
+    toks = _tokens(rng, tc.vocab_size, b, s)
+    plen = np.array([16, 5, 11], np.int32)
+    want = JEngine(jc, jp, temperature=0.0, max_len=48,
+                   repetition_penalty=penalty).generate(
+        jnp.asarray(toks), jnp.asarray(plen), max_new_tokens=steps)
+    got = Engine(tc, tp, temperature=0.0, max_len=48,
+                 repetition_penalty=penalty, device=CPU).generate(
+        torch.from_numpy(toks), torch.from_numpy(plen), max_new_tokens=steps)
+    jtoks, jlp = np.asarray(want.tokens), np.asarray(want.logprobs)
+    low = _greedy_margins(jc, jp, toks, plen, jtoks, penalty) < MARGIN
+    upto = np.where(low.any(1), low.argmax(1) + 1, steps)
+    assert upto.sum() >= 0.75 * b * steps, upto
+    for r in range(b):
+        n = upto[r]
+        np.testing.assert_array_equal(got.tokens[r, :n].numpy(), jtoks[r, :n])
+        np.testing.assert_allclose(got.logprobs[r, :n].numpy(), jlp[r, :n],
+                                   atol=LOGIT_ATOL)
+
+
+def test_engine_seen_mask_is_a_logical_or_scatter():
+    """A token id repeated in the pad tail must not clear the hit a real
+    prompt position set (the JAX .at[].max scatter)."""
+    tc = get_model_config("tiny")
+    eng = Engine(tc, tt.init_params(tc, device=CPU), device=CPU)
+    toks = torch.tensor([[7, 9, 9, 7, 3]])
+    _, _, seen = eng._prefill_impl(toks, torch.tensor([2], dtype=torch.int32))
+    assert seen[0, 7] and seen[0, 9] and not seen[0, 3]
+    assert int(seen.sum()) == 2
+
+
+def test_engine_sampling_self_consistent_and_topk1_is_greedy():
+    jc, tc, jp, tp = _pair("tiny-gqa")
+    toks = torch.from_numpy(_tokens(_rng("samp"), tc.vocab_size, 2, 12))
+
+    def run(**kw):
+        g = torch.Generator().manual_seed(11)
+        return Engine(tc, tp, max_len=32, device=CPU, **kw).generate(
+            toks, max_new_tokens=6, generator=g).tokens
+
+    assert torch.equal(run(temperature=0.9, top_p=0.9),
+                       run(temperature=0.9, top_p=0.9))
+    assert torch.equal(run(temperature=0.9, top_k=1),
+                       run(temperature=0.0))
+
+
+def test_entry_points_need_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card path is moot")
+    cfg = get_model_config("tiny")
+    params = tt.init_params(cfg, device=CPU)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, params, device=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.forward(cfg, params, torch.zeros(1, 4, dtype=torch.int64))
+    jp = jax.tree.map(np.asarray, jt.init_params(jget("tiny"),
+                                                 jax.random.PRNGKey(0)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(cfg, jp)
+
+
+@pytest.mark.parametrize("name", ["tiny-moe", "tiny-mla"])
+def test_unported_models_raise(name):
+    with pytest.raises(NotImplementedError):
+        tt.init_params(get_model_config(name), device=CPU)
+
+
+def test_unported_options_raise():
+    cfg = get_model_config("tiny")
+    params = tt.init_params(cfg, device=CPU)
+    for kw in ({"kv_quant": "int8"}, {"rolling_window": True},
+               {"mesh": object()}):
+        with pytest.raises(NotImplementedError):
+            Engine(cfg, params, device=CPU, **kw)
+    toks = torch.zeros(1, 4, dtype=torch.int64)
+    with pytest.raises(NotImplementedError):
+        tt.forward(cfg, params, toks, segment_ids=torch.zeros_like(toks),
+                   device=CPU)
+
+
+def test_cache_write_past_max_len_raises():
+    cfg = get_model_config("tiny")
+    params = tt.init_params(cfg, device=CPU)
+    cache = init_cache(cfg, 1, 8, torch.device(CPU))
+    _, cache = tt.forward_with_cache(
+        cfg, params, torch.zeros(1, 6, dtype=torch.int64), cache,
+        fresh_cache=True)
+    with pytest.raises(ValueError, match="max_len"):
+        tt.forward_with_cache(cfg, params,
+                              torch.zeros(1, 3, dtype=torch.int64), cache)
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, shellac_tpu_torch\n"
+        "from shellac_tpu_torch.models import transformer, from_jax\n"
+        "from shellac_tpu_torch.inference import engine\n"
+        "from shellac_tpu_torch.ops import decode_attention, _build\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'shellac_tpu' or m.startswith('shellac_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

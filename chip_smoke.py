@@ -7,17 +7,32 @@ Phases, each printing JSON lines; any failure exits non-zero:
   2. build    — compile every kernel in shellac_tpu_torch/csrc/ from source
                 (nvcc -Xptxas -v register/shared-memory/spill lines).
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the shapes of the main path, in bf16 and fp32.
+                at the shapes of the main paths, in bf16 and fp32; the
+                paged kernel reads a pool whose block 0 and unowned blocks
+                hold NaN.
   4. generate — shellac-1b (full width and depth, random weights from
                 --seed) through Engine.generate: 8 ragged prompts padded to
                 512, 64 new tokens, greedy; prefill logits of the kernels
                 against the plain attention; kernel launch counts of the
                 run; a depth-cut fp32 run whose greedy tokens must equal
                 the plain path's.
-  5. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
+  5. serve    — shellac-1b through PagedBatchingEngine.run: 16 slots,
+                max_len 2048, 16-token blocks, the default pool; 48
+                requests (prompts 64-1024, 16-128 new tokens, greedy)
+                submitted up front; throughput, time to first token and
+                per output token, launch counts (paged decode = layers x
+                ticks, dense decode 0, flash = layers x prefills), the
+                allocator back to pristine, one profiled engine step.
+  6. serve-parity — shellac-1b width cut to 2 layers, fp32: identical
+                greedy tokens from PagedBatchingEngine through the kernels,
+                the same with attn_impl="ref", and the dense
+                BatchingEngine.
+  7. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
                 events; the eager time beside it) against its bound, its
                 plain version and one PyTorch library call computing the
-                same.
+                same (for the paged kernel there is none: a gather plus
+                scaled_dot_product_attention, two calls, is timed beside
+                it).
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}.
 
@@ -42,6 +57,9 @@ PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 PROMPTS, PAD, NEW_TOKENS, MAX_LEN = 8, 512, 64, 2048
 LEN_LO, LEN_HI = 128, 512
+# The serve workload.
+SLOTS, BLOCK, REQUESTS = 16, 16, 48
+PROMPT_LO, PROMPT_HI, NEW_LO, NEW_HI = 64, 1024, 16, 128
 
 
 def emit(phase, **fields):
@@ -80,6 +98,11 @@ def kernel_table():
          "source": "shellac_tpu_torch/csrc/decode_attention.cu",
          "replaces": "shellac_tpu/ops/decode_attention.py:315",
          "wrapper": da.decode_attention_cuda},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "shellac_tpu_torch/csrc/paged_decode_attention.cu",
+         "replaces": "shellac_tpu/ops/decode_attention.py:562",
+         "also_replaces": "shellac_tpu/ops/decode_attention.py:764",
+         "wrapper": da.paged_decode_attention_cuda},
     ]
 
 
@@ -121,12 +144,18 @@ def main_shapes(seed, dev):
         .integers(LEN_LO, LEN_HI + NEW_TOKENS + 1, size=PROMPTS)
         .astype(np.int32)
     ).to(dev)
+    # The serve phase's decode: 16 slots at lengths up to prompt + new.
+    serve_idx = np.random.default_rng(seed + 1).integers(
+        PROMPT_LO, PROMPT_HI + NEW_HI + 1, size=SLOTS).astype(np.int32)
     return {
         "rms_prefill": (PROMPTS * PAD, 2048),
         "rms_decode": (PROMPTS, 2048),
         "flash": dict(b=PROMPTS, s=PAD, h=16, hkv=8, d=128),
         "decode": dict(b=PROMPTS, s=1, h=16, hkv=8, L=MAX_LEN, d=128,
                        index=idx),
+        "paged": dict(s=1, h=16, hkv=8, d=128, bs=BLOCK,
+                      max_blocks=MAX_LEN // BLOCK,
+                      index=torch.from_numpy(serve_idx).to(dev)),
     }
 
 
@@ -151,10 +180,41 @@ def decode_inputs(gen, dtype, dev, b, s, h, hkv, L, d, index):
             randn(gen, (b, hkv, L, d), dtype, dev), index)
 
 
+def paged_inputs(gen, dtype, dev, s, h, hkv, d, bs, max_blocks, index,
+                 idle=(), unowned=64):
+    """q, a pool holding each slot's pages for positions [0, index + s)
+    in shuffled blocks, the tables (rows padded with block 0), and a
+    poisoned copy of the pool whose block 0 and unowned blocks are NaN.
+    Slots in `idle` get length 0 and an all-zero table row."""
+    index = index.clone()
+    index[list(idle)] = 0
+    need = [0 if b in idle else -(-(int(i) + s) // bs)
+            for b, i in enumerate(index.tolist())]
+    n_blocks = max(1025, 1 + sum(need) + unowned)
+    ids = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
+    tables = torch.zeros((len(need), max_blocks), dtype=torch.int32,
+                         device=dev)
+    owned = torch.zeros(n_blocks, dtype=torch.bool, device=dev)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[at:at + n].to(torch.int32)
+        owned[ids[at:at + n]] = True
+        at += n
+    q = randn(gen, (len(need), s, h, d), dtype, dev)
+    k = randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
+    v = randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
+    pk, pv = k.clone(), v.clone()
+    pk[~owned] = float("nan")
+    pv[~owned] = float("nan")
+    return q, k, v, tables, index, pk, pv
+
+
 def phase_kernels(gen, dev, shapes):
     from shellac_tpu_torch.ops.decode_attention import (
         _decode_ref,
+        _paged_decode_ref,
         decode_attention_cuda,
+        paged_decode_attention_cuda,
     )
     from shellac_tpu_torch.ops.flash_attention import (
         flash_attention_cuda,
@@ -164,8 +224,10 @@ def phase_kernels(gen, dev, shapes):
 
     results, failed = {}, []
 
-    def record(kernel, case, dtype, out, ref, main=False):
+    def record(kernel, case, dtype, out, ref, main=False, rows=None):
         torch.cuda.synchronize()
+        if rows is not None:
+            out, ref = out[rows], ref[rows]
         res = compare(out, ref, dtype)
         emit("kernels", kernel=kernel, case=case, dtype=str(dtype), **res)
         if main:
@@ -221,6 +283,32 @@ def phase_kernels(gen, dev, shapes):
         record("decode_attention_dense", "s4_causal_rows", dtype,
                decode_attention_cuda(q, ck, cv, idx),
                _decode_ref(q, ck, cv, idx, None, scale))
+
+        # Paged: the kernel reads the NaN-poisoned pool, the plain
+        # version the clean one; the live pages are the same.
+        ps = shapes["paged"]
+        cases = {
+            "main_serve_bs16": ({}, {}, ()),
+            "bs8": ({"bs": 8, "max_blocks": MAX_LEN // 8}, {}, ()),
+            "bs64": ({"bs": 64, "max_blocks": MAX_LEN // 64}, {}, ()),
+            "d64": ({"d": 64}, {}, ()),
+            "window_softcap_sinks": ({}, {"window": 200, "softcap": 50.0,
+                                          "sinks": sinks16}, ()),
+            "s4": ({"s": 4}, {}, ()),
+            "idle_slot": ({}, {}, (3,)),
+        }
+        for case, (shape, kw, idle) in cases.items():
+            p = {**ps, **shape}
+            q, k, v, tab, idx, pk, pv = paged_inputs(gen, dtype, dev, **p,
+                                                     idle=idle)
+            d = p["d"]
+            live = [b for b in range(len(idx)) if b not in idle]
+            out = paged_decode_attention_cuda(q, pk, pv, tab, idx, **kw)
+            ref = _paged_decode_ref(q, k, v, tab, idx, kw.get("window"),
+                                    d ** -0.5, softcap=kw.get("softcap"),
+                                    sinks=kw.get("sinks"))
+            record("paged_decode_attention", case, dtype, out, ref,
+                   main and case == "main_serve_bs16", rows=live)
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failed}")
@@ -296,6 +384,7 @@ def phase_generate(seed, dev, table, card):
         "rms_norm": (2 * cfg.n_layers + 1) * NEW_TOKENS,
         "flash_attention_fwd": cfg.n_layers,
         "decode_attention_dense": cfg.n_layers * (NEW_TOKENS - 1),
+        "paged_decode_attention": 0,
     }
     tokens_ok = (tuple(res.tokens.shape) == (PROMPTS, NEW_TOKENS)
                  and bool(((res.tokens >= 0)
@@ -361,10 +450,7 @@ def phase_generate(seed, dev, table, card):
 
 
 def profile_step(cfg, params, toks, lens, engine, dev):
-    """Device time by kernel for one prefill and one decode step, from
-    torch.profiler (CUPTI); a trace with no device time fails."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time by kernel for one prefill and one decode step."""
     from shellac_tpu_torch.models import transformer
 
     first, cache, _ = engine._prefill_impl(toks, lens)
@@ -378,22 +464,177 @@ def profile_step(cfg, params, toks, lens, engine, dev):
     for name, fn in steps.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [(e.key, e.self_device_time_total, e.count)
-                for e in prof.key_averages() if e.self_device_time_total > 0]
-        device_us = sum(r[1] for r in rows)
-        if device_us <= 0:
-            raise SystemExit(f"profile {name}: the trace holds no device time")
-        rows.sort(key=lambda r: -r[1])
-        emit("generate", step=f"profile_{name}", wall_ms=wall * 1e3,
-             device_ms=device_us / 1e3, device_busy_share=device_us / 1e3
-             / (wall * 1e3), launches=sum(r[2] for r in rows),
-             top=[{"kernel": k[:80], "ms": us / 1e3, "count": n,
-                   "share": us / device_us} for k, us, n in rows[:12]])
+        emit("generate", step=f"profile_{name}", **profile_call(fn))
+
+
+def profile_call(fn):
+    """Device time by kernel of one call of fn, from torch.profiler
+    (CUPTI), beside its wall time; a trace with no device time fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    device_us = sum(r[1] for r in rows)
+    if device_us <= 0:
+        raise SystemExit("profile: the trace holds no device time")
+    rows.sort(key=lambda r: -r[1])
+    return dict(wall_ms=wall * 1e3, device_ms=device_us / 1e3,
+                device_busy_share=device_us / 1e3 / (wall * 1e3),
+                launches=sum(r[2] for r in rows),
+                top=[{"kernel": k[:80], "ms": us / 1e3, "count": n,
+                      "share": us / device_us} for k, us, n in rows[:12]])
+
+
+# --------------------------------------------------------------------------
+# serve: continuous batching over the paged pool
+# --------------------------------------------------------------------------
+
+
+def serve_requests(seed, vocab, n, prompt_range, new_range):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        plen = int(rng.integers(prompt_range[0], prompt_range[1] + 1))
+        out.append((f"r{i}", rng.integers(0, vocab, plen).astype(np.int32),
+                    int(rng.integers(new_range[0], new_range[1] + 1))))
+    return out
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def pristine(engine):
+    """The allocator after a drain: every block but scratch free, every
+    table row and slot length 0."""
+    be = engine.cache_backend
+    return (len(be._free) == be.n_blocks - 1
+            and all(not b for b in be._slot_blocks)
+            and int(engine._cache.tables.abs().sum().item()) == 0
+            and int(engine._cache.lengths.abs().sum().item()) == 0)
+
+
+def phase_serve(seed, dev, table, card):
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.models import transformer
+
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        decode_ticks=1, temperature=0.0, device=dev)
+    be = engine.cache_backend
+    reqs = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
+                          (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
+    # Warm-up (cuBLAS and the allocator), not counted.
+    engine.run(serve_requests(seed + 2, cfg.vocab_size, 2,
+                              (PROMPT_LO, PROMPT_LO), (NEW_LO, NEW_LO)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    be.peak_blocks_used = 0
+    before = dict(engine.stats)
+
+    reset_counts(table)
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(table)
+    peak = torch.cuda.max_memory_allocated()
+    delta = {k: engine.stats[k] - before[k] for k in
+             ("prefills", "decode_windows", "pool_exhausted", "engine_steps",
+              "requests_completed", "tokens_generated")}
+    ticks = delta["decode_windows"] * engine.decode_ticks
+    prefills = delta["prefills"]
+    L = cfg.n_layers
+    expect = {
+        "rms_norm": (2 * L + 1) * (prefills + ticks),
+        "flash_attention_fwd": L * prefills,
+        "decode_attention_dense": 0,
+        "paged_decode_attention": L * ticks,
+    }
+    tokens_ok = (set(results) == {r[0] for r in reqs} and all(
+        len(results[rid]) == m
+        and all(0 <= t < cfg.vocab_size for t in results[rid])
+        for rid, _, m in reqs))
+    ttft, tpot = [], []
+    for rid, _, m in reqs:
+        _, admitted, first, done = engine.finished_timings[rid]
+        ttft.append(first - admitted)
+        tpot.append((done - first) / max(m - 1, 1))
+    generated = sum(len(v) for v in results.values())
+    clean = pristine(engine)
+    emit("serve", step="main_path", model="shellac-1b", slots=SLOTS,
+         max_len=MAX_LEN, block_size=BLOCK, pool_blocks=be.n_blocks - 1,
+         requests=len(reqs), generated_tokens=generated, wall_s=wall,
+         tokens_per_s=generated / wall,
+         ttft_ms_p50=pct(ttft, 50) * 1e3, ttft_ms_p99=pct(ttft, 99) * 1e3,
+         tpot_ms_p50=pct(tpot, 50) * 1e3, tpot_ms_p99=pct(tpot, 99) * 1e3,
+         engine_steps=delta["engine_steps"], decode_ticks=ticks,
+         prefills=prefills, pool_exhausted_requeues=delta["pool_exhausted"],
+         peak_pool_utilization=be.peak_blocks_used / (be.n_blocks - 1),
+         max_memory_allocated=peak, launches=counts, expected=expect,
+         tokens_ok=tokens_ok, allocator_pristine=clean, card=card)
+    if counts != expect or not tokens_ok or not clean:
+        raise SystemExit("serve: wrong launch counts, bad tokens or a "
+                         "leaked block")
+
+    # One engine step profiled: 16 slots decoding, no admission.
+    for rid, toks, m in serve_requests(seed + 3, cfg.vocab_size, SLOTS,
+                                       (PROMPT_HI // 2, PROMPT_HI // 2),
+                                       (NEW_HI // 2, NEW_HI // 2)):
+        engine.submit(rid, toks, m)
+    engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    prof = profile_call(engine.step)
+    emit("serve", step="profile_engine_step", active_slots=sum(
+        r is not None for r in engine._slots), **prof)
+    engine.abort_all()
+    if not pristine(engine):
+        raise SystemExit("serve: abort_all left blocks allocated")
+    del engine, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serve_parity(seed, dev):
+    """Greedy tokens of the paged engine through the kernels, the same
+    engine on the plain attention, and the dense engine (kernel 5) must be
+    identical, in fp32 at shellac-1b width cut to 2 layers."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import (
+        BatchingEngine,
+        PagedBatchingEngine,
+    )
+    from shellac_tpu_torch.models import transformer
+
+    cfg = get_model_config("shellac-1b").replace(n_layers=2, dtype="float32")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reqs = serve_requests(seed + 4, cfg.vocab_size, 14, (16, 300), (4, 24))
+    runs = {
+        "paged_kernel": PagedBatchingEngine(cfg, params, n_slots=6,
+                                            max_len=512, device=dev),
+        "paged_ref": PagedBatchingEngine(cfg, params, n_slots=6, max_len=512,
+                                         attn_impl="ref", device=dev),
+        "dense_kernel": BatchingEngine(cfg, params, n_slots=6, max_len=512,
+                                       device=dev),
+    }
+    out = {name: eng.run(reqs) for name, eng in runs.items()}
+    equal = out["paged_kernel"] == out["paged_ref"] == out["dense_kernel"]
+    emit("serve-parity", requests=len(reqs), slots=6, dtype="float32",
+         layers=2, tokens=sum(len(v) for v in out["paged_kernel"].values()),
+         identical=equal)
+    if not equal:
+        raise SystemExit("serve-parity: greedy tokens differ")
+    del runs, params
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -458,9 +699,12 @@ def bound(nbytes, flops, dtype):
 
 
 def phase_timings(gen, dev, shapes, card):
+    from shellac_tpu_torch.inference.cache import paged_gather_layer
     from shellac_tpu_torch.ops.decode_attention import (
         _decode_ref,
+        _paged_decode_ref,
         decode_attention_cuda,
+        paged_decode_attention_cuda,
     )
     from shellac_tpu_torch.ops.flash_attention import (
         flash_attention_cuda,
@@ -474,14 +718,26 @@ def phase_timings(gen, dev, shapes, card):
     def measure(fn, sets, iters):
         return graph_ms(fn, sets, iters), eager_ms(fn, sets, iters)
 
-    def record(name, case, kernel, plain, library, nbytes, flops, shape):
+    def record(name, case, kernel, plain, library, nbytes, flops, shape,
+               two_calls=None):
+        """`library` times one PyTorch call computing the same function;
+        where none exists it is None and `two_calls` may time the
+        nearest library route of two calls."""
         bms, by = bound(nbytes, flops, bf)
         row = {"ms": kernel[0], "plain_ms": plain[0], "bound_ms": bms,
-               "bound_by": by, "library_ms": library[0], "shape": shape}
+               "bound_by": by,
+               "library_ms": None if library is None else library[0],
+               "shape": shape}
+        extra = {}
+        if library is not None:
+            extra["library_eager_ms"] = library[1]
+        if two_calls is not None:
+            row["library_two_calls_ms"] = two_calls[0]
+            extra["library_two_calls_eager_ms"] = two_calls[1]
         emit("timings", kernel=name, case=case, dtype="bf16",
              bytes=nbytes, flops=flops, roofline_share=bms / kernel[0],
-             eager_ms=kernel[1], plain_eager_ms=plain[1],
-             library_eager_ms=library[1], card=card, **row)
+             eager_ms=kernel[1], plain_eager_ms=plain[1], card=card,
+             **extra, **row)
         rows_out.setdefault(name, row)
 
     for case in ("rms_prefill", "rms_decode"):
@@ -531,6 +787,31 @@ def phase_timings(gen, dev, shapes, card):
     record("decode_attention_dense", "main_ragged", k, p, lib,
            2 * b * h * d * 2 + 2 * live * hkv * d * 2 + b * 4,
            4 * d * h * live, [b, 1, h, hkv, L, d])
+
+    ps = shapes["paged"]
+    idx = ps["index"]
+    b, h, hkv, d, bs, mb = (len(idx), ps["h"], ps["hkv"], ps["d"], ps["bs"],
+                            ps["max_blocks"])
+    sets = copies(lambda: paged_inputs(gen, bf, dev, **ps)[:5])
+    live = int((idx + 1).sum().item())
+    mask = (torch.arange(mb * bs, device=dev)[None, :]
+            < (idx + 1)[:, None].long())[:, None, None, :]
+
+    def gather_sdpa(q, pk, pv, tab, i):
+        kk, vv = paged_gather_layer(pk, pv, tab)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)
+
+    k = measure(lambda q, pk, pv, tab, i: paged_decode_attention_cuda(
+        q, pk, pv, tab, i), sets, 200)
+    p = measure(lambda q, pk, pv, tab, i: _paged_decode_ref(
+        q, pk, pv, tab, i, None, d ** -0.5), sets, 20)
+    two = measure(gather_sdpa, sets, 50)
+    # Bytes: q and out, the live k/v rows, the live table entries, index.
+    pages = int(((idx + 1 + bs - 1) // bs).sum().item())
+    record("paged_decode_attention", "serve_ragged", k, p, None,
+           2 * b * h * d * 2 + 2 * live * hkv * d * 2 + pages * 4 + b * 4,
+           4 * d * h * live, [b, 1, h, hkv, bs, mb, d], two_calls=two)
     return rows_out
 
 
@@ -566,7 +847,18 @@ def main():
     gen.manual_seed(args.seed)
     shapes = main_shapes(args.seed, dev)
     errs = phase_kernels(gen, dev, shapes)
-    counts = phase_generate(args.seed, dev, table, card)
+    # The main paths, each with the counts set to 0 just before it; every
+    # kernel of a path must have launched in its run.
+    paths = {"generate": phase_generate(args.seed, dev, table, card),
+             "serve": phase_serve(args.seed, dev, table, card)}
+    for path, kinds in (("generate", ("rms_norm", "flash_attention_fwd",
+                                      "decode_attention_dense")),
+                        ("serve", ("rms_norm", "flash_attention_fwd",
+                                   "paged_decode_attention"))):
+        missing = [n for n in kinds if paths[path][n] == 0]
+        if missing:
+            raise SystemExit(f"{path}: kernels never launched: {missing}")
+    phase_serve_parity(args.seed, dev)
     times = phase_timings(gen, dev, shapes, card)
 
     kernels = []
@@ -574,7 +866,11 @@ def main():
         n = k["name"]
         kernels.append({
             "name": n, "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"], "launches": counts[n],
+            "replaces": k["replaces"],
+            **({"also_replaces": k["also_replaces"]}
+               if "also_replaces" in k else {}),
+            "launches": sum(c[n] for c in paths.values()),
+            "launches_by_path": {p: c[n] for p, c in paths.items()},
             "max_abs_err": errs[n], **times[n],
         })
     print(card, flush=True)

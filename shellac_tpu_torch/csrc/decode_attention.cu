@@ -1,282 +1,39 @@
 // Flash-decode over a dense head-major KV cache.
 //
-// q (B, s, H, D) attends cache_k/cache_v (B, Hkv, L, D); q row si of slot
-// b sits at position index[b] + si and attends kv positions <= its own,
-// optionally within a sliding window, with Gemma-2 softcap and GPT-OSS
-// sinks.
+// q (B, s, H, D) attends cache_k/cache_v (B, Hkv, L, D). The body is the
+// shared warp-parallel decode in decode_core.cuh; position p of slot b,
+// kv head hk, is row (b * Hkv + hk) * L + p.
 //
 // Replaces the Pallas kernel `_dense_kernel` (shellac_tpu/ops/
 // decode_attention.py) over its tile body `_decode_tile`, launched by
-// `_dense_flash`. Kept from it: the GQA rows of one kv head are processed
-// together (G*s rows, kv-head-major as `_flatten_q` orders them) so each
-// k/v row is read once for the whole group; only the slot's live range
-// is walked (`_live_range`): from the window's first live position to
-// index + s - 1, so nothing past a slot's length is read; causal masking
-// within the s rows; softcap before the mask; fp32 online softmax with p
-// rounded to v's dtype before the p.V product (l sums the unrounded p);
-// sinks folded in at the end as sink_rebase does.
-//
-// What changes for Hopper: the TPU kernel walks (batch, kv block) as a
-// sequential grid carrying VMEM scratch. Here one 256-thread block owns
-// one (slot, kv head), and its 8 warps split the live range among
-// themselves in 32-position chunks, each warp with its own online-softmax
-// state in registers:
-//   - logits: each lane takes one position of the chunk and computes all
-//     G*s dot products from its own k row (16-byte loads, q broadcast from
-//     shared memory), so no cross-lane reduction is needed per position;
-//   - softmax step: one warp max and one warp sum per row per chunk;
-//   - p.V: the lanes split the head dim, the chunk's v rows stream in
-//     coalesced, and p reaches every lane by a shuffle.
-// The 8 warps' (m, l, acc) are merged once at the end through shared
-// memory. There is no block-wide barrier inside the loop, so every warp
-// keeps its loads in flight independently.
-//
-// Bound on the H100: bytes. Each step reads the live k/v range once
-// (2 * live * D * 2 bytes per slot and kv head in bf16) for ~4 flops per
-// byte. At shellac-1b's B = 8 and Hkv = 8 the grid is only 64 blocks on
-// 132 SMs, so the card's bandwidth is not reached; splitting the kv range
-// across blocks (flash-decoding's split-K) is the later redesign.
-#include "common.cuh"
+// `_dense_flash`. Bound on the H100: bytes (see decode_core.cuh). At
+// shellac-1b's B = 8 and Hkv = 8 the grid is only 64 blocks on 132 SMs.
+#include "decode_core.cuh"
 
 namespace shellac {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;  // positions per warp step: one per lane
-constexpr int kRMax = 16;   // most q rows (G * s) per block
+struct DenseRows {
+  int L, Hkv;
+  size_t base;  // row of position 0 of this block's (slot, kv head)
 
-// Load N consecutive T values into floats (N * sizeof(T) bytes, aligned
-// to that size by the callers' layout).
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* p, float* out) {
-  constexpr int kBytes = N * sizeof(T);
-  if constexpr (kBytes == 16) {
-    uint4 u = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f32(e[j]);
-  } else if constexpr (kBytes == 8) {
-    uint2 u = *reinterpret_cast<const uint2*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f32(e[j]);
-  } else {
-    static_assert(kBytes == 4, "loads of 4, 8 or 16 bytes");
-    unsigned u = *reinterpret_cast<const unsigned*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f32(e[j]);
+  __host__ __device__ int capacity() const { return L; }
+  int extra_ints() const { return 0; }
+  __device__ void stage(int b, int hk, int, int, int*, int) {
+    base = ((size_t)b * Hkv + hk) * L;
   }
-}
-
-inline size_t smem_bytes(int rows, int D) {
-  // Qs [rows][D]; per-warp m, l [kWarps][rows]; acc [kWarps][rows][D]
-  return sizeof(float) * ((size_t)rows * D + 2 * kWarps * rows +
-                          (size_t)kWarps * rows * D);
-}
-
-template <typename T, int D, int R>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
-              const T* __restrict__ cache_v, const int* __restrict__ index,
-              const float* __restrict__ sinks, T* __restrict__ out, int s,
-              int H, int Hkv, int L, float scale, int window,
-              float softcap) {
-  constexpr int CH = 16 / sizeof(T);  // k elements per 16-byte load
-  constexpr int DL = D / 32;          // head dims per lane in p.V
-
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / Hkv;
-  const int rows = G * s;
-  const int idx = index[b];
-  const int live_end = min(idx + s, L);  // exclusive
-  float* Qs = smem;                      // [rows][D], scaled
-  float* Mw = Qs + rows * D;             // [kWarps][rows]
-  float* Lw = Mw + kWarps * rows;        // [kWarps][rows]
-  float* Aw = Lw + kWarps * rows;        // [kWarps][rows][D]
-
-  // Row r is (group member g = r / s, query si = r % s): q head hk*G + g
-  // at position idx + si.
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int g = r / s, si = r % s;
-    Qs[i] =
-        to_f32(q[(((size_t)b * s + si) * H + hk * G + g) * D + c]) * scale;
-  }
-  __syncthreads();
-
-  float m[R], l[R], acc[R][DL];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DL; ++j) acc[r][j] = 0.f;
-  }
-
-  const T* kb = cache_k + ((size_t)b * Hkv + hk) * L * D;
-  const T* vb = cache_v + ((size_t)b * Hkv + hk) * L * D;
-  const int first = window > 0 ? max(idx - window + 1, 0) : 0;
-
-  for (int c0 = first + warp * kChunk; c0 < live_end;
-       c0 += kWarps * kChunk) {
-    const int pos = c0 + lane;
-    const bool in = pos < live_end;
-
-    // Logits of this lane's position for every row.
-    float sc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) sc[r] = 0.f;
-    if (in) {
-      const T* krow = kb + (size_t)pos * D;
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += CH) {
-        float kf[CH];
-        load_f32<T, CH>(krow + d0, kf);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (r < rows) {
-            const float* qr = Qs + r * D + d0;
-#pragma unroll
-            for (int j = 0; j < CH; ++j) sc[r] += qr[j] * kf[j];
-          }
-        }
-      }
-    }
-
-    // Online-softmax step per row over this chunk.
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < rows) {
-        float x = sc[r];
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        const int qpos = idx + r % s;
-        bool ok = in && pos <= qpos;
-        if (window > 0) ok = ok && qpos - pos < window;
-        x = ok ? x : kNegInf;
-        const float m_new = fmaxf(m[r], warp_max(x));
-        const float p = x > 0.5f * kNegInf ? expf(x - m_new) : 0.f;
-        const float alpha = expf(m[r] - m_new);
-        l[r] = alpha * l[r] + warp_sum(p);
-        m[r] = m_new;
-#pragma unroll
-        for (int j = 0; j < DL; ++j) acc[r][j] *= alpha;
-        sc[r] = round_through<T>(p);
-      }
-    }
-
-    // p.V: lane owns head dims [lane * DL, lane * DL + DL).
-    const int n = min(kChunk, live_end - c0);
-#pragma unroll 8
-    for (int j = 0; j < kChunk; ++j) {
-      if (j < n) {
-        float vf[DL];
-        load_f32<T, DL>(vb + (size_t)(c0 + j) * D + lane * DL, vf);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (r < rows) {
-            const float pj = __shfl_sync(0xffffffffu, sc[r], j);
-#pragma unroll
-            for (int e = 0; e < DL; ++e) acc[r][e] += pj * vf[e];
-          }
-        }
-      }
-    }
-  }
-
-  // Merge the warps' partial softmax states.
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < rows) {
-      if (lane == 0) {
-        Mw[warp * rows + r] = m[r];
-        Lw[warp * rows + r] = l[r];
-      }
-#pragma unroll
-      for (int e = 0; e < DL; ++e)
-        Aw[(warp * rows + r) * D + lane * DL + e] = acc[r][e];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    float M = kNegInf;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, Mw[w * rows + r]);
-    float Lsum = 0.f, A = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(Mw[w * rows + r] - M);
-      Lsum += Lw[w * rows + r] * f;
-      A += Aw[(w * rows + r) * D + d] * f;
-    }
-    const int g = r / s, si = r % s;
-    const int head = hk * G + g;
-    float rr = 1.f, denom;
-    if (sinks != nullptr) {
-      const float sk = sinks[head];
-      const float m2 = fmaxf(M, sk);
-      rr = expf(M - m2);
-      denom = Lsum * rr + expf(sk - m2);
-    } else {
-      denom = Lsum == 0.f ? 1.f : Lsum;
-    }
-    out[(((size_t)b * s + si) * H + head) * D + d] =
-        from_f32<T>(A * rr / denom);
-  }
-}
-
-template <typename T, int D, int R>
-cudaError_t launch_rows(const void* q, const void* k, const void* v,
-                        const void* index, const void* sinks, void* out,
-                        int B, int s, int H, int Hkv, int L, float scale,
-                        int window, float softcap, cudaStream_t stream) {
-  auto kernel = decode_kernel<T, D, R>;
-  cudaError_t err = allow_smem(kernel, smem_bytes(R, D));
-  if (err != cudaSuccess) return err;
-  dim3 grid(Hkv, B);
-  kernel<<<grid, kThreads, smem_bytes((H / Hkv) * s, D), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(index),
-      static_cast<const float*>(sinks), static_cast<T*>(out), s, H, Hkv, L,
-      scale, window, softcap);
-  return cudaGetLastError();
-}
-
-// Register arrays are sized for the rows: 2 covers GQA groups of up to 2
-// at s = 1 (shellac-1b's decode); anything larger takes kRMax.
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* index, const void* sinks, void* out, int B,
-                   int s, int H, int Hkv, int L, float scale, int window,
-                   float softcap, cudaStream_t stream) {
-  const int rows = (H / Hkv) * s;
-  if (rows <= 2)
-    return launch_rows<T, D, 2>(q, k, v, index, sinks, out, B, s, H, Hkv, L,
-                                scale, window, softcap, stream);
-  if (rows <= kRMax)
-    return launch_rows<T, D, kRMax>(q, k, v, index, sinks, out, B, s, H, Hkv,
-                                    L, scale, window, softcap, stream);
-  return cudaErrorInvalidValue;
-}
+  __device__ size_t row(int pos) const { return base + pos; }
+};
 
 template <typename T>
-cudaError_t launch_dim(const void* q, const void* k, const void* v,
-                       const void* index, const void* sinks, void* out,
-                       int B, int s, int H, int Hkv, int L, int D,
-                       float scale, int window, float softcap,
-                       cudaStream_t stream) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, index, sinks, out, B, s, H, Hkv, L, scale,
-                         window, softcap, stream);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, index, sinks, out, B, s, H, Hkv, L, scale,
-                          window, softcap, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_dense(const void* q, const void* k, const void* v,
+                         const void* index, const void* sinks, void* out,
+                         int B, int s, int H, int Hkv, int L, int D,
+                         float scale, int window, float softcap,
+                         cudaStream_t stream) {
+  const DenseRows addr{L, Hkv, 0};
+  return decode::launch<T>(q, k, v, index, sinks, out, B, s, H, Hkv, D,
+                           scale, window, softcap, addr, stream);
 }
 
 }  // namespace
@@ -292,11 +49,12 @@ extern "C" int shellac_decode_attention(const void* q, const void* k,
                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == shellac::kF32)
-    return shellac::launch_dim<float>(q, k, v, index, sinks, out, B, s, H,
-                                      Hkv, L, D, scale, window, softcap, st);
+    return shellac::launch_dense<float>(q, k, v, index, sinks, out, B, s, H,
+                                        Hkv, L, D, scale, window, softcap,
+                                        st);
   if (dtype == shellac::kBF16)
-    return shellac::launch_dim<__nv_bfloat16>(q, k, v, index, sinks, out, B,
-                                              s, H, Hkv, L, D, scale, window,
-                                              softcap, st);
+    return shellac::launch_dense<__nv_bfloat16>(q, k, v, index, sinks, out,
+                                                B, s, H, Hkv, L, D, scale,
+                                                window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

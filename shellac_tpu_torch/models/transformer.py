@@ -25,10 +25,17 @@ from typing import Any, Dict, Optional
 import torch
 
 from shellac_tpu_torch.config import ModelConfig
-from shellac_tpu_torch.inference.cache.layout import KVCache, update_layer
+from shellac_tpu_torch.inference.cache.layout import (
+    PagedKVCache,
+    paged_update_layer,
+    update_layer,
+)
 from shellac_tpu_torch.ops.activations import geglu, softcap, swiglu
 from shellac_tpu_torch.ops.attention import attention
-from shellac_tpu_torch.ops.decode_attention import decode_attention
+from shellac_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    paged_decode_attention,
+)
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
 from shellac_tpu_torch.ops.norms import rms_norm
 from shellac_tpu_torch.ops.rope import apply_rope, rope_angles
@@ -153,13 +160,16 @@ def _embed_tokens(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
 
 
 def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
-           fresh_cache: bool = False, attn_kind: Optional[str] = None):
+           fresh_cache: bool = False, attn_kind: Optional[str] = None,
+           page_tables: Optional[torch.Tensor] = None):
     """One pre-norm transformer block. x: (B, S, D) in compute dtype.
 
     With `cache=(cache_k, cache_v, index)` the block writes the new k/v
     at `index` (in place) and attends the cache; with fresh_cache=True
     (prefill into an empty cache) it attends the new chunk causally
-    instead. attn_kind "full" drops cfg.attn_window for this layer.
+    instead. With `page_tables` the cache is one layer's block pool
+    (n_blocks, Hkv, bs, Dh), written and read through the tables.
+    attn_kind "full" drops cfg.attn_window for this layer.
     """
     window = None if attn_kind == "full" else cfg.attn_window
     cdt = cfg.compute_dtype
@@ -190,12 +200,18 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
         o = attention(q, k, v, causal=cfg.causal, impl=attn_impl, **akw)
     else:
         cache_k, cache_v, index = cache
-        update_layer(cache_k, cache_v, k, v, index)
+        if page_tables is not None:
+            paged_update_layer(cache_k, cache_v, k, v, index, page_tables)
+        else:
+            update_layer(cache_k, cache_v, k, v, index)
         if fresh_cache:
             # Empty-cache prefill: attend within the new chunk only; every
             # row starts at position 0, so causal masking already excludes
             # the right-pad tail of shorter prompts.
             o = attention(q, k, v, causal=True, impl=attn_impl, **akw)
+        elif page_tables is not None:
+            o = paged_decode_attention(q, cache_k, cache_v, page_tables,
+                                       index, impl=attn_impl, **akw)
         else:
             o = decode_attention(q, cache_k, cache_v, index, impl=attn_impl,
                                  **akw)
@@ -304,7 +320,7 @@ def forward_with_cache(
     cfg: ModelConfig,
     params: Params,
     tokens: torch.Tensor,  # (B, S) int — new tokens only
-    cache: KVCache,
+    cache,  # KVCache or PagedKVCache
     *,
     new_tokens_len: Optional[torch.Tensor] = None,  # (B,) valid counts
     fresh_cache: bool = False,
@@ -312,12 +328,14 @@ def forward_with_cache(
 ):
     """Incremental forward: consumes `tokens` starting at cache.lengths.
 
-    Returns (logits (B, S, V) fp32, KVCache). Used for prefill (S =
+    Returns (logits (B, S, V) fp32, cache). Used for prefill (S =
     padded prompt length, empty cache, new_tokens_len = real prompt
     lengths) and decode (S = 1). The cache's k/v are written in place;
     the returned cache shares them and carries the new lengths
-    (index + new_tokens_len, or index + S). Raises ValueError before
-    writing when a write would pass max_len.
+    (index + new_tokens_len, or index + S). A PagedKVCache is written and
+    read through its block tables. Raises ValueError before writing when
+    a write would pass max_len (the positions a slot can address),
+    judged by the cache's host-side `max_length`.
     """
     check_supported(cfg)
     if not cfg.causal:
@@ -337,12 +355,14 @@ def forward_with_cache(
         s, device=dev
     )[None, :]
     tables, local = _rope_tables(cfg, positions)
+    page_tables = cache.tables if isinstance(cache, PagedKVCache) else None
     x = _embed_tokens(cfg, params, tokens)
     for i, lp in enumerate(params["layers"]):
         cos, sin = _layer_rope(cfg, i, tables, local)
         x = _block(cfg, attn_impl, x, lp, cos, sin,
                    cache=(cache.k[i], cache.v[i], index),
-                   fresh_cache=fresh_cache, attn_kind=_layer_kind(cfg, i))
+                   fresh_cache=fresh_cache, attn_kind=_layer_kind(cfg, i),
+                   page_tables=page_tables)
     logits = unembed(cfg, params, x)
     if new_tokens_len is None:
         new_lengths = index + s

@@ -52,6 +52,12 @@ _SIGNATURES = {
     "shellac_decode_attention": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P,
     ),
+    # q, k, v, tables, index, sinks, out, B, s, H, Hkv, bs, max_blocks,
+    # D, scale, window, softcap, dtype, stream
+    "shellac_paged_decode_attention": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
+        _I, _P,
+    ),
 }
 
 

@@ -1,9 +1,11 @@
 """Token sampling: temperature, top-k, nucleus (top-p), min-p, greedy.
 
-All filtering happens in fp32 logit space with masks, as in the JAX
-package's `ops/sampling.py`. Random draws come from an explicit
-`torch.Generator`; they cannot match JAX's threefry bits, so sampled
-tokens agree with the JAX package in distribution, not token for token.
+Ports `shellac_tpu/ops/sampling.py`, including the per-row batched
+sampler (`filter_logits_batched` :86, `sample_batched` :131) that the
+batching engines use. All filtering happens in fp32 logit space with
+masks. Random draws come from an explicit `torch.Generator`; they cannot
+match JAX's threefry bits, so sampled tokens agree with the JAX package
+in distribution, not token for token.
 """
 
 from __future__ import annotations
@@ -82,3 +84,62 @@ def sample(
     flat = probs.reshape(-1, probs.shape[-1])
     draws = torch.multinomial(flat, 1, generator=generator)
     return draws.reshape(probs.shape[:-1])
+
+
+def filter_logits_batched(
+    logits: torch.Tensor,  # (B, V)
+    temperature: torch.Tensor,  # (B,) fp32; <= 0 rows temper at 1.0
+    top_k: torch.Tensor,  # (B,) int; >= V disables
+    top_p: torch.Tensor,  # (B,) fp32; 1.0 disables
+    min_p: torch.Tensor,  # (B,) fp32; 0.0 disables
+) -> torch.Tensor:
+    """The tempered, top-k/top-p/min-p-masked fp32 logits the batched
+    sampler draws from, with per-row settings. Same masks, in the same
+    order, as `sample`'s scalar path; greedy rows (temperature <= 0) are
+    tempered at 1.0 and filtered like any row."""
+    x = logits.float()
+    v = x.shape[-1]
+    t = torch.where(temperature <= 0.0, 1.0, temperature)[:, None]
+    x = x / t
+    # top-k: per-row kth-largest threshold (ties at the boundary kept).
+    k = top_k.to(torch.int64).clamp(1, v)
+    asc = torch.sort(x, dim=-1).values
+    kth = torch.gather(asc, 1, (v - k)[:, None])
+    x = torch.where(x < kth, NEG_INF, x)
+    # top-p on the top-k-filtered rows, as top_p_mask does.
+    desc = torch.sort(x, dim=-1, descending=True).values
+    probs = torch.softmax(desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_p[:, None]
+    kth_p = torch.where(keep, desc, torch.inf).amin(dim=-1, keepdim=True)
+    x = torch.where(x < kth_p, NEG_INF, x)
+    # min-p relative to each row's current max.
+    probs_x = torch.softmax(x, dim=-1)
+    cutoff = min_p[:, None] * probs_x.amax(dim=-1, keepdim=True)
+    return torch.where(probs_x < cutoff, NEG_INF, x)
+
+
+def sample_batched(
+    generator: Optional[torch.Generator],
+    logits: torch.Tensor,  # (B, V)
+    temperature: torch.Tensor,  # (B,) fp32; 0 = greedy
+    top_k: torch.Tensor,  # (B,) int; >= V disables
+    top_p: torch.Tensor,  # (B,) fp32; 1.0 disables
+    min_p: torch.Tensor,  # (B,) fp32; 0.0 disables
+) -> torch.Tensor:
+    """`sample` with per-row settings (int64 ids): greedy rows take the
+    argmax of their unfiltered logits, the others draw from their
+    filtered logits.
+
+    The draw is Gumbel-max, argmax(x + G) with G = -log(-log(U)): the
+    categorical distribution of softmax(x), and unlike torch.multinomial
+    it never raises on a row that is all masked or not finite, which the
+    engines' idle slots produce.
+    """
+    logits = logits.float()
+    x = filter_logits_batched(logits, temperature, top_k, top_p, min_p)
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    sampled = torch.argmax(x + gumbel, dim=-1)
+    return torch.where(temperature <= 0.0, torch.argmax(logits, dim=-1),
+                       sampled)

@@ -143,3 +143,105 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="rows per kv head"):
         da.decode_attention(q, c, c, torch.zeros(1, dtype=torch.int32,
                                                  device=dev))
+
+
+def _paged_pool(gen, dtype, dev, index, s, hkv, bs, d, max_blocks,
+                unowned=5):
+    """A shuffled pool holding each slot's pages for positions
+    [0, index + s), the rest of each table row at block 0. Returns
+    (clean k, clean v, tables, poisoned k, poisoned v): the poisoned
+    copies hold NaN in block 0 and in every unowned block."""
+    need = [-(-(int(i) + s) // bs) for i in index.tolist()]
+    n_blocks = 1 + sum(need) + unowned
+    ids = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(
+        n_blocks)) + 1
+    tables = torch.zeros((len(need), max_blocks), dtype=torch.int32)
+    owned, at = [], 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[at:at + n]
+        owned += ids[at:at + n].tolist()
+        at += n
+    k = _randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
+    v = _randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
+    dead = torch.ones(n_blocks, dtype=torch.bool)
+    dead[owned] = False
+    pk, pv = k.clone(), v.clone()
+    pk[dead.to(dev)] = float("nan")
+    pv[dead.to(dev)] = float("nan")
+    return k, v, tables.to(dev), pk, pv
+
+
+_PAGED = {
+    "serve_bs16": dict(s=1, h=16, hkv=8, d=128, bs=16),
+    "bs8": dict(s=1, h=16, hkv=8, d=128, bs=8),
+    "bs32_d64": dict(s=1, h=8, hkv=4, d=64, bs=32),
+    "bs64": dict(s=1, h=16, hkv=8, d=128, bs=64),
+    "bs5_odd": dict(s=1, h=4, hkv=2, d=128, bs=5),
+    "s4": dict(s=4, h=8, hkv=4, d=128, bs=16),
+    "window_softcap_sinks": dict(s=1, h=16, hkv=8, d=128, bs=16,
+                                 window=100, softcap=30.0, sinks=True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_PAGED))
+def test_paged_decode_attention_kernel(dtype, case):
+    """Against the plain version on the clean pool; the kernel reads the
+    NaN-poisoned copy, so it must never touch a dead or unowned page. An
+    idle slot (length 0, table row all 0) attends block 0 alone."""
+    dev = _card()
+    c = dict(_PAGED[case])
+    s, h, hkv, d, bs = (c.pop(k) for k in ("s", "h", "hkv", "d", "bs"))
+    gen = torch.Generator(device=dev).manual_seed(bs * d + s)
+    max_len = 1280
+    index = torch.tensor([0, 37, 640 + 3, max_len - s, 1100, 15],
+                         dtype=torch.int32)
+    mb = -(-max_len // bs)
+    k, v, tables, pk, pv = _paged_pool(gen, dtype, dev, index, s, hkv, bs,
+                                       d, mb)
+    index = index.to(dev)
+    q = _randn(gen, (len(index), s, h, d), dtype, dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    before = da.paged_decode_attention_cuda.launches
+    out = da.paged_decode_attention(q, pk, pv, tables, index, **c)
+    assert da.paged_decode_attention_cuda.launches == before + 1
+    ref = da._paged_decode_ref(q, k, v, tables, index, c.get("window"),
+                               d ** -0.5, softcap=c.get("softcap"),
+                               sinks=c.get("sinks"))
+    _close(out, ref, dtype)
+    # The idle slot: length 0 over a zero row, poisoned block 0 aside.
+    idle_t = torch.zeros_like(tables[:1])
+    idle_i = torch.zeros_like(index[:1])
+    out0 = da.paged_decode_attention(q[:1], k, v, idle_t, idle_i, **c)
+    _close(out0, da._paged_decode_ref(q[:1], k, v, idle_t, idle_i,
+                                      c.get("window"), d ** -0.5,
+                                      softcap=c.get("softcap"),
+                                      sinks=c.get("sinks")), dtype)
+
+
+def test_paged_wrapper_raises_on_what_the_kernel_does_not_take():
+    dev = _card()
+    bf = torch.bfloat16
+    q = torch.zeros(2, 1, 16, 128, device=dev, dtype=bf)
+    pool = torch.zeros(9, 8, 16, 128, device=dev, dtype=bf)
+    tab = torch.zeros(2, 4, dtype=torch.int32, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    ok = da.paged_decode_attention(q, pool, pool, tab, idx)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ok.float()).all()
+    bad = {
+        "head_dim": (q[..., :96].contiguous(), pool[..., :96].contiguous(),
+                     tab, idx),
+        "rows per kv head": (torch.zeros(2, 9, 16, 128, device=dev,
+                                         dtype=bf), pool, tab, idx),
+        "int32": (q, pool, tab.long(), idx),
+        "contiguous": (q, pool, tab.t().contiguous().t(), idx),
+        "fp32 or bf16": (q.half(), pool.half(), tab, idx),
+    }
+    for match, (qq, pp, tt, ii) in bad.items():
+        with pytest.raises(ValueError, match=match):
+            da.paged_decode_attention(qq, pp, pp, tt, ii)
+    with pytest.raises(NotImplementedError):
+        da.paged_decode_attention(q, pool, pool, tab, idx,
+                                  k_scale=pool[..., 0], v_scale=pool[..., 0])

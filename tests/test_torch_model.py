@@ -270,8 +270,11 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, shellac_tpu_torch\n"
         "from shellac_tpu_torch.models import transformer, from_jax\n"
-        "from shellac_tpu_torch.inference import engine\n"
+        "from shellac_tpu_torch.inference import engine, batching\n"
+        "from shellac_tpu_torch.inference.cache import base, dense, paged\n"
+        "from shellac_tpu_torch.inference.cache import layout\n"
         "from shellac_tpu_torch.ops import decode_attention, _build\n"
+        "from shellac_tpu_torch.ops import sampling\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'shellac_tpu' or m.startswith('shellac_tpu.')]\n"
         "print(bad)\n"

@@ -9,7 +9,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32; the
                 paged kernel reads a pool whose block 0 and unowned blocks
-                hold NaN.
+                hold NaN. At the training shape (B 6, S 2048, H 16, Hkv 8,
+                D 128, causal) and at packed segments, window + softcap +
+                sinks, D 64 and an odd S: the forward's lse, the backward
+                kernels (dk/dv, dq) against their plain versions, and the
+                autograd Function's (dq, dk, dv, dsinks) against autograd
+                through the plain attention.
   4. generate — shellac-1b (full width and depth, random weights from
                 --seed) through Engine.generate: 8 ragged prompts padded to
                 512, 64 new tokens, greedy; prefill logits of the kernels
@@ -27,12 +32,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 greedy tokens from PagedBatchingEngine through the kernels,
                 the same with attn_impl="ref", and the dense
                 BatchingEngine.
-  7. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
+  7. train    — shellac-1b (full width and depth, fp32 master weights from
+                --seed) through make_train_step at bench.py's recipe:
+                TrainConfig(warmup_steps=10, total_steps=1000), batch 6 x
+                seq 2048, remat on, inputs = targets; one warm-up step and
+                10 timed steps (tokens/s, step ms, model TFLOP/s and its
+                share of the card's dense bf16 peak, every loss, peak
+                memory, exact launch counts per step), one step with packed
+                segment_ids, one profiled step.
+  8. train-parity — shellac-1b width cut to 2 layers, fp32, batch 2 x seq
+                512, unpacked and packed: three steps through the kernels
+                against the same steps with attn_impl="ref" (loss and
+                grad_norm per step, every gradient leaf of the first step).
+  9. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
                 events; the eager time beside it) against its bound, its
                 plain version and one PyTorch library call computing the
                 same (for the paged kernel there is none: a gather plus
                 scaled_dot_product_attention, two calls, is timed beside
-                it).
+                it; for the backward kernels the library call is the
+                backward of scaled_dot_product_attention, which computes
+                what kernels 3 and 4 compute together).
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}.
 
@@ -54,12 +73,15 @@ import torch.nn.functional as F
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+BF16_PEAK_NAME = "H100 SXM dense bf16, 989 TFLOP/s"
 
 PROMPTS, PAD, NEW_TOKENS, MAX_LEN = 8, 512, 64, 2048
 LEN_LO, LEN_HI = 128, 512
 # The serve workload.
 SLOTS, BLOCK, REQUESTS = 16, 16, 48
 PROMPT_LO, PROMPT_HI, NEW_LO, NEW_HI = 64, 1024, 16, 128
+# The train workload: bench.py's recipe.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 6, 2048, 10
 
 
 def emit(phase, **fields):
@@ -103,6 +125,14 @@ def kernel_table():
          "replaces": "shellac_tpu/ops/decode_attention.py:562",
          "also_replaces": "shellac_tpu/ops/decode_attention.py:764",
          "wrapper": da.paged_decode_attention_cuda},
+        {"name": "flash_attention_bwd_dkdv", "route": "cuda",
+         "source": "shellac_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "shellac_tpu/ops/flash_attention.py:401",
+         "wrapper": fa.flash_bwd_dkdv_cuda},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": "shellac_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "shellac_tpu/ops/flash_attention.py:454",
+         "wrapper": fa.flash_bwd_dq_cuda},
     ]
 
 
@@ -136,6 +166,22 @@ def compare(out, ref, dtype):
     }
 
 
+def compare_scaled(out, ref, dtype):
+    """As compare, with atol relative to the output's scale: |out - ref|
+    <= atol * max|ref| + rtol * |ref| (gradients sum many terms)."""
+    atol, rtol = TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().max()
+    bound = atol * scale + rtol * ref.float().abs()
+    return {
+        "max_abs_err": err.max().item(),
+        "max_err_over_scale": (err.max() / scale.clamp_min(1e-30)).item(),
+        "atol_rel_scale": atol, "rtol": rtol,
+        "ok": bool(torch.isfinite(out.float()).all().item()
+                   and (err <= bound).all().item()),
+    }
+
+
 def main_shapes(seed, dev):
     """Shapes the shellac-1b main path gives each kernel; the decode
     index is ragged in [LEN_LO, LEN_HI + 64], as the decode steps see."""
@@ -156,6 +202,7 @@ def main_shapes(seed, dev):
         "paged": dict(s=1, h=16, hkv=8, d=128, bs=BLOCK,
                       max_blocks=MAX_LEN // BLOCK,
                       index=torch.from_numpy(serve_idx).to(dev)),
+        "train": dict(b=TRAIN_BATCH, s=TRAIN_SEQ, h=16, hkv=8, d=128),
     }
 
 
@@ -315,6 +362,102 @@ def phase_kernels(gen, dev, shapes):
     return results
 
 
+def packed_segments(b, s, dev):
+    """bench.py --packed: four documents per row, boundaries off block
+    edges (bench.py:224-230)."""
+    bounds = [0, s // 4 + 37, s // 2 + 11, 3 * s // 4 + 5, s]
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    for i in range(4):
+        seg[:, bounds[i]:bounds[i + 1]] = i
+    return seg
+
+
+def phase_kernels_train(gen, dev, shapes):
+    """The training path's attention kernels against their plain versions:
+    the forward's out and lse (the logsumexp of the masked scores with the
+    sink column, `flash_forward_ref`), kernels 3 and 4 on the kernel
+    forward's out and lse, and the autograd Function's gradients against
+    autograd through the plain attention. Gradients are held relative to
+    their scale (compare_scaled)."""
+    from shellac_tpu_torch.ops import flash_attention as fa
+
+    f32, bf = torch.float32, torch.bfloat16
+    cases = {
+        "train_causal": ({}, {}),
+        "train_packed": ({}, {"packed": True}),
+        "window_softcap_sinks": ({"b": 2}, {"window": 512, "softcap": 50.0,
+                                            "sinks": True}),
+        "d64": ({"b": 2, "d": 64}, {}),
+        "odd_s1999": ({"b": 2, "s": 1999}, {"packed": True}),
+    }
+    results, failed = {}, []
+
+    def check(kernel, case, dtype, res, main=False):
+        emit("kernels", kernel=kernel, case=case, dtype=str(dtype), **res)
+        if main:
+            results[kernel] = max(results.get(kernel, 0.0),
+                                  res["max_abs_err"])
+        if not res["ok"]:
+            failed.append((kernel, case, str(dtype)))
+
+    for dtype in (bf, f32):
+        for case, (shape, opts) in cases.items():
+            p = {**shapes["train"], **shape}
+            b, s, h, hkv, d = p["b"], p["s"], p["h"], p["hkv"], p["d"]
+            main = case == "train_causal" and dtype == bf
+            q, k, v = flash_inputs(gen, dtype, dev, b, s, h, hkv, d)
+            do = randn(gen, (b, s, h, d), dtype, dev)
+            seg = packed_segments(b, s, dev) if opts.get("packed") else None
+            sinks = (randn(gen, (h,), f32, dev) if opts.get("sinks")
+                     else None)
+            kw = dict(causal=True, window=opts.get("window"),
+                      softcap=opts.get("softcap"), segments=seg)
+            out, lse = fa.flash_attention_cuda(q, k, v, sinks=sinks,
+                                               with_lse=True, **kw)
+            rout, rlse = fa.flash_forward_ref(q, k, v, sinks=sinks, **kw)
+            torch.cuda.synchronize()
+            check("flash_attention_fwd", f"{case}/out", dtype,
+                  compare(out, rout, dtype))
+            check("flash_attention_fwd", f"{case}/lse", dtype,
+                  compare(lse, rlse, dtype))
+            del rout, rlse
+            delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                                 out.float()).contiguous()
+            dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, **kw)
+            dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta, **kw)
+            check("flash_attention_bwd_dkdv", f"{case}/dk", dtype,
+                  compare_scaled(dk, rdk, dtype), main)
+            check("flash_attention_bwd_dkdv", f"{case}/dv", dtype,
+                  compare_scaled(dv, rdv, dtype), main)
+            del rdk, rdv
+            rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+            check("flash_attention_bwd_dq", f"{case}/dq", dtype,
+                  compare_scaled(dq, rdq, dtype), main)
+            del rdq, dk, dv, dq, out, lse, delta
+            leaves = [q, k, v] + ([sinks] if sinks is not None else [])
+            grads = {}
+            for impl, fn in (("function", fa.flash_attention),
+                             ("autograd_ref", fa.flash_attention_ref)):
+                ins = [t.detach().clone().requires_grad_() for t in leaves]
+                sk = ins[3] if sinks is not None else None
+                grads[impl] = torch.autograd.grad(
+                    fn(*ins[:3], sinks=sk, **kw), ins, do)
+                del ins
+            torch.cuda.synchronize()
+            for name, g, w in zip(("dq", "dk", "dv", "dsinks"),
+                                  grads["function"], grads["autograd_ref"]):
+                check("flash_attention_function", f"{case}/{name}", dtype,
+                      compare_scaled(g, w, dtype))
+            del grads, q, k, v, do
+            torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"training kernels disagree with their plain "
+                         f"versions: {failed}")
+    return results
+
+
 # --------------------------------------------------------------------------
 # main path
 # --------------------------------------------------------------------------
@@ -385,6 +528,8 @@ def phase_generate(seed, dev, table, card):
         "flash_attention_fwd": cfg.n_layers,
         "decode_attention_dense": cfg.n_layers * (NEW_TOKENS - 1),
         "paged_decode_attention": 0,
+        "flash_attention_bwd_dkdv": 0,
+        "flash_attention_bwd_dq": 0,
     }
     tokens_ok = (tuple(res.tokens.shape) == (PROMPTS, NEW_TOKENS)
                  and bool(((res.tokens >= 0)
@@ -467,7 +612,7 @@ def profile_step(cfg, params, toks, lens, engine, dev):
         emit("generate", step=f"profile_{name}", **profile_call(fn))
 
 
-def profile_call(fn):
+def profile_call(fn, top=12):
     """Device time by kernel of one call of fn, from torch.profiler
     (CUPTI), beside its wall time; a trace with no device time fails."""
     from torch.profiler import ProfilerActivity, profile
@@ -483,11 +628,33 @@ def profile_call(fn):
     if device_us <= 0:
         raise SystemExit("profile: the trace holds no device time")
     rows.sort(key=lambda r: -r[1])
+    kinds = {}
+    for key, us, _ in rows:
+        kind = kernel_kind(key)
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
     return dict(wall_ms=wall * 1e3, device_ms=device_us / 1e3,
                 device_busy_share=device_us / 1e3 / (wall * 1e3),
-                launches=sum(r[2] for r in rows),
+                launches=sum(r[2] for r in rows), device_ms_by_kind=kinds,
                 top=[{"kernel": k[:80], "ms": us / 1e3, "count": n,
-                      "share": us / device_us} for k, us, n in rows[:12]])
+                      "share": us / device_us} for k, us, n in rows[:top]])
+
+
+def kernel_kind(name):
+    """A profiler kernel name's kind: one of the port's kernels, a GEMM
+    (cuBLAS/CUTLASS), or other."""
+    if "decode_kernel" in name:
+        return ("paged_decode_attention" if "Paged" in name
+                else "decode_attention_dense")
+    for key, kind in (("flash_fwd", "flash_attention_fwd"),
+                      ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
+                      ("flash_bwd_dq", "flash_attention_bwd_dq"),
+                      ("rms_norm", "rms_norm")):
+        if key in name:
+            return kind
+    low = name.lower()
+    if any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "sm90_")):
+        return "gemm"
+    return "other"
 
 
 # --------------------------------------------------------------------------
@@ -558,6 +725,8 @@ def phase_serve(seed, dev, table, card):
         "flash_attention_fwd": L * prefills,
         "decode_attention_dense": 0,
         "paged_decode_attention": L * ticks,
+        "flash_attention_bwd_dkdv": 0,
+        "flash_attention_bwd_dq": 0,
     }
     tokens_ok = (set(results) == {r[0] for r in reqs} and all(
         len(results[rid]) == m
@@ -638,6 +807,182 @@ def phase_serve_parity(seed, dev):
 
 
 # --------------------------------------------------------------------------
+# train: make_train_step at bench.py's recipe
+# --------------------------------------------------------------------------
+
+def train_batch(seed, vocab, b, s, dev):
+    """bench.py's batch: random tokens from the seed, inputs = targets."""
+    toks = np.random.default_rng(seed).integers(0, vocab, size=(b, s))
+    t = torch.from_numpy(toks.astype(np.int64)).to(dev)
+    return {"inputs": t, "targets": t}
+
+
+def step_counts(L):
+    """Launches of one remat train step: every block's forward runs twice
+    (the forward and its recompute), its backward once; the final norm
+    once."""
+    return {"rms_norm": 4 * L + 1, "flash_attention_fwd": 2 * L,
+            "decode_attention_dense": 0, "paged_decode_attention": 0,
+            "flash_attention_bwd_dkdv": L, "flash_attention_bwd_dq": L}
+
+
+def phase_train(seed, dev, table, card):
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.training import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = get_model_config("shellac-1b")
+    tcfg = TrainConfig(warmup_steps=10, total_steps=1000)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, seed=seed, device=dev)
+    step = make_train_step(cfg, tcfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = transformer.num_params(state.params)
+    emit("train", step="init", model="shellac-1b", params=n_params,
+         remat=cfg.remat, remat_policy=cfg.remat_policy,
+         seconds=time.perf_counter() - t0)
+    batch = train_batch(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+
+    state, m = step(state, batch)  # warm-up (cuBLAS, allocator)
+    warm_loss = m["loss"].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts(table)
+    losses, skipped, step_s = [], [], []
+    t_all = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+        skipped.append(m["update_skipped"].item())
+    total_s = time.perf_counter() - t_all
+    counts = read_counts(table)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # bench.py's model FLOPs per token: 6 N + 12 L D S (utils/metrics.py).
+    flops_tok = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * TRAIN_SEQ
+    step_mean = total_s / TRAIN_STEPS
+    tflops = flops_tok * tokens / step_mean / 1e12
+    expect = {k: TRAIN_STEPS * n
+              for k, n in step_counts(cfg.n_layers).items()}
+    ok = (all(np.isfinite(losses)) and not any(skipped)
+          and losses[-1] < losses[0] and counts == expect)
+    emit("train", step="main_path", model="shellac-1b", batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS, warmup_step_loss=warm_loss,
+         losses=losses, update_skipped=skipped, step_ms=step_mean * 1e3,
+         step_ms_min=min(step_s) * 1e3, step_ms_max=max(step_s) * 1e3,
+         tokens_per_s=tokens / step_mean,
+         model_flops_per_token=flops_tok, model_tflops_per_s=tflops,
+         peak_share=tflops * 1e12 / PEAK_FLOPS_S[torch.bfloat16],
+         peak=BF16_PEAK_NAME, max_memory_allocated=peak, launches=counts,
+         expected=expect, ok=ok, card=card)
+    if not ok:
+        raise SystemExit("train: non-finite or rising loss, a skipped "
+                         "update, or wrong launch counts")
+
+    # Packed documents through all three attention kernels at full width.
+    packed = dict(batch, segment_ids=packed_segments(
+        TRAIN_BATCH, TRAIN_SEQ, dev))
+    before = read_counts(table)
+    state, m = step(state, packed)
+    loss = m["loss"].item()
+    got = {k: v - before[k] for k, v in read_counts(table).items()}
+    ok = (np.isfinite(loss) and m["update_skipped"].item() == 0
+          and got == step_counts(cfg.n_layers))
+    emit("train", step="packed_segments", loss=loss, launches=got, ok=ok)
+    if not ok:
+        raise SystemExit("train: the packed step failed")
+    for name in got:
+        counts[name] += got[name]
+
+    prof = profile_call(lambda: step(state, batch), top=30)
+    emit("train", step="profile_step", card=card, **prof)
+    del state, step, batch, packed
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_parity(seed, dev):
+    """Three fp32 steps through the kernels against the same steps with
+    attn_impl="ref" (RMSNorm is the kernel in both), at shellac-1b width
+    cut to 2 layers, batch 2 x seq 512, unpacked and packed. Tolerances:
+    loss within 1e-4 of its value, grad_norm within 1e-3; every gradient
+    leaf of the first step within 1e-4 of that leaf's max-abs (fp32
+    through the kernels differs from the plain path by summation order;
+    later steps add adam's normalisation of near-zero gradients)."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.training import (
+        TrainConfig,
+        cross_entropy,
+        init_train_state,
+        make_train_step,
+        named_leaves,
+    )
+
+    cfg = get_model_config("shellac-1b").replace(n_layers=2,
+                                                 dtype="float32")
+    tcfg = TrainConfig(warmup_steps=1, total_steps=1000)
+    b, s = 2, 512
+    failed = []
+    for packed in (False, True):
+        batches = [train_batch(seed + 10 + i, cfg.vocab_size, b, s, dev)
+                   for i in range(3)]
+        if packed:
+            for bt in batches:
+                bt["segment_ids"] = packed_segments(b, s, dev)
+        runs, first = {}, {}
+        for impl in ("auto", "ref"):
+            state = init_train_state(cfg, tcfg, seed=seed, device=dev)
+            bt = batches[0]
+            loss, _ = cross_entropy(transformer.forward(
+                cfg, state.params, bt["inputs"],
+                segment_ids=bt.get("segment_ids"), attn_impl=impl,
+                device=dev), bt["targets"])
+            paths = [str(p) for p, _ in named_leaves(state.params)]
+            leaves = [p for _, p in named_leaves(state.params)]
+            first[impl] = torch.autograd.grad(loss, leaves)
+            step = make_train_step(cfg, tcfg, attn_impl=impl, device=dev)
+            out = []
+            for bt in batches:
+                state, m = step(state, bt)
+                out.append((m["loss"].item(), m["grad_norm"].item()))
+            runs[impl] = out
+            del state, step
+        worst, worst_leaf = 0.0, None
+        for path, g, w in zip(paths, first["auto"], first["ref"]):
+            scale = w.abs().max().clamp_min(1e-30)
+            err = ((g - w).abs().max() / scale).item()
+            if err >= worst:
+                worst, worst_leaf = err, path
+        steps_ok = all(
+            abs(a[0] - r[0]) <= 1e-4 * abs(r[0])
+            and abs(a[1] - r[1]) <= 1e-3 * abs(r[1])
+            for a, r in zip(runs["auto"], runs["ref"]))
+        ok = steps_ok and worst <= 1e-4 and all(
+            np.isfinite(x) for run in runs.values() for st in run
+            for x in st)
+        emit("train-parity", packed=packed, layers=2, dtype="float32",
+             batch=b, seq=s, kernels=runs["auto"], ref=runs["ref"],
+             first_step_grad_max_err_over_scale=worst,
+             worst_leaf=worst_leaf, grad_leaves=len(paths),
+             tol="loss 1e-4 rel, grad_norm 1e-3 rel, grads 1e-4 of "
+                 "each leaf's max-abs", ok=ok)
+        if not ok:
+            failed.append(packed)
+        del first, runs
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"train-parity failed (packed={failed})")
+
+
+# --------------------------------------------------------------------------
 # timings
 # --------------------------------------------------------------------------
 
@@ -709,6 +1054,11 @@ def phase_timings(gen, dev, shapes, card):
     from shellac_tpu_torch.ops.flash_attention import (
         flash_attention_cuda,
         flash_attention_ref,
+        flash_bwd_dkdv_cuda,
+        flash_bwd_dkdv_ref,
+        flash_bwd_dq_cuda,
+        flash_bwd_dq_ref,
+        flash_forward_ref,
     )
     from shellac_tpu_torch.ops.norms import rms_norm_cuda, rms_norm_ref
 
@@ -717,6 +1067,12 @@ def phase_timings(gen, dev, shapes, card):
 
     def measure(fn, sets, iters):
         return graph_ms(fn, sets, iters), eager_ms(fn, sets, iters)
+
+    def measure_eager(fn, sets, iters):
+        """For calls that allocate gigabytes (the plain versions at the
+        training shape) or run autograd: CUDA events around eager calls."""
+        ms = eager_ms(fn, sets, iters)
+        return ms, ms
 
     def record(name, case, kernel, plain, library, nbytes, flops, shape,
                two_calls=None):
@@ -736,6 +1092,7 @@ def phase_timings(gen, dev, shapes, card):
             extra["library_two_calls_eager_ms"] = two_calls[1]
         emit("timings", kernel=name, case=case, dtype="bf16",
              bytes=nbytes, flops=flops, roofline_share=bms / kernel[0],
+             peaks=f"{BF16_PEAK_NAME}; {PEAK_BYTES_S / 1e12} TB/s",
              eager_ms=kernel[1], plain_eager_ms=plain[1], card=card,
              **extra, **row)
         rows_out.setdefault(name, row)
@@ -768,6 +1125,63 @@ def phase_timings(gen, dev, shapes, card):
     record("flash_attention_fwd", "main_causal", k, p, lib,
            (2 * b * s * h * d + 2 * b * s * hkv * d) * 2, 4 * d * pairs,
            [b, s, h, hkv, d])
+
+    # The training shape: kernel 2 with its lse, kernels 3 and 4.
+    ts = shapes["train"]
+    b, s, h, hkv, d = ts["b"], ts["s"], ts["h"], ts["hkv"], ts["d"]
+
+    def make_train():
+        q, k, v = flash_inputs(gen, bf, dev, b, s, h, hkv, d)
+        do = randn(gen, (b, s, h, d), bf, dev)
+        out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                             out.float()).contiguous()
+        return q, k, v, do, lse, delta
+
+    sets = copies(make_train)
+    pairs = b * h * s * (s + 1) // 2
+    qbytes, kbytes, rowbytes = b * s * h * d * 2, b * s * hkv * d * 2, \
+        b * h * s * 4
+    shape = [b, s, h, hkv, d]
+    k = measure(lambda q, k, v, do, lse, dl: flash_attention_cuda(
+        q, k, v, with_lse=True), sets, 10)
+    p = measure_eager(lambda q, k, v, do, lse, dl: flash_forward_ref(
+        q, k, v), sets[:1], 2)
+    lib = measure(
+        lambda q, k, v, do, lse, dl: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True),
+        sets, 10)
+    record("flash_attention_fwd", "train_causal_with_lse", k, p, lib,
+           2 * qbytes + 2 * kbytes + rowbytes, 4 * d * pairs, shape)
+
+    def sdpa_graph(q, k, v, do, lse, dl):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        return qt, kt, vt, out, do.transpose(1, 2)
+
+    lib_sets = [sdpa_graph(*a) for a in sets]
+    # One backward call of SDPA computes dq, dk and dv: kernels 3 and 4
+    # together. Timed eagerly (autograd is not captured).
+    lib = measure_eager(lambda qt, kt, vt, out, dot: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), lib_sets, 10)
+    del lib_sets
+    k = measure(lambda q, k, v, do, lse, dl: flash_bwd_dkdv_cuda(
+        q, k, v, do, lse, dl), sets, 10)
+    p = measure_eager(lambda q, k, v, do, lse, dl: flash_bwd_dkdv_ref(
+        q, k, v, do, lse, dl), sets[:1], 2)
+    record("flash_attention_bwd_dkdv", "train_causal", k, p, lib,
+           2 * qbytes + 4 * kbytes + 2 * rowbytes, 8 * d * pairs, shape)
+    k = measure(lambda q, k, v, do, lse, dl: flash_bwd_dq_cuda(
+        q, k, v, do, lse, dl), sets, 10)
+    p = measure_eager(lambda q, k, v, do, lse, dl: flash_bwd_dq_ref(
+        q, k, v, do, lse, dl), sets[:1], 2)
+    record("flash_attention_bwd_dq", "train_causal", k, p, lib,
+           3 * qbytes + 2 * kbytes + 2 * rowbytes, 6 * d * pairs, shape)
+    del sets
+    torch.cuda.empty_cache()
 
     ds = shapes["decode"]
     b, h, hkv, L, d, idx = (ds["b"], ds["h"], ds["hkv"], ds["L"], ds["d"],
@@ -847,18 +1261,24 @@ def main():
     gen.manual_seed(args.seed)
     shapes = main_shapes(args.seed, dev)
     errs = phase_kernels(gen, dev, shapes)
+    errs.update(phase_kernels_train(gen, dev, shapes))
     # The main paths, each with the counts set to 0 just before it; every
     # kernel of a path must have launched in its run.
     paths = {"generate": phase_generate(args.seed, dev, table, card),
-             "serve": phase_serve(args.seed, dev, table, card)}
+             "serve": phase_serve(args.seed, dev, table, card),
+             "train": phase_train(args.seed, dev, table, card)}
     for path, kinds in (("generate", ("rms_norm", "flash_attention_fwd",
                                       "decode_attention_dense")),
                         ("serve", ("rms_norm", "flash_attention_fwd",
-                                   "paged_decode_attention"))):
+                                   "paged_decode_attention")),
+                        ("train", ("rms_norm", "flash_attention_fwd",
+                                   "flash_attention_bwd_dkdv",
+                                   "flash_attention_bwd_dq"))):
         missing = [n for n in kinds if paths[path][n] == 0]
         if missing:
             raise SystemExit(f"{path}: kernels never launched: {missing}")
     phase_serve_parity(args.seed, dev)
+    phase_train_parity(args.seed, dev)
     times = phase_timings(gen, dev, shapes, card)
 
     kernels = []

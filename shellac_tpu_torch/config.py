@@ -1,8 +1,9 @@
 """Model configuration dataclasses for the PyTorch port.
 
-A copy of the JAX package's `config.py` model dataclasses as plain
-data, so every preset parses the same way in both packages. Only the
-dtype mapping differs: names resolve to `torch` dtypes.
+A copy of the JAX package's `config.py` model dataclasses and its
+`TrainConfig` (:476) as plain data, so every preset and recipe parses the
+same way in both packages. Only the dtype mapping differs: names resolve
+to `torch` dtypes.
 """
 
 from __future__ import annotations
@@ -434,4 +435,43 @@ class ModelConfig:
         return self
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / schedule / loop configuration (the JAX package's
+    defaults; options the port does not take raise in
+    `training.make_train_step`)."""
+
+    learning_rate: float = 3e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    # "adamw" (ported); "lion", "adafactor", "muon" (not ported).
+    optimizer: str = "adamw"
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip_norm: float = 1.0
+    # Dtype of adam's first moment as stored; the update is computed from
+    # the fp32 moment before the cast. The second moment stays fp32.
+    mu_dtype: str = "bfloat16"
+    # Number of microbatches accumulated per optimizer step (1 = no accum).
+    grad_accum: int = 1
+    z_loss_weight: float = 0.0
+    # Skip the whole param/opt update when any gradient (or the loss) is
+    # non-finite.
+    skip_nonfinite_updates: bool = True
+    # Quantized training compute: None only (int8 dots are not ported).
+    quant: Optional[str] = None
+    # Vocab-chunked fused cross-entropy: None only (not ported).
+    fused_loss_chunk: Optional[int] = None
+    # Exponential moving average of parameters (e.g. 0.999), kept in
+    # TrainState.ema_params; None disables.
+    ema_decay: Optional[float] = None
+    seed: int = 0
+
+    def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

@@ -1,17 +1,20 @@
 // Flash-attention forward over q (B, S, H, D), k/v (B, S, Hkv, D).
 //
 // Replaces the Pallas kernel `_flash_kernel` (shellac_tpu/ops/
-// flash_attention.py), launched by `_flash_forward`, for the serving
-// forward: causal or not, sliding window, Gemma-2 softcap, GPT-OSS sinks,
-// GQA. Packed segments and the logsumexp output are not computed here
-// (they belong with the backward kernels).
+// flash_attention.py), launched by `_flash_forward`, for serving and for
+// training: causal or not, sliding window, Gemma-2 softcap, GPT-OSS sinks,
+// GQA, packed segments (one (B, S) int32 row shared by q and kv, as
+// `_scores` masks them), and the logsumexp rows (B, H, S) fp32 the
+// backward kernels read (sink-inclusive, as `_flash_kernel`'s
+// finalizer writes them). The serving calls pass no segments and no lse
+// pointer, and nothing is written there.
 //
 // What it keeps from the TPU kernel: the online softmax with m, l and the
 // output accumulator in fp32; the scale applied in fp32 (to q in the fp32
 // body, as the TPU kernel does; to the fp32 scores in the bf16 body, so
-// q is not rounded to bf16 after scaling); softcap
-// before the mask; the fully-masked-tile gate (p = 0 where s is the
-// NEG_INF sentinel, so a tile no row can see leaves the accumulator
+// q is not rounded to bf16 after scaling); softcap before the causal,
+// window and segment masks; the fully-masked-tile gate (p = 0 where s is
+// the NEG_INF sentinel, so a tile no row can see leaves the accumulator
 // untouched); p rounded to v's dtype before the p.V product while l sums
 // the unrounded p; sinks folded in at the end as sink_rebase does; kv
 // tiles outside [first live tile of the window, causal diagonal] neither
@@ -50,16 +53,19 @@ constexpr size_t f32_smem_bytes() {
                           + D * (kBK + 1)    // Kt, transposed, padded
                           + kBK * D          // Vs
                           + kBQ * (kBK + 1)  // Ps, padded rows
+                          + kBK              // kv segment ids
                          );
 }
 
 // fp32 body: scalar FMAs, 4 q rows x 4 kv columns (then x D/16 output
-// dims) per thread.
-template <int D>
+// dims) per thread. SEG: segment masking is compiled in (the serving
+// calls, which pass no segments, run the instance without it).
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ sinks,
-              float* __restrict__ out, int S, int H, int Hkv, float scale,
+              const int* __restrict__ seg, float* __restrict__ out,
+              float* __restrict__ lse, int S, int H, int Hkv, float scale,
               int causal, int window, float softcap) {
   constexpr int RQ = kBQ / 16;  // q rows per thread
   constexpr int CK = kBK / 16;  // kv columns per thread in the score tile
@@ -73,6 +79,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Kt = Qs + kBQ * QS;   // [D][KS]
   float* Vs = Kt + D * KS;     // [kBK][D]
   float* Ps = Vs + kBK * D;    // [kBQ][PS]
+  int* Kseg = reinterpret_cast<int*>(Ps + kBQ * PS);  // [kBK]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -94,9 +101,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         pos < S ? qb[(size_t)pos * qstride + c] * scale : 0.f;
   }
 
+  const int* segb = SEG ? seg + (size_t)b * S : nullptr;
   float m_i[RQ], l_i[RQ], acc[RQ][DV];
+  int qseg[RQ];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + ty * RQ + i;
+    qseg[i] = SEG && row < S ? segb[row] : 0;
     m_i[i] = kNegInf;
     l_i[i] = 0.f;
 #pragma unroll
@@ -122,6 +133,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       Kt[c * KS + r] = kv;
       Vs[r * D + c] = vv;
     }
+    if (SEG && tid < kBK) Kseg[tid] = k0 + tid < S ? segb[k0 + tid] : -1;
     __syncthreads();
 
     float s[RQ][CK];
@@ -154,6 +166,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         bool ok = col < S;
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && row - col < window;
+        if (SEG) ok = ok && qseg[i] == Kseg[tx + 16 * j];
         s[i][j] = ok ? x : kNegInf;
         mc = fmaxf(mc, s[i][j]);
       }
@@ -201,12 +214,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + ty * RQ + i;
     if (row >= S) continue;
-    float r = 1.f, denom;
+    float r = 1.f, denom, m_fin = m_i[i];
     if (sinks != nullptr) {
       const float sk = sinks[h];
       const float m2 = fmaxf(m_i[i], sk);
       r = expf(m_i[i] - m2);
       denom = l_i[i] * r + expf(sk - m2);
+      m_fin = m2;
     } else {
       denom = l_i[i] == 0.f ? 1.f : l_i[i];
     }
@@ -214,53 +228,33 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DV; ++j)
       ob[(size_t)row * qstride + tx + 16 * j] =
           acc[i][j] * r / denom;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + row] = m_fin + logf(denom);
   }
 }
 
 // bf16 body: tensor cores.
 constexpr int kMmaThreads = 128;  // 4 warps x 16 q rows
 
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 out.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two consecutive bf16 as one 32-bit fragment register.
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Round two floats to bf16 and pack them, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat16 l = __float2bfloat16(lo), h = __float2bfloat16(hi);
-  return (uint32_t)(*reinterpret_cast<unsigned short*>(&l)) |
-         ((uint32_t)(*reinterpret_cast<unsigned short*>(&h)) << 16);
-}
-
 template <int D>
 constexpr size_t bf16_smem_bytes() {
   // Qs and Ks [64][D + 8], Vt [D][64 + 8]: 16-byte padded rows keep the
-  // fragment loads free of bank conflicts.
+  // fragment loads free of bank conflicts; then the kv segment ids.
   return sizeof(__nv_bfloat16) *
-         (kBQ * (D + 8) + kBK * (D + 8) + D * (kBK + 8));
+             (kBQ * (D + 8) + kBK * (D + 8) + D * (kBK + 8)) +
+         sizeof(int) * kBK;
 }
 
-// mma.sync fragments (lane = 4 * g + t4): A regs hold rows g, g + 8 and
-// columns 2 t4 (+1), 2 t4 + 8 (+9); B regs hold rows 2 t4 (+1), 2 t4 + 8
-// (+9) of column g; C holds rows g, g + 8 and columns 2 t4, 2 t4 + 1.
-template <int D>
+// mma.sync fragment layout: see common.cuh. SEG as in the fp32 body.
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                const float* __restrict__ sinks,
-               __nv_bfloat16* __restrict__ out, int S, int H, int Hkv,
-               float scale, int causal, int window, float softcap) {
+               const int* __restrict__ seg, __nv_bfloat16* __restrict__ out,
+               float* __restrict__ lse, int S, int H, int Hkv, float scale,
+               int causal, int window, float softcap) {
   using bf16 = __nv_bfloat16;
   constexpr int QP = D + 8;    // Qs/Ks row stride (elements)
   constexpr int VP = kBK + 8;  // Vt row stride
@@ -273,6 +267,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][QP]
   bf16* Ks = Qs + kBQ * QP;                      // [kBK][QP]
   bf16* Vt = Ks + kBK * QP;                      // [D][VP], v transposed
+  int* Kseg = reinterpret_cast<int*>(Vt + D * VP);  // [kBK]
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -311,6 +306,13 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   }
 
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0+8
+  const int* segb = SEG ? seg + (size_t)b * S : nullptr;
+  int qseg[2] = {0, 0};
+  if (SEG) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row0 + 8 * i < S) qseg[i] = segb[row0 + 8 * i];
+  }
   float m_r[2] = {kNegInf, kNegInf};
   float l_r[2] = {0.f, 0.f};
   float o[ND][4];
@@ -347,6 +349,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < CH; ++j) Vt[(c + j) * VP + r] = e[j];
     }
+    if (SEG && tid < kBK) Kseg[tid] = k0 + tid < S ? segb[k0 + tid] : -1;
     __syncthreads();
 
     float sc[NB][4];
@@ -376,6 +379,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
         bool ok = col < S;
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && row - col < window;
+        if (SEG) ok = ok && qseg[e >> 1] == Kseg[nb * 8 + t4 * 2 + (e & 1)];
         x = ok ? x : kNegInf;
         sc[nb][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -437,15 +441,18 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= S) continue;
-    float rr = 1.f, denom;
+    float rr = 1.f, denom, m_fin = m_r[i];
     if (sinks != nullptr) {
       const float sk = sinks[h];
       const float m2 = fmaxf(m_r[i], sk);
       rr = expf(m_r[i] - m2);
       denom = l_r[i] * rr + expf(sk - m2);
+      m_fin = m2;
     } else {
       denom = l_r[i] == 0.f ? 1.f : l_r[i];
     }
+    if (lse != nullptr && t4 == 0)
+      lse[((size_t)b * H + h) * S + row] = m_fin + logf(denom);
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row * qstride + nd * 8 +
@@ -454,66 +461,75 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* sinks, void* out, int B, int S, int H,
-                   int Hkv, float scale, int causal, int window,
-                   float softcap, cudaStream_t stream) {
+                   const void* sinks, const void* seg, void* out, void* lse,
+                   int B, int S, int H, int Hkv, float scale, int causal,
+                   int window, float softcap, cudaStream_t stream) {
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   const float* sp = static_cast<const float*>(sinks);
+  const int* gp = static_cast<const int*>(seg);
+  float* lp = static_cast<float*>(lse);
   if constexpr (sizeof(T) == 4) {
-    auto kernel = flash_fwd_f32<D>;
+    auto kernel = flash_fwd_f32<D, SEG>;
     constexpr size_t smem = f32_smem_bytes<D>();
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kF32Threads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), sp, static_cast<float*>(out), S, H,
-        Hkv, scale, causal, window, softcap);
+        static_cast<const float*>(v), sp, gp, static_cast<float*>(out), lp,
+        S, H, Hkv, scale, causal, window, softcap);
   } else {
-    auto kernel = flash_fwd_bf16<D>;
+    auto kernel = flash_fwd_bf16<D, SEG>;
     constexpr size_t smem = bf16_smem_bytes<D>();
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kMmaThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), sp, static_cast<T*>(out), S, H, Hkv, scale,
-        causal, window, softcap);
+        static_cast<const T*>(v), sp, gp, static_cast<T*>(out), lp, S, H,
+        Hkv, scale, causal, window, softcap);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v,
-                       const void* sinks, void* out, int B, int S, int H,
-                       int Hkv, int D, float scale, int causal, int window,
-                       float softcap, cudaStream_t stream) {
+                       const void* sinks, const void* seg, void* out,
+                       void* lse, int B, int S, int H, int Hkv, int D,
+                       float scale, int causal, int window, float softcap,
+                       cudaStream_t stream) {
+  const bool g = seg != nullptr;
   if (D == 64)
-    return launch<T, 64>(q, k, v, sinks, out, B, S, H, Hkv, scale, causal,
-                         window, softcap, stream);
+    return (g ? launch<T, 64, true> : launch<T, 64, false>)(
+        q, k, v, sinks, seg, out, lse, B, S, H, Hkv, scale, causal, window,
+        softcap, stream);
   if (D == 128)
-    return launch<T, 128>(q, k, v, sinks, out, B, S, H, Hkv, scale, causal,
-                          window, softcap, stream);
+    return (g ? launch<T, 128, true> : launch<T, 128, false>)(
+        q, k, v, sinks, seg, out, lse, B, S, H, Hkv, scale, causal, window,
+        softcap, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace shellac
 
-// window <= 0: none; softcap <= 0: none; sinks may be null.
+// window <= 0: none; softcap <= 0: none; sinks, seg (B, S) int32 and
+// lse (B, H, S) fp32 may be null (lse is then not written).
 extern "C" int shellac_flash_attention(const void* q, const void* k,
                                        const void* v, const void* sinks,
-                                       void* out, int B, int S, int H,
-                                       int Hkv, int D, float scale,
-                                       int causal, int window, float softcap,
-                                       int dtype, void* stream) {
+                                       const void* seg, void* out, void* lse,
+                                       int B, int S, int H, int Hkv, int D,
+                                       float scale, int causal, int window,
+                                       float softcap, int dtype,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == shellac::kF32)
-    return shellac::launch_dim<float>(q, k, v, sinks, out, B, S, H, Hkv, D,
-                                      scale, causal, window, softcap, s);
+    return shellac::launch_dim<float>(q, k, v, sinks, seg, out, lse, B, S, H,
+                                      Hkv, D, scale, causal, window, softcap,
+                                      s);
   if (dtype == shellac::kBF16)
-    return shellac::launch_dim<__nv_bfloat16>(q, k, v, sinks, out, B, S, H,
-                                              Hkv, D, scale, causal, window,
-                                              softcap, s);
+    return shellac::launch_dim<__nv_bfloat16>(q, k, v, sinks, seg, out, lse,
+                                              B, S, H, Hkv, D, scale, causal,
+                                              window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

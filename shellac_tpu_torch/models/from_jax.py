@@ -5,7 +5,9 @@ axis ({"layers": {name: (L, ...)}}); the port keeps a list of per-layer
 dictionaries. `params_from_jax` takes the JAX params tree with every leaf
 already on the host as numpy (`jax.tree.map(np.asarray, params)`), so
 this module needs no JAX, and stores each leaf in the dtype the port's
-forward reads it in (see models/transformer.py).
+forward reads it in (see models/transformer.py), or with `master=True`
+in cfg.params_dtype: the JAX package's fp32 masters cross unrounded, so
+both packages train the same numbers.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from shellac_tpu_torch.models.transformer import (
 from shellac_tpu_torch.ops.dispatch import DeviceLike, resolve_device
 
 
-def params_from_jax(cfg: ModelConfig, tree, device: DeviceLike = None) -> Params:
-    """Convert a JAX params tree of numpy arrays to port parameters."""
+def params_from_jax(cfg: ModelConfig, tree, device: DeviceLike = None,
+                    master: bool = False) -> Params:
+    """Convert a JAX params tree of numpy arrays to port parameters
+    (serving storage, or the master copy with `master=True`)."""
     check_supported(cfg)
     dev = resolve_device(device)
     shapes = layer_shapes(cfg)
@@ -44,7 +48,7 @@ def params_from_jax(cfg: ModelConfig, tree, device: DeviceLike = None) -> Params
         if a.shape != tuple(shape):
             raise ValueError(f"{name}: shape {a.shape} != {tuple(shape)}")
         t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
-        return to_storage(cfg, name, t).to(dev)
+        return to_storage(cfg, name, t, master).to(dev)
 
     layers = []
     for i in range(cfg.n_layers):

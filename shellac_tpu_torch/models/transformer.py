@@ -8,21 +8,30 @@ The port of the JAX package's `models/transformer.py` for dense models
 
 Layers are stored per layer (a list) and walked by a Python loop, where
 the JAX package stacks them for `lax.scan`; `models/from_jax.py` converts
-between the two. Storage dtypes follow what the JAX forward computes
-with: matmul weights, embeddings and biases are kept in the compute
-dtype (the JAX forward casts its fp32 master copy at every use, so one
-cast at load is exact), while norm scales and attention sinks stay fp32
-because the JAX forward reads them as fp32.
+between the two. Two storage layouts, one forward:
+  - serving (`master=False`, the default): matmul weights, embeddings
+    and biases in the compute dtype, norm scales and attention sinks in
+    fp32 (what the JAX forward reads them as);
+  - training (`master=True`): every leaf in cfg.params_dtype, the fp32
+    master copy the optimizer updates.
+The forward casts each weight to the compute dtype at its use, as the
+JAX forward does; for stored compute-dtype weights the cast is a no-op.
 
 Compute: bf16 matmuls, fp32 norm statistics, softmax and logits, a bf16
-residual stream, as in the JAX package.
+residual stream, as in the JAX package. Under autograd with cfg.remat
+each block is recomputed in the backward pass
+(`torch.utils.checkpoint`, the JAX package's `jax.checkpoint` with
+remat_policy "none"). Packed `segment_ids` restart RoPE positions per
+segment and make attention block-diagonal over segments.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from shellac_tpu_torch.config import ModelConfig
 from shellac_tpu_torch.inference.cache.layout import (
@@ -99,18 +108,22 @@ def layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return shapes
 
 
-def to_storage(cfg: ModelConfig, name: str, t: torch.Tensor) -> torch.Tensor:
-    """Round a master-copy value through cfg.params_dtype, then store it
-    in the dtype the forward reads it in."""
-    dtype = torch.float32 if name in FP32_KEYS else cfg.compute_dtype
-    return t.to(cfg.params_dtype).to(dtype)
+def to_storage(cfg: ModelConfig, name: str, t: torch.Tensor,
+               master: bool = False) -> torch.Tensor:
+    """Round a master-copy value through cfg.params_dtype; unless
+    `master`, store it in the dtype the forward reads it in."""
+    t = t.to(cfg.params_dtype)
+    if master:
+        return t
+    return t.to(torch.float32 if name in FP32_KEYS else cfg.compute_dtype)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, master: bool = False) -> Params:
     """Random parameters from `seed`, laid out as the JAX package's
     init_params lays them out (same shapes and scales; other numbers,
-    since torch's generator is not JAX's)."""
+    since torch's generator is not JAX's). `master=True` keeps every
+    leaf in cfg.params_dtype, for training."""
     cfg.validate()
     check_supported(cfg)
     dev = resolve_device(device)
@@ -124,13 +137,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             _, fan_in, scale = init
             t = torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=dev) * (scale * fan_in ** -0.5)
-        return to_storage(cfg, name, t)
+        return to_storage(cfg, name, t, master)
 
     shapes = layer_shapes(cfg)
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                         dtype=torch.float32, device=dev) * 0.02
     params: Params = {
-        "embed": to_storage(cfg, "embed", embed),
+        "embed": to_storage(cfg, "embed", embed, master),
         "layers": [
             {n: make(n, shp, init) for n, (shp, init) in shapes.items()}
             for _ in range(cfg.n_layers)
@@ -161,7 +174,7 @@ def _embed_tokens(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
 
 def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
            fresh_cache: bool = False, attn_kind: Optional[str] = None,
-           page_tables: Optional[torch.Tensor] = None):
+           page_tables: Optional[torch.Tensor] = None, segments=None):
     """One pre-norm transformer block. x: (B, S, D) in compute dtype.
 
     With `cache=(cache_k, cache_v, index)` the block writes the new k/v
@@ -169,7 +182,8 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
     (prefill into an empty cache) it attends the new chunk causally
     instead. With `page_tables` the cache is one layer's block pool
     (n_blocks, Hkv, bs, Dh), written and read through the tables.
-    attn_kind "full" drops cfg.attn_window for this layer.
+    attn_kind "full" drops cfg.attn_window for this layer. `segments`
+    (B, S) int32 makes cache-free attention block-diagonal.
     """
     window = None if attn_kind == "full" else cfg.attn_window
     cdt = cfg.compute_dtype
@@ -177,13 +191,13 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
     h, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.dim_per_head
 
     hx = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(cdt)
-    q = hx @ lp["wq"]
-    k = hx @ lp["wk"]
-    v = hx @ lp["wv"]
+    q = hx @ lp["wq"].to(cdt)
+    k = hx @ lp["wk"].to(cdt)
+    v = hx @ lp["wv"].to(cdt)
     if cfg.attn_bias:
-        q = q + lp["bq"]
-        k = k + lp["bk"]
-        v = v + lp["bv"]
+        q = q + lp["bq"].to(cdt)
+        k = k + lp["bk"].to(cdt)
+        v = v + lp["bv"].to(cdt)
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
@@ -197,7 +211,8 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
     akw = dict(window=window, scale=cfg.attn_scale,
                softcap=cfg.attn_softcap, sinks=sinks)
     if cache is None:
-        o = attention(q, k, v, causal=cfg.causal, impl=attn_impl, **akw)
+        o = attention(q, k, v, causal=cfg.causal, impl=attn_impl,
+                      q_segments=segments, kv_segments=segments, **akw)
     else:
         cache_k, cache_v, index = cache
         if page_tables is not None:
@@ -215,9 +230,9 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
         else:
             o = decode_attention(q, cache_k, cache_v, index, impl=attn_impl,
                                  **akw)
-    o = o.reshape(b, s, h * dh) @ lp["wo"]
+    o = o.reshape(b, s, h * dh) @ lp["wo"].to(cdt)
     if cfg.attn_out_bias:
-        o = o + lp["bo"]
+        o = o + lp["bo"].to(cdt)
     if cfg.post_norms:
         o = rms_norm(o, lp["post_attn_norm"], cfg.norm_eps).to(cdt)
     x = x + o
@@ -228,9 +243,9 @@ def _block_mlp(cfg: ModelConfig, x, lp):
     """The dense MLP half of a block."""
     cdt = cfg.compute_dtype
     hx = rms_norm(x, lp["mlp_norm"], cfg.norm_eps).to(cdt)
-    gate = hx @ lp["w_gate"]
-    up = hx @ lp["w_up"]
-    down = _gated_act(cfg)(gate, up) @ lp["w_down"]
+    gate = hx @ lp["w_gate"].to(cdt)
+    up = hx @ lp["w_up"].to(cdt)
+    down = _gated_act(cfg)(gate, up) @ lp["w_down"].to(cdt)
     if cfg.post_norms:
         down = rms_norm(down, lp["post_mlp_norm"], cfg.norm_eps).to(cdt)
     return x + down
@@ -261,10 +276,13 @@ def _layer_rope(cfg, i, tables, local):
 
 
 def output_weights(cfg: ModelConfig, params: Params) -> torch.Tensor:
-    """The LM-head matrix (D, V) in compute dtype (tied or untied)."""
+    """The LM-head matrix (D, V) in compute dtype (tied or untied),
+    rounded through it from a master copy as the JAX package's
+    `output_weights(cfg, params, cdt)` does."""
+    cdt = cfg.compute_dtype
     if cfg.tie_embeddings:
-        return params["embed"].t()
-    return params["lm_head"]
+        return params["embed"].to(cdt).t()
+    return params["lm_head"].to(cdt)
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -285,34 +303,72 @@ def _params_device(params: Params) -> torch.device:
     return params["embed"].device
 
 
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-segment position ids: restart at 0 on every segment change.
+
+    segment_ids: (B, S) int, non-decreasing along S within a row. Port of
+    `segment_positions` (shellac_tpu/models/transformer.py:943).
+    """
+    b, s = segment_ids.shape
+    ar = torch.arange(s, device=segment_ids.device).expand(b, s)
+    changed = torch.cat(
+        [torch.ones((b, 1), dtype=torch.bool, device=segment_ids.device),
+         segment_ids[:, 1:] != segment_ids[:, :-1]], dim=1,
+    )
+    start = torch.cummax(torch.where(changed, ar, 0), dim=1).values
+    return ar - start
+
+
 def forward(
     cfg: ModelConfig,
     params: Params,
     tokens,  # (B, S) int
     *,
     positions: Optional[torch.Tensor] = None,  # (B, S) int
-    segment_ids: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # (B, S) int — packed docs
     attn_impl: str = "auto",
     device: DeviceLike = None,
 ) -> torch.Tensor:
-    """Full forward pass; returns fp32 logits (B, S, V)."""
+    """Full forward pass; returns fp32 logits (B, S, V).
+
+    With segment_ids, rows hold several packed documents: attention is
+    block-diagonal over them and RoPE positions restart per segment, so
+    each document computes as if it were alone in its row. Under autograd
+    with cfg.remat, every block is recomputed in the backward pass.
+    """
     check_supported(cfg)
-    if segment_ids is not None:
-        raise NotImplementedError("packed segment_ids are not ported yet")
     dev = resolve_device(device)
     check_on(dev, embed=params["embed"])
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
+    segments = None
+    if segment_ids is not None:
+        segments = torch.as_tensor(segment_ids, device=dev).to(
+            torch.int32).contiguous()
     if positions is None:
-        positions = torch.arange(s, device=dev).expand(b, s)
+        if segments is not None:
+            positions = segment_positions(segments)
+        else:
+            positions = torch.arange(s, device=dev).expand(b, s)
     else:
         positions = torch.as_tensor(positions, device=dev)
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "none":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported; only 'none' "
+            "(recompute each whole block)"
+        )
     tables, local = _rope_tables(cfg, positions)
     x = _embed_tokens(cfg, params, tokens)
     for i, lp in enumerate(params["layers"]):
         cos, sin = _layer_rope(cfg, i, tables, local)
-        x = _block(cfg, attn_impl, x, lp, cos, sin,
-                   attn_kind=_layer_kind(cfg, i))
+        blk = functools.partial(_block, cfg, attn_impl,
+                                attn_kind=_layer_kind(cfg, i),
+                                segments=segments)
+        if remat:
+            x = checkpoint(blk, x, lp, cos, sin, use_reentrant=False)
+        else:
+            x = blk(x, lp, cos, sin)
     return unembed(cfg, params, x)
 
 

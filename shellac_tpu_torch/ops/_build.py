@@ -42,10 +42,23 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, scale, out, rows, d, eps, dtype, stream
     "shellac_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _P),
-    # q, k, v, sinks, out, B, S, H, Hkv, D, scale, causal, window,
-    # softcap, dtype, stream
+    # q, k, v, sinks, seg, out, lse, B, S, H, Hkv, D, scale, causal,
+    # window, softcap, dtype, stream
     "shellac_flash_attention": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I,
+        _P,
+    ),
+    # q, k, v, dout, lse, delta, seg, dk, dv, B, S, H, Hkv, D, scale,
+    # causal, window, softcap, dtype, stream
+    "shellac_flash_attention_bwd_dkdv": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+        _F, _I, _P,
+    ),
+    # q, k, v, dout, lse, delta, seg, dq, B, S, H, Hkv, D, scale, causal,
+    # window, softcap, dtype, stream
+    "shellac_flash_attention_bwd_dq": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F,
+        _I, _P,
     ),
     # q, k, v, index, sinks, out, B, s, H, Hkv, L, D, scale, window,
     # softcap, dtype, stream

@@ -1,4 +1,4 @@
-"""Attention ops.
+"""Attention ops (port of `shellac_tpu/ops/attention.py`).
 
 `attention(...)` is the entry point the model calls for attention within
 a chunk (training-style forward and fresh-cache prefill). It dispatches
@@ -6,8 +6,11 @@ between:
   - `attention_ref`: einsum + fp32 softmax, the plain PyTorch version and
     the CPU path;
   - `flash_attention` (ops/flash_attention.py): the hand-written CUDA
-    kernel, for every CUDA call it takes. A CUDA call it does not take
-    (explicit positions, kv_mask, segments) raises.
+    kernels (forward, and under autograd the two backward kernels), for
+    every CUDA call they take: packed segments when q and kv share one
+    segment tensor, as the JAX dispatch requires. A CUDA call they do not
+    take (explicit positions, a kv_mask, distinct q and kv segments)
+    raises.
 
 Layout convention everywhere: q (B, Sq, H, D); k, v (B, Sk, Hkv, D) with
 grouped-query attention when Hkv < H. Softmax/logits are always fp32.
@@ -146,13 +149,15 @@ def attention(
                 "the CUDA flash kernel takes no q_positions/kv_positions/"
                 "kv_mask; use impl='ref'"
             )
-        if q_segments is not None or kv_segments is not None:
+        if q_segments is not kv_segments:
             raise NotImplementedError(
-                "packed segments are not in the CUDA flash kernel yet"
+                "the CUDA flash kernels mask with one segment row shared "
+                "by q and kv (pass the same tensor as q_segments and "
+                "kv_segments); use impl='ref'"
             )
         return flash_attention(
             q, k, v, causal=causal, scale=scale, window=window,
-            softcap=softcap, sinks=sinks,
+            softcap=softcap, sinks=sinks, segments=q_segments,
         )
     return attention_ref(
         q, k, v, causal=causal, window=window, scale=scale,

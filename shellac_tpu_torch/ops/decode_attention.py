@@ -25,6 +25,7 @@ import torch
 from shellac_tpu_torch.inference.cache.layout import paged_gather_layer
 from shellac_tpu_torch.ops import _build
 from shellac_tpu_torch.ops.attention import attention_ref
+from shellac_tpu_torch.ops.dispatch import refuse_grad
 
 _KERNEL_DTYPES = {torch.float32: _build.DTYPE_F32,
                   torch.bfloat16: _build.DTYPE_BF16}
@@ -62,8 +63,10 @@ def decode_attention_cuda(q, cache_k, cache_v, index, *, window=None,
     """Launch the CUDA dense flash-decode kernel.
 
     index: (B,) int32 on the card. Raises on what the kernel does not
-    take. `decode_attention_cuda.launches` counts the kernel's launches.
+    take, and under autograd (the kernel is inference-only).
+    `decode_attention_cuda.launches` counts the kernel's launches.
     """
+    refuse_grad("decode_attention_cuda", q, cache_k, cache_v, sinks)
     if not (q.is_cuda and cache_k.is_cuda and cache_v.is_cuda
             and index.is_cuda):
         raise ValueError("decode_attention_cuda needs CUDA tensors")
@@ -189,10 +192,12 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, tables, index, *,
     """Launch the CUDA paged flash-decode kernel.
 
     tables: (B, max_blocks) int32 and index: (B,) int32, on the card.
-    Raises on what the kernel does not take.
-    `paged_decode_attention_cuda.launches` counts the kernel's launches.
+    Raises on what the kernel does not take, and under autograd (the
+    kernel is inference-only). `paged_decode_attention_cuda.launches`
+    counts the kernel's launches.
     """
     name = "paged_decode_attention_cuda"
+    refuse_grad(name, q, pool_k, pool_v, sinks)
     if not all(t.is_cuda for t in (q, pool_k, pool_v, tables, index)):
         raise ValueError(f"{name} needs CUDA tensors")
     if q.dim() != 4 or pool_k.dim() != 4 or pool_v.shape != pool_k.shape:

@@ -41,3 +41,19 @@ def check_on(device: torch.device, **tensors: Optional[torch.Tensor]) -> None:
             raise ValueError(
                 f"{name} is on {t.device}, expected {device}"
             )
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would record a call to an inference-only kernel.
+
+    The decode kernels have no backward: a launch through ctypes writes a
+    fresh tensor with no grad_fn, so a gradient through it would be lost
+    without a word. Grad mode on and any input requiring grad is refused.
+    """
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name} is inference-only (its kernel has no backward); call "
+            "it under torch.no_grad() or on tensors that do not require grad"
+        )

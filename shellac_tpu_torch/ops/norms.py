@@ -1,10 +1,11 @@
 """RMSNorm / LayerNorm.
 
-`rms_norm_ref` and `layer_norm_ref` are the plain PyTorch versions (fp32
-statistics, output in x's dtype, the `(1 + scale)` offset of the JAX
-package). `rms_norm` is the dispatch point: a CUDA tensor goes to the
-hand-written kernel in `csrc/rms_norm.cu`, a CPU tensor to the plain
-version.
+Ports `shellac_tpu/ops/norms.py`. `rms_norm_ref` and `layer_norm_ref` are
+the plain PyTorch versions (fp32 statistics, output in x's dtype, the
+`(1 + scale)` offset of the JAX package). `rms_norm` is the dispatch
+point: a CUDA tensor goes to the hand-written kernel in
+`csrc/rms_norm.cu` (through `RMSNormFunction` when autograd records the
+call), a CPU tensor to the plain version.
 """
 
 from __future__ import annotations
@@ -70,12 +71,49 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
 rms_norm_cuda.launches = 0
 
 
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm with a kernel forward and a plain backward.
+
+    The forward is `fwd(x, scale, eps)`: `rms_norm_cuda` on the card, or
+    any function of the same contract (the tests inject `rms_norm_ref` to
+    check the wiring on the CPU). The backward is autograd of
+    `rms_norm_ref`, as the JAX package's `_rms_bwd` recomputes through
+    its reference: there is no Pallas backward to port. Gradients reach x
+    and the fp32 scale.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, fwd):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        need_x, need_s = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(need_x)
+            sd = scale.detach().requires_grad_(need_s)
+            y = rms_norm_ref(xd, sd, ctx.eps)
+            wrt = [t for t, need in ((xd, need_x), (sd, need_s)) if need]
+            grads = list(torch.autograd.grad(y, wrt, g))
+        dx = grads.pop(0) if need_x else None
+        ds = grads.pop(0) if need_s else None
+        return dx, ds, None, None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """Dispatching RMSNorm: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    """Dispatching RMSNorm: the CUDA kernel on a CUDA tensor (under
+    autograd through `RMSNormFunction`), the plain version on a CPU
+    tensor."""
     if x.is_cuda:
-        return rms_norm_cuda(x.contiguous(), scale, eps)
+        x = x.contiguous()
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or scale.requires_grad):
+            return RMSNormFunction.apply(x, scale, eps, rms_norm_cuda)
+        return rms_norm_cuda(x, scale, eps)
     if x.device.type != "cpu":
         raise ValueError(f"rms_norm: unsupported device {x.device}")
     return rms_norm_ref(x, scale, eps)

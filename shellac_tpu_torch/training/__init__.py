@@ -1,0 +1,38 @@
+"""Training for the PyTorch port: the loss, the adamw chain, the train
+state and the train step (ports of `shellac_tpu/training/`)."""
+
+from shellac_tpu_torch.config import TrainConfig
+from shellac_tpu_torch.training.losses import cross_entropy
+from shellac_tpu_torch.training.optimizer import (
+    adamw_update,
+    decays,
+    global_norm,
+    init_adamw,
+    make_schedule,
+)
+from shellac_tpu_torch.training.train_state import (
+    AdamWState,
+    TrainState,
+    named_leaves,
+)
+from shellac_tpu_torch.training.trainer import (
+    init_train_state,
+    make_train_step,
+    train_state_from_params,
+)
+
+__all__ = [
+    "AdamWState",
+    "TrainConfig",
+    "TrainState",
+    "adamw_update",
+    "cross_entropy",
+    "decays",
+    "global_norm",
+    "init_adamw",
+    "init_train_state",
+    "make_schedule",
+    "make_train_step",
+    "named_leaves",
+    "train_state_from_params",
+]

@@ -245,3 +245,171 @@ def test_paged_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(NotImplementedError):
         da.paged_decode_attention(q, pool, pool, tab, idx,
                                   k_scale=pool[..., 0], v_scale=pool[..., 0])
+
+
+# ---------------------------------------------------------- training path
+
+# Held to the plain versions relative to each output's scale: |out - ref|
+# <= atol * max|ref| + rtol * |ref|. The backward kernels sum many
+# products of bf16-rounded p and ds, so bf16 is judged against the scale.
+_BWD = {
+    "causal_gqa": dict(b=2, s=256, h=8, hkv=4, d=128, causal=True),
+    "ragged_d64": dict(b=2, s=333, h=4, hkv=2, d=64, causal=True),
+    "noncausal": dict(b=1, s=200, h=4, hkv=4, d=128, causal=False),
+    "segments_odd": dict(b=2, s=301, h=4, hkv=2, d=128, causal=True,
+                         bounds=(0, 77, 149, 150, 301)),
+    "window_softcap_sinks": dict(b=2, s=300, h=4, hkv=2, d=128, causal=True,
+                                 window=70, softcap=30.0, sinks=True),
+}
+
+
+def _scaled_close(out, ref, dtype, what=""):
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all(), what
+    bound = atol * ref.abs().max() + rtol * ref.abs()
+    err = (out - ref).abs()
+    assert (err <= bound).all(), (what, err.max().item())
+
+
+def _bwd_case(case, dtype, dev):
+    c = dict(_BWD[case])
+    b, s, h, hkv, d = (c.pop(k) for k in ("b", "s", "h", "hkv", "d"))
+    gen = torch.Generator(device=dev).manual_seed(s + d)
+    q = _randn(gen, (b, s, h, d), dtype, dev)
+    k = _randn(gen, (b, s, hkv, d), dtype, dev)
+    v = _randn(gen, (b, s, hkv, d), dtype, dev)
+    do = _randn(gen, (b, s, h, d), dtype, dev)
+    bounds = c.pop("bounds", None)
+    seg = None
+    if bounds is not None:
+        seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        for i in range(len(bounds) - 1):
+            seg[:, bounds[i]:bounds[i + 1]] = i
+    sinks = _randn(gen, (h,), torch.float32, dev) if c.pop("sinks", False) \
+        else None
+    return q, k, v, do, seg, sinks, c
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_BWD))
+def test_flash_forward_lse_and_segments(dtype, case):
+    dev = _card()
+    q, k, v, _, seg, sinks, c = _bwd_case(case, dtype, dev)
+    out, lse = fa.flash_attention_cuda(q, k, v, sinks=sinks, segments=seg,
+                                       with_lse=True, **c)
+    rout, rlse = fa.flash_forward_ref(q, k, v, sinks=sinks, segments=seg,
+                                      **c)
+    _close(out, rout, dtype)
+    _close(lse, rlse, torch.float32 if dtype == torch.float32 else dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_BWD))
+def test_flash_backward_kernels(dtype, case):
+    dev = _card()
+    q, k, v, do, seg, sinks, c = _bwd_case(case, dtype, dev)
+    out, lse = fa.flash_forward_ref(q, k, v, sinks=sinks, segments=seg, **c)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         out.float()).contiguous()
+    before = (fa.flash_bwd_dkdv_cuda.launches, fa.flash_bwd_dq_cuda.launches)
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, segments=seg,
+                                    **c)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=seg, **c)
+    assert (fa.flash_bwd_dkdv_cuda.launches,
+            fa.flash_bwd_dq_cuda.launches) == (before[0] + 1, before[1] + 1)
+    rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta, segments=seg,
+                                     **c)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, segments=seg, **c)
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+        assert got.dtype == dtype
+        _scaled_close(got, ref, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["causal_gqa", "window_softcap_sinks",
+                                  "segments_odd"])
+def test_flash_function_grads_match_autograd(dtype, case):
+    """The kernels' (dq, dk, dv, dsinks) against autograd through the
+    plain attention on the same card."""
+    dev = _card()
+    q, k, v, do, seg, sinks, c = _bwd_case(case, dtype, dev)
+    leaves = [q, k, v] + ([sinks] if sinks is not None else [])
+    ins = [t.detach().clone().requires_grad_() for t in leaves]
+    ref_ins = [t.detach().clone().requires_grad_() for t in leaves]
+    sk = ins[3] if sinks is not None else None
+    rsk = ref_ins[3] if sinks is not None else None
+    out = fa.flash_attention(*ins[:3], sinks=sk, segments=seg, **c)
+    ref = fa.flash_attention_ref(*ref_ins[:3], sinks=rsk, segments=seg, **c)
+    got = torch.autograd.grad(out, ins, do)
+    want = torch.autograd.grad(ref, ref_ins, do)
+    for name, g, w in zip(("dq", "dk", "dv", "dsinks"), got, want):
+        _scaled_close(g, w, dtype, name)
+
+
+def test_gradients_reach_every_parameter_through_the_kernels():
+    """The autograd fault repaired: a model step on the card (flash and
+    RMSNorm kernels, forward and backward) gives every parameter the
+    gradient the CPU's plain path gives, in fp32."""
+    from shellac_tpu_torch.models import transformer as tt
+    from shellac_tpu_torch.models.registry import get_model_config
+    from shellac_tpu_torch.training import cross_entropy, named_leaves
+
+    dev = _card()
+    cfg = get_model_config("tiny-gqa").replace(
+        dtype="float32", d_model=256, n_heads=4, n_kv_heads=2, remat=True)
+    cpu_params = tt.init_params(cfg, seed=0, device="cpu", master=True)
+    gen = torch.Generator().manual_seed(1)
+    for lp in cpu_params["layers"]:
+        for k in ("attn_norm", "mlp_norm"):
+            lp[k] += 0.3 * torch.randn(lp[k].shape, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 97), generator=gen)
+    seg = torch.zeros((2, 96), dtype=torch.int32)
+    seg[:, 40:] = 1
+    grads = {}
+    for where in ("cpu", "cuda"):
+        params = _to(cpu_params, where)
+        leaves = [p.requires_grad_() for _, p in named_leaves(params)]
+        before = (norms.rms_norm_cuda.launches,
+                  fa.flash_bwd_dkdv_cuda.launches,
+                  fa.flash_bwd_dq_cuda.launches)
+        logits = tt.forward(cfg, params, toks[:, :-1].to(where),
+                            segment_ids=seg.to(where), device=where)
+        loss, _ = cross_entropy(logits, toks[:, 1:].to(where))
+        grads[where] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        if where == "cuda":
+            after = (norms.rms_norm_cuda.launches,
+                     fa.flash_bwd_dkdv_cuda.launches,
+                     fa.flash_bwd_dq_cuda.launches)
+            assert after[1] - before[1] == cfg.n_layers
+            assert after[2] - before[2] == cfg.n_layers
+            assert after[0] - before[0] == 4 * cfg.n_layers + 1
+    names = [path for path, _ in named_leaves(cpu_params)]
+    for path, g_cpu, g_card in zip(names, grads["cpu"], grads["cuda"]):
+        assert g_card.abs().max() > 0, path
+        torch.testing.assert_close(g_card, g_cpu, atol=1e-5 * float(
+            g_cpu.abs().max()), rtol=1e-4, msg=str(path))
+
+
+def _to(params, where):
+    from shellac_tpu_torch.training.train_state import map_tree
+
+    return map_tree(lambda t: t.detach().to(where).clone(), params)
+
+
+def test_decode_wrappers_raise_under_grad():
+    dev = _card()
+    q = torch.zeros(1, 1, 16, 128, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    c = torch.zeros(1, 8, 64, 128, device=dev, dtype=torch.bfloat16)
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        da.decode_attention(q, c, c, idx)
+    pool = torch.zeros(5, 8, 16, 128, device=dev, dtype=torch.bfloat16)
+    tab = torch.zeros(1, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        da.paged_decode_attention(q, pool, pool, tab, idx)
+    with torch.no_grad():
+        da.decode_attention(q, c, c, idx)

@@ -44,14 +44,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 512, unpacked and packed: three steps through the kernels
                 against the same steps with attn_impl="ref" (loss and
                 grad_norm per step, every gradient leaf of the first step).
-  9. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
+  9. int8     — the int8 KV cache (kernels 6 and 7's int8 branch):
+                kernels-int8: both int8 kernels against their plain versions
+                (dequantize in fp32, cast to q's dtype, masked attention) in
+                bf16 and fp32, at the generate shape (B 8, L 2048, ragged)
+                and the serve-int8 shape (16 slots, 64-token blocks, the
+                default pool, NaN scales in block 0 and unowned blocks), with
+                window + softcap + sinks, D 64, s 4 and an idle slot;
+                generate-int8: Engine(kv_quant="int8").generate on generate's
+                prompts (the first token of every row must equal bf16
+                generate's, since the prefill is exact; exact launch counts;
+                later greedy agreement printed); serve-int8:
+                PagedBatchingEngine(cache_backend="paged-int8") on serve's 48
+                requests (the serve metrics, the pool's bytes beside a bf16
+                pool's, exact launch counts); serve-parity-int8: 2 layers,
+                fp32, the paged-int8 and dense-int8 engines through the
+                kernels against attn_impl="ref" (logprobs within 1e-3, the
+                same tokens while the ref's top-2 margin is >= 2e-3).
+ 10. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
                 events; the eager time beside it) against its bound, its
                 plain version and one PyTorch library call computing the
                 same (for the paged kernel there is none: a gather plus
                 scaled_dot_product_attention, two calls, is timed beside
-                it; for the backward kernels the library call is the
-                backward of scaled_dot_product_attention, which computes
-                what kernels 3 and 4 compute together).
+                it; for the int8 kernels a dequantize plus SDPA, two calls,
+                and a gather, a dequantize and SDPA, three calls; for the
+                backward kernels the library call is the backward of
+                scaled_dot_product_attention, which computes what kernels 3
+                and 4 compute together).
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}.
 
@@ -61,6 +80,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -77,8 +97,9 @@ BF16_PEAK_NAME = "H100 SXM dense bf16, 989 TFLOP/s"
 
 PROMPTS, PAD, NEW_TOKENS, MAX_LEN = 8, 512, 64, 2048
 LEN_LO, LEN_HI = 128, 512
-# The serve workload.
+# The serve workload; serve-int8 runs it over 64-token int8 blocks.
 SLOTS, BLOCK, REQUESTS = 16, 16, 48
+BLOCK_INT8 = 64
 PROMPT_LO, PROMPT_HI, NEW_LO, NEW_HI = 64, 1024, 16, 128
 # The train workload: bench.py's recipe.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 6, 2048, 10
@@ -86,6 +107,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 6, 2048, 10
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def reset_peak():
+    """Free what earlier phases left (a batching engine and its backend
+    reference each other, so only the cycle collector frees them) and
+    restart the peak-memory count."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def card_line() -> str:
@@ -133,6 +163,14 @@ def kernel_table():
          "source": "shellac_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "shellac_tpu/ops/flash_attention.py:454",
          "wrapper": fa.flash_bwd_dq_cuda},
+        {"name": "decode_attention_dense_int8", "route": "cuda",
+         "source": "shellac_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "shellac_tpu/ops/decode_attention.py:334",
+         "wrapper": da.decode_attention_quant_cuda},
+        {"name": "paged_decode_attention_int8", "route": "cuda",
+         "source": "shellac_tpu_torch/csrc/paged_decode_attention.cu",
+         "replaces": "shellac_tpu/ops/decode_attention.py:562 (quant)",
+         "wrapper": da.paged_decode_attention_quant_cuda},
     ]
 
 
@@ -143,6 +181,11 @@ def reset_counts(table):
 
 def read_counts(table):
     return {k["name"]: k["wrapper"].launches for k in table}
+
+
+def only(table, **counts):
+    """Expected launch counts: the given ones, every other kernel 0."""
+    return {k["name"]: counts.get(k["name"], 0) for k in table}
 
 
 # Tolerances: fp32 is the algorithm check (summation order only differs:
@@ -202,6 +245,11 @@ def main_shapes(seed, dev):
         "paged": dict(s=1, h=16, hkv=8, d=128, bs=BLOCK,
                       max_blocks=MAX_LEN // BLOCK,
                       index=torch.from_numpy(serve_idx).to(dev)),
+        # serve-int8's decode: the default pool of 64-token blocks.
+        "paged_int8": dict(s=1, h=16, hkv=8, d=128, bs=BLOCK_INT8,
+                           max_blocks=MAX_LEN // BLOCK_INT8,
+                           min_blocks=SLOTS * MAX_LEN // 2 // BLOCK_INT8 + 1,
+                           index=torch.from_numpy(serve_idx).to(dev)),
         "train": dict(b=TRAIN_BATCH, s=TRAIN_SEQ, h=16, hkv=8, d=128),
     }
 
@@ -227,17 +275,16 @@ def decode_inputs(gen, dtype, dev, b, s, h, hkv, L, d, index):
             randn(gen, (b, hkv, L, d), dtype, dev), index)
 
 
-def paged_inputs(gen, dtype, dev, s, h, hkv, d, bs, max_blocks, index,
-                 idle=(), unowned=64):
-    """q, a pool holding each slot's pages for positions [0, index + s)
-    in shuffled blocks, the tables (rows padded with block 0), and a
-    poisoned copy of the pool whose block 0 and unowned blocks are NaN.
-    Slots in `idle` get length 0 and an all-zero table row."""
+def paged_tables(gen, dev, s, bs, max_blocks, index, idle=(), unowned=64,
+                 min_blocks=1025):
+    """Tables giving each slot shuffled pages for positions [0, index + s)
+    (rows padded with block 0); slots in `idle` get length 0 and an
+    all-zero row. Returns (tables, index, owned block mask, n_blocks)."""
     index = index.clone()
     index[list(idle)] = 0
     need = [0 if b in idle else -(-(int(i) + s) // bs)
             for b, i in enumerate(index.tolist())]
-    n_blocks = max(1025, 1 + sum(need) + unowned)
+    n_blocks = max(min_blocks, 1 + sum(need) + unowned)
     ids = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
     tables = torch.zeros((len(need), max_blocks), dtype=torch.int32,
                          device=dev)
@@ -247,13 +294,55 @@ def paged_inputs(gen, dtype, dev, s, h, hkv, d, bs, max_blocks, index,
         tables[b, :n] = ids[at:at + n].to(torch.int32)
         owned[ids[at:at + n]] = True
         at += n
-    q = randn(gen, (len(need), s, h, d), dtype, dev)
+    return tables, index, owned, n_blocks
+
+
+def paged_inputs(gen, dtype, dev, s, h, hkv, d, bs, max_blocks, index,
+                 idle=(), min_blocks=1025):
+    """q, a pool holding each slot's pages in shuffled blocks, the tables
+    and index (`paged_tables`), and a poisoned copy of the pool whose
+    block 0 and unowned blocks are NaN."""
+    tables, index, owned, n_blocks = paged_tables(
+        gen, dev, s, bs, max_blocks, index, idle, min_blocks=min_blocks)
+    q = randn(gen, (len(index), s, h, d), dtype, dev)
     k = randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
     v = randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
     pk, pv = k.clone(), v.clone()
     pk[~owned] = float("nan")
     pv[~owned] = float("nan")
     return q, k, v, tables, index, pk, pv
+
+
+def quant_rows(gen, shape, dev):
+    """Seeded normals (..., D) quantized as a cache write would: int8
+    values and fp32 scales of shape[:-1]."""
+    from shellac_tpu_torch.inference.cache import quantize_kv
+
+    q, sc = quantize_kv(torch.randn(shape, generator=gen, device=dev)[None])
+    return q[0].contiguous(), sc[0].contiguous()
+
+
+def decode_quant_inputs(gen, dtype, dev, b, s, h, hkv, L, d, index):
+    """q, an int8 dense cache (B, Hkv, L, D) and its scales, index."""
+    ck, ks = quant_rows(gen, (b, hkv, L, d), dev)
+    cv, vs = quant_rows(gen, (b, hkv, L, d), dev)
+    return randn(gen, (b, s, h, d), dtype, dev), ck, cv, ks, vs, index
+
+
+def paged_quant_inputs(gen, dtype, dev, s, h, hkv, d, bs, max_blocks, index,
+                       idle=(), min_blocks=1025):
+    """q, an int8 pool and its scale pools, the tables and index
+    (`paged_tables`), and poisoned copies of the scale pools whose block 0
+    and unowned blocks are NaN."""
+    tables, index, owned, n_blocks = paged_tables(
+        gen, dev, s, bs, max_blocks, index, idle, min_blocks=min_blocks)
+    q = randn(gen, (len(index), s, h, d), dtype, dev)
+    k, ks = quant_rows(gen, (n_blocks, hkv, bs, d), dev)
+    v, vs = quant_rows(gen, (n_blocks, hkv, bs, d), dev)
+    pks, pvs = ks.clone(), vs.clone()
+    pks[~owned] = float("nan")
+    pvs[~owned] = float("nan")
+    return q, k, v, ks, vs, tables, index, pks, pvs
 
 
 def phase_kernels(gen, dev, shapes):
@@ -358,6 +447,76 @@ def phase_kernels(gen, dev, shapes):
                    main and case == "main_serve_bs16", rows=live)
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
+                         f"{failed}")
+    return results
+
+
+def phase_kernels_int8(gen, dev, shapes):
+    """Both int8 kernels against their plain versions (dequantize in fp32,
+    cast to q's dtype, masked attention) at the generate and serve-int8
+    shapes. The paged kernel reads scale pools whose block 0 and unowned
+    blocks are NaN, the plain version the clean ones."""
+    from shellac_tpu_torch.ops.decode_attention import (
+        _decode_ref,
+        _paged_decode_ref,
+        decode_attention_quant_cuda,
+        paged_decode_attention_quant_cuda,
+    )
+
+    results, failed = {}, []
+    sinks16 = randn(gen, (16,), torch.float32, dev)
+    wss = {"window": 200, "softcap": 50.0, "sinks": sinks16}
+    dense_cases = {"main_ragged": ({}, {}), "window_softcap_sinks": ({}, wss),
+                   "d64": ({"d": 64}, {}), "s4_causal_rows": ({"s": 4}, {})}
+    paged_cases = {
+        "main_serve_int8_bs64": ({}, {}, ()),
+        "bs16": ({"bs": 16, "max_blocks": MAX_LEN // 16}, {}, ()),
+        "d64": ({"d": 64}, {}, ()),
+        "window_softcap_sinks": ({}, wss, ()),
+        "s4": ({"s": 4}, {}, ()),
+        "idle_slot": ({}, {}, (3,)),
+    }
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+
+        def record(kernel, case, out, ref, is_main, rows=None):
+            torch.cuda.synchronize()
+            if rows is not None:
+                out, ref = out[rows], ref[rows]
+            res = compare(out, ref, dtype)
+            emit("kernels-int8", kernel=kernel, case=case, dtype=str(dtype),
+                 **res)
+            if is_main:
+                results[kernel] = res["max_abs_err"]
+            if not res["ok"]:
+                failed.append((kernel, case, str(dtype)))
+
+        for case, (shape, kw) in dense_cases.items():
+            p = {**shapes["decode"], **shape}
+            q, ck, cv, ks, vs, idx = decode_quant_inputs(gen, dtype, dev, **p)
+            record("decode_attention_dense_int8", case,
+                   decode_attention_quant_cuda(q, ck, cv, ks, vs, idx, **kw),
+                   _decode_ref(q, ck, cv, idx, kw.get("window"),
+                               p["d"] ** -0.5, softcap=kw.get("softcap"),
+                               sinks=kw.get("sinks"), k_scale=ks,
+                               v_scale=vs),
+                   main and case == "main_ragged")
+        for case, (shape, kw, idle) in paged_cases.items():
+            p = {**shapes["paged_int8"], **shape}
+            q, k, v, ks, vs, tab, idx, pks, pvs = paged_quant_inputs(
+                gen, dtype, dev, **p, idle=idle)
+            live = [b for b in range(len(idx)) if b not in idle]
+            out = paged_decode_attention_quant_cuda(q, k, v, pks, pvs, tab,
+                                                    idx, **kw)
+            ref = _paged_decode_ref(q, k, v, tab, idx, kw.get("window"),
+                                    p["d"] ** -0.5, softcap=kw.get("softcap"),
+                                    sinks=kw.get("sinks"), k_scale=ks,
+                                    v_scale=vs)
+            record("paged_decode_attention_int8", case, out, ref,
+                   main and case == "main_serve_int8_bs64", rows=live)
+            del k, v, ks, vs, pks, pvs
+    if failed:
+        raise SystemExit(f"int8 kernels disagree with their plain versions: "
                          f"{failed}")
     return results
 
@@ -513,7 +672,7 @@ def phase_generate(seed, dev, table, card):
                     device=dev)
     engine.generate(toks, lens, max_new_tokens=4)  # warm-up (cuBLAS init)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
 
     reset_counts(table)
     t0 = time.perf_counter()
@@ -523,14 +682,9 @@ def phase_generate(seed, dev, table, card):
     counts = read_counts(table)
     peak = torch.cuda.max_memory_allocated()
 
-    expect = {
-        "rms_norm": (2 * cfg.n_layers + 1) * NEW_TOKENS,
-        "flash_attention_fwd": cfg.n_layers,
-        "decode_attention_dense": cfg.n_layers * (NEW_TOKENS - 1),
-        "paged_decode_attention": 0,
-        "flash_attention_bwd_dkdv": 0,
-        "flash_attention_bwd_dq": 0,
-    }
+    expect = only(table, rms_norm=(2 * cfg.n_layers + 1) * NEW_TOKENS,
+                  flash_attention_fwd=cfg.n_layers,
+                  decode_attention_dense=cfg.n_layers * (NEW_TOKENS - 1))
     tokens_ok = (tuple(res.tokens.shape) == (PROMPTS, NEW_TOKENS)
                  and bool(((res.tokens >= 0)
                            & (res.tokens < cfg.vocab_size)).all().item())
@@ -591,6 +745,68 @@ def phase_generate(seed, dev, table, card):
                          "plain path")
     del p32, out
     torch.cuda.empty_cache()
+    return counts, res.tokens
+
+
+def phase_generate_int8(seed, dev, table, card, bf16_tokens):
+    """Engine(kv_quant="int8").generate on generate's prompts and budget.
+    The prefill attends its exact chunk, so every row's first token must
+    equal bf16 generate's; later tokens read K and V rounded to int8, and
+    how long each row's greedy run agrees with bf16 is printed, not
+    gated."""
+    from shellac_tpu_torch import Engine, get_model_config
+    from shellac_tpu_torch.models import transformer
+
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    toks, lens = prompts(seed, cfg.vocab_size, dev)
+    engine = Engine(cfg, params, max_len=MAX_LEN, temperature=0.0,
+                    kv_quant="int8", device=dev)
+    engine.generate(toks, lens, max_new_tokens=4)  # warm-up
+    torch.cuda.synchronize()
+    reset_peak()
+
+    reset_counts(table)
+    t0 = time.perf_counter()
+    res = engine.generate(toks, lens, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts(table)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    expect = only(table, rms_norm=(2 * L + 1) * NEW_TOKENS,
+                  flash_attention_fwd=L,
+                  decode_attention_dense_int8=L * (NEW_TOKENS - 1))
+    tokens_ok = (tuple(res.tokens.shape) == (PROMPTS, NEW_TOKENS)
+                 and bool(((res.tokens >= 0)
+                           & (res.tokens < cfg.vocab_size)).all().item())
+                 and bool(torch.isfinite(res.logprobs).all().item()))
+    first_equal = bool(torch.equal(res.tokens[:, 0], bf16_tokens[:, 0]))
+    same = (res.tokens == bf16_tokens).int()
+    agree_prefix = torch.cumprod(same, dim=1).sum(dim=1).tolist()
+    with torch.inference_mode():
+        _, cache, _ = engine._prefill_impl(toks, lens)
+        cache_bytes = pool_bytes(cache)
+        tok = res.tokens[:, :1].long()
+        step_ms = graph_ms(
+            lambda: transformer.forward_with_cache(cfg, params, tok, cache),
+            [()], 1)
+    emit("generate-int8", step="main_path", launches=counts,
+         expected=expect, tokens_ok=tokens_ok,
+         first_token_equals_bf16=first_equal,
+         greedy_prefix_agreeing_with_bf16=agree_prefix,
+         tokens_equal_to_bf16=int(same.sum().item()),
+         tokens=PROMPTS * NEW_TOKENS, total_s=total_s,
+         tokens_per_s=PROMPTS * NEW_TOKENS / total_s,
+         decode_step_device_ms=step_ms, cache_bytes=cache_bytes,
+         bf16_cache_bytes=2 * L * PROMPTS * cfg.kv_heads * MAX_LEN
+         * cfg.dim_per_head * 2,
+         max_memory_allocated=peak, card=card)
+    if counts != expect or not tokens_ok or not first_equal:
+        raise SystemExit("generate-int8: wrong launch counts, bad tokens or "
+                         "a first token that differs from bf16")
+    del engine, params, cache
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -643,8 +859,9 @@ def kernel_kind(name):
     """A profiler kernel name's kind: one of the port's kernels, a GEMM
     (cuBLAS/CUTLASS), or other."""
     if "decode_kernel" in name:
-        return ("paged_decode_attention" if "Paged" in name
+        kind = ("paged_decode_attention" if "Paged" in name
                 else "decode_attention_dense")
+        return kind + ("_int8" if "signed char" in name else "")
     for key, kind in (("flash_fwd", "flash_attention_fwd"),
                       ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
                       ("flash_bwd_dq", "flash_attention_bwd_dq"),
@@ -686,16 +903,30 @@ def pristine(engine):
             and int(engine._cache.lengths.abs().sum().item()) == 0)
 
 
-def phase_serve(seed, dev, table, card):
+def pool_bytes(cache):
+    return sum(t.numel() * t.element_size()
+               for t in (cache.k, cache.v, getattr(cache, "ks", None),
+                         getattr(cache, "vs", None)) if t is not None)
+
+
+def phase_serve(seed, dev, table, card, backend="paged"):
+    """The serve workload over `backend`: "paged" (16-token blocks in
+    bf16, kernel 7) or "paged-int8" (64-token int8 blocks, kernel 7's
+    int8 branch); the phase is named "serve" or "serve-int8"."""
     from shellac_tpu_torch import get_model_config
     from shellac_tpu_torch.inference.batching import PagedBatchingEngine
     from shellac_tpu_torch.models import transformer
 
+    quant = backend == "paged-int8"
+    phase = "serve-int8" if quant else "serve"
+    block = BLOCK_INT8 if quant else BLOCK
+    decode_kernel = ("paged_decode_attention_int8" if quant
+                     else "paged_decode_attention")
     cfg = get_model_config("shellac-1b")
     params = transformer.init_params(cfg, seed=seed, device=dev)
     engine = PagedBatchingEngine(
-        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
-        decode_ticks=1, temperature=0.0, device=dev)
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=block,
+        cache_backend=backend, decode_ticks=1, temperature=0.0, device=dev)
     be = engine.cache_backend
     reqs = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
                           (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
@@ -703,7 +934,7 @@ def phase_serve(seed, dev, table, card):
     engine.run(serve_requests(seed + 2, cfg.vocab_size, 2,
                               (PROMPT_LO, PROMPT_LO), (NEW_LO, NEW_LO)))
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     be.peak_blocks_used = 0
     before = dict(engine.stats)
 
@@ -720,14 +951,9 @@ def phase_serve(seed, dev, table, card):
     ticks = delta["decode_windows"] * engine.decode_ticks
     prefills = delta["prefills"]
     L = cfg.n_layers
-    expect = {
-        "rms_norm": (2 * L + 1) * (prefills + ticks),
-        "flash_attention_fwd": L * prefills,
-        "decode_attention_dense": 0,
-        "paged_decode_attention": L * ticks,
-        "flash_attention_bwd_dkdv": 0,
-        "flash_attention_bwd_dq": 0,
-    }
+    expect = only(table, rms_norm=(2 * L + 1) * (prefills + ticks),
+                  flash_attention_fwd=L * prefills,
+                  **{decode_kernel: L * ticks})
     tokens_ok = (set(results) == {r[0] for r in reqs} and all(
         len(results[rid]) == m
         and all(0 <= t < cfg.vocab_size for t in results[rid])
@@ -739,8 +965,14 @@ def phase_serve(seed, dev, table, card):
         tpot.append((done - first) / max(m - 1, 1))
     generated = sum(len(v) for v in results.values())
     clean = pristine(engine)
-    emit("serve", step="main_path", model="shellac-1b", slots=SLOTS,
-         max_len=MAX_LEN, block_size=BLOCK, pool_blocks=be.n_blocks - 1,
+    # The same pool in bf16: k and v of (L, n_blocks, Hkv, bs, D).
+    bf16_bytes = (2 * L * be.n_blocks * cfg.kv_heads * block
+                  * cfg.dim_per_head * 2)
+    emit(phase, step="main_path", model="shellac-1b", backend=be.name,
+         slots=SLOTS, max_len=MAX_LEN, block_size=block,
+         pool_blocks=be.n_blocks - 1, pool_bytes=pool_bytes(engine._cache),
+         bf16_pool_bytes_same_tokens=bf16_bytes,
+         bytes_per_token=be.bytes_per_token(),
          requests=len(reqs), generated_tokens=generated, wall_s=wall,
          tokens_per_s=generated / wall,
          ttft_ms_p50=pct(ttft, 50) * 1e3, ttft_ms_p99=pct(ttft, 99) * 1e3,
@@ -751,7 +983,7 @@ def phase_serve(seed, dev, table, card):
          max_memory_allocated=peak, launches=counts, expected=expect,
          tokens_ok=tokens_ok, allocator_pristine=clean, card=card)
     if counts != expect or not tokens_ok or not clean:
-        raise SystemExit("serve: wrong launch counts, bad tokens or a "
+        raise SystemExit(f"{phase}: wrong launch counts, bad tokens or a "
                          "leaked block")
 
     # One engine step profiled: 16 slots decoding, no admission.
@@ -763,11 +995,11 @@ def phase_serve(seed, dev, table, card):
     engine.step()
     torch.cuda.synchronize()
     prof = profile_call(engine.step)
-    emit("serve", step="profile_engine_step", active_slots=sum(
+    emit(phase, step="profile_engine_step", active_slots=sum(
         r is not None for r in engine._slots), **prof)
     engine.abort_all()
     if not pristine(engine):
-        raise SystemExit("serve: abort_all left blocks allocated")
+        raise SystemExit(f"{phase}: abort_all left blocks allocated")
     del engine, params
     torch.cuda.empty_cache()
     return counts
@@ -806,6 +1038,67 @@ def phase_serve_parity(seed, dev):
     torch.cuda.empty_cache()
 
 
+def phase_serve_parity_int8(seed, dev, table):
+    """The int8 engines through the kernels against the paged-int8 engine
+    on the plain attention, in fp32 at shellac-1b width cut to 2 layers:
+    logprobs within 1e-3 and the same greedy tokens while the plain run's
+    top-2 logprob margin is at least 2e-3 (then summation order cannot
+    swap the argmax)."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import (
+        BatchingEngine,
+        PagedBatchingEngine,
+    )
+    from shellac_tpu_torch.models import transformer
+
+    tol = 1e-3
+    cfg = get_model_config("shellac-1b").replace(n_layers=2, dtype="float32")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reqs = serve_requests(seed + 4, cfg.vocab_size, 14, (16, 300), (4, 24))
+    kw = dict(n_slots=6, max_len=512, logprobs=True, top_logprobs=2,
+              device=dev)
+    runs = {
+        "paged_int8_ref": PagedBatchingEngine(
+            cfg, params, cache_backend="paged-int8", attn_impl="ref", **kw),
+        "paged_int8_kernel": PagedBatchingEngine(
+            cfg, params, cache_backend="paged-int8", **kw),
+        "dense_int8_kernel": BatchingEngine(
+            cfg, params, cache_backend="dense-int8", **kw),
+    }
+    reset_counts(table)
+    out = {name: eng.run(reqs) for name, eng in runs.items()}
+    counts = read_counts(table)
+    ref = runs["paged_int8_ref"]
+    report, ok = {}, counts["decode_attention_dense_int8"] > 0 \
+        and counts["paged_decode_attention_int8"] > 0
+    for name in ("paged_int8_kernel", "dense_int8_kernel"):
+        eng, compared, lp_err = runs[name], 0, 0.0
+        for rid, _, _ in reqs:
+            margins = [lps[0] - lps[1]
+                       for _, lps in ref.finished_top_logprobs[rid]]
+            low = [i for i, m in enumerate(margins) if m < 2 * tol]
+            upto = low[0] if low else len(margins)
+            ok = ok and out[name][rid][:upto] == out["paged_int8_ref"][rid][
+                :upto]
+            lp_err = max([lp_err] + [
+                abs(a - b) for a, b in zip(eng.finished_logprobs[rid][:upto],
+                                           ref.finished_logprobs[rid][:upto])])
+            compared += upto
+        total = sum(len(v) for v in out[name].values())
+        ok = ok and lp_err <= tol and compared >= 0.75 * total
+        report[name] = dict(tokens_compared=compared, tokens=total,
+                            logprob_max_abs_err=lp_err,
+                            identical=out[name] == out["paged_int8_ref"])
+    emit("serve-parity-int8", requests=len(reqs), slots=6, dtype="float32",
+         layers=2, launches=counts, tol_logprob=tol, margin=2 * tol,
+         ok=ok, **report)
+    if not ok:
+        raise SystemExit("serve-parity-int8: the int8 engines through the "
+                         "kernels differ from the plain path")
+    del runs, params
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------
 # train: make_train_step at bench.py's recipe
 # --------------------------------------------------------------------------
@@ -817,13 +1110,12 @@ def train_batch(seed, vocab, b, s, dev):
     return {"inputs": t, "targets": t}
 
 
-def step_counts(L):
+def step_counts(table, L):
     """Launches of one remat train step: every block's forward runs twice
     (the forward and its recompute), its backward once; the final norm
     once."""
-    return {"rms_norm": 4 * L + 1, "flash_attention_fwd": 2 * L,
-            "decode_attention_dense": 0, "paged_decode_attention": 0,
-            "flash_attention_bwd_dkdv": L, "flash_attention_bwd_dq": L}
+    return only(table, rms_norm=4 * L + 1, flash_attention_fwd=2 * L,
+                flash_attention_bwd_dkdv=L, flash_attention_bwd_dq=L)
 
 
 def phase_train(seed, dev, table, card):
@@ -850,7 +1142,7 @@ def phase_train(seed, dev, table, card):
     state, m = step(state, batch)  # warm-up (cuBLAS, allocator)
     warm_loss = m["loss"].item()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
 
     reset_counts(table)
     losses, skipped, step_s = [], [], []
@@ -870,7 +1162,7 @@ def phase_train(seed, dev, table, card):
     step_mean = total_s / TRAIN_STEPS
     tflops = flops_tok * tokens / step_mean / 1e12
     expect = {k: TRAIN_STEPS * n
-              for k, n in step_counts(cfg.n_layers).items()}
+              for k, n in step_counts(table, cfg.n_layers).items()}
     ok = (all(np.isfinite(losses)) and not any(skipped)
           and losses[-1] < losses[0] and counts == expect)
     emit("train", step="main_path", model="shellac-1b", batch=TRAIN_BATCH,
@@ -894,7 +1186,7 @@ def phase_train(seed, dev, table, card):
     loss = m["loss"].item()
     got = {k: v - before[k] for k, v in read_counts(table).items()}
     ok = (np.isfinite(loss) and m["update_skipped"].item() == 0
-          and got == step_counts(cfg.n_layers))
+          and got == step_counts(table, cfg.n_layers))
     emit("train", step="packed_segments", loss=loss, launches=got, ok=ok)
     if not ok:
         raise SystemExit("train: the packed step failed")
@@ -1044,12 +1336,18 @@ def bound(nbytes, flops, dtype):
 
 
 def phase_timings(gen, dev, shapes, card):
-    from shellac_tpu_torch.inference.cache import paged_gather_layer
+    from shellac_tpu_torch.inference.cache import (
+        paged_gather_layer,
+        paged_gather_scales,
+    )
     from shellac_tpu_torch.ops.decode_attention import (
         _decode_ref,
+        _dequantize,
         _paged_decode_ref,
         decode_attention_cuda,
+        decode_attention_quant_cuda,
         paged_decode_attention_cuda,
+        paged_decode_attention_quant_cuda,
     )
     from shellac_tpu_torch.ops.flash_attention import (
         flash_attention_cuda,
@@ -1075,10 +1373,10 @@ def phase_timings(gen, dev, shapes, card):
         return ms, ms
 
     def record(name, case, kernel, plain, library, nbytes, flops, shape,
-               two_calls=None):
+               calls=None):
         """`library` times one PyTorch call computing the same function;
-        where none exists it is None and `two_calls` may time the
-        nearest library route of two calls."""
+        where none exists it is None and `calls` = (key, what, times) may
+        time the nearest library route of several calls."""
         bms, by = bound(nbytes, flops, bf)
         row = {"ms": kernel[0], "plain_ms": plain[0], "bound_ms": bms,
                "bound_by": by,
@@ -1087,9 +1385,11 @@ def phase_timings(gen, dev, shapes, card):
         extra = {}
         if library is not None:
             extra["library_eager_ms"] = library[1]
-        if two_calls is not None:
-            row["library_two_calls_ms"] = two_calls[0]
-            extra["library_two_calls_eager_ms"] = two_calls[1]
+        if calls is not None:
+            key, what, times = calls
+            row[key] = times[0]
+            row[key + "_what"] = what
+            extra[key.replace("_ms", "_eager_ms")] = times[1]
         emit("timings", kernel=name, case=case, dtype="bf16",
              bytes=nbytes, flops=flops, roofline_share=bms / kernel[0],
              peaks=f"{BF16_PEAK_NAME}; {PEAK_BYTES_S / 1e12} TB/s",
@@ -1225,7 +1525,69 @@ def phase_timings(gen, dev, shapes, card):
     pages = int(((idx + 1 + bs - 1) // bs).sum().item())
     record("paged_decode_attention", "serve_ragged", k, p, None,
            2 * b * h * d * 2 + 2 * live * hkv * d * 2 + pages * 4 + b * 4,
-           4 * d * h * live, [b, 1, h, hkv, bs, mb, d], two_calls=two)
+           4 * d * h * live, [b, 1, h, hkv, bs, mb, d],
+           calls=("library_two_calls_ms", "gather + SDPA", two))
+    del sets
+
+    # Kernel 6 at the generate-int8 shape. Bytes: q and out, the live
+    # int8 k/v rows and their fp32 scales (2 D + 8 bytes per position and
+    # kv head), index.
+    ds = shapes["decode"]
+    b, h, hkv, L, d, idx = (ds["b"], ds["h"], ds["hkv"], ds["L"], ds["d"],
+                            ds["index"])
+    sets = copies(lambda: decode_quant_inputs(gen, bf, dev, **ds))
+    live = int((idx + 1).sum().item())
+    mask = (torch.arange(L, device=dev)[None, :]
+            < (idx + 1)[:, None].long())[:, None, None, :]
+
+    def dequant_sdpa(q, ck, cv, ks, vs, i):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), _dequantize(ck, ks, bf),
+            _dequantize(cv, vs, bf), attn_mask=mask, enable_gqa=True)
+
+    k = measure(lambda q, ck, cv, ks, vs, i: decode_attention_quant_cuda(
+        q, ck, cv, ks, vs, i), sets, 200)
+    p = measure(lambda q, ck, cv, ks, vs, i: _decode_ref(
+        q, ck, cv, i, None, d ** -0.5, k_scale=ks, v_scale=vs), sets, 20)
+    two = measure(dequant_sdpa, sets, 50)
+    record("decode_attention_dense_int8", "generate_int8_ragged", k, p, None,
+           2 * b * h * d * 2 + live * hkv * (2 * d + 8) + b * 4,
+           4 * d * h * live, [b, 1, h, hkv, L, d],
+           calls=("library_two_calls_ms",
+                  "dequantize k and v (fp32 multiply, bf16 cast) + SDPA",
+                  two))
+    del sets
+
+    # Kernel 7's int8 branch at the serve-int8 shape (64-token blocks).
+    ps = shapes["paged_int8"]
+    idx = ps["index"]
+    b, h, hkv, d, bs, mb = (len(idx), ps["h"], ps["hkv"], ps["d"], ps["bs"],
+                            ps["max_blocks"])
+    sets = copies(lambda: paged_quant_inputs(gen, bf, dev, **ps)[:7])
+    live = int((idx + 1).sum().item())
+    mask = (torch.arange(mb * bs, device=dev)[None, :]
+            < (idx + 1)[:, None].long())[:, None, None, :]
+
+    def gather_dequant_sdpa(q, pk, pv, pks, pvs, tab, i):
+        kk, vv = paged_gather_layer(pk, pv, tab)
+        kk = _dequantize(kk, paged_gather_scales(pks, tab), bf)
+        vv = _dequantize(vv, paged_gather_scales(pvs, tab), bf)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)
+
+    k = measure(lambda q, pk, pv, pks, pvs, tab, i:
+                paged_decode_attention_quant_cuda(q, pk, pv, pks, pvs, tab, i),
+                sets, 200)
+    p = measure(lambda q, pk, pv, pks, pvs, tab, i: _paged_decode_ref(
+        q, pk, pv, tab, i, None, d ** -0.5, k_scale=pks, v_scale=pvs),
+        sets, 20)
+    three = measure(gather_dequant_sdpa, sets, 50)
+    pages = int(((idx + 1 + bs - 1) // bs).sum().item())
+    record("paged_decode_attention_int8", "serve_int8_ragged", k, p, None,
+           2 * b * h * d * 2 + live * hkv * (2 * d + 8) + pages * 4 + b * 4,
+           4 * d * h * live, [b, 1, h, hkv, bs, mb, d],
+           calls=("library_three_calls_ms",
+                  "gather + dequantize k and v + SDPA", three))
     return rows_out
 
 
@@ -1261,16 +1623,25 @@ def main():
     gen.manual_seed(args.seed)
     shapes = main_shapes(args.seed, dev)
     errs = phase_kernels(gen, dev, shapes)
+    errs.update(phase_kernels_int8(gen, dev, shapes))
     errs.update(phase_kernels_train(gen, dev, shapes))
     # The main paths, each with the counts set to 0 just before it; every
     # kernel of a path must have launched in its run.
-    paths = {"generate": phase_generate(args.seed, dev, table, card),
+    gen_counts, bf16_tokens = phase_generate(args.seed, dev, table, card)
+    paths = {"generate": gen_counts,
+             "generate-int8": phase_generate_int8(args.seed, dev, table,
+                                                  card, bf16_tokens),
              "serve": phase_serve(args.seed, dev, table, card),
+             "serve-int8": phase_serve(args.seed, dev, table, card,
+                                       backend="paged-int8"),
              "train": phase_train(args.seed, dev, table, card)}
-    for path, kinds in (("generate", ("rms_norm", "flash_attention_fwd",
-                                      "decode_attention_dense")),
-                        ("serve", ("rms_norm", "flash_attention_fwd",
-                                   "paged_decode_attention")),
+    decode = ("rms_norm", "flash_attention_fwd")
+    for path, kinds in (("generate", decode + ("decode_attention_dense",)),
+                        ("generate-int8",
+                         decode + ("decode_attention_dense_int8",)),
+                        ("serve", decode + ("paged_decode_attention",)),
+                        ("serve-int8",
+                         decode + ("paged_decode_attention_int8",)),
                         ("train", ("rms_norm", "flash_attention_fwd",
                                    "flash_attention_bwd_dkdv",
                                    "flash_attention_bwd_dq"))):
@@ -1278,6 +1649,7 @@ def main():
         if missing:
             raise SystemExit(f"{path}: kernels never launched: {missing}")
     phase_serve_parity(args.seed, dev)
+    phase_serve_parity_int8(args.seed, dev, table)
     phase_train_parity(args.seed, dev)
     times = phase_timings(gen, dev, shapes, card)
 

@@ -3,15 +3,18 @@
 // q (B, s, H, D) attends one slot's kv rows; q row si of slot b sits at
 // position index[b] + si and attends kv positions <= its own, optionally
 // within a sliding window, with Gemma-2 softcap and GPT-OSS sinks. The
-// two kernels differ only in where position p of a slot lives, which an
-// addressing policy answers (see DenseRows in decode_attention.cu and
+// cache is stored in q's dtype or in int8 (KT = int8_t) with one fp32
+// dequant scale per (position, kv head). The two kernels differ only in
+// where position p of a slot lives, which an addressing policy answers (see DenseRows in decode_attention.cu and
 // PagedRows in paged_decode_attention.cu):
 //   int capacity()          positions a slot can address;
 //   void stage(b, hk, first, live_end, ints, tid)
 //                           per-block set-up before the block's barrier,
 //                           with `ints` shared memory of extra_ints();
 //   size_t row(pos)         the index of position pos's D-vector in the
-//                           k (and v) array.
+//                           k (and v) array; for int8 also the index of
+//                           its scale in ks (and vs), whose layout is the
+//                           value layout without the head dim.
 //
 // Kept from the TPU kernels: the GQA rows of one kv head are processed
 // together (G*s rows, kv-head-major as `_flatten_q` orders them) so each
@@ -20,7 +23,13 @@
 // index + s - 1, so nothing past a slot's length is read; causal masking
 // within the s rows; softcap before the mask; fp32 online softmax with p
 // rounded to v's dtype before the p.V product (l sums the unrounded p);
-// sinks folded in at the end as sink_rebase does.
+// sinks folded in at the end as sink_rebase does. The int8 cache
+// follows `_dense_kernel_quant` and the quant branch of
+// `_paged_group_kernel` (`_decode_tile` with ks_ref/vs_ref): the logit is
+// the fp32 dot of the scaled q with the integer k row, times ks[pos],
+// then softcap and mask; p is multiplied by vs[pos] in fp32 (never
+// rounded to a 16-bit type) before p.V over the integer v row; l sums
+// the unscaled p.
 //
 // What changes for Hopper: the TPU kernels walk kv blocks as a
 // sequential grid carrying VMEM scratch. Here one 256-thread block owns
@@ -40,12 +49,14 @@
 // keeps its loads in flight independently.
 //
 // Bound on the H100: bytes. Each step reads the live k/v range once
-// (2 * live * D * 2 bytes per slot and kv head in bf16) for ~4 flops per
-// byte. With one block per (slot, kv head) the grid is B * Hkv blocks; at
+// (2 * live * D * 2 bytes per slot and kv head in bf16; 2 * live * (D + 4)
+// in int8, values and scales) for ~4 flops per byte (~8 in int8). With one block per (slot, kv head) the grid is B * Hkv blocks; at
 // fewer blocks than the card's 132 SMs its bandwidth is not reached, and
 // splitting the kv range across blocks (flash-decoding's split-K) is the
 // later redesign.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -57,8 +68,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;  // positions per warp step: one per lane
 constexpr int kRMax = 16;   // most q rows (G * s) per block
 
-// Load N consecutive T values into floats (N * sizeof(T) bytes, aligned
-// to that size by the callers' layout).
+// Load N consecutive T values into floats (N * sizeof(T) bytes: 2, 4, 8
+// or 16, aligned to that size by the callers' layout).
 template <typename T, int N>
 __device__ __forceinline__ void load_f32(const T* p, float* out) {
   constexpr int kBytes = N * sizeof(T);
@@ -72,9 +83,15 @@ __device__ __forceinline__ void load_f32(const T* p, float* out) {
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
     for (int j = 0; j < N; ++j) out[j] = to_f32(e[j]);
-  } else {
-    static_assert(kBytes == 4, "loads of 4, 8 or 16 bytes");
+  } else if constexpr (kBytes == 4) {
     unsigned u = *reinterpret_cast<const unsigned*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = to_f32(e[j]);
+  } else {
+    // int8 p.V at D 64: two bytes a lane.
+    static_assert(kBytes == 2, "loads of 2, 4, 8 or 16 bytes");
+    unsigned short u = *reinterpret_cast<const unsigned short*>(p);
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
     for (int j = 0; j < N; ++j) out[j] = to_f32(e[j]);
@@ -89,15 +106,19 @@ inline size_t smem_bytes(int rows, int D, int extra_ints) {
          sizeof(int) * (size_t)extra_ints;
 }
 
-template <typename T, int D, int R, typename Addr>
+// T: q's and the output's type; KT: the cache's (T, or int8_t with the
+// fp32 scales ks/vs, which are null otherwise).
+template <typename T, typename KT, int D, int R, typename Addr>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
-              const T* __restrict__ cache_v, const int* __restrict__ index,
+decode_kernel(const T* __restrict__ q, const KT* __restrict__ cache_k,
+              const KT* __restrict__ cache_v, const float* __restrict__ ks,
+              const float* __restrict__ vs, const int* __restrict__ index,
               const float* __restrict__ sinks, T* __restrict__ out, int s,
               int H, int Hkv, float scale, int window, float softcap,
               Addr addr) {
-  constexpr int CH = 16 / sizeof(T);  // k elements per 16-byte load
-  constexpr int DL = D / 32;          // head dims per lane in p.V
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  constexpr int CH = 16 / sizeof(KT);  // k elements per 16-byte load
+  constexpr int DL = D / 32;           // head dims per lane in p.V
 
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
@@ -141,19 +162,27 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
     const int pos = c0 + lane;
     const bool in = pos < live_end;
     // Element offset of this lane's k/v row; shuffled to the whole warp
-    // in the p.V loop.
-    const size_t off = in ? addr.row(pos) * D : 0;
+    // in the p.V loop. An int8 row's scales sit at the row index.
+    const size_t row = in ? addr.row(pos) : 0;
+    const size_t off = row * D;
+    float ksc = 0.f, vsc = 0.f;
+    if constexpr (kQuant) {
+      if (in) {
+        ksc = ks[row];
+        vsc = vs[row];
+      }
+    }
 
     // Logits of this lane's position for every row.
     float sc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) sc[r] = 0.f;
     if (in) {
-      const T* krow = cache_k + off;
+      const KT* krow = cache_k + off;
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += CH) {
         float kf[CH];
-        load_f32<T, CH>(krow + d0, kf);
+        load_f32<KT, CH>(krow + d0, kf);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < rows) {
@@ -170,6 +199,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
     for (int r = 0; r < R; ++r) {
       if (r < rows) {
         float x = sc[r];
+        if constexpr (kQuant) x *= ksc;  // dequant before softcap
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         const int qpos = idx + r % s;
         bool ok = in && pos <= qpos;
@@ -182,7 +212,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
         m[r] = m_new;
 #pragma unroll
         for (int j = 0; j < DL; ++j) acc[r][j] *= alpha;
-        sc[r] = round_through<T>(p);
+        if constexpr (kQuant)
+          sc[r] = p * vsc;  // fp32, not rounded
+        else
+          sc[r] = round_through<T>(p);
       }
     }
 
@@ -193,7 +226,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
       if (j < n) {
         const size_t vo = __shfl_sync(0xffffffffu, off, j);
         float vf[DL];
-        load_f32<T, DL>(cache_v + vo + lane * DL, vf);
+        load_f32<KT, DL>(cache_v + vo + lane * DL, vf);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < rows) {
@@ -246,20 +279,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
   }
 }
 
-template <typename T, int D, int R, typename Addr>
+template <typename T, typename KT, int D, int R, typename Addr>
 cudaError_t launch_rows(const void* q, const void* k, const void* v,
-                        const void* index, const void* sinks, void* out,
-                        int B, int s, int H, int Hkv, float scale,
-                        int window, float softcap, const Addr& addr,
-                        cudaStream_t stream) {
-  auto kernel = decode_kernel<T, D, R, Addr>;
+                        const void* ks, const void* vs, const void* index,
+                        const void* sinks, void* out, int B, int s, int H,
+                        int Hkv, float scale, int window, float softcap,
+                        const Addr& addr, cudaStream_t stream) {
+  auto kernel = decode_kernel<T, KT, D, R, Addr>;
   const int extra = addr.extra_ints();
   cudaError_t err = allow_smem(kernel, smem_bytes(R, D, extra));
   if (err != cudaSuccess) return err;
   dim3 grid(Hkv, B);
   kernel<<<grid, kThreads, smem_bytes((H / Hkv) * s, D, extra), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(index),
+      static_cast<const T*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(index),
       static_cast<const float*>(sinks), static_cast<T*>(out), s, H, Hkv,
       scale, window, softcap, addr);
   return cudaGetLastError();
@@ -267,20 +301,23 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v,
 
 // Register arrays are sized for the rows: 2 covers GQA groups of up to 2
 // at s = 1 (shellac-1b's decode); anything larger takes kRMax.
-template <typename T, typename Addr>
+// KT = T for a cache in q's dtype (ks, vs null), int8_t for an int8 cache.
+template <typename T, typename KT, typename Addr>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* index, const void* sinks, void* out, int B,
-                   int s, int H, int Hkv, int D, float scale, int window,
-                   float softcap, const Addr& addr, cudaStream_t stream) {
+                   const void* ks, const void* vs, const void* index,
+                   const void* sinks, void* out, int B, int s, int H,
+                   int Hkv, int D, float scale, int window, float softcap,
+                   const Addr& addr, cudaStream_t stream) {
   const int rows = (H / Hkv) * s;
 #define SHELLAC_DECODE_ROWS(DD)                                             \
   if (rows <= 2)                                                            \
-    return launch_rows<T, DD, 2>(q, k, v, index, sinks, out, B, s, H, Hkv,  \
-                                 scale, window, softcap, addr, stream);     \
+    return launch_rows<T, KT, DD, 2>(q, k, v, ks, vs, index, sinks, out, B, \
+                                     s, H, Hkv, scale, window, softcap,     \
+                                     addr, stream);                         \
   if (rows <= kRMax)                                                        \
-    return launch_rows<T, DD, kRMax>(q, k, v, index, sinks, out, B, s, H,   \
-                                     Hkv, scale, window, softcap, addr,     \
-                                     stream);                               \
+    return launch_rows<T, KT, DD, kRMax>(q, k, v, ks, vs, index, sinks,     \
+                                         out, B, s, H, Hkv, scale, window,  \
+                                         softcap, addr, stream);            \
   return cudaErrorInvalidValue;
   if (D == 64) { SHELLAC_DECODE_ROWS(64) }
   if (D == 128) { SHELLAC_DECODE_ROWS(128) }

@@ -3,13 +3,18 @@
 // q (B, s, H, D) attends pools (n_blocks, Hkv, bs, D) through per-slot
 // block tables (B, max_blocks) int32: logical position p of slot b lives
 // at pool[tables[b, p / bs], :, p % bs]. The body is the shared
-// warp-parallel decode in decode_core.cuh; only the address differs.
+// warp-parallel decode in decode_core.cuh; only the address differs. An
+// int8 pool comes with fp32 scale pools (n_blocks, Hkv, bs) that mirror
+// it page for page, so a position's scale sits at its row index.
 //
 // Replaces both Pallas paged kernels of shellac_tpu/ops/
 // decode_attention.py: `_paged_group_kernel` (launched by
-// `_paged_group_flash`, `group` pages gathered per grid step) and
-// `_paged_kernel` (launched by `_paged_flash`, one page per step). Any
-// block size and D 64 or 128 take this one kernel.
+// `_paged_group_flash`, `group` pages gathered per grid step), its int8
+// branch (quant=True, which gathers the scale pages beside the value
+// pages), and `_paged_kernel` (launched by `_paged_flash`, one page per
+// step). Any block size and D 64 or 128 take this one kernel, int8
+// included: the TPU's 32-aligned int8 pages were a tiling constraint of
+// its VMEM gather, which this kernel does not have.
 //
 // Design: each block stages its slot's table entries for the live page
 // range in shared memory once (at most max_blocks ints); each lane then
@@ -54,16 +59,17 @@ struct PagedRows {
   }
 };
 
-template <typename T>
+template <typename T, typename KT>
 cudaError_t launch_paged(const void* q, const void* k, const void* v,
-                         const void* tables, const void* index,
-                         const void* sinks, void* out, int B, int s, int H,
-                         int Hkv, int bs, int max_blocks, int D, float scale,
-                         int window, float softcap, cudaStream_t stream) {
+                         const void* ks, const void* vs, const void* tables,
+                         const void* index, const void* sinks, void* out,
+                         int B, int s, int H, int Hkv, int bs,
+                         int max_blocks, int D, float scale, int window,
+                         float softcap, cudaStream_t stream) {
   const PagedRows addr{static_cast<const int*>(tables), max_blocks, bs, Hkv,
                        nullptr, 0, 0};
-  return decode::launch<T>(q, k, v, index, sinks, out, B, s, H, Hkv, D,
-                           scale, window, softcap, addr, stream);
+  return decode::launch<T, KT>(q, k, v, ks, vs, index, sinks, out, B, s, H,
+                               Hkv, D, scale, window, softcap, addr, stream);
 }
 
 }  // namespace
@@ -77,12 +83,31 @@ extern "C" int shellac_paged_decode_attention(
     float softcap, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == shellac::kF32)
-    return shellac::launch_paged<float>(q, k, v, tables, index, sinks, out,
-                                        B, s, H, Hkv, bs, max_blocks, D,
-                                        scale, window, softcap, st);
+    return shellac::launch_paged<float, float>(
+        q, k, v, nullptr, nullptr, tables, index, sinks, out, B, s, H, Hkv,
+        bs, max_blocks, D, scale, window, softcap, st);
   if (dtype == shellac::kBF16)
-    return shellac::launch_paged<__nv_bfloat16>(
-        q, k, v, tables, index, sinks, out, B, s, H, Hkv, bs, max_blocks, D,
-        scale, window, softcap, st);
+    return shellac::launch_paged<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, nullptr, nullptr, tables, index, sinks, out, B, s, H, Hkv,
+        bs, max_blocks, D, scale, window, softcap, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 pools k/v (n_blocks, Hkv, bs, D) with fp32 scale pools ks/vs
+// (n_blocks, Hkv, bs); dtype is q's (and the output's).
+extern "C" int shellac_paged_decode_attention_int8(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* tables, const void* index, const void* sinks,
+    void* out, int B, int s, int H, int Hkv, int bs, int max_blocks, int D,
+    float scale, int window, float softcap, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == shellac::kF32)
+    return shellac::launch_paged<float, int8_t>(
+        q, k, v, ks, vs, tables, index, sinks, out, B, s, H, Hkv, bs,
+        max_blocks, D, scale, window, softcap, st);
+  if (dtype == shellac::kBF16)
+    return shellac::launch_paged<__nv_bfloat16, int8_t>(
+        q, k, v, ks, vs, tables, index, sinks, out, B, s, H, Hkv, bs,
+        max_blocks, D, scale, window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -26,9 +26,13 @@ slots recycle never trips the write guard that `forward_with_cache`
 keeps for a growing batch. A released slot's device length is reset to
 0, so an idle slot attends one position.
 
+The cache backend is dense or paged, in the compute dtype or int8
+(`dense-int8`, `paged-int8`, or the legacy `kv_quant="int8"`): the
+prefill quantizes into an int8 mini and scatters values and scales.
+
 Not ported yet; each raises NotImplementedError: overlapped decode and
-prefill, chunked prefill, meshes and pipeline stages, int8 and rolling
-caches, the prefix cache, beam search, preemption, the observability
+prefill, chunked prefill, meshes and pipeline stages, rolling caches,
+the prefix cache, beam search, preemption, the observability
 registry, and at `submit` logit bias, presence and frequency penalties,
 per-request seeds, constraints, prompt logprobs, prefill-only requests,
 traces and QoS tags.
@@ -48,6 +52,7 @@ from shellac_tpu_torch.config import ModelConfig
 from shellac_tpu_torch.inference.cache import (
     CacheBackend,
     PoolExhausted,
+    kv_field_names,
     make_backend,
     resolve_backend_name,
     scatter_slot,
@@ -116,7 +121,7 @@ class BatchingEngine:
     """
 
     # Backend families this class drives; the paged subclass overrides.
-    _backend_family: Tuple[str, ...] = ("dense",)
+    _backend_family: Tuple[str, ...] = ("dense", "dense-int8")
     # Extra per-slot residency past prompt + max_new + 1 a window may
     # write.
     _footprint_slack = 0
@@ -154,7 +159,7 @@ class BatchingEngine:
                   overlap_prefill=overlap_prefill,
                   prefill_chunk=None if prefill_chunk == "auto"
                   else prefill_chunk,
-                  mesh=mesh, kv_quant=kv_quant,
+                  mesh=mesh,
                   rolling_window=rolling_window, pp_pipeline=pp_pipeline,
                   registry=registry)
         top_logprobs = int(top_logprobs or 0)
@@ -190,6 +195,11 @@ class BatchingEngine:
         self.top_logprobs = top_logprobs
 
         if isinstance(cache_backend, CacheBackend):
+            if kv_quant is not None and kv_quant != cache_backend.kv_quant:
+                raise ValueError(
+                    f"kv_quant={kv_quant!r} conflicts with the "
+                    f"{cache_backend.name!r} backend instance"
+                )
             if (cache_backend.n_slots != n_slots
                     or cache_backend.max_len != self.max_len):
                 raise ValueError(
@@ -200,8 +210,9 @@ class BatchingEngine:
                 )
             backend = cache_backend
         else:
-            backend = make_backend(resolve_backend_name(cache_backend), cfg,
-                                   n_slots, self.max_len)
+            backend = make_backend(
+                resolve_backend_name(cache_backend, kv_quant=kv_quant), cfg,
+                n_slots, self.max_len)
         if backend.name not in self._backend_family:
             raise ValueError(
                 f"{type(self).__name__} drives cache backends "
@@ -210,6 +221,7 @@ class BatchingEngine:
             )
         backend.bind(self)
         self.cache_backend = backend
+        self.kv_quant = backend.kv_quant
 
         self._defaults = {
             "temperature": float(temperature),
@@ -692,10 +704,11 @@ class PagedBatchingEngine(BatchingEngine):
     on completion; `pool_tokens` (default: half the dense footprint) is
     the capacity knob, and admission waits in the queue while the pool
     cannot cover a request's footprint. Block 0 is scratch. Decode
-    attends through the block tables (`paged_decode_attention`).
+    attends through the block tables (`paged_decode_attention`). An int8
+    pool (`paged-int8`) defaults to 64-token blocks.
     """
 
-    _backend_family = ("paged",)
+    _backend_family = ("paged", "paged-int8")
 
     def __init__(
         self,
@@ -711,19 +724,24 @@ class PagedBatchingEngine(BatchingEngine):
         kv_quant: Optional[str] = None,
         **kw,
     ):
-        _unported(prefix_cache=prefix_cache, kv_quant=kv_quant)
+        _unported(prefix_cache=prefix_cache)
         if not isinstance(cache_backend, CacheBackend):
             name = resolve_backend_name(cache_backend,
-                                        paged=cache_backend is None)
+                                        paged=cache_backend is None,
+                                        kv_quant=kv_quant)
             if name not in self._backend_family:
                 raise ValueError(
                     f"{type(self).__name__} drives cache backends "
                     f"{self._backend_family}; {name!r} needs a different "
                     "engine class (inference.cache.engine_class)"
                 )
+            if block_size is None:
+                # The JAX engines' defaults: int8 pools take 64-token
+                # blocks, the others 16.
+                block_size = 64 if name == "paged-int8" else 16
             cache_backend = make_backend(
                 name, cfg, n_slots, max_len or cfg.max_seq_len,
-                block_size=block_size or 16, pool_tokens=pool_tokens,
+                block_size=block_size, pool_tokens=pool_tokens,
             )
         elif (block_size is not None
               and block_size != cache_backend.block_size) \
@@ -734,21 +752,25 @@ class PagedBatchingEngine(BatchingEngine):
                 "constructor"
             )
         super().__init__(cfg, params, n_slots=n_slots, max_len=max_len,
-                         cache_backend=cache_backend, **kw)
+                         cache_backend=cache_backend, kv_quant=kv_quant,
+                         **kw)
         self.block_size = self.cache_backend.block_size
 
     def _prefill_impl(self, tokens, s: int, slot: int):
         """Dense mini prefill, then a scatter of its pad positions through
         the slot's table row (positions past the slot's blocks land in
-        scratch block 0)."""
+        scratch block 0). An int8 mini's scales scatter through the same
+        (block, offset) coordinates."""
         last, mini = self._prefill_mini(tokens, s)
         cache, bs = self._cache, self.block_size
         pos = torch.arange(tokens.shape[1], device=self.device)
         blocks = cache.tables[slot].to(torch.int64)[pos // bs]
         offs = pos % bs
         # Advanced indices at dims 1 and 3 (split by the head slice) put
-        # the token rows first: the target is (S, L, Hkv, Dh).
-        cache.k[:, blocks, :, offs] = mini.k[:, 0].permute(2, 0, 1, 3)
-        cache.v[:, blocks, :, offs] = mini.v[:, 0].permute(2, 0, 1, 3)
+        # the token rows first: the target is (S, L, Hkv[, Dh]), from the
+        # mini's (L, Hkv, S[, Dh]).
+        for name in kv_field_names(self.kv_quant):
+            src = getattr(mini, name)[:, 0]
+            getattr(cache, name)[:, blocks, :, offs] = src.movedim(2, 0)
         cache.lengths[slot:slot + 1] = mini.lengths
         return last

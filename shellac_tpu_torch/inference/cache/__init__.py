@@ -3,8 +3,9 @@
 Ports `shellac_tpu/inference/cache/__init__.py`: the ONE name -> backend
 registry (`BACKENDS`, `backend_flags`, `resolve_backend_name`,
 `make_backend`, `engine_class`, :37-139) that engines and tests resolve
-through. The int8 and rolling storages are registered by name and raise
-NotImplementedError until they are ported.
+through: dense and paged, each in the compute dtype or int8. The rolling
+storages are registered by name and raise NotImplementedError until
+they are ported.
 """
 
 from __future__ import annotations
@@ -16,14 +17,27 @@ from shellac_tpu_torch.inference.cache.dense import DenseBackend
 from shellac_tpu_torch.inference.cache.layout import (
     KVCache,
     PagedKVCache,
+    QuantKVCache,
+    QuantPagedKVCache,
     init_cache,
+    init_cache_for,
     init_paged_cache,
+    init_quant_cache,
+    init_quant_paged_cache,
+    kv_field_names,
     paged_gather_layer,
+    paged_gather_scales,
     paged_update_layer,
+    quant_paged_update_layer,
+    quant_update_layer,
+    quantize_kv,
     scatter_slot,
     update_layer,
 )
-from shellac_tpu_torch.inference.cache.paged import PagedBackend
+from shellac_tpu_torch.inference.cache.paged import (
+    PagedBackend,
+    QuantPagedBackend,
+)
 
 __all__ = [
     "BACKENDS",
@@ -33,24 +47,37 @@ __all__ = [
     "PagedBackend",
     "PagedKVCache",
     "PoolExhausted",
+    "QuantKVCache",
+    "QuantPagedBackend",
+    "QuantPagedKVCache",
     "backend_flags",
     "engine_class",
     "init_cache",
+    "init_cache_for",
     "init_paged_cache",
+    "init_quant_cache",
+    "init_quant_paged_cache",
+    "kv_field_names",
     "make_backend",
     "paged_gather_layer",
+    "paged_gather_scales",
     "paged_update_layer",
+    "quant_paged_update_layer",
+    "quant_update_layer",
+    "quantize_kv",
     "resolve_backend_name",
     "scatter_slot",
     "update_layer",
 ]
 
-# name -> backend class; None marks a storage that is not ported yet.
+# name -> (backend class, pinned constructor kwargs); None marks a
+# storage that is not ported yet. The int8 names pin kv_quant, so one
+# name fully determines the storage.
 BACKENDS = {
-    "dense": DenseBackend,
-    "dense-int8": None,
-    "paged": PagedBackend,
-    "paged-int8": None,
+    "dense": (DenseBackend, {}),
+    "dense-int8": (DenseBackend, {"kv_quant": "int8"}),
+    "paged": (PagedBackend, {}),
+    "paged-int8": (QuantPagedBackend, {}),
     "rolling": None,
     "rolling-int8": None,
 }
@@ -119,12 +146,13 @@ def make_backend(name: str, cfg, n_slots: int, max_len: int,
         raise ValueError(
             f"unknown cache backend {name!r}; have {sorted(BACKENDS)}"
         )
-    cls = BACKENDS[name]
-    if cls is None:
+    entry = BACKENDS[name]
+    if entry is None:
         raise NotImplementedError(
             f"the {name!r} cache backend is not ported yet"
         )
-    return cls(cfg, n_slots, max_len, **opts)
+    cls, pinned = entry
+    return cls(cfg, n_slots, max_len, **pinned, **opts)
 
 
 def engine_class(name: str, speculative: bool = False):

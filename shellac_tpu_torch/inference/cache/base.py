@@ -8,20 +8,24 @@ host-side slot residency (the paged block allocator lives entirely in
 `paged.py`). The engine keeps `engine._cache`; a backend writes into it
 for table surgery rather than holding a copy.
 
+A backend's `kv_quant` (None or "int8") picks the storage: the compute
+dtype, or int8 values with per-(token, kv head) fp32 scales;
+`bytes_per_token` (:152) prices either.
+
 Not ported yet: sharding axes (meshes), the prefix-cache hooks
-(`on_prefill_complete`, `prefill_offset`, `prefix_manifest`), the
-accounting the observability layer reads (`utilization`, `residency`,
-`bytes_per_token`) and the int8 and rolling storage.
+(`on_prefill_complete`, `prefill_offset`, `prefix_manifest`), the rest
+of the accounting the observability layer reads (`utilization`,
+`residency`) and the rolling storage.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from shellac_tpu_torch.config import ModelConfig
-from shellac_tpu_torch.inference.cache.layout import init_cache
+from shellac_tpu_torch.inference.cache.layout import init_cache_for
 
 
 class PoolExhausted(Exception):
@@ -37,10 +41,14 @@ class CacheBackend:
     name: str = "dense"
     is_paged: bool = False
 
-    def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int):
+    def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
+                 kv_quant: Optional[str] = None):
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant={kv_quant!r}; have None, 'int8'")
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
+        self.kv_quant = kv_quant
         self.engine: Any = None
 
     def bind(self, engine) -> None:
@@ -60,8 +68,20 @@ class CacheBackend:
 
     def init_mini(self, length: int, device: torch.device):
         """Batch-1 prefill scratch that the engine's prefill scatters
-        into this backend's cache: a dense mini cache of `length`."""
-        return init_cache(self.cfg, 1, length, device)
+        into this backend's cache: a dense mini cache of `length`, of the
+        backend's storage kind."""
+        return init_cache_for(self.cfg, 1, length, device, self.kv_quant)
+
+    def bytes_per_token(self) -> int:
+        """Resident KV bytes one token costs under this storage (per
+        slot; paged block rounding ignored): int8 values plus one fp32
+        scale per kv head for k and v, or both in the compute dtype."""
+        cfg = self.cfg
+        width = cfg.cache_head_dim + cfg.cache_v_head_dim
+        if self.kv_quant == "int8":
+            return cfg.n_layers * cfg.cache_kv_heads * (width + 2 * 4)
+        itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
+        return cfg.n_layers * cfg.cache_kv_heads * width * itemsize
 
     # ---- slot lifecycle (host-side policy) --------------------------
 

@@ -3,12 +3,18 @@ block pool.
 
 Ports `shellac_tpu/inference/cache/layout.py` (`KVCache`, `init_cache`,
 `update_layer`, `scatter_slot`, `PagedKVCache` :309, `init_paged_cache`
-:341, `paged_update_layer` :359, `paged_gather_layer` :392).
+:341, `paged_update_layer` :359, `paged_gather_layer` :392) and its int8
+storage (`QuantKVCache` :77, `init_quant_cache` :101, `kv_field_names`
+:123, `init_cache_for` :131, `quantize_kv` :180, `quant_update_layer`
+:198, `QuantPagedKVCache` :417, `init_quant_paged_cache` :449,
+`quant_paged_update_layer` :479, `paged_gather_scales` :505).
 
 Dense layout: stacked over layers and HEAD-MAJOR, (L, B, Hkv, max_len, Dh), as
 in the JAX package: each (slot, kv head) reads one contiguous
 (positions, head_dim) stream, which is what the decode kernel walks. The
-cache lives in the compute dtype.
+cache lives in the compute dtype, or in int8 with one fp32 dequant scale
+per written (token, kv head): symmetric, scale = amax / 127 over the head
+dim, K quantized after RoPE.
 
 Ragged batches carry per-sequence `lengths`: prompts are right-padded
 and written from offset 0 (prefill writes all S padded positions), and
@@ -19,7 +25,7 @@ pad slots.
 Unlike the JAX package, the port writes the caches IN PLACE:
 `update_layer`, `paged_update_layer` and `scatter_slot` store into the
 given tensors, and `forward_with_cache` returns a cache that shares its
-k/v storage with the one it was given.
+k/v (and ks/vs) storage with the one it was given.
 
 Indices: JAX's gathers clamp an out-of-range index; torch's raise on the
 CPU and fault on the card. The callers keep every table index in range
@@ -30,6 +36,7 @@ block_size)), so nothing here clamps.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
 import torch
 
@@ -81,28 +88,140 @@ def update_layer(
     index + S <= max_len: `forward_with_cache` checks that against the
     cache's host-side `max_length` and raises before writing.
     """
-    b, s = k_new.shape[:2]
-    pos = index.to(torch.int64)[:, None] + torch.arange(
-        s, device=index.device
-    )[None, :]  # (B, S)
-    rows = torch.arange(b, device=index.device)[:, None]  # (B, 1)
-    # Advanced indices split by a slice put their (B, S) dims first, so
-    # the target view is (B, S, Hkv, Dh) — the layout of k_new itself.
-    cache_k[rows, :, pos, :] = k_new.to(cache_k.dtype)
-    cache_v[rows, :, pos, :] = v_new.to(cache_v.dtype)
+    _write_rows((cache_k, cache_v), (k_new, v_new), index)
     return cache_k, cache_v
 
 
+def _write_positions(index: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, S) int64 positions index[b] + i."""
+    return index.to(torch.int64)[:, None] + torch.arange(
+        s, device=index.device
+    )[None, :]
+
+
+def _write_rows(targets, news, index):
+    """Write each new (B, S, Hkv[, Dh]) into its target (B, Hkv, len[,
+    Dh]) at per-sequence offsets, in place, with one set of indices."""
+    b, s = news[0].shape[:2]
+    pos = _write_positions(index, s)
+    rows = torch.arange(b, device=index.device)[:, None]  # (B, 1)
+    # Advanced indices split by a slice put their (B, S) dims first, so
+    # the target view is (B, S, Hkv[, Dh]) — the layout of the new rows.
+    for target, new in zip(targets, news):
+        target[rows, :, pos] = new.to(target.dtype)
+
+
 def scatter_slot(cache: KVCache, mini: KVCache, slot: int) -> KVCache:
-    """Write a batch-1 mini cache into `slot` of a dense slot cache, in
-    place. A mini shorter than the cache fills the first positions of the
+    """Write a batch-1 mini cache into `slot` of a dense slot cache (a
+    KVCache or a QuantKVCache, values and scales), in place. A mini
+    shorter than the cache fills the first positions of the
     slot's rows (JAX's dynamic_update_slice); its length becomes the
     slot's."""
     n = mini.k.shape[3]
-    cache.k[:, slot:slot + 1, :, :n] = mini.k
-    cache.v[:, slot:slot + 1, :, :n] = mini.v
+    for name in kv_field_names(cache_quant(cache)):
+        getattr(cache, name)[:, slot:slot + 1, :, :n] = getattr(mini, name)
     cache.lengths[slot:slot + 1] = mini.lengths
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Int8 cache (half the resident bytes and half the decode stream of bf16)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class QuantKVCache:
+    """A dense cache stored int8 with one fp32 scale per written (token,
+    kv head): the KVCache layout and write-at-own-length contract. A
+    value dequantizes as k * ks[..., None]."""
+
+    k: torch.Tensor  # (L, B, Hkv, max_len, Dh) int8
+    v: torch.Tensor  # (L, B, Hkv, max_len, Dh) int8
+    ks: torch.Tensor  # (L, B, Hkv, max_len) fp32
+    vs: torch.Tensor  # (L, B, Hkv, max_len) fp32
+    lengths: torch.Tensor  # (B,) int32
+    max_length: int = 0  # as KVCache.max_length
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    def replace(self, **kw) -> "QuantKVCache":
+        return replace(self, **kw)
+
+
+def init_quant_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     device: torch.device) -> QuantKVCache:
+    """An all-zero int8 cache with all-zero scales."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA latent caches are not ported yet")
+    head = (cfg.n_layers, batch, cfg.kv_heads, max_len)
+    return QuantKVCache(
+        k=torch.zeros((*head, cfg.dim_per_head), dtype=torch.int8,
+                      device=device),
+        v=torch.zeros((*head, cfg.dim_per_head), dtype=torch.int8,
+                      device=device),
+        ks=torch.zeros(head, dtype=torch.float32, device=device),
+        vs=torch.zeros(head, dtype=torch.float32, device=device),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def kv_field_names(kv_quant: Optional[str] = None):
+    """The value and scale fields of a cache kind, shared by the dense
+    and paged caches: what a prefill scatter has to carry."""
+    return ("k", "v", "ks", "vs") if kv_quant == "int8" else ("k", "v")
+
+
+def cache_quant(cache) -> Optional[str]:
+    """"int8" for an int8 cache (dense or paged), else None."""
+    return ("int8" if isinstance(cache, (QuantKVCache, QuantPagedKVCache))
+            else None)
+
+
+def init_cache_for(cfg: ModelConfig, batch: int, max_len: int,
+                   device: torch.device, kv_quant: Optional[str] = None,
+                   rolling: bool = False):
+    """The engines' dense cache constructor: compute dtype or int8."""
+    if rolling:
+        raise NotImplementedError("rolling caches are not ported yet")
+    if kv_quant == "int8":
+        return init_quant_cache(cfg, batch, max_len, device)
+    if kv_quant is not None:
+        raise ValueError(f"kv_quant={kv_quant!r}; have None, 'int8'")
+    return init_cache(cfg, batch, max_len, device)
+
+
+def quantize_kv(x: torch.Tensor):
+    """(B, S, Hkv, Dh) -> int8 values and (B, S, Hkv) fp32 scales.
+
+    Symmetric: scale = amax / 127 over the head dim (1 where amax is 0),
+    values round(x / scale) half to even, clipped to +-127, as the JAX
+    package computes them. A zero-width input gives unit scales.
+    """
+    if x.shape[-1] == 0:
+        return (torch.zeros(x.shape, dtype=torch.int8, device=x.device),
+                torch.ones(x.shape[:-1], dtype=torch.float32,
+                           device=x.device))
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def quant_update_layer(
+    cache_k, cache_v, cache_ks, cache_vs,  # one layer's (B, Hkv, len[, Dh])
+    k_new, v_new,  # (B, S, Hkv, Dh) unquantized
+    index,  # (B,) int — per-sequence write offsets
+):
+    """Quantize S new positions and write values and scales at
+    per-sequence offsets, in place. Returns the (same) four tensors."""
+    kq, ks = quantize_kv(k_new)
+    vq, vs = quantize_kv(v_new)
+    _write_rows((cache_k, cache_v, cache_ks, cache_vs), (kq, vq, ks, vs),
+                index)
+    return cache_k, cache_v, cache_ks, cache_vs
 
 
 # ---------------------------------------------------------------------------
@@ -176,20 +295,24 @@ def paged_update_layer(
     Returns the (same) pools. A position past the table raises on the
     CPU rather than clamping.
     """
-    bs = pool_k.shape[2]
-    b, s = k_new.shape[:2]
-    pos = index.to(torch.int64)[:, None] + torch.arange(
-        s, device=index.device
-    )[None, :]  # (B, S)
+    _scatter_pages((pool_k, pool_v), (k_new, v_new), index, tables)
+    return pool_k, pool_v
+
+
+def _scatter_pages(targets, news, index, tables):
+    """Scatter each new (B, S, Hkv[, Dh]) into its pool (n_blocks, Hkv,
+    bs[, Dh]) through the block tables, in place, with one set of
+    indices."""
+    bs = targets[0].shape[2]
+    b, s = news[0].shape[:2]
+    pos = _write_positions(index, s)
     blocks = torch.gather(tables.to(torch.int64), 1, pos // bs).reshape(-1)
     offs = (pos % bs).reshape(-1)
     # Advanced indices at dims 0 and 2 (split by the head slice) put the
-    # token rows first: the target is (B*S, Hkv, Dh), as k_new's rows.
-    pool_k[blocks, :, offs] = k_new.to(pool_k.dtype).reshape(
-        b * s, *k_new.shape[2:])
-    pool_v[blocks, :, offs] = v_new.to(pool_v.dtype).reshape(
-        b * s, *v_new.shape[2:])
-    return pool_k, pool_v
+    # token rows first: the target is (B*S, Hkv[, Dh]), as the new rows.
+    for target, new in zip(targets, news):
+        target[blocks, :, offs] = new.to(target.dtype).reshape(
+            b * s, *new.shape[2:])
 
 
 def paged_gather_layer(
@@ -209,3 +332,86 @@ def paged_gather_layer(
         return x.reshape(b, hkv, mb * bs, dh)
 
     return gather(pool_k), gather(pool_v)
+
+
+# ---------------------------------------------------------------------------
+# Int8 paged cache
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class QuantPagedKVCache:
+    """A block pool stored int8 with per-(token, kv head) fp32 scale
+    pools that mirror the value pools block for block: the PagedKVCache
+    tables, scratch block 0 and allocator contract, the QuantKVCache
+    quantization contract.
+
+    k, v: (L, n_blocks, Hkv, block_size, Dh) int8
+    ks, vs: (L, n_blocks, Hkv, block_size) fp32
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+    tables: torch.Tensor
+    lengths: torch.Tensor
+    max_length: int = 0  # as KVCache.max_length
+
+    block_size = PagedKVCache.block_size
+    max_blocks = PagedKVCache.max_blocks
+    max_len = PagedKVCache.max_len
+
+    def replace(self, **kw) -> "QuantPagedKVCache":
+        return replace(self, **kw)
+
+
+def init_quant_paged_cache(cfg: ModelConfig, n_slots: int, n_blocks: int,
+                           block_size: int, max_blocks_per_slot: int,
+                           device: torch.device) -> QuantPagedKVCache:
+    """An all-zero int8 pool. The scale pools are zeroed too (never left
+    uninitialized), so an idle slot's read of scratch block 0 multiplies
+    by 0, not by whatever the memory held."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA latent caches are not ported yet")
+    head = (cfg.n_layers, n_blocks, cfg.kv_heads, block_size)
+    return QuantPagedKVCache(
+        k=torch.zeros((*head, cfg.dim_per_head), dtype=torch.int8,
+                      device=device),
+        v=torch.zeros((*head, cfg.dim_per_head), dtype=torch.int8,
+                      device=device),
+        ks=torch.zeros(head, dtype=torch.float32, device=device),
+        vs=torch.zeros(head, dtype=torch.float32, device=device),
+        tables=torch.zeros((n_slots, max_blocks_per_slot), dtype=torch.int32,
+                           device=device),
+        lengths=torch.zeros((n_slots,), dtype=torch.int32, device=device),
+    )
+
+
+def quant_paged_update_layer(
+    pool_k, pool_v, pool_ks, pool_vs,  # one layer's int8 pools + scales
+    k_new, v_new,  # (B, S, Hkv, Dh) unquantized
+    index,  # (B,) int — per-slot write offsets
+    tables,  # (B, max_blocks) int32
+):
+    """Quantize S new positions and scatter values and scales through
+    the block tables (the bf16 pool's position -> block arithmetic), in
+    place. Returns the (same) four tensors."""
+    kq, ks = quantize_kv(k_new)
+    vq, vs = quantize_kv(v_new)
+    _scatter_pages((pool_k, pool_v, pool_ks, pool_vs), (kq, vq, ks, vs),
+                   index, tables)
+    return pool_k, pool_v, pool_ks, pool_vs
+
+
+def paged_gather_scales(
+    pool_s: torch.Tensor,  # (n_blocks, Hkv, bs)
+    tables: torch.Tensor,  # (B, max_blocks)
+):
+    """Each slot's logical scale view, (B, Hkv, max_blocks * bs): the
+    dense QuantKVCache scale layout, which the plain decode reads."""
+    b, mb = tables.shape
+    hkv, bs = pool_s.shape[1:]
+    x = pool_s[tables.reshape(-1).to(torch.int64)]  # (B*mb, Hkv, bs)
+    x = x.reshape(b, mb, hkv, bs).transpose(1, 2)
+    return x.reshape(b, hkv, mb * bs)

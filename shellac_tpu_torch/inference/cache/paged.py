@@ -2,8 +2,8 @@
 them on completion, so resident KV tracks the tokens alive rather than
 n_slots x max_len.
 
-Ports `shellac_tpu/inference/cache/paged.py` (`PagedBackend` :45)
-without the prefix cache: the free list in constructor order,
+Ports `shellac_tpu/inference/cache/paged.py` (`PagedBackend` :45 and
+the int8 pool `QuantPagedBackend` :474) without the prefix cache: the free list in constructor order,
 `ensure_blocks` :163, `prepare_slot` :234 (the full footprint is
 reserved at admission), `release_slot` :291, `pre_window` :310 and
 `reset`. All allocator state is host-side; the device sees only the
@@ -20,7 +20,10 @@ import torch
 
 from shellac_tpu_torch.config import ModelConfig
 from shellac_tpu_torch.inference.cache.base import CacheBackend, PoolExhausted
-from shellac_tpu_torch.inference.cache.layout import init_paged_cache
+from shellac_tpu_torch.inference.cache.layout import (
+    init_paged_cache,
+    init_quant_paged_cache,
+)
 
 
 class PagedBackend(CacheBackend):
@@ -28,13 +31,23 @@ class PagedBackend(CacheBackend):
     is_paged = True
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
-                 block_size: int = 16, pool_tokens: Optional[int] = None,
+                 kv_quant: Optional[str] = None, block_size: int = 16,
+                 pool_tokens: Optional[int] = None,
                  prefix_cache: bool = False):
-        super().__init__(cfg, n_slots, max_len)
+        super().__init__(cfg, n_slots, max_len, kv_quant=kv_quant)
         if prefix_cache:
             raise NotImplementedError("the prefix cache is not ported yet")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if kv_quant == "int8":
+            # Kept for parity with the JAX engines, whose int8 TPU kernel
+            # needs 32-aligned pages; the CUDA kernel takes any block size.
+            if block_size % 32:
+                raise ValueError(
+                    f"kv_quant='int8' paged pools need block_size % 32 "
+                    f"== 0 (got {block_size}); use 32 or 64"
+                )
+            self.name = "paged-int8"
         self.block_size = block_size
         self.prefix_cache = False
         self.max_blocks_per_slot = -(-max_len // block_size)
@@ -47,9 +60,10 @@ class PagedBackend(CacheBackend):
         self.reset()
 
     def init_cache(self, device: torch.device):
-        return init_paged_cache(self.cfg, self.n_slots, self.n_blocks,
-                                self.block_size, self.max_blocks_per_slot,
-                                device)
+        init_pool = (init_quant_paged_cache if self.kv_quant == "int8"
+                     else init_paged_cache)
+        return init_pool(self.cfg, self.n_slots, self.n_blocks,
+                         self.block_size, self.max_blocks_per_slot, device)
 
     # ---- allocator ---------------------------------------------------
 
@@ -110,3 +124,27 @@ class PagedBackend(CacheBackend):
         self._slot_blocks: List[List[int]] = [
             [] for _ in range(self.n_slots)
         ]
+
+
+class QuantPagedBackend(PagedBackend):
+    """The int8 paged pool (`paged-int8`): PagedBackend's allocator over
+    int8 value pools and fp32 scale pools that mirror them block for
+    block, so the free list and tables are unchanged. Its default block
+    size of 64 and the block_size % 32 refusal are the JAX engines'
+    (their TPU kernel's tiling); the CUDA kernel itself takes any block
+    size."""
+
+    name = "paged-int8"
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
+                 kv_quant: Optional[str] = "int8", block_size: int = 64,
+                 pool_tokens: Optional[int] = None,
+                 prefix_cache: bool = False):
+        if kv_quant != "int8":
+            raise ValueError(
+                f"QuantPagedBackend is the int8 pool; kv_quant="
+                f"{kv_quant!r} wants PagedBackend"
+            )
+        super().__init__(cfg, n_slots, max_len, kv_quant="int8",
+                         block_size=block_size, pool_tokens=pool_tokens,
+                         prefix_cache=prefix_cache)

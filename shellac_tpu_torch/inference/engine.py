@@ -8,7 +8,9 @@ prefill logits and `steps - 1` decode forwards follow, so no trailing
 forward is wasted. Same sampling contract as the JAX package's `Engine`:
 repetition penalty over a `seen` mask of the prompt and every sampled
 token, and the log-probability of each chosen token under the penalized
-(untempered) logits.
+(untempered) logits. `kv_quant="int8"` keeps the cache in int8 with
+per-token scales (JAX `engine.py:71-83`): the prefill attends its exact
+chunk, and every decode reads the int8 cache through its int8 kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Optional
 import torch
 
 from shellac_tpu_torch.config import ModelConfig
-from shellac_tpu_torch.inference.cache.layout import init_cache
+from shellac_tpu_torch.inference.cache.layout import init_cache_for
 from shellac_tpu_torch.models import transformer
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
 from shellac_tpu_torch.ops.sampling import repetition_penalty, sample
@@ -53,8 +55,8 @@ class Engine:
     ):
         if mesh is not None:
             raise NotImplementedError("meshes are not ported yet")
-        if kv_quant is not None:
-            raise NotImplementedError("int8 KV caches are not ported yet")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant={kv_quant!r}; have None, 'int8'")
         if rolling_window:
             raise NotImplementedError("rolling caches are not ported yet")
         transformer.check_supported(cfg)
@@ -62,6 +64,7 @@ class Engine:
         check_on(self.device, embed=params["embed"])
         self.cfg = cfg
         self.params = params
+        self.kv_quant = kv_quant
         self.max_len = max_len or cfg.max_seq_len
         self.temperature = temperature
         self.top_k = top_k
@@ -78,7 +81,8 @@ class Engine:
         """tokens: (B, S_pad) right-padded; prompt_len: (B,) real lengths.
         Returns (last real position's logits, cache, seen mask)."""
         b, s = tokens.shape
-        cache = init_cache(self.cfg, b, self.max_len, self.device)
+        cache = init_cache_for(self.cfg, b, self.max_len, self.device,
+                               self.kv_quant)
         logits, cache = transformer.forward_with_cache(
             self.cfg, self.params, tokens, cache, new_tokens_len=prompt_len,
             fresh_cache=True, attn_impl=self.attn_impl,

@@ -36,7 +36,11 @@ from torch.utils.checkpoint import checkpoint
 from shellac_tpu_torch.config import ModelConfig
 from shellac_tpu_torch.inference.cache.layout import (
     PagedKVCache,
+    QuantPagedKVCache,
+    cache_quant,
     paged_update_layer,
+    quant_paged_update_layer,
+    quant_update_layer,
     update_layer,
 )
 from shellac_tpu_torch.ops.activations import geglu, softcap, swiglu
@@ -174,14 +178,19 @@ def _embed_tokens(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
 
 def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
            fresh_cache: bool = False, attn_kind: Optional[str] = None,
-           page_tables: Optional[torch.Tensor] = None, segments=None):
+           page_tables: Optional[torch.Tensor] = None, segments=None,
+           kv_scales=None):
     """One pre-norm transformer block. x: (B, S, D) in compute dtype.
 
     With `cache=(cache_k, cache_v, index)` the block writes the new k/v
     at `index` (in place) and attends the cache; with fresh_cache=True
     (prefill into an empty cache) it attends the new chunk causally
     instead. With `page_tables` the cache is one layer's block pool
-    (n_blocks, Hkv, bs, Dh), written and read through the tables.
+    (n_blocks, Hkv, bs, Dh), written and read through the tables. With
+    `kv_scales=(ks, vs)` the cache (dense or paged) is int8: the new k
+    (after RoPE) and v are quantized at write, values and scales, and
+    decode reads dequantize them; a fresh prefill still attends the
+    exact chunk, so only later reads see the int8 rounding.
     attn_kind "full" drops cfg.attn_window for this layer. `segments`
     (B, S) int32 makes cache-free attention block-diagonal.
     """
@@ -215,7 +224,17 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
                       q_segments=segments, kv_segments=segments, **akw)
     else:
         cache_k, cache_v, index = cache
-        if page_tables is not None:
+        scales = {}
+        if kv_scales is not None:
+            ks_l, vs_l = kv_scales
+            if page_tables is not None:
+                quant_paged_update_layer(cache_k, cache_v, ks_l, vs_l, k, v,
+                                         index, page_tables)
+            else:
+                quant_update_layer(cache_k, cache_v, ks_l, vs_l, k, v,
+                                   index)
+            scales = dict(k_scale=ks_l, v_scale=vs_l)
+        elif page_tables is not None:
             paged_update_layer(cache_k, cache_v, k, v, index, page_tables)
         else:
             update_layer(cache_k, cache_v, k, v, index)
@@ -226,10 +245,11 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
             o = attention(q, k, v, causal=True, impl=attn_impl, **akw)
         elif page_tables is not None:
             o = paged_decode_attention(q, cache_k, cache_v, page_tables,
-                                       index, impl=attn_impl, **akw)
+                                       index, impl=attn_impl, **akw,
+                                       **scales)
         else:
             o = decode_attention(q, cache_k, cache_v, index, impl=attn_impl,
-                                 **akw)
+                                 **akw, **scales)
     o = o.reshape(b, s, h * dh) @ lp["wo"].to(cdt)
     if cfg.attn_out_bias:
         o = o + lp["bo"].to(cdt)
@@ -376,7 +396,7 @@ def forward_with_cache(
     cfg: ModelConfig,
     params: Params,
     tokens: torch.Tensor,  # (B, S) int — new tokens only
-    cache,  # KVCache or PagedKVCache
+    cache,  # KVCache, PagedKVCache, QuantKVCache or QuantPagedKVCache
     *,
     new_tokens_len: Optional[torch.Tensor] = None,  # (B,) valid counts
     fresh_cache: bool = False,
@@ -388,8 +408,9 @@ def forward_with_cache(
     padded prompt length, empty cache, new_tokens_len = real prompt
     lengths) and decode (S = 1). The cache's k/v are written in place;
     the returned cache shares them and carries the new lengths
-    (index + new_tokens_len, or index + S). A PagedKVCache is written and
-    read through its block tables. Raises ValueError before writing when
+    (index + new_tokens_len, or index + S). A paged cache is written and
+    read through its block tables; an int8 cache's values and scales are
+    written per layer (quantized after RoPE) and shared the same way. Raises ValueError before writing when
     a write would pass max_len (the positions a slot can address),
     judged by the cache's host-side `max_length`.
     """
@@ -411,14 +432,18 @@ def forward_with_cache(
         s, device=dev
     )[None, :]
     tables, local = _rope_tables(cfg, positions)
-    page_tables = cache.tables if isinstance(cache, PagedKVCache) else None
+    page_tables = (cache.tables
+                   if isinstance(cache, (PagedKVCache, QuantPagedKVCache))
+                   else None)
+    quant = cache_quant(cache) is not None
     x = _embed_tokens(cfg, params, tokens)
     for i, lp in enumerate(params["layers"]):
         cos, sin = _layer_rope(cfg, i, tables, local)
         x = _block(cfg, attn_impl, x, lp, cos, sin,
                    cache=(cache.k[i], cache.v[i], index),
                    fresh_cache=fresh_cache, attn_kind=_layer_kind(cfg, i),
-                   page_tables=page_tables)
+                   page_tables=page_tables,
+                   kv_scales=(cache.ks[i], cache.vs[i]) if quant else None)
     logits = unembed(cfg, params, x)
     if new_tokens_len is None:
         new_lengths = index + s

@@ -71,6 +71,18 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
         _I, _P,
     ),
+    # q, k, v, ks, vs, index, sinks, out, B, s, H, Hkv, L, D, scale,
+    # window, softcap, dtype (q's), stream
+    "shellac_decode_attention_int8": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F,
+        _I, _P,
+    ),
+    # q, k, v, ks, vs, tables, index, sinks, out, B, s, H, Hkv, bs,
+    # max_blocks, D, scale, window, softcap, dtype (q's), stream
+    "shellac_paged_decode_attention_int8": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+        _I, _F, _I, _P,
+    ),
 }
 
 

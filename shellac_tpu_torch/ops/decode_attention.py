@@ -1,19 +1,30 @@
 """Flash-decode attention over a dense head-major KV cache or a paged
-block pool.
+block pool, in the compute dtype or int8.
 
 Ports `shellac_tpu/ops/decode_attention.py`: `decode_attention` and
-`paged_decode_attention` (:863, with `paged_decode_supported` :841).
+`paged_decode_attention` (:863, with `paged_decode_supported` :841),
+including their int8 caches (`k_scale`/`v_scale`, kernels
+`_dense_kernel_quant` :334 and the `quant=True` branch of
+`_paged_group_kernel` :562).
 
 `decode_attention` attends q (B, s, H, D) against a cache (B, Hkv, L, D):
 q row si of batch b sits at position index[b] + si and attends kv
 positions <= its own (optionally windowed), so positions past each
 slot's length never contribute. `paged_decode_attention` does the same
 against pools (n_blocks, Hkv, bs, D) through block tables (B,
-max_blocks). On CUDA tensors each launches its kernel
-(`csrc/decode_attention.cu`, `csrc/paged_decode_attention.cu`), which
-reads only each slot's live range, or raises on a shape the kernel does
-not take; on CPU tensors each takes its plain PyTorch version (masked
-reference attention over the whole buffer, after a gather for the pool).
+max_blocks). An int8 cache comes with fp32 per-(token, kv head) scales,
+(B, Hkv, L) or (n_blocks, Hkv, bs): both or neither.
+
+On CUDA tensors each launches its kernel (`csrc/decode_attention.cu`,
+`csrc/paged_decode_attention.cu`; one body, `csrc/decode_core.cuh`, with
+the int8 cache as a second storage type), which reads only each slot's
+live range, or raises on a shape the kernel does not take. An int8
+cache on the card launches its int8 kernel or raises: nothing
+dequantizes the whole cache there (the JAX package's
+`QuantFallbackWarning` fallback is not ported). On CPU tensors each
+takes its plain PyTorch version: masked reference attention over the
+whole buffer, after a gather for the pool and, for int8, a dequantize in
+fp32 cast to q's dtype (JAX `_decode_ref` :522).
 """
 
 from __future__ import annotations
@@ -22,7 +33,10 @@ from typing import Optional
 
 import torch
 
-from shellac_tpu_torch.inference.cache.layout import paged_gather_layer
+from shellac_tpu_torch.inference.cache.layout import (
+    paged_gather_layer,
+    paged_gather_scales,
+)
 from shellac_tpu_torch.ops import _build
 from shellac_tpu_torch.ops.attention import attention_ref
 from shellac_tpu_torch.ops.dispatch import refuse_grad
@@ -37,9 +51,23 @@ KERNEL_MAX_ROWS = 16
 KERNEL_MAX_BLOCKS = 32768
 
 
+def _check_scales(name, k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: k_scale and v_scale come together")
+
+
+def _dequantize(cache, scales, dtype):
+    """An int8 cache times its per-token scales in fp32, cast to dtype."""
+    return (cache.float() * scales[..., None]).to(dtype)
+
+
 def _decode_ref(q, cache_k, cache_v, index, window, scale, softcap=None,
-                sinks=None):
-    """The plain PyTorch version: masked attention over the whole cache."""
+                sinks=None, k_scale=None, v_scale=None):
+    """The plain PyTorch version: masked attention over the whole cache
+    (dequantized first when it is int8)."""
+    if k_scale is not None:
+        cache_k = _dequantize(cache_k, k_scale, q.dtype)
+        cache_v = _dequantize(cache_v, v_scale, q.dtype)
     # cache: (B, Hkv, L, D) head-major -> (B, L, Hkv, D) for the ref.
     cache_k = cache_k.transpose(1, 2)
     cache_v = cache_v.transpose(1, 2)
@@ -58,78 +86,123 @@ def _decode_ref(q, cache_k, cache_v, index, window, scale, softcap=None,
     )
 
 
-def decode_attention_cuda(q, cache_k, cache_v, index, *, window=None,
-                          scale=None, softcap=None, sinks=None):
-    """Launch the CUDA dense flash-decode kernel.
-
-    index: (B,) int32 on the card. Raises on what the kernel does not
-    take, and under autograd (the kernel is inference-only).
-    `decode_attention_cuda.launches` counts the kernel's launches.
-    """
-    refuse_grad("decode_attention_cuda", q, cache_k, cache_v, sinks)
-    if not (q.is_cuda and cache_k.is_cuda and cache_v.is_cuda
-            and index.is_cuda):
-        raise ValueError("decode_attention_cuda needs CUDA tensors")
-    if q.dtype not in _KERNEL_DTYPES or cache_k.dtype != q.dtype \
-            or cache_v.dtype != q.dtype:
+def _check_kernel_args(name, q, k, v, index, window, sinks, quant,
+                       k_scale, v_scale, scale_shape):
+    """What both decode kernels need (after `refuse_grad`), in the
+    compute dtype or int8:
+    CUDA, contiguous tensors; q fp32 or bf16; the cache in q's dtype or
+    int8 with fp32 scales of `scale_shape`; D 64 or 128 in both; whole
+    GQA groups of at most KERNEL_MAX_ROWS rows; 16-byte aligned caches.
+    Raises ValueError naming what is wrong."""
+    tensors = [q, k, v, index] + ([k_scale, v_scale] if quant else [])
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name} needs CUDA tensors")
+    kv_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != kv_dtype \
+            or v.dtype != kv_dtype:
         raise ValueError(
-            f"decode_attention_cuda: dtypes {q.dtype}/{cache_k.dtype}/"
-            f"{cache_v.dtype}"
+            f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}: q must be fp32 "
+            f"or bf16 and the cache {'int8' if quant else 'of q dtype'}"
         )
-    if index.dtype != torch.int32:
-        raise ValueError("decode_attention_cuda: index must be int32")
-    if q.dim() != 4 or cache_k.dim() != 4 or cache_v.shape != cache_k.shape:
-        raise ValueError(
-            "decode_attention_cuda: q (B,s,H,D), cache (B,Hkv,L,D)"
-        )
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q (B,s,H,D), cache 4-d, k and v alike")
     b, s, h, d = q.shape
-    cb, hkv, max_len, dk = cache_k.shape
-    if cb != b or dk != d or index.shape != (b,):
-        raise ValueError(
-            f"decode_attention_cuda: q {tuple(q.shape)} cache "
-            f"{tuple(cache_k.shape)} index {tuple(index.shape)}"
-        )
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"decode_attention_cuda: head_dim {d} not in "
+    hkv, dk = k.shape[1], k.shape[3]
+    if dk != d or d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} (cache {dk}) not in "
                          f"{KERNEL_HEAD_DIMS}")
     if h % hkv != 0:
         raise ValueError(f"n_heads={h} not divisible by n_kv_heads={hkv}")
     if (h // hkv) * s > KERNEL_MAX_ROWS:
         raise ValueError(
-            f"decode_attention_cuda: G*s = {(h // hkv) * s} rows per kv "
-            f"head > {KERNEL_MAX_ROWS}"
+            f"{name}: G*s = {(h // hkv) * s} rows per kv head > "
+            f"{KERNEL_MAX_ROWS}"
         )
+    if index.dtype != torch.int32 or index.shape != (b,):
+        raise ValueError(f"{name}: index must be int32 ({b},)")
     if window is not None and window < 1:
-        raise ValueError("decode_attention_cuda: window must be >= 1")
-    if not (q.is_contiguous() and cache_k.is_contiguous()
-            and cache_v.is_contiguous() and index.is_contiguous()):
-        raise ValueError("decode_attention_cuda needs contiguous tensors")
-    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
-        raise ValueError("decode_attention_cuda: caches must be 16-byte "
-                         "aligned (the kernel loads 16 bytes at a time)")
+        raise ValueError(f"{name}: window must be >= 1")
+    if quant:
+        for t in (k_scale, v_scale):
+            if t.dtype != torch.float32 or tuple(t.shape) != scale_shape:
+                raise ValueError(
+                    f"{name}: scales must be fp32 {scale_shape}, got "
+                    f"{t.dtype} {tuple(t.shape)}"
+                )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: caches must be 16-byte aligned (the "
+                         "kernel loads 16 bytes at a time)")
     if sinks is not None:
         if sinks.dtype != torch.float32 or sinks.shape != (h,) \
                 or not sinks.is_cuda or not sinks.is_contiguous():
-            raise ValueError("decode_attention_cuda: sinks must be fp32 (H,)")
+            raise ValueError(f"{name}: sinks must be fp32 (H,)")
+
+
+def _dense_cuda(wrapper, q, cache_k, cache_v, index, window, scale, softcap,
+                sinks, k_scale=None, v_scale=None):
+    """Check, then launch the dense kernel (int8 when scales are given);
+    counts the launch on `wrapper`."""
+    quant = k_scale is not None
+    name = wrapper.__name__
+    refuse_grad(name, q, cache_k, cache_v, sinks, k_scale, v_scale)
+    if cache_k.dim() != 4 or q.dim() != 4 or cache_k.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: q (B,s,H,D), cache (B,Hkv,L,D)")
+    _check_kernel_args(name, q, cache_k, cache_v, index, window, sinks,
+                       quant, k_scale, v_scale, tuple(cache_k.shape[:3]))
+    b, s, h, d = q.shape
+    _, hkv, max_len, _ = cache_k.shape
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    head = [q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr()]
+    if quant:
+        head += [k_scale.data_ptr(), v_scale.data_ptr()]
     _build.launch(
-        "shellac_decode_attention", q.data_ptr(), cache_k.data_ptr(),
-        cache_v.data_ptr(), index.data_ptr(),
+        "shellac_decode_attention_int8" if quant
+        else "shellac_decode_attention",
+        *head, index.data_ptr(),
         None if sinks is None else sinks.data_ptr(), out.data_ptr(),
         b, s, h, hkv, max_len, d, float(scale),
         -1 if window is None else int(window),
         0.0 if softcap is None else float(softcap),
         _KERNEL_DTYPES[q.dtype],
     )
-    decode_attention_cuda.launches += 1
+    wrapper.launches += 1
     return out
 
 
+def decode_attention_cuda(q, cache_k, cache_v, index, *, window=None,
+                          scale=None, softcap=None, sinks=None):
+    """Launch the CUDA dense flash-decode kernel (cache in q's dtype).
+
+    index: (B,) int32 on the card. Raises on what the kernel does not
+    take, and under autograd (the kernel is inference-only).
+    `decode_attention_cuda.launches` counts the kernel's launches.
+    """
+    return _dense_cuda(decode_attention_cuda, q, cache_k, cache_v, index,
+                       window, scale, softcap, sinks)
+
+
+def decode_attention_quant_cuda(q, cache_k, cache_v, k_scale, v_scale,
+                                index, *, window=None, scale=None,
+                                softcap=None, sinks=None):
+    """Launch the CUDA dense flash-decode kernel over an int8 cache.
+
+    cache_k/v: (B, Hkv, L, D) int8; k_scale/v_scale: (B, Hkv, L) fp32.
+    Raises as `decode_attention_cuda` does;
+    `decode_attention_quant_cuda.launches` counts its launches.
+    """
+    return _dense_cuda(decode_attention_quant_cuda, q, cache_k, cache_v,
+                       index, window, scale, softcap, sinks, k_scale,
+                       v_scale)
+
+
 decode_attention_cuda.launches = 0
+decode_attention_quant_cuda.launches = 0
 
 
 def decode_attention(
@@ -143,117 +216,132 @@ def decode_attention(
 ):
     """Attention of q (B, s, H, D) against a dense cache (B, Hkv, L, D).
 
-    index: (B,) int32 — per-sequence pre-write length. impl "auto" takes
-    the CUDA kernel on CUDA tensors and the plain version on CPU tensors;
-    "ref" always takes the plain version.
+    index: (B,) int32 — per-sequence pre-write length. k_scale/v_scale:
+    (B, Hkv, L) fp32 dequant scales of an int8 cache, both or neither.
+    impl "auto" takes the CUDA kernel on CUDA tensors and the plain
+    version on CPU tensors; "ref" always takes the plain version.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV caches (k_scale/v_scale) are not ported yet"
-        )
+    _check_scales("decode_attention", k_scale, v_scale)
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown decode impl {impl!r}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    kw = dict(window=window, scale=scale, softcap=softcap, sinks=sinks)
     if impl == "auto" and q.is_cuda:
-        return decode_attention_cuda(
-            q, cache_k, cache_v, index, window=window, scale=scale,
-            softcap=softcap, sinks=sinks,
-        )
+        if k_scale is not None:
+            return decode_attention_quant_cuda(q, cache_k, cache_v, k_scale,
+                                               v_scale, index, **kw)
+        return decode_attention_cuda(q, cache_k, cache_v, index, **kw)
     if impl == "auto" and q.device.type != "cpu":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     return _decode_ref(q, cache_k, cache_v, index, window, scale,
-                       softcap=softcap, sinks=sinks)
+                       softcap=softcap, sinks=sinks, k_scale=k_scale,
+                       v_scale=v_scale)
 
 
 def paged_decode_supported(q, pool_k, *, quant: bool = False) -> bool:
     """Whether the CUDA paged kernel takes these shapes: D 64 or 128 in
-    both q and the pool, fp32 or bf16 in both, whole GQA groups, at most
-    KERNEL_MAX_ROWS q rows per kv head, no int8 pool. Any block size."""
+    both q and the pool, q fp32 or bf16, the pool in q's dtype (or int8
+    with quant), whole GQA groups, at most KERNEL_MAX_ROWS q rows per kv
+    head. Any block size, int8 included."""
     b, s, h, d = q.shape
     hkv, dk = pool_k.shape[1], pool_k.shape[3]
-    return (not quant and d in KERNEL_HEAD_DIMS and dk == d
-            and q.dtype in _KERNEL_DTYPES and pool_k.dtype == q.dtype
+    kv_dtype = torch.int8 if quant else q.dtype
+    return (d in KERNEL_HEAD_DIMS and dk == d
+            and q.dtype in _KERNEL_DTYPES and pool_k.dtype == kv_dtype
             and h % hkv == 0 and (h // hkv) * s <= KERNEL_MAX_ROWS)
 
 
 def _paged_decode_ref(q, pool_k, pool_v, tables, index, window, scale,
-                      softcap=None, sinks=None):
-    """The plain PyTorch version: gather each slot's pages into a dense
-    view, then masked attention over it."""
+                      softcap=None, sinks=None, k_scale=None, v_scale=None):
+    """The plain PyTorch version: gather each slot's pages (and scale
+    pages) into a dense view, then the dense plain version over it."""
     k_all, v_all = paged_gather_layer(pool_k, pool_v, tables)
+    if k_scale is not None:
+        k_scale = paged_gather_scales(k_scale, tables)
+        v_scale = paged_gather_scales(v_scale, tables)
     return _decode_ref(q, k_all, v_all, index, window, scale,
-                       softcap=softcap, sinks=sinks)
+                       softcap=softcap, sinks=sinks, k_scale=k_scale,
+                       v_scale=v_scale)
 
 
-def paged_decode_attention_cuda(q, pool_k, pool_v, tables, index, *,
-                                window=None, scale=None, softcap=None,
-                                sinks=None):
-    """Launch the CUDA paged flash-decode kernel.
-
-    tables: (B, max_blocks) int32 and index: (B,) int32, on the card.
-    Raises on what the kernel does not take, and under autograd (the
-    kernel is inference-only). `paged_decode_attention_cuda.launches`
-    counts the kernel's launches.
-    """
-    name = "paged_decode_attention_cuda"
-    refuse_grad(name, q, pool_k, pool_v, sinks)
-    if not all(t.is_cuda for t in (q, pool_k, pool_v, tables, index)):
+def _paged_cuda(wrapper, q, pool_k, pool_v, tables, index, window, scale,
+                softcap, sinks, k_scale=None, v_scale=None):
+    """Check, then launch the paged kernel (int8 when scales are given);
+    counts the launch on `wrapper`."""
+    quant = k_scale is not None
+    name = wrapper.__name__
+    refuse_grad(name, q, pool_k, pool_v, sinks, k_scale, v_scale)
+    if not tables.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
-    if q.dim() != 4 or pool_k.dim() != 4 or pool_v.shape != pool_k.shape:
+    if q.dim() != 4 or pool_k.dim() != 4:
         raise ValueError(f"{name}: q (B,s,H,D), pools (n_blocks,Hkv,bs,D)")
-    if not paged_decode_supported(q, pool_k) or pool_v.dtype != q.dtype:
-        raise ValueError(
-            f"{name} does not take q {tuple(q.shape)} {q.dtype}, pool "
-            f"{tuple(pool_k.shape)} {pool_k.dtype}: it needs head_dim in "
-            f"{KERNEL_HEAD_DIMS} in both, fp32 or bf16 in all three, "
-            f"n_heads divisible by kv heads and G*s <= {KERNEL_MAX_ROWS} "
-            "rows per kv head"
-        )
+    _check_kernel_args(name, q, pool_k, pool_v, index, window, sinks,
+                       quant, k_scale, v_scale, tuple(pool_k.shape[:3]))
     b, s, h, d = q.shape
     _, hkv, bs, _ = pool_k.shape
-    if tables.dtype != torch.int32 or index.dtype != torch.int32:
-        raise ValueError(f"{name}: tables and index must be int32")
-    if tables.dim() != 2 or tables.shape[0] != b or index.shape != (b,):
-        raise ValueError(
-            f"{name}: tables {tuple(tables.shape)} and index "
-            f"{tuple(index.shape)} do not match batch {b}"
-        )
+    if tables.dtype != torch.int32 or tables.dim() != 2 \
+            or tables.shape[0] != b:
+        raise ValueError(f"{name}: tables must be int32 ({b}, max_blocks), "
+                         f"got {tables.dtype} {tuple(tables.shape)}")
+    if not tables.is_contiguous():
+        raise ValueError(f"{name} needs contiguous tensors")
     max_blocks = tables.shape[1]
     if not 1 <= max_blocks <= KERNEL_MAX_BLOCKS:
         raise ValueError(f"{name}: max_blocks {max_blocks} not in "
                          f"[1, {KERNEL_MAX_BLOCKS}]")
-    if window is not None and window < 1:
-        raise ValueError(f"{name}: window must be >= 1")
-    if not all(t.is_contiguous() for t in (q, pool_k, pool_v, tables,
-                                           index)):
-        raise ValueError(f"{name} needs contiguous tensors")
-    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
-        raise ValueError(f"{name}: pools must be 16-byte aligned (the "
-                         "kernel loads 16 bytes at a time)")
-    if sinks is not None:
-        if sinks.dtype != torch.float32 or sinks.shape != (h,) \
-                or not sinks.is_cuda or not sinks.is_contiguous():
-            raise ValueError(f"{name}: sinks must be fp32 (H,)")
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    head = [q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()]
+    if quant:
+        head += [k_scale.data_ptr(), v_scale.data_ptr()]
     _build.launch(
-        "shellac_paged_decode_attention", q.data_ptr(), pool_k.data_ptr(),
-        pool_v.data_ptr(), tables.data_ptr(), index.data_ptr(),
+        "shellac_paged_decode_attention_int8" if quant
+        else "shellac_paged_decode_attention",
+        *head, tables.data_ptr(), index.data_ptr(),
         None if sinks is None else sinks.data_ptr(), out.data_ptr(),
         b, s, h, hkv, bs, max_blocks, d, float(scale),
         -1 if window is None else int(window),
         0.0 if softcap is None else float(softcap),
         _KERNEL_DTYPES[q.dtype],
     )
-    paged_decode_attention_cuda.launches += 1
+    wrapper.launches += 1
     return out
 
 
+def paged_decode_attention_cuda(q, pool_k, pool_v, tables, index, *,
+                                window=None, scale=None, softcap=None,
+                                sinks=None):
+    """Launch the CUDA paged flash-decode kernel (pool in q's dtype).
+
+    tables: (B, max_blocks) int32 and index: (B,) int32, on the card.
+    Raises on what the kernel does not take, and under autograd (the
+    kernel is inference-only). `paged_decode_attention_cuda.launches`
+    counts the kernel's launches.
+    """
+    return _paged_cuda(paged_decode_attention_cuda, q, pool_k, pool_v,
+                       tables, index, window, scale, softcap, sinks)
+
+
+def paged_decode_attention_quant_cuda(q, pool_k, pool_v, k_scale, v_scale,
+                                      tables, index, *, window=None,
+                                      scale=None, softcap=None, sinks=None):
+    """Launch the CUDA paged flash-decode kernel over an int8 pool.
+
+    pool_k/v: (n_blocks, Hkv, bs, D) int8; k_scale/v_scale: (n_blocks,
+    Hkv, bs) fp32. Raises as `paged_decode_attention_cuda` does;
+    `paged_decode_attention_quant_cuda.launches` counts its launches.
+    """
+    return _paged_cuda(paged_decode_attention_quant_cuda, q, pool_k, pool_v,
+                       tables, index, window, scale, softcap, sinks,
+                       k_scale, v_scale)
+
+
 paged_decode_attention_cuda.launches = 0
+paged_decode_attention_quant_cuda.launches = 0
 
 
 def paged_decode_attention(
@@ -268,25 +356,27 @@ def paged_decode_attention(
     """Attention of q (B, s, H, D) against a paged pool via block tables.
 
     pool_k/v: (n_blocks, Hkv, bs, D); tables: (B, max_blocks) int32;
-    index: (B,) int32 pre-write lengths. impl "auto" launches the CUDA
-    kernel on CUDA tensors (raising on a shape it does not take) and the
-    plain version on CPU tensors; "ref" always takes the plain version.
+    index: (B,) int32 pre-write lengths. k_scale/v_scale: (n_blocks, Hkv,
+    bs) fp32 scale pools of an int8 pool, both or neither. impl "auto"
+    launches the CUDA kernel on CUDA tensors (raising on a shape it does
+    not take) and the plain version on CPU tensors; "ref" always takes
+    the plain version.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 paged pools (k_scale/v_scale) are not ported yet"
-        )
+    _check_scales("paged_decode_attention", k_scale, v_scale)
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown paged decode impl {impl!r}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    kw = dict(window=window, scale=scale, softcap=softcap, sinks=sinks)
     if impl == "auto" and q.is_cuda:
-        return paged_decode_attention_cuda(
-            q, pool_k, pool_v, tables, index, window=window, scale=scale,
-            softcap=softcap, sinks=sinks,
-        )
+        if k_scale is not None:
+            return paged_decode_attention_quant_cuda(
+                q, pool_k, pool_v, k_scale, v_scale, tables, index, **kw)
+        return paged_decode_attention_cuda(q, pool_k, pool_v, tables, index,
+                                           **kw)
     if impl == "auto" and q.device.type != "cpu":
         raise ValueError(
             f"paged_decode_attention: unsupported device {q.device}")
     return _paged_decode_ref(q, pool_k, pool_v, tables, index, window,
-                             scale, softcap=softcap, sinks=sinks)
+                             scale, softcap=softcap, sinks=sinks,
+                             k_scale=k_scale, v_scale=v_scale)

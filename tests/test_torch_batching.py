@@ -125,19 +125,23 @@ def test_paged_decode_attention_matches_jax_kernels(case):
 
 
 def test_paged_decode_supported_and_unported_scales():
+    """The kernel's gate (int8 pools take it with quant=True, at any
+    block size) and the scales' both-or-neither rule."""
     q = torch.zeros(2, 1, 16, 128)
     pool = torch.zeros(9, 8, 16, 128)
     assert da.paged_decode_supported(q, pool)
     assert da.paged_decode_supported(q[..., :64], pool[..., :64])
     assert not da.paged_decode_supported(q[..., :96], pool[..., :96])
     assert not da.paged_decode_supported(q, pool, quant=True)
+    assert da.paged_decode_supported(q, pool.to(torch.int8), quant=True)
+    assert not da.paged_decode_supported(q, pool.to(torch.int8))
     assert not da.paged_decode_supported(torch.zeros(2, 9, 16, 128), pool)
     assert not da.paged_decode_supported(q.half(), pool.half())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="come together"):
         da.paged_decode_attention(q, pool, pool,
                                   torch.zeros(2, 4, dtype=torch.int32),
                                   torch.zeros(2, dtype=torch.int32),
-                                  k_scale=pool[..., 0], v_scale=pool[..., 0])
+                                  k_scale=pool[..., 0])
 
 
 # --------------------------------------------------------------------------
@@ -444,9 +448,11 @@ def test_cache_registry():
     cfg = get_model_config("tiny")
     assert engine_class("dense") is batching.BatchingEngine
     assert engine_class("paged") is batching.PagedBatchingEngine
-    for name in ("dense-int8", "paged-int8", "rolling", "rolling-int8"):
+    for name in ("rolling", "rolling-int8"):
         with pytest.raises(NotImplementedError):
             make_backend(name, cfg, 2, 64)
+    assert make_backend("dense-int8", cfg, 2, 64).kv_quant == "int8"
+    assert make_backend("paged-int8", cfg, 2, 64).block_size == 64
     with pytest.raises(NotImplementedError):
         engine_class("paged", speculative=True)
     with pytest.raises(ValueError):
@@ -466,7 +472,8 @@ def test_cache_registry():
 _ENGINE_OPTS = [
     {"overlap_decode": True}, {"overlap_prefill": True},
     {"prefill_chunk": 16}, {"mesh": object()}, {"pp_pipeline": True},
-    {"kv_quant": "int8"}, {"rolling_window": True}, {"registry": object()},
+    {"kv_quant": "int8", "rolling_window": True}, {"rolling_window": True},
+    {"registry": object()},
 ]
 _SUBMIT_OPTS = [
     {"logit_bias": {1: 2.0}}, {"presence_penalty": 0.5},

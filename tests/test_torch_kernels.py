@@ -242,9 +242,181 @@ def test_paged_wrapper_raises_on_what_the_kernel_does_not_take():
     for match, (qq, pp, tt, ii) in bad.items():
         with pytest.raises(ValueError, match=match):
             da.paged_decode_attention(qq, pp, pp, tt, ii)
-    with pytest.raises(NotImplementedError):
-        da.paged_decode_attention(q, pool, pool, tab, idx,
-                                  k_scale=pool[..., 0], v_scale=pool[..., 0])
+    # Scales over a bf16 pool: the int8 kernel takes int8 pools only.
+    sc = pool[..., 0].float().contiguous()
+    with pytest.raises(ValueError, match="int8"):
+        da.paged_decode_attention(q, pool, pool, tab, idx, k_scale=sc,
+                                  v_scale=sc)
+
+
+# ---------------------------------------------------------- int8 caches
+#
+# The int8 kernels keep the dequantized logits and p in fp32, where the
+# plain versions dequantize to q's dtype and round p to it: within the
+# same bf16 tolerance.
+
+
+def _quant_rows(gen, shape, dev):
+    """Seeded normals (..., D) quantized as a cache write would: int8
+    values and fp32 scales of shape[:-1]."""
+    from shellac_tpu_torch.inference.cache import quantize_kv
+
+    q, s = quantize_kv(torch.randn(shape, generator=gen, device=dev)[None])
+    return q[0].contiguous(), s[0].contiguous()
+
+
+_DECODE_Q = {
+    "main_s1": dict(s=1, h=16, hkv=8, L=2048, d=128),
+    "s1_d64": dict(s=1, h=16, hkv=8, L=700, d=64),
+    "s8_g2_rows16": dict(s=8, h=4, hkv=2, L=300, d=128),
+    "s4_d64_g4": dict(s=4, h=8, hkv=2, L=300, d=64),
+    "window_softcap_sinks": dict(s=2, h=16, hkv=8, L=1000, d=128,
+                                 window=100, softcap=30.0, sinks=True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_DECODE_Q))
+def test_decode_attention_quant_kernel(dtype, case):
+    dev = _card()
+    c = dict(_DECODE_Q[case])
+    s, h, hkv, L, d = (c.pop(k) for k in ("s", "h", "hkv", "L", "d"))
+    b = 4
+    gen = torch.Generator(device=dev).manual_seed(L + d + s)
+    q = _randn(gen, (b, s, h, d), dtype, dev)
+    ck, ks = _quant_rows(gen, (b, hkv, L, d), dev)
+    cv, vs = _quant_rows(gen, (b, hkv, L, d), dev)
+    index = torch.tensor([0, 37, L // 2 + 3, L - s], dtype=torch.int32,
+                         device=dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    before = (da.decode_attention_quant_cuda.launches,
+              da.decode_attention_cuda.launches)
+    out = da.decode_attention(q, ck, cv, index, k_scale=ks, v_scale=vs, **c)
+    assert (da.decode_attention_quant_cuda.launches,
+            da.decode_attention_cuda.launches) == (before[0] + 1, before[1])
+    ref = da._decode_ref(q, ck, cv, index, c.get("window"), d ** -0.5,
+                         softcap=c.get("softcap"), sinks=c.get("sinks"),
+                         k_scale=ks, v_scale=vs)
+    _close(out, ref, dtype)
+    # Nothing past each slot's length is read: NaN scales there change
+    # nothing.
+    for bi, n in enumerate((index + s).tolist()):
+        ks[bi, :, n:] = float("nan")
+        vs[bi, :, n:] = float("nan")
+    again = da.decode_attention(q, ck, cv, index, k_scale=ks, v_scale=vs,
+                                **c)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+_PAGED_Q = {
+    "serve_bs64": dict(s=1, h=16, hkv=8, d=128, bs=64),
+    "bs16": dict(s=1, h=16, hkv=8, d=128, bs=16),
+    "bs32_d64": dict(s=1, h=8, hkv=4, d=64, bs=32),
+    "s4_bs32": dict(s=4, h=8, hkv=4, d=128, bs=32),
+    "window_softcap_sinks": dict(s=1, h=16, hkv=8, d=128, bs=64,
+                                 window=100, softcap=30.0, sinks=True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_PAGED_Q))
+def test_paged_decode_attention_quant_kernel(dtype, case):
+    """Against the plain version on the clean pool; the kernel reads a
+    copy whose block 0 and unowned blocks hold NaN scales, so it must
+    never touch a dead or unowned page."""
+    dev = _card()
+    c = dict(_PAGED_Q[case])
+    s, h, hkv, d, bs = (c.pop(k) for k in ("s", "h", "hkv", "d", "bs"))
+    gen = torch.Generator(device=dev).manual_seed(bs * d + s + 1)
+    max_len = 1280
+    index = torch.tensor([0, 37, 640 + 3, max_len - s, 1100, 15],
+                         dtype=torch.int32)
+    mb = -(-max_len // bs)
+    _, _, tables, pk, _ = _paged_pool(gen, torch.float32, dev, index, s,
+                                      hkv, bs, d, mb)
+    dead = torch.isnan(pk[:, 0, 0, 0])
+    k, ksc = _quant_rows(gen, pk.shape, dev)
+    v, vsc = _quant_rows(gen, pk.shape, dev)
+    pks, pvs = ksc.clone(), vsc.clone()
+    pks[dead] = float("nan")
+    pvs[dead] = float("nan")
+    index = index.to(dev)
+    q = _randn(gen, (len(index), s, h, d), dtype, dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    before = (da.paged_decode_attention_quant_cuda.launches,
+              da.paged_decode_attention_cuda.launches)
+    out = da.paged_decode_attention(q, k, v, tables, index, k_scale=pks,
+                                    v_scale=pvs, **c)
+    assert (da.paged_decode_attention_quant_cuda.launches,
+            da.paged_decode_attention_cuda.launches) == (before[0] + 1,
+                                                         before[1])
+    kw = dict(softcap=c.get("softcap"), sinks=c.get("sinks"))
+    ref = da._paged_decode_ref(q, k, v, tables, index, c.get("window"),
+                               d ** -0.5, k_scale=ksc, v_scale=vsc, **kw)
+    _close(out, ref, dtype)
+    # The idle slot (length 0, table row all 0) over zeroed scales, as
+    # init_quant_paged_cache leaves block 0: a zero output, no NaN.
+    idle_t = torch.zeros_like(tables[:1])
+    idle_i = torch.zeros_like(index[:1])
+    zs = torch.zeros_like(ksc)
+    out0 = da.paged_decode_attention(q[:1], k, v, idle_t, idle_i, k_scale=zs,
+                                     v_scale=zs, **c)
+    _close(out0, da._paged_decode_ref(q[:1], k, v, idle_t, idle_i,
+                                      c.get("window"), d ** -0.5,
+                                      k_scale=zs, v_scale=zs, **kw), dtype)
+
+
+def test_quant_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _card()
+    bf = torch.bfloat16
+    q = torch.zeros(2, 1, 16, 128, device=dev, dtype=bf)
+    c8 = torch.zeros(2, 8, 64, 128, device=dev, dtype=torch.int8)
+    sc = torch.ones(2, 8, 64, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    pool = torch.zeros(9, 8, 16, 128, device=dev, dtype=torch.int8)
+    psc = torch.ones(9, 8, 16, device=dev)
+    tab = torch.zeros(2, 4, dtype=torch.int32, device=dev)
+    ok = da.decode_attention(q, c8, c8, idx, k_scale=sc, v_scale=sc)
+    ok2 = da.paged_decode_attention(q, pool, pool, tab, idx, k_scale=psc,
+                                    v_scale=psc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ok.float()).all()
+    assert torch.isfinite(ok2.float()).all()
+    dense_bad = {
+        "int8": (q, c8.to(bf), sc, sc),
+        "head_dim": (q[..., :96].contiguous(), c8[..., :96].contiguous(),
+                     sc, sc),
+        "fp32": (q, c8, sc.to(bf), sc.to(bf)),
+        r"\(2, 8, 64\)": (q, c8, sc[..., :32].contiguous(),
+                            sc[..., :32].contiguous()),
+        "fp32 or bf16": (q.half(), c8, sc, sc),
+        "rows per kv head": (torch.zeros(2, 9, 16, 128, device=dev,
+                                         dtype=bf), c8, sc, sc),
+    }
+    for match, (qq, cc, ss, vv) in dense_bad.items():
+        with pytest.raises(ValueError, match=match):
+            da.decode_attention(qq, cc, cc, idx, k_scale=ss, v_scale=vv)
+    paged_bad = {
+        "int8": (q[..., :64].contiguous(), pool[..., :64].to(bf)),
+        "head_dim": (q[..., :96].contiguous(), pool[..., :96].contiguous()),
+    }
+    for match, (qq, pp) in paged_bad.items():
+        with pytest.raises(ValueError, match=match):
+            da.paged_decode_attention(qq, pp, pp, tab, idx, k_scale=psc,
+                                      v_scale=psc)
+    with pytest.raises(ValueError, match="come together"):
+        da.decode_attention(q, c8, c8, idx, k_scale=sc)
+    with pytest.raises(ValueError, match="come together"):
+        da.paged_decode_attention(q, pool, pool, tab, idx, v_scale=psc)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        da.decode_attention(qg, c8, c8, idx, k_scale=sc, v_scale=sc)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        da.paged_decode_attention(qg, pool, pool, tab, idx, k_scale=psc,
+                                  v_scale=psc)
 
 
 # ---------------------------------------------------------- training path

@@ -244,10 +244,11 @@ def test_unported_models_raise(name):
 def test_unported_options_raise():
     cfg = get_model_config("tiny")
     params = tt.init_params(cfg, device=CPU)
-    for kw in ({"kv_quant": "int8"}, {"rolling_window": True},
-               {"mesh": object()}):
+    for kw in ({"kv_quant": "int8", "rolling_window": True},
+               {"rolling_window": True}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             Engine(cfg, params, device=CPU, **kw)
+    assert Engine(cfg, params, kv_quant="int8", device=CPU).kv_quant == "int8"
     toks = torch.zeros(1, 4, dtype=torch.int64)
     with pytest.raises(NotImplementedError):
         tt.forward(cfg.replace(remat=True, remat_policy="dots"), params,

@@ -261,12 +261,20 @@ def test_decode_plain_matches_jax_decode_interpret(case):
 
 
 def test_decode_rejects_int8_scales():
-    z = torch.zeros(1, 1, 2, 64)
-    c = torch.zeros(1, 2, 8, 64)
-    with pytest.raises(NotImplementedError):
-        tda.decode_attention(z, c, c, torch.zeros(1, dtype=torch.int32),
-                             k_scale=torch.ones(1, 2, 8),
-                             v_scale=torch.ones(1, 2, 8))
+    """A lone scale is refused; both scales dequantize an int8 cache (in
+    fp32, cast to q's dtype) before the plain attention."""
+    rng = _rng("decode-int8-scales")
+    q = _t(_randn(rng, 1, 1, 2, 64))
+    c = torch.from_numpy(rng.integers(-127, 128, (1, 2, 8, 64)).astype(
+        np.int8))
+    sc = _t(rng.uniform(0.01, 0.1, (1, 2, 8)).astype(np.float32))
+    idx = torch.tensor([5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="come together"):
+        tda.decode_attention(q, c, c, idx, k_scale=sc)
+    got = tda.decode_attention(q, c, c, idx, k_scale=sc, v_scale=sc)
+    deq = c.float() * sc[..., None]
+    torch.testing.assert_close(got, tda.decode_attention(q, deq, deq, idx),
+                               atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("wrapper", ["rms", "flash", "decode"])

@@ -9,7 +9,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32; the
                 paged kernel reads a pool whose block 0 and unowned blocks
-                hold NaN. At the training shape (B 6, S 2048, H 16, Hkv 8,
+                hold NaN; kernel 2's out and lse at generate's prefill
+                (8 x 512) and at serve's largest admission (1 x 1024). At
+                the training shape (B 6, S 2048, H 16, Hkv 8,
                 D 128, causal) and at packed segments, window + softcap +
                 sinks, D 64 and an odd S: the forward's lse, the backward
                 kernels (dk/dv, dq) against their plain versions, and the
@@ -70,7 +72,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 and a gather, a dequantize and SDPA, three calls; for the
                 backward kernels the library call is the backward of
                 scaled_dot_product_attention, which computes what kernels 3
-                and 4 compute together).
+                and 4 compute together). Kernel 2 is timed at
+                generate's prefill, at serve's largest admission (B 1, S
+                1024) and at the training shape; every row carries its
+                achieved TFLOP/s.
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}.
 
@@ -240,6 +245,8 @@ def main_shapes(seed, dev):
         "rms_prefill": (PROMPTS * PAD, 2048),
         "rms_decode": (PROMPTS, 2048),
         "flash": dict(b=PROMPTS, s=PAD, h=16, hkv=8, d=128),
+        # serve's largest admission: one prompt of PROMPT_HI tokens.
+        "flash_serve": dict(b=1, s=PROMPT_HI, h=16, hkv=8, d=128),
         "decode": dict(b=PROMPTS, s=1, h=16, hkv=8, L=MAX_LEN, d=128,
                        index=idx),
         "paged": dict(s=1, h=16, hkv=8, d=128, bs=BLOCK,
@@ -355,6 +362,7 @@ def phase_kernels(gen, dev, shapes):
     from shellac_tpu_torch.ops.flash_attention import (
         flash_attention_cuda,
         flash_attention_ref,
+        flash_forward_ref,
     )
     from shellac_tpu_torch.ops.norms import rms_norm_cuda, rms_norm_ref
 
@@ -382,11 +390,19 @@ def phase_kernels(gen, dev, shapes):
         record("rms_norm", "ragged_37x1000", dtype, rms_norm_cuda(x, sc),
                rms_norm_ref(x, sc))
 
+        # Kernel 2 at generate's prefill and at serve's largest admission,
+        # out and lse against flash_forward_ref.
+        for case, fs in (("main_causal", shapes["flash"]),
+                         ("serve_b1_s1024", shapes["flash_serve"])):
+            q, k, v = flash_inputs(gen, dtype, dev, **fs)
+            out, lse = flash_attention_cuda(q, k, v, causal=True,
+                                            with_lse=True)
+            rout, rlse = flash_forward_ref(q, k, v, causal=True)
+            record("flash_attention_fwd", case, dtype, out, rout,
+                   main and case == "main_causal")
+            record("flash_attention_fwd", f"{case}/lse", dtype, lse, rlse)
         fs = shapes["flash"]
         q, k, v = flash_inputs(gen, dtype, dev, **fs)
-        record("flash_attention_fwd", "main_causal", dtype,
-               flash_attention_cuda(q, k, v, causal=True),
-               flash_attention_ref(q, k, v, causal=True), main)
         kw = dict(causal=True, window=128, softcap=50.0, sinks=sinks16)
         record("flash_attention_fwd", "window_softcap_sinks", dtype,
                flash_attention_cuda(q, k, v, **kw),
@@ -1392,6 +1408,7 @@ def phase_timings(gen, dev, shapes, card):
             extra[key.replace("_ms", "_eager_ms")] = times[1]
         emit("timings", kernel=name, case=case, dtype="bf16",
              bytes=nbytes, flops=flops, roofline_share=bms / kernel[0],
+             achieved_tflops=flops / (kernel[0] * 1e-3) / 1e12,
              peaks=f"{BF16_PEAK_NAME}; {PEAK_BYTES_S / 1e12} TB/s",
              eager_ms=kernel[1], plain_eager_ms=plain[1], card=card,
              **extra, **row)
@@ -1423,6 +1440,22 @@ def phase_timings(gen, dev, shapes, card):
         sets, 20)
     pairs = b * h * s * (s + 1) // 2  # causal (q, k) pairs this run needs
     record("flash_attention_fwd", "main_causal", k, p, lib,
+           (2 * b * s * h * d + 2 * b * s * hkv * d) * 2, 4 * d * pairs,
+           [b, s, h, hkv, d])
+
+    # Serve's largest admission: one prompt, B = 1, its largest launcher.
+    fs = shapes["flash_serve"]
+    b, s, h, hkv, d = fs["b"], fs["s"], fs["h"], fs["hkv"], fs["d"]
+    sets = copies(lambda: flash_inputs(gen, bf, dev, **fs))
+    k = measure(lambda q, k, v: flash_attention_cuda(q, k, v), sets, 50)
+    p = measure(lambda q, k, v: flash_attention_ref(q, k, v), sets[:2], 4)
+    lib = measure(
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True),
+        sets, 50)
+    pairs = b * h * s * (s + 1) // 2
+    record("flash_attention_fwd", "serve_b1_s1024", k, p, lib,
            (2 * b * s * h * d + 2 * b * s * hkv * d) * 2, 4 * d * pairs,
            [b, s, h, hkv, d])
 

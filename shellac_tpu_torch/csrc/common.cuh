@@ -55,7 +55,7 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Tensor-core helpers of the bf16 attention bodies (mma.sync m16n8k16).
+// Tensor-core helpers of the bf16 backward kernels (mma.sync m16n8k16).
 // Fragments (lane = 4 * g + t4): A regs hold rows g, g + 8 and columns
 // 2 t4 (+1), 2 t4 + 8 (+9); B regs hold rows 2 t4 (+1), 2 t4 + 8 (+9) of
 // column g; C holds rows g, g + 8 and columns 2 t4, 2 t4 + 1.

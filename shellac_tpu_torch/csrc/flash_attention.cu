@@ -5,40 +5,74 @@
 // training: causal or not, sliding window, Gemma-2 softcap, GPT-OSS sinks,
 // GQA, packed segments (one (B, S) int32 row shared by q and kv, as
 // `_scores` masks them), and the logsumexp rows (B, H, S) fp32 the
-// backward kernels read (sink-inclusive, as `_flash_kernel`'s
+// backward kernels read (sink-inclusive, natural log, as `_flash_kernel`'s
 // finalizer writes them). The serving calls pass no segments and no lse
 // pointer, and nothing is written there.
 //
 // What it keeps from the TPU kernel: the online softmax with m, l and the
-// output accumulator in fp32; the scale applied in fp32 (to q in the fp32
-// body, as the TPU kernel does; to the fp32 scores in the bf16 body, so
-// q is not rounded to bf16 after scaling); softcap before the causal,
-// window and segment masks; the fully-masked-tile gate (p = 0 where s is
-// the NEG_INF sentinel, so a tile no row can see leaves the accumulator
-// untouched); p rounded to v's dtype before the p.V product while l sums
-// the unrounded p; sinks folded in at the end as sink_rebase does; kv
-// tiles outside [first live tile of the window, causal diagonal] neither
-// loaded nor computed (`_make_clamp_ki`); GQA through kv head h / G.
+// output accumulator in fp32; softcap before the causal, window and
+// segment masks; the fully-masked-tile gate (p = 0 where s is the NEG_INF
+// sentinel, so a tile no row can see leaves the accumulator untouched);
+// p rounded to v's dtype before the p.V product while l sums the
+// unrounded p; sinks folded in at the end as sink_rebase does; kv tiles
+// outside [first live tile of the window, causal diagonal] neither loaded
+// nor computed (`_make_clamp_ki`); GQA through kv head h / G.
 //
-// What changes for Hopper: the TPU walks kv blocks as a sequential grid
-// axis carrying VMEM scratch; here one thread block owns one (batch, q
-// head, 64-row q tile) and loops over 64-row kv tiles itself, staging
-// each k and v tile in shared memory. The ragged tail of any S is masked
-// in-kernel, so no length gate is needed. Two bodies:
-//   - bf16: tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-//     accumulate). Each of the 4 warps owns 16 q rows; its q fragments,
-//     scores and output stay in registers, and the score accumulators
-//     are re-packed in place as the A operand of the p.V product. v is
-//     stored transposed so its B fragments are contiguous.
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at the
+// training shape (6 x 2048, H 16, D 128, causal, with lse) the
+// operations, 0.104 ms; at generate's prefill (8 x 512) the bytes of q,
+// k, v and out, 0.015 ms. So the bf16 body is built to keep the tensor
+// cores fed (wgmma, fed by TMA, with the softmax hidden behind it), and
+// to pay the fixed cost of a q tile (its loads, its epilogue) once per
+// SM rather than once per tile. Two bodies:
+//
+//   - bf16, `flash_fwd_wgmma`, a persistent kernel: one CTA an SM (at
+//     most), each walking work tiles of (q head, batch, 128-row q tile)
+//     from a longest-first list (under the causal mask q tile qt reads
+//     qt + 1 kv tiles) in a snake order, so the CTAs finish together.
+//     Three warpgroups. Warpgroup 2 is the producer: it drops to 24
+//     registers (setmaxnreg) and one thread starts TMA loads: each work
+//     tile's q into one of two q buffers (the next tile's q arrives
+//     while this one's epilogue runs), and the live kv tiles (128 rows)
+//     into a ring of K and V stages (2 at D 128, 3 at D 64) with a full
+//     and an empty mbarrier each for K and for V. Warpgroups 0 and 1
+//     are consumers of 64 q rows each at 240 registers. S = Q K^T is a
+//     wgmma m64n128k16 with both operands in shared memory (K-major);
+//     the online softmax runs on the accumulator fragments in base 2
+//     (scale * log2(e) folded into one multiply, ex2 on the SFU); p is
+//     re-packed in registers to bf16 as the A operand of O += P V, a
+//     wgmma with V read MN-major through its descriptor (no transposed
+//     copy). As in FlashAttention-3, the products of kv tile i overlap
+//     the softmax: S_i starts with P_{i-1} V_{i-1}, and the softmax of
+//     S_i runs while the second product completes (intra-warpgroup
+//     overlap); and two named barriers hand the tensor cores from one
+//     consumer to the other (ping-pong), so one warpgroup's softmax runs
+//     under the other's products. K is released after the softmax that
+//     read it, V after its product. Every mbarrier wait sits before the
+//     wgmmas it feeds start: a wait loop while a wgmma is in flight
+//     makes ptxas serialize the wgmmas (warning C7520). All tiles are
+//     128-byte swizzled (q, k, v as TMA leaves them, out as the TMA
+//     store reads it), so neither the wgmma reads nor the epilogue's
+//     shared stores conflict on banks. Only boundary tiles (the causal
+//     diagonal, a window edge, the ragged tail, a segment boundary) run
+//     the per-score compares; every other tile is mask-free. The
+//     epilogue writes O through the work tile's q buffer and one TMA
+//     store per panel; rows past S are neither loaded (TMA fills zeros)
+//     nor stored. Shared memory: two q tiles and the ring, 192 KB at D
+//     128 (2 x 32 + 2 x (32 + 32)), 128 KB at D 64 (2 x 16 + 3 x (16 +
+//     16)); registers 168 a thread at launch, then 2 x 128 x 240 + 128 x
+//     24 = 64,512; no spills (`ptxas -v`).
+//     Left for later: a 64-row q tile for grids that fill few of the 132
+//     SMs (serve's B = 1 admissions run 128 work tiles), a dynamic tile
+//     scheduler, K and V multicast to both q heads of a GQA pair in a
+//     cluster, and fp8.
 //   - fp32: scalar fp32 FMAs over a 4x4 register tile per thread (the
-//     tensor cores would round fp32 inputs to tf32).
-//
-// Bound on the H100: at the serving prefill shape (S = 512, D = 128) the
-// bytes bound (q, k, v, out once each) and the operations bound are
-// within 1.5x of each other. This version uses mma.sync with plain loads
-// and no pipelining; wgmma with TMA-fed, multi-stage shared memory is the
-// step towards either bound.
+//     tensor cores would round fp32 inputs to tf32); the parity path,
+//     with its own 64 x 64 tiles and plain loads.
+#include <cuda.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace shellac {
 namespace {
@@ -233,232 +267,573 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// bf16 body: tensor cores.
-constexpr int kMmaThreads = 128;  // 4 warps x 16 q rows
 
+// ------------------------------------------------------------ bf16 body
+
+constexpr int kBM = 128;           // q rows per work tile: two consumers x 64
+constexpr int kBN = 128;           // kv rows per tile
+constexpr int kWgThreads = 384;    // consumers: warpgroups 0, 1; producer 2
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kMaxDevices = 64;
+constexpr int kPanelBytesPerRow = 128;  // 64 bf16: one swizzled panel row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Byte offsets into the CTA's dynamic shared memory (1024-aligned base).
 template <int D>
-constexpr size_t bf16_smem_bytes() {
-  // Qs and Ks [64][D + 8], Vt [D][64 + 8]: 16-byte padded rows keep the
-  // fragment loads free of bank conflicts; then the kv segment ids.
-  return sizeof(__nv_bfloat16) *
-             (kBQ * (D + 8) + kBK * (D + 8) + D * (kBK + 8)) +
-         sizeof(int) * kBK;
+struct Smem {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQBytes = kBM * D * 2;   // a q tile, later out
+  static constexpr int kKVBytes = kBN * D * 2;  // one K or one V tile
+  static constexpr int kQ = 0;                  // two q tiles
+  static constexpr int kK = kQ + 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kSeg = kV + kStages * kKVBytes;  // [stage][kBN] int
+  static constexpr int kKInfo = kSeg + kStages * kBN * 4;  // [stage] int2
+  static constexpr int kQInfo = kKInfo + kStages * 8;  // [2][2] int2
+  // mbarriers: q_full[2], q_empty[2], then per stage full_k, full_v,
+  // empty_k, empty_v.
+  static constexpr int kBar = kQInfo + 4 * 8;
+  static constexpr int kBytes = kBar + (4 + 4 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+// S = Q K^T (one 64 x 128 accumulator tile) for this consumer warpgroup.
+template <int D>
+__device__ __forceinline__ void qk_tile(float* s, const unsigned char* qs,
+                                        const unsigned char* ks) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 head dims are 32 bytes inside one 128-byte swizzled row.
+    const int off = (kk % 4) * 32;
+    const uint64_t da =
+        smem_desc(qs + (kk / 4) * kBM * kPanelBytesPerRow + off, 16, 1024);
+    const uint64_t db =
+        smem_desc(ks + (kk / 4) * kBN * kPanelBytesPerRow + off, 16, 1024);
+    wgmma_ss_n128(s, da, db, kk > 0);
+  }
 }
 
-// mma.sync fragment layout: see common.cuh. SEG as in the fp32 body.
-template <int D, bool SEG>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const float* __restrict__ sinks,
-               const int* __restrict__ seg, __nv_bfloat16* __restrict__ out,
-               float* __restrict__ lse, int S, int H, int Hkv, float scale,
-               int causal, int window, float softcap) {
-  using bf16 = __nv_bfloat16;
-  constexpr int QP = D + 8;    // Qs/Ks row stride (elements)
-  constexpr int VP = kBK + 8;  // Vt row stride
-  constexpr int KD = D / 16;   // k-steps over the head dim
-  constexpr int NB = kBK / 8;  // 8-column blocks of the score tile
-  constexpr int ND = D / 8;    // 8-column blocks of the output
-  constexpr int CH = 8;        // bf16 per 16-byte load
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][QP]
-  bf16* Ks = Qs + kBQ * QP;                      // [kBK][QP]
-  bf16* Vt = Ks + kBK * QP;                      // [D][VP], v transposed
-  int* Kseg = reinterpret_cast<int*>(Vt + D * VP);  // [kBK]
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const size_t qstride = (size_t)H * D;
-  const size_t kstride = (size_t)Hkv * D;
-  const bf16* qb = q + (size_t)b * S * qstride + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * S * kstride + (size_t)hk * D;
-  const bf16* vb = v + (size_t)b * S * kstride + (size_t)hk * D;
-
-  for (int i = tid; i < kBQ * D / CH; i += kMmaThreads) {
-    const int r = i / (D / CH), c = (i % (D / CH)) * CH;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (q0 + r < S)
-      u = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * qstride +
-                                          c);
-    *reinterpret_cast<uint4*>(Qs + r * QP + c) = u;
+// O += P V for this consumer warpgroup: P the bf16 A fragments, V read
+// MN-major (16 kv rows per step; the D columns span D / 64 panels, kBN
+// rows apart).
+template <int D>
+__device__ __forceinline__ void pv_tile(float* o, uint32_t (*pa)[4],
+                                        const unsigned char* vs) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint64_t db = smem_desc(vs + kk * 16 * kPanelBytesPerRow,
+                                  kBN * kPanelBytesPerRow, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128_mn(o, pa[kk], db);
+    else
+      wgmma_rs_n64_mn(o, pa[kk], db);
   }
-  __syncthreads();
-  // This warp's 16 q rows as A fragments, held for the whole kv loop.
-  uint32_t qa[KD][4];
-  const bf16* qw = Qs + warp * 16 * QP;
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const bf16* p0 = qw + g * QP + kk * 16 + t4 * 2;
-    qa[kk][0] = ld32(p0);
-    qa[kk][1] = ld32(p0 + 8 * QP);
-    qa[kk][2] = ld32(p0 + 8);
-    qa[kk][3] = ld32(p0 + 8 * QP + 8);
-  }
+}
 
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0+8
-  const int* segb = SEG ? seg + (size_t)b * S : nullptr;
-  int qseg[2] = {0, 0};
-  if (SEG) {
+// One tile's online-softmax step on this thread's S accumulators (rows
+// row0 and row0 + 8, 32 columns each): base-2 logits, the masks only on
+// a boundary tile, the running max m and sum l updated, alpha the factor
+// that rescales O, and s left holding p in fp32.
+template <bool SEG>
+__device__ __forceinline__ void softmax_tile(
+    float* s, float* alpha, float* m_r, float* l_r, bool boundary,
+    bool capped, float mul, float post, int c0, int row0, int S, int causal,
+    int window, const int* qseg, const int* ksg, int t4) {
+  using hopper::ex2;
+  const bool plain = !boundary && !capped;
+  float mx[2] = {kNegInf, kNegInf};
+  if (plain) {
+    // Mask-free: the max of the raw scores, scaled after (mul > 0).
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (row0 + 8 * i < S) qseg[i] = segb[row0 + 8 * i];
-  }
-  float m_r[2] = {kNegInf, kNegInf};
-  float l_r[2] = {0.f, 0.f};
-  float o[ND][4];
+    for (int j = 0; j < kBN / 2; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+  } else {
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-
-  const int n_tiles = (S + kBK - 1) / kBK;
-  int kt_last = n_tiles - 1;
-  if (causal) kt_last = min(kt_last, (q0 + kBQ - 1) / kBK);
-  const int kt_first = window > 0 ? max(q0 - window + 1, 0) / kBK : 0;
-
-  for (int kt = kt_first; kt <= kt_last; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's Ks/Vt are consumed
-    for (int i = tid; i < kBK * D / CH; i += kMmaThreads) {
-      const int r = i / (D / CH), c = (i % (D / CH)) * CH;
-      uint4 u = make_uint4(0, 0, 0, 0);
-      if (k0 + r < S)
-        u = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * kstride +
-                                            c);
-      *reinterpret_cast<uint4*>(Ks + r * QP + c) = u;
-    }
-    // v: neighbouring threads take neighbouring positions, so the
-    // transposed 2-byte stores fall in distinct banks.
-    for (int i = tid; i < kBK * D / CH; i += kMmaThreads) {
-      const int r = i % kBK, c = (i / kBK) * CH;
-      uint4 u = make_uint4(0, 0, 0, 0);
-      if (k0 + r < S)
-        u = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * kstride +
-                                            c);
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < CH; ++j) Vt[(c + j) * VP + r] = e[j];
-    }
-    if (SEG && tid < kBK) Kseg[tid] = k0 + tid < S ? segb[k0 + tid] : -1;
-    __syncthreads();
-
-    float sc[NB][4];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const bf16* kp = Ks + (nb * 8 + g) * QP + kk * 16 + t4 * 2;
-        const uint32_t kf[2] = {ld32(kp), ld32(kp + 8)};
-        mma_16816(sc[nb], qa[kk], kf);
-      }
-    }
-
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8;
-        const int col = k0 + nb * 8 + t4 * 2 + (e & 1);
-        float x = sc[nb][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+    for (int j = 0; j < kBN / 2; ++j) {
+      const int r = (j >> 1) & 1;
+      float x = capped ? post * tanhf(s[j] * mul) : s[j] * mul;
+      if (boundary) {
+        const int cl = (j >> 2) * 8 + t4 * 2 + (j & 1);
+        const int col = c0 + cl;
+        const int row = row0 + 8 * r;
         bool ok = col < S;
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && row - col < window;
-        if (SEG) ok = ok && qseg[e >> 1] == Kseg[nb * 8 + t4 * 2 + (e & 1)];
+        if (SEG) ok = ok && qseg[r] == ksg[cl];
         x = ok ? x : kNegInf;
-        sc[nb][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-    }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // The 4 lanes of a group hold one row's 64 columns between them.
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      alpha[i] = expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = sc[nb][e];
-        const float p = x > 0.5f * kNegInf ? expf(x - m_r[e >> 1]) : 0.f;
-        rs[e >> 1] += p;
-        sc[nb][e] = p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      l_r[i] = alpha[i] * l_r[i] + rs[i];
-    }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
-
-    // p.V: the score accumulators of two 8-column blocks are one A
-    // fragment (p rounded to bf16 here, as the TPU kernel casts p to v's
-    // dtype).
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-          pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-          pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-          pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        const bf16* vp = Vt + (nd * 8 + g) * VP + kk * 16 + t4 * 2;
-        const uint32_t vf[2] = {ld32(vp), ld32(vp + 8)};
-        mma_16816(o[nd], pa, vf);
-      }
+      s[j] = x;
+      mx[r] = fmaxf(mx[r], x);
     }
   }
-
-  bf16* ob = out + (size_t)b * S * qstride + (size_t)h * D;
+  float m_new[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row >= S) continue;
-    float rr = 1.f, denom, m_fin = m_r[i];
-    if (sinks != nullptr) {
-      const float sk = sinks[h];
-      const float m2 = fmaxf(m_r[i], sk);
-      rr = expf(m_r[i] - m2);
-      denom = l_r[i] * rr + expf(sk - m2);
-      m_fin = m2;
-    } else {
-      denom = l_r[i] == 0.f ? 1.f : l_r[i];
-    }
-    if (lse != nullptr && t4 == 0)
-      lse[((size_t)b * H + h) * S + row] = m_fin + logf(denom);
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row * qstride + nd * 8 +
-                                   t4 * 2) =
-          pack_bf16(o[nd][2 * i] * rr / denom, o[nd][2 * i + 1] * rr / denom);
+  for (int r = 0; r < 2; ++r) {
+    // The 4 lanes of a group hold one row's 128 columns between them.
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    if (plain) mx[r] *= mul;
+    m_new[r] = fmaxf(m_r[r], mx[r]);
+    alpha[r] = ex2(m_r[r] - m_new[r]);
+    m_r[r] = m_new[r];
   }
+  if (plain) {
+#pragma unroll
+    for (int j = 0; j < kBN / 2; ++j) {
+      const int r = (j >> 1) & 1;
+      s[j] = ex2(fmaf(s[j], mul, -m_new[r]));
+      rs[r] += s[j];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBN / 2; ++j) {
+      const int r = (j >> 1) & 1;
+      s[j] = s[j] > 0.5f * kNegInf ? ex2(s[j] - m_new[r]) : 0.f;
+      rs[r] += s[j];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    l_r[r] = alpha[r] * l_r[r] + rs[r];
+  }
+}
+
+// One work tile: a (q head, batch, 128-row q tile). Tiles are numbered
+// longest first: under the causal mask q tile qt reads qt + 1 kv tiles,
+// so index t walks the q tiles from the last to the first, and within
+// one q tile the heads (fastest) and the batches.
+struct WorkTile {
+  int h, b, q0, kt_first, kt_last;
+};
+
+// The k-th work tile of CTA c of G: round k of the longest-first list in
+// a snake order (c in even rounds, G - 1 - c in odd ones), which keeps
+// the CTAs' summed tile lengths within about 1-3% of each other where a
+// plain round robin drifts by 7% (6 x 2048) to 46% (1 x 2048).
+__device__ __forceinline__ int work_index(int k, int c, int G) {
+  return k * G + (k & 1 ? G - 1 - c : c);
+}
+
+__device__ __forceinline__ WorkTile work_tile(int t, int S, int H, int B,
+                                              int causal, int window) {
+  const int nq = (S + kBM - 1) / kBM;
+  const int hb = H * B;
+  WorkTile w;
+  w.h = t % H;
+  w.b = (t % hb) / H;
+  w.q0 = (nq - 1 - t / hb) * kBM;
+  w.kt_last = (S + kBN - 1) / kBN - 1;
+  if (causal) w.kt_last = min(w.kt_last, (w.q0 + kBM - 1) / kBN);
+  w.kt_first = window > 0 ? max(w.q0 - window + 1, 0) / kBN : 0;
+  return w;
+}
+
+// SEG: segment masking is compiled in (the serving calls, which pass no
+// segments, run the instance without it). A persistent grid: CTA c runs
+// work tiles work_index(0, c, G), work_index(1, c, G), ...
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap omap,
+                const float* __restrict__ sinks, const int* __restrict__ seg,
+                float* __restrict__ lse, int B, int S, int H, int Hkv,
+                float scale, int causal, int window, float softcap) {
+  using namespace hopper;
+  using L = Smem<D>;
+  constexpr int ST = L::kStages;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = sm + L::kQ;  // [2] q tiles, each later its out tile
+  unsigned char* Ks = sm + L::kK;
+  unsigned char* Vs = sm + L::kV;
+  int* kseg = reinterpret_cast<int*>(sm + L::kSeg);
+  int2* kinfo = reinterpret_cast<int2*>(sm + L::kKInfo);  // {uniform, id}
+  int2* qinfo = reinterpret_cast<int2*>(sm + L::kQInfo);  // [2][2]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBar);  // [2]
+  uint64_t* q_empty = q_full + 2;                                 // [2]
+  uint64_t* full_k = q_empty + 2;
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty_k = full_v + ST;
+  uint64_t* empty_v = empty_k + ST;
+  const int n_work = (S + kBM - 1) / kBM * H * B;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_k + s, 8);  // one arrival per consumer warp
+      mbar_init(empty_v + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  if (wg == 2) {
+    // ----------------------------------------------------- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != 0) return;
+    int it = 0;  // position in the K/V ring, across work tiles
+    for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
+                                             gridDim.x)) < n_work;
+         ++n_local) {
+      const WorkTile w = work_tile(t, S, H, B, causal, window);
+      const int hk = w.h / (H / Hkv);
+      const int qb = n_local & 1;
+      const int* segb = SEG ? seg + (size_t)w.b * S : nullptr;
+      // The q buffer is free once both consumers' out stores have read it.
+      mbar_wait(q_empty + qb, ((n_local >> 1) & 1) ^ 1);
+      if (SEG) {
+        // Is each consumer's 64-row slice one document? Lane l reads
+        // rows 4 l .. 4 l + 3; lanes 0-15 cover warpgroup 0, 16-31
+        // warpgroup 1.
+        const int first = w.q0 + (lane / 16) * 64;
+        const int ref = first < S ? segb[first] : 0;
+        bool ok = first < S;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = w.q0 + 4 * lane + i;
+          if (r < S) ok = ok && segb[r] == ref;
+        }
+        const unsigned all = __ballot_sync(0xffffffffu, ok);
+        if (lane % 16 == 0)
+          qinfo[2 * qb + lane / 16] =
+              make_int2(((all >> lane) & 0xffffu) == 0xffffu, ref);
+        __syncwarp();
+      }
+      if (lane == 0) {
+        unsigned char* qdst = Qs + qb * L::kQBytes;
+        mbar_arrive_expect_tx(q_full + qb, L::kQBytes);
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            tma_load_4d(&qmap, q_full + qb,
+                        qdst + p * kBM * kPanelBytesPerRow +
+                            half * 64 * kPanelBytesPerRow,
+                        p * 64, w.h, w.q0 + half * 64, w.b);
+      }
+      for (int kt = w.kt_first; kt <= w.kt_last; ++kt, ++it) {
+        const int st = it % ST;
+        const uint32_t free_ph = ((it / ST) & 1) ^ 1;
+        mbar_wait(empty_k + st, free_ph);
+        const int c0 = kt * kBN;
+        if (SEG) {
+          // The tile's kv ids for the boundary tiles' compares, and
+          // whether every column is live and of one document.
+          const int ref = segb[c0];
+          bool ok = c0 + kBN <= S;
+          int e[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = c0 + 4 * lane + j;
+            e[j] = c < S ? segb[c] : ref;
+            ok = ok && e[j] == ref;
+          }
+          *reinterpret_cast<int4*>(kseg + st * kBN + 4 * lane) =
+              make_int4(e[0], e[1], e[2], e[3]);
+          const bool all = __all_sync(0xffffffffu, ok);
+          if (lane == 0) kinfo[st] = make_int2(all, ref);
+          __syncwarp();
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full_k + st, L::kKVBytes);
+#pragma unroll
+          for (int p = 0; p < L::kPanels; ++p)
+            tma_load_4d(&kmap, full_k + st,
+                        Ks + st * L::kKVBytes + p * kBN * kPanelBytesPerRow,
+                        p * 64, hk, c0, w.b);
+        }
+        mbar_wait(empty_v + st, free_ph);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full_v + st, L::kKVBytes);
+#pragma unroll
+          for (int p = 0; p < L::kPanels; ++p)
+            tma_load_4d(&vmap, full_v + st,
+                        Vs + st * L::kKVBytes + p * kBN * kPanelBytesPerRow,
+                        p * 64, hk, c0, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------- consumers
+  setmaxnreg_inc<kConsumerRegs>();
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int rl = wg * 64 + warp * 16 + g;  // tile rows rl and rl + 8
+  const bool capped = softcap > 0.f;
+  // Base-2 logits: x = s * mul (no softcap), or
+  // x = post * tanh(s * mul) (softcap applied to the natural logit).
+  const float mul = capped ? scale / softcap : scale * kLog2e;
+  const float post = softcap * kLog2e;
+  int it = 0;  // position in the K/V ring, as the producer counts it
+
+  for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
+                                           gridDim.x)) < n_work;
+       ++n_local) {
+    const WorkTile w = work_tile(t, S, H, B, causal, window);
+    const int qb = n_local & 1;
+    const int row0 = w.q0 + rl;
+    const int w_lo = w.q0 + wg * 64;  // this warpgroup's rows
+    int qseg[2] = {0, 0};
+    if (SEG) {
+      const int* segb = seg + (size_t)w.b * S;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row0 + 8 * i < S) qseg[i] = segb[row0 + 8 * i];
+    }
+    float m_r[2] = {kNegInf, kNegInf};
+    float l_r[2] = {0.f, 0.f};
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float s[kBN / 2];          // S_j, then p_j in fp32
+    uint32_t pa[kBN / 16][4];  // p_j as bf16 A fragments
+    float alpha[2];
+
+    mbar_wait(q_full + qb, (n_local >> 1) & 1);
+    const int2 qi = SEG ? qinfo[2 * qb + wg] : make_int2(1, 0);
+    unsigned char* qtile = Qs + qb * L::kQBytes;
+    const unsigned char* qs = qtile + wg * 64 * kPanelBytesPerRow;
+    const int n = w.kt_last - w.kt_first + 1;
+    // Ping-pong: a consumer starts its wgmmas between sched_sync (its
+    // turn) and sched_arrive (the other's turn), so one warpgroup's
+    // softmax runs while the other's products keep the tensor cores
+    // busy. Warpgroup 0 goes first in each work tile; every slot but
+    // warpgroup 1's last hands the turn over, so each barrier sees as
+    // many arrivals as syncs.
+    const auto sched_sync = [&] { named_barrier(3 + wg, 256); };
+    const auto sched_arrive = [&](int slot) {
+      named_barrier_arrive_if(4 - wg, 256, wg == 0 || slot != n - 1);
+    };
+    named_barrier_arrive_if(3, 256, wg == 1);
+
+    const auto softmax = [&](int i) {
+      const int st = (it + i) % ST;
+      const int c0 = (w.kt_first + i) * kBN;
+      const bool boundary =
+          c0 + kBN > S || (causal && c0 + kBN - 1 > w_lo) ||
+          (window > 0 && w_lo + 63 - c0 >= window) ||
+          (SEG && !(qi.x && kinfo[st].x && qi.y == kinfo[st].y));
+      softmax_tile<SEG>(s, alpha, m_r, l_r, boundary, capped, mul, post, c0,
+                        row0, S, causal, window, qseg, kseg + st * kBN, t4);
+      mbar_arrive_if(empty_k + st, lane == 0);  // K and its ids are read
+    };
+    const auto pack_p = [&] {
+      // The accumulators of 8-column blocks 2 kk and 2 kk + 1 are one
+      // 16-column A fragment, as for mma.sync; p rounds to bf16 here.
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = pack_bf16x2(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    };
+
+    // kv tile 0: S_0 alone.
+    {
+      const int st = it % ST;
+      mbar_wait(full_k + st, (it / ST) & 1);
+      sched_sync();
+      wgmma_fence();
+      qk_tile<D>(s, qs, Ks + st * L::kKVBytes);
+      wgmma_commit();
+      sched_arrive(0);
+      wgmma_wait<0>();
+      pin<kBN / 2>(s);
+      softmax(0);
+      pack_p();
+    }
+    // kv tile i: S_i = Q K_i^T in flight with O += P_{i-1} V_{i-1}; the
+    // softmax of S_i overlaps the second product, and O is rescaled by
+    // alpha_i once it has completed.
+    for (int i = 1; i < n; ++i) {
+      const int st = (it + i) % ST;
+      const int sp = (it + i - 1) % ST;
+      // Both waits come before the first wgmma: a wait loop while a
+      // wgmma is in flight makes ptxas serialize the wgmmas.
+      mbar_wait(full_k + st, ((it + i) / ST) & 1);
+      mbar_wait(full_v + sp, ((it + i - 1) / ST) & 1);
+      sched_sync();
+      wgmma_fence();
+      qk_tile<D>(s, qs, Ks + st * L::kKVBytes);
+      wgmma_commit();
+      pv_tile<D>(o, pa, Vs + sp * L::kKVBytes);
+      wgmma_commit();
+      sched_arrive(i);
+      wgmma_wait<1>();
+      pin<kBN / 2>(s);
+      softmax(i);
+      wgmma_wait<0>();
+      pin<D / 2>(o);
+      pin<kBN / 4>(&pa[0][0]);
+      mbar_arrive_if(empty_v + sp, lane == 0);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+      pack_p();
+    }
+    {
+      const int sp = (it + n - 1) % ST;
+      mbar_wait(full_v + sp, ((it + n - 1) / ST) & 1);
+      wgmma_fence();
+      pv_tile<D>(o, pa, Vs + sp * L::kKVBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<D / 2>(o);
+      pin<kBN / 4>(&pa[0][0]);
+      mbar_arrive_if(empty_v + sp, lane == 0);
+    }
+    it += n;
+
+    // ----------------------------------------------------- epilogue
+    const float sk2 = sinks != nullptr ? sinks[w.h] * kLog2e : 0.f;
+    float fac[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float rr = 1.f, denom, m_fin = m_r[r];
+      if (sinks != nullptr) {
+        const float m2 = fmaxf(m_r[r], sk2);
+        rr = ex2(m_r[r] - m2);
+        denom = l_r[r] * rr + ex2(sk2 - m2);
+        m_fin = m2;
+      } else {
+        denom = l_r[r] == 0.f ? 1.f : l_r[r];
+      }
+      fac[r] = rr / denom;
+      const int row = row0 + 8 * r;
+      if (lse != nullptr && t4 == 0 && row < S)
+        lse[((size_t)w.b * H + w.h) * S + row] =
+            (m_fin > 0.5f * kNegInf ? m_fin * kLn2 : kNegInf) + logf(denom);
+    }
+    // O into this warpgroup's rows of the q tile (only its own wgmma read
+    // them), in the swizzled layout the out map's TMA store reads.
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rl + 8 * r;
+        const int byte = (nd / 8) * kBM * kPanelBytesPerRow +
+                         row * kPanelBytesPerRow +
+                         (((nd % 8) ^ (row % 8)) << 4) + t4 * 4;
+        *reinterpret_cast<uint32_t*>(qtile + byte) = pack_bf16x2(
+            o[4 * nd + 2 * r] * fac[r], o[4 * nd + 2 * r + 1] * fac[r]);
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (tid == 0) {
+      if (w_lo < S) {
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_store_4d(&omap,
+                       qtile + p * kBM * kPanelBytesPerRow +
+                           wg * 64 * kPanelBytesPerRow,
+                       p * 64, w.h, w_lo, w.b);
+        tma_store_commit();
+        tma_store_wait_read();
+      }
+      mbar_arrive_if(q_empty + qb, 1);  // the producer may refill it
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time by the CUDA runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor as a 4-D map over (D, heads, S, B) with
+// boxes of 64 columns (one 128-byte swizzled panel) by `rows` rows.
+// Positions past S read as zeros and are not written.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int S,
+                       int heads, int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, bool SEG>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const float* sinks, const int* seg, void* out,
+                         float* lse, int B, int S, int H, int Hkv,
+                         float scale, int causal, int window, float softcap,
+                         cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om;
+  cudaError_t err;
+  if ((err = tensor_map(&qm, q, B, S, H, D, 64)) != cudaSuccess ||
+      (err = tensor_map(&km, k, B, S, Hkv, D, kBN)) != cudaSuccess ||
+      (err = tensor_map(&vm, v, B, S, Hkv, D, kBN)) != cudaSuccess ||
+      (err = tensor_map(&om, out, B, S, H, D, 64)) != cudaSuccess)
+    return err;
+  auto kernel = flash_fwd_wgmma<D, SEG>;
+  constexpr size_t smem = Smem<D>::kAlloc;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  // The SM count, read once per device: one CTA an SM at most.
+  static int sms_of[kMaxDevices] = {};
+  int dev;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms_of[dev],
+                                    cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return err;
+  const int n_work = (S + kBM - 1) / kBM * H * B;
+  kernel<<<min(n_work, sms_of[dev]), kWgThreads, smem, stream>>>(
+      qm, km, vm, om, sinks, seg, lse, B, S, H, Hkv, scale, causal, window,
+      softcap);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, bool SEG>
@@ -466,11 +841,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* sinks, const void* seg, void* out, void* lse,
                    int B, int S, int H, int Hkv, float scale, int causal,
                    int window, float softcap, cudaStream_t stream) {
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
   const float* sp = static_cast<const float*>(sinks);
   const int* gp = static_cast<const int*>(seg);
   float* lp = static_cast<float*>(lse);
   if constexpr (sizeof(T) == 4) {
+    dim3 grid((S + kBQ - 1) / kBQ, H, B);
     auto kernel = flash_fwd_f32<D, SEG>;
     constexpr size_t smem = f32_smem_bytes<D>();
     cudaError_t err = allow_smem(kernel, smem);
@@ -479,17 +854,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), sp, gp, static_cast<float*>(out), lp,
         S, H, Hkv, scale, causal, window, softcap);
+    return cudaGetLastError();
   } else {
-    auto kernel = flash_fwd_bf16<D, SEG>;
-    constexpr size_t smem = bf16_smem_bytes<D>();
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), sp, gp, static_cast<T*>(out), lp, S, H,
-        Hkv, scale, causal, window, softcap);
+    return launch_wgmma<D, SEG>(q, k, v, sp, gp, out, lp, B, S, H, Hkv,
+                                scale, causal, window, softcap, stream);
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

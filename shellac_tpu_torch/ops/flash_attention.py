@@ -195,6 +195,16 @@ def _check(name, q, k, v, *, causal, window, sinks, segments):
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} needs contiguous q, k, v")
+    # The bf16 forward reads q, k, v and writes out through TMA tensor
+    # maps: base addresses and the strides the maps use (between heads,
+    # positions and batches) must be multiples of 16 bytes.
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{name}: {nm}.data_ptr() is not 16-byte "
+                             "aligned")
+        if any(st * t.element_size() % 16 != 0 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: {nm}'s strides are not multiples "
+                             "of 16 bytes")
     if sinks is not None:
         if sinks.dtype != torch.float32 or sinks.shape != (h,) \
                 or not sinks.is_cuda or not sinks.is_contiguous():

@@ -61,6 +61,22 @@ _FLASH = {
     "noncausal": dict(b=2, s=200, h=4, hkv=4, d=128, causal=False),
     "window_softcap_sinks": dict(b=2, s=300, h=4, hkv=2, d=128, causal=True,
                                  window=70, softcap=30.0, sinks=True),
+    # The bf16 kernel's tile edges (128-row q and kv tiles): serve's B=1
+    # admissions, a tail that is not a multiple of 128, windows of
+    # exactly one tile and across tiles, GQA groups of 1 and 8, D 64
+    # with softcap and sinks.
+    "serve_b1_s1": dict(b=1, s=1, h=16, hkv=8, d=128, causal=True),
+    "serve_b1_s64": dict(b=1, s=64, h=16, hkv=8, d=128, causal=True),
+    "serve_b1_s1024": dict(b=1, s=1024, h=16, hkv=8, d=128, causal=True),
+    "tail_s1000": dict(b=2, s=1000, h=4, hkv=2, d=128, causal=True),
+    "window_one_tile": dict(b=1, s=640, h=4, hkv=2, d=128, causal=True,
+                            window=128),
+    "window_200": dict(b=1, s=700, h=4, hkv=2, d=128, causal=True,
+                       window=200),
+    "g1": dict(b=2, s=300, h=4, hkv=4, d=128, causal=True),
+    "g8": dict(b=1, s=520, h=16, hkv=2, d=128, causal=True),
+    "d64_softcap_sinks": dict(b=2, s=400, h=4, hkv=2, d=64, causal=True,
+                              softcap=30.0, sinks=True),
 }
 
 
@@ -135,6 +151,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     x = torch.zeros(2, 16, 4, 96, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(x, x, x)
+    # The bf16 forward's TMA maps need 16-byte-aligned base addresses: a
+    # contiguous view two bytes into its storage is refused.
+    buf = torch.zeros(2 * 16 * 4 * 128 + 1, device=dev, dtype=torch.bfloat16)
+    qm = buf[1:].view(2, 16, 4, 128)
+    assert qm.is_contiguous() and qm.data_ptr() % 16 != 0
+    kv = torch.zeros(2, 16, 4, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(qm, kv, kv)
     h = torch.zeros(4, 8, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         norms.rms_norm(h, torch.zeros(8, device=dev))
@@ -432,6 +456,25 @@ _BWD = {
                          bounds=(0, 77, 149, 150, 301)),
     "window_softcap_sinks": dict(b=2, s=300, h=4, hkv=2, d=128, causal=True,
                                  window=70, softcap=30.0, sinks=True),
+    # Tile edges of the bf16 forward (128-row tiles), whose lse the
+    # backward kernels read: B=1 at S=2048, a 1000-row tail, segment
+    # boundaries inside tiles with whole tiles of one document between
+    # them, GQA groups of 1 and 8, D 64 with softcap and sinks, and
+    # windows of one tile and across tiles.
+    "b1_s2048": dict(b=1, s=2048, h=4, hkv=2, d=128, causal=True),
+    "tail_s1000": dict(b=1, s=1000, h=4, hkv=2, d=128, causal=True),
+    "segments_in_tiles": dict(b=2, s=1000, h=4, hkv=2, d=128, causal=True,
+                              bounds=(0, 50, 130, 131, 300, 1000)),
+    "segments_noncausal": dict(b=1, s=700, h=4, hkv=4, d=64, causal=False,
+                               bounds=(0, 200, 456, 700)),
+    "g1": dict(b=1, s=300, h=4, hkv=4, d=128, causal=True),
+    "g8": dict(b=1, s=520, h=16, hkv=2, d=128, causal=True),
+    "d64_softcap_sinks": dict(b=2, s=400, h=4, hkv=2, d=64, causal=True,
+                              softcap=30.0, sinks=True),
+    "window_one_tile": dict(b=1, s=640, h=4, hkv=2, d=128, causal=True,
+                            window=128),
+    "window_200": dict(b=1, s=700, h=4, hkv=2, d=128, causal=True,
+                       window=200),
 }
 
 

@@ -5,7 +5,10 @@
 Phases, each printing JSON lines; any failure exits non-zero:
   1. device   — the card (torch and nvidia-smi); no CUDA device fails.
   2. build    — compile every kernel in shellac_tpu_torch/csrc/ from source
-                (nvcc -Xptxas -v register/shared-memory/spill lines).
+                (nvcc -Xptxas -v register/shared-memory/spill lines); every
+                wgmma kernel instance (kernel 2, kernels 3 and 4; D 64 and
+                128, with and without segments) must show 0 spill stores
+                and no C7520 (wgmma serialized).
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32; the
                 paged kernel reads a pool whose block 0 and unowned blocks
@@ -41,7 +44,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 10 timed steps (tokens/s, step ms, model TFLOP/s and its
                 share of the card's dense bf16 peak, every loss, peak
                 memory, exact launch counts per step), one step with packed
-                segment_ids, one profiled step.
+                segment_ids, one profiled step (device ms by kernel kind,
+                the LM head's GEMMs apart from the other GEMMs, from a
+                profile of the head alone at the step's shapes: bf16
+                operands with an fp32 result forward, TF32 backward).
   8. train-parity — shellac-1b width cut to 2 layers, fp32, batch 2 x seq
                 512, unpacked and packed: three steps through the kernels
                 against the same steps with attn_impl="ref" (loss and
@@ -135,6 +141,35 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 # kernels under test
 # --------------------------------------------------------------------------
+
+
+def wgmma_report(ptxas):
+    """Each wgmma kernel instance's registers and spill stores from the
+    `ptxas -v` lines, and whether ptxas serialized any wgmma (warning
+    C7520): kernel 2's four instances and kernels 3 and 4's four each
+    (D 64 and 128, with and without segments)."""
+    import re
+
+    out, fn = [], None
+    for line in ptxas:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or "_wgmma" not in fn:
+            continue
+        kind = next((k for k in ("flash_fwd", "flash_bwd_dkdv",
+                                 "flash_bwd_dq") if k in fn), fn)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.append({"kernel": kind, "instance": fn,
+                        "spill_stores": int(m.group(1))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1]["instance"] == fn:
+            out[-1]["registers"] = int(m.group(1))
+            fn = None
+    return {"instances": out,
+            "c7520": any("C7520" in line for line in ptxas)}
 
 
 def kernel_table():
@@ -1210,10 +1245,49 @@ def phase_train(seed, dev, table, card):
         counts[name] += got[name]
 
     prof = profile_call(lambda: step(state, batch), top=30)
-    emit("train", step="profile_step", card=card, **prof)
+    head = profile_lm_head(cfg, state.params, dev)
+    gemm = prof["device_ms_by_kind"].get("gemm", 0.0)
+    head_gemm = head["device_ms_by_kind"].get("gemm", 0.0)
+    emit("train", step="profile_step", card=card,
+         gemm_lm_head_ms=head_gemm, gemm_other_ms=gemm - head_gemm, **prof)
+    emit("train", step="profile_lm_head", card=card, **head)
     del state, step, batch, packed
     torch.cuda.empty_cache()
     return counts
+
+
+def profile_lm_head(cfg, params, dev):
+    """Device time by kernel of the LM head alone at the train step's
+    shapes: its forward product from the (B S, D) bf16 hidden and its two
+    backward products, as each train step runs them once (the head sits
+    outside the remat blocks). Its GEMMs are the LM head's share of the
+    step profile's `gemm` kind."""
+    from shellac_tpu_torch.models.transformer import (
+        LMHeadFunction,
+        output_weights,
+    )
+
+    n = TRAIN_BATCH * TRAIN_SEQ
+    x = torch.randn((n, cfg.d_model), device=dev).to(
+        cfg.compute_dtype).requires_grad_()
+    w = output_weights(cfg, params).detach().requires_grad_()
+    g = torch.randn((n, cfg.vocab_size), device=dev) * 1e-4
+
+    def fwd():
+        return LMHeadFunction.apply(x, w)
+
+    def fn():
+        torch.autograd.grad(fwd(), (x, w), g)
+
+    fn()
+    torch.cuda.synchronize()
+    # The window opens on a tiny kernel: on the H100 host the first
+    # kernel of a profile window has gone missing from its trace.
+    prof = profile_call(lambda: (torch.ones(1, device=dev).add_(1), fn()))
+    with torch.no_grad():
+        fwd_ms = eager_ms(fwd, [()], 3)
+    return dict(prof, event_ms_forward=fwd_ms,
+                event_ms_forward_backward=eager_ms(fn, [()], 3))
 
 
 def phase_train_parity(seed, dev):
@@ -1648,8 +1722,13 @@ def main():
 
     t0 = time.perf_counter()
     info = _build.build_info()
+    wgmma = wgmma_report(info["ptxas"])
     emit("build", seconds=time.perf_counter() - t0, built=info["built"],
-         nvcc_seconds=info["seconds"], dir=info["dir"], ptxas=info["ptxas"])
+         nvcc_seconds=info["seconds"], dir=info["dir"], wgmma=wgmma,
+         ptxas=info["ptxas"])
+    bad = [k for k in wgmma["instances"] if k["spill_stores"] != 0]
+    if wgmma["c7520"] or bad or len(wgmma["instances"]) < 12:
+        raise SystemExit(f"build: wgmma kernels spill or serialize: {wgmma}")
 
     table = kernel_table()
     gen = torch.Generator(device=dev)

@@ -55,33 +55,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Tensor-core helpers of the bf16 backward kernels (mma.sync m16n8k16).
-// Fragments (lane = 4 * g + t4): A regs hold rows g, g + 8 and columns
-// 2 t4 (+1), 2 t4 + 8 (+9); B regs hold rows 2 t4 (+1), 2 t4 + 8 (+9) of
-// column g; C holds rows g, g + 8 and columns 2 t4, 2 t4 + 1.
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 out.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two consecutive bf16 as one 32-bit fragment register.
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Round two floats to bf16 and pack them, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat16 l = __float2bfloat16(lo), h = __float2bfloat16(hi);
-  return (uint32_t)(*reinterpret_cast<unsigned short*>(&l)) |
-         ((uint32_t)(*reinterpret_cast<unsigned short*>(&h)) << 16);
-}
-
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -275,7 +275,6 @@ constexpr int kBN = 128;           // kv rows per tile
 constexpr int kWgThreads = 384;    // consumers: warpgroups 0, 1; producer 2
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
-constexpr int kMaxDevices = 64;
 constexpr int kPanelBytesPerRow = 128;  // 64 bf16: one swizzled panel row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -412,14 +411,6 @@ __device__ __forceinline__ void softmax_tile(
 struct WorkTile {
   int h, b, q0, kt_first, kt_last;
 };
-
-// The k-th work tile of CTA c of G: round k of the longest-first list in
-// a snake order (c in even rounds, G - 1 - c in odd ones), which keeps
-// the CTAs' summed tile lengths within about 1-3% of each other where a
-// plain round robin drifts by 7% (6 x 2048) to 46% (1 x 2048).
-__device__ __forceinline__ int work_index(int k, int c, int G) {
-  return k * G + (k & 1 ? G - 1 - c : c);
-}
 
 __device__ __forceinline__ WorkTile work_tile(int t, int S, int H, int B,
                                               int causal, int window) {
@@ -756,59 +747,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time by the CUDA runtime, so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (B, S, heads, D) bf16 tensor as a 4-D map over (D, heads, S, B) with
-// boxes of 64 columns (one 128-byte swizzled panel) by `rows` rows.
-// Positions past S read as zeros and are not written.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int S,
-                       int heads, int D, int rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r =
-      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D, bool SEG>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const float* sinks, const int* seg, void* out,
                          float* lse, int B, int S, int H, int Hkv,
                          float scale, int causal, int window, float softcap,
                          cudaStream_t stream) {
+  using namespace hopper;
   CUtensorMap qm, km, vm, om;
   cudaError_t err;
   if ((err = tensor_map(&qm, q, B, S, H, D, 64)) != cudaSuccess ||
@@ -819,18 +764,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   auto kernel = flash_fwd_wgmma<D, SEG>;
   constexpr size_t smem = Smem<D>::kAlloc;
   if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-  // The SM count, read once per device: one CTA an SM at most.
-  static int sms_of[kMaxDevices] = {};
-  int dev;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (sms_of[dev] == 0 &&
-      (err = cudaDeviceGetAttribute(&sms_of[dev],
-                                    cudaDevAttrMultiProcessorCount, dev)) !=
-          cudaSuccess)
-    return err;
   const int n_work = (S + kBM - 1) / kBM * H * B;
-  kernel<<<min(n_work, sms_of[dev]), kWgThreads, smem, stream>>>(
+  int ctas;
+  if ((err = persistent_ctas(n_work, &ctas)) != cudaSuccess) return err;
+  kernel<<<ctas, kWgThreads, smem, stream>>>(
       qm, km, vm, om, sinks, seg, lse, B, S, H, Hkv, scale, causal, window,
       softcap);
   return cudaGetLastError();

@@ -2,12 +2,13 @@
 //
 // Two kernels, one per pass of `_flash_backward` (shellac_tpu/ops/
 // flash_attention.py):
-//   - dkdv replaces `_flash_bwd_dkdv_kernel`: dk and dv of one 64-row kv
-//     tile of one kv head, summed inside the block over every q tile of
-//     every q head of its GQA group (the TPU grid's sequential
-//     (G * q_blocks) axis becomes a loop), so no atomics are needed;
-//   - dq replaces `_flash_bwd_dq_kernel`: dq of one 64-row q tile of one
-//     q head, over the kv tiles it can see.
+//   - dkdv replaces `_flash_bwd_dkdv_kernel`: dk and dv of one kv tile of
+//     one kv head, summed inside the block over every q tile of every q
+//     head of its GQA group (the TPU grid's sequential (G * q_blocks)
+//     axis becomes a loop), so no atomics are needed and every dk/dv
+//     tile is written by one block: the result is deterministic;
+//   - dq replaces `_flash_bwd_dq_kernel`: dq of one q tile of one q head,
+//     over the kv tiles it can see.
 // Both recompute p and ds from (q, k, v, dO, lse, delta) by the formulas
 // of `_tile_p_ds`: s = scale * q.k, softcap, then the causal, window,
 // segment and ragged-tail masks to the NEG_INF sentinel;
@@ -21,26 +22,63 @@
 // kernels' astype does; every sum is fp32; outputs are written in the
 // inputs' dtype. Dead causal and window tiles are not visited.
 //
-// What changes for Hopper: the TPU's VMEM scratch accumulators, carried
-// across grid steps, become registers carried across a loop inside one
-// thread block. Two bodies, as in the forward:
-//   - bf16: mma.sync m16n8k16 (bf16 in, fp32 accumulate), 4 warps of 16
-//     rows. dkdv computes the transposed tiles s^T = K Q^T and
-//     dp^T = V dO^T, so p^T and ds^T come out of the accumulators already
-//     in the A-operand layout of dv += p^T dO and dk += ds^T Q; q and dO
-//     are staged twice, row-major for the first products and transposed
-//     for the second. dq keeps its tile's q and dO in shared memory and
-//     stages k twice for the same reason.
-//   - fp32: scalar fp32 FMAs over 4 x 4 register tiles per thread (the
-//     tensor cores would round fp32 inputs to tf32).
+// What bounds them on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at the
+// training shape (B 6, S 2048, H 16, Hkv 8, D 128, causal) the
+// operations, over the causal half of the score matrix: dkdv four
+// products (0.209 ms), dq three (0.156 ms). So the bf16 bodies are built
+// as kernel 2's forward is (csrc/flash_attention.cu): persistent, one CTA
+// an SM at most, walking work tiles from a longest-first list in a snake
+// order; warpgroup 2 a TMA producer at 24 registers (setmaxnreg), its
+// warp 0 loading; warpgroups 0 and 1 `wgmma` consumers at 240, each
+// owning 64 rows of a 128-row work tile. Every tile in shared memory is
+// 128-byte swizzled as TMA leaves it, and every operand is read where it
+// lies: the products that need a transposed operand read it MN-major
+// through the descriptor's transpose bit, so nothing is copied twice.
 //
-// Bound on the H100: at the training shape (B 6, S 2048, H 16, Hkv 8,
-// D 128, causal) both kernels are bound by operations (dkdv four
-// products, dq three, over the causal half of the score matrix), not by
-// bytes. This version issues mma.sync from plain shared-memory loads with
-// no pipelining; wgmma fed by TMA through multi-stage buffers is the step
-// towards that bound.
+//   - bf16 dkdv, `flash_bwd_dkdv_wgmma`: a work tile is (b, kv head,
+//     128-row kv tile); the low kv tiles see the most q tiles under the
+//     causal mask, so the list runs kv tiles upwards. K and V are loaded
+//     once a work tile into one of two buffers (the next tile's arrive
+//     while this one runs). The q and dO tiles (64 rows) of every q head
+//     of the group stream through a ring of stages (2 at D 128, 4 at
+//     D 64) with a full and an empty mbarrier each; the producer also
+//     puts each q tile's lse (times log2 e), delta and segment ids into
+//     the stage. Per q tile a consumer computes s^T = K q^T and
+//     dp^T = V dO^T (m64n64, both operands K-major in shared memory), p^T
+//     and ds^T in the accumulators (masks only on boundary tiles), packs
+//     them to bf16 A fragments where they lie (the accumulator layout is
+//     the A layout), and adds dv += p^T dO and dk += ds^T q (A from
+//     registers, dO and q read MN-major). dk and dv stay in fp32
+//     registers for the whole work tile (2 x D / 2 a thread), then go
+//     through the consumer's own rows of the K and V buffers to TMA
+//     stores.
+//   - bf16 dq, `flash_bwd_dq_wgmma`: a work tile is (q head, b, 128-row q
+//     tile), the last q tiles first; q, dO (two buffers) and each row's
+//     lse and delta stay put; the live kv tiles (64 rows) stream through a
+//     ring (3 stages at D 128, 4 at D 64). Per kv tile: s = q K^T and
+//     dp = dO V^T (m64n64, K-major), ds in the accumulators, dq += ds K
+//     with K read MN-major; dq leaves through the consumer's rows of the
+//     q buffer and a TMA store.
+// Every mbarrier wait sits before the wgmmas it feeds (a wait loop while
+// a wgmma is in flight makes ptxas serialize them, warning C7520), and
+// accumulators and A fragments in flight are pinned with empty asm.
+// Shared memory: dkdv 2 x (32 + 32) KB of K/V and 2 x (16 + 16) KB of
+// stages at D 128; dq 2 x (32 + 32) KB of q/dO and 3 x (16 + 16) KB of
+// stages. Rows past S are neither loaded (TMA fills zeros) nor stored.
+// Each consumer waits for its products before the next step: the two
+// consumers' steps interleave on the tensor cores. Computing p while
+// dp^T is in flight, and ds while dv is, was slower on an H100 (dk/dv
+// 0.565 against 0.451 ms at 6 x 2048, with spills at D 128).
+// Left for later: ping-pong between the consumers as in the forward,
+// both q heads of a GQA pair in one dq block, and a split of the long
+// dk/dv work tiles for grids that fill few SMs (B = 1 runs 128 work
+// tiles of 4 to 64 steps).
+//   - fp32: scalar fp32 FMAs over 4 x 4 register tiles per thread (the
+//     tensor cores would round fp32 inputs to tf32); the parity path.
+#include <cuda.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace shellac {
 namespace {
@@ -84,381 +122,733 @@ __device__ __forceinline__ void p_ds(const BwdArgs& a, float qk, float dp,
 }
 
 // q tiles [first, last] that can see kv rows [k0, k0 + rows).
-__device__ __forceinline__ void live_q_tiles(const BwdArgs& a, int k0,
-                                             int rows, int bq, int& first,
-                                             int& last) {
-  first = a.causal ? k0 / bq : 0;
-  last = (a.S + bq - 1) / bq - 1;
-  if (a.window > 0) last = min(last, (k0 + rows - 1 + a.window - 1) / bq);
+__device__ __forceinline__ void live_q_tiles(int S, int causal, int window,
+                                             int k0, int rows, int bq,
+                                             int& first, int& last) {
+  first = causal ? k0 / bq : 0;
+  last = (S + bq - 1) / bq - 1;
+  if (window > 0) last = min(last, (k0 + rows - 1 + window - 1) / bq);
 }
 
 // kv tiles [first, last] that q rows [q0, q0 + rows) can see.
-__device__ __forceinline__ void live_kv_tiles(const BwdArgs& a, int q0,
-                                              int rows, int bk, int& first,
-                                              int& last) {
-  last = (a.S + bk - 1) / bk - 1;
-  if (a.causal) last = min(last, (q0 + rows - 1) / bk);
-  first = a.window > 0 ? max(q0 - a.window + 1, 0) / bk : 0;
+__device__ __forceinline__ void live_kv_tiles(int S, int causal, int window,
+                                              int q0, int rows, int bk,
+                                              int& first, int& last) {
+  last = (S + bk - 1) / bk - 1;
+  if (causal) last = min(last, (q0 + rows - 1) / bk);
+  first = window > 0 ? max(q0 - window + 1, 0) / bk : 0;
 }
 
 // ---------------------------------------------------------------------------
-// bf16 bodies
+// bf16 bodies: persistent, warp-specialized, wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kCH = 8;         // bf16 per 16-byte load
-constexpr int kKV3 = 64;       // dkdv: kv rows per block
-constexpr int kQ3 = 32;        // dkdv: q rows per inner step
-constexpr int kQ4 = 64;        // dq: q rows per block
-constexpr int kKV4 = 64;       // dq: kv rows per inner step
+constexpr int kTile = 128;       // rows of a work tile: two consumers x 64
+constexpr int kStep = 64;        // rows of a streamed tile
+constexpr int kRow = 128;        // bytes of one swizzled panel row (64 bf16)
+constexpr int kWgThreads = 384;  // consumers: warpgroups 0, 1; producer 2
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSmemMax = 232448;  // bytes a block may use on Hopper
 
+// acc (m64 x n64) = A B^T over D: A 64 rows at `a`, B 64 rows at `b`,
+// both K-major (rows of D columns), their D / 64 panels `pa` and `pb`
+// bytes apart.
 template <int D>
-constexpr size_t dkdv_bf16_smem() {
-  // Ks, Vs [kKV3][D + 8]; Qs, dOs [kQ3][D + 8]; Qt, dOt [D][kQ3 + 8];
-  // lse and delta of the q tile; kv and q segment ids.
-  return sizeof(bf16) * (2 * kKV3 * (D + 8) + 2 * kQ3 * (D + 8) +
-                         2 * D * (kQ3 + 8)) +
-         sizeof(float) * 2 * kQ3 + sizeof(int) * (kKV3 + kQ3);
-}
-
-// Stage rows [r0, r0 + rows) of a (S, stride) bf16 matrix block into
-// row-major smem (row stride RP); rows past S are zero. Neighbouring
-// threads take neighbouring 16-byte chunks of a row.
-template <int D, int RP>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           size_t stride, int r0, int rows,
-                                           int S) {
-  for (int i = threadIdx.x; i < rows * D / kCH; i += kThreads) {
-    const int r = i / (D / kCH), c = (i % (D / kCH)) * kCH;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S)
-      u = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride +
-                                          c);
-    *reinterpret_cast<uint4*>(dst + r * RP + c) = u;
+__device__ __forceinline__ void ss_n64(float* acc, const unsigned char* a,
+                                       int pa, const unsigned char* b,
+                                       int pb) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns are 32 bytes inside one 128-byte swizzled row.
+    const int off = (kk % 4) * 32;
+    wgmma_ss_n64(acc, smem_desc(a + (kk / 4) * pa + off, 16, 1024),
+                 smem_desc(b + (kk / 4) * pb + off, 16, 1024), kk > 0);
   }
 }
 
-// The same rows staged twice: row-major (stride RP) and transposed
-// ([D][TP]). Neighbouring threads take neighbouring rows, so the 2-byte
-// transposed stores fall in distinct banks.
-template <int D, int RP, int TP>
-__device__ __forceinline__ void stage_rows_both(bf16* dst, bf16* dst_t,
-                                                const bf16* src,
-                                                size_t stride, int r0,
-                                                int rows, int S) {
-  for (int i = threadIdx.x; i < rows * D / kCH; i += kThreads) {
-    const int r = i % rows, c = (i / rows) * kCH;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S)
-      u = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride +
-                                          c);
-    *reinterpret_cast<uint4*>(dst + r * RP + c) = u;
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
+// acc (m64 x nD) += F B: F the bf16 A fragments of a 64 x 64 tile (four
+// k-steps of 16), B a 64-row tile (the k index) of D columns read
+// MN-major, its panels kStep rows apart.
+template <int D>
+__device__ __forceinline__ void rs_nd(float* acc, uint32_t (*f)[4],
+                                      const unsigned char* b) {
+  using namespace hopper;
 #pragma unroll
-    for (int j = 0; j < kCH; ++j) dst_t[(c + j) * TP + r] = e[j];
+  for (int kk = 0; kk < kStep / 16; ++kk) {
+    const uint64_t db = smem_desc(b + kk * 16 * kRow, kStep * kRow, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128_mn(acc, f[kk], db);
+    else
+      wgmma_rs_n64_mn(acc, f[kk], db);
   }
 }
 
-// A fragment of rows [row, row + 16), columns [col, col + 16) of a
-// row-major bf16 tile with row stride P.
-template <int P>
-__device__ __forceinline__ void load_a(uint32_t* f, const bf16* t, int row,
-                                       int col, int g, int t4) {
-  const bf16* p = t + (row + g) * P + col + t4 * 2;
-  f[0] = ld32(p);
-  f[1] = ld32(p + 8 * P);
-  f[2] = ld32(p + 8);
-  f[3] = ld32(p + 8 * P + 8);
+// A 64 x 64 accumulator tile as bf16 A fragments: 8-column blocks 2 kk
+// and 2 kk + 1 are the 16-column fragment kk, as for mma.sync.
+__device__ __forceinline__ void pack_frags(uint32_t (*f)[4], const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[kk][e] = hopper::pack_bf16x2(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-// B fragment of the 16 x 8 product operand whose column n is row
-// (n0 + n) of a row-major tile with row stride P (k runs along the row).
-template <int P>
-__device__ __forceinline__ void load_b(uint32_t* f, const bf16* t, int n0,
-                                       int k0, int g, int t4) {
-  const bf16* p = t + (n0 + g) * P + k0 + t4 * 2;
-  f[0] = ld32(p);
-  f[1] = ld32(p + 8);
-}
-
-// Two 8-column accumulator blocks (16 x 16) as one A fragment, rounded
-// to bf16.
-__device__ __forceinline__ void pack_a(uint32_t* f, const float* lo,
-                                       const float* hi) {
-  f[0] = pack_bf16(lo[0], lo[1]);
-  f[1] = pack_bf16(lo[2], lo[3]);
-  f[2] = pack_bf16(hi[0], hi[1]);
-  f[3] = pack_bf16(hi[2], hi[3]);
-}
-
+// This thread's rows (rl, rl + 8 of a 128-row tile) of an m64 x nD
+// accumulator, as bf16, into `tile` in the swizzled layout a TMA store
+// reads (D / 64 panels of kTile rows).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_bf16(BwdArgs a) {
-  constexpr int RP = D + 8;    // row stride of Ks, Vs, Qs, dOs
-  constexpr int TP = kQ3 + 8;  // row stride of Qt, dOt
-  constexpr int KD = D / 16;   // k-steps over the head dim
-  constexpr int NB = kQ3 / 8;  // 8-column blocks of the q tile
-  constexpr int ND = D / 8;    // 8-column blocks of dk, dv
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kKV3 * RP;
-  bf16* Qs = Vs + kKV3 * RP;
-  bf16* dOs = Qs + kQ3 * RP;
-  bf16* Qt = dOs + kQ3 * RP;
-  bf16* dOt = Qt + D * TP;
-  float* lse_s = reinterpret_cast<float*>(dOt + D * TP);
-  float* delta_s = lse_s + kQ3;
-  int* kseg_s = reinterpret_cast<int*>(delta_s + kQ3);
-  int* qseg_s = kseg_s + kKV3;
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * kKV3;
-  const int S = a.S, H = a.H, G = H / a.Hkv;
-  const size_t qstride = (size_t)H * D, kstride = (size_t)a.Hkv * D;
-  const size_t kvoff = (size_t)b * S * kstride + (size_t)hk * D;
-  const int* segb = a.seg == nullptr ? nullptr : a.seg + (size_t)b * S;
-
-  stage_rows<D, RP>(Ks, static_cast<const bf16*>(a.k) + kvoff, kstride, k0,
-                    kKV3, S);
-  stage_rows<D, RP>(Vs, static_cast<const bf16*>(a.v) + kvoff, kstride, k0,
-                    kKV3, S);
-  for (int i = tid; i < kKV3; i += kThreads)
-    kseg_s[i] = segb != nullptr && k0 + i < S ? segb[k0 + i] : 0;
-
-  float dk[ND][4], dv[ND][4];
+__device__ __forceinline__ void stage_out(unsigned char* tile,
+                                          const float* acc, int rl, int t4) {
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int nd = 0; nd < D / 8; ++nd)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      const int byte = (nd / 8) * kTile * kRow + row * kRow +
+                       (((nd % 8) ^ (row % 8)) << 4) + t4 * 4;
+      *reinterpret_cast<uint32_t*>(tile + byte) = hopper::pack_bf16x2(
+          acc[4 * nd + 2 * r], acc[4 * nd + 2 * r + 1]);
+    }
+}
 
-  int qt_first, qt_last;
-  live_q_tiles(a, k0, kKV3, kQ3, qt_first, qt_last);
-  const int kr = warp * 16;  // this warp's kv rows in the tile
+// What a consumer needs to turn raw products into p and ds.
+struct PdsOpts {
+  float mul;    // scale log2 e, or scale / cap with a softcap
+  float post;   // cap log2 e
+  float scale;  // ds's factor
+  bool capped;
+};
 
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = hk * G + hh;
-    const size_t qoff = (size_t)b * S * qstride + (size_t)h * D;
-    const float* lseb = a.lse + ((size_t)b * H + h) * S;
-    const float* deltab = a.delta + ((size_t)b * H + h) * S;
-    for (int qt = qt_first; qt <= qt_last; ++qt) {
-      const int q0 = qt * kQ3;
-      __syncthreads();  // the previous q tile is consumed
-      stage_rows_both<D, RP, TP>(Qs, Qt,
-                                 static_cast<const bf16*>(a.q) + qoff,
-                                 qstride, q0, kQ3, S);
-      stage_rows_both<D, RP, TP>(dOs, dOt,
-                                 static_cast<const bf16*>(a.dout) + qoff,
-                                 qstride, q0, kQ3, S);
-      for (int i = tid; i < kQ3; i += kThreads) {
-        const bool in = q0 + i < S;
-        lse_s[i] = in ? lseb[q0 + i] : 0.f;
-        delta_s[i] = in ? deltab[q0 + i] : 0.f;
-        qseg_s[i] = segb != nullptr && in ? segb[q0 + i] : 0;
+// The accumulator element j of a m64n64 tile: row (e >> 1) * 8 + the
+// thread's row, column 8 (j >> 2) + 2 t4 + (j & 1).
+//
+// One live element: base-2 logit z of raw product x, p against the
+// row's lse2 (lse log2 e), ds against its delta.
+__device__ __forceinline__ void elem(float x, float dp, float lse2,
+                                     float dlt, bool ok, const PdsOpts& o,
+                                     float& p, float& ds) {
+  float t = 0.f, z;
+  if (o.capped) {
+    t = tanhf(x * o.mul);
+    z = t * o.post;
+  } else {
+    z = x * o.mul;
+  }
+  p = ok ? hopper::ex2(z - lse2) : 0.f;
+  ds = p * (dp - dlt) * o.scale;
+  if (o.capped) ds *= 1.f - t * t;
+}
+
+// dkdv: s^T and dp^T tiles (rows kv, columns q) into p^T and ds^T in
+// place. krow/kseg: this thread's two kv rows and their segment ids;
+// lse2/dlt/qsg: the stage's 64 q rows; q0 the tile's first q row.
+template <bool SEG>
+__device__ __forceinline__ void p_ds_kv_rows(
+    float* s, float* dp, bool boundary, const PdsOpts& o, const float* lse2,
+    const float* dlt, const int* qsg, int q0, const int* krow,
+    const int* kseg, int S, int causal, int window, int t4) {
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    const int cl = 8 * jb + 2 * t4;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + cl);
+    const float2 de = *reinterpret_cast<const float2*>(dlt + cl);
+    int2 qs = make_int2(0, 0);
+    if (SEG && boundary) qs = *reinterpret_cast<const int2*>(qsg + cl);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * jb + e, r = e >> 1, c = e & 1;
+      bool ok = true;
+      if (boundary) {
+        const int col = q0 + cl + c, row = krow[r];
+        ok = col < S && row < S;
+        if (causal) ok = ok && row <= col;
+        if (window > 0) ok = ok && col - row < window;
+        if (SEG) ok = ok && (c ? qs.y : qs.x) == kseg[r];
       }
-      __syncthreads();
+      elem(s[j], dp[j], c ? l2.y : l2.x, c ? de.y : de.x, ok, o, s[j],
+           dp[j]);
+    }
+  }
+}
 
-      // s^T = K Q^T and dp^T = V dO^T over this warp's 16 kv rows.
-      float st[NB][4], dpt[NB][4];
+// dq: s and dp tiles (rows q, columns kv) into ds in place (in dp).
+// qrow/qseg/lse2/dlt: this thread's two q rows; ksg: the stage's 64 kv
+// segment ids; k0 the tile's first kv row.
+template <bool SEG>
+__device__ __forceinline__ void ds_q_rows(
+    const float* s, float* dp, bool boundary, const PdsOpts& o,
+    const float* lse2, const float* dlt, const int* qrow, const int* qseg,
+    const int* ksg, int k0, int S, int causal, int window, int t4) {
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
+  for (int jb = 0; jb < 8; ++jb) {
+    const int cl = 8 * jb + 2 * t4;
+    int2 ks = make_int2(0, 0);
+    if (SEG && boundary) ks = *reinterpret_cast<const int2*>(ksg + cl);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * jb + e, r = e >> 1, c = e & 1;
+      bool ok = true;
+      if (boundary) {
+        const int col = k0 + cl + c, row = qrow[r];
+        ok = col < S && row < S;
+        if (causal) ok = ok && col <= row;
+        if (window > 0) ok = ok && row - col < window;
+        if (SEG) ok = ok && (c ? ks.y : ks.x) == qseg[r];
+      }
+      float p;
+      elem(s[j], dp[j], lse2[r], dlt[r], ok, o, p, dp[j]);
+    }
+  }
+}
+
+__device__ __forceinline__ PdsOpts pds_opts(float scale, float softcap) {
+  PdsOpts o;
+  o.capped = softcap > 0.f;
+  o.mul = o.capped ? scale / softcap : scale * kLog2e;
+  o.post = softcap * kLog2e;
+  o.scale = scale;
+  return o;
+}
+
+// Is each consumer's 64-row half of the 128 rows from r0 one document?
+// Lane l reads rows r0 + 4 l .. + 3; lanes 0-15 cover consumer 0, 16-31
+// consumer 1; lanes 0 and 16 write {uniform, id} to info[0] and info[1].
+__device__ __forceinline__ void halves_info(const int* segb, int r0, int S,
+                                            int lane, int2* info) {
+  const int first = r0 + (lane / 16) * 64;
+  const int ref = first < S ? segb[first] : 0;
+  bool ok = first < S;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a<RP>(ka, Ks, kr, kk * 16, g, t4);
-        load_a<RP>(va, Vs, kr, kk * 16, g, t4);
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * lane + i;
+    if (r < S) ok = ok && segb[r] == ref;
+  }
+  const unsigned all = __ballot_sync(0xffffffffu, ok);
+  if (lane % 16 == 0)
+    info[lane / 16] =
+        make_int2(((all >> lane) & 0xffffu) == 0xffffu, ref);
+}
+
+// Load a (rows x D) tile at row r0 through `map` as 64-row boxes, one per
+// panel and half, into a tile of `rows` rows a panel.
+template <int D>
+__device__ __forceinline__ void tma_tile(const CUtensorMap* map,
+                                         uint64_t* bar, unsigned char* dst,
+                                         int rows, int head, int r0, int b) {
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          uint32_t qf[2], of[2];
-          load_b<RP>(qf, Qs, nb * 8, kk * 16, g, t4);
-          load_b<RP>(of, dOs, nb * 8, kk * 16, g, t4);
-          mma_16816(st[nb], ka, qf);
-          mma_16816(dpt[nb], va, of);
+  for (int p = 0; p < D / 64; ++p)
+    for (int half = 0; half < rows / 64; ++half)
+      hopper::tma_load_4d(map, bar,
+                          dst + p * rows * kRow + half * 64 * kRow, p * 64,
+                          head, r0 + half * 64, b);
+}
+
+// Store this consumer's 64 rows (at row wg * 64 of a kTile-row tile) to
+// rows r0.. through `map`.
+template <int D>
+__device__ __forceinline__ void tma_store_rows(const CUtensorMap* map,
+                                               const unsigned char* tile,
+                                               int wg, int head, int r0,
+                                               int b) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    hopper::tma_store_4d(map, tile + p * kTile * kRow + wg * 64 * kRow,
+                         p * 64, head, r0, b);
+}
+
+// ------------------------------------------------------------------ dkdv
+
+template <int D>
+struct DkdvSmem {
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kKVBytes = kTile * D * 2;  // a K or V tile
+  static constexpr int kQBytes = kStep * D * 2;   // a q or dO tile
+  static constexpr int kK = 0;                    // [2] K tiles, later dK
+  static constexpr int kV = kK + 2 * kKVBytes;    // [2] V tiles, later dV
+  static constexpr int kQ = kV + 2 * kKVBytes;    // [stage] q tiles
+  static constexpr int kO = kQ + kStages * kQBytes;  // [stage] dO tiles
+  // [stage] lse2 and delta rows (float [2][kStep]), q segment ids.
+  static constexpr int kRowsF = kO + kStages * kQBytes;
+  static constexpr int kQSeg = kRowsF + kStages * 2 * kStep * 4;
+  static constexpr int kQInfo = kQSeg + kStages * kStep * 4;  // [stage]
+  static constexpr int kKVInfo = kQInfo + kStages * 8;  // [2 bufs][2 wg]
+  // mbarriers: kv_full[2], kv_empty[2], then full[stage], empty[stage].
+  static constexpr int kBar = kKVInfo + 4 * 8;
+  static constexpr int kBytes = kBar + (4 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+  static_assert(kAlloc <= kSmemMax, "dkdv shared memory");
+};
+
+// A work tile: (kv head, batch, 128-row kv tile), numbered longest first:
+// under the causal mask the kv tile at k0 is seen by the q tiles from
+// k0 on, so t walks the kv tiles upwards, and within one the kv heads
+// (fastest) and the batches.
+struct KvWork {
+  int hk, b, k0, qt_first, nq;
+};
+
+__device__ __forceinline__ KvWork kv_work(int t, int S, int Hkv, int B,
+                                          int causal, int window) {
+  const int hb = Hkv * B;
+  KvWork w;
+  w.hk = t % Hkv;
+  w.b = (t % hb) / Hkv;
+  w.k0 = (t / hb) * kTile;
+  int last;
+  live_q_tiles(S, causal, window, w.k0, kTile, kStep, w.qt_first, last);
+  w.nq = last - w.qt_first + 1;
+  return w;
+}
+
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     const __grid_constant__ CUtensorMap dkmap,
+                     const __grid_constant__ CUtensorMap dvmap,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ seg, int B, int S, int H,
+                     int Hkv, float scale, int causal, int window,
+                     float softcap) {
+  using namespace hopper;
+  using L = DkdvSmem<D>;
+  constexpr int ST = L::kStages;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = sm + L::kK;
+  unsigned char* Vs = sm + L::kV;
+  unsigned char* Qs = sm + L::kQ;
+  unsigned char* Os = sm + L::kO;
+  float* rowsf = reinterpret_cast<float*>(sm + L::kRowsF);
+  int* qseg_s = reinterpret_cast<int*>(sm + L::kQSeg);
+  int2* qinfo = reinterpret_cast<int2*>(sm + L::kQInfo);
+  int2* kvinfo = reinterpret_cast<int2*>(sm + L::kKVInfo);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBar);  // [2]
+  uint64_t* kv_empty = kv_full + 2;                                // [2]
+  uint64_t* full = kv_empty + 2;
+  uint64_t* empty = full + ST;
+  const int G = H / Hkv;
+  const int n_work = (S + kTile - 1) / kTile * Hkv * B;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(kv_full + i, 1);
+      mbar_init(kv_empty + i, 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  if (wg == 2) {
+    // ----------------------------------------------------- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != 0) return;
+    int it = 0;  // position in the q/dO ring, across work tiles
+    for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
+                                             gridDim.x)) < n_work;
+         ++n_local) {
+      const KvWork w = kv_work(t, S, Hkv, B, causal, window);
+      const int kb = n_local & 1;
+      const int* segb = SEG ? seg + (size_t)w.b * S : nullptr;
+      // The K/V buffer is free once both consumers' dK/dV stores have
+      // read it.
+      mbar_wait(kv_empty + kb, ((n_local >> 1) & 1) ^ 1);
+      if (SEG) {
+        halves_info(segb, w.k0, S, lane, kvinfo + 2 * kb);
+        __syncwarp();
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full + kb, 2 * L::kKVBytes);
+        tma_tile<D>(&kmap, kv_full + kb, Ks + kb * L::kKVBytes, kTile,
+                    w.hk, w.k0, w.b);
+        tma_tile<D>(&vmap, kv_full + kb, Vs + kb * L::kKVBytes, kTile,
+                    w.hk, w.k0, w.b);
+      }
+      for (int i = 0; i < G * w.nq; ++i, ++it) {
+        const int h = w.hk * G + i / w.nq;
+        const int q0 = (w.qt_first + i % w.nq) * kStep;
+        const int st = it % ST;
+        mbar_wait(empty + st, ((it / ST) & 1) ^ 1);
+        // The q rows' lse (in base 2), delta and segment ids: two rows a
+        // lane; rows past S are never live.
+        const size_t hrow = ((size_t)w.b * H + h) * S;
+        float* l2 = rowsf + st * 2 * kStep;
+        const int r = q0 + 2 * lane;
+        float2 lv = make_float2(0.f, 0.f), dv = make_float2(0.f, 0.f);
+        if (r < S) {
+          lv.x = lse[hrow + r] * kLog2e;
+          dv.x = delta[hrow + r];
+        }
+        if (r + 1 < S) {
+          lv.y = lse[hrow + r + 1] * kLog2e;
+          dv.y = delta[hrow + r + 1];
+        }
+        *reinterpret_cast<float2*>(l2 + 2 * lane) = lv;
+        *reinterpret_cast<float2*>(l2 + kStep + 2 * lane) = dv;
+        if (SEG) {
+          const int ref = q0 < S ? segb[q0] : 0;
+          const int s0 = r < S ? segb[r] : ref;
+          const int s1 = r + 1 < S ? segb[r + 1] : ref;
+          *reinterpret_cast<int2*>(qseg_s + st * kStep + 2 * lane) =
+              make_int2(s0, s1);
+          const bool all = __all_sync(
+              0xffffffffu, r + 1 < S && s0 == ref && s1 == ref);
+          if (lane == 0) qinfo[st] = make_int2(all, ref);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + st, 2 * L::kQBytes);
+          tma_tile<D>(&qmap, full + st, Qs + st * L::kQBytes, kStep, h, q0,
+                      w.b);
+          tma_tile<D>(&omap, full + st, Os + st * L::kQBytes, kStep, h, q0,
+                      w.b);
         }
       }
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = kr + g + (e >> 1) * 8;
-          const int ql = nb * 8 + t4 * 2 + (e & 1);
-          float p, ds;
-          p_ds(a, st[nb][e], dpt[nb][e], q0 + ql, k0 + kl,
-               qseg_s[ql] == kseg_s[kl], lse_s[ql], delta_s[ql], p, ds);
-          st[nb][e] = p;
-          dpt[nb][e] = ds;
-        }
-      }
-      // dv += p^T dO and dk += ds^T Q over the tile's q rows.
-#pragma unroll
-      for (int kk = 0; kk < kQ3 / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        pack_a(pa, st[2 * kk], st[2 * kk + 1]);
-        pack_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          uint32_t of[2], qf[2];
-          load_b<TP>(of, dOt, nd * 8, kk * 16, g, t4);
-          load_b<TP>(qf, Qt, nd * 8, kk * 16, g, t4);
-          mma_16816(dv[nd], pa, of);
-          mma_16816(dk[nd], sa, qf);
-        }
-      }
     }
+    return;
   }
 
-  bf16* dkb = static_cast<bf16*>(a.dk) + kvoff;
-  bf16* dvb = static_cast<bf16*>(a.dv) + kvoff;
+  // --------------------------------------------------------- consumers
+  setmaxnreg_inc<kConsumerRegs>();
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int rl = wg * 64 + warp * 16 + g;  // tile rows rl and rl + 8
+  const PdsOpts o = pds_opts(scale, softcap);
+  int it = 0;  // position in the q/dO ring, as the producer counts it
+
+  for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
+                                           gridDim.x)) < n_work;
+       ++n_local) {
+    const KvWork w = kv_work(t, S, Hkv, B, causal, window);
+    const int kb = n_local & 1;
+    const int lo = w.k0 + wg * 64;  // this warpgroup's kv rows
+    const int krow[2] = {w.k0 + rl, w.k0 + rl + 8};
+    int kseg[2] = {0, 0};
+    if (SEG) {
+      const int* segb = seg + (size_t)w.b * S;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = k0 + kr + g + 8 * i;
-    if (row >= S) continue;
+      for (int i = 0; i < 2; ++i)
+        if (krow[i] < S) kseg[i] = segb[krow[i]];
+    }
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const size_t o = (size_t)row * kstride + nd * 8 + t4 * 2;
-      *reinterpret_cast<uint32_t*>(dkb + o) =
-          pack_bf16(dk[nd][2 * i], dk[nd][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + o) =
-          pack_bf16(dv[nd][2 * i], dv[nd][2 * i + 1]);
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kv_full + kb, (n_local >> 1) & 1);
+    const int2 kvi = SEG ? kvinfo[2 * kb + wg] : make_int2(1, 0);
+    unsigned char* kt = Ks + kb * L::kKVBytes;  // later this tile's dK
+    unsigned char* vt = Vs + kb * L::kKVBytes;  // later its dV
+    const unsigned char* ka = kt + wg * 64 * kRow;
+    const unsigned char* va = vt + wg * 64 * kRow;
+
+    for (int i = 0; i < G * w.nq; ++i, ++it) {
+      const int q0 = (w.qt_first + i % w.nq) * kStep;
+      const int st = it % ST;
+      mbar_wait(full + st, (it / ST) & 1);
+      const bool dead = lo >= S || (causal && q0 + kStep - 1 < lo) ||
+                        (window > 0 && q0 - (lo + 63) >= window);
+      if (dead) {
+        mbar_arrive_if(empty + st, lane == 0);
+        continue;
+      }
+      const unsigned char* qs = Qs + st * L::kQBytes;
+      const unsigned char* os = Os + st * L::kQBytes;
+      float s[32], dp[32];
+      wgmma_fence();
+      ss_n64<D>(s, ka, kTile * kRow, qs, kStep * kRow);
+      ss_n64<D>(dp, va, kTile * kRow, os, kStep * kRow);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<32>(s);
+      pin<32>(dp);
+      const int2 qi = SEG ? qinfo[st] : make_int2(1, 0);
+      const bool boundary =
+          q0 + kStep > S || lo + 64 > S || (causal && q0 < lo + 63) ||
+          (window > 0 && q0 + kStep - 1 - lo >= window) ||
+          (SEG && !(qi.x && kvi.x && qi.y == kvi.y));
+      const float* l2 = rowsf + st * 2 * kStep;
+      p_ds_kv_rows<SEG>(s, dp, boundary, o, l2, l2 + kStep,
+                        qseg_s + st * kStep, q0, krow, kseg, S, causal,
+                        window, t4);
+      uint32_t pf[4][4], sf[4][4];
+      pack_frags(pf, s);
+      pack_frags(sf, dp);
+      wgmma_fence();
+      rs_nd<D>(dv, pf, os);
+      rs_nd<D>(dk, sf, qs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<D / 2>(dv);
+      pin<D / 2>(dk);
+      pin<16>(&pf[0][0]);
+      pin<16>(&sf[0][0]);
+      mbar_arrive_if(empty + st, lane == 0);  // q, dO and the rows read
+    }
+
+    // ----------------------------------------------------- epilogue
+    // dK and dV into this warpgroup's rows of the K and V tiles (only its
+    // own wgmmas read them), then TMA stores.
+    stage_out<D>(kt, dk, rl, t4);
+    stage_out<D>(vt, dv, rl, t4);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (tid == 0) {
+      if (lo < S) {
+        tma_store_rows<D>(&dkmap, kt, wg, w.hk, lo, w.b);
+        tma_store_rows<D>(&dvmap, vt, wg, w.hk, lo, w.b);
+        tma_store_commit();
+        tma_store_wait_read();
+      }
+      mbar_arrive_if(kv_empty + kb, 1);  // the producer may refill it
     }
   }
 }
 
+// -------------------------------------------------------------------- dq
+
 template <int D>
-constexpr size_t dq_bf16_smem() {
-  // Qs, dOs [kQ4][D + 8]; Ks, Vs [kKV4][D + 8]; Kt [D][kKV4 + 8]; kv
-  // segment ids.
-  return sizeof(bf16) * (2 * kQ4 * (D + 8) + 2 * kKV4 * (D + 8) +
-                         D * (kKV4 + 8)) +
-         sizeof(int) * kKV4;
+struct DqSmem {
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kQBytes = kTile * D * 2;   // a q or dO tile
+  static constexpr int kKVBytes = kStep * D * 2;  // a K or V tile
+  static constexpr int kQ = 0;                    // [2] q tiles, later dq
+  static constexpr int kO = kQ + 2 * kQBytes;     // [2] dO tiles
+  static constexpr int kK = kO + 2 * kQBytes;     // [stage] K tiles
+  static constexpr int kV = kK + kStages * kKVBytes;  // [stage] V tiles
+  static constexpr int kKSeg = kV + kStages * kKVBytes;  // [stage][kStep]
+  static constexpr int kKInfo = kKSeg + kStages * kStep * 4;  // [stage]
+  static constexpr int kQInfo = kKInfo + kStages * 8;  // [2 bufs][2 wg]
+  // mbarriers: q_full[2], q_empty[2], then full[stage], empty[stage].
+  static constexpr int kBar = kQInfo + 4 * 8;
+  static constexpr int kBytes = kBar + (4 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+  static_assert(kAlloc <= kSmemMax, "dq shared memory");
+};
+
+// A work tile: (q head, batch, 128-row q tile), numbered longest first:
+// under the causal mask q tile qt reads the kv tiles up to its diagonal,
+// so t walks the q tiles from the last to the first, and within one the
+// heads (fastest) and the batches.
+struct QWork {
+  int h, b, q0, kt_first, nk;
+};
+
+__device__ __forceinline__ QWork q_work(int t, int S, int H, int B,
+                                        int causal, int window) {
+  const int hb = H * B;
+  QWork w;
+  w.h = t % H;
+  w.b = (t % hb) / H;
+  w.q0 = ((S + kTile - 1) / kTile - 1 - t / hb) * kTile;
+  int last;
+  live_kv_tiles(S, causal, window, w.q0, kTile, kStep, w.kt_first, last);
+  w.nk = last - w.kt_first + 1;
+  return w;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16(BwdArgs a) {
-  constexpr int RP = D + 8;
-  constexpr int TP = kKV4 + 8;  // row stride of Kt
-  constexpr int KD = D / 16;
-  constexpr int NB = kKV4 / 8;  // 8-column blocks of the kv tile
-  constexpr int ND = D / 8;
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap omap,
+                   const __grid_constant__ CUtensorMap dqmap,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const int* __restrict__ seg, int B, int S, int H, int Hkv,
+                   float scale, int causal, int window, float softcap) {
+  using namespace hopper;
+  using L = DqSmem<D>;
+  constexpr int ST = L::kStages;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = sm + L::kQ;
+  unsigned char* Os = sm + L::kO;
+  unsigned char* Ks = sm + L::kK;
+  unsigned char* Vs = sm + L::kV;
+  int* kseg_s = reinterpret_cast<int*>(sm + L::kKSeg);
+  int2* kinfo = reinterpret_cast<int2*>(sm + L::kKInfo);
+  int2* qinfo = reinterpret_cast<int2*>(sm + L::kQInfo);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBar);  // [2]
+  uint64_t* q_empty = q_full + 2;                                 // [2]
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + ST;
+  const int G = H / Hkv;
+  const int n_work = (S + kTile - 1) / kTile * H * B;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kQ4 * RP;
-  bf16* Ks = dOs + kQ4 * RP;
-  bf16* Vs = Ks + kKV4 * RP;
-  bf16* Kt = Vs + kKV4 * RP;
-  int* kseg_s = reinterpret_cast<int*>(Kt + D * TP);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, 2);
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * kQ4;
-  const int S = a.S, H = a.H, hk = h / (H / a.Hkv);
-  const size_t qstride = (size_t)H * D, kstride = (size_t)a.Hkv * D;
-  const size_t qoff = (size_t)b * S * qstride + (size_t)h * D;
-  const size_t kvoff = (size_t)b * S * kstride + (size_t)hk * D;
-  const int* segb = a.seg == nullptr ? nullptr : a.seg + (size_t)b * S;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
 
-  stage_rows<D, RP>(Qs, static_cast<const bf16*>(a.q) + qoff, qstride, q0,
-                    kQ4, S);
-  stage_rows<D, RP>(dOs, static_cast<const bf16*>(a.dout) + qoff, qstride,
-                    q0, kQ4, S);
-
-  const int qr = warp * 16;  // this warp's q rows in the tile
-  float lse_r[2], delta_r[2];
-  int qseg[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + qr + g + 8 * i;
-    const bool in = row < S;
-    lse_r[i] = in ? a.lse[((size_t)b * H + h) * S + row] : 0.f;
-    delta_r[i] = in ? a.delta[((size_t)b * H + h) * S + row] : 0.f;
-    qseg[i] = segb != nullptr && in ? segb[row] : 0;
+  if (wg == 2) {
+    // ----------------------------------------------------- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != 0) return;
+    int it = 0;
+    for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
+                                             gridDim.x)) < n_work;
+         ++n_local) {
+      const QWork w = q_work(t, S, H, B, causal, window);
+      const int hk = w.h / G;
+      const int qb = n_local & 1;
+      const int* segb = SEG ? seg + (size_t)w.b * S : nullptr;
+      mbar_wait(q_empty + qb, ((n_local >> 1) & 1) ^ 1);
+      if (SEG) {
+        halves_info(segb, w.q0, S, lane, qinfo + 2 * qb);
+        __syncwarp();
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(q_full + qb, 2 * L::kQBytes);
+        tma_tile<D>(&qmap, q_full + qb, Qs + qb * L::kQBytes, kTile, w.h,
+                    w.q0, w.b);
+        tma_tile<D>(&omap, q_full + qb, Os + qb * L::kQBytes, kTile, w.h,
+                    w.q0, w.b);
+      }
+      for (int i = 0; i < w.nk; ++i, ++it) {
+        const int k0 = (w.kt_first + i) * kStep;
+        const int st = it % ST;
+        mbar_wait(empty + st, ((it / ST) & 1) ^ 1);
+        if (SEG) {
+          // The tile's kv ids for the boundary tiles' compares, and
+          // whether every column is live and of one document.
+          const int ref = segb[k0];
+          const int c = k0 + 2 * lane;
+          const int s0 = c < S ? segb[c] : ref;
+          const int s1 = c + 1 < S ? segb[c + 1] : ref;
+          *reinterpret_cast<int2*>(kseg_s + st * kStep + 2 * lane) =
+              make_int2(s0, s1);
+          const bool all = __all_sync(
+              0xffffffffu, c + 1 < S && s0 == ref && s1 == ref);
+          if (lane == 0) kinfo[st] = make_int2(all, ref);
+          __syncwarp();
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + st, 2 * L::kKVBytes);
+          tma_tile<D>(&kmap, full + st, Ks + st * L::kKVBytes, kStep, hk, k0,
+                      w.b);
+          tma_tile<D>(&vmap, full + st, Vs + st * L::kKVBytes, kStep, hk, k0,
+                      w.b);
+        }
+      }
+    }
+    return;
   }
 
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  // --------------------------------------------------------- consumers
+  setmaxnreg_inc<kConsumerRegs>();
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int rl = wg * 64 + warp * 16 + g;  // tile rows rl and rl + 8
+  const PdsOpts o = pds_opts(scale, softcap);
+  int it = 0;
 
-  int kt_first, kt_last;
-  live_kv_tiles(a, q0, kQ4, kKV4, kt_first, kt_last);
-  for (int kt = kt_first; kt <= kt_last; ++kt) {
-    const int k0 = kt * kKV4;
-    __syncthreads();  // the previous kv tile is consumed
-    stage_rows_both<D, RP, TP>(Ks, Kt, static_cast<const bf16*>(a.k) + kvoff,
-                               kstride, k0, kKV4, S);
-    stage_rows<D, RP>(Vs, static_cast<const bf16*>(a.v) + kvoff, kstride, k0,
-                      kKV4, S);
-    for (int i = tid; i < kKV4; i += kThreads)
-      kseg_s[i] = segb != nullptr && k0 + i < S ? segb[k0 + i] : 0;
-    __syncthreads();
+  for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
+                                           gridDim.x)) < n_work;
+       ++n_local) {
+    const QWork w = q_work(t, S, H, B, causal, window);
+    const int qb = n_local & 1;
+    const int lo = w.q0 + wg * 64;  // this warpgroup's q rows
+    const int qrow[2] = {w.q0 + rl, w.q0 + rl + 8};
+    const size_t hrow = ((size_t)w.b * H + w.h) * S;
+    float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+    int qseg[2] = {0, 0};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (qrow[i] < S) {
+        lse2[i] = lse[hrow + qrow[i]] * kLog2e;
+        dlt[i] = delta[hrow + qrow[i]];
+        if (SEG) qseg[i] = seg[(size_t)w.b * S + qrow[i]];
+      }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-    // s = Q K^T and dp = dO V^T over this warp's 16 q rows.
-    float sc[NB][4], dp[NB][4];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], oa[4];
-      load_a<RP>(qa, Qs, qr, kk * 16, g, t4);
-      load_a<RP>(oa, dOs, qr, kk * 16, g, t4);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        uint32_t kf[2], vf[2];
-        load_b<RP>(kf, Ks, nb * 8, kk * 16, g, t4);
-        load_b<RP>(vf, Vs, nb * 8, kk * 16, g, t4);
-        mma_16816(sc[nb], qa, kf);
-        mma_16816(dp[nb], oa, vf);
-      }
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int kl = nb * 8 + t4 * 2 + (e & 1);
-        float p, ds;
-        p_ds(a, sc[nb][e], dp[nb][e], q0 + qr + g + 8 * i, k0 + kl,
-             qseg[i] == kseg_s[kl], lse_r[i], delta_r[i], p, ds);
-        sc[nb][e] = ds;
-      }
-    }
-    // dq += ds K over the tile's kv rows.
-#pragma unroll
-    for (int kk = 0; kk < kKV4 / 16; ++kk) {
-      uint32_t sa[4];
-      pack_a(sa, sc[2 * kk], sc[2 * kk + 1]);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t kf[2];
-        load_b<TP>(kf, Kt, nd * 8, kk * 16, g, t4);
-        mma_16816(dq[nd], sa, kf);
-      }
-    }
-  }
+    mbar_wait(q_full + qb, (n_local >> 1) & 1);
+    const int2 qi = SEG ? qinfo[2 * qb + wg] : make_int2(1, 0);
+    unsigned char* qtile = Qs + qb * L::kQBytes;  // later this tile's dq
+    const unsigned char* qa = qtile + wg * 64 * kRow;
+    const unsigned char* oa = Os + qb * L::kQBytes + wg * 64 * kRow;
 
-  bf16* dqb = static_cast<bf16*>(a.dq) + qoff;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + qr + g + 8 * i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)row * qstride + nd * 8 +
-                                   t4 * 2) =
-          pack_bf16(dq[nd][2 * i], dq[nd][2 * i + 1]);
+    for (int i = 0; i < w.nk; ++i, ++it) {
+      const int k0 = (w.kt_first + i) * kStep;
+      const int st = it % ST;
+      mbar_wait(full + st, (it / ST) & 1);
+      const bool dead = lo >= S || (causal && k0 > lo + 63) ||
+                        (window > 0 && lo - (k0 + kStep - 1) >= window);
+      if (dead) {
+        mbar_arrive_if(empty + st, lane == 0);
+        continue;
+      }
+      const unsigned char* ks = Ks + st * L::kKVBytes;
+      float s[32], dp[32];
+      wgmma_fence();
+      ss_n64<D>(s, qa, kTile * kRow, ks, kStep * kRow);
+      ss_n64<D>(dp, oa, kTile * kRow, Vs + st * L::kKVBytes, kStep * kRow);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<32>(s);
+      pin<32>(dp);
+      const int2 ki = SEG ? kinfo[st] : make_int2(1, 0);
+      const bool boundary =
+          lo + 64 > S || k0 + kStep > S || (causal && k0 + kStep - 1 > lo) ||
+          (window > 0 && lo + 63 - k0 >= window) ||
+          (SEG && !(qi.x && ki.x && qi.y == ki.y));
+      ds_q_rows<SEG>(s, dp, boundary, o, lse2, dlt, qrow, qseg,
+                     kseg_s + st * kStep, k0, S, causal, window, t4);
+      uint32_t sf[4][4];
+      pack_frags(sf, dp);
+      wgmma_fence();
+      rs_nd<D>(dq, sf, ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<D / 2>(dq);
+      pin<16>(&sf[0][0]);
+      mbar_arrive_if(empty + st, lane == 0);  // K, V and the ids read
+    }
+
+    // ----------------------------------------------------- epilogue
+    stage_out<D>(qtile, dq, rl, t4);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (tid == 0) {
+      if (lo < S) {
+        tma_store_rows<D>(&dqmap, qtile, wg, w.h, lo, w.b);
+        tma_store_commit();
+        tma_store_wait_read();
+      }
+      mbar_arrive_if(q_empty + qb, 1);  // the producer may refill it
+    }
   }
 }
 
@@ -467,6 +857,10 @@ flash_bwd_dq_bf16(BwdArgs a) {
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Threads = 256;  // 16 x 16 thread grid over a tile
+constexpr int kKV3 = 64;  // dkdv: kv rows per block
+constexpr int kQ3 = 32;   // dkdv: q rows per inner step
+constexpr int kQ4 = 64;   // dq: q rows per block
+constexpr int kKV4 = 64;  // dq: kv rows per inner step
 
 // Stage rows [r0, r0 + rows) of a (S, stride) fp32 matrix block into smem
 // with row stride D + 1; rows past S are zero.
@@ -536,7 +930,8 @@ flash_bwd_dkdv_f32(BwdArgs a) {
     for (int j = 0; j < DV; ++j) dk[i][j] = dv[i][j] = 0.f;
 
   int qt_first, qt_last;
-  live_q_tiles(a, k0, kKV3, kQ3, qt_first, qt_last);
+  live_q_tiles(a.S, a.causal, a.window, k0, kKV3, kQ3, qt_first,
+               qt_last);
   for (int hh = 0; hh < G; ++hh) {
     const int h = hk * G + hh;
     const size_t qoff = (size_t)b * S * qstride + (size_t)h * D;
@@ -691,7 +1086,8 @@ flash_bwd_dq_f32(BwdArgs a) {
   }
 
   int kt_first, kt_last;
-  live_kv_tiles(a, q0, kQ4, kKV4, kt_first, kt_last);
+  live_kv_tiles(a.S, a.causal, a.window, q0, kQ4, kKV4, kt_first,
+                kt_last);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * kKV4;
     __syncthreads();  // the previous kv tile and dSs are consumed
@@ -780,24 +1176,77 @@ cudaError_t run(K kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+template <int D, bool SEG>
+cudaError_t launch_dkdv_wgmma(const BwdArgs& a, int B, cudaStream_t s) {
+  using hopper::tensor_map;
+  CUtensorMap qm, km, vm, om, dkm, dvm;
+  cudaError_t err;
+  if ((err = tensor_map(&qm, a.q, B, a.S, a.H, D, kStep)) != cudaSuccess ||
+      (err = tensor_map(&km, a.k, B, a.S, a.Hkv, D, kStep)) != cudaSuccess ||
+      (err = tensor_map(&vm, a.v, B, a.S, a.Hkv, D, kStep)) != cudaSuccess ||
+      (err = tensor_map(&om, a.dout, B, a.S, a.H, D, kStep)) !=
+          cudaSuccess ||
+      (err = tensor_map(&dkm, a.dk, B, a.S, a.Hkv, D, kStep)) !=
+          cudaSuccess ||
+      (err = tensor_map(&dvm, a.dv, B, a.S, a.Hkv, D, kStep)) != cudaSuccess)
+    return err;
+  auto kernel = flash_bwd_dkdv_wgmma<D, SEG>;
+  constexpr size_t smem = DkdvSmem<D>::kAlloc;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  int ctas;
+  if ((err = hopper::persistent_ctas(
+           (a.S + kTile - 1) / kTile * a.Hkv * B, &ctas)) != cudaSuccess)
+    return err;
+  kernel<<<ctas, kWgThreads, smem, s>>>(qm, km, vm, om, dkm, dvm, a.lse,
+                                        a.delta, a.seg, B, a.S, a.H, a.Hkv,
+                                        a.scale, a.causal, a.window,
+                                        a.softcap);
+  return cudaGetLastError();
+}
+
+template <int D, bool SEG>
+cudaError_t launch_dq_wgmma(const BwdArgs& a, int B, cudaStream_t s) {
+  using hopper::tensor_map;
+  CUtensorMap qm, km, vm, om, dqm;
+  cudaError_t err;
+  if ((err = tensor_map(&qm, a.q, B, a.S, a.H, D, kStep)) != cudaSuccess ||
+      (err = tensor_map(&km, a.k, B, a.S, a.Hkv, D, kStep)) != cudaSuccess ||
+      (err = tensor_map(&vm, a.v, B, a.S, a.Hkv, D, kStep)) != cudaSuccess ||
+      (err = tensor_map(&om, a.dout, B, a.S, a.H, D, kStep)) !=
+          cudaSuccess ||
+      (err = tensor_map(&dqm, a.dq, B, a.S, a.H, D, kStep)) != cudaSuccess)
+    return err;
+  auto kernel = flash_bwd_dq_wgmma<D, SEG>;
+  constexpr size_t smem = DqSmem<D>::kAlloc;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  int ctas;
+  if ((err = hopper::persistent_ctas(
+           (a.S + kTile - 1) / kTile * a.H * B, &ctas)) != cudaSuccess)
+    return err;
+  kernel<<<ctas, kWgThreads, smem, s>>>(qm, km, vm, om, dqm, a.lse, a.delta,
+                                        a.seg, B, a.S, a.H, a.Hkv, a.scale,
+                                        a.causal, a.window, a.softcap);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dkdv(const BwdArgs& a, int B, int dtype,
                         cudaStream_t s) {
-  dim3 grid((a.S + kKV3 - 1) / kKV3, a.Hkv, B);
   if (dtype == kF32)
-    return run(flash_bwd_dkdv_f32<D>, grid, kF32Threads, dkdv_f32_smem<D>(),
-               a, s);
-  return run(flash_bwd_dkdv_bf16<D>, grid, kThreads, dkdv_bf16_smem<D>(), a,
-             s);
+    return run(flash_bwd_dkdv_f32<D>,
+               dim3((a.S + kKV3 - 1) / kKV3, a.Hkv, B), kF32Threads,
+               dkdv_f32_smem<D>(), a, s);
+  return a.seg != nullptr ? launch_dkdv_wgmma<D, true>(a, B, s)
+                          : launch_dkdv_wgmma<D, false>(a, B, s);
 }
 
 template <int D>
 cudaError_t launch_dq(const BwdArgs& a, int B, int dtype, cudaStream_t s) {
-  dim3 grid((a.S + kQ4 - 1) / kQ4, a.H, B);
   if (dtype == kF32)
-    return run(flash_bwd_dq_f32<D>, grid, kF32Threads, dq_f32_smem<D>(), a,
-               s);
-  return run(flash_bwd_dq_bf16<D>, grid, kThreads, dq_bf16_smem<D>(), a, s);
+    return run(flash_bwd_dq_f32<D>, dim3((a.S + kQ4 - 1) / kQ4, a.H, B),
+               kF32Threads, dq_f32_smem<D>(), a, s);
+  return a.seg != nullptr ? launch_dq_wgmma<D, true>(a, B, s)
+                          : launch_dq_wgmma<D, false>(a, B, s);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v,

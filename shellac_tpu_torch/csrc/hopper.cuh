@@ -2,9 +2,11 @@
 // proxy fences, TMA tiled loads and stores through a CUtensorMap, wgmma
 // shared-memory matrix descriptors for 128-byte-swizzled tiles, the
 // warpgroup MMA (bf16 in, fp32 accumulate; A from shared memory or from
-// registers) with its fence/commit/wait, setmaxnreg and named barriers.
-// Raw PTX on purpose: no CuTe or CUTLASS headers, so a translation unit
-// that includes this builds in seconds.
+// registers) with its fence/commit/wait, setmaxnreg and named barriers;
+// and on the host, what the persistent TMA kernels share: the snake
+// work order, the CTA count, and tensor maps through
+// cuTensorMapEncodeTiled. Raw PTX on purpose: no CuTe or CUTLASS
+// headers, so a translation unit that includes this builds in seconds.
 //
 // Conventions. A tile of 64 bf16 columns (128 bytes a row) is stored as
 // TMA's CU_TENSOR_MAP_SWIZZLE_128B leaves it: row r at r * 128 bytes, its
@@ -15,6 +17,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace shellac {
@@ -190,6 +193,30 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (m64 x n64, fp32) = A (smem, K-major) * B (smem, K-major), plus d
+// when `accumulate` is non-zero.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (m64 x n128, fp32) = A (smem, K-major) * B (smem, K-major), plus d
 // when `accumulate` is non-zero.
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
@@ -304,6 +331,83 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------- persistent grids
+
+// The k-th work tile of CTA c of G: round k of a longest-first list in a
+// snake order (c in even rounds, G - 1 - c in odd ones), which keeps the
+// CTAs' summed tile lengths within about 1-3% of each other where a
+// plain round robin drifts by 7% (6 x 2048) to 46% (1 x 2048).
+__device__ __forceinline__ int work_index(int k, int c, int G) {
+  return k * G + (k & 1 ? G - 1 - c : c);
+}
+
+// Persistent CTAs for `n_work` tiles: min(n_work, the device's SM count),
+// the count read once per device.
+inline cudaError_t persistent_ctas(int n_work, int* ctas) {
+  constexpr int kMaxDevices = 64;
+  static int sms_of[kMaxDevices] = {};
+  int dev;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms_of[dev],
+                                    cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return err;
+  *ctas = n_work < sms_of[dev] ? n_work : sms_of[dev];
+  return cudaSuccess;
+}
+
+// ------------------------------------------------------ tensor maps
+
+// cuTensorMapEncodeTiled, looked up at run time by the CUDA runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor as a 4-D map over (D, heads, S, B) with
+// boxes of 64 columns (one 128-byte swizzled panel) by `rows` rows.
+// Positions past S read as zeros and are not written.
+inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int B,
+                              int S, int heads, int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

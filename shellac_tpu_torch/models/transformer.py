@@ -27,6 +27,7 @@ segment and make attention block-diagonal over segments.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, Optional
 
@@ -305,15 +306,74 @@ def output_weights(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["lm_head"].to(cdt)
 
 
+@contextlib.contextmanager
+def _tf32_matmuls():
+    """cuBLAS may take TF32 for fp32 products inside the block only."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+class LMHeadFunction(torch.autograd.Function):
+    """logits (N, V) fp32 = x (N, D) @ w (D, V), both bf16: the JAX
+    package's einsum with preferred_element_type=float32, and its
+    transpose as `jax.make_jaxpr(jax.grad(...))` shows it: dx and dw are
+    each a product of the fp32 cotangent with the other bf16 operand,
+    summed in fp32 and rounded to bf16.
+
+    On the card the three products run on the tensor cores: the forward
+    from the bf16 operands with an fp32 result (`torch.mm(...,
+    out_dtype=torch.float32)`), the two backward products in TF32, which
+    holds the bf16 operand exactly and the fp32 cotangent to 10 mantissa
+    bits. On the CPU all three are fp32 products.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w, out_dtype=torch.float32)
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        with _tf32_matmuls() if g.is_cuda else contextlib.nullcontext():
+            if ctx.needs_input_grad[0]:
+                dx = (g @ w.float().t()).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                # In w's own layout, as torch's mm backward gives it: a
+                # tied head's w is the transposed embedding, whose
+                # gradient must come back contiguous for the optimizer's
+                # fused multi-tensor passes.
+                if w.stride(0) == 1 and w.stride(1) != 1:
+                    dw = (g.t() @ x.float()).to(w.dtype).t()
+                else:
+                    dw = (x.float().t() @ g).to(w.dtype)
+        return dx, dw
+
+
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Final RMSNorm + output projection (+ logit softcap); fp32 logits.
 
     The product accumulates in fp32 from compute-dtype operands, as the
-    JAX package's preferred_element_type=float32 einsum does.
+    JAX package's preferred_element_type=float32 einsum does: in bf16
+    through `LMHeadFunction` (tensor cores on the card), in fp32 as an
+    fp32 product.
     """
     cdt = cfg.compute_dtype
     x = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cdt)
-    logits = x.float() @ output_weights(cfg, params).float()
+    w = output_weights(cfg, params)
+    if cdt == torch.bfloat16:
+        lead = x.shape[:-1]
+        logits = LMHeadFunction.apply(x.reshape(-1, x.shape[-1]), w)
+        logits = logits.reshape(*lead, w.shape[-1])
+    else:
+        logits = x.float() @ w.float()
     if cfg.logit_softcap is not None:
         logits = softcap(logits, cfg.logit_softcap)
     return logits

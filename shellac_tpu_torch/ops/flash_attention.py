@@ -195,16 +195,7 @@ def _check(name, q, k, v, *, causal, window, sinks, segments):
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} needs contiguous q, k, v")
-    # The bf16 forward reads q, k, v and writes out through TMA tensor
-    # maps: base addresses and the strides the maps use (between heads,
-    # positions and batches) must be multiples of 16 bytes.
-    for nm, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 != 0:
-            raise ValueError(f"{name}: {nm}.data_ptr() is not 16-byte "
-                             "aligned")
-        if any(st * t.element_size() % 16 != 0 for st in t.stride()[:3]):
-            raise ValueError(f"{name}: {nm}'s strides are not multiples "
-                             "of 16 bytes")
+    _check_tma(name, q=q, k=k, v=v)
     if sinks is not None:
         if sinks.dtype != torch.float32 or sinks.shape != (h,) \
                 or not sinks.is_cuda or not sinks.is_contiguous():
@@ -215,6 +206,19 @@ def _check(name, q, k, v, *, causal, window, sinks, segments):
             raise ValueError(f"{name}: segments must be int32 (B, S), "
                              "contiguous, on the card")
     return b, s, h, hkv, d
+
+
+def _check_tma(name, **tensors):
+    """The bf16 kernels read and write through TMA tensor maps: base
+    addresses and the strides the maps use (between heads, positions and
+    batches) must be multiples of 16 bytes."""
+    for nm, t in tensors.items():
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{name}: {nm}.data_ptr() is not 16-byte "
+                             "aligned")
+        if any(st * t.element_size() % 16 != 0 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: {nm}'s strides are not multiples "
+                             "of 16 bytes")
 
 
 def _opt(x):
@@ -261,6 +265,7 @@ def _check_bwd(name, q, k, v, dout, lse, delta, *, causal, window,
     if dout.shape != q.shape or dout.dtype != q.dtype or not dout.is_cuda \
             or not dout.is_contiguous():
         raise ValueError(f"{name}: dout must match q, contiguous")
+    _check_tma(name, dout=dout)
     for nm, t in (("lse", lse), ("delta", delta)):
         if t.shape != (b, h, s) or t.dtype != torch.float32 \
                 or not t.is_cuda or not t.is_contiguous():

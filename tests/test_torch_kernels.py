@@ -159,6 +159,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     kv = torch.zeros(2, 16, 4, 128, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention(qm, kv, kv)
+    # So do the backward kernels' maps of q, k, v and dout.
+    lse = torch.zeros(2, 4, 16, device=dev)
+    for bwd in (fa.flash_bwd_dkdv_cuda, fa.flash_bwd_dq_cuda):
+        for args in ((qm, kv, kv, kv), (kv, qm, kv, kv), (kv, kv, kv, qm)):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                bwd(*args, lse, lse)
     h = torch.zeros(4, 8, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         norms.rms_norm(h, torch.zeros(8, device=dev))
@@ -475,6 +481,11 @@ _BWD = {
                             window=128),
     "window_200": dict(b=1, s=700, h=4, hkv=2, d=128, causal=True,
                        window=200),
+    # The backward's own edges (128-row work tiles, 64-row streamed
+    # tiles): S one past a tile, a ragged tail inside one consumer's half.
+    "s129": dict(b=1, s=129, h=4, hkv=2, d=128, causal=True),
+    "s1000_d64_segments": dict(b=1, s=1000, h=8, hkv=1, d=64, causal=True,
+                               bounds=(0, 64, 100, 1000)),
 }
 
 
@@ -541,6 +552,27 @@ def test_flash_backward_kernels(dtype, case):
                            ("dv", dv, rdv)):
         assert got.dtype == dtype
         _scaled_close(got, ref, dtype, name)
+
+
+@pytest.mark.parametrize("case", ["causal_gqa", "segments_in_tiles", "g8",
+                                  "window_softcap_sinks"])
+def test_flash_backward_is_deterministic(case):
+    """Every dk/dv and dq tile is written by one block with no atomics:
+    two calls on the same inputs give bitwise-equal bf16 results."""
+    dev = _card()
+    q, k, v, do, seg, sinks, c = _bwd_case(case, torch.bfloat16, dev)
+    _, lse = fa.flash_forward_ref(q, k, v, sinks=sinks, segments=seg, **c)
+    delta = torch.randn(lse.shape, device=dev)
+    runs = []
+    for _ in range(2):
+        dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta,
+                                        segments=seg, **c)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=seg,
+                                  **c)
+        runs.append((dq, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -628,3 +660,43 @@ def test_decode_wrappers_raise_under_grad():
         da.paged_decode_attention(q, pool, pool, tab, idx)
     with torch.no_grad():
         da.decode_attention(q, c, c, idx)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_lm_head_on_tensor_cores_matches_the_fp32_product(tied):
+    """The bf16 LM head on the card (`LMHeadFunction`: the forward from
+    bf16 operands with an fp32 result, the backward products in TF32)
+    against the fp32 products it replaces, at shellac-1b's width. The
+    forward multiplies the same bf16 values exactly and sums in fp32:
+    1e-4 of the largest logit. The backward rounds the fp32 cotangent to
+    TF32 (2^-11 relative) and its outputs to bf16 (2^-8): 1e-2 of the
+    largest gradient. The TF32 switch is restored afterwards. A tied
+    head's w is the embedding transposed; its gradient keeps that
+    layout."""
+    from shellac_tpu_torch.models.transformer import LMHeadFunction
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = _randn(gen, (512, 2048), torch.bfloat16, dev).requires_grad_()
+    w = (0.02 * torch.randn((2048, 32768), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    if tied:
+        w = w.t().contiguous().t()
+    w.requires_grad_()
+    g = torch.randn((512, 32768), generator=gen, device=dev) * 1e-3
+    before = torch.backends.cuda.matmul.allow_tf32
+    logits = LMHeadFunction.apply(x, w)
+    dx, dw = torch.autograd.grad(logits, (x, w), g)
+    assert torch.backends.cuda.matmul.allow_tf32 == before
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xf, wf = x.detach().float(), w.detach().float()
+    want = xf @ wf
+    assert logits.dtype == torch.float32
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert dw.stride() == w.stride()
+    for got, ref, atol in ((logits, want, 1e-4),
+                           (dx, (g @ wf.t()).bfloat16(), 1e-2),
+                           (dw, (xf.t() @ g).bfloat16(), 1e-2)):
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max()
+        assert err <= atol * ref.float().abs().max(), err.item()

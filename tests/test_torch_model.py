@@ -285,3 +285,104 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _unembed_pair(name, over, seed):
+    """The bf16-compute head of a preset in both packages (fp32 masters,
+    the final norm made non-trivial) and seeded inputs: x (2, 5, D) in
+    bf16 and an fp32 cotangent for the logits."""
+    jc = jget(name).replace(**over)
+    tc = get_model_config(name).replace(**over)
+    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(seed)))
+    rng = _rng("unembed", name, seed)
+    p["final_norm"] = (1.0 + 0.3 * rng.standard_normal(
+        p["final_norm"].shape)).astype(np.float32)
+    x = jnp.asarray(rng.standard_normal((2, 5, jc.d_model)),
+                    dtype=jnp.bfloat16)
+    g = rng.standard_normal((2, 5, jc.vocab_size)).astype(np.float32)
+    return jc, tc, p, x, g
+
+
+# The head sums the same bf16 products in fp32 in both packages, in
+# another order: logits within 1e-5 of their largest magnitude (measured
+# about 2e-7). The gradients are fp32 sums rounded to bf16, so an
+# element near a rounding boundary may land one bf16 ulp (2^-8 of
+# itself) apart: 2e-3 of their largest magnitude (measured 3e-4 at most).
+_HEAD_TOL = {"logits": (1e-5, 0.0), "grad": (2e-3, 0.0)}
+
+
+def _graph_nodes(t):
+    """Names of the autograd nodes that produced t."""
+    seen, todo = {}, [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and id(fn) not in seen:
+            seen[id(fn)] = type(fn).__name__
+            todo.extend(f for f, _ in fn.next_functions)
+    return set(seen.values())
+
+
+def _head_close(got, want, kind, what):
+    atol, rtol = _HEAD_TOL[kind]
+    got = np.asarray(got, dtype=np.float32)
+    want = np.asarray(want, dtype=np.float32)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol * np.abs(want).max(), err_msg=what)
+
+
+@pytest.mark.parametrize("name,over", [("tiny", {}),
+                                       ("tiny", {"tie_embeddings": False}),
+                                       ("tiny-gemma2", {})])
+def test_unembed_bf16_and_its_gradients_match_jax(name, over):
+    """The LM head in the bf16 compute dtype (`LMHeadFunction`): logits
+    and the gradients of sum(logits * g) with respect to x, the output
+    weights (tied embedding or lm_head, fp32 masters) and the final norm,
+    against the JAX package's `unembed` and `jax.grad` of it."""
+    jc, tc, p, x, g = _unembed_pair(name, over, seed=3)
+    wkey = "embed" if jc.tie_embeddings else "lm_head"
+
+    def jloss(x, w, norm):
+        jp = dict(p, **{wkey: w, "final_norm": norm})
+        logits = jt.unembed(jc, jp, x)
+        return jnp.sum(logits * g), logits
+
+    (_, jlogits), jgrads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(
+        x, jnp.asarray(p[wkey]), jnp.asarray(p["final_norm"]))
+
+    tp = params_from_jax(tc, p, CPU, master=True)
+    xt = torch.from_numpy(np.asarray(x, dtype=np.float32)).to(
+        torch.bfloat16).requires_grad_()
+    leaves = [xt, tp[wkey].requires_grad_(),
+              tp["final_norm"].requires_grad_()]
+    logits = tt.unembed(tc, tp, xt)
+    assert "LMHeadFunctionBackward" in _graph_nodes(logits)
+    assert logits.dtype == torch.float32
+    tgrads = torch.autograd.grad((logits * torch.from_numpy(g)).sum(),
+                                 leaves)
+    _head_close(logits.detach(), jlogits, "logits", "logits")
+    assert tgrads[0].dtype == torch.bfloat16
+    # The weights' gradient in their own layout (a tied head reads the
+    # embedding transposed), as torch's mm backward gives it: the
+    # optimizer's fused multi-tensor passes need it contiguous.
+    assert tgrads[1].is_contiguous()
+    for what, got, want in zip(("dx", "d" + wkey, "dfinal_norm"), tgrads,
+                               jgrads):
+        _head_close(got.float(), want, "grad", what)
+
+
+def test_unembed_fp32_keeps_the_fp32_product():
+    """An fp32 compute dtype takes the plain fp32 product (no
+    `LMHeadFunction`), bitwise equal to x @ w in fp32."""
+    _, tc, p, x, _ = _unembed_pair("tiny", {"dtype": "float32"}, seed=4)
+    tp = params_from_jax(tc, p, CPU)
+    xt = torch.from_numpy(np.asarray(x, dtype=np.float32))
+    with torch.no_grad():
+        logits = tt.unembed(tc, tp, xt)
+        h = tt.rms_norm(xt, tp["final_norm"], tc.norm_eps)
+        want = h @ tt.output_weights(tc, tp)
+    xt.requires_grad_()
+    nodes = _graph_nodes(tt.unembed(tc, tp, xt))
+    assert "MmBackward0" in nodes and "LMHeadFunctionBackward" not in nodes
+    assert logits.dtype == torch.float32
+    assert torch.equal(logits, want)

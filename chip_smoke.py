@@ -6,11 +6,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. device   — the card (torch and nvidia-smi); no CUDA device fails.
   2. build    — compile every kernel in shellac_tpu_torch/csrc/ from source
                 (nvcc -Xptxas -v register/shared-memory/spill lines); every
-                wgmma kernel instance (kernel 2, kernels 3 and 4; D 64 and
-                128, with and without segments) must show 0 spill stores
-                and no C7520 (wgmma serialized).
+                instance of the Hopper redesigns (the wgmma kernels 2, 3
+                and 4, D 64 and 128, with and without segments; kernel 1's
+                six register-resident RMSNorm instances; kernel 5's four
+                split-K bf16 decode instances) must show 0 spill stores,
+                and no wgmma may be serialized (C7520).
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the shapes of the main paths, in bf16 and fp32; the
+                at the shapes of the main paths, in bf16 and fp32 (RMSNorm
+                at 1, 8, 16, 4096 and 12288 rows of 2048, 65536 rows of
+                128 and 37 x 1000; dense decode at generate's step and at
+                B 1 and 16, index 0, a range shorter than one tile or not a
+                multiple of the split, index + s = L, a window across
+                splits, softcap with sinks, s 4, G 8, D 64); the
                 paged kernel reads a pool whose block 0 and unowned blocks
                 hold NaN; kernel 2's out and lse at generate's prefill
                 (8 x 512) and at serve's largest admission (1 x 1024). At
@@ -78,10 +85,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 and a gather, a dequantize and SDPA, three calls; for the
                 backward kernels the library call is the backward of
                 scaled_dot_product_attention, which computes what kernels 3
-                and 4 compute together). Kernel 2 is timed at
-                generate's prefill, at serve's largest admission (B 1, S
-                1024) and at the training shape; every row carries its
-                achieved TFLOP/s.
+                and 4 compute together). RMSNorm is timed at prefill's 4096,
+                train's 12288, generate's 8 and serve's 16 rows; kernel 2
+                at generate's prefill, at serve's largest admission (B 1, S
+                1024) and at the training shape; dense decode at generate's
+                step and with every slot live to 2048; every row carries
+                its achieved TFLOP/s.
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}.
 
@@ -143,11 +152,19 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 
 
-def wgmma_report(ptxas):
-    """Each wgmma kernel instance's registers and spill stores from the
-    `ptxas -v` lines, and whether ptxas serialized any wgmma (warning
-    C7520): kernel 2's four instances and kernels 3 and 4's four each
-    (D 64 and 128, with and without segments)."""
+# Instances of the Hopper redesigns the build must show, by kind: the
+# wgmma kernels (D 64 and 128, with and without segments), kernel 1's
+# register-resident RMSNorm (bf16 and fp32: many rows and few rows at
+# d 2048, one instance at d 128), kernel 5's split-K bf16 decode (D 64 and
+# 128, at 2 and 16 rows).
+REDESIGNED = {"flash_fwd": 4, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
+              "rms_norm_rows": 6, "decode_split": 4}
+
+
+def spill_report(ptxas):
+    """Each instance of the redesigned kernels (REDESIGNED) with its
+    registers and spill stores from the `ptxas -v` lines, and whether
+    ptxas serialized any wgmma (warning C7520)."""
     import re
 
     out, fn = [], None
@@ -156,10 +173,16 @@ def wgmma_report(ptxas):
         if m:
             fn = m.group(1)
             continue
-        if fn is None or "_wgmma" not in fn:
+        if fn is None:
             continue
-        kind = next((k for k in ("flash_fwd", "flash_bwd_dkdv",
-                                 "flash_bwd_dq") if k in fn), fn)
+        if "_wgmma" in fn:
+            kind = next((k for k in ("flash_fwd", "flash_bwd_dkdv",
+                                     "flash_bwd_dq") if k in fn), fn)
+        else:
+            kind = next((k for k in ("rms_norm_rows", "decode_split")
+                         if k in fn), None)
+            if kind is None:
+                continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             out.append({"kernel": kind, "instance": fn,
@@ -168,7 +191,8 @@ def wgmma_report(ptxas):
         if m and out and out[-1]["instance"] == fn:
             out[-1]["registers"] = int(m.group(1))
             fn = None
-    return {"instances": out,
+    counts = {k: sum(i["kernel"] == k for i in out) for k in REDESIGNED}
+    return {"instances": out, "counts": counts,
             "c7520": any("C7520" in line for line in ptxas)}
 
 
@@ -279,6 +303,8 @@ def main_shapes(seed, dev):
     return {
         "rms_prefill": (PROMPTS * PAD, 2048),
         "rms_decode": (PROMPTS, 2048),
+        "rms_train": (TRAIN_BATCH * TRAIN_SEQ, 2048),
+        "rms_serve_decode": (SLOTS, 2048),
         "flash": dict(b=PROMPTS, s=PAD, h=16, hkv=8, d=128),
         # serve's largest admission: one prompt of PROMPT_HI tokens.
         "flash_serve": dict(b=1, s=PROMPT_HI, h=16, hkv=8, d=128),
@@ -417,13 +443,19 @@ def phase_kernels(gen, dev, shapes):
     sinks16 = randn(gen, (16,), torch.float32, dev)
     for dtype in (torch.bfloat16, torch.float32):
         main = dtype == torch.bfloat16
-        for case in ("rms_prefill", "rms_decode"):
+        for case in ("rms_prefill", "rms_decode", "rms_train",
+                     "rms_serve_decode"):
             x, sc = rms_inputs(gen, *shapes[case], dtype, dev)
             record("rms_norm", case, dtype, rms_norm_cuda(x, sc, 1e-5),
                    rms_norm_ref(x, sc, 1e-5), main and case == "rms_prefill")
-        x, sc = rms_inputs(gen, 37, 1000, dtype, dev)
-        record("rms_norm", "ragged_37x1000", dtype, rms_norm_cuda(x, sc),
-               rms_norm_ref(x, sc))
+        # One row; q/k norms (4096 tokens x 16 heads of 128); a width
+        # with no register-resident instance.
+        for case, rows, d in (("rms_1x2048", 1, 2048),
+                              ("qk_norm_65536x128", 65536, 128),
+                              ("ragged_37x1000", 37, 1000)):
+            x, sc = rms_inputs(gen, rows, d, dtype, dev)
+            record("rms_norm", case, dtype, rms_norm_cuda(x, sc),
+                   rms_norm_ref(x, sc))
 
         # Kernel 2 at generate's prefill and at serve's largest admission,
         # out and lse against flash_forward_ref.
@@ -470,6 +502,29 @@ def phase_kernels(gen, dev, shapes):
         record("decode_attention_dense", "s4_causal_rows", dtype,
                decode_attention_cuda(q, ck, cv, idx),
                _decode_ref(q, ck, cv, idx, None, scale))
+        # The split-K body's edges: 32-position tiles dealt to the CTAs
+        # of a cluster. (shape overrides, lengths, keyword arguments)
+        edges = {
+            "b1_shorter_than_a_tile": ({"b": 1}, [5], {}),
+            "b16_ragged": ({"b": 16}, [0, 1, 31, 32, 33, 255, 256, 257,
+                                       300, 511, 512, 999, 1023, 1500,
+                                       2046, 2047], {}),
+            "index_0": ({"b": 2}, [0, 0], {}),
+            "tiles_not_a_multiple_of_split": ({"b": 3}, [529, 163, 289],
+                                              {}),
+            "index_plus_s_is_L": ({"b": 4}, [MAX_LEN - 1] * 4, {}),
+            "window_across_splits": ({"b": 4}, [700, 129, 2047, 64],
+                                     {"window": 200}),
+            "g8_16_rows": ({"b": 2, "s": 2, "hkv": 2}, [17, 2046], {}),
+        }
+        for case, (shape, lengths, kw) in edges.items():
+            es = {**ds, **shape,
+                  "index": torch.tensor(lengths, dtype=torch.int32,
+                                        device=dev)}
+            q, ck, cv, idx = decode_inputs(gen, dtype, dev, **es)
+            record("decode_attention_dense", case, dtype,
+                   decode_attention_cuda(q, ck, cv, idx, **kw),
+                   _decode_ref(q, ck, cv, idx, kw.get("window"), scale))
 
         # Paged: the kernel reads the NaN-poisoned pool, the plain
         # version the clean one; the live pages are the same.
@@ -913,6 +968,8 @@ def kernel_kind(name):
         kind = ("paged_decode_attention" if "Paged" in name
                 else "decode_attention_dense")
         return kind + ("_int8" if "signed char" in name else "")
+    if "decode_split" in name:  # kernel 5's bf16 body
+        return "decode_attention_dense"
     for key, kind in (("flash_fwd", "flash_attention_fwd"),
                       ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
                       ("flash_bwd_dq", "flash_attention_bwd_dq"),
@@ -1412,10 +1469,14 @@ def graph_ms(fn, arg_sets, iters):
     return ms
 
 
-def copies(make, min_bytes=256 << 20):
+def copies(make, min_bytes=256 << 20, nbytes=None):
+    """Input sets to cycle through so that one pass moves at least
+    `min_bytes` (at most 16 sets): `nbytes` a call reads, by default every
+    byte of the first set."""
     first = make()
-    nbytes = sum(t.numel() * t.element_size() for t in first
-                 if isinstance(t, torch.Tensor))
+    if nbytes is None:
+        nbytes = sum(t.numel() * t.element_size() for t in first
+                     if isinstance(t, torch.Tensor))
     n = max(1, -(-min_bytes // max(nbytes, 1)))
     return [first] + [make() for _ in range(min(n, 16) - 1)]
 
@@ -1488,7 +1549,8 @@ def phase_timings(gen, dev, shapes, card):
              **extra, **row)
         rows_out.setdefault(name, row)
 
-    for case in ("rms_prefill", "rms_decode"):
+    for case in ("rms_prefill", "rms_decode", "rms_train",
+                 "rms_serve_decode"):
         rows, d = shapes[case]
 
         def make():
@@ -1590,24 +1652,34 @@ def phase_timings(gen, dev, shapes, card):
     del sets
     torch.cuda.empty_cache()
 
-    ds = shapes["decode"]
-    b, h, hkv, L, d, idx = (ds["b"], ds["h"], ds["hkv"], ds["L"], ds["d"],
-                            ds["index"])
-    sets = copies(lambda: decode_inputs(gen, bf, dev, **ds))
-    live = int((idx + 1).sum().item())  # kv positions this step reads
-    mask = (torch.arange(L, device=dev)[None, :]
-            < (idx + 1)[:, None].long())[:, None, None, :]
-    k = measure(lambda q, ck, cv, i: decode_attention_cuda(q, ck, cv, i),
-                sets, 200)
-    p = measure(lambda q, ck, cv, i: _decode_ref(q, ck, cv, i, None,
-                                                 d ** -0.5), sets, 50)
-    lib = measure(
-        lambda q, ck, cv, i: F.scaled_dot_product_attention(
-            q.transpose(1, 2), ck, cv, attn_mask=mask, enable_gqa=True),
-        sets, 200)
-    record("decode_attention_dense", "main_ragged", k, p, lib,
-           2 * b * h * d * 2 + 2 * live * hkv * d * 2 + b * 4,
-           4 * d * h * live, [b, 1, h, hkv, L, d])
+    # Kernel 5 at generate's step and with every slot live to L. A step
+    # reads only the live rows, so the sets cycled count those against
+    # the L2.
+    for case, ds in (("main_ragged", shapes["decode"]),
+                     ("full_live", {**shapes["decode"],
+                                    "index": torch.full_like(
+                                        shapes["decode"]["index"],
+                                        MAX_LEN - 1)})):
+        b, h, hkv, L, d, idx = (ds["b"], ds["h"], ds["hkv"], ds["L"],
+                                ds["d"], ds["index"])
+        live = int((idx + 1).sum().item())  # kv positions this step reads
+        nbytes = 2 * b * h * d * 2 + 2 * live * hkv * d * 2 + b * 4
+        sets = copies(lambda: decode_inputs(gen, bf, dev, **ds),
+                      nbytes=nbytes)
+        mask = (torch.arange(L, device=dev)[None, :]
+                < (idx + 1)[:, None].long())[:, None, None, :]
+        k = measure(lambda q, ck, cv, i: decode_attention_cuda(q, ck, cv, i),
+                    sets, 200)
+        p = measure(lambda q, ck, cv, i: _decode_ref(q, ck, cv, i, None,
+                                                     d ** -0.5), sets, 50)
+        lib = measure(
+            lambda q, ck, cv, i: F.scaled_dot_product_attention(
+                q.transpose(1, 2), ck, cv, attn_mask=mask, enable_gqa=True),
+            sets, 200)
+        record("decode_attention_dense", case, k, p, lib, nbytes,
+               4 * d * h * live, [b, 1, h, hkv, L, d])
+        del sets
+        torch.cuda.empty_cache()
 
     ps = shapes["paged"]
     idx = ps["index"]
@@ -1722,13 +1794,14 @@ def main():
 
     t0 = time.perf_counter()
     info = _build.build_info()
-    wgmma = wgmma_report(info["ptxas"])
+    spills = spill_report(info["ptxas"])
     emit("build", seconds=time.perf_counter() - t0, built=info["built"],
-         nvcc_seconds=info["seconds"], dir=info["dir"], wgmma=wgmma,
+         nvcc_seconds=info["seconds"], dir=info["dir"], redesigned=spills,
          ptxas=info["ptxas"])
-    bad = [k for k in wgmma["instances"] if k["spill_stores"] != 0]
-    if wgmma["c7520"] or bad or len(wgmma["instances"]) < 12:
-        raise SystemExit(f"build: wgmma kernels spill or serialize: {wgmma}")
+    bad = [k for k in spills["instances"] if k["spill_stores"] != 0]
+    if spills["c7520"] or bad or spills["counts"] != REDESIGNED:
+        raise SystemExit(f"build: redesigned kernels spill, serialize or "
+                         f"are missing: {spills}")
 
     table = kernel_table()
     gen = torch.Generator(device=dev)

@@ -1,0 +1,605 @@
+"""Time the port's bf16 kernels of two checkouts on one CUDA card: kernel 1
+(RMSNorm), kernel 2 (the flash forward), kernels 3 and 4 (the flash
+backward's dk/dv and dq) and kernel 5 (dense flash-decode).
+
+    python3 scripts/torch_kernel_ab.py --parent DIR [--seed 0]
+        [--only rms,fwd,bwd,decode,generate] [--also NAME=DIR ...]
+
+DIR is a checkout of an earlier commit of this repository (for example
+unpacked with `git archive` into a directory that .gitignore lists). Each
+checkout's kernel library is built from its own sources into its own
+`build/` directory, both are loaded side by side and called through the
+same C entry points (`shellac_rms_norm`, `shellac_flash_attention`,
+`shellac_flash_attention_bwd_dkdv`, `shellac_flash_attention_bwd_dq`,
+`shellac_decode_attention`) on the same inputs, at the shapes the port's
+main paths give each kernel on shellac-1b (H 16, Hkv 8, D 128, d_model
+2048):
+  - rms: train 12288 x 2048, prefill 4096 x 2048, serve's largest
+    admission 1024 x 2048, decode's 8 and 16 rows; beside
+    torch.nn.functional.rms_norm;
+  - fwd (causal): the train step (6 x 2048, with lse), generate's prefill
+    (8 x 512) and serve's B = 1 admissions (S 64, 256 and 1024); beside
+    scaled_dot_product_attention;
+  - bwd (causal): the train step (6 x 2048), B = 1 at S 2048, and 8 x 512;
+    beside the backward call of scaled_dot_product_attention, which
+    computes dq, dk and dv together (timed eagerly, since autograd is not
+    captured);
+  - decode (s 1, L 2048): generate's ragged step (B 8, lengths 129-577 as
+    chip_smoke.py draws them), every slot live to 2048 (B 8), and B 16
+    ragged over the whole cache; beside masked scaled_dot_product_attention;
+  - generate: shellac-1b (random bf16 weights from --seed) generates
+    greedily from chip_smoke.py's 8 prompts for 64 tokens, once on each
+    side's kernels; prints whether the tokens agree and, for a row where
+    they part, the step, the parent's top-2 logit margin there and the
+    largest logit difference between the two sides at that step (both
+    sides saw the same tokens up to it).
+`--also` adds checkouts (a design variant of this tree, say) timed beside
+the two in the same way. Each shape is timed by CUDA-graph replay (device
+time) and by eager calls back to back in the order parent, this tree
+(then any `--also`), and back again, each call
+writing a preallocated output of its input set. Where the library call
+allocates its output instead (F.rms_norm), this tree's kernel is also
+timed allocating, as chip_smoke.py times both. Prints
+the card's name and power limit, then one JSON line a shape and pass.
+Exits non-zero without a card, or if either side disagrees with the plain
+versions (`rms_norm_ref`, `flash_forward_ref`, `flash_bwd_dkdv_ref`,
+`flash_bwd_dq_ref`, `_decode_ref`) beyond the bf16 tolerance (2e-2 +
+2e-2 |ref|; for the gradients 2e-2 max|ref| + 2e-2 |ref|).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+PEAK_BYTES_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_BF16_S = 989e12
+FWD_SHAPES = {  # name: (B, S, with lse)
+    "train_6x2048_lse": (6, 2048, True),
+    "generate_8x512": (8, 512, False),
+    "serve_1x1024": (1, 1024, False),
+    "serve_1x256": (1, 256, False),
+    "serve_1x64": (1, 64, False),
+}
+BWD_SHAPES = {  # name: (B, S)
+    "train_6x2048": (6, 2048),
+    "b1_2048": (1, 2048),
+    "b8_512": (8, 512),
+}
+RMS_SHAPES = {  # name: rows (d 2048)
+    "train_12288x2048": 12288,
+    "prefill_4096x2048": 4096,
+    "serve_prefill_1024x2048": 1024,
+    "generate_decode_8x2048": 8,
+    "serve_decode_16x2048": 16,
+}
+DECODE_SHAPES = {  # name: (B, lengths: "generate" | "full" | "ragged")
+    "generate_8_ragged": (8, "generate"),
+    "full_live_8x2048": (8, "full"),
+    "b16_ragged": (16, "ragged"),
+}
+H, HKV, D, D_MODEL, L = 16, 8, 128, 2048, 2048
+BF16 = 1  # dtype code of csrc/common.cuh
+
+
+def load_build(checkout: Path, name: str):
+    path = checkout / "shellac_tpu_torch" / "ops" / "_build.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: cudaError_t {err}")
+
+
+def call_fwd(lib, q, k, v, out, lse):
+    b, s, h, d = q.shape
+    _raise("shellac_flash_attention", lib.shellac_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, s, h,
+        k.shape[2], d, d ** -0.5, 1, -1, 0.0, BF16, _stream()))
+
+
+def call_dkdv(lib, q, k, v, do, lse, dl, dk, dv):
+    b, s, h, d = q.shape
+    _raise("shellac_flash_attention_bwd_dkdv",
+           lib.shellac_flash_attention_bwd_dkdv(
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), dl.data_ptr(), None, dk.data_ptr(),
+               dv.data_ptr(), b, s, h, k.shape[2], d, d ** -0.5, 1, -1, 0.0,
+               BF16, _stream()))
+
+
+def call_dq(lib, q, k, v, do, lse, dl, dq):
+    b, s, h, d = q.shape
+    _raise("shellac_flash_attention_bwd_dq",
+           lib.shellac_flash_attention_bwd_dq(
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), dl.data_ptr(), None, dq.data_ptr(), b, s, h,
+               k.shape[2], d, d ** -0.5, 1, -1, 0.0, BF16, _stream()))
+
+
+def graph_ms(fn, sets, iters):
+    """Mean device ms per call: `iters` calls cycling through `sets`,
+    captured in one CUDA graph, replayed, timed by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in sets:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def eager_ms(fn, sets, iters):
+    """Mean ms per call of `iters` eager calls back to back, by CUDA
+    events: the host's cost per call wherever it outruns the device."""
+    for a in sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def n_copies(first, nbytes=None):
+    """Input sets to cycle through so that one pass exceeds the L2:
+    `nbytes` a call reads (by default every byte of `first`)."""
+    if nbytes is None:
+        nbytes = sum(t.numel() * t.element_size() for t in first
+                     if isinstance(t, torch.Tensor))
+    return min(16, max(1, -(-(256 << 20) // nbytes)))
+
+
+def bound(flops, nbytes):
+    tf, tb = flops / PEAK_BF16_S, nbytes / PEAK_BYTES_S
+    return max(tf, tb) * 1e3, "operations" if tf >= tb else "bytes"
+
+
+def close(out, ref, scaled=False):
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    atol = 2e-2 * (ref.abs().max() if scaled else 1.0)
+    return {"max_abs_err": err.max().item(),
+            "ok": bool(torch.isfinite(out).all()
+                       and (err <= atol + 2e-2 * ref.abs()).all())}
+
+
+def ab(libs, fn_of, sets, iters):
+    """Graph and eager ms of each side, in the order of `libs` and back
+    (parent, new, new, parent)."""
+    times = {who: [] for who in libs}
+    eager = {who: [] for who in libs}
+    for who in list(libs) + list(reversed(libs)):
+        fn = fn_of(libs[who])
+        times[who].append(graph_ms(fn, sets, iters))
+        eager[who].append(eager_ms(fn, sets, iters))
+    return times, eager
+
+
+def call_rms(lib, x, scale, out):
+    rows, d = x.shape
+    _raise("shellac_rms_norm", lib.shellac_rms_norm(
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, 1e-5, BF16,
+        _stream()))
+
+
+def run_rms(libs, gen, dev, card):
+    from shellac_tpu_torch.ops.norms import rms_norm_ref
+
+    bf = torch.bfloat16
+    ok = True
+    for name, rows in RMS_SHAPES.items():
+        def make():
+            x = torch.randn((rows, D_MODEL), generator=gen,
+                            device=dev).to(bf)
+            sc = 0.1 * torch.randn((D_MODEL,), generator=gen, device=dev)
+            return x, sc, torch.empty_like(x), (1.0 + sc).to(bf)
+
+        first = make()
+        sets = [first] + [make() for _ in range(n_copies(first[:3]) - 1)]
+        x, sc = first[:2]
+        ref = rms_norm_ref(x, sc, 1e-5)
+        errs = {}
+        for who, lib in libs.items():
+            out = torch.empty_like(x)
+            call_rms(lib, x, sc, out)
+            torch.cuda.synchronize()
+            errs[who] = close(out, ref)
+            ok = ok and errs[who]["ok"]
+        iters = 200
+        times, eager = ab(libs, lambda lib: lambda x, s, o, w: call_rms(
+            lib, x, s, o), sets, iters)
+        # F.rms_norm allocates its output, which inside one captured
+        # graph reuses one block (L2-resident at these sizes); the
+        # kernel is timed that way too beside it.
+        library = graph_ms(lambda x, s, o, w: F.rms_norm(
+            x, (D_MODEL,), w, 1e-5), sets, iters)
+        new_alloc = graph_ms(lambda x, s, o, w: call_rms(
+            libs["new"], x, s, torch.empty_like(x)), sets, iters)
+        nbytes = 2 * rows * D_MODEL * 2 + D_MODEL * 4
+        bms, by = bound(4 * rows * D_MODEL, nbytes)
+        new_ms = min(times["new"])
+        print(json.dumps({
+            "pass": "rms", "shape": name, "rows": rows, "d": D_MODEL,
+            "ms": times, "eager_ms": eager, "f_rms_norm_ms": library,
+            "new_allocating_ms": new_alloc,
+            "bound_ms": bms, "bound_by": by, "roofline_share": bms / new_ms,
+            "parent_over_new": min(times["parent"]) / new_ms,
+            "new_allocating_over_library": new_alloc / library,
+            "errors": errs, "card": card}), flush=True)
+        del sets, first
+        torch.cuda.empty_cache()
+    return ok
+
+
+def decode_lengths(kind, b, seed):
+    """Pre-write lengths (`index`) of a decode step: generate's draw as
+    chip_smoke.py makes it (prompt lengths 128-512 plus up to 64 new
+    tokens), every slot at L - 1, or uniform over the whole cache."""
+    if kind == "generate":
+        return np.random.default_rng(seed).integers(128, 512 + 64 + 1,
+                                                    size=b)
+    if kind == "full":
+        return np.full(b, L - 1)
+    return np.random.default_rng(seed + 2).integers(0, L, size=b)
+
+
+def call_decode(lib, q, ck, cv, idx, out):
+    b, s, h, d = q.shape
+    _raise("shellac_decode_attention", lib.shellac_decode_attention(
+        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), idx.data_ptr(), None,
+        out.data_ptr(), b, s, h, ck.shape[1], ck.shape[2], d, d ** -0.5, -1,
+        0.0, BF16, _stream()))
+
+
+def run_decode(libs, gen, dev, card, seed):
+    from shellac_tpu_torch.ops.decode_attention import _decode_ref
+
+    bf = torch.bfloat16
+    ok = True
+    for name, (b, kind) in DECODE_SHAPES.items():
+        lengths = decode_lengths(kind, b, seed).astype(np.int32)
+        idx = torch.from_numpy(lengths).to(dev)
+
+        def make():
+            q = torch.randn((b, 1, H, D), generator=gen, device=dev).to(bf)
+            ck = torch.randn((b, HKV, L, D), generator=gen,
+                             device=dev).to(bf)
+            cv = torch.randn((b, HKV, L, D), generator=gen,
+                             device=dev).to(bf)
+            return q, ck, cv, idx, torch.empty_like(q)
+
+        # A step reads only the live rows, so count those against the L2.
+        live = int((lengths + 1).sum())  # kv positions the step reads
+        nbytes = 2 * b * H * D * 2 + 2 * live * HKV * D * 2 + b * 4
+        first = make()
+        sets = [first] + [make() for _ in range(n_copies(first, nbytes) - 1)]
+        q, ck, cv = first[:3]
+        ref = _decode_ref(q, ck, cv, idx, None, D ** -0.5)
+        errs = {}
+        for who, lib in libs.items():
+            out = torch.empty_like(q)
+            call_decode(lib, q, ck, cv, idx, out)
+            torch.cuda.synchronize()
+            errs[who] = close(out, ref)
+            ok = ok and errs[who]["ok"]
+        iters = 200
+        times, eager = ab(libs, lambda lib: lambda q, k, v, i, o:
+                          call_decode(lib, q, k, v, i, o), sets, iters)
+        mask = (torch.arange(L, device=dev)[None, :]
+                < (idx + 1)[:, None].long())[:, None, None, :]
+        sdpa = graph_ms(lambda q, k, v, i, o: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=True), sets,
+            iters)
+        bms, by = bound(4 * D * H * live, nbytes)
+        new_ms = min(times["new"])
+        print(json.dumps({
+            "pass": "decode", "shape": name, "b": b, "s": 1, "h": H,
+            "hkv": HKV, "L": L, "d": D, "index": idx.tolist(),
+            "ms": times, "eager_ms": eager, "masked_sdpa_ms": sdpa,
+            "bound_ms": bms, "bound_by": by, "roofline_share": bms / new_ms,
+            "parent_over_new": min(times["parent"]) / new_ms,
+            "new_over_library": new_ms / sdpa,
+            "errors": errs, "card": card}), flush=True)
+        del sets, first
+        torch.cuda.empty_cache()
+    return ok
+
+
+def run_fwd(libs, gen, dev, card):
+    from shellac_tpu_torch.ops.flash_attention import flash_forward_ref
+
+    bf = torch.bfloat16
+    ok = True
+    for name, (b, s, with_lse) in FWD_SHAPES.items():
+        def make():
+            q = torch.randn((b, s, H, D), generator=gen, device=dev).to(bf)
+            k = torch.randn((b, s, HKV, D), generator=gen, device=dev).to(bf)
+            v = torch.randn((b, s, HKV, D), generator=gen, device=dev).to(bf)
+            lse = torch.empty((b, H, s), device=dev) if with_lse else None
+            return q, k, v, torch.empty_like(q), lse
+
+        first = make()
+        sets = [first] + [make() for _ in range(n_copies(first[:4]) - 1)]
+        q, k, v, _, _ = first
+        ref, rlse = flash_forward_ref(q, k, v, causal=True)
+        errs = {}
+        for who, lib in libs.items():
+            out = torch.empty_like(q)
+            lse = torch.empty((b, H, s), device=dev)
+            call_fwd(lib, q, k, v, out, lse)
+            torch.cuda.synchronize()
+            e, le = close(out, ref), close(lse, rlse)
+            errs[who] = {"max_abs_err": e["max_abs_err"],
+                         "lse_max_abs_err": le["max_abs_err"],
+                         "ok": e["ok"] and le["ok"]}
+            ok = ok and errs[who]["ok"]
+        iters = 10 if b * s >= 4096 else 50
+        times, eager = ab(
+            libs, lambda lib: lambda q, k, v, o, l: call_fwd(
+                lib, q, k, v, o, l), sets, iters)
+        sdpa = graph_ms(
+            lambda q, k, v, o, l: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True), sets, iters)
+        pairs = b * H * s * (s + 1) // 2  # causal (q, k) pairs
+        flops = 4 * D * pairs
+        nbytes = 2 * (2 * b * s * H * D + 2 * b * s * HKV * D) \
+            + (4 * b * H * s if with_lse else 0)
+        bms, by = bound(flops, nbytes)
+        new_ms = min(times["new"])
+        print(json.dumps({
+            "pass": "fwd", "shape": name, "b": b, "s": s, "h": H,
+            "hkv": HKV, "d": D, "causal": True, "with_lse": with_lse,
+            "ms": times, "eager_ms": eager, "sdpa_ms": sdpa, "bound_ms": bms, "bound_by": by,
+            "new_tflops": flops / (new_ms * 1e-3) / 1e12,
+            "parent_over_new": min(times["parent"]) / new_ms,
+            "errors": errs, "card": card}), flush=True)
+        del sets, first
+        torch.cuda.empty_cache()
+    return ok
+
+
+def run_bwd(libs, gen, dev, card):
+    from shellac_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkdv_ref,
+        flash_bwd_dq_ref,
+        flash_forward_ref,
+    )
+
+    bf = torch.bfloat16
+    ok = True
+    for name, (b, s) in BWD_SHAPES.items():
+        def make():
+            q = torch.randn((b, s, H, D), generator=gen, device=dev).to(bf)
+            k = torch.randn((b, s, HKV, D), generator=gen, device=dev).to(bf)
+            v = torch.randn((b, s, HKV, D), generator=gen, device=dev).to(bf)
+            do = torch.randn((b, s, H, D), generator=gen, device=dev).to(bf)
+            out, lse = torch.empty_like(q), torch.empty((b, H, s),
+                                                        device=dev)
+            call_fwd(libs["new"], q, k, v, out, lse)
+            dl = torch.einsum("bshd,bshd->bhs", do.float(),
+                              out.float()).contiguous()
+            return (q, k, v, do, lse, dl, torch.empty_like(q),
+                    torch.empty_like(k), torch.empty_like(v))
+
+        first = make()
+        sets = [first] + [make() for _ in range(n_copies(first[:6]) - 1)]
+        q, k, v, do, lse, dl = first[:6]
+        rdk, rdv = flash_bwd_dkdv_ref(q, k, v, do, lse, dl)
+        rdq = flash_bwd_dq_ref(q, k, v, do, lse, dl)
+        errs = {}
+        for who, lib in libs.items():
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            call_dkdv(lib, q, k, v, do, lse, dl, dk, dv)
+            call_dq(lib, q, k, v, do, lse, dl, dq)
+            torch.cuda.synchronize()
+            errs[who] = {n: close(x, r, scaled=True) for n, x, r in
+                         (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
+            ok = ok and all(e["ok"] for e in errs[who].values())
+        del rdk, rdv, rdq
+        iters = 10 if b * s >= 4096 else 50
+        t3, e3 = ab(libs, lambda lib: lambda q, k, v, do, l, d, dq, dk, dv:
+                    call_dkdv(lib, q, k, v, do, l, d, dk, dv), sets, iters)
+        t4, e4 = ab(libs, lambda lib: lambda q, k, v, do, l, d, dq, dk, dv:
+                    call_dq(lib, q, k, v, do, l, d, dq), sets, iters)
+
+        def sdpa_set(q, k, v, do, *_):
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+            return qt, kt, vt, out, do.transpose(1, 2)
+
+        lib_sets = [sdpa_set(*a) for a in sets]
+        sdpa = eager_ms(lambda qt, kt, vt, out, dot: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), lib_sets, iters)
+        del lib_sets
+        pairs = b * H * s * (s + 1) // 2
+        qb, kb, rb = b * s * H * D * 2, b * s * HKV * D * 2, b * H * s * 4
+        rows = {}
+        for kern, times, eager, flops, nbytes in (
+                ("dkdv", t3, e3, 8 * D * pairs, 2 * qb + 4 * kb + 2 * rb),
+                ("dq", t4, e4, 6 * D * pairs, 3 * qb + 2 * kb + 2 * rb)):
+            bms, by = bound(flops, nbytes)
+            new_ms = min(times["new"])
+            rows[kern] = {
+                "ms": times, "eager_ms": eager, "bound_ms": bms,
+                "bound_by": by, "roofline_share": bms / new_ms,
+                "new_tflops": flops / (new_ms * 1e-3) / 1e12,
+                "parent_over_new": min(times["parent"]) / new_ms}
+        pair_new = min(a + b_ for a, b_ in zip(t3["new"], t4["new"]))
+        print(json.dumps({
+            "pass": "bwd", "shape": name, "b": b, "s": s, "h": H,
+            "hkv": HKV, "d": D, "causal": True, **rows,
+            "sdpa_backward_eager_ms": sdpa,
+            "new_pair_over_sdpa_backward": pair_new / sdpa,
+            "errors": errs, "card": card}), flush=True)
+        del sets, first
+        torch.cuda.empty_cache()
+    return ok
+
+
+def greedy(cfg, params, toks, lens, steps):
+    """Greedy decoding through the port's kernels: the tokens (B, steps)
+    and the fp32 logits each token was chosen from (steps, B, V)."""
+    from shellac_tpu_torch.inference.cache import init_cache
+    from shellac_tpu_torch.models import transformer
+
+    b = toks.shape[0]
+    cache = init_cache(cfg, b, L, toks.device)
+    logits, cache = transformer.forward_with_cache(
+        cfg, params, toks, cache, new_tokens_len=lens, fresh_cache=True)
+    last = logits[torch.arange(b, device=toks.device), lens.long() - 1]
+    out, seen = [], []
+    for _ in range(steps):
+        seen.append(last.float())
+        tok = last.float().argmax(-1)
+        out.append(tok)
+        logits, cache = transformer.forward_with_cache(cfg, params,
+                                                       tok[:, None], cache)
+        last = logits[:, 0]
+    return torch.stack(out, 1), torch.stack(seen)
+
+
+def run_generate(libs, dev, card, seed, prompts=8, pad=512, steps=64):
+    """Greedy tokens of shellac-1b on each side's kernels (the wrappers
+    call whichever library `_build.library` returns)."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.ops import _build
+
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    rng = np.random.default_rng(seed)  # as chip_smoke.py's prompts
+    lens = torch.from_numpy(rng.integers(128, 512 + 1, size=prompts).astype(
+        np.int32)).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(
+        prompts, pad))).to(dev)
+    own = _build.library
+    runs = {}
+    try:
+        with torch.inference_mode():
+            for who, lib in libs.items():
+                _build.library = lambda lib=lib: lib
+                runs[who] = greedy(cfg, params, toks, lens, steps)
+    finally:
+        _build.library = own
+    (tp, lp), (tn, ln) = runs["parent"], runs["new"]
+    parted = []
+    for row in range(prompts):
+        diff = (tp[row] != tn[row]).nonzero()
+        if len(diff) == 0:
+            continue
+        t = int(diff[0])
+        top2 = lp[t, row].topk(2).values
+        parted.append({
+            "row": row, "step": t,
+            "parent_top2_margin": float(top2[0] - top2[1]),
+            "max_logit_diff_at_step": float(
+                (lp[t, row] - ln[t, row]).abs().max())})
+    print(json.dumps({
+        "pass": "generate", "model": "shellac-1b", "prompts": prompts,
+        "new_tokens": steps, "rows_equal": prompts - len(parted),
+        "tokens_equal": float((tp == tn).float().mean()),
+        "parted": parted, "card": card}), flush=True)
+
+
+def load_libs(checkouts):
+    """{name: checkout} -> {name: loaded kernel library}, each built from
+    its own sources."""
+    libs = {}
+    for who, path in checkouts.items():
+        mod = load_build(path.resolve(), f"{who}_build")
+        info = mod.build_info()
+        print(json.dumps({"build": who, "seconds": info["seconds"],
+                          "dir": info["dir"]}), flush=True)
+        libs[who] = mod.library()
+    return libs
+
+
+PASSES = ("rms", "fwd", "bwd", "decode", "generate")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=",".join(PASSES),
+                    help="comma-separated passes of " + ", ".join(PASSES))
+    ap.add_argument("--also", action="append", default=[],
+                    metavar="NAME=DIR", help="another checkout to time")
+    args = ap.parse_args()
+    passes = args.only.split(",")
+    if not set(passes) <= set(PASSES):
+        ap.error(f"--only: passes are {PASSES}")
+    checkouts = {"parent": args.parent, "new": ROOT}
+    for spec in args.also:
+        name, sep, path = spec.partition("=")
+        if not sep or name in checkouts:
+            ap.error(f"--also {spec!r}: NAME=DIR, NAME not parent or new")
+        checkouts[name] = Path(path)
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    libs = load_libs(checkouts)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    ok = True
+    if "rms" in passes:
+        ok = run_rms(libs, gen, dev, card) and ok
+    if "fwd" in passes:
+        ok = run_fwd(libs, gen, dev, card) and ok
+    if "bwd" in passes:
+        ok = run_bwd(libs, gen, dev, card) and ok
+    if "decode" in passes:
+        ok = run_decode(libs, gen, dev, card, args.seed) and ok
+    if "generate" in passes:
+        run_generate(libs, dev, card, args.seed)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

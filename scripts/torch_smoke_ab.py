@@ -14,9 +14,9 @@ third]}: the train step (every loss, step ms, tokens/s, peak memory, the
 profiled step's device ms, busy share and device ms by kernel kind, the
 LM head's GEMMs where the run reports them apart), the device ms of
 serve's and serve-int8's profiled engine step and of generate's
-graph-captured decode step, the host metrics of serve, serve-int8 and
-generate, the launch counts of every main path, and kernels 3 and 4's
-timings. Exits non-zero without a card, if a run fails, or if the first
+graph-captured decode step (and its profiled step's device ms by kernel
+kind), the host metrics of serve, serve-int8 and generate, the launch
+counts of every main path, and every kernel's timings. Exits non-zero without a card, if a run fails, or if the first
 train step's loss of a run of this tree differs from the parent's first
 run by more than 1e-3 relative.
 """
@@ -111,12 +111,37 @@ METRICS = {  # name: (key of the line, fields inside it)
     "generate_launches": (("generate", "main_path", None), ("launches",)),
     "generate_int8_launches": (("generate-int8", "main_path", None),
                                ("launches",)),
+    "generate_decode_step_device_ms_by_kind": (
+        ("generate", "profile_decode_step", None), ("device_ms_by_kind",)),
+    "kernel1_ms_4096x2048": (("timings", "rms_norm", "rms_prefill"),
+                             ("ms",)),
+    "kernel1_ms_8x2048": (("timings", "rms_norm", "rms_decode"), ("ms",)),
+    "kernel1_ms_12288x2048": (("timings", "rms_norm", "rms_train"),
+                              ("ms",)),
+    "kernel1_ms_16x2048": (("timings", "rms_norm", "rms_serve_decode"),
+                           ("ms",)),
+    "kernel2_ms_generate": (("timings", "flash_attention_fwd",
+                             "main_causal"), ("ms",)),
+    "kernel2_ms_serve": (("timings", "flash_attention_fwd",
+                          "serve_b1_s1024"), ("ms",)),
+    "kernel2_ms_train": (("timings", "flash_attention_fwd",
+                          "train_causal_with_lse"), ("ms",)),
     "kernel3_ms": (("timings", "flash_attention_bwd_dkdv", "train_causal"),
                    ("ms",)),
     "kernel4_ms": (("timings", "flash_attention_bwd_dq", "train_causal"),
                    ("ms",)),
     "sdpa_backward_ms": (("timings", "flash_attention_bwd_dq",
                           "train_causal"), ("library_ms",)),
+    "kernel5_ms_generate": (("timings", "decode_attention_dense",
+                             "main_ragged"), ("ms",)),
+    "kernel5_ms_full_live": (("timings", "decode_attention_dense",
+                              "full_live"), ("ms",)),
+    "kernel6_ms": (("timings", "decode_attention_dense_int8",
+                    "generate_int8_ragged"), ("ms",)),
+    "kernel7_ms": (("timings", "paged_decode_attention", "serve_ragged"),
+                   ("ms",)),
+    "kernel7_int8_ms": (("timings", "paged_decode_attention_int8",
+                         "serve_int8_ragged"), ("ms",)),
 }
 
 

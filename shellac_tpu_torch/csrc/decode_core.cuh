@@ -50,10 +50,13 @@
 //
 // Bound on the H100: bytes. Each step reads the live k/v range once
 // (2 * live * D * 2 bytes per slot and kv head in bf16; 2 * live * (D + 4)
-// in int8, values and scales) for ~4 flops per byte (~8 in int8). With one block per (slot, kv head) the grid is B * Hkv blocks; at
-// fewer blocks than the card's 132 SMs its bandwidth is not reached, and
-// splitting the kv range across blocks (flash-decoding's split-K) is the
-// later redesign.
+// in int8, values and scales) for ~4 flops per byte (~8 in int8). With
+// one block per (slot, kv head) the grid is B * Hkv blocks; at fewer
+// blocks than the card's 132 SMs its bandwidth is not reached. This body
+// serves the fp32 dense cache (the parity path), the int8 dense cache and
+// the paged pool; the bf16 dense cache takes flash-decoding's split-K
+// across a thread-block cluster instead (`decode_split_kernel` in
+// decode_attention.cu), the skeleton for these three.
 #pragma once
 
 #include <type_traits>

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks as thin inline-PTX wrappers: mbarriers,
-// proxy fences, TMA tiled loads and stores through a CUtensorMap, wgmma
+// proxy fences, TMA tiled loads and stores through a CUtensorMap, 1-D bulk
+// copies, cluster barriers and distributed shared memory, wgmma
 // shared-memory matrix descriptors for 128-byte-swizzled tiles, the
 // warpgroup MMA (bf16 in, fp32 accumulate; A from shared memory or from
 // registers) with its fence/commit/wait, setmaxnreg and named barriers;
@@ -116,6 +117,51 @@ __device__ __forceinline__ void tma_store_commit() {
 // Wait until every committed store has finished reading shared memory.
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// 1-D bulk copy of `bytes` contiguous bytes from global to shared memory
+// (both 16-byte aligned, `bytes` a multiple of 16); completion adds the
+// bytes to `bar`'s transaction count. No tensor map: a pointer and a
+// length.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// -------------------------------------------------------------- clusters
+
+// Barrier over every thread of the cluster: shared-memory writes before
+// it (release) are visible to every CTA of the cluster after it
+// (acquire). Every thread of the cluster must reach it; the warp
+// reconverges first, as the .aligned forms require.
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of this CTA's shared-memory location `p` in the shared
+// memory of cluster CTA `rank` (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_map(const void* p,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float cluster_load(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ------------------------------------------------------ wgmma operands

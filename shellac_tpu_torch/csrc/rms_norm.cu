@@ -2,16 +2,36 @@
 //
 // Replaces the Pallas kernel `_rms_kernel` (shellac_tpu/ops/norms.py),
 // launched by `_rms_forward`. Same arithmetic: fp32 sum of squares, fp32
-// rsqrt, the (1 + scale) offset with the scale read as fp32, output cast
-// to x's dtype. Takes bf16 or fp32 x and any width d.
+// rsqrt, the (1 + scale) offset with the scale read as fp32 and added in
+// fp32 before the multiply, output cast to x's dtype. Takes bf16 or fp32 x
+// and any width d.
 //
 // Bound on the H100: bytes. It reads x once and writes out once (the
-// scale vector is d floats, shared by every row through L1/L2), against
-// a handful of flops per element. Design: one warp per row, four rows per
-// 128-thread block, so the prefill's 4096 rows fill every SM and a
-// decode's 8 rows still launch one small block. Loads are 16 bytes per
-// lane when d allows it; the second pass re-reads the row, which at
-// d = 2048 (4 KB in bf16) is still in L1.
+// scale vector is d floats, shared by every row), against a handful of
+// flops per element.
+//
+// Design. The widths of the main paths (d = 2048, the residual stream;
+// d = 128, the q/k norms of configurations that have them) take
+// `rms_norm_rows`, which holds a row in registers: each of TPR threads of
+// a row issues all VPT of its 16-byte loads at once, reduces, scales and
+// stores, so x is read from HBM exactly once and no loop with a run-time
+// trip count sits between a load and its use. The thread's share of
+// (1 + scale) is loaded as 16-byte vectors once and kept in registers for
+// every row the thread handles (a grid-stride loop over rows), and the
+// thread loads its next row before it reduces and stores the current one.
+// The host picks the threads per row from the row count alone:
+//   - few rows (decode's 8 or 16, any count that would leave SMs idle at
+//     one warp a row): one 256-thread CTA a row, one 16-byte load a
+//     thread (bf16; two in fp32) and a two-level reduction (shuffles,
+//     then the warps' sums through shared memory), so a row costs one
+//     load round trip;
+//   - many rows (prefill, training): one warp a row in bf16 (8 loads a
+//     lane), two warps in fp32 (8 loads a thread), 16 threads a row at
+//     d = 128 in bf16, with as many CTAs as fit on the card at once.
+// Loads bypass L1 (`ld.global.nc.L1::no_allocate`) and stores stream
+// (`st.global.cs`): the data is touched once. Other widths (or unaligned
+// pointers) take `rms_norm_kernel`, one warp a row with two passes over
+// the row, which the second pass reads from L1.
 #include "common.cuh"
 
 namespace shellac {
@@ -71,17 +91,190 @@ rms_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// ------------------------------------------------- rows held in registers
+
+constexpr int kRowsBlock = 256;
+
+__device__ __forceinline__ uint4 load_once(const void* p) {
+  uint4 u;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+      : "l"(p));
+  return u;
+}
+
+__device__ __forceinline__ void store_once(void* p, uint4 u) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(u.x), "r"(u.y), "r"(u.z), "r"(u.w)
+               : "memory");
+}
+
+// TPR threads a row (a power of two dividing kRowsBlock), VPT 16-byte
+// vectors a thread: d = TPR * VPT * (16 / sizeof(T)). Vector v of thread
+// t of a row holds columns [(v * TPR + t) * kN, +kN), so the row's threads
+// read one contiguous 16 * TPR bytes per vector index.
+template <typename T, int TPR, int VPT>
+__global__ void __launch_bounds__(kRowsBlock)
+rms_norm_rows(const T* __restrict__ x, const float* __restrict__ scale,
+              T* __restrict__ out, int rows, float eps) {
+  constexpr int kN = 16 / sizeof(T);
+  constexpr int kD = TPR * VPT * kN;
+  constexpr int kRowsPer = kRowsBlock / TPR;  // rows a block holds at once
+  constexpr int kWarpsPerRow = TPR > 32 ? TPR / 32 : 1;
+  static_assert(kRowsBlock % TPR == 0, "TPR divides the block");
+  __shared__ float part[kRowsPer * kWarpsPerRow];
+
+  const int t = threadIdx.x % TPR;
+  const int slot = threadIdx.x / TPR;
+  const int step = gridDim.x * kRowsPer;
+
+  float w[VPT][kN];  // 1 + scale, fp32, this thread's columns
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    const float4* s =
+        reinterpret_cast<const float4*>(scale + (v * TPR + t) * kN);
+#pragma unroll
+    for (int q = 0; q < kN / 4; ++q) {
+      const float4 f = s[q];
+      w[v][4 * q] = 1.f + f.x;
+      w[v][4 * q + 1] = 1.f + f.y;
+      w[v][4 * q + 2] = 1.f + f.z;
+      w[v][4 * q + 3] = 1.f + f.w;
+    }
+  }
+
+  auto load_row = [&](int row, uint4* u) {
+    const T* xr = x + (size_t)row * kD;
+#pragma unroll
+    for (int v = 0; v < VPT; ++v)
+      u[v] = row < rows ? load_once(xr + (v * TPR + t) * kN)
+                        : make_uint4(0, 0, 0, 0);
+  };
+  // The next row's loads are in flight while this one is reduced and
+  // stored.
+  uint4 u[VPT], next[VPT];
+  load_row(blockIdx.x * kRowsPer + slot, next);
+
+  for (int row0 = blockIdx.x * kRowsPer; row0 < rows; row0 += step) {
+    const int row = row0 + slot;
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) u[v] = next[v];
+    load_row(row + step, next);
+
+    float ss = 0.f;
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const T* e = reinterpret_cast<const T*>(&u[v]);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const float f = to_f32(e[j]);
+        ss += f * f;
+      }
+      // Keep x packed until the scaled write converts it again (holding
+      // the converted floats would take twice the registers in bf16).
+      asm volatile("" : "+r"(u[v].x), "+r"(u[v].y), "+r"(u[v].z),
+                   "+r"(u[v].w));
+    }
+    if constexpr (TPR <= 32) {
+#pragma unroll
+      for (int o = TPR / 2; o > 0; o >>= 1)
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    } else {
+      ss = warp_sum(ss);
+      if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = ss;
+      __syncthreads();
+      ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWarpsPerRow; ++i)
+        ss += part[slot * kWarpsPerRow + i];
+      __syncthreads();  // part is rewritten by the next row
+    }
+    const float inv = rsqrtf(ss / (float)kD + eps);
+
+    if (row < rows) {
+      T* orow = out + (size_t)row * kD;
+#pragma unroll
+      for (int v = 0; v < VPT; ++v) {
+        const T* e = reinterpret_cast<const T*>(&u[v]);
+        uint4 o;
+        T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+          oe[j] = from_f32<T>(to_f32(e[j]) * inv * w[v][j]);
+        store_once(orow + (v * TPR + t) * kN, o);
+      }
+    }
+  }
+}
+
+// Launch rms_norm_rows<T, TPR, VPT> with as many blocks as the rows need,
+// at most as many as fit on the card at once (the rest loop).
+template <typename T, int TPR, int VPT>
+cudaError_t launch_rows(const T* x, const float* scale, T* out, int rows,
+                        float eps, cudaStream_t stream) {
+  auto kernel = rms_norm_rows<T, TPR, VPT>;
+  static int resident = 0;  // blocks of this instance the card holds
+  cudaError_t err;
+  if (resident == 0) {
+    int per_sm = 0, sms = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kRowsBlock, 0)) != cudaSuccess ||
+        (err = sm_count(&sms)) != cudaSuccess)
+      return err;
+    resident = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  constexpr int kRowsPer = kRowsBlock / TPR;
+  const int need = (rows + kRowsPer - 1) / kRowsPer;
+  const int grid = need < resident ? need : resident;
+  kernel<<<grid, kRowsBlock, 0, stream>>>(x, scale, out, rows, eps);
+  return cudaGetLastError();
+}
+
+// The register-resident instances: (many-rows TPR, VPT), (few-rows TPR,
+// VPT) for d = 2048, one instance for d = 128. Returns false where the
+// width or alignment has none.
+template <typename T>
+bool launch_held(const T* x, const float* scale, T* out, int rows, int d,
+                 float eps, cudaStream_t stream, cudaError_t* err) {
+  constexpr bool kBF16 = sizeof(T) == 2;
+  if (((uintptr_t)x | (uintptr_t)out | (uintptr_t)scale) % 16) return false;
+  if (d == 128) {
+    if constexpr (kBF16)
+      *err = launch_rows<T, 16, 1>(x, scale, out, rows, eps, stream);
+    else
+      *err = launch_rows<T, 32, 1>(x, scale, out, rows, eps, stream);
+    return true;
+  }
+  if (d != 2048) return false;
+  int sms = 0;
+  if ((*err = sm_count(&sms)) != cudaSuccess) return true;
+  // One warp (bf16) or two (fp32) a row would leave SMs without a block:
+  // give each row a CTA instead.
+  constexpr int kManyRows = kRowsBlock / (kBF16 ? 32 : 64);  // a block
+  const bool few = (rows + kManyRows - 1) / kManyRows < sms;
+  if constexpr (kBF16)
+    *err = few ? launch_rows<T, 256, 1>(x, scale, out, rows, eps, stream)
+               : launch_rows<T, 32, 8>(x, scale, out, rows, eps, stream);
+  else
+    *err = few ? launch_rows<T, 256, 2>(x, scale, out, rows, eps, stream)
+               : launch_rows<T, 64, 8>(x, scale, out, rows, eps, stream);
+  return true;
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* scale, void* out, int rows,
                    int d, float eps, cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  const float* sp = static_cast<const float*>(scale);
+  T* op = static_cast<T*>(out);
+  cudaError_t err = cudaSuccess;
+  if (launch_held<T>(xp, sp, op, rows, d, eps, stream, &err)) return err;
   constexpr int kN = 16 / sizeof(T);
   const bool vec = d % kN == 0 && ((uintptr_t)x % 16) == 0 &&
                    ((uintptr_t)out % 16) == 0;
   dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   dim3 block(32 * kWarpsPerBlock);
-  const T* xp = static_cast<const T*>(x);
-  const float* sp = static_cast<const float*>(scale);
-  T* op = static_cast<T*>(out);
   if (vec) {
     rms_norm_kernel<T, true><<<grid, block, 0, stream>>>(xp, sp, op, rows, d,
                                                          eps);

@@ -41,9 +41,17 @@ def _close(out, ref, dtype):
                                rtol=rtol)
 
 
+# The register-resident instances at d = 2048: one row (and decode's 8
+# and 16) a CTA each; prefill's 1024 on either side of the few/many
+# threshold (rows / 8 against the SM count in bf16, rows / 4 in fp32);
+# prefill's 4096 and train's 12288 one warp a row (two in fp32). d = 128
+# (q/k norms, 4096 tokens x 16 heads) at 16 threads a row (bf16) or 32
+# (fp32); 37 x 1000 and 5 x 100 take the generic body.
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(4096, 2048), (8, 2048), (37, 1000),
-                                    (5, 128)])
+                                    (5, 128), (1, 2048), (16, 2048),
+                                    (1024, 2048), (1500, 2048),
+                                    (12288, 2048), (65536, 128), (5, 100)])
 def test_rms_norm_kernel(dtype, rows, d):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(rows + d)
@@ -53,6 +61,53 @@ def test_rms_norm_kernel(dtype, rows, d):
     out = norms.rms_norm(x, scale, 1e-5)
     assert norms.rms_norm_cuda.launches == before + 1
     _close(out, norms.rms_norm_ref(x, scale, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rms_norm_kernel_unaligned_rows(dtype):
+    """A contiguous x whose base is not 16-byte aligned takes the generic
+    body at d = 2048 and still matches."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    buf = _randn(gen, (16 * 2048 + 1,), dtype, dev)
+    x = buf[1:].view(16, 2048)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale = 0.1 * _randn(gen, (2048,), torch.float32, dev)
+    _close(norms.rms_norm(x, scale, 1e-5),
+           norms.rms_norm_ref(x, scale, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("rows", [8, 4096])
+def test_rms_norm_kernel_is_deterministic(rows):
+    """Calls and CUDA-graph replays give bitwise-equal results."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    x = _randn(gen, (rows, 2048), torch.bfloat16, dev)
+    scale = 0.1 * _randn(gen, (2048,), torch.float32, dev)
+    first = norms.rms_norm_cuda(x, scale)
+    assert torch.equal(first, norms.rms_norm_cuda(x, scale))
+    assert torch.equal(first, _replayed(lambda: norms.rms_norm_cuda(x, scale)))
+
+
+def _replayed(fn, times=3):
+    """fn captured once in a CUDA graph, replayed `times` times; every
+    replay's output must equal the first's. Returns the output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    for _ in range(times - 1):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    return first
 
 
 _FLASH = {
@@ -98,35 +153,104 @@ def test_flash_attention_kernel(dtype, case):
     _close(out, fa.flash_attention_ref(q, k, v, **c), dtype)
 
 
+# (s, h, hkv, L, d, extra). B 4 at lengths 0, 37, L // 2 + 3 and L - s
+# unless "b" and "index" say otherwise. Past the first three, the bf16
+# split-K body's edges (32-position tiles dealt round robin to the CTAs
+# of a cluster of up to 8 per (slot, kv head), 4 warps each); generate's
+# shape is B 8, s 1, H 16, Hkv 8, D 128, L 2048.
 _DECODE = {
     "main_s1": dict(s=1, h=16, hkv=8, L=2048, d=128),
     "s4_d64": dict(s=4, h=8, hkv=4, L=300, d=64),
     "window_softcap_sinks": dict(s=1, h=16, hkv=8, L=1000, d=128,
                                  window=100, softcap=30.0, sinks=True),
+    "b1_shorter_than_a_tile": dict(s=1, h=16, hkv=8, L=2048, d=128, b=1,
+                                   index=[5]),
+    "b16_ragged": dict(s=1, h=16, hkv=8, L=2048, d=128, b=16,
+                       index=[0, 1, 31, 32, 33, 255, 256, 257, 300, 511,
+                              512, 999, 1023, 1500, 2046, 2047]),
+    "index_0": dict(s=1, h=16, hkv=8, L=2048, d=128, b=2, index=[0, 0]),
+    "tiles_not_a_multiple_of_split": dict(s=1, h=16, hkv=8, L=2048, d=128,
+                                          b=3, index=[8 * 32 * 2 + 17,
+                                                      5 * 32 + 3, 289]),
+    "index_plus_s_is_L": dict(s=1, h=16, hkv=8, L=2048, d=128,
+                              index=[2047] * 4),
+    "window_across_splits": dict(s=1, h=16, hkv=8, L=2048, d=128,
+                                 index=[700, 129, 2047, 64], window=200),
+    "softcap_sinks": dict(s=1, h=16, hkv=8, L=2048, d=128, b=8,
+                          index=[128, 200, 333, 400, 450, 500, 550, 576],
+                          softcap=30.0, sinks=True),
+    "s4": dict(s=4, h=16, hkv=8, L=2048, d=128, index=[0, 300, 1000, 2044]),
+    "g8_16_rows": dict(s=2, h=16, hkv=2, L=1024, d=128, b=2,
+                       index=[17, 1022]),
+    "d64": dict(s=1, h=16, hkv=8, L=2048, d=64, index=[3, 250, 1337, 2047]),
+    "d64_g8_window_sinks": dict(s=2, h=16, hkv=2, L=777, d=64, b=2,
+                                index=[400, 775], window=97, softcap=20.0,
+                                sinks=True),
 }
+
+
+def _decode_inputs(case, dtype, dev):
+    """q, the caches, index and the keyword arguments of a _DECODE case."""
+    c = dict(_DECODE[case])
+    s, h, hkv, L, d = (c.pop(k) for k in ("s", "h", "hkv", "L", "d"))
+    b = c.pop("b", 4)
+    index = c.pop("index", [0, 37, L // 2 + 3, L - s])
+    gen = torch.Generator(device=dev).manual_seed(L)
+    q = _randn(gen, (b, s, h, d), dtype, dev)
+    ck = _randn(gen, (b, hkv, L, d), dtype, dev)
+    cv = _randn(gen, (b, hkv, L, d), dtype, dev)
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    return q, ck, cv, idx, c
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(_DECODE))
 def test_decode_attention_kernel(dtype, case):
     dev = _card()
-    c = dict(_DECODE[case])
-    s, h, hkv, L, d = (c.pop(k) for k in ("s", "h", "hkv", "L", "d"))
-    b = 4
-    gen = torch.Generator(device=dev).manual_seed(L)
-    q = _randn(gen, (b, s, h, d), dtype, dev)
-    ck = _randn(gen, (b, hkv, L, d), dtype, dev)
-    cv = _randn(gen, (b, hkv, L, d), dtype, dev)
-    index = torch.tensor([0, 37, L // 2 + 3, L - s], dtype=torch.int32,
-                         device=dev)
-    if c.pop("sinks", False):
-        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    q, ck, cv, index, c = _decode_inputs(case, dtype, dev)
     before = da.decode_attention_cuda.launches
     out = da.decode_attention(q, ck, cv, index, **c)
     assert da.decode_attention_cuda.launches == before + 1
-    ref = da._decode_ref(q, ck, cv, index, c.get("window"), d ** -0.5,
-                         softcap=c.get("softcap"), sinks=c.get("sinks"))
+    ref = da._decode_ref(q, ck, cv, index, c.get("window"),
+                         q.shape[-1] ** -0.5, softcap=c.get("softcap"),
+                         sinks=c.get("sinks"))
     _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("case", ["b16_ragged", "window_across_splits",
+                                  "g8_16_rows", "d64_g8_window_sinks"])
+def test_decode_kernel_reads_only_the_live_range_across_splits(case):
+    """NaN past each slot's length and before its window's first position,
+    over lengths that span many tiles and every CTA of a cluster, must
+    not reach the output."""
+    dev = _card()
+    q, ck, cv, idx, c = _decode_inputs(case, torch.bfloat16, dev)
+    s, window = q.shape[1], c.get("window")
+    out1 = da.decode_attention(q, ck, cv, idx, **c)
+    for bi, n in enumerate(idx.tolist()):
+        ck[bi, :, n + s:] = float("nan")
+        cv[bi, :, n + s:] = float("nan")
+        if window is not None:
+            lo = max(n - window + 1, 0)
+            ck[bi, :, :lo] = float("nan")
+            cv[bi, :, :lo] = float("nan")
+    out2 = da.decode_attention(q, ck, cv, idx, **c)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+
+
+@pytest.mark.parametrize("case", ["b16_ragged", "softcap_sinks", "s4"])
+def test_decode_kernel_is_deterministic(case):
+    """The cluster merge has no counter or atomics to reset: calls and
+    CUDA-graph replays give bitwise-equal bf16 results."""
+    dev = _card()
+    q, ck, cv, idx, c = _decode_inputs(case, torch.bfloat16, dev)
+    first = da.decode_attention_cuda(q, ck, cv, idx, **c)
+    assert torch.equal(first, da.decode_attention_cuda(q, ck, cv, idx, **c))
+    assert torch.equal(first, _replayed(
+        lambda: da.decode_attention_cuda(q, ck, cv, idx, **c)))
 
 
 def test_decode_kernel_reads_nothing_past_length():

@@ -58,7 +58,10 @@ def _t(a):
 # ---------------------------------------------------------------- norms
 
 
-@pytest.mark.parametrize("shape", [(4, 7, 128), (3, 256), (2, 5, 100)])
+# (16, 2048) and (4, 16, 128): the widths of the card kernel's
+# register-resident instances (the residual stream; q/k norms).
+@pytest.mark.parametrize("shape", [(4, 7, 128), (3, 256), (2, 5, 100),
+                                   (16, 2048), (4, 16, 128)])
 def test_rms_norm_ref_matches_pallas_interpret(shape):
     rng = _rng("rms", shape)
     x, scale = _randn(rng, *shape), 0.3 * _randn(rng, shape[-1])
@@ -235,17 +238,25 @@ _DECODE_CASES = {
     "s4_window_softcap": (4, 20, 30.0, False, 128),
     "s1_sinks_d64": (1, None, None, True, 64),
     "s4_all": (4, 13, 25.0, True, 64),
+    "g8_s2_split_edges": (2, 40, 25.0, True, 64),
 }
+# (h, hkv, index) where a case differs from 8, 4 and lengths 0, 37 and
+# max_len - s (empty, mid, full). The card's split-K decode body deals
+# 32-position tiles to the CTAs of a cluster; its plain version is held
+# to JAX at G 8 and s 2 (16 rows) with one slot shorter than a tile, one
+# full to the last position and one whose window starts mid-range.
+_DECODE_SHAPES = {"g8_s2_split_edges": (16, 2, [3, 126, 90])}
 
 
 @pytest.mark.parametrize("case", sorted(_DECODE_CASES))
 def test_decode_plain_matches_jax_decode_interpret(case):
     s, window, cap, sink, d = _DECODE_CASES[case]
-    b, h, hkv, max_len = 3, 8, 4, 128
+    b, max_len = 3, 128
+    h, hkv, lengths = _DECODE_SHAPES.get(case, (8, 4, [0, 37, max_len - s]))
     rng = _rng("decode", case)
     q = _randn(rng, b, s, h, d)
     ck, cv = _randn(rng, b, hkv, max_len, d), _randn(rng, b, hkv, max_len, d)
-    index = np.array([0, 37, max_len - s], np.int32)  # empty, mid, full
+    index = np.array(lengths, np.int32)
     sinks = _randn(rng, h) if sink else None
     want = np.asarray(jda.decode_attention(
         jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(index),

@@ -9,8 +9,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 instance of the Hopper redesigns (the wgmma kernels 2, 3
                 and 4, D 64 and 128, with and without segments; kernel 1's
                 six register-resident RMSNorm instances; kernel 5's four
-                split-K bf16 decode instances) must show 0 spill stores,
-                and no wgmma may be serialized (C7520).
+                split-K bf16 decode instances; kernel 7's eight, bf16 and
+                int8 pools) must show 0 spill stores, and no wgmma may be
+                serialized (C7520).
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32 (RMSNorm
                 at 1, 8, 16, 4096 and 12288 rows of 2048, 65536 rows of
@@ -18,8 +19,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 B 1 and 16, index 0, a range shorter than one tile or not a
                 multiple of the split, index + s = L, a window across
                 splits, softcap with sinks, s 4, G 8, D 64); the
-                paged kernel reads a pool whose block 0 and unowned blocks
-                hold NaN; kernel 2's out and lse at generate's prefill
+                paged kernel reads a pool whose block 0, unowned blocks
+                and rows past each slot's length (and before its window)
+                hold NaN, at serve's shape and at its split-K edges
+                (every slot live to capacity, index 0, a range shorter
+                than a tile or not a multiple of the split, a window
+                starting mid-page across splits, bs 1, 8, 64 and 128,
+                4096-entry tables with few live pages, s 4, G 8, D 64);
+                kernel 2's out and lse at generate's prefill
                 (8 x 512) and at serve's largest admission (1 x 1024). At
                 the training shape (B 6, S 2048, H 16, Hkv 8,
                 D 128, causal) and at packed segments, window + softcap +
@@ -39,7 +46,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 submitted up front; throughput, time to first token and
                 per output token, launch counts (paged decode = layers x
                 ticks, dense decode 0, flash = layers x prefills), the
-                allocator back to pristine, one profiled engine step.
+                allocator back to pristine, one profiled engine step, and
+                one decode step's logits through the kernels against
+                attn_impl="ref" on the same cache state (5e-2 of their
+                scale).
   6. serve-parity — shellac-1b width cut to 2 layers, fp32: identical
                 greedy tokens from PagedBatchingEngine through the kernels,
                 the same with attn_impl="ref", and the dense
@@ -72,7 +82,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 later greedy agreement printed); serve-int8:
                 PagedBatchingEngine(cache_backend="paged-int8") on serve's 48
                 requests (the serve metrics, the pool's bytes beside a bf16
-                pool's, exact launch counts); serve-parity-int8: 2 layers,
+                pool's, exact launch counts, the decode step's logits
+                against attn_impl="ref"); serve-parity-int8: 2 layers,
                 fp32, the paged-int8 and dense-int8 engines through the
                 kernels against attn_impl="ref" (logprobs within 1e-3, the
                 same tokens while the ref's top-2 margin is >= 2e-3).
@@ -89,7 +100,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 train's 12288, generate's 8 and serve's 16 rows; kernel 2
                 at generate's prefill, at serve's largest admission (B 1, S
                 1024) and at the training shape; dense decode at generate's
-                step and with every slot live to 2048; every row carries
+                step and with every slot live to 2048; the paged kernel
+                and its int8 branch at serve's and serve-int8's ragged
+                steps and with every slot live to 2048; every row carries
                 its achieved TFLOP/s.
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}.
@@ -155,10 +168,11 @@ def card_line() -> str:
 # Instances of the Hopper redesigns the build must show, by kind: the
 # wgmma kernels (D 64 and 128, with and without segments), kernel 1's
 # register-resident RMSNorm (bf16 and fp32: many rows and few rows at
-# d 2048, one instance at d 128), kernel 5's split-K bf16 decode (D 64 and
-# 128, at 2 and 16 rows).
+# d 2048, one instance at d 128), the split-K decode body (D 64 and 128,
+# at 2 and 16 rows) over kernel 5's dense bf16 cache and kernel 7's bf16
+# and int8 pools.
 REDESIGNED = {"flash_fwd": 4, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
-              "rms_norm_rows": 6, "decode_split": 4}
+              "rms_norm_rows": 6, "decode_split": 4, "paged_split": 8}
 
 
 def spill_report(ptxas):
@@ -178,9 +192,10 @@ def spill_report(ptxas):
         if "_wgmma" in fn:
             kind = next((k for k in ("flash_fwd", "flash_bwd_dkdv",
                                      "flash_bwd_dq") if k in fn), fn)
+        elif "decode_split" in fn:  # the tiles policy names the kernel
+            kind = "paged_split" if "PagedTiles" in fn else "decode_split"
         else:
-            kind = next((k for k in ("rms_norm_rows", "decode_split")
-                         if k in fn), None)
+            kind = "rms_norm_rows" if "rms_norm_rows" in fn else None
             if kind is None:
                 continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -344,10 +359,13 @@ def decode_inputs(gen, dtype, dev, b, s, h, hkv, L, d, index):
 
 
 def paged_tables(gen, dev, s, bs, max_blocks, index, idle=(), unowned=64,
-                 min_blocks=1025):
+                 min_blocks=1025, window=None):
     """Tables giving each slot shuffled pages for positions [0, index + s)
     (rows padded with block 0); slots in `idle` get length 0 and an
-    all-zero row. Returns (tables, index, owned block mask, n_blocks)."""
+    all-zero row. Returns (tables, index, live, n_blocks): `live`
+    (n_blocks, bs) marks the rows some slot attends, from its window's
+    first position (0 without one) to its length; block 0, unowned
+    blocks and the rest of each slot's pages are not live."""
     index = index.clone()
     index[list(idle)] = 0
     need = [0 if b in idle else -(-(int(i) + s) // bs)
@@ -356,28 +374,37 @@ def paged_tables(gen, dev, s, bs, max_blocks, index, idle=(), unowned=64,
     ids = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
     tables = torch.zeros((len(need), max_blocks), dtype=torch.int32,
                          device=dev)
-    owned = torch.zeros(n_blocks, dtype=torch.bool, device=dev)
     at = 0
     for b, n in enumerate(need):
         tables[b, :n] = ids[at:at + n].to(torch.int32)
-        owned[ids[at:at + n]] = True
         at += n
-    return tables, index, owned, n_blocks
+    pos = torch.arange(max_blocks * bs, device=dev)[None, :]
+    first = (0 if window is None
+             else (index[:, None].long() - window + 1).clamp_min(0))
+    attended = ((pos < index[:, None].long() + s) & (pos >= first)
+                & torch.tensor([n > 0 for n in need], device=dev)[:, None])
+    pages = tables.long().gather(1, (pos // bs).expand(len(need), -1))
+    live = torch.zeros((n_blocks, bs), dtype=torch.bool, device=dev)
+    live[pages[attended], (pos % bs).expand(len(need), -1)[attended]] = True
+    return tables, index, live, n_blocks
 
 
 def paged_inputs(gen, dtype, dev, s, h, hkv, d, bs, max_blocks, index,
-                 idle=(), min_blocks=1025):
+                 idle=(), min_blocks=1025, window=None):
     """q, a pool holding each slot's pages in shuffled blocks, the tables
     and index (`paged_tables`), and a poisoned copy of the pool whose
-    block 0 and unowned blocks are NaN."""
-    tables, index, owned, n_blocks = paged_tables(
-        gen, dev, s, bs, max_blocks, index, idle, min_blocks=min_blocks)
+    rows no slot attends (block 0, unowned blocks, rows past each slot's
+    length and before its window) are NaN."""
+    tables, index, live, n_blocks = paged_tables(
+        gen, dev, s, bs, max_blocks, index, idle, min_blocks=min_blocks,
+        window=window)
     q = randn(gen, (len(index), s, h, d), dtype, dev)
     k = randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
     v = randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
     pk, pv = k.clone(), v.clone()
-    pk[~owned] = float("nan")
-    pv[~owned] = float("nan")
+    dead = ~live[:, None, :].expand(n_blocks, hkv, bs)
+    pk[dead] = float("nan")
+    pv[dead] = float("nan")
     return q, k, v, tables, index, pk, pv
 
 
@@ -398,19 +425,64 @@ def decode_quant_inputs(gen, dtype, dev, b, s, h, hkv, L, d, index):
 
 
 def paged_quant_inputs(gen, dtype, dev, s, h, hkv, d, bs, max_blocks, index,
-                       idle=(), min_blocks=1025):
+                       idle=(), min_blocks=1025, window=None):
     """q, an int8 pool and its scale pools, the tables and index
-    (`paged_tables`), and poisoned copies of the scale pools whose block 0
-    and unowned blocks are NaN."""
-    tables, index, owned, n_blocks = paged_tables(
-        gen, dev, s, bs, max_blocks, index, idle, min_blocks=min_blocks)
+    (`paged_tables`), and poisoned copies of the scale pools whose rows
+    no slot attends (block 0, unowned blocks, rows past each slot's
+    length and before its window) are NaN."""
+    tables, index, live, n_blocks = paged_tables(
+        gen, dev, s, bs, max_blocks, index, idle, min_blocks=min_blocks,
+        window=window)
     q = randn(gen, (len(index), s, h, d), dtype, dev)
     k, ks = quant_rows(gen, (n_blocks, hkv, bs, d), dev)
     v, vs = quant_rows(gen, (n_blocks, hkv, bs, d), dev)
     pks, pvs = ks.clone(), vs.clone()
-    pks[~owned] = float("nan")
-    pvs[~owned] = float("nan")
+    dead = ~live[:, None, :].expand(n_blocks, hkv, bs)
+    pks[dead] = float("nan")
+    pvs[dead] = float("nan")
     return q, k, v, ks, vs, tables, index, pks, pvs
+
+
+def paged_cases(sinks16, other_bs, main, dev):
+    """The paged kernel's cases over serve's shape (or serve-int8's):
+    name -> (shape overrides, among them the lengths `index` where they
+    are not serve's, keyword arguments, idle slots). Past the first
+    ones, the split-K body's edges:
+    every slot live to the table's capacity, index 0, a live range
+    shorter than a tile or not a multiple of the split, a window whose
+    first live position (700 - 199 = 501) falls mid-page so that a tile
+    covers 3 pages across the cluster's CTAs, bs 1 (32 page segments a
+    tile) and bs 128 (a page longer than a tile), a 4096-entry table with
+    few live pages, G 8 (16 rows). `other_bs` is the other serving block
+    size (64 for bf16, 16 for int8)."""
+    def blocks(n, **shape):
+        return {"bs": n, "max_blocks": MAX_LEN // n, **shape}
+
+    def at(*lengths, **shape):
+        return {"index": torch.tensor(lengths, dtype=torch.int32,
+                                      device=dev), **shape}
+
+    return {
+        main: ({}, {}, ()),
+        f"bs{other_bs}": (blocks(other_bs), {}, ()),
+        "bs8": (blocks(8), {}, ()),
+        "d64": ({"d": 64}, {}, ()),
+        "window_softcap_sinks": ({}, {"window": 200, "softcap": 50.0,
+                                      "sinks": sinks16}, ()),
+        "s4": ({"s": 4}, {}, ()),
+        "idle_slot": ({}, {}, (3,)),
+        "full_capacity": (at(*[MAX_LEN - 1] * 4), {}, ()),
+        "index_0": (at(0, 0), {}, ()),
+        "shorter_than_a_tile": (at(5), {}, ()),
+        "tiles_not_a_multiple_of_split": (at(529, 163, 289), {}, ()),
+        "window_mid_page_across_splits": (
+            blocks(16, **at(700, 129, 2047, 64)), {"window": 200}, ()),
+        "bs1": (blocks(1), {}, ()),
+        "bs128": (blocks(128, **at(5, 127, 1000, 2047)), {}, ()),
+        "max_blocks_4096_few_live": (
+            at(5, 100, 33, 300, bs=16, max_blocks=4096), {}, ()),
+        "g8_16_rows": (at(17, 2046, s=2, hkv=2), {}, ()),
+    }
 
 
 def phase_kernels(gen, dev, shapes):
@@ -527,22 +599,13 @@ def phase_kernels(gen, dev, shapes):
                    _decode_ref(q, ck, cv, idx, kw.get("window"), scale))
 
         # Paged: the kernel reads the NaN-poisoned pool, the plain
-        # version the clean one; the live pages are the same.
+        # version the clean one; the live rows are the same.
         ps = shapes["paged"]
-        cases = {
-            "main_serve_bs16": ({}, {}, ()),
-            "bs8": ({"bs": 8, "max_blocks": MAX_LEN // 8}, {}, ()),
-            "bs64": ({"bs": 64, "max_blocks": MAX_LEN // 64}, {}, ()),
-            "d64": ({"d": 64}, {}, ()),
-            "window_softcap_sinks": ({}, {"window": 200, "softcap": 50.0,
-                                          "sinks": sinks16}, ()),
-            "s4": ({"s": 4}, {}, ()),
-            "idle_slot": ({}, {}, (3,)),
-        }
-        for case, (shape, kw, idle) in cases.items():
+        for case, (shape, kw, idle) in paged_cases(
+                sinks16, 64, "main_serve_bs16", dev).items():
             p = {**ps, **shape}
-            q, k, v, tab, idx, pk, pv = paged_inputs(gen, dtype, dev, **p,
-                                                     idle=idle)
+            q, k, v, tab, idx, pk, pv = paged_inputs(
+                gen, dtype, dev, **p, idle=idle, window=kw.get("window"))
             d = p["d"]
             live = [b for b in range(len(idx)) if b not in idle]
             out = paged_decode_attention_cuda(q, pk, pv, tab, idx, **kw)
@@ -551,6 +614,7 @@ def phase_kernels(gen, dev, shapes):
                                     sinks=kw.get("sinks"))
             record("paged_decode_attention", case, dtype, out, ref,
                    main and case == "main_serve_bs16", rows=live)
+            del q, k, v, pk, pv
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failed}")
@@ -574,14 +638,6 @@ def phase_kernels_int8(gen, dev, shapes):
     wss = {"window": 200, "softcap": 50.0, "sinks": sinks16}
     dense_cases = {"main_ragged": ({}, {}), "window_softcap_sinks": ({}, wss),
                    "d64": ({"d": 64}, {}), "s4_causal_rows": ({"s": 4}, {})}
-    paged_cases = {
-        "main_serve_int8_bs64": ({}, {}, ()),
-        "bs16": ({"bs": 16, "max_blocks": MAX_LEN // 16}, {}, ()),
-        "d64": ({"d": 64}, {}, ()),
-        "window_softcap_sinks": ({}, wss, ()),
-        "s4": ({"s": 4}, {}, ()),
-        "idle_slot": ({}, {}, (3,)),
-    }
     for dtype in (torch.bfloat16, torch.float32):
         main = dtype == torch.bfloat16
 
@@ -607,10 +663,11 @@ def phase_kernels_int8(gen, dev, shapes):
                                sinks=kw.get("sinks"), k_scale=ks,
                                v_scale=vs),
                    main and case == "main_ragged")
-        for case, (shape, kw, idle) in paged_cases.items():
+        for case, (shape, kw, idle) in paged_cases(
+                sinks16, 16, "main_serve_int8_bs64", dev).items():
             p = {**shapes["paged_int8"], **shape}
             q, k, v, ks, vs, tab, idx, pks, pvs = paged_quant_inputs(
-                gen, dtype, dev, **p, idle=idle)
+                gen, dtype, dev, **p, idle=idle, window=kw.get("window"))
             live = [b for b in range(len(idx)) if b not in idle]
             out = paged_decode_attention_quant_cuda(q, k, v, pks, pvs, tab,
                                                     idx, **kw)
@@ -964,12 +1021,13 @@ def profile_call(fn, top=12):
 def kernel_kind(name):
     """A profiler kernel name's kind: one of the port's kernels, a GEMM
     (cuBLAS/CUTLASS), or other."""
-    if "decode_kernel" in name:
+    if "decode_kernel" in name or "decode_split" in name:
+        # decode_core.cuh's body (PagedRows or DenseRows) or the split-K
+        # body (PagedTiles or DenseTiles); the int8 instances store
+        # `signed char`.
         kind = ("paged_decode_attention" if "Paged" in name
                 else "decode_attention_dense")
         return kind + ("_int8" if "signed char" in name else "")
-    if "decode_split" in name:  # kernel 5's bf16 body
-        return "decode_attention_dense"
     for key, kind in (("flash_fwd", "flash_attention_fwd"),
                       ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
                       ("flash_bwd_dq", "flash_attention_bwd_dq"),
@@ -1105,12 +1163,43 @@ def phase_serve(seed, dev, table, card, backend="paged"):
     prof = profile_call(engine.step)
     emit(phase, step="profile_engine_step", active_slots=sum(
         r is not None for r in engine._slots), **prof)
+    check_decode_logits(phase, cfg, params, engine)
     engine.abort_all()
     if not pristine(engine):
         raise SystemExit(f"{phase}: abort_all left blocks allocated")
     del engine, params
     torch.cuda.empty_cache()
     return counts
+
+
+def check_decode_logits(phase, cfg, params, engine):
+    """One decode step's logits of the engine's model through the paged
+    kernel (bf16 or int8) against attn_impl="ref" on the same cache
+    state, on the active slots: within 5e-2 of the plain logits' scale,
+    as generate's prefill check. Each call writes its own k/v row at
+    each slot's length, which the next real step overwrites; the
+    engine's lengths do not move."""
+    from shellac_tpu_torch.models import transformer
+
+    act = [i for i, r in enumerate(engine._slots) if r is not None]
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("auto", "ref"):
+            logits[impl], _ = transformer.forward_with_cache(
+                cfg, params, engine._cur[:, None], engine._cache,
+                attn_impl=impl)
+    got, ref = logits["auto"][act, 0], logits["ref"][act, 0]
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    ok = (len(act) > 0 and bool(torch.isfinite(got).all().item())
+          and err <= 5e-2 * scale)
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum().item())
+    emit(phase, step="decode_logits_kernel_vs_ref", active_slots=len(act),
+         shape=list(got.shape), max_abs_err=err, ref_max_abs=scale,
+         tol="max_abs_err <= 5e-2 * max|ref|", argmax_agree=agree, ok=ok)
+    if not ok:
+        raise SystemExit(f"{phase}: decode logits through the paged kernel "
+                         "disagree with the plain path")
 
 
 def phase_serve_parity(seed, dev):
@@ -1681,32 +1770,39 @@ def phase_timings(gen, dev, shapes, card):
         del sets
         torch.cuda.empty_cache()
 
+    # Kernel 7 at serve's step (16 slots, 16-token blocks) and with every
+    # slot live to 2048.
     ps = shapes["paged"]
-    idx = ps["index"]
-    b, h, hkv, d, bs, mb = (len(idx), ps["h"], ps["hkv"], ps["d"], ps["bs"],
-                            ps["max_blocks"])
-    sets = copies(lambda: paged_inputs(gen, bf, dev, **ps)[:5])
-    live = int((idx + 1).sum().item())
-    mask = (torch.arange(mb * bs, device=dev)[None, :]
-            < (idx + 1)[:, None].long())[:, None, None, :]
+    for case, idx in (("serve_ragged", ps["index"]),
+                      ("full_live", torch.full_like(ps["index"],
+                                                    MAX_LEN - 1))):
+        p = {**ps, "index": idx}
+        b, h, hkv, d, bs, mb = (len(idx), ps["h"], ps["hkv"], ps["d"],
+                                ps["bs"], ps["max_blocks"])
+        sets = copies(lambda: paged_inputs(gen, bf, dev, **p)[:5])
+        live = int((idx + 1).sum().item())
+        mask = (torch.arange(mb * bs, device=dev)[None, :]
+                < (idx + 1)[:, None].long())[:, None, None, :]
 
-    def gather_sdpa(q, pk, pv, tab, i):
-        kk, vv = paged_gather_layer(pk, pv, tab)
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)
+        def gather_sdpa(q, pk, pv, tab, i):
+            kk, vv = paged_gather_layer(pk, pv, tab)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)
 
-    k = measure(lambda q, pk, pv, tab, i: paged_decode_attention_cuda(
-        q, pk, pv, tab, i), sets, 200)
-    p = measure(lambda q, pk, pv, tab, i: _paged_decode_ref(
-        q, pk, pv, tab, i, None, d ** -0.5), sets, 20)
-    two = measure(gather_sdpa, sets, 50)
-    # Bytes: q and out, the live k/v rows, the live table entries, index.
-    pages = int(((idx + 1 + bs - 1) // bs).sum().item())
-    record("paged_decode_attention", "serve_ragged", k, p, None,
-           2 * b * h * d * 2 + 2 * live * hkv * d * 2 + pages * 4 + b * 4,
-           4 * d * h * live, [b, 1, h, hkv, bs, mb, d],
-           calls=("library_two_calls_ms", "gather + SDPA", two))
-    del sets
+        k = measure(lambda q, pk, pv, tab, i: paged_decode_attention_cuda(
+            q, pk, pv, tab, i), sets, 200)
+        p_ms = measure(lambda q, pk, pv, tab, i: _paged_decode_ref(
+            q, pk, pv, tab, i, None, d ** -0.5), sets, 20)
+        two = measure(gather_sdpa, sets, 50)
+        # Bytes: q and out, the live k/v rows, the live table entries,
+        # index.
+        pages = int(((idx + 1 + bs - 1) // bs).sum().item())
+        record("paged_decode_attention", case, k, p_ms, None,
+               2 * b * h * d * 2 + 2 * live * hkv * d * 2 + pages * 4
+               + b * 4, 4 * d * h * live, [b, 1, h, hkv, bs, mb, d],
+               calls=("library_two_calls_ms", "gather + SDPA", two))
+        del sets
+        torch.cuda.empty_cache()
 
     # Kernel 6 at the generate-int8 shape. Bytes: q and out, the live
     # int8 k/v rows and their fp32 scales (2 D + 8 bytes per position and
@@ -1737,36 +1833,45 @@ def phase_timings(gen, dev, shapes, card):
                   two))
     del sets
 
-    # Kernel 7's int8 branch at the serve-int8 shape (64-token blocks).
+    # Kernel 7's int8 branch at serve-int8's step (64-token blocks) and
+    # with every slot live to 2048.
     ps = shapes["paged_int8"]
-    idx = ps["index"]
-    b, h, hkv, d, bs, mb = (len(idx), ps["h"], ps["hkv"], ps["d"], ps["bs"],
-                            ps["max_blocks"])
-    sets = copies(lambda: paged_quant_inputs(gen, bf, dev, **ps)[:7])
-    live = int((idx + 1).sum().item())
-    mask = (torch.arange(mb * bs, device=dev)[None, :]
-            < (idx + 1)[:, None].long())[:, None, None, :]
+    for case, idx in (("serve_int8_ragged", ps["index"]),
+                      ("full_live_int8", torch.full_like(ps["index"],
+                                                         MAX_LEN - 1))):
+        p = {**ps, "index": idx}
+        b, h, hkv, d, bs, mb = (len(idx), ps["h"], ps["hkv"], ps["d"],
+                                ps["bs"], ps["max_blocks"])
+        sets = copies(lambda: paged_quant_inputs(gen, bf, dev, **p)[:7])
+        live = int((idx + 1).sum().item())
+        mask = (torch.arange(mb * bs, device=dev)[None, :]
+                < (idx + 1)[:, None].long())[:, None, None, :]
 
-    def gather_dequant_sdpa(q, pk, pv, pks, pvs, tab, i):
-        kk, vv = paged_gather_layer(pk, pv, tab)
-        kk = _dequantize(kk, paged_gather_scales(pks, tab), bf)
-        vv = _dequantize(vv, paged_gather_scales(pvs, tab), bf)
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)
+        def gather_dequant_sdpa(q, pk, pv, pks, pvs, tab, i):
+            kk, vv = paged_gather_layer(pk, pv, tab)
+            kk = _dequantize(kk, paged_gather_scales(pks, tab), bf)
+            vv = _dequantize(vv, paged_gather_scales(pvs, tab), bf)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)
 
-    k = measure(lambda q, pk, pv, pks, pvs, tab, i:
-                paged_decode_attention_quant_cuda(q, pk, pv, pks, pvs, tab, i),
-                sets, 200)
-    p = measure(lambda q, pk, pv, pks, pvs, tab, i: _paged_decode_ref(
-        q, pk, pv, tab, i, None, d ** -0.5, k_scale=pks, v_scale=pvs),
-        sets, 20)
-    three = measure(gather_dequant_sdpa, sets, 50)
-    pages = int(((idx + 1 + bs - 1) // bs).sum().item())
-    record("paged_decode_attention_int8", "serve_int8_ragged", k, p, None,
-           2 * b * h * d * 2 + live * hkv * (2 * d + 8) + pages * 4 + b * 4,
-           4 * d * h * live, [b, 1, h, hkv, bs, mb, d],
-           calls=("library_three_calls_ms",
-                  "gather + dequantize k and v + SDPA", three))
+        k = measure(lambda q, pk, pv, pks, pvs, tab, i:
+                    paged_decode_attention_quant_cuda(q, pk, pv, pks, pvs,
+                                                      tab, i), sets, 200)
+        p_ms = measure(lambda q, pk, pv, pks, pvs, tab, i: _paged_decode_ref(
+            q, pk, pv, tab, i, None, d ** -0.5, k_scale=pks, v_scale=pvs),
+            sets, 20)
+        three = measure(gather_dequant_sdpa, sets, 50)
+        # Bytes: q and out, the live int8 k/v rows and their fp32 scales
+        # (2 D + 8 bytes per position and kv head), the live table
+        # entries, index.
+        pages = int(((idx + 1 + bs - 1) // bs).sum().item())
+        record("paged_decode_attention_int8", case, k, p_ms, None,
+               2 * b * h * d * 2 + live * hkv * (2 * d + 8) + pages * 4
+               + b * 4, 4 * d * h * live, [b, 1, h, hkv, bs, mb, d],
+               calls=("library_three_calls_ms",
+                      "gather + dequantize k and v + SDPA", three))
+        del sets
+        torch.cuda.empty_cache()
     return rows_out
 
 

@@ -1,9 +1,10 @@
 """Time the port's bf16 kernels of two checkouts on one CUDA card: kernel 1
 (RMSNorm), kernel 2 (the flash forward), kernels 3 and 4 (the flash
-backward's dk/dv and dq) and kernel 5 (dense flash-decode).
+backward's dk/dv and dq), kernel 5 (dense flash-decode) and kernel 7
+(paged flash-decode, over bf16 and int8 pools).
 
     python3 scripts/torch_kernel_ab.py --parent DIR [--seed 0]
-        [--only rms,fwd,bwd,decode,generate] [--also NAME=DIR ...]
+        [--only rms,fwd,bwd,decode,paged,generate] [--also NAME=DIR ...]
 
 DIR is a checkout of an earlier commit of this repository (for example
 unpacked with `git archive` into a directory that .gitignore lists). Each
@@ -11,7 +12,8 @@ checkout's kernel library is built from its own sources into its own
 `build/` directory, both are loaded side by side and called through the
 same C entry points (`shellac_rms_norm`, `shellac_flash_attention`,
 `shellac_flash_attention_bwd_dkdv`, `shellac_flash_attention_bwd_dq`,
-`shellac_decode_attention`) on the same inputs, at the shapes the port's
+`shellac_decode_attention`, `shellac_paged_decode_attention`,
+`shellac_paged_decode_attention_int8`) on the same inputs, at the shapes the port's
 main paths give each kernel on shellac-1b (H 16, Hkv 8, D 128, d_model
 2048):
   - rms: train 12288 x 2048, prefill 4096 x 2048, serve's largest
@@ -27,6 +29,13 @@ main paths give each kernel on shellac-1b (H 16, Hkv 8, D 128, d_model
   - decode (s 1, L 2048): generate's ragged step (B 8, lengths 129-577 as
     chip_smoke.py draws them), every slot live to 2048 (B 8), and B 16
     ragged over the whole cache; beside masked scaled_dot_product_attention;
+  - paged (s 1, 16 slots, a 2048-position table): serve's ragged lengths
+    (64-1152, as chip_smoke.py draws them) and every slot live to 2048,
+    each over a bf16 pool of 16-token blocks and an int8 pool of 64-token
+    blocks (fp32 scales) in shuffled pages; beside the nearest library
+    route, several calls: a gather of the pages and masked
+    scaled_dot_product_attention (bf16), with a dequantize between them
+    (int8);
   - generate: shellac-1b (random bf16 weights from --seed) generates
     greedily from chip_smoke.py's 8 prompts for 64 tokens, once on each
     side's kernels; prints whether the tokens agree and, for a row where
@@ -43,7 +52,7 @@ timed allocating, as chip_smoke.py times both. Prints
 the card's name and power limit, then one JSON line a shape and pass.
 Exits non-zero without a card, or if either side disagrees with the plain
 versions (`rms_norm_ref`, `flash_forward_ref`, `flash_bwd_dkdv_ref`,
-`flash_bwd_dq_ref`, `_decode_ref`) beyond the bf16 tolerance (2e-2 +
+`flash_bwd_dq_ref`, `_decode_ref`, `_paged_decode_ref`) beyond the bf16 tolerance (2e-2 +
 2e-2 |ref|; for the gradients 2e-2 max|ref| + 2e-2 |ref|).
 """
 
@@ -89,6 +98,13 @@ DECODE_SHAPES = {  # name: (B, lengths: "generate" | "full" | "ragged")
     "full_live_8x2048": (8, "full"),
     "b16_ragged": (16, "ragged"),
 }
+PAGED_SHAPES = {  # name: (pool "bf16" | "int8", block size, lengths)
+    "serve_ragged_bs16": ("bf16", 16, "serve"),
+    "serve_ragged_int8_bs64": ("int8", 64, "serve"),
+    "full_live_bs16": ("bf16", 16, "full"),
+    "full_live_int8_bs64": ("int8", 64, "full"),
+}
+SLOTS = 16
 H, HKV, D, D_MODEL, L = 16, 8, 128, 2048, 2048
 BF16 = 1  # dtype code of csrc/common.cuh
 
@@ -342,6 +358,124 @@ def run_decode(libs, gen, dev, card, seed):
     return ok
 
 
+def call_paged(lib, q, pk, pv, pks, pvs, tab, idx, out):
+    b, s, h, d = q.shape
+    hkv, bs = pk.shape[1], pk.shape[2]
+    tail = (None, out.data_ptr(), b, s, h, hkv, bs, tab.shape[1], d,
+            d ** -0.5, -1, 0.0, BF16, _stream())
+    if pks is None:
+        _raise("shellac_paged_decode_attention",
+               lib.shellac_paged_decode_attention(
+                   q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                   tab.data_ptr(), idx.data_ptr(), *tail))
+    else:
+        _raise("shellac_paged_decode_attention_int8",
+               lib.shellac_paged_decode_attention_int8(
+                   q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                   pks.data_ptr(), pvs.data_ptr(), tab.data_ptr(),
+                   idx.data_ptr(), *tail))
+
+
+def paged_set(gen, dev, lengths, bs, quant):
+    """q, a pool (bf16, or int8 with fp32 scale pools) holding each slot's
+    pages for positions [0, length + 1) in shuffled blocks, the tables,
+    index and an output buffer."""
+    from shellac_tpu_torch.inference.cache import quantize_kv
+
+    need = [-(-(int(n) + 1) // bs) for n in lengths]
+    n_blocks = 1 + sum(need) + 64
+    ids = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
+    tab = torch.zeros((len(need), L // bs), dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(need):
+        tab[b, :n] = ids[at:at + n].to(torch.int32)
+        at += n
+    q = torch.randn((len(need), 1, H, D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    shape = (n_blocks, HKV, bs, D)
+    pools = []
+    for _ in range(2):
+        x = torch.randn(shape, generator=gen, device=dev)
+        pools.append(quantize_kv(x[None]) if quant else (x.to(
+            torch.bfloat16)[None], None))
+    (pk, pks), (pv, pvs) = pools
+    pk, pv = pk[0], pv[0]
+    if quant:
+        pks, pvs = pks[0], pvs[0]
+    idx = torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)
+    return q, pk, pv, pks, pvs, tab, idx, torch.empty_like(q)
+
+
+def run_paged(libs, gen, dev, card, seed):
+    from shellac_tpu_torch.inference.cache import (
+        paged_gather_layer,
+        paged_gather_scales,
+    )
+    from shellac_tpu_torch.ops.decode_attention import (
+        _dequantize,
+        _paged_decode_ref,
+    )
+
+    bf = torch.bfloat16
+    ok = True
+    for name, (pool, bs, kind) in PAGED_SHAPES.items():
+        quant = pool == "int8"
+        lengths = (np.full(SLOTS, L - 1) if kind == "full" else
+                   np.random.default_rng(seed + 1).integers(
+                       64, 1024 + 128 + 1, size=SLOTS))
+        live = int((lengths + 1).sum())  # kv positions the step reads
+        pages = int(sum(-(-(int(n) + 1) // bs) for n in lengths))
+        # Bytes: q and out, the live k/v rows (and their fp32 scales), the
+        # live table entries, index.
+        row_bytes = (2 * D + 8) if quant else 2 * D * 2
+        nbytes = (2 * SLOTS * H * D * 2 + live * HKV * row_bytes
+                  + pages * 4 + SLOTS * 4)
+        first = paged_set(gen, dev, lengths, bs, quant)
+        sets = [first] + [paged_set(gen, dev, lengths, bs, quant)
+                          for _ in range(n_copies(first, nbytes) - 1)]
+        q, pk, pv, pks, pvs, tab, idx, _ = first
+        ref = _paged_decode_ref(q, pk, pv, tab, idx, None, D ** -0.5,
+                                k_scale=pks, v_scale=pvs)
+        errs = {}
+        for who, lib in libs.items():
+            out = torch.empty_like(q)
+            call_paged(lib, q, pk, pv, pks, pvs, tab, idx, out)
+            torch.cuda.synchronize()
+            errs[who] = close(out, ref)
+            ok = ok and errs[who]["ok"]
+        iters = 200
+        times, eager = ab(libs, lambda lib: lambda *a: call_paged(lib, *a),
+                          sets, iters)
+        mask = (torch.arange(L, device=dev)[None, :]
+                < (idx + 1)[:, None].long())[:, None, None, :]
+
+        def library(q, pk, pv, pks, pvs, tab, i, o):
+            kk, vv = paged_gather_layer(pk, pv, tab)
+            if pks is not None:
+                kk = _dequantize(kk, paged_gather_scales(pks, tab), bf)
+                vv = _dequantize(vv, paged_gather_scales(pvs, tab), bf)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)
+
+        calls = graph_ms(library, sets, 50)
+        bms, by = bound(4 * D * H * live, nbytes)
+        new_ms = min(times["new"])
+        print(json.dumps({
+            "pass": "paged", "shape": name, "pool": pool, "bs": bs,
+            "b": SLOTS, "s": 1, "h": H, "hkv": HKV, "max_blocks": L // bs,
+            "d": D, "index": [int(n) for n in lengths],
+            "ms": times, "eager_ms": eager, "library_calls_ms": calls,
+            "library_calls_what": ("gather + dequantize + SDPA" if quant
+                                   else "gather + SDPA"),
+            "bound_ms": bms, "bound_by": by, "roofline_share": bms / new_ms,
+            "parent_over_new": min(times["parent"]) / new_ms,
+            "new_over_library_calls": new_ms / calls,
+            "errors": errs, "card": card}), flush=True)
+        del sets, first
+        torch.cuda.empty_cache()
+    return ok
+
+
 def run_fwd(libs, gen, dev, card):
     from shellac_tpu_torch.ops.flash_attention import flash_forward_ref
 
@@ -554,7 +688,7 @@ def load_libs(checkouts):
     return libs
 
 
-PASSES = ("rms", "fwd", "bwd", "decode", "generate")
+PASSES = ("rms", "fwd", "bwd", "decode", "paged", "generate")
 
 
 def main():
@@ -596,6 +730,8 @@ def main():
         ok = run_bwd(libs, gen, dev, card) and ok
     if "decode" in passes:
         ok = run_decode(libs, gen, dev, card, args.seed) and ok
+    if "paged" in passes:
+        ok = run_paged(libs, gen, dev, card, args.seed) and ok
     if "generate" in passes:
         run_generate(libs, dev, card, args.seed)
     return 0 if ok else 1

@@ -13,9 +13,9 @@ metric, {"metric": ..., "parent": [first run, last run], "new": [second,
 third]}: the train step (every loss, step ms, tokens/s, peak memory, the
 profiled step's device ms, busy share and device ms by kernel kind, the
 LM head's GEMMs where the run reports them apart), the device ms of
-serve's and serve-int8's profiled engine step and of generate's
-graph-captured decode step (and its profiled step's device ms by kernel
-kind), the host metrics of serve, serve-int8 and generate, the launch
+serve's and serve-int8's profiled engine step (and their device ms by
+kernel kind) and of generate's graph-captured decode step (and its
+profiled step's device ms by kernel kind), the host metrics of serve, serve-int8 and generate, the launch
 counts of every main path, and every kernel's timings. Exits non-zero without a card, if a run fails, or if the first
 train step's loss of a run of this tree differs from the parent's first
 run by more than 1e-3 relative.
@@ -91,12 +91,16 @@ METRICS = {  # name: (key of the line, fields inside it)
     "lm_head_profile_top": (("train", "profile_lm_head", None), ("top",)),
     "serve_step_device_ms": (("serve", "profile_engine_step", None),
                              ("device_ms",)),
+    "serve_step_device_ms_by_kind": (("serve", "profile_engine_step", None),
+                                     ("device_ms_by_kind",)),
     "serve_tokens_per_s": (("serve", "main_path", None), ("tokens_per_s",)),
     "serve_ttft_ms_p50": (("serve", "main_path", None), ("ttft_ms_p50",)),
     "serve_tpot_ms_p50": (("serve", "main_path", None), ("tpot_ms_p50",)),
     "serve_launches": (("serve", "main_path", None), ("launches",)),
     "serve_int8_step_device_ms": (("serve-int8", "profile_engine_step",
                                    None), ("device_ms",)),
+    "serve_int8_step_device_ms_by_kind": (
+        ("serve-int8", "profile_engine_step", None), ("device_ms_by_kind",)),
     "serve_int8_tokens_per_s": (("serve-int8", "main_path", None),
                                 ("tokens_per_s",)),
     "serve_int8_launches": (("serve-int8", "main_path", None),
@@ -142,6 +146,10 @@ METRICS = {  # name: (key of the line, fields inside it)
                    ("ms",)),
     "kernel7_int8_ms": (("timings", "paged_decode_attention_int8",
                          "serve_int8_ragged"), ("ms",)),
+    "kernel7_ms_full_live": (("timings", "paged_decode_attention",
+                              "full_live"), ("ms",)),
+    "kernel7_int8_ms_full_live": (("timings", "paged_decode_attention_int8",
+                                   "full_live_int8"), ("ms",)),
 }
 
 

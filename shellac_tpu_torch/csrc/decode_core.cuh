@@ -53,10 +53,10 @@
 // in int8, values and scales) for ~4 flops per byte (~8 in int8). With
 // one block per (slot, kv head) the grid is B * Hkv blocks; at fewer
 // blocks than the card's 132 SMs its bandwidth is not reached. This body
-// serves the fp32 dense cache (the parity path), the int8 dense cache and
-// the paged pool; the bf16 dense cache takes flash-decoding's split-K
-// across a thread-block cluster instead (`decode_split_kernel` in
-// decode_attention.cu), the skeleton for these three.
+// serves the fp32 dense cache and the fp32 paged pool (the parity paths)
+// and the int8 dense cache; the bf16 dense cache and the paged pool in
+// bf16 and int8 take flash-decoding's split-K across a thread-block
+// cluster instead (`decode_split_kernel` in decode_split.cuh).
 #pragma once
 
 #include <type_traits>

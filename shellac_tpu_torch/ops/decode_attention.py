@@ -16,9 +16,12 @@ max_blocks). An int8 cache comes with fp32 per-(token, kv head) scales,
 (B, Hkv, L) or (n_blocks, Hkv, bs): both or neither.
 
 On CUDA tensors each launches its kernel (`csrc/decode_attention.cu`,
-`csrc/paged_decode_attention.cu`; one body, `csrc/decode_core.cuh`, with
-the int8 cache as a second storage type), which reads only each slot's
-live range, or raises on a shape the kernel does not take. An int8
+`csrc/paged_decode_attention.cu`), which reads only each slot's live
+range, or raises on a shape the kernel does not take. A bf16 q takes the
+split-K body of `csrc/decode_split.cuh` over the dense bf16 cache and over
+the paged pool in bf16 or int8; the fp32 parity path and the dense int8
+cache take the one-block-per-(slot, kv head) body of
+`csrc/decode_core.cuh`. An int8
 cache on the card launches its int8 kernel or raises: nothing
 dequantizes the whole cache there (the JAX package's
 `QuantFallbackWarning` fallback is not ported). On CPU tensors each
@@ -47,7 +50,8 @@ KERNEL_HEAD_DIMS = (64, 128)
 # Most q rows one block holds per kv head (G * s): the kernel keeps one
 # fp32 accumulator per row per thread in registers.
 KERNEL_MAX_ROWS = 16
-# Most table entries the paged kernel stages in shared memory per block.
+# Most table entries per slot: the fp32 paged body stages a slot's live
+# entries in shared memory.
 KERNEL_MAX_BLOCKS = 32768
 
 

@@ -82,9 +82,16 @@ _PAGED = {
     "grouped_window_softcap_sinks": dict(s=1, h=4, hkv=2, d=128,
                                          length=1024, bs=16, window=100,
                                          softcap=20.0, sinks=True),
+    # A block size that is no power of two and does not divide the CUDA
+    # kernel's 32-position tiles (the JAX kernels take bs % 8 == 0 only).
+    "grouped_bs24": dict(s=1, h=4, hkv=2, d=128, length=1008, bs=24),
     # D 64 takes the one-page kernel: kernel 8.
     "one_page_d64": dict(s=1, h=4, hkv=2, d=64, length=256, bs=16),
     "one_page_d64_s2_bs8": dict(s=2, h=4, hkv=4, d=64, length=128, bs=8),
+    # A window whose first live position falls mid-page (37 - 26 = 11,
+    # 127 - 26 = 101: offsets 3 and 5 of 8-token pages).
+    "one_page_d64_bs8_window_mid_page": dict(s=1, h=4, hkv=2, d=64,
+                                             length=128, bs=8, window=27),
 }
 
 

@@ -300,11 +300,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
 
 
 def _paged_pool(gen, dtype, dev, index, s, hkv, bs, d, max_blocks,
-                unowned=5):
+                unowned=5, window=None):
     """A shuffled pool holding each slot's pages for positions
     [0, index + s), the rest of each table row at block 0. Returns
     (clean k, clean v, tables, poisoned k, poisoned v): the poisoned
-    copies hold NaN in block 0 and in every unowned block."""
+    copies hold NaN in block 0, in every unowned block, in the rows of
+    each slot's last page past its length and, with a window, in the
+    rows before each slot's first live position."""
     need = [-(-(int(i) + s) // bs) for i in index.tolist()]
     n_blocks = 1 + sum(need) + unowned
     ids = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(
@@ -317,14 +319,26 @@ def _paged_pool(gen, dtype, dev, index, s, hkv, bs, d, max_blocks,
         at += n
     k = _randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
     v = _randn(gen, (n_blocks, hkv, bs, d), dtype, dev)
-    dead = torch.ones(n_blocks, dtype=torch.bool)
-    dead[owned] = False
+    dead = torch.ones((n_blocks, bs), dtype=torch.bool)
+    for b, i in enumerate(index.tolist()):
+        lo = 0 if window is None else max(i - window + 1, 0)
+        pos = torch.arange(lo, i + s)
+        dead[tables[b, pos // bs].long(), pos % bs] = False
     pk, pv = k.clone(), v.clone()
-    pk[dead.to(dev)] = float("nan")
-    pv[dead.to(dev)] = float("nan")
+    rows = dead[:, None, :].expand(n_blocks, hkv, bs).to(dev)
+    pk[rows] = float("nan")
+    pv[rows] = float("nan")
     return k, v, tables.to(dev), pk, pv
 
 
+# (s, h, hkv, d, bs, extra). Slots at lengths 0, 37, 643, 1279, 1100 and
+# 15 of a 1280-position table unless "index" and "max_len" say otherwise.
+# Past the first seven, the bf16 split-K body's edges (32-position tiles
+# of the live range dealt round robin to the warps of a cluster of CTAs
+# per (slot, kv head), one bulk copy per page segment of a tile);
+# serve's shape is 16 slots, s 1, H 16, Hkv 8, D 128, bs 16, table 2048.
+_SERVE_LENGTHS = [64, 1152, 300, 777, 1000, 90, 513, 640, 1100, 200, 129,
+                  1023, 450, 880, 70, 999]
 _PAGED = {
     "serve_bs16": dict(s=1, h=16, hkv=8, d=128, bs=16),
     "bs8": dict(s=1, h=16, hkv=8, d=128, bs=8),
@@ -334,29 +348,65 @@ _PAGED = {
     "s4": dict(s=4, h=8, hkv=4, d=128, bs=16),
     "window_softcap_sinks": dict(s=1, h=16, hkv=8, d=128, bs=16,
                                  window=100, softcap=30.0, sinks=True),
+    "serve_16_ragged": dict(s=1, h=16, hkv=8, d=128, bs=16, max_len=2048,
+                            index=_SERVE_LENGTHS),
+    "full_capacity": dict(s=1, h=16, hkv=8, d=128, bs=16, max_len=2048,
+                          index=[2047] * 4),
+    "index_0": dict(s=1, h=16, hkv=8, d=128, bs=16, max_len=2048,
+                    index=[0, 0]),
+    "shorter_than_a_tile": dict(s=1, h=16, hkv=8, d=128, bs=16,
+                                max_len=2048, index=[5]),
+    "tiles_not_a_multiple_of_split": dict(s=1, h=16, hkv=8, d=128, bs=16,
+                                          max_len=2048,
+                                          index=[529, 163, 289]),
+    # The first live position mid-page (700 - 199 = 501 = 31 * 16 + 5):
+    # every full tile covers 3 pages, across the cluster's CTAs.
+    "window_mid_page_across_splits": dict(s=1, h=16, hkv=8, d=128, bs=16,
+                                          max_len=2048,
+                                          index=[700, 129, 2047, 64],
+                                          window=200),
+    "bs1": dict(s=1, h=16, hkv=8, d=128, bs=1, max_len=512,
+                index=[0, 31, 200, 511]),
+    "bs128": dict(s=1, h=16, hkv=8, d=128, bs=128, max_len=2048,
+                  index=[5, 127, 1000, 2047]),
+    "max_blocks_4096_few_live": dict(s=1, h=16, hkv=8, d=128, bs=16,
+                                     max_len=4096 * 16,
+                                     index=[5, 100, 33, 300]),
+    "g8_16_rows": dict(s=2, h=16, hkv=2, d=128, bs=16, max_len=2048,
+                       index=[17, 2046]),
+    "s4_d64": dict(s=4, h=8, hkv=4, d=64, bs=16, max_len=2048,
+                   index=[0, 300, 1000, 2044]),
 }
+
+
+def _paged_inputs(case, dtype, dev):
+    """q, the clean and poisoned pools, tables, index and the keyword
+    arguments of a _PAGED case."""
+    c = dict(_PAGED[case])
+    s, h, hkv, d, bs = (c.pop(k) for k in ("s", "h", "hkv", "d", "bs"))
+    max_len = c.pop("max_len", 1280)
+    index = torch.tensor(c.pop("index", [0, 37, 640 + 3, max_len - s, 1100,
+                                         15]), dtype=torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(bs * d + s)
+    mb = -(-max_len // bs)
+    k, v, tables, pk, pv = _paged_pool(gen, dtype, dev, index, s, hkv, bs,
+                                       d, mb, window=c.get("window"))
+    q = _randn(gen, (len(index), s, h, d), dtype, dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    return q, k, v, tables, index.to(dev), pk, pv, c
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(_PAGED))
 def test_paged_decode_attention_kernel(dtype, case):
     """Against the plain version on the clean pool; the kernel reads the
-    NaN-poisoned copy, so it must never touch a dead or unowned page. An
-    idle slot (length 0, table row all 0) attends block 0 alone."""
+    NaN-poisoned copy, so it must never touch a dead or unowned page, or
+    a row past a slot's length or before its window. An idle slot (length
+    0, table row all 0) attends block 0 alone."""
     dev = _card()
-    c = dict(_PAGED[case])
-    s, h, hkv, d, bs = (c.pop(k) for k in ("s", "h", "hkv", "d", "bs"))
-    gen = torch.Generator(device=dev).manual_seed(bs * d + s)
-    max_len = 1280
-    index = torch.tensor([0, 37, 640 + 3, max_len - s, 1100, 15],
-                         dtype=torch.int32)
-    mb = -(-max_len // bs)
-    k, v, tables, pk, pv = _paged_pool(gen, dtype, dev, index, s, hkv, bs,
-                                       d, mb)
-    index = index.to(dev)
-    q = _randn(gen, (len(index), s, h, d), dtype, dev)
-    if c.pop("sinks", False):
-        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    q, k, v, tables, index, pk, pv, c = _paged_inputs(case, dtype, dev)
+    d = q.shape[-1]
     before = da.paged_decode_attention_cuda.launches
     out = da.paged_decode_attention(q, pk, pv, tables, index, **c)
     assert da.paged_decode_attention_cuda.launches == before + 1
@@ -372,6 +422,35 @@ def test_paged_decode_attention_kernel(dtype, case):
                                       c.get("window"), d ** -0.5,
                                       softcap=c.get("softcap"),
                                       sinks=c.get("sinks")), dtype)
+
+
+@pytest.mark.parametrize("case", ["serve_16_ragged",
+                                  "window_mid_page_across_splits", "bs1",
+                                  "g8_16_rows"])
+def test_paged_kernel_is_deterministic(case):
+    """The cluster merge has no counter or atomics to reset: calls and
+    CUDA-graph replays of the bf16 and int8 paged kernels give
+    bitwise-equal results."""
+    dev = _card()
+    q, _, _, tables, index, pk, pv, c = _paged_inputs(case, torch.bfloat16,
+                                                      dev)
+    first = da.paged_decode_attention_cuda(q, pk, pv, tables, index, **c)
+    assert torch.equal(first, da.paged_decode_attention_cuda(
+        q, pk, pv, tables, index, **c))
+    assert torch.equal(first, _replayed(
+        lambda: da.paged_decode_attention_cuda(q, pk, pv, tables, index,
+                                               **c)))
+    k8, ks = _quant_rows(torch.Generator(device=dev).manual_seed(3),
+                         tuple(pk.shape), dev)
+    v8, vs = _quant_rows(torch.Generator(device=dev).manual_seed(4),
+                         tuple(pk.shape), dev)
+    first = da.paged_decode_attention_quant_cuda(q, k8, v8, ks, vs, tables,
+                                                 index, **c)
+    assert torch.equal(first, da.paged_decode_attention_quant_cuda(
+        q, k8, v8, ks, vs, tables, index, **c))
+    assert torch.equal(first, _replayed(
+        lambda: da.paged_decode_attention_quant_cuda(
+            q, k8, v8, ks, vs, tables, index, **c)))
 
 
 def test_paged_wrapper_raises_on_what_the_kernel_does_not_take():
@@ -464,6 +543,8 @@ def test_decode_attention_quant_kernel(dtype, case):
     assert torch.equal(out, again)
 
 
+# The int8 cases: today's (serve-int8's bs 64 first), then the split-K
+# body's edges as in _PAGED, over int8 pools.
 _PAGED_Q = {
     "serve_bs64": dict(s=1, h=16, hkv=8, d=128, bs=64),
     "bs16": dict(s=1, h=16, hkv=8, d=128, bs=16),
@@ -471,6 +552,32 @@ _PAGED_Q = {
     "s4_bs32": dict(s=4, h=8, hkv=4, d=128, bs=32),
     "window_softcap_sinks": dict(s=1, h=16, hkv=8, d=128, bs=64,
                                  window=100, softcap=30.0, sinks=True),
+    "serve_16_ragged": dict(s=1, h=16, hkv=8, d=128, bs=64, max_len=2048,
+                            index=_SERVE_LENGTHS),
+    "full_capacity": dict(s=1, h=16, hkv=8, d=128, bs=64, max_len=2048,
+                          index=[2047] * 4),
+    "index_0": dict(s=1, h=16, hkv=8, d=128, bs=64, max_len=2048,
+                    index=[0, 0]),
+    "shorter_than_a_tile": dict(s=1, h=16, hkv=8, d=128, bs=64,
+                                max_len=2048, index=[5]),
+    "tiles_not_a_multiple_of_split": dict(s=1, h=16, hkv=8, d=128, bs=64,
+                                          max_len=2048,
+                                          index=[529, 163, 289]),
+    "window_mid_page_across_splits": dict(s=1, h=16, hkv=8, d=128, bs=16,
+                                          max_len=2048,
+                                          index=[700, 129, 2047, 64],
+                                          window=200),
+    "bs1": dict(s=1, h=16, hkv=8, d=128, bs=1, max_len=512,
+                index=[0, 31, 200, 511]),
+    "bs128": dict(s=1, h=16, hkv=8, d=128, bs=128, max_len=2048,
+                  index=[5, 127, 1000, 2047]),
+    "max_blocks_4096_few_live": dict(s=1, h=16, hkv=8, d=128, bs=16,
+                                     max_len=4096 * 16,
+                                     index=[5, 100, 33, 300]),
+    "g8_16_rows": dict(s=2, h=16, hkv=2, d=128, bs=64, max_len=2048,
+                       index=[17, 2046]),
+    "s4_d64": dict(s=4, h=8, hkv=4, d=64, bs=64, max_len=2048,
+                   index=[0, 300, 1000, 2044]),
 }
 
 
@@ -478,19 +585,20 @@ _PAGED_Q = {
 @pytest.mark.parametrize("case", sorted(_PAGED_Q))
 def test_paged_decode_attention_quant_kernel(dtype, case):
     """Against the plain version on the clean pool; the kernel reads a
-    copy whose block 0 and unowned blocks hold NaN scales, so it must
-    never touch a dead or unowned page."""
+    copy whose block 0, unowned blocks, rows past each slot's length and
+    rows before its window hold NaN scales, so it must never touch a dead
+    or unowned page or a row outside the live range."""
     dev = _card()
     c = dict(_PAGED_Q[case])
     s, h, hkv, d, bs = (c.pop(k) for k in ("s", "h", "hkv", "d", "bs"))
     gen = torch.Generator(device=dev).manual_seed(bs * d + s + 1)
-    max_len = 1280
-    index = torch.tensor([0, 37, 640 + 3, max_len - s, 1100, 15],
-                         dtype=torch.int32)
+    max_len = c.pop("max_len", 1280)
+    index = torch.tensor(c.pop("index", [0, 37, 640 + 3, max_len - s, 1100,
+                                         15]), dtype=torch.int32)
     mb = -(-max_len // bs)
     _, _, tables, pk, _ = _paged_pool(gen, torch.float32, dev, index, s,
-                                      hkv, bs, d, mb)
-    dead = torch.isnan(pk[:, 0, 0, 0])
+                                      hkv, bs, d, mb, window=c.get("window"))
+    dead = torch.isnan(pk[..., 0])
     k, ksc = _quant_rows(gen, pk.shape, dev)
     v, vsc = _quant_rows(gen, pk.shape, dev)
     pks, pvs = ksc.clone(), vsc.clone()

@@ -8,9 +8,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 (nvcc -Xptxas -v register/shared-memory/spill lines); every
                 instance of the Hopper redesigns (the wgmma kernels 2, 3
                 and 4, D 64 and 128, with and without segments; kernel 1's
-                six register-resident RMSNorm instances; kernel 5's four
-                split-K bf16 decode instances; kernel 7's eight, bf16 and
-                int8 pools) must show 0 spill stores, and no wgmma may be
+                six register-resident RMSNorm instances; the split-K
+                decode body's dense instances, kernel 5's four over bf16
+                caches and kernel 6's four over int8 caches (D 64 and
+                128, at 2 and 16 rows); kernel 7's eight, bf16 and int8
+                pools) must show 0 spill stores, and no wgmma may be
                 serialized (C7520).
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32 (RMSNorm
@@ -36,18 +38,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 through the plain attention.
   4. generate — shellac-1b (full width and depth, random weights from
                 --seed) through Engine.generate: 8 ragged prompts padded to
-                512, 64 new tokens, greedy; prefill logits of the kernels
+                512, 64 new tokens, greedy, every decode step after the
+                first a CUDA-graph replay; prefill logits of the kernels
                 against the plain attention; kernel launch counts of the
-                run; a depth-cut fp32 run whose greedy tokens must equal
-                the plain path's.
+                run and the graphs captured; the wall ms per decode step
+                through the graph and of the same loop run eagerly, whose
+                greedy tokens must be equal, and the device-busy share of
+                the decode; a depth-cut fp32 run whose greedy tokens must
+                equal the plain path's.
   5. serve    — shellac-1b through PagedBatchingEngine.run: 16 slots,
                 max_len 2048, 16-token blocks, the default pool; 48
                 requests (prompts 64-1024, 16-128 new tokens, greedy)
-                submitted up front; throughput, time to first token and
+                submitted up front, every window after the first a
+                CUDA-graph replay; throughput, time to first token and
                 per output token, launch counts (paged decode = layers x
                 ticks, dense decode 0, flash = layers x prefills), the
-                allocator back to pristine, one profiled engine step, and
-                one decode step's logits through the kernels against
+                graphs captured, the allocator back to pristine, one
+                profiled engine step of 16 decoding slots (its device-busy
+                share), the wall ms of 20 such steps through the graph and
+                of 20 on an engine whose windows run eagerly, and one
+                decode step's logits through the kernels against
                 attn_impl="ref" on the same cache state (5e-2 of their
                 scale).
   6. serve-parity — shellac-1b width cut to 2 layers, fp32: identical
@@ -75,11 +85,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 bf16 and fp32, at the generate shape (B 8, L 2048, ragged)
                 and the serve-int8 shape (16 slots, 64-token blocks, the
                 default pool, NaN scales in block 0 and unowned blocks), with
-                window + softcap + sinks, D 64, s 4 and an idle slot;
+                window + softcap + sinks, D 64, s 4 and an idle slot, and
+                both at the split-K body's edges (kernel 6 as kernel 5's
+                above, its scales NaN past each slot's length and before
+                its window);
                 generate-int8: Engine(kv_quant="int8").generate on generate's
                 prompts (the first token of every row must equal bf16
                 generate's, since the prefill is exact; exact launch counts;
-                later greedy agreement printed); serve-int8:
+                later greedy agreement printed; the graph and eager loops
+                as generate's, tokens equal); serve-int8:
                 PagedBatchingEngine(cache_backend="paged-int8") on serve's 48
                 requests (the serve metrics, the pool's bytes beside a bf16
                 pool's, exact launch counts, the decode step's logits
@@ -87,7 +101,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 fp32, the paged-int8 and dense-int8 engines through the
                 kernels against attn_impl="ref" (logprobs within 1e-3, the
                 same tokens while the ref's top-2 margin is >= 2e-3).
- 10. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
+ 10. graph-parity — shellac-1b width cut to 2 layers, bf16: BatchingEngine
+                and PagedBatchingEngine over bf16 and int8 caches at 1 and
+                4 ticks a window, through their CUDA graphs and with their
+                windows run eagerly: identical greedy tokens and logprobs
+                and identical launch counts.
+ 11. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
                 events; the eager time beside it) against its bound, its
                 plain version and one PyTorch library call computing the
                 same (for the paged kernel there is none: a gather plus
@@ -99,11 +118,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 and 4 compute together). RMSNorm is timed at prefill's 4096,
                 train's 12288, generate's 8 and serve's 16 rows; kernel 2
                 at generate's prefill, at serve's largest admission (B 1, S
-                1024) and at the training shape; dense decode at generate's
-                step and with every slot live to 2048; the paged kernel
-                and its int8 branch at serve's and serve-int8's ragged
-                steps and with every slot live to 2048; every row carries
-                its achieved TFLOP/s.
+                1024) and at the training shape; the dense decode (bf16 and
+                int8) at generate's step and with every slot live to 2048;
+                the paged kernel and its int8 branch at serve's and
+                serve-int8's ragged steps and with every slot live to 2048;
+                every row carries its achieved TFLOP/s.
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}.
 
@@ -169,10 +188,10 @@ def card_line() -> str:
 # wgmma kernels (D 64 and 128, with and without segments), kernel 1's
 # register-resident RMSNorm (bf16 and fp32: many rows and few rows at
 # d 2048, one instance at d 128), the split-K decode body (D 64 and 128,
-# at 2 and 16 rows) over kernel 5's dense bf16 cache and kernel 7's bf16
-# and int8 pools.
+# at 2 and 16 rows) over the dense caches (kernel 5's bf16, kernel 6's
+# int8) and kernel 7's bf16 and int8 pools.
 REDESIGNED = {"flash_fwd": 4, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
-              "rms_norm_rows": 6, "decode_split": 4, "paged_split": 8}
+              "rms_norm_rows": 6, "decode_split": 8, "paged_split": 8}
 
 
 def spill_report(ptxas):
@@ -485,6 +504,24 @@ def paged_cases(sinks16, other_bs, main, dev):
     }
 
 
+def dense_edges():
+    """The dense split-K body's edges (kernels 5 and 6): 32-position tiles
+    dealt to the CTAs of a cluster. name -> (shape overrides, lengths,
+    keyword arguments)."""
+    return {
+        "b1_shorter_than_a_tile": ({"b": 1}, [5], {}),
+        "b16_ragged": ({"b": 16}, [0, 1, 31, 32, 33, 255, 256, 257,
+                                   300, 511, 512, 999, 1023, 1500,
+                                   2046, 2047], {}),
+        "index_0": ({"b": 2}, [0, 0], {}),
+        "tiles_not_a_multiple_of_split": ({"b": 3}, [529, 163, 289], {}),
+        "index_plus_s_is_L": ({"b": 4}, [MAX_LEN - 1] * 4, {}),
+        "window_across_splits": ({"b": 4}, [700, 129, 2047, 64],
+                                 {"window": 200}),
+        "g8_16_rows": ({"b": 2, "s": 2, "hkv": 2}, [17, 2046], {}),
+    }
+
+
 def phase_kernels(gen, dev, shapes):
     from shellac_tpu_torch.ops.decode_attention import (
         _decode_ref,
@@ -575,20 +612,8 @@ def phase_kernels(gen, dev, shapes):
                decode_attention_cuda(q, ck, cv, idx),
                _decode_ref(q, ck, cv, idx, None, scale))
         # The split-K body's edges: 32-position tiles dealt to the CTAs
-        # of a cluster. (shape overrides, lengths, keyword arguments)
-        edges = {
-            "b1_shorter_than_a_tile": ({"b": 1}, [5], {}),
-            "b16_ragged": ({"b": 16}, [0, 1, 31, 32, 33, 255, 256, 257,
-                                       300, 511, 512, 999, 1023, 1500,
-                                       2046, 2047], {}),
-            "index_0": ({"b": 2}, [0, 0], {}),
-            "tiles_not_a_multiple_of_split": ({"b": 3}, [529, 163, 289],
-                                              {}),
-            "index_plus_s_is_L": ({"b": 4}, [MAX_LEN - 1] * 4, {}),
-            "window_across_splits": ({"b": 4}, [700, 129, 2047, 64],
-                                     {"window": 200}),
-            "g8_16_rows": ({"b": 2, "s": 2, "hkv": 2}, [17, 2046], {}),
-        }
+        # of a cluster.
+        edges = dense_edges()
         for case, (shape, lengths, kw) in edges.items():
             es = {**ds, **shape,
                   "index": torch.tensor(lengths, dtype=torch.int32,
@@ -624,8 +649,9 @@ def phase_kernels(gen, dev, shapes):
 def phase_kernels_int8(gen, dev, shapes):
     """Both int8 kernels against their plain versions (dequantize in fp32,
     cast to q's dtype, masked attention) at the generate and serve-int8
-    shapes. The paged kernel reads scale pools whose block 0 and unowned
-    blocks are NaN, the plain version the clean ones."""
+    shapes and at the split-K body's edges. The kernels read scales that
+    are NaN in every row no slot attends, the plain versions the clean
+    ones."""
     from shellac_tpu_torch.ops.decode_attention import (
         _decode_ref,
         _paged_decode_ref,
@@ -663,6 +689,29 @@ def phase_kernels_int8(gen, dev, shapes):
                                sinks=kw.get("sinks"), k_scale=ks,
                                v_scale=vs),
                    main and case == "main_ragged")
+        # Kernel 5's split-K edges over the int8 cache; the kernel reads
+        # scales poisoned with NaN past each slot's length (and before its
+        # window), the plain version the clean ones.
+        for case, (shape, lengths, kw) in dense_edges().items():
+            p = {**shapes["decode"], **shape,
+                 "index": torch.tensor(lengths, dtype=torch.int32,
+                                       device=dev)}
+            q, ck, cv, ks, vs, idx = decode_quant_inputs(gen, dtype, dev, **p)
+            pos = torch.arange(p["L"], device=dev)[None, :]
+            end = idx[:, None].long() + p["s"]
+            dead = pos >= end
+            if kw.get("window") is not None:
+                dead |= pos <= idx[:, None].long() - kw["window"]
+            dead = dead[:, None, :].expand_as(ks)
+            pks, pvs = ks.masked_fill(dead, float("nan")), \
+                vs.masked_fill(dead, float("nan"))
+            record("decode_attention_dense_int8", f"split_{case}",
+                   decode_attention_quant_cuda(q, ck, cv, pks, pvs, idx,
+                                               **kw),
+                   _decode_ref(q, ck, cv, idx, kw.get("window"),
+                               p["d"] ** -0.5, k_scale=ks, v_scale=vs),
+                   False)
+            del q, ck, cv, ks, vs, pks, pvs
         for case, (shape, kw, idle) in paged_cases(
                 sinks16, 16, "main_serve_int8_bs64", dev).items():
             p = {**shapes["paged_int8"], **shape}
@@ -792,9 +841,68 @@ def prompts(seed, vocab, dev):
     return torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
 
 
+def eager_engine(cls):
+    """`cls` (Engine or a batching engine) with its decode loop run
+    eagerly, tick by tick: the loop its CUDA graphs replace."""
+    from shellac_tpu_torch import Engine
+
+    if issubclass(cls, Engine):
+        class Eager(cls):
+            def _graph(self, fn, generator):
+                return fn
+    else:
+        class Eager(cls):
+            def _decode_impl(self, greedy_only):
+                return self._window(greedy_only)
+    return Eager
+
+
+def decode_loops(engine, eager, toks, lens):
+    """Engine.generate's decode loop (NEW_TOKENS steps from a fresh
+    prefill) through its CUDA graph, twice, and the same loop run eagerly
+    by `eager` (an `eager_engine` of the same settings) between them:
+    wall ms per decode step of each, whether their greedy tokens are
+    equal, the graphs captured, and the device time and busy share of a
+    profiled graph loop (its first, eager step and the capture
+    included)."""
+    from shellac_tpu_torch.inference.graphs import StepGraph
+
+    out = {}
+
+    def loop(eng):
+        first, cache, seen = eng._prefill_impl(toks, lens)
+        gen = torch.Generator(device=toks.device)
+        gen.manual_seed(0)
+        torch.cuda.synchronize()
+        return lambda: eng._decode_impl(first, cache, NEW_TOKENS, gen, seen)
+
+    for name, eng in (("graph", engine), ("eager", eager), ("graph", engine)):
+        run = loop(eng)
+        captured = StepGraph.captures
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (NEW_TOKENS - 1)
+        out.setdefault(name, []).append((res.tokens, ms,
+                                         StepGraph.captures - captured))
+        del run
+    prof = profile_call(loop(engine))
+    graph, eager_run = out["graph"], out["eager"][0]
+    return dict(
+        graph_ms_per_tick=[ms for _, ms, _ in graph],
+        eager_ms_per_tick=eager_run[1],
+        graphs_captured_per_loop=[n for _, _, n in graph + [eager_run]],
+        graph_tokens_equal_eager=all(torch.equal(t, eager_run[0])
+                                     for t, _, _ in graph),
+        graph_loop_device_ms=prof["device_ms"],
+        graph_loop_wall_ms=prof["wall_ms"],
+        graph_loop_device_busy_share=prof["device_busy_share"])
+
+
 def phase_generate(seed, dev, table, card):
     from shellac_tpu_torch import Engine, get_model_config
     from shellac_tpu_torch.inference.cache import init_cache
+    from shellac_tpu_torch.inference.graphs import StepGraph
     from shellac_tpu_torch.models import transformer
 
     cfg = get_model_config("shellac-1b")
@@ -838,11 +946,13 @@ def phase_generate(seed, dev, table, card):
     reset_peak()
 
     reset_counts(table)
+    captured = StepGraph.captures
     t0 = time.perf_counter()
     res = engine.generate(toks, lens, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = read_counts(table)
+    captured = StepGraph.captures - captured
     peak = torch.cuda.max_memory_allocated()
 
     expect = only(table, rms_norm=(2 * cfg.n_layers + 1) * NEW_TOKENS,
@@ -854,39 +964,53 @@ def phase_generate(seed, dev, table, card):
                  and bool(torch.isfinite(res.logprobs).all().item())
                  and bool((res.logprobs <= 1e-6).all().item()))
     emit("generate", step="main_path", launches=counts, expected=expect,
+         graphs_captured=captured,
          tokens_shape=list(res.tokens.shape), tokens_ok=tokens_ok,
          total_s=total_s, tokens_per_s=PROMPTS * NEW_TOKENS / total_s,
          max_memory_allocated=peak, card=card)
     if counts != expect or not tokens_ok:
         raise SystemExit("main path: wrong launch counts or bad tokens")
 
-    # Split timing of the same run: prefill, then the decode loop.
+    # Split timing of the same run: prefill, then the decode loop through
+    # its CUDA graph, beside the same loop run eagerly.
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         first, cache, seen = engine._prefill_impl(toks, lens)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        res2 = engine._decode_impl(first, cache, NEW_TOKENS, gen, seen)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        # One decode step captured in a CUDA graph: its device time, set
-        # against the eager step's wall time, is the host's share.
+        # One decode step (the cached forward) captured in a CUDA graph at
+        # the prompts' lengths: its device time. It rewrites the row the
+        # first decode step writes, with the same token.
         tok = res.tokens[:, :1].long()
         step_ms = graph_ms(
             lambda: transformer.forward_with_cache(cfg, params, tok, cache),
             [()], 1)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res2 = engine._decode_impl(first, cache, NEW_TOKENS, gen, seen)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        loops = decode_loops(engine, eager_engine(Engine)(
+            cfg, params, max_len=MAX_LEN, temperature=0.0, device=dev),
+            toks, lens)
         profile_step(cfg, params, toks, lens, engine, dev)
     same = bool(torch.equal(res2.tokens, res.tokens))
+    graph_tick = (t3 - t2) * 1e3 / (NEW_TOKENS - 1)
     emit("generate", step="timing", prefill_ms=(t1 - t0) * 1e3,
-         decode_ms_per_token=(t2 - t1) * 1e3 / (NEW_TOKENS - 1),
+         decode_ms_per_token=graph_tick,
          decode_step_device_ms=step_ms,
-         tokens_per_s=PROMPTS * NEW_TOKENS / (t2 - t0),
-         max_memory_allocated=peak, rerun_tokens_equal=same, card=card)
+         decode_step_busy_share=step_ms / graph_tick,
+         tokens_per_s=PROMPTS * NEW_TOKENS / (t1 - t0 + t3 - t2),
+         max_memory_allocated=peak, rerun_tokens_equal=same, card=card,
+         **loops)
     if not same:
         raise SystemExit("greedy generation is not deterministic")
+    if not loops["graph_tokens_equal_eager"]:
+        raise SystemExit("generate: greedy tokens through the CUDA graph "
+                         "differ from the eager loop's")
     del engine, params, cache, first, seen
     torch.cuda.empty_cache()
 
@@ -918,6 +1042,7 @@ def phase_generate_int8(seed, dev, table, card, bf16_tokens):
     how long each row's greedy run agrees with bf16 is printed, not
     gated."""
     from shellac_tpu_torch import Engine, get_model_config
+    from shellac_tpu_torch.inference.graphs import StepGraph
     from shellac_tpu_torch.models import transformer
 
     cfg = get_model_config("shellac-1b")
@@ -930,11 +1055,13 @@ def phase_generate_int8(seed, dev, table, card, bf16_tokens):
     reset_peak()
 
     reset_counts(table)
+    captured = StepGraph.captures
     t0 = time.perf_counter()
     res = engine.generate(toks, lens, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = read_counts(table)
+    captured = StepGraph.captures - captured
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
     expect = only(table, rms_norm=(2 * L + 1) * NEW_TOKENS,
@@ -954,8 +1081,14 @@ def phase_generate_int8(seed, dev, table, card, bf16_tokens):
         step_ms = graph_ms(
             lambda: transformer.forward_with_cache(cfg, params, tok, cache),
             [()], 1)
+        loops = decode_loops(engine, eager_engine(Engine)(
+            cfg, params, max_len=MAX_LEN, temperature=0.0, kv_quant="int8",
+            device=dev), toks, lens)
+    emit("generate-int8", step="timing", decode_step_device_ms=step_ms,
+         decode_step_busy_share=step_ms / loops["graph_ms_per_tick"][0],
+         card=card, **loops)
     emit("generate-int8", step="main_path", launches=counts,
-         expected=expect, tokens_ok=tokens_ok,
+         expected=expect, graphs_captured=captured, tokens_ok=tokens_ok,
          first_token_equals_bf16=first_equal,
          greedy_prefix_agreeing_with_bf16=agree_prefix,
          tokens_equal_to_bf16=int(same.sum().item()),
@@ -968,6 +1101,9 @@ def phase_generate_int8(seed, dev, table, card, bf16_tokens):
     if counts != expect or not tokens_ok or not first_equal:
         raise SystemExit("generate-int8: wrong launch counts, bad tokens or "
                          "a first token that differs from bf16")
+    if not loops["graph_tokens_equal_eager"]:
+        raise SystemExit("generate-int8: greedy tokens through the CUDA "
+                         "graph differ from the eager loop's")
     del engine, params, cache
     torch.cuda.empty_cache()
     return counts
@@ -1142,27 +1278,56 @@ def phase_serve(seed, dev, table, card, backend="paged"):
          requests=len(reqs), generated_tokens=generated, wall_s=wall,
          tokens_per_s=generated / wall,
          ttft_ms_p50=pct(ttft, 50) * 1e3, ttft_ms_p99=pct(ttft, 99) * 1e3,
+         ttft_ms=[t * 1e3 for t in ttft],
          tpot_ms_p50=pct(tpot, 50) * 1e3, tpot_ms_p99=pct(tpot, 99) * 1e3,
          engine_steps=delta["engine_steps"], decode_ticks=ticks,
          prefills=prefills, pool_exhausted_requeues=delta["pool_exhausted"],
          peak_pool_utilization=be.peak_blocks_used / (be.n_blocks - 1),
          max_memory_allocated=peak, launches=counts, expected=expect,
+         graphs_captured=engine.stats["decode_graphs"],
          tokens_ok=tokens_ok, allocator_pristine=clean, card=card)
     if counts != expect or not tokens_ok or not clean:
         raise SystemExit(f"{phase}: wrong launch counts, bad tokens or a "
                          "leaked block")
 
-    # One engine step profiled: 16 slots decoding, no admission.
-    for rid, toks, m in serve_requests(seed + 3, cfg.vocab_size, SLOTS,
-                                       (PROMPT_HI // 2, PROMPT_HI // 2),
-                                       (NEW_HI // 2, NEW_HI // 2)):
+    # One engine step profiled: 16 slots decoding, no admission; then
+    # decode-only steps timed on the host, through the graph and, on an
+    # engine whose windows run eagerly, without it.
+    full = serve_requests(seed + 3, cfg.vocab_size, SLOTS,
+                          (PROMPT_HI // 2, PROMPT_HI // 2),
+                          (NEW_HI // 2, NEW_HI // 2))
+    for rid, toks, m in full:
         engine.submit(rid, toks, m)
     engine.step()
     engine.step()
     torch.cuda.synchronize()
+    graph_ttft = admission_ms(engine)
     prof = profile_call(engine.step)
     emit(phase, step="profile_engine_step", active_slots=sum(
         r is not None for r in engine._slots), **prof)
+    graph_walls = decode_step_walls(engine)
+    eager = eager_engine(PagedBatchingEngine)(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=block,
+        cache_backend=backend, decode_ticks=1, temperature=0.0, device=dev)
+    for rid, toks, m in full:
+        eager.submit(rid, toks, m)
+    eager.step()
+    eager.step()
+    eager_ttft = admission_ms(eager)
+    eager_walls = decode_step_walls(eager)
+    eager.abort_all()
+    del eager
+    emit(phase, step="decode_tick_wall", active_slots=SLOTS,
+         graph_ms_per_tick=graph_walls, eager_ms_per_tick=eager_walls,
+         graph_over_eager=float(np.median(graph_walls)
+                                / np.median(eager_walls)),
+         graphs_captured=engine.stats["decode_graphs"],
+         ttft_ms_16_admissions_graph=graph_ttft,
+         ttft_ms_16_admissions_eager=eager_ttft,
+         # The profiled step's device ms over an unprofiled step's wall
+         # ms (the profiler's own host cost inflates its wall time).
+         device_busy_share=prof["device_ms"] / float(np.median(graph_walls)),
+         profiled_device_busy_share=prof["device_busy_share"], card=card)
     check_decode_logits(phase, cfg, params, engine)
     engine.abort_all()
     if not pristine(engine):
@@ -1170,6 +1335,25 @@ def phase_serve(seed, dev, table, card, backend="paged"):
     del engine, params
     torch.cuda.empty_cache()
     return counts
+
+
+def admission_ms(engine):
+    """Each running request's time to first token on the host (its
+    admission to its prefill's first token), ms, slot by slot."""
+    return [(r.t_first - r.t_admitted) * 1e3 for r in engine._slots if r]
+
+
+def decode_step_walls(engine, steps=20):
+    """Host wall ms of each of `steps` engine steps that only decode (no
+    slot frees or fills), each ending in the window's host sync."""
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        done = engine.step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if done or engine._queue:
+            raise SystemExit("decode_step_walls: a step admitted or freed")
+    return walls
 
 
 def check_decode_logits(phase, cfg, params, engine):
@@ -1294,6 +1478,59 @@ def phase_serve_parity_int8(seed, dev, table):
                          "kernels differ from the plain path")
     del runs, params
     torch.cuda.empty_cache()
+
+
+def phase_graph_parity(seed, dev, table):
+    """The batching engines' windows through their CUDA graphs against
+    the same windows run eagerly, at shellac-1b width cut to 2 layers in
+    bf16, over the dense and paged caches in bf16 and int8, at 1 and 4
+    ticks a window: the same greedy tokens and logprobs, bit for bit, and
+    the same launch counts."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import (
+        BatchingEngine,
+        PagedBatchingEngine,
+    )
+    from shellac_tpu_torch.models import transformer
+
+    cfg = get_model_config("shellac-1b").replace(n_layers=2)
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reqs = serve_requests(seed + 4, cfg.vocab_size, 14, (16, 300), (4, 24))
+    failed = []
+    for backend in ("paged", "dense", "paged-int8", "dense-int8"):
+        cls = (PagedBatchingEngine if backend.startswith("paged")
+               else BatchingEngine)
+        for ticks in (1, 4):
+            runs = {}
+            for name, c in (("graph", cls), ("eager", eager_engine(cls))):
+                eng = c(cfg, params, n_slots=6, max_len=512,
+                        cache_backend=backend, decode_ticks=ticks,
+                        logprobs=True, device=dev)
+                reset_counts(table)
+                out = eng.run(reqs)
+                runs[name] = (out, eng.finished_logprobs, read_counts(table),
+                              dict(eng.stats))
+                del eng
+            (g_out, g_lp, g_n, g_st), (e_out, e_lp, e_n, e_st) = (
+                runs["graph"], runs["eager"])
+            ok = (g_out == e_out and g_lp == e_lp and g_n == e_n
+                  and g_st["decode_graphs"] == 1
+                  and g_st["decode_windows"] == e_st["decode_windows"] > 1)
+            emit("graph-parity", backend=backend, decode_ticks=ticks,
+                 layers=2, dtype="bfloat16", slots=6, requests=len(reqs),
+                 tokens=sum(len(v) for v in g_out.values()),
+                 decode_windows=g_st["decode_windows"],
+                 graphs_captured=g_st["decode_graphs"],
+                 tokens_identical=g_out == e_out,
+                 logprobs_identical=g_lp == e_lp, launches=g_n,
+                 launches_equal=g_n == e_n, ok=ok)
+            if not ok:
+                failed.append((backend, ticks))
+    del params
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"graph-parity: the CUDA graphs differ from the "
+                         f"eager windows: {failed}")
 
 
 # --------------------------------------------------------------------------
@@ -1804,34 +2041,39 @@ def phase_timings(gen, dev, shapes, card):
         del sets
         torch.cuda.empty_cache()
 
-    # Kernel 6 at the generate-int8 shape. Bytes: q and out, the live
-    # int8 k/v rows and their fp32 scales (2 D + 8 bytes per position and
-    # kv head), index.
+    # Kernel 6 at the generate-int8 shape and with every slot live to L.
+    # Bytes: q and out, the live int8 k/v rows and their fp32 scales
+    # (2 D + 8 bytes per position and kv head), index.
     ds = shapes["decode"]
-    b, h, hkv, L, d, idx = (ds["b"], ds["h"], ds["hkv"], ds["L"], ds["d"],
-                            ds["index"])
-    sets = copies(lambda: decode_quant_inputs(gen, bf, dev, **ds))
-    live = int((idx + 1).sum().item())
-    mask = (torch.arange(L, device=dev)[None, :]
-            < (idx + 1)[:, None].long())[:, None, None, :]
+    for case, idx in (("generate_int8_ragged", ds["index"]),
+                      ("full_live_int8", torch.full_like(ds["index"],
+                                                         MAX_LEN - 1))):
+        p = {**ds, "index": idx}
+        b, h, hkv, L, d = ds["b"], ds["h"], ds["hkv"], ds["L"], ds["d"]
+        live = int((idx + 1).sum().item())
+        nbytes = 2 * b * h * d * 2 + live * hkv * (2 * d + 8) + b * 4
+        sets = copies(lambda: decode_quant_inputs(gen, bf, dev, **p),
+                      nbytes=nbytes)
+        mask = (torch.arange(L, device=dev)[None, :]
+                < (idx + 1)[:, None].long())[:, None, None, :]
 
-    def dequant_sdpa(q, ck, cv, ks, vs, i):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), _dequantize(ck, ks, bf),
-            _dequantize(cv, vs, bf), attn_mask=mask, enable_gqa=True)
+        def dequant_sdpa(q, ck, cv, ks, vs, i):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), _dequantize(ck, ks, bf),
+                _dequantize(cv, vs, bf), attn_mask=mask, enable_gqa=True)
 
-    k = measure(lambda q, ck, cv, ks, vs, i: decode_attention_quant_cuda(
-        q, ck, cv, ks, vs, i), sets, 200)
-    p = measure(lambda q, ck, cv, ks, vs, i: _decode_ref(
-        q, ck, cv, i, None, d ** -0.5, k_scale=ks, v_scale=vs), sets, 20)
-    two = measure(dequant_sdpa, sets, 50)
-    record("decode_attention_dense_int8", "generate_int8_ragged", k, p, None,
-           2 * b * h * d * 2 + live * hkv * (2 * d + 8) + b * 4,
-           4 * d * h * live, [b, 1, h, hkv, L, d],
-           calls=("library_two_calls_ms",
-                  "dequantize k and v (fp32 multiply, bf16 cast) + SDPA",
-                  two))
-    del sets
+        k = measure(lambda q, ck, cv, ks, vs, i: decode_attention_quant_cuda(
+            q, ck, cv, ks, vs, i), sets, 200)
+        p_ms = measure(lambda q, ck, cv, ks, vs, i: _decode_ref(
+            q, ck, cv, i, None, d ** -0.5, k_scale=ks, v_scale=vs), sets, 20)
+        two = measure(dequant_sdpa, sets, 50)
+        record("decode_attention_dense_int8", case, k, p_ms, None, nbytes,
+               4 * d * h * live, [b, 1, h, hkv, L, d],
+               calls=("library_two_calls_ms",
+                      "dequantize k and v (fp32 multiply, bf16 cast) + SDPA",
+                      two))
+        del sets
+        torch.cuda.empty_cache()
 
     # Kernel 7's int8 branch at serve-int8's step (64-token blocks) and
     # with every slot live to 2048.
@@ -1940,6 +2182,7 @@ def main():
             raise SystemExit(f"{path}: kernels never launched: {missing}")
     phase_serve_parity(args.seed, dev)
     phase_serve_parity_int8(args.seed, dev, table)
+    phase_graph_parity(args.seed, dev, table)
     phase_train_parity(args.seed, dev)
     times = phase_timings(gen, dev, shapes, card)
 

@@ -1,7 +1,10 @@
-// Print, for the split-K decode body's paged instances (D 128, 2 and 16
-// rows, bf16 and int8 pools), the CTAs a SM holds, the clusters of 1, 2,
-// 4 and 8 CTAs the card holds at once, and the split the launcher picks
-// at serve's shape (16 slots x 8 kv heads, a 2048-position table).
+// Print, for the split-K decode body's instances at D 128 (the paged
+// ones at 2 and 16 rows over bf16 and int8 pools, the dense ones at 2
+// rows over bf16 and int8 caches), the CTAs a SM holds, the clusters of
+// 1, 2, 4 and 8 CTAs the card holds at once, and the split the launcher
+// picks at the main paths' shapes: serve's 16 slots x 8 kv heads over a
+// 2048-position table (paged), generate's 8 slots x 8 kv heads over a
+// 2048-position cache (dense).
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o build/split_occupancy scripts/split_occupancy.cu
@@ -10,16 +13,17 @@
 // Needs a Hopper card; prints one JSON line an instance.
 #include <cstdio>
 
+#include "../shellac_tpu_torch/csrc/decode_attention.cu"
 #include "../shellac_tpu_torch/csrc/paged_decode_attention.cu"
 
 namespace {
 
-constexpr int kSlots = 16, kHkv = 8, kCapacity = 2048;
+constexpr int kHkv = 8, kCapacity = 2048;
 
-template <typename KT, int R>
-int probe(const char* name) {
+template <typename KT, int R, typename Tiles>
+int probe(const char* name, int slots) {
   using namespace shellac::split;
-  auto kernel = decode_split_kernel<KT, 128, R, shellac::PagedTiles>;
+  auto kernel = decode_split_kernel<KT, 128, R, Tiles>;
   constexpr size_t kSmem = Layout<KT, 128, R>::kBytes;
   cudaError_t err = shellac::allow_smem(kernel, kSmem);
   int per_sm = 0;
@@ -52,16 +56,20 @@ int probe(const char* name) {
          "\"ctas_per_sm\": %d, \"clusters_of_1_2_4_8\": [%d, %d, %d, %d], "
          "\"pairs\": %d, \"split\": %d}\n",
          name, fa.numRegs, kSmem, per_sm, clusters[0], clusters[1],
-         clusters[2], clusters[3], kSlots * kHkv,
-         pick_split(kSlots, kHkv, kCapacity, clusters));
+         clusters[2], clusters[3], slots * kHkv,
+         pick_split(slots, kHkv, kCapacity, clusters));
   return 0;
 }
 
 }  // namespace
 
 int main() {
-  return probe<__nv_bfloat16, 2>("paged bf16, 2 rows") |
-         probe<__nv_bfloat16, 16>("paged bf16, 16 rows") |
-         probe<int8_t, 2>("paged int8, 2 rows") |
-         probe<int8_t, 16>("paged int8, 16 rows");
+  using shellac::DenseTiles;
+  using shellac::PagedTiles;
+  return probe<__nv_bfloat16, 2, PagedTiles>("paged bf16, 2 rows", 16) |
+         probe<__nv_bfloat16, 16, PagedTiles>("paged bf16, 16 rows", 16) |
+         probe<int8_t, 2, PagedTiles>("paged int8, 2 rows", 16) |
+         probe<int8_t, 16, PagedTiles>("paged int8, 16 rows", 16) |
+         probe<__nv_bfloat16, 2, DenseTiles>("dense bf16, 2 rows", 8) |
+         probe<int8_t, 2, DenseTiles>("dense int8, 2 rows", 8);
 }

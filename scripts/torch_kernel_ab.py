@@ -1,10 +1,12 @@
 """Time the port's bf16 kernels of two checkouts on one CUDA card: kernel 1
 (RMSNorm), kernel 2 (the flash forward), kernels 3 and 4 (the flash
-backward's dk/dv and dq), kernel 5 (dense flash-decode) and kernel 7
-(paged flash-decode, over bf16 and int8 pools).
+backward's dk/dv and dq), kernels 5 and 6 (dense flash-decode over bf16
+and int8 caches) and kernel 7 (paged flash-decode, over bf16 and int8
+pools).
 
     python3 scripts/torch_kernel_ab.py --parent DIR [--seed 0]
-        [--only rms,fwd,bwd,decode,paged,generate] [--also NAME=DIR ...]
+        [--only rms,fwd,bwd,decode,dense-int8,paged,generate]
+        [--also NAME=DIR ...]
 
 DIR is a checkout of an earlier commit of this repository (for example
 unpacked with `git archive` into a directory that .gitignore lists). Each
@@ -12,7 +14,8 @@ checkout's kernel library is built from its own sources into its own
 `build/` directory, both are loaded side by side and called through the
 same C entry points (`shellac_rms_norm`, `shellac_flash_attention`,
 `shellac_flash_attention_bwd_dkdv`, `shellac_flash_attention_bwd_dq`,
-`shellac_decode_attention`, `shellac_paged_decode_attention`,
+`shellac_decode_attention`, `shellac_decode_attention_int8`,
+`shellac_paged_decode_attention`,
 `shellac_paged_decode_attention_int8`) on the same inputs, at the shapes the port's
 main paths give each kernel on shellac-1b (H 16, Hkv 8, D 128, d_model
 2048):
@@ -29,6 +32,9 @@ main paths give each kernel on shellac-1b (H 16, Hkv 8, D 128, d_model
   - decode (s 1, L 2048): generate's ragged step (B 8, lengths 129-577 as
     chip_smoke.py draws them), every slot live to 2048 (B 8), and B 16
     ragged over the whole cache; beside masked scaled_dot_product_attention;
+  - dense-int8: the same three steps over an int8 cache with fp32 scales
+    (kernel 6); beside the nearest library route, two calls: a
+    dequantize of k and v and masked scaled_dot_product_attention;
   - paged (s 1, 16 slots, a 2048-position table): serve's ragged lengths
     (64-1152, as chip_smoke.py draws them) and every slot live to 2048,
     each over a bf16 pool of 16-token blocks and an int8 pool of 64-token
@@ -302,6 +308,79 @@ def call_decode(lib, q, ck, cv, idx, out):
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), idx.data_ptr(), None,
         out.data_ptr(), b, s, h, ck.shape[1], ck.shape[2], d, d ** -0.5, -1,
         0.0, BF16, _stream()))
+
+
+def call_decode_int8(lib, q, ck, cv, ks, vs, idx, out):
+    b, s, h, d = q.shape
+    _raise("shellac_decode_attention_int8", lib.shellac_decode_attention_int8(
+        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), idx.data_ptr(), None, out.data_ptr(), b, s, h,
+        ck.shape[1], ck.shape[2], d, d ** -0.5, -1, 0.0, BF16, _stream()))
+
+
+def run_decode_int8(libs, gen, dev, card, seed):
+    from shellac_tpu_torch.inference.cache import quantize_kv
+    from shellac_tpu_torch.ops.decode_attention import (
+        _decode_ref,
+        _dequantize,
+    )
+
+    bf = torch.bfloat16
+    ok = True
+    for name, (b, kind) in DECODE_SHAPES.items():
+        lengths = decode_lengths(kind, b, seed).astype(np.int32)
+        idx = torch.from_numpy(lengths).to(dev)
+
+        def make():
+            q = torch.randn((b, 1, H, D), generator=gen, device=dev).to(bf)
+            ck, ks = (t[0] for t in quantize_kv(torch.randn(
+                (1, b, HKV, L, D), generator=gen, device=dev)))
+            cv, vs = (t[0] for t in quantize_kv(torch.randn(
+                (1, b, HKV, L, D), generator=gen, device=dev)))
+            return q, ck, cv, ks, vs, idx, torch.empty_like(q)
+
+        # Bytes: q and out, the live int8 k/v rows and their fp32 scales
+        # (2 D + 8 bytes per position and kv head), index.
+        live = int((lengths + 1).sum())
+        nbytes = 2 * b * H * D * 2 + live * HKV * (2 * D + 8) + b * 4
+        first = make()
+        sets = [first] + [make() for _ in range(n_copies(first, nbytes) - 1)]
+        q, ck, cv, ks, vs = first[:5]
+        ref = _decode_ref(q, ck, cv, idx, None, D ** -0.5, k_scale=ks,
+                          v_scale=vs)
+        errs = {}
+        for who, lib in libs.items():
+            out = torch.empty_like(q)
+            call_decode_int8(lib, q, ck, cv, ks, vs, idx, out)
+            torch.cuda.synchronize()
+            errs[who] = close(out, ref)
+            ok = ok and errs[who]["ok"]
+        iters = 200
+        times, eager = ab(libs, lambda lib: lambda *a: call_decode_int8(
+            lib, *a), sets, iters)
+        mask = (torch.arange(L, device=dev)[None, :]
+                < (idx + 1)[:, None].long())[:, None, None, :]
+
+        def library(q, ck, cv, ks, vs, i, o):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), _dequantize(ck, ks, bf),
+                _dequantize(cv, vs, bf), attn_mask=mask, enable_gqa=True)
+
+        calls = graph_ms(library, sets, 50)
+        bms, by = bound(4 * D * H * live, nbytes)
+        new_ms = min(times["new"])
+        print(json.dumps({
+            "pass": "dense-int8", "shape": name, "b": b, "s": 1, "h": H,
+            "hkv": HKV, "L": L, "d": D, "index": idx.tolist(),
+            "ms": times, "eager_ms": eager, "library_calls_ms": calls,
+            "library_calls_what": "dequantize k and v + SDPA",
+            "bound_ms": bms, "bound_by": by, "roofline_share": bms / new_ms,
+            "parent_over_new": min(times["parent"]) / new_ms,
+            "new_over_library_calls": new_ms / calls,
+            "errors": errs, "card": card}), flush=True)
+        del sets, first
+        torch.cuda.empty_cache()
+    return ok
 
 
 def run_decode(libs, gen, dev, card, seed):
@@ -688,7 +767,7 @@ def load_libs(checkouts):
     return libs
 
 
-PASSES = ("rms", "fwd", "bwd", "decode", "paged", "generate")
+PASSES = ("rms", "fwd", "bwd", "decode", "dense-int8", "paged", "generate")
 
 
 def main():
@@ -730,6 +809,8 @@ def main():
         ok = run_bwd(libs, gen, dev, card) and ok
     if "decode" in passes:
         ok = run_decode(libs, gen, dev, card, args.seed) and ok
+    if "dense-int8" in passes:
+        ok = run_decode_int8(libs, gen, dev, card, args.seed) and ok
     if "paged" in passes:
         ok = run_paged(libs, gen, dev, card, args.seed) and ok
     if "generate" in passes:

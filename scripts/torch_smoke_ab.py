@@ -96,15 +96,39 @@ METRICS = {  # name: (key of the line, fields inside it)
     "serve_tokens_per_s": (("serve", "main_path", None), ("tokens_per_s",)),
     "serve_ttft_ms_p50": (("serve", "main_path", None), ("ttft_ms_p50",)),
     "serve_tpot_ms_p50": (("serve", "main_path", None), ("tpot_ms_p50",)),
+    "serve_ttft_ms_p99": (("serve", "main_path", None), ("ttft_ms_p99",)),
+    "serve_tpot_ms_p99": (("serve", "main_path", None), ("tpot_ms_p99",)),
     "serve_launches": (("serve", "main_path", None), ("launches",)),
+    "serve_graphs_captured": (("serve", "main_path", None),
+                              ("graphs_captured",)),
+    "serve_step_wall_ms": (("serve", "profile_engine_step", None),
+                           ("wall_ms",)),
+    "serve_step_device_busy_share": (("serve", "profile_engine_step", None),
+                                     ("device_busy_share",)),
+    "serve_graph_ms_per_tick": (("serve", "decode_tick_wall", None),
+                                ("graph_ms_per_tick",)),
+    "serve_eager_ms_per_tick": (("serve", "decode_tick_wall", None),
+                                ("eager_ms_per_tick",)),
     "serve_int8_step_device_ms": (("serve-int8", "profile_engine_step",
                                    None), ("device_ms",)),
     "serve_int8_step_device_ms_by_kind": (
         ("serve-int8", "profile_engine_step", None), ("device_ms_by_kind",)),
     "serve_int8_tokens_per_s": (("serve-int8", "main_path", None),
                                 ("tokens_per_s",)),
+    "serve_int8_ttft_ms_p50": (("serve-int8", "main_path", None),
+                               ("ttft_ms_p50",)),
+    "serve_int8_tpot_ms_p50": (("serve-int8", "main_path", None),
+                               ("tpot_ms_p50",)),
     "serve_int8_launches": (("serve-int8", "main_path", None),
                             ("launches",)),
+    "serve_int8_step_wall_ms": (("serve-int8", "profile_engine_step", None),
+                                ("wall_ms",)),
+    "serve_int8_step_device_busy_share": (
+        ("serve-int8", "profile_engine_step", None), ("device_busy_share",)),
+    "serve_int8_graph_ms_per_tick": (("serve-int8", "decode_tick_wall",
+                                      None), ("graph_ms_per_tick",)),
+    "serve_int8_eager_ms_per_tick": (("serve-int8", "decode_tick_wall",
+                                      None), ("eager_ms_per_tick",)),
     "generate_decode_step_device_ms": (("generate", "timing", None),
                                        ("decode_step_device_ms",)),
     "generate_prefill_device_ms": (("generate", "profile_prefill", None),
@@ -112,7 +136,29 @@ METRICS = {  # name: (key of the line, fields inside it)
     "generate_prefill_ms": (("generate", "timing", None), ("prefill_ms",)),
     "generate_tokens_per_s": (("generate", "timing", None),
                               ("tokens_per_s",)),
+    "generate_decode_ms_per_token": (("generate", "timing", None),
+                                     ("decode_ms_per_token",)),
+    "generate_graph_ms_per_tick": (("generate", "timing", None),
+                                   ("graph_ms_per_tick",)),
+    "generate_eager_ms_per_tick": (("generate", "timing", None),
+                                   ("eager_ms_per_tick",)),
+    "generate_decode_step_busy_share": (("generate", "timing", None),
+                                        ("decode_step_busy_share",)),
+    "generate_graph_loop_device_busy_share": (
+        ("generate", "timing", None), ("graph_loop_device_busy_share",)),
+    "generate_graph_tokens_equal_eager": (("generate", "timing", None),
+                                          ("graph_tokens_equal_eager",)),
     "generate_launches": (("generate", "main_path", None), ("launches",)),
+    "generate_graphs_captured": (("generate", "main_path", None),
+                                 ("graphs_captured",)),
+    "generate_int8_decode_step_device_ms": (
+        ("generate-int8", "timing", None), ("decode_step_device_ms",)),
+    "generate_int8_graph_ms_per_tick": (("generate-int8", "timing", None),
+                                        ("graph_ms_per_tick",)),
+    "generate_int8_eager_ms_per_tick": (("generate-int8", "timing", None),
+                                        ("eager_ms_per_tick",)),
+    "generate_int8_tokens_per_s": (("generate-int8", "main_path", None),
+                                   ("tokens_per_s",)),
     "generate_int8_launches": (("generate-int8", "main_path", None),
                                ("launches",)),
     "generate_decode_step_device_ms_by_kind": (
@@ -142,6 +188,8 @@ METRICS = {  # name: (key of the line, fields inside it)
                               "full_live"), ("ms",)),
     "kernel6_ms": (("timings", "decode_attention_dense_int8",
                     "generate_int8_ragged"), ("ms",)),
+    "kernel6_ms_full_live": (("timings", "decode_attention_dense_int8",
+                              "full_live_int8"), ("ms",)),
     "kernel7_ms": (("timings", "paged_decode_attention", "serve_ragged"),
                    ("ms",)),
     "kernel7_int8_ms": (("timings", "paged_decode_attention_int8",

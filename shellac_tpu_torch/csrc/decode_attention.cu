@@ -7,20 +7,24 @@
 //
 // Replaces the Pallas kernels `_dense_kernel` and `_dense_kernel_quant`
 // (shellac_tpu/ops/decode_attention.py) over their tile body
-// `_decode_tile`, launched by `_dense_flash`. The fp32 cache (the parity
-// path) and the int8 cache run the shared warp-parallel body of
-// decode_core.cuh, one 256-thread block per (slot, kv head). The bf16
-// cache, which the main path runs, takes the split-K body of
-// decode_split.cuh (`decode_split_kernel`, whose note gives the design)
-// with DenseTiles below: a slot's kv-head range is contiguous, so a tile
-// of k (or of v) is one 1-D bulk copy.
+// `_decode_tile`, launched by `_dense_flash`. A bf16 q, which the main
+// paths run, takes the split-K body of decode_split.cuh
+// (`decode_split_kernel`, whose note gives the design) with DenseTiles
+// below, over the bf16 cache (kernel 5) and over the int8 cache (kernel
+// 6): a slot's kv-head range is contiguous, so a tile of k (or of v) is
+// one 1-D bulk copy of n * D * sizeof(KT) bytes between 16-byte-aligned
+// rows (a row is 64-256 bytes at D 64 and 128, and the wrapper refuses an
+// unaligned cache), and an int8 tile's scales are per-lane loads at the
+// same row indices. An fp32 q (the parity path) runs the warp-parallel
+// body of decode_core.cuh with DenseRows, one 256-thread block per (slot,
+// kv head).
 //
 // Bound on the H100: bytes (2 * live * D * 2 bytes per slot and kv head
-// for ~4 flops a byte), but at a decode step's sizes mostly latency: at
-// shellac-1b's generate shape (B 8, Hkv 8, 128-576 live positions) one
-// block per (slot, kv head) is 64 blocks on 132 SMs, each walking its
-// range in serial chunks. The split body takes clusters of 4 there, so
-// all 256 CTAs are resident together.
+// in bf16, 2 * live * (D + 4) in int8), but at a decode step's sizes
+// mostly latency: at shellac-1b's generate shape (B 8, Hkv 8, 128-576
+// live positions) one block per (slot, kv head) is 64 blocks on 132
+// SMs, each walking its range in serial chunks. The split body takes
+// clusters of 4 or 8 there, so all its CTAs are resident together.
 #include "decode_core.cuh"
 #include "decode_split.cuh"
 
@@ -50,8 +54,9 @@ cudaError_t launch_dense(const void* q, const void* k, const void* v,
                                Hkv, D, scale, window, softcap, addr, stream);
 }
 
-// Kernel 5's tiles policy for the split-K body (decode_split.cuh): a
-// slot's kv-head range is contiguous, so a tile of k (or v) is one copy.
+// Kernels 5 and 6's tiles policy for the split-K body (decode_split.cuh):
+// a slot's kv-head range is contiguous, so a tile of k (or v) is one copy,
+// and position p0 + lane's row (its int8 scale's index) is DenseRows's.
 struct DenseTiles {
   int L, Hkv;
   size_t base;  // row of position 0 of this block's (slot, kv head)
@@ -111,8 +116,8 @@ extern "C" int shellac_decode_attention_int8(
                                                 D, scale, window, softcap,
                                                 st);
   if (dtype == shellac::kBF16)
-    return shellac::launch_dense<__nv_bfloat16, int8_t>(
-        q, k, v, ks, vs, index, sinks, out, B, s, H, Hkv, L, D, scale,
-        window, softcap, st);
+    return shellac::split::launch<int8_t>(
+        q, k, v, ks, vs, index, sinks, out, B, s, H, Hkv, D, scale, window,
+        softcap, shellac::DenseTiles{L, Hkv, 0}, st);
   return (int)cudaErrorInvalidValue;
 }

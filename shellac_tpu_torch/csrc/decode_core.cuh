@@ -1,4 +1,5 @@
-// Flash-decode body shared by the dense and the paged decode kernels.
+// Flash-decode body shared by the dense and the paged decode kernels for
+// an fp32 q, the parity path; a bf16 q takes decode_split.cuh.
 //
 // q (B, s, H, D) attends one slot's kv rows; q row si of slot b sits at
 // position index[b] + si and attends kv positions <= its own, optionally

@@ -1,6 +1,7 @@
 // Split-K flash-decode over a thread-block cluster, the Hopper body of
-// the bf16 dense decode (kernel 5, decode_attention.cu) and of the paged
-// decode in bf16 and int8 (kernel 7, paged_decode_attention.cu).
+// the dense decode over bf16 and int8 caches (kernels 5 and 6,
+// decode_attention.cu) and of the paged decode over bf16 and int8 pools
+// (kernel 7, paged_decode_attention.cu).
 //
 // q (B, s, H, D) bf16 attends one slot's kv rows, stored in bf16 or in
 // int8 (KT = int8_t) with one fp32 scale per (position, kv head). The
@@ -169,7 +170,8 @@ __device__ __forceinline__ void load_f32(const KT* p, float* out) {
 // int8 stage is half the size, so registers bound it instead: at up to
 // kRegRows rows, 5 CTAs a SM (at most 102 registers) let serve-int8's 128
 // clusters of 4 run at once (at 4 a SM the card holds 124 such
-// clusters), where bf16's split is 2.
+// clusters), where bf16's split is 2; the dense int8 instances (kernel 6)
+// take the same bounds.
 template <typename KT, int D, int R, typename Tiles>
 __global__ void __launch_bounds__(
     kThreads, std::is_same<KT, int8_t>::value && R <= kRegRows ? 5 : 1)

@@ -9,10 +9,16 @@ fixed-shape slot batch on the device and multiplexes requests onto it:
     scattering it into the slot: a dense row (`scatter_slot`), or the
     slot's pages of the block pool through its table row;
   - every decode window runs `decode_ticks` single-token forwards over
-    ALL slots, a Python loop where the JAX package runs a `lax.scan`;
-    idle slots compute values that are discarded, and a slot that
-    finishes inside the window (EOS or budget) freezes on the device, so
-    shapes never change; the host syncs once per window;
+    ALL slots; idle slots compute values that are discarded, and a slot
+    that finishes inside the window (EOS or budget) freezes on the
+    device, so shapes never change; the host syncs once per window. The
+    window reads and writes only tensors that keep their identity for
+    the engine's life (the cache, the next tokens, the stop state, the
+    sampling settings, the active mask), so on the card it runs as a
+    CUDA graph (`inference/graphs.py`), the counterpart of the JAX
+    package's jitted `lax.scan`: one graph per window variant (greedy
+    only, or sampling), whose first window runs eagerly and every later
+    one replays the graph. On the CPU every window runs eagerly;
   - a request leaves its slot on EOS, a stop sequence or its max_new
     budget, and the slot is refillable at once.
 
@@ -40,6 +46,7 @@ traces and QoS tags.
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -57,6 +64,7 @@ from shellac_tpu_torch.inference.cache import (
     resolve_backend_name,
     scatter_slot,
 )
+from shellac_tpu_torch.inference.graphs import StepGraph
 from shellac_tpu_torch.models import transformer
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
 from shellac_tpu_torch.ops.sampling import NEG_INF, sample_batched
@@ -249,8 +257,12 @@ class BatchingEngine:
         self._srem = full(0, torch.int32)
         self._sdone = full(False, torch.bool)
         self._cur = full(0, torch.int64)
+        # The slots a window advances, copied in before each window.
+        self._active = full(False, torch.bool)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(int(seed))
+        # The decode window's runner per variant (greedy_only).
+        self._windows: Dict[bool, StepGraph] = {}
 
         self._cache = backend.init_cache(dev)
         # Host copy of each slot's cache length (positions written).
@@ -270,6 +282,8 @@ class BatchingEngine:
             # Admissions put back because the backend had no room.
             "pool_exhausted": 0,
             "decode_windows": 0,
+            # Window variants captured as CUDA graphs (the card only).
+            "decode_graphs": 0,
         }
 
     # ---- sampling ----------------------------------------------------
@@ -529,12 +543,20 @@ class BatchingEngine:
         (tokens per slot, logprobs per slot or None, top-K per slot or
         None), each cut to the slot's valid ticks."""
         self.cache_backend.pre_window(active_rows, self.decode_ticks)
-        self._cache.max_length = max(self._host_len)
+        top = max(self._host_len)
+        # The write guard forward_with_cache keeps runs at capture only,
+        # so the window is checked here.
+        if top + self.decode_ticks > self._cache.max_len:
+            raise ValueError(
+                f"cache write of {self.decode_ticks} positions at length "
+                f"{top} passes max_len={self._cache.max_len}"
+            )
+        self._cache.max_length = top
         greedy_only = all(
             r is None or r.temperature == 0.0 for r in self._slots
         )
-        active = torch.tensor(active_rows, device=self.device)
-        toks, lps, tlv, tli, acts = self._decode_impl(active, greedy_only)
+        self._active.copy_(torch.tensor(active_rows))
+        toks, lps, tlv, tli, acts = self._decode_impl(greedy_only)
         self.stats["decode_windows"] += 1
         packed = torch.cat([toks, acts.to(torch.int64)]).cpu().numpy()
         host_toks, host_acts = packed[:len(toks)], packed[len(toks):]
@@ -560,24 +582,42 @@ class BatchingEngine:
         ]
         return per_slot, per_lps, per_tl
 
-    def _decode_impl(self, active, greedy_only: bool):
+    def _graph(self, fn, generator):
+        """The runner of a window program `fn`: a CUDA graph on the card."""
+        return StepGraph(fn, self.device, generator)
+
+    def _decode_impl(self, greedy_only: bool):
+        """One window through its variant's runner (a graph replay on the
+        card, after the variant's first, eager window)."""
+        window = self._windows.get(greedy_only)
+        if window is None:
+            window = self._windows[greedy_only] = self._graph(
+                functools.partial(self._window, greedy_only), self._gen)
+        out = window()
+        self.stats["decode_graphs"] = sum(
+            w.graph is not None for w in self._windows.values())
+        return out
+
+    def _window(self, greedy_only: bool):
         """decode_ticks single-token forwards over every slot. A slot
         whose sampled token is EOS, or whose budget runs out, sets its
         sticky done flag and freezes (length, stop state, token) for the
-        rest of the window. Returns (tokens, logprobs, top-K values, top-K
-        ids, validity flags), each stacked (ticks, n_slots, ...)."""
-        cache, cur = self._cache, self._cur
+        rest of the window. The cache, the next tokens and the stop state
+        are written back in place. Returns (tokens, logprobs, top-K values,
+        top-K ids, validity flags), each stacked (ticks, n_slots, ...)."""
+        cache, cur, active = self._cache, self._cur, self._active
         min_rem, rem, done = self._smin, self._srem, self._sdone
         outs = []
         for _ in range(self.decode_ticks):
             act = active & ~done
-            old_lengths = cache.lengths
-            logits, cache = transformer.forward_with_cache(
+            logits, grown = transformer.forward_with_cache(
                 self.cfg, self.params, cur[:, None], cache,
                 attn_impl=self.attn_impl,
             )
-            cache.lengths = torch.where(act, cache.lengths, old_lengths)
-            nxt, min_rem, lp, tlv, tli = self._row_decode_step(
+            cache.lengths.copy_(
+                torch.where(act, grown.lengths, cache.lengths))
+            cache.max_length = grown.max_length
+            nxt, new_min, lp, tlv, tli = self._row_decode_step(
                 logits[:, 0], cur, act, min_rem, greedy_only)
             # This token ends the request when it is EOS (min_tokens has
             # banned EOS while its countdown runs) or the last of the
@@ -585,12 +625,11 @@ class BatchingEngine:
             fin = act & (rem <= 1)
             if self.eos_id is not None:
                 fin = fin | (act & (nxt == self.eos_id))
-            rem = torch.where(act, (rem - 1).clamp_min(0), rem)
-            done = done | fin
-            cur = nxt
+            rem.copy_(torch.where(act, (rem - 1).clamp_min(0), rem))
+            done.logical_or_(fin)
+            min_rem.copy_(new_min)
+            cur.copy_(nxt)
             outs.append((nxt, lp, tlv, tli, act))
-        self._cache, self._cur = cache, cur
-        self._smin, self._srem, self._sdone = min_rem, rem, done
         return tuple(torch.stack(x) for x in zip(*outs))
 
     def _row_decode_step(self, logits, cur, act, min_rem, greedy_only):

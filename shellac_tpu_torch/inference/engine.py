@@ -1,13 +1,18 @@
 """Autoregressive generation engine.
 
 Prefill consumes the whole right-padded prompt batch in one cached
-forward (flash attention within the chunk); decode is a Python loop of
-single-token cached forwards (flash-decode over the dense cache), where
-the JAX package runs a `lax.scan`. The first token comes from the
-prefill logits and `steps - 1` decode forwards follow, so no trailing
-forward is wasted. Same sampling contract as the JAX package's `Engine`:
-repetition penalty over a `seen` mask of the prompt and every sampled
-token, and the log-probability of each chosen token under the penalized
+forward (flash attention within the chunk); decode is `steps - 1`
+single-token steps (cached forward with flash-decode over the dense
+cache, repetition penalty, sampling, the `seen` update, the logprob),
+where the JAX package runs a jitted `lax.scan`. A step reads its input
+token from a fixed tensor and writes the cache, the next token and its
+logprob in place, so on the card the first step runs eagerly and every
+later one replays its CUDA graph (`inference/graphs.py`, captured once
+per `generate` call); on the CPU every step runs eagerly. The first
+token comes from the prefill logits, so no trailing forward is wasted.
+Same sampling contract as the JAX package's `Engine`: repetition
+penalty over a `seen` mask of the prompt and every sampled token, and
+the log-probability of each chosen token under the penalized
 (untempered) logits. `kv_quant="int8"` keeps the cache in int8 with
 per-token scales (JAX `engine.py:71-83`): the prefill attends its exact
 chunk, and every decode reads the int8 cache through its int8 kernel.
@@ -22,6 +27,7 @@ import torch
 
 from shellac_tpu_torch.config import ModelConfig
 from shellac_tpu_torch.inference.cache.layout import init_cache_for
+from shellac_tpu_torch.inference.graphs import StepGraph
 from shellac_tpu_torch.models import transformer
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
 from shellac_tpu_torch.ops.sampling import repetition_penalty, sample
@@ -102,28 +108,57 @@ class Engine:
     def _choose(self, generator, logits, seen, rows):
         logits = repetition_penalty(logits, seen, self.repetition_penalty)
         tok = self._sample(generator, logits)
-        seen[rows, tok] = True
+        # The True is a device tensor: a host scalar would be copied in,
+        # which a CUDA graph capture refuses.
+        seen.index_put_((rows, tok), seen.new_ones(()))
         lp = torch.log_softmax(logits.float(), dim=-1).gather(
             1, tok[:, None]
         )[:, 0]
         return tok, lp
 
+    def _graph(self, fn, generator):
+        """The runner of the decode step `fn`: a CUDA graph on the card."""
+        return StepGraph(fn, self.device, generator)
+
     def _decode_impl(self, first_token_logits, cache, steps, generator, seen):
         b = first_token_logits.shape[0]
-        rows = torch.arange(b, device=self.device)
-        tok, lp = self._choose(generator, first_token_logits, seen, rows)
-        toks, lps = [tok], [lp]
-        for _ in range(steps - 1):
-            logits, cache = transformer.forward_with_cache(
-                self.cfg, self.params, tok[:, None], cache,
-                attn_impl=self.attn_impl,
-            )
-            tok, lp = self._choose(generator, logits[:, 0], seen, rows)
-            toks.append(tok)
-            lps.append(lp)
+        dev = self.device
+        rows = torch.arange(b, device=dev)
+        toks = torch.empty((steps, b), dtype=torch.int64, device=dev)
+        lps = torch.empty((steps, b), dtype=torch.float32, device=dev)
+        cur, lp = self._choose(generator, first_token_logits, seen, rows)
+        toks[0], lps[0] = cur, lp
+        if steps > 1:
+            # The write guard forward_with_cache keeps runs at capture
+            # only, so the whole decode is checked here.
+            if cache.max_length + steps - 1 > cache.max_len:
+                raise ValueError(
+                    f"cache write of {steps - 1} positions at length "
+                    f"{cache.max_length} passes max_len={cache.max_len}"
+                )
+            at = torch.ones((1,), dtype=torch.int64, device=dev)
+
+            def step():
+                """One decode step over fixed tensors: the input token
+                `cur`, the cache, `seen`; writes row `at` of toks/lps."""
+                logits, grown = transformer.forward_with_cache(
+                    self.cfg, self.params, cur[:, None], cache,
+                    attn_impl=self.attn_impl,
+                )
+                cache.lengths.copy_(grown.lengths)
+                cache.max_length = grown.max_length
+                tok, lp = self._choose(generator, logits[:, 0], seen, rows)
+                cur.copy_(tok)
+                toks.index_copy_(0, at, tok[None])
+                lps.index_copy_(0, at, lp[None])
+                at.add_(1)
+
+            run = self._graph(step, generator)
+            for _ in range(steps - 1):
+                run()
         return GenerationResult(
-            tokens=torch.stack(toks, dim=1).to(torch.int32),
-            logprobs=torch.stack(lps, dim=1),
+            tokens=toks.t().contiguous().to(torch.int32),
+            logprobs=lps.t().contiguous(),
         )
 
     @torch.inference_mode()

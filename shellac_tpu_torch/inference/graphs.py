@@ -1,0 +1,117 @@
+"""The engines' decode steps as captured CUDA graphs: the port's
+counterpart of the JAX package's jitted `lax.scan` windows.
+
+A `StepGraph` wraps one decode program (`Engine`'s decode step, a
+batching engine's window of `decode_ticks` ticks) that reads and writes
+only tensors which keep their identity from call to call. On a CUDA
+device its first call runs the program eagerly: a real step, and the
+warm-up that capture needs (lazy initialisation, the kernels' one-time
+host queries). The second call captures the program, which executes
+nothing, then replays it; every later call replays it. On the CPU every
+call runs the program eagerly. A capture or replay that fails raises:
+there is no eager fallback on the card.
+
+Random numbers: a program that samples draws from a `torch.Generator`
+registered with its graph, so each replay draws fresh numbers.
+
+Launch counters: each kernel wrapper counts its launches in Python when
+it is called, which a replay does not do. The capture restores every
+counter to its value before the capture and records how much each grew;
+every replay adds that, so a replayed step counts exactly the launches
+the eager step counts.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+
+def counted_wrappers():
+    """The kernel wrappers whose `launches` counters a replay updates."""
+    from shellac_tpu_torch.ops import decode_attention as da
+    from shellac_tpu_torch.ops import flash_attention as fa
+    from shellac_tpu_torch.ops import norms
+
+    return (norms.rms_norm_cuda, fa.flash_attention_cuda,
+            fa.flash_bwd_dkdv_cuda, fa.flash_bwd_dq_cuda,
+            da.decode_attention_cuda, da.decode_attention_quant_cuda,
+            da.paged_decode_attention_cuda,
+            da.paged_decode_attention_quant_cuda)
+
+
+class StepGraph:
+    """A decode program run eagerly once, then captured and replayed (on
+    a CUDA device); run eagerly on every call elsewhere. Calling it
+    returns the program's outputs, which on the card are the captured
+    outputs, overwritten by each replay."""
+
+    # Graphs captured by every StepGraph of the process.
+    captures = 0
+
+    def __init__(self, fn: Callable, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self.fn = fn
+        self.device = device
+        self.generator = generator
+        self.calls = 0
+        self.graph = None
+        self._out = None
+        self._launches = ()
+
+    def __call__(self):
+        self.calls += 1
+        if self.device.type != "cuda" or self.calls == 1:
+            return self.fn()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        for wrapper, n in self._launches:
+            wrapper.launches += n
+        return self._out
+
+    def _capture(self) -> None:
+        wrappers = counted_wrappers()
+        before = [w.launches for w in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        pool = torch.cuda.graph_pool_handle()
+        torch.cuda.synchronize(self.device)
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(self.device)):
+                graph.capture_begin(pool=pool)
+                try:
+                    out = self.fn()
+                except BaseException:
+                    _abandon(graph, pool, self.device)
+                    raise
+                graph.capture_end()
+            grown = [w.launches - b for w, b in zip(wrappers, before)]
+        finally:
+            for w, b in zip(wrappers, before):
+                w.launches = b
+        self.graph, self._out = graph, out
+        self._launches = tuple((w, n) for w, n in zip(wrappers, grown) if n)
+        StepGraph.captures += 1
+
+
+def _abandon(graph, pool, device: torch.device) -> None:
+    """End a capture whose program raised. An invalidated capture makes
+    `capture_end` raise before it hands the allocator's routing back, so
+    that is done here, and the pool is released; the program's own error
+    is the one reported."""
+    try:
+        graph.capture_end()
+        return
+    except RuntimeError:
+        pass
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    for release in (torch._C._cuda_endAllocateToPool,
+                    torch._C._cuda_releasePool):
+        try:
+            release(index, pool)
+        except RuntimeError:
+            pass

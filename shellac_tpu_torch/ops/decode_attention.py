@@ -18,10 +18,9 @@ max_blocks). An int8 cache comes with fp32 per-(token, kv head) scales,
 On CUDA tensors each launches its kernel (`csrc/decode_attention.cu`,
 `csrc/paged_decode_attention.cu`), which reads only each slot's live
 range, or raises on a shape the kernel does not take. A bf16 q takes the
-split-K body of `csrc/decode_split.cuh` over the dense bf16 cache and over
-the paged pool in bf16 or int8; the fp32 parity path and the dense int8
-cache take the one-block-per-(slot, kv head) body of
-`csrc/decode_core.cuh`. An int8
+split-K body of `csrc/decode_split.cuh` over the dense cache and the
+paged pool, each in bf16 or int8; the fp32 parity path takes the
+one-block-per-(slot, kv head) body of `csrc/decode_core.cuh`. An int8
 cache on the card launches its int8 kernel or raises: nothing
 dequantizes the whole cache there (the JAX package's
 `QuantFallbackWarning` fallback is not ported). On CPU tensors each

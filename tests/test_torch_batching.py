@@ -344,6 +344,40 @@ def test_engines_match_single_request_engine():
         assert results[0][rid] == want == results[1][rid], rid
 
 
+@pytest.mark.parametrize("backend", ["dense", "paged", "dense-int8",
+                                     "paged-int8"])
+def test_window_state_keeps_its_tensors(backend):
+    """What the decode window's CUDA graph replays against: across
+    windows, releases and refills, every tensor the window reads or
+    writes keeps its storage, and its device lengths agree with the
+    host's."""
+    _, tc, _, tp = _cached_pair("tiny")
+    paged = backend.startswith("paged")
+    cls = batching.PagedBatchingEngine if paged else batching.BatchingEngine
+    eng = cls(tc, tp, n_slots=2, max_len=64, cache_backend=backend,
+              decode_ticks=2, device=CPU)
+    names = (["lengths", "k", "v"] + (["tables"] if paged else [])
+             + (["ks", "vs"] if backend.endswith("int8") else []))
+    fixed = [getattr(eng._cache, n) for n in names] + [
+        eng._cur, eng._smin, eng._srem, eng._sdone, eng._active,
+        eng._stemp, eng._stopk, eng._stopp, eng._sminp]
+    ptrs = [t.data_ptr() for t in fixed]
+    cache = eng._cache
+    rng = _rng("identity", backend)
+    for i, (n, m) in enumerate([(5, 3), (9, 6), (3, 2), (7, 5), (4, 3)]):
+        eng.submit(f"r{i}", rng.integers(0, tc.vocab_size, n), m)
+    finished, windows = 0, 0
+    while eng.pending:
+        finished += len(eng.step())
+        windows = eng.stats["decode_windows"]
+        assert eng._cache is cache
+        assert [t.data_ptr() for t in fixed] == ptrs
+        assert eng._cache.lengths.tolist() == eng._host_len
+    assert finished == 5 and windows >= 3
+    assert eng.stats["prefills"] == 5 > eng.n_slots
+    assert eng.stats["decode_graphs"] == 0  # the CPU runs windows eagerly
+
+
 # --------------------------------------------------------------------------
 # (d) batched sampling
 # --------------------------------------------------------------------------

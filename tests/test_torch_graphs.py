@@ -1,0 +1,242 @@
+"""The engines' decode loops as CUDA graphs, on a card.
+
+Marked `gpu`: each test skips in its body when no CUDA device is present.
+On a card:
+
+    python -m pytest -m gpu tests/test_torch_graphs.py --noconftest
+
+At shellac-1b's width cut to 2 layers, in bf16 (random weights from a
+seed), over the dense and paged caches in bf16 and int8: greedy tokens
+through the graphs equal the eager loop's (the same tick code run
+without a graph) exactly, and so do the kernels' launch counts; sampled
+windows draw fresh numbers on every replay and the same numbers from the
+same seed; a capture that fails raises.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from shellac_tpu_torch.inference import batching
+from shellac_tpu_torch.inference.engine import Engine
+from shellac_tpu_torch.inference.graphs import StepGraph, counted_wrappers
+from shellac_tpu_torch.models import transformer
+from shellac_tpu_torch.models.registry import get_model_config
+
+pytestmark = pytest.mark.gpu
+
+BACKENDS = ["dense", "paged", "dense-int8", "paged-int8"]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+_MODEL = {}
+
+
+def _model(dev):
+    """shellac-1b's width, 2 layers, bf16, random weights from a seed."""
+    if "m" not in _MODEL:
+        cfg = get_model_config("shellac-1b").replace(n_layers=2)
+        _MODEL["m"] = cfg, transformer.init_params(cfg, seed=3, device=dev)
+    return _MODEL["m"]
+
+
+class _EagerEngine(Engine):
+    """Engine whose decode steps run eagerly: the loop the graph replaces."""
+
+    def _graph(self, fn, generator):
+        return fn
+
+
+def _eager(cls):
+    """A batching engine class whose windows run eagerly."""
+
+    class Eager(cls):
+        def _decode_impl(self, greedy_only):
+            return self._window(greedy_only)
+
+    return Eager
+
+
+def _counts():
+    return {w.__name__: w.launches for w in counted_wrappers()}
+
+
+def _reset():
+    for w in counted_wrappers():
+        w.launches = 0
+
+
+def _prompts(vocab, b=4, s=96):
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, vocab, (b, s)).astype(np.int64))
+    lens = torch.tensor([96, 17, 50, 64][:b], dtype=torch.int32)
+    return toks, lens
+
+
+def _requests(vocab, n=7):
+    rng = np.random.default_rng(11)
+    return [(f"r{i}", rng.integers(0, vocab, int(rng.integers(5, 120))),
+             int(rng.integers(3, 20))) for i in range(n)]
+
+
+def _engine_kw(backend):
+    kw = dict(n_slots=3, max_len=256, cache_backend=backend)
+    if backend == "paged":
+        kw["block_size"] = 16
+    return kw
+
+
+def _batching_cls(backend):
+    return (batching.PagedBatchingEngine if backend.startswith("paged")
+            else batching.BatchingEngine)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_engine_graph_matches_eager(kv_quant):
+    dev = _card()
+    cfg, params = _model(dev)
+    toks, lens = _prompts(cfg.vocab_size)
+    out, counts = {}, {}
+    for name, cls in (("eager", _EagerEngine), ("graph", Engine)):
+        eng = cls(cfg, params, max_len=256, temperature=0.0,
+                  kv_quant=kv_quant, device=dev)
+        _reset()
+        captured = StepGraph.captures
+        out[name] = eng.generate(toks.to(dev), lens.to(dev),
+                                 max_new_tokens=12)
+        torch.cuda.synchronize()
+        counts[name] = _counts()
+        assert StepGraph.captures - captured == (name == "graph")
+    assert torch.equal(out["graph"].tokens, out["eager"].tokens)
+    assert torch.equal(out["graph"].logprobs, out["eager"].logprobs)
+    assert counts["graph"] == counts["eager"]
+    decode = ("decode_attention_quant_cuda" if kv_quant
+              else "decode_attention_cuda")
+    assert counts["graph"][decode] == cfg.n_layers * 11
+    assert counts["graph"]["rms_norm_cuda"] == (2 * cfg.n_layers + 1) * 12
+
+
+@pytest.mark.parametrize("ticks", [1, 3])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_batching_graph_matches_eager(backend, ticks):
+    """Greedy windows through the graph: the same tokens and logprobs as
+    the eager windows, through slot churn, and the same launch counts."""
+    dev = _card()
+    cfg, params = _model(dev)
+    reqs = _requests(cfg.vocab_size)
+    cls = _batching_cls(backend)
+    out, counts, engines = {}, {}, {}
+    for name, c in (("eager", _eager(cls)), ("graph", cls)):
+        eng = c(cfg, params, decode_ticks=ticks, logprobs=True, device=dev,
+                **_engine_kw(backend))
+        _reset()
+        out[name] = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts[name], engines[name] = _counts(), eng
+    assert out["graph"] == out["eager"]
+    for rid, _, _ in reqs:
+        assert (engines["graph"].finished_logprobs[rid]
+                == engines["eager"].finished_logprobs[rid])
+    assert counts["graph"] == counts["eager"]
+    windows = engines["graph"].stats["decode_windows"]
+    assert windows == engines["eager"].stats["decode_windows"] > 2
+    assert engines["graph"].stats["decode_graphs"] == 1
+    assert engines["eager"].stats["decode_graphs"] == 0
+    decode = {"dense": "decode_attention_cuda",
+              "dense-int8": "decode_attention_quant_cuda",
+              "paged": "paged_decode_attention_cuda",
+              "paged-int8": "paged_decode_attention_quant_cuda"}[backend]
+    assert counts["graph"][decode] == cfg.n_layers * ticks * windows
+
+
+def _uniform(dev):
+    """The 2-layer model with a final norm that zeroes every logit, so a
+    sampled token depends on the random numbers alone."""
+    cfg, params = _model(dev)
+    flat = dict(params, final_norm=torch.full_like(params["final_norm"],
+                                                   -1.0))
+    return cfg, flat
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged-int8"])
+def test_sampled_windows_draw_fresh_numbers(backend):
+    """Uniform logits: a replay that reused its capture's numbers would
+    repeat one token. Consecutive replays draw different tokens; a fresh
+    engine with the same seed draws the same ones."""
+    dev = _card()
+    cfg, params = _uniform(dev)
+    reqs = [("a", np.arange(1, 9), 24), ("b", np.arange(3, 40), 24)]
+    outs = []
+    for _ in range(2):
+        eng = _batching_cls(backend)(cfg, params, temperature=1.0, seed=5,
+                                     device=dev, **_engine_kw(backend))
+        outs.append(eng.run(reqs))
+        assert eng.stats["decode_graphs"] == 1
+    assert outs[0] == outs[1]
+    for rid in ("a", "b"):
+        toks = outs[0][rid]
+        assert len(set(toks)) > len(toks) // 2, toks
+        assert sum(a != b for a, b in zip(toks, toks[1:])) > len(toks) // 2
+    assert outs[0]["a"] != outs[0]["b"]
+
+
+def test_sampled_generate_draws_fresh_numbers():
+    dev = _card()
+    cfg, params = _uniform(dev)
+    toks, lens = _prompts(cfg.vocab_size, b=2)
+    eng = Engine(cfg, params, max_len=256, temperature=1.0, device=dev)
+
+    def run(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return eng.generate(toks.to(dev), lens.to(dev), max_new_tokens=16,
+                            generator=g).tokens
+
+    first = run(9)
+    assert torch.equal(first, run(9))
+    assert not torch.equal(first, run(10))
+    for row in first.tolist():
+        assert len(set(row)) > len(row) // 2, row
+
+
+def _syncing(fn):
+    """fn, with a host sync whenever a CUDA graph is being captured."""
+
+    def wrapped(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return fn(*args, **kw)
+
+    return wrapped
+
+
+def test_failed_capture_raises(monkeypatch):
+    """No eager fallback on the card: a capture that fails raises, on
+    every window that tries it, and the launch counters stay as the eager
+    windows left them."""
+    dev = _card()
+    cfg, params = _model(dev)
+    monkeypatch.setattr(batching.transformer, "forward_with_cache",
+                        _syncing(transformer.forward_with_cache))
+    eng = batching.BatchingEngine(cfg, params, device=dev,
+                                  **_engine_kw("dense"))
+    eng.submit("a", np.arange(1, 9), 8)
+    eng.step()  # the first window runs eagerly
+    before = _counts()
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            eng.step()
+        assert _counts() == before
+    assert eng.stats["decode_graphs"] == 0
+    toks, lens = _prompts(cfg.vocab_size, b=2)
+    with pytest.raises(RuntimeError):
+        Engine(cfg, params, max_len=256, temperature=0.0,
+               device=dev).generate(toks.to(dev), lens.to(dev),
+                                    max_new_tokens=4)
+    # The failed captures handed the allocator back.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()

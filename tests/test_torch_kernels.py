@@ -498,6 +498,8 @@ def _quant_rows(gen, shape, dev):
     return q[0].contiguous(), s[0].contiguous()
 
 
+# Today's cases (b 4, index [0, 37, L / 2 + 3, L - s]), then kernel 5's
+# split-K edges over an int8 cache (_DECODE's shapes and lengths).
 _DECODE_Q = {
     "main_s1": dict(s=1, h=16, hkv=8, L=2048, d=128),
     "s1_d64": dict(s=1, h=16, hkv=8, L=700, d=64),
@@ -505,24 +507,37 @@ _DECODE_Q = {
     "s4_d64_g4": dict(s=4, h=8, hkv=2, L=300, d=64),
     "window_softcap_sinks": dict(s=2, h=16, hkv=8, L=1000, d=128,
                                  window=100, softcap=30.0, sinks=True),
+    **{f"split_{name}": _DECODE[name] for name in (
+        "b1_shorter_than_a_tile", "b16_ragged", "index_0",
+        "tiles_not_a_multiple_of_split", "index_plus_s_is_L",
+        "window_across_splits", "s4", "g8_16_rows", "d64",
+        "d64_g8_window_sinks")},
 }
+
+
+def _decode_q_inputs(case, dtype, dev):
+    """q, the int8 caches and their scales, index and the keyword
+    arguments of a _DECODE_Q case."""
+    c = dict(_DECODE_Q[case])
+    s, h, hkv, L, d = (c.pop(k) for k in ("s", "h", "hkv", "L", "d"))
+    b = c.pop("b", 4)
+    index = c.pop("index", [0, 37, L // 2 + 3, L - s])
+    gen = torch.Generator(device=dev).manual_seed(L + d + s)
+    q = _randn(gen, (b, s, h, d), dtype, dev)
+    ck, ks = _quant_rows(gen, (b, hkv, L, d), dev)
+    cv, vs = _quant_rows(gen, (b, hkv, L, d), dev)
+    index = torch.tensor(index, dtype=torch.int32, device=dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    return q, ck, cv, ks, vs, index, c
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(_DECODE_Q))
 def test_decode_attention_quant_kernel(dtype, case):
     dev = _card()
-    c = dict(_DECODE_Q[case])
-    s, h, hkv, L, d = (c.pop(k) for k in ("s", "h", "hkv", "L", "d"))
-    b = 4
-    gen = torch.Generator(device=dev).manual_seed(L + d + s)
-    q = _randn(gen, (b, s, h, d), dtype, dev)
-    ck, ks = _quant_rows(gen, (b, hkv, L, d), dev)
-    cv, vs = _quant_rows(gen, (b, hkv, L, d), dev)
-    index = torch.tensor([0, 37, L // 2 + 3, L - s], dtype=torch.int32,
-                         device=dev)
-    if c.pop("sinks", False):
-        c["sinks"] = _randn(gen, (h,), torch.float32, dev)
+    q, ck, cv, ks, vs, index, c = _decode_q_inputs(case, dtype, dev)
+    s, d = q.shape[1], q.shape[3]
     before = (da.decode_attention_quant_cuda.launches,
               da.decode_attention_cuda.launches)
     out = da.decode_attention(q, ck, cv, index, k_scale=ks, v_scale=vs, **c)
@@ -532,15 +547,36 @@ def test_decode_attention_quant_kernel(dtype, case):
                          softcap=c.get("softcap"), sinks=c.get("sinks"),
                          k_scale=ks, v_scale=vs)
     _close(out, ref, dtype)
-    # Nothing past each slot's length is read: NaN scales there change
-    # nothing.
-    for bi, n in enumerate((index + s).tolist()):
-        ks[bi, :, n:] = float("nan")
-        vs[bi, :, n:] = float("nan")
+    # Only each slot's live range is read: NaN scales past its length and
+    # before its window's first position change nothing.
+    window = c.get("window")
+    for bi, n in enumerate(index.tolist()):
+        ks[bi, :, n + s:] = float("nan")
+        vs[bi, :, n + s:] = float("nan")
+        if window is not None:
+            lo = max(n - window + 1, 0)
+            ks[bi, :, :lo] = float("nan")
+            vs[bi, :, :lo] = float("nan")
     again = da.decode_attention(q, ck, cv, index, k_scale=ks, v_scale=vs,
                                 **c)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("case", ["split_b16_ragged", "window_softcap_sinks",
+                                  "split_s4", "split_g8_16_rows"])
+def test_decode_quant_kernel_is_deterministic(case):
+    """Kernel 6 on the split-K body: calls and CUDA-graph replays give
+    bitwise-equal bf16 results (nothing to reset between them)."""
+    dev = _card()
+    q, ck, cv, ks, vs, idx, c = _decode_q_inputs(case, torch.bfloat16, dev)
+
+    def call():
+        return da.decode_attention_quant_cuda(q, ck, cv, ks, vs, idx, **c)
+
+    first = call()
+    assert torch.equal(first, call())
+    assert torch.equal(first, _replayed(call))
 
 
 # The int8 cases: today's (serve-int8's bs 64 first), then the split-K

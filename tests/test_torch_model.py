@@ -192,6 +192,57 @@ def test_engine_greedy_matches_jax(name, penalty):
                                    atol=LOGIT_ATOL)
 
 
+@pytest.mark.parametrize("steps", [1, 2, 5])
+def test_engine_static_step_matches_jax(steps):
+    """Engine.generate's decode step reads its input token from a fixed
+    tensor and writes the cache, `seen`, the next token and its logprob in
+    place (what its CUDA graph replays on the card): the first step, the
+    warm-up step and the steps after it give the JAX engine's tokens and
+    logprobs, and the cache keeps its tensors."""
+    jc, tc, jp, tp = _pair("tiny-gqa")
+    rng = _rng("static", steps)
+    toks = _tokens(rng, tc.vocab_size, 3, 12)
+    plen = np.array([12, 4, 9], np.int32)
+    want = JEngine(jc, jp, temperature=0.0, max_len=32).generate(
+        jnp.asarray(toks), jnp.asarray(plen), max_new_tokens=steps)
+    eng = Engine(tc, tp, temperature=0.0, max_len=32, device=CPU)
+    first, cache, seen = eng._prefill_impl(torch.from_numpy(toks),
+                                           torch.from_numpy(plen))
+    held = [(t, t.data_ptr()) for t in (cache.k, cache.v, cache.lengths,
+                                        seen)]
+    got = eng._decode_impl(first, cache, steps,
+                           torch.Generator().manual_seed(0), seen)
+    assert all(t.data_ptr() == p for t, p in held)
+    np.testing.assert_array_equal(cache.lengths.numpy(), plen + steps - 1)
+    assert got.tokens.dtype == torch.int32 and got.tokens.is_contiguous()
+    jtoks, jlp = np.asarray(want.tokens), np.asarray(want.logprobs)
+    low = _greedy_margins(jc, jp, toks, plen, jtoks, 1.0) < MARGIN
+    upto = np.where(low.any(1), low.argmax(1) + 1, steps)
+    assert upto.sum() >= 0.75 * 3 * steps, upto
+    for r in range(3):
+        n = upto[r]
+        np.testing.assert_array_equal(got.tokens[r, :n].numpy(), jtoks[r, :n])
+        np.testing.assert_allclose(got.logprobs[r, :n].numpy(), jlp[r, :n],
+                                   atol=LOGIT_ATOL)
+        # Every token, at or past the margin, is in the seen mask.
+        assert bool(seen[r, got.tokens[r].long()].all())
+
+
+def test_engine_decode_past_max_len_raises_before_writing():
+    """The whole decode is checked against max_len before its first step
+    (on the card the step's own guard runs at capture only)."""
+    tc = get_model_config("tiny")
+    eng = Engine(tc, tt.init_params(tc, device=CPU), max_len=16,
+                 temperature=0.0, device=CPU)
+    toks = torch.zeros((1, 12), dtype=torch.int64)
+    first, cache, seen = eng._prefill_impl(
+        toks, torch.tensor([12], dtype=torch.int32))
+    with pytest.raises(ValueError, match="max_len"):
+        eng._decode_impl(first, cache, 6, None, seen)
+    assert int(cache.lengths[0]) == 12
+    assert eng.generate(toks, max_new_tokens=5).tokens.shape == (1, 5)
+
+
 def test_engine_seen_mask_is_a_logical_or_scatter():
     """A token id repeated in the pad tail must not clear the hit a real
     prompt position set (the JAX .at[].max scatter)."""

@@ -106,7 +106,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 4 ticks a window, through their CUDA graphs and with their
                 windows run eagerly: identical greedy tokens and logprobs
                 and identical launch counts.
- 11. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
+ 11. http-serve — serve's 48 requests over HTTP: InferenceServer over the
+                serve phase's PagedBatchingEngine configuration (shellac-1b,
+                16 slots, max_len 2048, 16-token blocks, one tick a window,
+                greedy), make_http_server on 127.0.0.1:0, 16 client threads
+                (urllib): 32 to /generate, 8 streamed, 8 to /v1/completions
+                with token prompts, after 2 warm-up requests through the
+                server (its scheduler thread runs the first eager window and
+                captures the graph). Every response 200, every token
+                sequence equal to serve's in-process run (a mismatch prints
+                the first differing position and the plain model's top-2
+                margin there), exact launch counts, a /metrics scrape whose
+                ok-request and TTFT counts equal the requests answered,
+                /health 200, the allocator pristine, the scheduler thread
+                gone after close(); tokens/s, the client's TTFT (to the
+                first streamed chunk) and wall per request, the server's
+                TTFT, queue wait, TPOT and e2e p50/p99 (each request's
+                flight-recorder timeline, and the /stats and /metrics
+                digests), with serve's numbers beside them.
+ 12. cli-serve — `python -m shellac_tpu_torch serve --config F
+                --cache-backend paged --slots 4 --port 0 --logprobs` (F:
+                shellac-1b cut to 2 layers) as a subprocess: its
+                {"serving": url} line, two blocking, one streamed and one
+                chat request whose tokens equal an in-process
+                PagedBatchingEngine's on the same config and seed (the chat
+                by its decoded text, token count and per-token logprobs),
+                and exit code 0 on SIGINT.
+ 13. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
                 events; the eager time beside it) against its bound, its
                 plain version and one PyTorch library call computing the
                 same (for the paged kernel there is none: a gather plus
@@ -1195,6 +1221,46 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
+def step_totals(reg):
+    """(sum, count) of the engine's per-step histograms in `reg`."""
+    from shellac_tpu_torch.obs import STEP_PHASES
+
+    out = {}
+    for ph in STEP_PHASES:
+        h = reg.get("shellac_step_phase_seconds", phase=ph)
+        out[ph] = (h.sum, h.count) if h is not None else (0.0, 0)
+    for name in ("shellac_decode_host_overhead_seconds",
+                 "shellac_decode_window_seconds"):
+        h = reg.get(name)
+        out[name] = (h.sum, h.count) if h is not None else (0.0, 0)
+    return out
+
+
+def step_breakdown(before, after, wall):
+    """Per engine step of a timed run, from the engine's own histograms:
+    ms in each step phase (their sum is the step's wall), the host
+    overhead and window wall per decode window, and the wall outside the
+    engine's steps (the serving loop around them)."""
+    from shellac_tpu_torch.obs import STEP_PHASES
+
+    d = {k: (after[k][0] - before[k][0], after[k][1] - before[k][1])
+         for k in after}
+    steps = d["host_bookkeeping"][1]
+    inside = sum(d[ph][0] for ph in STEP_PHASES)
+    out = {"steps_observed": steps,
+           "phase_ms_per_step": {ph: 1e3 * d[ph][0] / max(steps, 1)
+                                 for ph in STEP_PHASES},
+           "step_ms_mean": 1e3 * inside / max(steps, 1),
+           "outside_steps_ms_per_step": 1e3 * (wall - inside)
+           / max(steps, 1)}
+    for name, key in (("shellac_decode_host_overhead_seconds",
+                       "host_overhead_ms_per_window"),
+                      ("shellac_decode_window_seconds",
+                       "window_wall_ms_mean")):
+        out[key] = 1e3 * d[name][0] / max(d[name][1], 1)
+    return out
+
+
 def pristine(engine):
     """The allocator after a drain: every block but scratch free, every
     table row and slot length 0."""
@@ -1218,6 +1284,7 @@ def phase_serve(seed, dev, table, card, backend="paged"):
     from shellac_tpu_torch import get_model_config
     from shellac_tpu_torch.inference.batching import PagedBatchingEngine
     from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.obs import Registry
 
     quant = backend == "paged-int8"
     phase = "serve-int8" if quant else "serve"
@@ -1226,9 +1293,11 @@ def phase_serve(seed, dev, table, card, backend="paged"):
                      else "paged_decode_attention")
     cfg = get_model_config("shellac-1b")
     params = transformer.init_params(cfg, seed=seed, device=dev)
+    reg = Registry()
     engine = PagedBatchingEngine(
         cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=block,
-        cache_backend=backend, decode_ticks=1, temperature=0.0, device=dev)
+        cache_backend=backend, decode_ticks=1, temperature=0.0, device=dev,
+        registry=reg)
     be = engine.cache_backend
     reqs = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
                           (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
@@ -1239,12 +1308,14 @@ def phase_serve(seed, dev, table, card, backend="paged"):
     reset_peak()
     be.peak_blocks_used = 0
     before = dict(engine.stats)
+    totals0 = step_totals(reg)
 
     reset_counts(table)
     t0 = time.perf_counter()
     results = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    breakdown = step_breakdown(totals0, step_totals(reg), wall)
     counts = read_counts(table)
     peak = torch.cuda.max_memory_allocated()
     delta = {k: engine.stats[k] - before[k] for k in
@@ -1260,12 +1331,22 @@ def phase_serve(seed, dev, table, card, backend="paged"):
         len(results[rid]) == m
         and all(0 <= t < cfg.vocab_size for t in results[rid])
         for rid, _, m in reqs))
-    ttft, tpot = [], []
+    ttft, ttft_queued, tpot = [], [], []
     for rid, _, m in reqs:
-        _, admitted, first, done = engine.finished_timings[rid]
+        queued, admitted, first, done = engine.finished_timings[rid]
         ttft.append(first - admitted)
+        ttft_queued.append(first - queued)
         tpot.append((done - first) / max(m - 1, 1))
     generated = sum(len(v) for v in results.values())
+    summary = {"tokens_per_s": generated / wall,
+               "ttft_ms_p50": pct(ttft, 50) * 1e3,
+               "ttft_ms_p99": pct(ttft, 99) * 1e3,
+               "ttft_queued_ms_p50": pct(ttft_queued, 50) * 1e3,
+               "ttft_queued_ms_p99": pct(ttft_queued, 99) * 1e3,
+               "tpot_ms_p50": pct(tpot, 50) * 1e3,
+               "tpot_ms_p99": pct(tpot, 99) * 1e3,
+               "engine_steps": delta["engine_steps"],
+               "step_breakdown": breakdown}
     clean = pristine(engine)
     # The same pool in bf16: k and v of (L, n_blocks, Hkv, bs, D).
     bf16_bytes = (2 * L * be.n_blocks * cfg.kv_heads * block
@@ -1279,6 +1360,9 @@ def phase_serve(seed, dev, table, card, backend="paged"):
          tokens_per_s=generated / wall,
          ttft_ms_p50=pct(ttft, 50) * 1e3, ttft_ms_p99=pct(ttft, 99) * 1e3,
          ttft_ms=[t * 1e3 for t in ttft],
+         ttft_queued_ms_p50=summary["ttft_queued_ms_p50"],
+         ttft_queued_ms_p99=summary["ttft_queued_ms_p99"],
+         step_breakdown=breakdown,
          tpot_ms_p50=pct(tpot, 50) * 1e3, tpot_ms_p99=pct(tpot, 99) * 1e3,
          engine_steps=delta["engine_steps"], decode_ticks=ticks,
          prefills=prefills, pool_exhausted_requeues=delta["pool_exhausted"],
@@ -1334,7 +1418,7 @@ def phase_serve(seed, dev, table, card, backend="paged"):
         raise SystemExit(f"{phase}: abort_all left blocks allocated")
     del engine, params
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"results": results, "summary": summary}
 
 
 def admission_ms(engine):
@@ -1417,6 +1501,416 @@ def phase_serve_parity(seed, dev):
         raise SystemExit("serve-parity: greedy tokens differ")
     del runs, params
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# the HTTP server (http-serve) and the serve command line (cli-serve)
+# --------------------------------------------------------------------------
+
+# The http-serve requests by index: 4 of every 6 to /generate, 1 streamed,
+# 1 to /v1/completions (32, 8 and 8 of serve's 48).
+HTTP_KINDS = ("generate",) * 4 + ("stream", "completions")
+HTTP_CLIENTS = 16
+
+
+def http_call(base, path, payload=None, timeout=600, stream=False):
+    """POST (or GET without a payload) over urllib: (status, headers,
+    body bytes, seconds to the first body line). HTTP errors return."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        base + path, data=data,
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first = None
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            if not stream:
+                return r.status, r.headers, r.read(), None
+            lines = []
+            for raw in r:
+                if first is None:
+                    first = time.perf_counter() - t0
+                lines.append(raw)
+            return r.status, r.headers, b"".join(lines), first
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read(), first
+
+
+def hist_quantile(text, name, q):
+    """The q-quantile of histogram `name` in Prometheus text, interpolated
+    within its bucket (the estimate a scraper makes)."""
+    pairs = []
+    for line in text.splitlines():
+        if line.startswith(name + "_bucket{"):
+            le = line.split('le="')[1].split('"')[0]
+            pairs.append((float(le), float(line.rsplit(" ", 1)[1])))
+    if not pairs or pairs[-1][1] == 0:
+        return None
+    target = q * pairs[-1][1]
+    lo, below = 0.0, 0.0
+    for le, cum in pairs:
+        if cum >= target:
+            if le == float("inf"):
+                return lo
+            return lo + (le - lo) * (target - below) / max(cum - below, 1)
+        lo, below = le, cum
+    return lo
+
+
+def metric_value(text, series):
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def top2_margin(cfg, params, dev, prompt, prefix):
+    """The plain model's top-2 logit margin after prompt + prefix: how
+    close the reference's greedy choice was where two runs part."""
+    from shellac_tpu_torch.models import transformer
+
+    toks = torch.tensor([list(map(int, prompt)) + list(prefix)],
+                        dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        last = transformer.forward(cfg, params, toks, device=dev)[0, -1]
+    top = torch.topk(last.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_http_serve(seed, dev, table, card, ref):
+    """serve's 48 requests over HTTP: InferenceServer over the serve
+    phase's engine configuration, make_http_server on 127.0.0.1:0, 16
+    client threads (32 /generate, 8 streamed, 8 /v1/completions with
+    token prompts). Every token sequence must equal the serve phase's."""
+    import queue as queue_mod
+    import threading
+
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.inference.server import (
+        InferenceServer,
+        make_http_server,
+    )
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.obs import FlightRecorder, Registry
+
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reg = Registry()
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        cache_backend="paged", decode_ticks=1, temperature=0.0, device=dev,
+        registry=reg)
+    # A ring that holds every request's timeline (the default 2048
+    # events would evict the early ones).
+    srv = InferenceServer(cfg, params, engine=engine, registry=reg,
+                          model_name="shellac-1b",
+                          recorder=FlightRecorder(capacity=1 << 16,
+                                                  registry=reg))
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    reqs = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
+                          (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
+    # Warm-up through HTTP, as serve warms its engine: the scheduler
+    # thread runs the first eager window and captures the graph.
+    for _, toks, m in serve_requests(seed + 2, cfg.vocab_size, 2,
+                                     (PROMPT_LO, PROMPT_LO),
+                                     (NEW_LO, NEW_LO)):
+        status, _, body, _ = http_call(base, "/generate",
+                                       {"tokens": toks.tolist(),
+                                        "max_new": m})
+        if status != 200:
+            raise SystemExit(f"http-serve: warm-up answered {status}: {body}")
+    torch.cuda.synchronize()
+    before = dict(engine.stats)
+    totals0 = step_totals(reg)
+    jobs = queue_mod.Queue()
+    for i, r in enumerate(reqs):
+        jobs.put((i, *r))
+    out = {}
+
+    def client():
+        while True:
+            try:
+                i, rid, toks, m = jobs.get_nowait()
+            except queue_mod.Empty:
+                return
+            kind = HTTP_KINDS[i % len(HTTP_KINDS)]
+            t0 = time.perf_counter()
+            if kind == "completions":
+                status, hdr, body, first = http_call(
+                    base, "/v1/completions",
+                    {"prompt": toks.tolist(), "max_tokens": m,
+                     "temperature": 0})
+            else:
+                status, hdr, body, first = http_call(
+                    base, "/generate",
+                    {"tokens": toks.tolist(), "max_new": m,
+                     "stream": kind == "stream"}, stream=kind == "stream")
+            wall = time.perf_counter() - t0
+            tokens = None
+            if status == 200:
+                if kind == "stream":
+                    recs = [json.loads(ln) for ln in body.splitlines()]
+                    tokens = (recs[-1]["tokens"] if recs[-1].get("done")
+                              else None)
+                elif kind == "completions":
+                    # No tokenizer: the text is the token list itself.
+                    tokens = json.loads(
+                        json.loads(body)["choices"][0]["text"])
+                else:
+                    tokens = json.loads(body)["tokens"]
+            out[rid] = {"kind": kind, "status": status, "tokens": tokens,
+                        "wall_s": wall, "first_s": first,
+                        "trace_id": hdr.get("x-request-id")}
+
+    reset_counts(table)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(HTTP_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    counts = read_counts(table)
+    breakdown = step_breakdown(totals0, step_totals(reg), wall)
+    delta = {k: engine.stats[k] - before[k] for k in
+             ("prefills", "decode_windows", "requests_completed",
+              "tokens_generated")}
+    ticks = delta["decode_windows"] * engine.decode_ticks
+    L = cfg.n_layers
+    expect = only(table, rms_norm=(2 * L + 1) * (delta["prefills"] + ticks),
+                  flash_attention_fwd=L * delta["prefills"],
+                  paged_decode_attention=L * ticks)
+    statuses = sorted({o["status"] for o in out.values()})
+    mismatches = []
+    for rid, toks, m in reqs:
+        want = ref["results"][rid]
+        got = out.get(rid, {}).get("tokens")
+        if got != want:
+            pos = next((j for j, (a, b) in enumerate(zip(got or [], want))
+                        if a != b), min(len(got or []), len(want)))
+            mismatches.append({"rid": rid, "kind": out.get(rid, {}).get(
+                "kind"), "prompt_len": int(toks.size), "max_new": m,
+                "first_diff": pos, "got": got, "want": want})
+    # Server-side numbers: /stats digests, /metrics, and each request's
+    # exact clocks from its flight-recorder timeline.
+    _, _, stats_body, _ = http_call(base, "/stats")
+    stats = json.loads(stats_body)
+    health_status, _, _, _ = http_call(base, "/health")
+    _, _, metrics_body, _ = http_call(base, "/metrics")
+    text = metrics_body.decode()
+    answered = len(reqs) + 2
+    ok_count = metric_value(
+        text, 'shellac_requests_total{outcome="ok",tenant=""}')
+    ttft_count = metric_value(text, "shellac_ttft_seconds_count")
+    server = {"ttft": [], "queue_wait": [], "e2e": [], "tpot": []}
+    for o in out.values():
+        _, _, body, _ = http_call(base, f"/debug/request/{o['trace_id']}")
+        ev = {e["event"]: e for e in json.loads(body)["events"]}
+        ttft, e2e = ev["first-token"]["ttft_s"], ev["finish"]["e2e_s"]
+        n = ev["finish"]["n_tokens"]
+        server["ttft"].append(ttft)
+        server["queue_wait"].append(ev["prefill"]["queue_wait_s"])
+        server["e2e"].append(e2e)
+        server["tpot"].append((e2e - ttft) / max(n - 1, 1))
+    clean = pristine(engine)
+    srv.close()
+    httpd.shutdown()
+    httpd.server_close()
+    exited = not srv._thread.is_alive()
+    for mm in mismatches:
+        if mm["got"]:
+            mm["ref_top2_margin"] = top2_margin(
+                cfg, params, dev, dict((r[0], r[1]) for r in reqs)[mm["rid"]],
+                mm["want"][:mm["first_diff"]])
+        emit("http-serve", step="token_mismatch", **mm)
+    generated = sum(len(ref["results"][r[0]]) for r in reqs)
+    stream_first = [o["first_s"] for o in out.values()
+                    if o["kind"] == "stream" and o["first_s"] is not None]
+    walls = [o["wall_s"] for o in out.values()]
+
+    def p50_99(xs):
+        return {"p50": pct(xs, 50) * 1e3, "p99": pct(xs, 99) * 1e3}
+
+    emit("http-serve", step="main_path", model="shellac-1b", slots=SLOTS,
+         max_len=MAX_LEN, block_size=BLOCK, clients=HTTP_CLIENTS,
+         requests={k: sum(o["kind"] == k for o in out.values())
+                   for k in ("generate", "stream", "completions")},
+         statuses=statuses, tokens_equal_to_serve=not mismatches,
+         generated_tokens=generated, wall_s=wall,
+         tokens_per_s=generated / wall,
+         client_ttft_ms_stream=p50_99(stream_first),
+         client_wall_ms=p50_99(walls),
+         server_ttft_ms=p50_99(server["ttft"]),
+         server_queue_wait_ms=p50_99(server["queue_wait"]),
+         server_tpot_ms=p50_99(server["tpot"]),
+         server_e2e_ms=p50_99(server["e2e"]),
+         stats_ttft_s=stats["ttft_s"], stats_queue_wait_s=stats["queue_wait_s"],
+         metrics_tpot_s={"p50": hist_quantile(text, "shellac_tpot_seconds",
+                                              0.5),
+                         "p99": hist_quantile(text, "shellac_tpot_seconds",
+                                              0.99)},
+         step_breakdown=breakdown, in_process_serve=ref["summary"],
+         http_over_in_process_tokens_per_s=(generated / wall)
+         / ref["summary"]["tokens_per_s"],
+         metrics_ok_requests=ok_count, metrics_ttft_count=ttft_count,
+         answered=answered, health=health_status, scheduler_exited=exited,
+         allocator_pristine=clean, engine_steps=engine.stats["engine_steps"]
+         - before["engine_steps"], decode_ticks=ticks,
+         prefills=delta["prefills"], launches=counts, expected=expect,
+         graphs_captured=engine.stats["decode_graphs"], card=card)
+    if (statuses != [200] or mismatches or counts != expect
+            or ok_count != answered or ttft_count != answered
+            or health_status != 200 or not exited or not clean):
+        raise SystemExit("http-serve: a request failed, tokens differ from "
+                         "serve's, launch counts or /metrics are off, or "
+                         "the scheduler did not exit")
+    del engine, srv, params
+    reset_peak()
+    return counts
+
+
+# cli-serve's chat check: the chat route returns text, and the byte
+# tokenizer decodes no id past 255, so the answer's ids are held through
+# their logprobs. The same kernels at the same shapes give the same
+# logits, so they are expected equal; a different id at any position
+# changes that position's logprob (unless two logits tie within the
+# tolerance) and the context of every later one.
+CHAT_LOGPROB_TOL = 1e-4
+
+
+def phase_cli_serve(seed, dev, card):
+    """`python -m shellac_tpu_torch serve` in a subprocess: shellac-1b cut
+    to 2 layers by a --config file, the paged backend, 4 slots, port 0,
+    `--logprobs`. Four requests (two blocking, one streamed, one chat)
+    must give the tokens of an in-process PagedBatchingEngine on the same
+    config and seed (the chat's through its text, its token count and
+    its per-token logprobs within CHAT_LOGPROB_TOL), and SIGINT must stop
+    it with exit code 0."""
+    import os
+    import queue as queue_mod
+    import signal
+    import tempfile
+    import threading
+
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.inference.openai_api import render_chat
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(seed + 5)
+    cfg = get_model_config("shellac-1b").replace(n_layers=2)
+    prompts = [("a", rng.integers(0, cfg.vocab_size, 40), 24),
+               ("b", rng.integers(0, cfg.vocab_size, 200), 16),
+               ("s", rng.integers(0, cfg.vocab_size, 90), 20)]
+    msgs = [{"role": "user", "content": "Say something about kernels."}]
+    chat_ids = tok.encode(render_chat(msgs, tok))
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = os.path.join(tmp, "cfg.json")
+        with open(conf, "w") as f:
+            json.dump({"preset": "shellac-1b", "n_layers": 2}, f)
+        cmd = [sys.executable, "-m", "shellac_tpu_torch", "serve", "--config",
+               conf, "--cache-backend", "paged", "--slots", "4", "--port",
+               "0", "--seed", str(seed), "--logprobs"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        lines, errs = queue_mod.Queue(), []
+        threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                         daemon=True).start()
+        threading.Thread(target=lambda: errs.extend(proc.stderr),
+                         daemon=True).start()
+        try:
+            base, deadline = None, time.monotonic() + 300
+            while base is None:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise SystemExit(
+                        f"cli-serve: no serving line (exit {proc.poll()}): "
+                        + "".join(errs)[-4000:])
+                try:
+                    base = json.loads(lines.get(timeout=1))["serving"]
+                except (queue_mod.Empty, ValueError, KeyError):
+                    continue
+            up_s = time.perf_counter() - t0
+            got = {}
+
+            def post(rid, path, payload, stream=False):
+                status, _, body, _ = http_call(base, path, payload,
+                                               stream=stream)
+                got[rid] = (status, body)
+
+            calls = [threading.Thread(target=post, args=(
+                rid, "/generate", {"tokens": toks.tolist(), "max_new": m,
+                                   "stream": rid == "s"}, rid == "s"))
+                for rid, toks, m in prompts]
+            calls.append(threading.Thread(target=post, args=(
+                "c", "/v1/chat/completions",
+                {"messages": msgs, "max_tokens": 12, "logprobs": True})))
+            for t in calls:
+                t.start()
+            for t in calls:
+                t.join(timeout=300)
+            proc.send_signal(signal.SIGINT)
+            t1 = time.perf_counter()
+            rc = proc.wait(timeout=120)
+            stop_s = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    engine = PagedBatchingEngine(cfg, params, n_slots=4,
+                                 max_len=cfg.max_seq_len, decode_ticks=1,
+                                 temperature=0.0, logprobs=True, device=dev)
+    want = engine.run([(rid, toks.astype(np.int32), m)
+                       for rid, toks, m in prompts]
+                      + [("c", chat_ids, 12)])
+    ok = {}
+    for rid, _, _ in prompts:
+        status, body = got.get(rid, (None, b""))
+        if status == 200:
+            rec = (json.loads(body.splitlines()[-1]) if rid == "s"
+                   else json.loads(body))
+            ok[rid] = rec["tokens"] == want[rid]
+        else:
+            ok[rid] = False
+    status, body = got.get("c", (None, b""))
+    chat = json.loads(body) if status == 200 else None
+    want_lps = engine.finished_logprobs["c"]
+    chat_lp_err = None
+    if chat is not None:
+        got_lps = [e["logprob"] for e in
+                   chat["choices"][0]["logprobs"]["content"]]
+        if len(got_lps) == len(want_lps):
+            chat_lp_err = max(abs(a - b) for a, b in zip(got_lps, want_lps))
+    ok["c"] = (chat is not None
+               and chat["choices"][0]["message"]["content"]
+               == tok.decode(want["c"])
+               and chat["usage"]["completion_tokens"] == len(want["c"])
+               and chat_lp_err is not None
+               and chat_lp_err <= CHAT_LOGPROB_TOL)
+    emit("cli-serve", command=" ".join(cmd[1:3] + ["serve", "--config",
+                                                   "<tmp>"] + cmd[6:]),
+         config={"preset": "shellac-1b", "n_layers": 2},
+         seconds_to_serving=up_s, statuses={r: s for r, (s, _) in
+                                            got.items()},
+         tokens_equal=ok, chat_logprob_max_abs_err=chat_lp_err,
+         chat_logprob_tol=CHAT_LOGPROB_TOL, exit_code=rc,
+         seconds_to_exit=stop_s,
+         stderr_tail="".join(errs)[-2000:], card=card)
+    del engine, params
+    reset_peak()
+    if not all(ok.values()) or rc != 0:
+        raise SystemExit("cli-serve: tokens differ from the in-process "
+                         "engine or the server did not exit 0 on SIGINT")
 
 
 def phase_serve_parity_int8(seed, dev, table):
@@ -2162,11 +2656,13 @@ def main():
     gen_counts, bf16_tokens = phase_generate(args.seed, dev, table, card)
     paths = {"generate": gen_counts,
              "generate-int8": phase_generate_int8(args.seed, dev, table,
-                                                  card, bf16_tokens),
-             "serve": phase_serve(args.seed, dev, table, card),
-             "serve-int8": phase_serve(args.seed, dev, table, card,
-                                       backend="paged-int8"),
-             "train": phase_train(args.seed, dev, table, card)}
+                                                  card, bf16_tokens)}
+    paths["serve"], serve_ref = phase_serve(args.seed, dev, table, card)
+    paths["serve-int8"], _ = phase_serve(args.seed, dev, table, card,
+                                         backend="paged-int8")
+    paths["http-serve"] = phase_http_serve(args.seed, dev, table, card,
+                                           serve_ref)
+    paths["train"] = phase_train(args.seed, dev, table, card)
     decode = ("rms_norm", "flash_attention_fwd")
     for path, kinds in (("generate", decode + ("decode_attention_dense",)),
                         ("generate-int8",
@@ -2174,12 +2670,14 @@ def main():
                         ("serve", decode + ("paged_decode_attention",)),
                         ("serve-int8",
                          decode + ("paged_decode_attention_int8",)),
+                        ("http-serve", decode + ("paged_decode_attention",)),
                         ("train", ("rms_norm", "flash_attention_fwd",
                                    "flash_attention_bwd_dkdv",
                                    "flash_attention_bwd_dq"))):
         missing = [n for n in kinds if paths[path][n] == 0]
         if missing:
             raise SystemExit(f"{path}: kernels never launched: {missing}")
+    phase_cli_serve(args.seed, dev, card)
     phase_serve_parity(args.seed, dev)
     phase_serve_parity_int8(args.seed, dev, table)
     phase_graph_parity(args.seed, dev, table)

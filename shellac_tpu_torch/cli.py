@@ -1,0 +1,353 @@
+"""Command-line interface: `python -m shellac_tpu_torch <command>`.
+
+Commands (ports of `shellac_tpu/cli.py`):
+  generate  autoregressive sampling from random weights (`cmd_generate`
+            :578) through `Engine`
+  batch     offline batch generation, JSONL in and out, through the
+            continuous-batching engine (`cmd_batch` :758)
+  serve     the HTTP server over the continuous-batching engine
+            (`cmd_serve` :859): prints {"serving": "http://host:port"},
+            then serves until interrupted (SIGINT exits 0)
+
+Everything runs on the card unless `--device cpu` is given. The model is
+a preset (`--model`) or a `--config` JSON file of ModelConfig overrides,
+which may name a `preset` to start from; weights are a random init from
+`--seed`. Only the flags the port supports exist; among those kept for
+the reference's command lines, `--ckpt-dir` (checkpoints), `--decode-ticks
+auto` (the startup autotuner) and `--overlap-decode` / `--overlap-prefill`
+(the overlap pipelines) raise NotImplementedError. The JAX CLI turns the
+overlap pipelines on by default; the port's default is off, since it
+has none yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def _decode_ticks_arg(v: str):
+    """--decode-ticks parser: an int >= 1, or 'auto' (refused later)."""
+    if v == "auto":
+        return v
+    try:
+        return int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--decode-ticks wants an integer or 'auto', got {v!r}"
+        )
+
+
+def _model_config(args):
+    from shellac_tpu_torch.config import ModelConfig
+    from shellac_tpu_torch.models.registry import PRESETS
+
+    if getattr(args, "config", None):
+        with open(args.config) as f:
+            raw = json.load(f)
+        base = PRESETS[raw.pop("preset")] if "preset" in raw else ModelConfig()
+        return base.replace(**raw).validate()
+    return PRESETS[args.model].validate()
+
+
+def _restore_params(args, cfg):
+    """A random init from --seed on --device (checkpoints are not ported
+    yet)."""
+    from shellac_tpu_torch.models import transformer
+
+    if getattr(args, "ckpt_dir", None):
+        raise NotImplementedError(
+            "--ckpt-dir: checkpoints are not ported yet")
+    return transformer.init_params(cfg, seed=args.seed, device=args.device)
+
+
+def _engine_opts(args):
+    """Refuse the options the port's engines do not have yet."""
+    if getattr(args, "overlap_decode", False):
+        raise NotImplementedError(
+            "--overlap-decode: the overlapped decode pipeline is not "
+            "ported yet")
+    if getattr(args, "overlap_prefill", False):
+        raise NotImplementedError(
+            "--overlap-prefill: the overlapped prefill pipeline is not "
+            "ported yet")
+    if getattr(args, "decode_ticks", 1) == "auto":
+        raise NotImplementedError(
+            "--decode-ticks auto: the startup autotuner is not ported yet")
+
+
+def _stop_seqs(args):
+    seqs = []
+    for part in (args.stop or "").split(";"):
+        if not part:
+            continue
+        try:
+            seq = [int(t) for t in part.split(",")]
+        except ValueError:
+            raise SystemExit(f'--stop: bad token-id sequence {part!r} '
+                             '(expected e.g. "13,10;0")')
+        seqs.append(seq)
+    return seqs
+
+
+def truncate_at_stop(ids, stop):
+    """Cut `ids` at the first occurrence of any stop sequence, excluding
+    the match (the reference's `inference/engine.py:490` on one row)."""
+    cut = len(ids)
+    for s in stop:
+        n = len(s)
+        for i in range(len(ids) - n + 1):
+            if ids[i:i + n] == s:
+                cut = min(cut, i)
+                break
+    return ids[:cut]
+
+
+def cmd_generate(args):
+    from shellac_tpu_torch.inference.engine import Engine
+    from shellac_tpu_torch.training.tokenizer import get_tokenizer
+
+    cfg = _model_config(args)
+    params = _restore_params(args, cfg)
+    tok = get_tokenizer(args.tokenizer)
+    if args.text is not None:
+        prompt = tok.encode(args.text)[None, :].astype(np.int32)
+    else:
+        if args.prompt is None:
+            raise SystemExit("need --prompt or --text")
+        prompt = np.array([[int(t) for t in args.prompt.split(",")]],
+                          np.int32)
+    if prompt.size == 0:
+        raise SystemExit("empty prompt")
+    stop = _stop_seqs(args)
+    eng = Engine(cfg, params, temperature=args.temperature,
+                 top_k=args.top_k, top_p=args.top_p, device=args.device)
+    out = eng.generate(prompt, max_new_tokens=args.max_new)
+    ids = truncate_at_stop(out.tokens[0].tolist(), stop)
+    result = {"tokens": ids}
+    if args.text is not None:
+        result["text"] = tok.decode(ids)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_batch(args):
+    """Offline batch generation: JSONL prompts in, JSONL completions out,
+    through the continuous-batching engine."""
+    from shellac_tpu_torch.inference.cache import engine_class
+    from shellac_tpu_torch.training.tokenizer import get_tokenizer
+
+    _engine_opts(args)
+    cfg = _model_config(args)
+    params = _restore_params(args, cfg)
+    tok = get_tokenizer(args.tokenizer)
+    eng = engine_class(args.cache_backend)(
+        cfg, params, n_slots=args.slots,
+        max_len=args.max_len or cfg.max_seq_len,
+        temperature=args.temperature, eos_id=args.eos_id,
+        decode_ticks=args.decode_ticks, seed=args.seed,
+        cache_backend=args.cache_backend, logprobs=args.logprobs,
+        device=args.device,
+    )
+    rows = []
+    with open(args.input) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                rows.append(json.loads(line))
+    if not rows:
+        raise SystemExit(f"no prompts in {args.input}")
+    per_req = ("max_tokens", "temperature", "top_k", "top_p", "min_p",
+               "seed", "presence_penalty", "frequency_penalty")
+    for i, row in enumerate(rows):
+        prompt = row.get("prompt")
+        if isinstance(prompt, str):
+            ids = tok.encode(prompt)
+        elif isinstance(prompt, list):
+            ids = np.asarray(prompt, np.int32)
+        else:
+            raise SystemExit(f"row {i}: prompt must be text or id list")
+        kw = {k: row[k] for k in per_req if row.get(k) is not None}
+        max_new = int(kw.pop("max_tokens", args.max_new))
+        stop = row.get("stop")
+        if stop is not None:
+            if isinstance(stop, str):
+                stop = [stop]  # OpenAI scalar form: ONE sequence
+            try:
+                stop = [list(map(int, tok.encode(s)))
+                        if isinstance(s, str) else list(map(int, s))
+                        for s in stop]
+            except TypeError:
+                raise SystemExit(
+                    f"row {i}: stop must be a string or a list of "
+                    "strings / token-id lists"
+                )
+        try:
+            eng.submit(i, ids, max_new, stop=stop, **kw)
+        except ValueError as e:
+            # A malformed row fails the job before any compute.
+            raise SystemExit(f"row {i}: {e}")
+    results = dict(eng.run())
+    with open(args.output, "w") as f:
+        for i in range(len(rows)):
+            out = results[i]
+            rec = {"index": i, "tokens": out, "text": tok.decode(out)}
+            if args.logprobs:
+                lps = eng.finished_logprobs.pop(i, None)
+                if lps is not None:
+                    rec["logprobs"] = lps
+            f.write(json.dumps(rec) + "\n")
+    print(json.dumps({
+        "output": args.output,
+        "requests": len(rows),
+        "tokens_generated": int(eng.stats["tokens_generated"]),
+        "engine_steps": int(eng.stats["engine_steps"]),
+    }))
+    return 0
+
+
+def cmd_serve(args):
+    from shellac_tpu_torch.inference.cache import engine_class
+    from shellac_tpu_torch.inference.server import serve
+    from shellac_tpu_torch.training.tokenizer import get_tokenizer
+
+    _engine_opts(args)
+    if not args.metrics:
+        # One switch for the process: engines, the server and the spans
+        # deposit into the global registry, which now no-ops every write.
+        from shellac_tpu_torch.obs import get_registry
+
+        get_registry().disable()
+    cfg = _model_config(args)
+    params = _restore_params(args, cfg)
+    engine = engine_class(args.cache_backend)(
+        cfg, params, n_slots=args.slots,
+        max_len=args.max_len or cfg.max_seq_len,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        min_p=args.min_p, eos_id=args.eos_id, seed=args.seed,
+        decode_ticks=args.decode_ticks, logprobs=args.logprobs,
+        cache_backend=args.cache_backend, device=args.device,
+    )
+    try:
+        serve(
+            cfg, params, host=args.host, port=args.port,
+            tokenizer=get_tokenizer(args.tokenizer),
+            model_name=(args.model or "shellac_tpu"),
+            engine=engine, max_pending=args.max_pending,
+        )
+    except KeyboardInterrupt:
+        # SIGINT is the stop signal: serve() closed the server on its
+        # way out.
+        pass
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="shellac_tpu_torch",
+                                description=__doc__.split("\n")[0])
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp):
+        sp.add_argument("--model", default="tiny",
+                        help="preset name")
+        sp.add_argument("--config", help="JSON file of ModelConfig overrides "
+                        '(may include {"preset": name})')
+        sp.add_argument("--seed", type=int, default=0,
+                        help="seed of the random weights (and sampling)")
+        sp.add_argument("--device", default="cuda",
+                        help="cuda (the default; raises without a card) "
+                             "or cpu")
+        sp.add_argument("--tokenizer", default="byte",
+                        help='"byte" (other tokenizers are not ported yet)')
+        sp.add_argument("--ckpt-dir",
+                        help="checkpoint directory (not ported yet: raises)")
+
+    def overlap(sp):
+        for name in ("decode", "prefill"):
+            sp.add_argument(
+                f"--overlap-{name}", dest=f"overlap_{name}",
+                action=argparse.BooleanOptionalAction, default=False,
+                help=f"the overlapped {name} pipeline: not ported yet, so "
+                     "the default is off (the JAX CLI's is on) and "
+                     "asking for it raises")
+
+    g = sub.add_parser("generate", help="sample tokens")
+    common(g)
+    g.add_argument("--prompt", help="comma-separated token ids, e.g. 1,5,42")
+    g.add_argument("--text", help="text prompt (encoded with --tokenizer)")
+    g.add_argument("--max-new", type=int, default=32)
+    g.add_argument("--temperature", type=float, default=1.0)
+    g.add_argument("--top-k", type=int, default=None)
+    g.add_argument("--top-p", type=float, default=None)
+    g.add_argument("--stop", default=None,
+                   help='token-id stop sequences, e.g. "13,10;0"')
+    g.set_defaults(fn=cmd_generate)
+
+    backends = ["dense", "dense-int8", "paged", "paged-int8"]
+    b = sub.add_parser("batch",
+                       help="offline batch generation (JSONL in/out)")
+    common(b)
+    b.add_argument("--input", required=True,
+                   help='JSONL rows: {"prompt": text-or-ids, '
+                        '"max_tokens"?, "temperature"?, "stop"?, ...}')
+    b.add_argument("--output", required=True, help="JSONL results path")
+    b.add_argument("--max-new", type=int, default=64,
+                   help="default max tokens when a row has none")
+    b.add_argument("--slots", type=int, default=8)
+    b.add_argument("--max-len", type=int, default=None, dest="max_len")
+    b.add_argument("--temperature", type=float, default=0.0)
+    b.add_argument("--eos-id", type=int, default=None, dest="eos_id")
+    b.add_argument("--decode-ticks", type=_decode_ticks_arg, default=4,
+                   dest="decode_ticks",
+                   help="decode steps per host sync ('auto' is not "
+                        "ported yet)")
+    overlap(b)
+    b.add_argument("--cache-backend", default="dense", dest="cache_backend",
+                   choices=backends, help="KV-cache storage policy")
+    b.add_argument("--logprobs", action="store_true")
+    b.set_defaults(fn=cmd_batch)
+
+    s = sub.add_parser("serve", help="HTTP server with continuous batching")
+    common(s)
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--slots", type=int, default=8)
+    s.add_argument("--max-len", type=int, default=None, dest="max_len")
+    s.add_argument("--temperature", type=float, default=0.0)
+    s.add_argument("--top-k", type=int, default=None, dest="top_k")
+    s.add_argument("--top-p", type=float, default=None, dest="top_p")
+    s.add_argument("--min-p", type=float, default=None, dest="min_p")
+    s.add_argument("--eos-id", type=int, default=None, dest="eos_id")
+    s.add_argument("--cache-backend", default="dense", dest="cache_backend",
+                   choices=backends, help="KV-cache storage policy")
+    s.add_argument("--decode-ticks", type=_decode_ticks_arg, default=1,
+                   dest="decode_ticks",
+                   help="decode steps per host sync ('auto' is not "
+                        "ported yet)")
+    overlap(s)
+    s.add_argument("--max-pending", type=int, default=None,
+                   dest="max_pending",
+                   help="reject new requests with HTTP 429 + Retry-After "
+                        "once this many are pending")
+    s.add_argument("--metrics", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="Prometheus metrics at GET /metrics (--no-metrics "
+                        "no-ops every instrument; the endpoint answers 404)")
+    s.add_argument("--logprobs", action="store_true",
+                   help="track per-token logprobs so requests may ask "
+                        "for them")
+    s.set_defaults(fn=cmd_serve)
+    return p
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

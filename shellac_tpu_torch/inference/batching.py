@@ -36,12 +36,22 @@ The cache backend is dense or paged, in the compute dtype or int8
 (`dense-int8`, `paged-int8`, or the legacy `kv_quant="int8"`): the
 prefill quantizes into an int8 mini and scatters values and scales.
 
+Observability (`obs/`): the engine writes its `EngineMetrics` (prefill
+section and decode window seconds, host overhead, step phases, batch
+occupancy, slots busy, queue depth, KV utilization) into `registry`
+(the process default unless given one) once per `step()`, on the host
+after the window's one sync; a request submitted with `trace=` (an
+`obs.RequestTrace`) gets the JAX engine's marks: queue at submit,
+prefill_start at admission, first_token when the prefill's token is on
+the host, window-dispatch and window-settle per window, and
+abort("cancelled") on cancel. Nothing is recorded inside the captured
+window.
+
 Not ported yet; each raises NotImplementedError: overlapped decode and
 prefill, chunked prefill, meshes and pipeline stages, rolling caches,
-the prefix cache, beam search, preemption, the observability
-registry, and at `submit` logit bias, presence and frequency penalties,
-per-request seeds, constraints, prompt logprobs, prefill-only requests,
-traces and QoS tags.
+the prefix cache, beam search, preemption, and at `submit` logit bias,
+presence and frequency penalties, per-request seeds, constraints,
+prompt logprobs, prefill-only requests and QoS tags.
 """
 
 from __future__ import annotations
@@ -66,6 +76,7 @@ from shellac_tpu_torch.inference.cache import (
 )
 from shellac_tpu_torch.inference.graphs import StepGraph
 from shellac_tpu_torch.models import transformer
+from shellac_tpu_torch.obs import EngineMetrics, get_registry
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
 from shellac_tpu_torch.ops.sampling import NEG_INF, sample_batched
 
@@ -103,6 +114,8 @@ class _Request:
     t_queued: float = 0.0
     t_admitted: float = 0.0
     t_first: float = 0.0
+    # The request's span (obs.RequestTrace), or None when not traced.
+    trace: Optional[Any] = None
 
     def hit_stop(self) -> Optional[int]:
         """Length of the matched stop suffix of `out`, or None."""
@@ -168,8 +181,7 @@ class BatchingEngine:
                   prefill_chunk=None if prefill_chunk == "auto"
                   else prefill_chunk,
                   mesh=mesh,
-                  rolling_window=rolling_window, pp_pipeline=pp_pipeline,
-                  registry=registry)
+                  rolling_window=rolling_window, pp_pipeline=pp_pipeline)
         top_logprobs = int(top_logprobs or 0)
         if top_logprobs < 0 or top_logprobs > 32:
             raise ValueError(
@@ -285,6 +297,14 @@ class BatchingEngine:
             # Window variants captured as CUDA graphs (the card only).
             "decode_graphs": 0,
         }
+        # Engine instruments over the shared registry, written once per
+        # step on the host (never inside the captured window).
+        self.obs = EngineMetrics(
+            registry if registry is not None else get_registry())
+        # Per-step phase seconds (obs.STEP_PHASES) and the time blocked
+        # in the window's sync, reset by each step().
+        self._phase_s: Dict[str, float] = {}
+        self._sync_block_s = 0.0
 
     # ---- sampling ----------------------------------------------------
 
@@ -342,12 +362,13 @@ class BatchingEngine:
         """Queue a request. `stop`: token-id sequences; generation ends
         when the output ends with one, and the match is removed from the
         returned tokens. temperature/top_k/top_p/min_p override the
-        engine defaults for this request only."""
+        engine defaults for this request only. `trace` (an
+        obs.RequestTrace) receives the request's lifecycle marks."""
         _unported(logit_bias=logit_bias or None,
                   presence_penalty=presence_penalty or None,
                   frequency_penalty=frequency_penalty or None,
                   prompt_logprobs=prompt_logprobs, seed=seed,
-                  constraint=constraint, trace=trace,
+                  constraint=constraint,
                   prefill_only=prefill_only, tenant=tenant,
                   qos_class=qos_class, qos_weight=qos_weight)
         tokens = np.asarray(tokens, np.int32).reshape(-1)
@@ -383,8 +404,13 @@ class BatchingEngine:
             )
         self._queue.append(_Request(
             rid, tokens, max_new, stop=stop, min_tokens=min_tokens,
-            t_queued=time.perf_counter(), **samp,
+            t_queued=time.perf_counter(), trace=trace, **samp,
         ))
+        if trace is not None:
+            # The request entered the admission queue (queue wait ends
+            # at the span's prefill_start).
+            trace.record("queue", src="engine", rid=rid,
+                         queue_depth=len(self._queue))
 
     def _slot_footprint(self, req: _Request) -> int:
         """Worst-case token residency of `req`: prompt + budget + 1 plus
@@ -424,7 +450,11 @@ class BatchingEngine:
         scatter_slot(self._cache, mini, slot)
         return last
 
+    def _add_phase(self, phase: str, seconds: float) -> None:
+        self._phase_s[phase] = self._phase_s.get(phase, 0.0) + seconds
+
     def _run_prefill(self, slot: int, req: _Request) -> None:
+        t0 = time.perf_counter()
         s = req.tokens.size
         # Cap the bucket at max_len: a larger pad would index past the
         # slot's row or its block table.
@@ -433,6 +463,7 @@ class BatchingEngine:
         padded[0, :s] = torch.from_numpy(req.tokens)
         last = self._prefill_impl(padded.to(self.device), s, slot)
         first, lp, tl = self._sample_first(last, req)
+        t1 = time.perf_counter()
         first_tok = int(first)  # the prefill's one host sync
         req.t_first = time.perf_counter()
         self._host_len[slot] = s
@@ -448,6 +479,13 @@ class BatchingEngine:
             req.lps.append(float(lp))
         if tl is not None:
             req.tlp = [(tl[1][0].tolist(), tl[0][0].tolist())]
+        if req.trace is not None:
+            # The first token is a host value: the request's TTFT point.
+            req.trace.first_token()
+        # Phase attribution: the prefill's launches, then its sync and
+        # the host bookkeeping after it.
+        self._add_phase("prefill_dispatch", t1 - t0)
+        self._add_phase("prefill_settle", time.perf_counter() - t1)
 
     def _fill_slots(self, budget: Optional[int] = None) -> None:
         done = 0
@@ -468,6 +506,10 @@ class BatchingEngine:
                 self.stats["pool_exhausted"] += 1
                 break
             req.t_admitted = time.perf_counter()
+            if req.trace is not None:
+                # Queue wait ends here (after prepare_slot: a pool miss
+                # requeues the request, so its wait goes on).
+                req.trace.prefill_start()
             self._set_slot_sampling(i, req)
             self._slots[i] = req
             self.stats["prefills"] += 1
@@ -507,9 +549,15 @@ class BatchingEngine:
 
     def step(self) -> List[Tuple[Any, List[int]]]:
         """Fill free slots, run one decode window (decode_ticks ticks);
-        returns the finished requests. One host sync per window."""
+        returns the finished requests. One host sync per window. The
+        engine's metrics are written here, on the host, after the sync."""
         finished: List[Tuple[Any, List[int]]] = []
         self.stats["engine_steps"] += 1
+        t_step0 = time.perf_counter()
+        self._sync_block_s = 0.0
+        self._phase_s = {}
+        synced = False
+        prefills0 = self.stats["prefills"]
         # Fill and check until stable: a request satisfied by its prefill
         # alone (max_new=1, instant EOS, a stop completed by the first
         # token) frees its slot for the next queued request. The prefill
@@ -526,13 +574,61 @@ class BatchingEngine:
                 remaining is not None and remaining <= 0
             ):
                 break
+        if self.stats["prefills"] > prefills0:
+            # The prefill section's wall time, on steps that prefilled.
+            self.obs.prefill_seconds.observe(time.perf_counter() - t_step0)
+        # Admission: the fill section minus the prefills' own time.
+        self._phase_s["admission"] = max(
+            0.0, time.perf_counter() - t_step0
+            - self._phase_s.get("prefill_dispatch", 0.0)
+            - self._phase_s.get("prefill_settle", 0.0))
         active_rows = self._active_rows()
         if any(active_rows):
+            self.obs.occupancy.observe(sum(active_rows) / self.n_slots)
             pairs = [(i, self._slots[i])
                      for i in range(self.n_slots) if active_rows[i]]
-            self._apply_pairs(pairs, *self._decode_tokens(active_rows))
+            decoded = self._decode_tokens(active_rows)
+            self._phase_s["decode_sync"] = self._sync_block_s
+            t_settle0 = time.perf_counter()
+            self._apply_pairs(pairs, *decoded)
             self._finish_check(finished)
+            self._phase_s["settle"] = time.perf_counter() - t_settle0
+            synced = True
+        self._observe_cache_gauges()
+        if synced:
+            # The host's share of the step: wall time minus the time
+            # blocked awaiting the window's results.
+            self.obs.host_overhead.observe(max(
+                0.0, time.perf_counter() - t_step0 - self._sync_block_s))
+        self._observe_step_phases(t_step0, synced, finished, prefills0)
         return finished
+
+    def _observe_step_phases(self, t_step0: float, synced: bool,
+                             finished, prefills0: int) -> None:
+        """Deposit this step's phase attribution (obs.STEP_PHASES), only
+        for steps that did work; host_bookkeeping is the remainder, so
+        the phases add up to the step's wall time."""
+        did_work = (synced or bool(finished)
+                    or self.stats["prefills"] > prefills0)
+        if not did_work or not self.obs.registry.enabled:
+            return
+        attributed = 0.0
+        for phase in ("admission", "prefill_dispatch", "prefill_settle",
+                      "decode_sync", "settle"):
+            v = self._phase_s.get(phase, 0.0)
+            attributed += v
+            self.obs.step_phase.labels(phase=phase).observe(v)
+        self.obs.step_phase.labels(phase="host_bookkeeping").observe(
+            max(0.0, time.perf_counter() - t_step0 - attributed))
+
+    def _observe_cache_gauges(self) -> None:
+        """Per-step utilization gauges from host state only."""
+        obs = self.obs
+        if not obs.registry.enabled:
+            return
+        obs.slots_busy.set(sum(r is not None for r in self._slots))
+        obs.queue_depth.set(len(self._queue))
+        obs.kv_util.set(self.cache_backend.utilization())
 
     def _active_rows(self) -> List[bool]:
         """Slots a decode window advances: the occupied ones."""
@@ -556,9 +652,20 @@ class BatchingEngine:
             r is None or r.temperature == 0.0 for r in self._slots
         )
         self._active.copy_(torch.tensor(active_rows))
+        t0 = time.perf_counter()
         toks, lps, tlv, tli, acts = self._decode_impl(greedy_only)
         self.stats["decode_windows"] += 1
+        for i, req in enumerate(self._slots):
+            if active_rows[i] and req.trace is not None:
+                req.trace.record("window-dispatch", src="engine",
+                                 rid=req.rid, slot=i,
+                                 ticks=self.decode_ticks, depth=1)
+        t1 = time.perf_counter()
         packed = torch.cat([toks, acts.to(torch.int64)]).cpu().numpy()
+        t2 = time.perf_counter()
+        self._sync_block_s += t2 - t1
+        # Window wall time, dispatch to results on the host.
+        self.obs.decode_window_seconds.observe(t2 - t0)
         host_toks, host_acts = packed[:len(toks)], packed[len(toks):]
         # Valid ticks are a prefix (done is sticky): each slot's tokens
         # are a slice, and its cache grew by as many positions.
@@ -661,6 +768,10 @@ class BatchingEngine:
         sequences; EOS and budget were cut on the device and are checked
         again as the single source of truth)."""
         for slot, req in pairs:
+            if req.trace is not None:
+                req.trace.record("window-settle", src="engine",
+                                 rid=req.rid, slot=slot,
+                                 n_tokens=len(per_slot[slot]))
             for j, tok in enumerate(per_slot[slot]):
                 req.out.append(int(tok))
                 if per_lps is not None:
@@ -685,23 +796,33 @@ class BatchingEngine:
                 self.finished_logprobs.pop(rid, None)
                 self.finished_top_logprobs.pop(rid, None)
                 self.stats["requests_cancelled"] += 1
+                if req.trace is not None:
+                    req.trace.abort("cancelled")
                 return True
         for req in list(self._queue):
             if req.rid == rid:
                 self._queue.remove(req)
                 self.stats["requests_cancelled"] += 1
+                if req.trace is not None:
+                    req.trace.abort("cancelled")
                 return True
         return False
 
     def abort_all(self) -> List[Any]:
         """Drop every queued and running request; returns their rids.
         The backend's allocator returns to its pristine state."""
-        dropped = [req.rid for req in self._queue]
+        dropped = []
+        for req in self._queue:
+            dropped.append(req.rid)
+            if req.trace is not None:
+                req.trace.abort("cancelled")
         self._queue.clear()
         for i, req in enumerate(self._slots):
             if req is None:
                 continue
             dropped.append(req.rid)
+            if req.trace is not None:
+                req.trace.abort("cancelled")
             self._slots[i] = None
             self._release_slot(i)
         self.finished_logprobs.clear()
@@ -713,6 +834,15 @@ class BatchingEngine:
     @property
     def pending(self) -> int:
         return len(self._queue) + sum(r is not None for r in self._slots)
+
+    def close(self) -> None:
+        """Drop the captured decode graphs and the device cache, so
+        their memory returns to the allocator; the engine cannot step
+        afterwards. Call it on the thread that drives the engine, or
+        once that thread has exited: freeing a graph is a CUDA call,
+        which a capture running on another thread would refuse."""
+        self._windows = {}
+        self._cache = None
 
     def run(self, requests=None) -> Dict[Any, List[int]]:
         """Drain: submit (rid, tokens, max_new) triples, step to empty."""

@@ -12,15 +12,17 @@ A backend's `kv_quant` (None or "int8") picks the storage: the compute
 dtype, or int8 values with per-(token, kv head) fp32 scales;
 `bytes_per_token` (:152) prices either.
 
+The accounting the observability layer reads, `utilization` (:141)
+and `residency` (:146), comes from host state only.
+
 Not ported yet: sharding axes (meshes), the prefix-cache hooks
-(`on_prefill_complete`, `prefill_offset`, `prefix_manifest`), the rest
-of the accounting the observability layer reads (`utilization`,
-`residency`) and the rolling storage.
+(`on_prefill_complete`, `prefill_offset`, `prefix_manifest`) and the
+rolling storage.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -98,3 +100,20 @@ class CacheBackend:
 
     def reset(self) -> None:
         """abort_all: restore the allocator to its pristine state."""
+
+    # ---- accounting --------------------------------------------------
+
+    def utilization(self) -> float:
+        """Live residency / capacity, in [0, 1] (the kv_utilization
+        gauge)."""
+        raise NotImplementedError
+
+    def residency(self) -> Dict[str, Any]:
+        """JSON-serializable per-slot residency (GET /debug/requests):
+        the storage view; the server adds request identity."""
+        raise NotImplementedError
+
+    def _slot_tokens(self) -> List[int]:
+        """Host-known live tokens per slot (prompt + generated)."""
+        return [(r.tokens.size + len(r.out)) if r is not None else 0
+                for r in self.engine._slots]

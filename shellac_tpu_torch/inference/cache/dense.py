@@ -9,7 +9,7 @@ for int8 values with per-token fp32 scales, with no policy change.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -30,3 +30,13 @@ class DenseBackend(CacheBackend):
     def init_cache(self, device: torch.device):
         return init_cache_for(self.cfg, self.n_slots, self.max_len, device,
                               self.kv_quant)
+
+    def utilization(self) -> float:
+        return sum(self._slot_tokens()) / (self.n_slots * self.max_len)
+
+    def residency(self) -> Dict[str, Any]:
+        return {
+            "backend": self.name,
+            "slot_tokens": self._slot_tokens(),
+            "capacity_tokens": self.n_slots * self.max_len,
+        }

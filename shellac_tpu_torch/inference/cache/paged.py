@@ -3,18 +3,19 @@ them on completion, so resident KV tracks the tokens alive rather than
 n_slots x max_len.
 
 Ports `shellac_tpu/inference/cache/paged.py` (`PagedBackend` :45 and
-the int8 pool `QuantPagedBackend` :474) without the prefix cache: the free list in constructor order,
-`ensure_blocks` :163, `prepare_slot` :234 (the full footprint is
-reserved at admission), `release_slot` :291, `pre_window` :310 and
-`reset`. All allocator state is host-side; the device sees only the
-block tables, which are written in place. Block 0 is scratch: free table
+the int8 pool `QuantPagedBackend` :474) without the prefix cache: the
+free list in constructor order, `ensure_blocks` :163, `prepare_slot`
+:234 (the full footprint is reserved at admission), `release_slot`
+:291, `pre_window` :310, `reset`, `utilization` :456 and `residency`
+:462. All allocator state is host-side; the device sees only the block
+tables, which are written in place. Block 0 is scratch: free table
 entries point at it, so an idle slot (length 0, table row all 0)
 attends one position of block 0.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -124,6 +125,25 @@ class PagedBackend(CacheBackend):
         self._slot_blocks: List[List[int]] = [
             [] for _ in range(self.n_slots)
         ]
+
+    # ---- accounting --------------------------------------------------
+
+    def utilization(self) -> float:
+        # Pool blocks out of the free list / pool size (block 0 is
+        # scratch).
+        pool = self.n_blocks - 1
+        return (pool - len(self._free)) / pool
+
+    def residency(self) -> Dict[str, Any]:
+        return {
+            "backend": self.name,
+            "slot_tokens": self._slot_tokens(),
+            "slot_blocks": [len(b) for b in self._slot_blocks],
+            "block_size": self.block_size,
+            "blocks_total": self.n_blocks - 1,  # minus scratch
+            "blocks_free": len(self._free),
+            "prefix_cached_blocks": 0,
+        }
 
 
 class QuantPagedBackend(PagedBackend):

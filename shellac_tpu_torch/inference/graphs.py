@@ -19,10 +19,21 @@ it is called, which a replay does not do. The capture restores every
 counter to its value before the capture and records how much each grew;
 every replay adds that, so a replayed step counts exactly the launches
 the eager step counts.
+
+Threads: a capture refuses CUDA calls that could synchronize, and
+destroying a graph is one. So the cyclic collector is paused while a
+capture runs, lest it free an abandoned graph in the middle of it
+(collecting first, as `torch.cuda.graph` does, would cost every
+`generate` call, which captures anew, a walk of the whole heap). The
+capture runs in the "thread_local" error mode: only the capturing thread
+is held to the rule, so another thread (an HTTP handler) cannot fail it.
+No other thread may launch work while a capture runs; the serving
+scheduler is the only thread that touches the card.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Optional
 
 import torch
@@ -79,9 +90,12 @@ class StepGraph:
             graph.register_generator_state(self.generator)
         pool = torch.cuda.graph_pool_handle()
         torch.cuda.synchronize(self.device)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(torch.cuda.Stream(self.device)):
-                graph.capture_begin(pool=pool)
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
                 try:
                     out = self.fn()
                 except BaseException:
@@ -92,6 +106,8 @@ class StepGraph:
         finally:
             for w, b in zip(wrappers, before):
                 w.launches = b
+            if collecting:
+                gc.enable()
         self.graph, self._out = graph, out
         self._launches = tuple((w, n) for w, n in zip(wrappers, grown) if n)
         StepGraph.captures += 1

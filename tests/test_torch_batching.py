@@ -36,6 +36,7 @@ from shellac_tpu_torch.inference.cache import (
 from shellac_tpu_torch.models import transformer as tt
 from shellac_tpu_torch.models.from_jax import params_from_jax
 from shellac_tpu_torch.models.registry import get_model_config
+from shellac_tpu_torch.obs import Registry, ServeMetrics
 from shellac_tpu_torch.ops import decode_attention as da
 from shellac_tpu_torch.ops import sampling
 
@@ -514,12 +515,11 @@ _ENGINE_OPTS = [
     {"overlap_decode": True}, {"overlap_prefill": True},
     {"prefill_chunk": 16}, {"mesh": object()}, {"pp_pipeline": True},
     {"kv_quant": "int8", "rolling_window": True}, {"rolling_window": True},
-    {"registry": object()},
 ]
 _SUBMIT_OPTS = [
     {"logit_bias": {1: 2.0}}, {"presence_penalty": 0.5},
     {"frequency_penalty": 0.5}, {"seed": 0}, {"constraint": object()},
-    {"prompt_logprobs": True}, {"prefill_only": True}, {"trace": object()},
+    {"prompt_logprobs": True}, {"prefill_only": True},
     {"tenant": "a"}, {"qos_class": 0}, {"qos_weight": 2.0},
 ]
 
@@ -544,6 +544,12 @@ def test_unported_options_raise(paged):
     eng.submit("ok", [1, 2, 3], 2, presence_penalty=0.0, logit_bias={},
                prompt_logprobs=False)
     assert eng.pending == 1
+    # The observability hooks are ported: an engine takes a registry and
+    # a request takes a trace.
+    reg = Registry()
+    eng = cls(cfg, params, n_slots=2, max_len=32, registry=reg, device=CPU)
+    eng.submit("t", [1, 2, 3], 2, trace=ServeMetrics(reg).trace())
+    assert eng.pending == 1 and eng.obs.registry is reg
 
 
 @pytest.mark.parametrize("paged", [False, True])

@@ -1,0 +1,213 @@
+"""The port's command line (`python -m shellac_tpu_torch`) on the CPU.
+
+`serve` runs as a subprocess on `--port 0`: it prints its
+{"serving": url} line, answers requests with the tokens the port's
+engines give in process on the same seed, and exits 0 on SIGINT.
+`generate` and `batch` print or write the tokens of the port's `Engine`
+and batching engines on the same seed. The options the port lacks raise
+NotImplementedError, and without `--device cpu` the commands want a card.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from shellac_tpu_torch import cli
+from shellac_tpu_torch.inference.batching import (
+    BatchingEngine,
+    PagedBatchingEngine,
+)
+from shellac_tpu_torch.inference.engine import Engine
+from shellac_tpu_torch.models import transformer as tt
+from shellac_tpu_torch.models.registry import get_model_config
+from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+REPO = Path(__file__).resolve().parents[1]
+CPU = "cpu"
+TOK = ByteTokenizer()
+# The package is found from the working directory; the interpreter's
+# startup hooks (PYTHONPATH) are left out, as the port needs none.
+ENV = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+
+def _cli(*args, timeout=120):
+    res = subprocess.run([sys.executable, "-m", "shellac_tpu_torch", *args],
+                         cwd=REPO, env=ENV, capture_output=True, text=True,
+                         timeout=timeout)
+    assert res.returncode == 0, res.stderr
+    return res.stdout
+
+
+def _model(seed, **over):
+    cfg = get_model_config("tiny").replace(**over)
+    return cfg, tt.init_params(cfg, seed=seed, device=CPU)
+
+
+def _post(base, path, payload):
+    req = urllib.request.Request(base + path,
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read().decode()
+
+
+class _Served:
+    """`serve` in a subprocess; stopped with SIGINT, which must exit 0."""
+
+    def __init__(self, *args):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "shellac_tpu_torch", "serve", "--device",
+             "cpu", "--port", "0", *args],
+            cwd=REPO, env=ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        for line in self.proc.stdout:
+            try:
+                self.base = json.loads(line)["serving"]
+                break
+            except (ValueError, KeyError):
+                continue
+        else:
+            raise AssertionError(self.proc.stderr.read())
+
+    def stop(self):
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+        err = self.proc.stderr.read()
+        self.proc.stdout.close()
+        self.proc.stderr.close()
+        return rc, err
+
+
+def test_serve_answers_and_stops_on_sigint():
+    srv = _Served("--model", "tiny", "--seed", "5", "--slots", "2",
+                  "--logprobs")
+    try:
+        out = json.loads(_post(srv.base, "/generate",
+                               {"tokens": [1, 2, 3], "max_new": 5}))
+        with urllib.request.urlopen(srv.base + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        with urllib.request.urlopen(srv.base + "/health", timeout=30) as r:
+            assert json.loads(r.read())["ok"] is True
+    finally:
+        rc, err = srv.stop()
+    assert rc == 0, err
+    cfg, params = _model(5)
+    want = BatchingEngine(cfg, params, n_slots=2, device=CPU).run(
+        [("r", np.array([1, 2, 3], np.int32), 5)])["r"]
+    assert out["tokens"] == want
+    assert 'shellac_requests_total{outcome="ok",tenant=""} 1' in metrics
+    assert 'shellac_engine_cache_backend_info{backend="dense"} 1' in metrics
+
+
+def test_serve_config_over_the_paged_engine(tmp_path):
+    conf = tmp_path / "cfg.json"
+    conf.write_text(json.dumps({"preset": "tiny", "dtype": "float32",
+                                "n_layers": 1}))
+    srv = _Served("--config", str(conf), "--cache-backend", "paged",
+                  "--slots", "2", "--seed", "2")
+    msgs = [{"role": "user", "content": "hi"}]
+    try:
+        native = json.loads(_post(srv.base, "/generate",
+                                  {"text": "abc", "max_new": 6,
+                                   "stream": True}).splitlines()[-1])
+        chat = json.loads(_post(srv.base, "/v1/chat/completions",
+                                {"messages": msgs, "max_tokens": 4}))
+    finally:
+        rc, err = srv.stop()
+    assert rc == 0, err
+    cfg, params = _model(2, dtype="float32", n_layers=1)
+    from shellac_tpu_torch.inference.openai_api import render_chat
+
+    eng = PagedBatchingEngine(cfg, params, n_slots=2, device=CPU)
+    want = eng.run([("a", TOK.encode("abc"), 6),
+                    ("c", TOK.encode(render_chat(msgs, TOK)), 4)])
+    assert native["done"] and native["tokens"] == want["a"]
+    assert chat["choices"][0]["message"]["content"] == TOK.decode(want["c"])
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled", "stop"])
+def test_generate_gives_the_engine_tokens(mode):
+    args = ["generate", "--device", "cpu", "--seed", "4", "--max-new", "7"]
+    cfg, params = _model(4)
+    text = "hello"
+    kw = {}
+    if mode == "greedy":
+        args += ["--temperature", "0", "--prompt", "5,6,7"]
+        prompt, kw = [5, 6, 7], {"temperature": 0.0}
+    else:
+        args += ["--text", text]
+        prompt = TOK.encode(text).tolist()
+        kw = {"temperature": 1.0}
+    want = Engine(cfg, params, device=CPU, **kw).generate(
+        np.asarray([prompt], np.int32), max_new_tokens=7).tokens[0].tolist()
+    if mode == "stop":
+        stop = want[3:5]
+        args += ["--stop", ",".join(map(str, stop))]
+        want = want[:next(i for i in range(len(want))
+                          if want[i:i + 2] == stop)]
+    out = json.loads(_cli(*args).strip().splitlines()[-1])
+    assert out["tokens"] == want
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_batch_gives_the_batching_engine_tokens(tmp_path, backend):
+    rows = [{"prompt": "abc"}, {"prompt": [3, 4, 5, 6], "max_tokens": 3},
+            {"prompt": "zz", "max_tokens": 9, "stop": "q"}]
+    src, dst = tmp_path / "in.jsonl", tmp_path / "out.jsonl"
+    src.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    summary = json.loads(_cli(
+        "batch", "--device", "cpu", "--seed", "3", "--input", str(src),
+        "--output", str(dst), "--max-new", "5", "--slots", "2",
+        "--decode-ticks", "2", "--cache-backend", backend))
+    got = [json.loads(ln) for ln in dst.read_text().splitlines()]
+    cfg, params = _model(3)
+    cls = PagedBatchingEngine if backend == "paged" else BatchingEngine
+    eng = cls(cfg, params, n_slots=2, decode_ticks=2, seed=3, device=CPU)
+    eng.submit(0, TOK.encode("abc"), 5)
+    eng.submit(1, np.array([3, 4, 5, 6], np.int32), 3)
+    eng.submit(2, TOK.encode("zz"), 9, stop=[TOK.encode("q").tolist()])
+    want = eng.run()
+    assert [r["tokens"] for r in got] == [want[i] for i in range(3)]
+    assert [r["text"] for r in got] == [TOK.decode(want[i]) for i in range(3)]
+    assert summary["requests"] == 3
+    assert summary["tokens_generated"] == sum(len(v) for v in want.values())
+
+
+@pytest.mark.parametrize("argv", [
+    ["generate", "--device", "cpu", "--prompt", "1", "--ckpt-dir", "ck"],
+    ["batch", "--device", "cpu", "--input", "i", "--output", "o",
+     "--overlap-decode"],
+    ["batch", "--device", "cpu", "--input", "i", "--output", "o",
+     "--overlap-prefill"],
+    ["serve", "--device", "cpu", "--decode-ticks", "auto"],
+    ["generate", "--device", "cpu", "--prompt", "1", "--tokenizer", "t.json"],
+])
+def test_unported_options_raise(argv):
+    with pytest.raises(NotImplementedError):
+        cli.main(argv)
+
+
+def test_commands_want_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card path is moot")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["generate", "--prompt", "1,2"])
+
+
+def test_overlap_defaults_are_off():
+    for cmd in (["batch", "--input", "i", "--output", "o"], ["serve"]):
+        args = cli.build_parser().parse_args(cmd)
+        assert args.overlap_decode is False and args.overlap_prefill is False
+        assert args.device == "cuda"

@@ -10,7 +10,9 @@ seed), over the dense and paged caches in bf16 and int8: greedy tokens
 through the graphs equal the eager loop's (the same tick code run
 without a graph) exactly, and so do the kernels' launch counts; sampled
 windows draw fresh numbers on every replay and the same numbers from the
-same seed; a capture that fails raises.
+same seed; a capture that fails raises. The HTTP server over the paged
+engine gives the engine's tokens while a stream is in flight over the
+engine's first capture, which runs on the server's scheduler thread.
 """
 
 import numpy as np
@@ -240,3 +242,74 @@ def test_failed_capture_raises(monkeypatch):
     # The failed captures handed the allocator back.
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def test_http_server_streams_through_the_first_capture():
+    """The HTTP server over PagedBatchingEngine (2 layers of shellac-1b,
+    bf16): greedy tokens over HTTP equal the engine run in process. The
+    first request streams alone, so the engine's first eager window and
+    its capture run on the server's scheduler thread while handler
+    threads serve the stream and the other requests arrive; no handler
+    thread touches the card."""
+    import json
+    import threading
+    import urllib.request
+
+    from shellac_tpu_torch.inference.server import (
+        InferenceServer,
+        make_http_server,
+    )
+    from shellac_tpu_torch.obs import Registry
+
+    dev = _card()
+    cfg, params = _model(dev)
+    reqs = _requests(cfg.vocab_size, n=10)
+
+    def engine():
+        return batching.PagedBatchingEngine(
+            cfg, params, n_slots=3, max_len=256, block_size=16,
+            decode_ticks=1, temperature=0.0, device=dev)
+
+    want = engine().run(reqs)
+    eng = engine()
+    srv = InferenceServer(cfg, params, engine=eng, registry=Registry())
+    httpd = make_http_server(srv)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    got, errors, first = {}, [], threading.Event()
+
+    def post(rid, toks, m, stream=False):
+        try:
+            req = urllib.request.Request(
+                base + "/generate",
+                data=json.dumps({"tokens": [int(t) for t in toks],
+                                 "max_new": m, "stream": stream}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if not stream:
+                    got[rid] = json.loads(r.read())["tokens"]
+                    return
+                for raw in r:
+                    first.set()
+                    rec = json.loads(raw)
+                    if rec.get("done"):
+                        got[rid] = rec["tokens"]
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{rid}: {e!r}")
+
+    try:
+        threads = [threading.Thread(target=post, args=(*reqs[0], True))]
+        threads[0].start()
+        assert first.wait(120)
+        threads += [threading.Thread(target=post, args=r) for r in reqs[1:]]
+        for t in threads[1:]:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not errors, errors
+        assert eng.stats["decode_graphs"] == 1
+        assert got == want
+    finally:
+        httpd.shutdown()
+        srv.close()
+    assert not srv._thread.is_alive()

@@ -49,8 +49,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
   5. serve    — shellac-1b through PagedBatchingEngine.run: 16 slots,
                 max_len 2048, 16-token blocks, the default pool; 48
                 requests (prompts 64-1024, 16-128 new tokens, greedy)
-                submitted up front, every window after the first a
-                CUDA-graph replay; throughput, time to first token and
+                submitted up front in strict ordering, after a warm-up
+                that captures every prefill bucket's graph, so every
+                prefill and window is a CUDA-graph replay; throughput,
+                time to first token and
                 per output token, launch counts (paged decode = layers x
                 ticks, dense decode 0, flash = layers x prefills), the
                 graphs captured, the allocator back to pristine, one
@@ -60,10 +62,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 decode step's logits through the kernels against
                 attn_impl="ref" on the same cache state (5e-2 of their
                 scale).
+  5b. serve-overlap — the serve workload with the reference serve's
+                scheduling (both overlap pipelines, one prefill a step):
+                every sequence equal to serve's, exact launch counts,
+                tokens/s, TTFT, TPOT, wall ms per tick and the busy share,
+                peak memory and the graphs captured beside serve's; a
+                second pass at prefill_chunk 256 whose sequences may part
+                from serve's only where the plain model's top-2 margin is
+                under CHUNK_MARGIN.
   6. serve-parity — shellac-1b width cut to 2 layers, fp32: identical
                 greedy tokens from PagedBatchingEngine through the kernels,
-                the same with attn_impl="ref", and the dense
-                BatchingEngine.
+                the same with attn_impl="ref", the dense BatchingEngine,
+                and both engines with 64-token chunked prefill under the
+                reference serve's scheduling.
   7. train    — shellac-1b (full width and depth, fp32 master weights from
                 --seed) through make_train_step at bench.py's recipe:
                 TrainConfig(warmup_steps=10, total_steps=1000), batch 6 x
@@ -103,17 +114,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 same tokens while the ref's top-2 margin is >= 2e-3).
  10. graph-parity — shellac-1b width cut to 2 layers, bf16: BatchingEngine
                 and PagedBatchingEngine over bf16 and int8 caches at 1 and
-                4 ticks a window, through their CUDA graphs and with their
-                windows run eagerly: identical greedy tokens and logprobs
-                and identical launch counts.
+                4 ticks a window, strict and pipelined, through their CUDA
+                graphs (windows and per-bucket prefills) and with both run
+                eagerly: greedy tokens and logprobs identical to the eager
+                strict engine's, launch counts identical between graph and
+                eager runs and to what each run's prefills and windows make.
  11. http-serve — serve's 48 requests over HTTP: InferenceServer over the
                 serve phase's PagedBatchingEngine configuration (shellac-1b,
                 16 slots, max_len 2048, 16-token blocks, one tick a window,
-                greedy), make_http_server on 127.0.0.1:0, 16 client threads
+                greedy) with the reference serve's scheduling,
+                make_http_server on 127.0.0.1:0, 16 client threads
                 (urllib): 32 to /generate, 8 streamed, 8 to /v1/completions
-                with token prompts, after 2 warm-up requests through the
-                server (its scheduler thread runs the first eager window and
-                captures the graph). Every response 200, every token
+                with token prompts, after warm-up requests through the
+                server (its scheduler thread runs the first eager programs
+                and captures the graphs). Every response 200, every token
                 sequence equal to serve's in-process run (a mismatch prints
                 the first differing position and the plain model's top-2
                 margin there), exact launch counts, a /metrics scrape whose
@@ -126,11 +140,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 digests), with serve's numbers beside them.
  12. cli-serve — `python -m shellac_tpu_torch serve --config F
                 --cache-backend paged --slots 4 --port 0 --logprobs` (F:
-                shellac-1b cut to 2 layers) as a subprocess: its
-                {"serving": url} line, two blocking, one streamed and one
-                chat request whose tokens equal an in-process
+                shellac-1b cut to 2 layers) as a subprocess, on the CLI's
+                serving defaults (both pipelines, `--decode-ticks auto`,
+                one prefill a step): its {"serving": url} line and the
+                seconds to it, two blocking, one streamed and one chat
+                request whose tokens equal an in-process
                 PagedBatchingEngine's on the same config and seed (the chat
                 by its decoded text, token count and per-token logprobs),
+                /stats showing the tuned decode_ticks and both pipelines,
                 and exit code 0 on SIGINT.
  13. timings  — each kernel's device time (CUDA-graph replay timed by CUDA
                 events; the eager time beside it) against its bound, its
@@ -869,7 +886,8 @@ def prompts(seed, vocab, dev):
 
 def eager_engine(cls):
     """`cls` (Engine or a batching engine) with its decode loop run
-    eagerly, tick by tick: the loop its CUDA graphs replace."""
+    eagerly, tick by tick, and a batching engine's prefills run eagerly
+    too: the programs its CUDA graphs replace."""
     from shellac_tpu_torch import Engine
 
     if issubclass(cls, Engine):
@@ -880,7 +898,15 @@ def eager_engine(cls):
         class Eager(cls):
             def _decode_impl(self, greedy_only):
                 return self._window(greedy_only)
+
+            def _prefill_replay(self, pad, greedy):
+                return self._prefill_program(pad, greedy)
     return Eager
+
+
+def prefill_graphs(engine):
+    """Prefill buckets of a batching engine captured as CUDA graphs."""
+    return sum(g.graph is not None for g in engine._prefill_graphs.values())
 
 
 def decode_loops(engine, eager, toks, lens):
@@ -1217,6 +1243,22 @@ def serve_requests(seed, vocab, n, prompt_range, new_range):
     return out
 
 
+def warm_requests(seed, vocab):
+    """Two requests at each prefill bucket length serve's prompts reach
+    (16 to the bucket of PROMPT_HI), 16 new tokens each: a bucket's first
+    prefill runs eagerly and its second captures its graph, so a timed
+    run after them replays every prefill, as a warm server does."""
+    rng = np.random.default_rng(seed)
+    out, n = [], 16
+    while True:
+        for j in range(2):
+            out.append((f"w{n}-{j}", rng.integers(0, vocab, n)
+                        .astype(np.int32), NEW_LO))
+        if n >= PROMPT_HI:
+            return out
+        n *= 2
+
+
 def pct(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
@@ -1301,9 +1343,8 @@ def phase_serve(seed, dev, table, card, backend="paged"):
     be = engine.cache_backend
     reqs = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
                           (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
-    # Warm-up (cuBLAS and the allocator), not counted.
-    engine.run(serve_requests(seed + 2, cfg.vocab_size, 2,
-                              (PROMPT_LO, PROMPT_LO), (NEW_LO, NEW_LO)))
+    # Warm-up (cuBLAS, the allocator, every graph), not counted.
+    engine.run(warm_requests(seed + 2, cfg.vocab_size))
     torch.cuda.synchronize()
     reset_peak()
     be.peak_blocks_used = 0
@@ -1324,9 +1365,8 @@ def phase_serve(seed, dev, table, card, backend="paged"):
     ticks = delta["decode_windows"] * engine.decode_ticks
     prefills = delta["prefills"]
     L = cfg.n_layers
-    expect = only(table, rms_norm=(2 * L + 1) * (prefills + ticks),
-                  flash_attention_fwd=L * prefills,
-                  **{decode_kernel: L * ticks})
+    expect = expected_launches(table, L, delta, engine.decode_ticks,
+                               decode_kernel)
     tokens_ok = (set(results) == {r[0] for r in reqs} and all(
         len(results[rid]) == m
         and all(0 <= t < cfg.vocab_size for t in results[rid])
@@ -1346,6 +1386,7 @@ def phase_serve(seed, dev, table, card, backend="paged"):
                "tpot_ms_p50": pct(tpot, 50) * 1e3,
                "tpot_ms_p99": pct(tpot, 99) * 1e3,
                "engine_steps": delta["engine_steps"],
+               "max_memory_allocated": peak,
                "step_breakdown": breakdown}
     clean = pristine(engine)
     # The same pool in bf16: k and v of (L, n_blocks, Hkv, bs, D).
@@ -1401,6 +1442,11 @@ def phase_serve(seed, dev, table, card, backend="paged"):
     eager_walls = decode_step_walls(eager)
     eager.abort_all()
     del eager
+    summary["wall_ms_per_tick_p50"] = float(np.median(graph_walls))
+    summary["device_busy_share"] = (prof["device_ms"]
+                                    / float(np.median(graph_walls)))
+    summary["decode_graphs"] = engine.stats["decode_graphs"]
+    summary["prefill_graphs"] = prefill_graphs(engine)
     emit(phase, step="decode_tick_wall", active_slots=SLOTS,
          graph_ms_per_tick=graph_walls, eager_ms_per_tick=eager_walls,
          graph_over_eager=float(np.median(graph_walls)
@@ -1470,10 +1516,162 @@ def check_decode_logits(phase, cfg, params, engine):
                          "disagree with the plain path")
 
 
+# The chunked pass of serve-overlap parts from serve's tokens only where
+# the plain model's top-2 logit margin is below this: its continuation
+# chunks attend through the plain bf16 attention (as the reference pins
+# them), not kernel 2, so logits move by rounding.
+CHUNK = 256
+CHUNK_MARGIN = 0.5
+
+
+def fill_decoding(engine, reqs):
+    """Submit `reqs` and step until every one of them decodes: admitted,
+    prefilled and settled (one prefill a step under the serve cap)."""
+    for rid, toks, m in reqs:
+        engine.submit(rid, toks, m)
+    steps = 0
+    while (engine._queue or engine._pflights or engine._prefilling
+           or any(r is not None and not r.out for r in engine._slots)):
+        engine.step()
+        steps += 1
+    engine.step()
+    return steps + 1
+
+
+def phase_serve_overlap(seed, dev, table, card, ref):
+    """serve's workload with the reference `serve`'s scheduling: both
+    overlap pipelines and one prefill an engine step (PIPELINED), the
+    prefills and windows as graph replays. Every sequence must equal the
+    serve phase's strict run; tokens/s, TTFT, TPOT, wall per tick, the
+    device-busy share, peak memory and the graphs captured are printed
+    beside serve's. A second pass at prefill_chunk=CHUNK holds its
+    tokens to serve's where the plain model's top-2 margin allows."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.obs import Registry
+
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reg = Registry()
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        cache_backend="paged", decode_ticks=1, temperature=0.0, device=dev,
+        registry=reg, **PIPELINED)
+    reqs = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
+                          (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
+    # Warm-up, not counted: the window graph and every bucket's prefill
+    # graph are captured.
+    engine.run(warm_requests(seed + 2, cfg.vocab_size))
+    torch.cuda.synchronize()
+    reset_peak()
+    before = dict(engine.stats)
+    totals0 = step_totals(reg)
+    reset_counts(table)
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts(table)
+    breakdown = step_breakdown(totals0, step_totals(reg), wall)
+    delta = {k: engine.stats[k] - before[k] for k in
+             ("prefills", "decode_windows", "engine_steps")}
+    expect = expected_launches(table, cfg.n_layers, delta, 1,
+                               "paged_decode_attention")
+    equal = results == ref["results"]
+    ttft, ttft_queued, tpot = [], [], []
+    for rid, _, m in reqs:
+        queued, admitted, first, done = engine.finished_timings[rid]
+        ttft.append(first - admitted)
+        ttft_queued.append(first - queued)
+        tpot.append((done - first) / max(m - 1, 1))
+    generated = sum(len(v) for v in results.values())
+    # Decode-only steps: 16 slots decoding, no admission.
+    full = serve_requests(seed + 3, cfg.vocab_size, SLOTS,
+                          (PROMPT_HI // 2, PROMPT_HI // 2),
+                          (NEW_HI // 2, NEW_HI // 2))
+    fill_steps = fill_decoding(engine, full)
+    walls = decode_step_walls(engine)
+    prof = profile_call(engine.step)
+    engine.abort_all()
+    clean = pristine(engine)
+    graphs = {"decode": engine.stats["decode_graphs"],
+              "prefill": prefill_graphs(engine)}
+    serve = ref["summary"]
+    emit("serve-overlap", step="main_path", model="shellac-1b",
+         slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK, **PIPELINED,
+         requests=len(reqs), generated_tokens=generated, wall_s=wall,
+         tokens_equal_to_serve=equal, tokens_per_s=generated / wall,
+         ttft_ms_p50=pct(ttft, 50) * 1e3, ttft_ms_p99=pct(ttft, 99) * 1e3,
+         ttft_queued_ms_p50=pct(ttft_queued, 50) * 1e3,
+         ttft_queued_ms_p99=pct(ttft_queued, 99) * 1e3,
+         tpot_ms_p50=pct(tpot, 50) * 1e3, tpot_ms_p99=pct(tpot, 99) * 1e3,
+         wall_ms_per_tick=walls,
+         wall_ms_per_tick_p50=float(np.median(walls)),
+         device_ms_per_step=prof["device_ms"],
+         device_busy_share=prof["device_ms"] / float(np.median(walls)),
+         profiled_device_busy_share=prof["device_busy_share"],
+         max_memory_allocated=peak, graphs_captured=graphs,
+         steps_to_fill_16_slots=fill_steps, step_breakdown=breakdown,
+         engine_steps=delta["engine_steps"], prefills=delta["prefills"],
+         decode_windows=delta["decode_windows"], launches=counts,
+         expected=expect, allocator_pristine=clean,
+         serve={k: serve.get(k) for k in (
+             "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99",
+             "ttft_queued_ms_p50", "ttft_queued_ms_p99", "tpot_ms_p50",
+             "tpot_ms_p99", "wall_ms_per_tick_p50", "device_busy_share",
+             "max_memory_allocated", "decode_graphs", "prefill_graphs")},
+         card=card)
+    if not equal or counts != expect or not clean or graphs["prefill"] < 1:
+        raise SystemExit("serve-overlap: tokens differ from serve's, launch "
+                         "counts are off, a block leaked or no prefill ran "
+                         "as a graph")
+
+    # The chunked pass: the same engine at prefill_chunk=CHUNK.
+    engine.set_prefill_chunk(CHUNK)
+    before = dict(engine.stats)
+    t0 = time.perf_counter()
+    chunked = engine.run(reqs)
+    torch.cuda.synchronize()
+    chunk_wall = time.perf_counter() - t0
+    prompts = {rid: toks for rid, toks, _ in reqs}
+    mismatches = []
+    for rid, want in ref["results"].items():
+        got = chunked.get(rid)
+        if got == want:
+            continue
+        pos = next((j for j, (a, b) in enumerate(zip(got or [], want))
+                    if a != b), min(len(got or []), len(want)))
+        mismatches.append({"rid": rid, "first_diff": pos,
+                           "prompt_len": int(prompts[rid].size),
+                           "ref_top2_margin": top2_margin(
+                               cfg, params, dev, prompts[rid], want[:pos])})
+    worst = max((m["ref_top2_margin"] for m in mismatches), default=0.0)
+    chunks = engine.stats["prefill_chunks"] - before["prefill_chunks"]
+    emit("serve-overlap", step="chunked", prefill_chunk=CHUNK,
+         prefill_chunks=chunks, wall_s=chunk_wall,
+         tokens_per_s=sum(len(v) for v in chunked.values()) / chunk_wall,
+         sequences_equal=len(reqs) - len(mismatches), requests=len(reqs),
+         mismatches=mismatches, margin_tol=CHUNK_MARGIN, card=card)
+    engine.abort_all()
+    engine.close()
+    del engine, params
+    reset_peak()
+    if chunks < 1 or worst >= CHUNK_MARGIN or set(chunked) != set(results):
+        raise SystemExit("serve-overlap: the chunked pass ran no chunk or "
+                         "parts from serve's tokens where the plain "
+                         "model's top-2 margin is wide")
+    return counts
+
+
 def phase_serve_parity(seed, dev):
     """Greedy tokens of the paged engine through the kernels, the same
     engine on the plain attention, and the dense engine (kernel 5) must be
-    identical, in fp32 at shellac-1b width cut to 2 layers."""
+    identical, in fp32 at shellac-1b width cut to 2 layers; so must the
+    dense and paged engines with chunked prefill (64-token chunks; their
+    continuations attend through the plain attention, as the reference
+    pins them) under the reference serve's scheduling."""
     from shellac_tpu_torch import get_model_config
     from shellac_tpu_torch.inference.batching import (
         BatchingEngine,
@@ -1491,12 +1689,22 @@ def phase_serve_parity(seed, dev):
                                          attn_impl="ref", device=dev),
         "dense_kernel": BatchingEngine(cfg, params, n_slots=6, max_len=512,
                                        device=dev),
+        "paged_kernel_chunked": PagedBatchingEngine(
+            cfg, params, n_slots=6, max_len=512, prefill_chunk=64,
+            device=dev, **PIPELINED),
+        "dense_kernel_chunked": BatchingEngine(
+            cfg, params, n_slots=6, max_len=512, prefill_chunk=64,
+            device=dev, **PIPELINED),
     }
     out = {name: eng.run(reqs) for name, eng in runs.items()}
-    equal = out["paged_kernel"] == out["paged_ref"] == out["dense_kernel"]
+    equal = all(o == out["paged_ref"] for o in out.values())
+    chunks = {name: runs[name].stats["prefill_chunks"]
+              for name in ("paged_kernel_chunked", "dense_kernel_chunked")}
     emit("serve-parity", requests=len(reqs), slots=6, dtype="float32",
          layers=2, tokens=sum(len(v) for v in out["paged_kernel"].values()),
-         identical=equal)
+         prefill_chunks=chunks,
+         identical={name: o == out["paged_ref"] for name, o in out.items()})
+    equal = equal and min(chunks.values()) > 0
     if not equal:
         raise SystemExit("serve-parity: greedy tokens differ")
     del runs, params
@@ -1582,9 +1790,11 @@ def top2_margin(cfg, params, dev, prompt, prefix):
 
 def phase_http_serve(seed, dev, table, card, ref):
     """serve's 48 requests over HTTP: InferenceServer over the serve
-    phase's engine configuration, make_http_server on 127.0.0.1:0, 16
-    client threads (32 /generate, 8 streamed, 8 /v1/completions with
-    token prompts). Every token sequence must equal the serve phase's."""
+    phase's engine configuration with the reference `serve`'s scheduling
+    (PIPELINED: both pipelines, one prefill a step),
+    make_http_server on 127.0.0.1:0, 16 client threads (32 /generate, 8
+    streamed, 8 /v1/completions with token prompts). Every token
+    sequence must equal the serve phase's."""
     import queue as queue_mod
     import threading
 
@@ -1603,7 +1813,7 @@ def phase_http_serve(seed, dev, table, card, ref):
     engine = PagedBatchingEngine(
         cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
         cache_backend="paged", decode_ticks=1, temperature=0.0, device=dev,
-        registry=reg)
+        registry=reg, **PIPELINED)
     # A ring that holds every request's timeline (the default 2048
     # events would evict the early ones).
     srv = InferenceServer(cfg, params, engine=engine, registry=reg,
@@ -1616,10 +1826,10 @@ def phase_http_serve(seed, dev, table, card, ref):
     reqs = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
                           (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
     # Warm-up through HTTP, as serve warms its engine: the scheduler
-    # thread runs the first eager window and captures the graph.
-    for _, toks, m in serve_requests(seed + 2, cfg.vocab_size, 2,
-                                     (PROMPT_LO, PROMPT_LO),
-                                     (NEW_LO, NEW_LO)):
+    # thread runs the first eager window and prefills and captures the
+    # graphs.
+    warm = warm_requests(seed + 2, cfg.vocab_size)
+    for _, toks, m in warm:
         status, _, body, _ = http_call(base, "/generate",
                                        {"tokens": toks.tolist(),
                                         "max_new": m})
@@ -1682,10 +1892,8 @@ def phase_http_serve(seed, dev, table, card, ref):
              ("prefills", "decode_windows", "requests_completed",
               "tokens_generated")}
     ticks = delta["decode_windows"] * engine.decode_ticks
-    L = cfg.n_layers
-    expect = only(table, rms_norm=(2 * L + 1) * (delta["prefills"] + ticks),
-                  flash_attention_fwd=L * delta["prefills"],
-                  paged_decode_attention=L * ticks)
+    expect = expected_launches(table, cfg.n_layers, delta,
+                               engine.decode_ticks, "paged_decode_attention")
     statuses = sorted({o["status"] for o in out.values()})
     mismatches = []
     for rid, toks, m in reqs:
@@ -1704,7 +1912,7 @@ def phase_http_serve(seed, dev, table, card, ref):
     health_status, _, _, _ = http_call(base, "/health")
     _, _, metrics_body, _ = http_call(base, "/metrics")
     text = metrics_body.decode()
-    answered = len(reqs) + 2
+    answered = len(reqs) + len(warm)
     ok_count = metric_value(
         text, 'shellac_requests_total{outcome="ok",tenant=""}')
     ttft_count = metric_value(text, "shellac_ttft_seconds_count")
@@ -1719,6 +1927,8 @@ def phase_http_serve(seed, dev, table, card, ref):
         server["e2e"].append(e2e)
         server["tpot"].append((e2e - ttft) / max(n - 1, 1))
     clean = pristine(engine)
+    graphs = {"decode": engine.stats["decode_graphs"],
+              "prefill": prefill_graphs(engine)}
     srv.close()
     httpd.shutdown()
     httpd.server_close()
@@ -1738,7 +1948,7 @@ def phase_http_serve(seed, dev, table, card, ref):
         return {"p50": pct(xs, 50) * 1e3, "p99": pct(xs, 99) * 1e3}
 
     emit("http-serve", step="main_path", model="shellac-1b", slots=SLOTS,
-         max_len=MAX_LEN, block_size=BLOCK, clients=HTTP_CLIENTS,
+         max_len=MAX_LEN, block_size=BLOCK, clients=HTTP_CLIENTS, **PIPELINED,
          requests={k: sum(o["kind"] == k for o in out.values())
                    for k in ("generate", "stream", "completions")},
          statuses=statuses, tokens_equal_to_serve=not mismatches,
@@ -1763,7 +1973,7 @@ def phase_http_serve(seed, dev, table, card, ref):
          allocator_pristine=clean, engine_steps=engine.stats["engine_steps"]
          - before["engine_steps"], decode_ticks=ticks,
          prefills=delta["prefills"], launches=counts, expected=expect,
-         graphs_captured=engine.stats["decode_graphs"], card=card)
+         graphs_captured=graphs, card=card)
     if (statuses != [200] or mismatches or counts != expect
             or ok_count != answered or ttft_count != answered
             or health_status != 200 or not exited or not clean):
@@ -1787,11 +1997,14 @@ CHAT_LOGPROB_TOL = 1e-4
 def phase_cli_serve(seed, dev, card):
     """`python -m shellac_tpu_torch serve` in a subprocess: shellac-1b cut
     to 2 layers by a --config file, the paged backend, 4 slots, port 0,
-    `--logprobs`. Four requests (two blocking, one streamed, one chat)
-    must give the tokens of an in-process PagedBatchingEngine on the same
-    config and seed (the chat's through its text, its token count and
-    its per-token logprobs within CHAT_LOGPROB_TOL), and SIGINT must stop
-    it with exit code 0."""
+    `--logprobs`, and the CLI's serving defaults (both overlap
+    pipelines, `--decode-ticks auto`: the startup sweep runs before the
+    serving line; one prefill a step). Four requests (two blocking, one
+    streamed, one chat) must give the tokens of an in-process strict
+    PagedBatchingEngine on the same config and seed (the chat's through
+    its text, its token count and its per-token logprobs within
+    CHAT_LOGPROB_TOL), /stats must show the tuned decode_ticks and both
+    pipelines on, and SIGINT must stop it with exit code 0."""
     import os
     import queue as queue_mod
     import signal
@@ -1858,6 +2071,8 @@ def phase_cli_serve(seed, dev, card):
                 t.start()
             for t in calls:
                 t.join(timeout=300)
+            _, _, stats_body, _ = http_call(base, "/stats")
+            stats = json.loads(stats_body)
             proc.send_signal(signal.SIGINT)
             t1 = time.perf_counter()
             rc = proc.wait(timeout=120)
@@ -1897,11 +2112,17 @@ def phase_cli_serve(seed, dev, card):
                and chat["usage"]["completion_tokens"] == len(want["c"])
                and chat_lp_err is not None
                and chat_lp_err <= CHAT_LOGPROB_TOL)
+    defaults = {k: stats.get(k) for k in (
+        "decode_ticks", "decode_ticks_source", "overlap_decode",
+        "overlap_prefill", "prefill_chunk_source")}
+    ok["defaults"] = (defaults["decode_ticks_source"] == "auto-tuned"
+                      and defaults["overlap_decode"] is True
+                      and defaults["overlap_prefill"] is True)
     emit("cli-serve", command=" ".join(cmd[1:3] + ["serve", "--config",
                                                    "<tmp>"] + cmd[6:]),
          config={"preset": "shellac-1b", "n_layers": 2},
-         seconds_to_serving=up_s, statuses={r: s for r, (s, _) in
-                                            got.items()},
+         seconds_to_serving=up_s, serving_defaults=defaults,
+         statuses={r: s for r, (s, _) in got.items()},
          tokens_equal=ok, chat_logprob_max_abs_err=chat_lp_err,
          chat_logprob_tol=CHAT_LOGPROB_TOL, exit_code=rc,
          seconds_to_exit=stop_s,
@@ -1910,7 +2131,9 @@ def phase_cli_serve(seed, dev, card):
     reset_peak()
     if not all(ok.values()) or rc != 0:
         raise SystemExit("cli-serve: tokens differ from the in-process "
-                         "engine or the server did not exit 0 on SIGINT")
+                         "engine, the serving defaults are not the "
+                         "reference's, or the server did not exit 0 on "
+                         "SIGINT")
 
 
 def phase_serve_parity_int8(seed, dev, table):
@@ -1974,12 +2197,39 @@ def phase_serve_parity_int8(seed, dev, table):
     torch.cuda.empty_cache()
 
 
+# The decode kernel each batching backend's windows launch.
+DECODE_KERNEL = {"paged": "paged_decode_attention",
+                 "dense": "decode_attention_dense",
+                 "paged-int8": "paged_decode_attention_int8",
+                 "dense-int8": "decode_attention_dense_int8"}
+# The reference `serve`'s scheduling (its CLI defaults): both pipelines,
+# one prefill an engine step.
+PIPELINED = dict(overlap_decode=True, overlap_prefill=True,
+                 max_prefills_per_step=1)
+
+
+def expected_launches(table, L, stats, ticks, decode_kernel):
+    """Launch counts a batching run makes from its own counters: per
+    prefill and per decode tick 2L + 1 RMSNorms, per prefill L flash
+    forwards, per tick L decode attentions."""
+    windows = stats["decode_windows"]
+    return only(table,
+                rms_norm=(2 * L + 1) * (stats["prefills"] + windows * ticks),
+                flash_attention_fwd=L * stats["prefills"],
+                **{decode_kernel: L * windows * ticks})
+
+
 def phase_graph_parity(seed, dev, table):
-    """The batching engines' windows through their CUDA graphs against
-    the same windows run eagerly, at shellac-1b width cut to 2 layers in
-    bf16, over the dense and paged caches in bf16 and int8, at 1 and 4
-    ticks a window: the same greedy tokens and logprobs, bit for bit, and
-    the same launch counts."""
+    """The batching engines' programs (decode windows and per-bucket
+    prefills) through their CUDA graphs against the same programs run
+    eagerly, at shellac-1b width cut to 2 layers in bf16, over the dense
+    and paged caches in bf16 and int8, at 1 and 4 ticks a window, in
+    strict ordering and with both pipelines (PIPELINED): every run's
+    greedy tokens and logprobs equal the eager strict engine's, bit for
+    bit; a graph run's launch counts equal its eager twin's and what its
+    prefills and windows make (a pipelined run makes other windows than
+    a strict one: admissions join a window later, and a finished slot
+    rides one more)."""
     from shellac_tpu_torch import get_model_config
     from shellac_tpu_torch.inference.batching import (
         BatchingEngine,
@@ -1996,35 +2246,58 @@ def phase_graph_parity(seed, dev, table):
                else BatchingEngine)
         for ticks in (1, 4):
             runs = {}
-            for name, c in (("graph", cls), ("eager", eager_engine(cls))):
-                eng = c(cfg, params, n_slots=6, max_len=512,
-                        cache_backend=backend, decode_ticks=ticks,
-                        logprobs=True, device=dev)
-                reset_counts(table)
-                out = eng.run(reqs)
-                runs[name] = (out, eng.finished_logprobs, read_counts(table),
-                              dict(eng.stats))
-                del eng
-            (g_out, g_lp, g_n, g_st), (e_out, e_lp, e_n, e_st) = (
-                runs["graph"], runs["eager"])
-            ok = (g_out == e_out and g_lp == e_lp and g_n == e_n
-                  and g_st["decode_graphs"] == 1
-                  and g_st["decode_windows"] == e_st["decode_windows"] > 1)
-            emit("graph-parity", backend=backend, decode_ticks=ticks,
-                 layers=2, dtype="bfloat16", slots=6, requests=len(reqs),
-                 tokens=sum(len(v) for v in g_out.values()),
-                 decode_windows=g_st["decode_windows"],
-                 graphs_captured=g_st["decode_graphs"],
-                 tokens_identical=g_out == e_out,
-                 logprobs_identical=g_lp == e_lp, launches=g_n,
-                 launches_equal=g_n == e_n, ok=ok)
-            if not ok:
-                failed.append((backend, ticks))
+            for mode, pipe in (("strict", {}), ("pipelined", PIPELINED)):
+                for name, c in (("graph", cls), ("eager", eager_engine(cls))):
+                    eng = c(cfg, params, n_slots=6, max_len=512,
+                            cache_backend=backend, decode_ticks=ticks,
+                            logprobs=True, device=dev, **pipe)
+                    reset_counts(table)
+                    out = eng.run(reqs)
+                    torch.cuda.synchronize()
+                    st = dict(eng.stats)
+                    runs[mode, name] = dict(
+                        out=out, lps=dict(eng.finished_logprobs),
+                        launches=read_counts(table), stats=st,
+                        prefill_graphs=prefill_graphs(eng),
+                        expected=expected_launches(
+                            table, cfg.n_layers, st, ticks,
+                            DECODE_KERNEL[backend]))
+                    eng.close()
+                    del eng
+            ref = runs["strict", "eager"]
+            for mode in ("strict", "pipelined"):
+                g, e = runs[mode, "graph"], runs[mode, "eager"]
+                ok = (g["out"] == e["out"] == ref["out"]
+                      and g["lps"] == e["lps"] == ref["lps"]
+                      and g["launches"] == e["launches"] == g["expected"]
+                      and e["launches"] == e["expected"]
+                      and g["stats"]["decode_graphs"] == 1
+                      and g["prefill_graphs"] > 0
+                      and e["stats"]["decode_graphs"] == 0
+                      and g["stats"]["decode_windows"]
+                      == e["stats"]["decode_windows"] > 1)
+                emit("graph-parity", backend=backend, decode_ticks=ticks,
+                     ordering=mode, layers=2, dtype="bfloat16", slots=6,
+                     requests=len(reqs),
+                     tokens=sum(len(v) for v in g["out"].values()),
+                     decode_windows=g["stats"]["decode_windows"],
+                     prefills=g["stats"]["prefills"],
+                     decode_graphs_captured=g["stats"]["decode_graphs"],
+                     prefill_graphs_captured=g["prefill_graphs"],
+                     tokens_identical_to_eager_strict=g["out"] == e["out"]
+                     == ref["out"],
+                     logprobs_identical_to_eager_strict=g["lps"] == e["lps"]
+                     == ref["lps"], launches=g["launches"],
+                     launches_equal_eager_and_expected=(
+                         g["launches"] == e["launches"] == g["expected"]),
+                     ok=ok)
+                if not ok:
+                    failed.append((backend, ticks, mode))
     del params
     torch.cuda.empty_cache()
     if failed:
-        raise SystemExit(f"graph-parity: the CUDA graphs differ from the "
-                         f"eager windows: {failed}")
+        raise SystemExit(f"graph-parity: the CUDA graphs or the pipelines "
+                         f"differ from the eager strict engine: {failed}")
 
 
 # --------------------------------------------------------------------------
@@ -2660,6 +2933,8 @@ def main():
     paths["serve"], serve_ref = phase_serve(args.seed, dev, table, card)
     paths["serve-int8"], _ = phase_serve(args.seed, dev, table, card,
                                          backend="paged-int8")
+    paths["serve-overlap"] = phase_serve_overlap(args.seed, dev, table,
+                                                 card, serve_ref)
     paths["http-serve"] = phase_http_serve(args.seed, dev, table, card,
                                            serve_ref)
     paths["train"] = phase_train(args.seed, dev, table, card)
@@ -2670,6 +2945,8 @@ def main():
                         ("serve", decode + ("paged_decode_attention",)),
                         ("serve-int8",
                          decode + ("paged_decode_attention_int8",)),
+                        ("serve-overlap",
+                         decode + ("paged_decode_attention",)),
                         ("http-serve", decode + ("paged_decode_attention",)),
                         ("train", ("rms_norm", "flash_attention_fwd",
                                    "flash_attention_bwd_dkdv",

@@ -13,11 +13,11 @@ Everything runs on the card unless `--device cpu` is given. The model is
 a preset (`--model`) or a `--config` JSON file of ModelConfig overrides,
 which may name a `preset` to start from; weights are a random init from
 `--seed`. Only the flags the port supports exist; among those kept for
-the reference's command lines, `--ckpt-dir` (checkpoints), `--decode-ticks
-auto` (the startup autotuner) and `--overlap-decode` / `--overlap-prefill`
-(the overlap pipelines) raise NotImplementedError. The JAX CLI turns the
-overlap pipelines on by default; the port's default is off, since it
-has none yet.
+the reference's command lines, `--ckpt-dir` (checkpoints) raises
+NotImplementedError. The serving defaults are the reference's: both
+overlap pipelines on, `--decode-ticks auto` (the startup autotuner),
+`--max-prefills-per-step 1`, whole-prompt prefills (`--prefill-chunk`
+takes a size or `auto`).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ import numpy as np
 
 
 def _decode_ticks_arg(v: str):
-    """--decode-ticks parser: an int >= 1, or 'auto' (refused later)."""
+    """--decode-ticks parser: an int >= 1, or 'auto' (the startup sweep
+    of candidates on the live engine)."""
     if v == "auto":
         return v
     try:
@@ -38,6 +39,19 @@ def _decode_ticks_arg(v: str):
     except ValueError:
         raise argparse.ArgumentTypeError(
             f"--decode-ticks wants an integer or 'auto', got {v!r}"
+        )
+
+
+def _prefill_chunk_arg(v: str):
+    """--prefill-chunk parser: an int >= 1, or 'auto' (the startup sweep
+    of chunk candidates on the live engine)."""
+    if v == "auto":
+        return v
+    try:
+        return int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--prefill-chunk wants an integer or 'auto', got {v!r}"
         )
 
 
@@ -62,21 +76,6 @@ def _restore_params(args, cfg):
         raise NotImplementedError(
             "--ckpt-dir: checkpoints are not ported yet")
     return transformer.init_params(cfg, seed=args.seed, device=args.device)
-
-
-def _engine_opts(args):
-    """Refuse the options the port's engines do not have yet."""
-    if getattr(args, "overlap_decode", False):
-        raise NotImplementedError(
-            "--overlap-decode: the overlapped decode pipeline is not "
-            "ported yet")
-    if getattr(args, "overlap_prefill", False):
-        raise NotImplementedError(
-            "--overlap-prefill: the overlapped prefill pipeline is not "
-            "ported yet")
-    if getattr(args, "decode_ticks", 1) == "auto":
-        raise NotImplementedError(
-            "--decode-ticks auto: the startup autotuner is not ported yet")
 
 
 def _stop_seqs(args):
@@ -140,7 +139,6 @@ def cmd_batch(args):
     from shellac_tpu_torch.inference.cache import engine_class
     from shellac_tpu_torch.training.tokenizer import get_tokenizer
 
-    _engine_opts(args)
     cfg = _model_config(args)
     params = _restore_params(args, cfg)
     tok = get_tokenizer(args.tokenizer)
@@ -148,10 +146,16 @@ def cmd_batch(args):
         cfg, params, n_slots=args.slots,
         max_len=args.max_len or cfg.max_seq_len,
         temperature=args.temperature, eos_id=args.eos_id,
-        decode_ticks=args.decode_ticks, seed=args.seed,
+        decode_ticks=args.decode_ticks,
+        overlap_decode=args.overlap_decode,
+        overlap_prefill=args.overlap_prefill, seed=args.seed,
         cache_backend=args.cache_backend, logprobs=args.logprobs,
         device=args.device,
     )
+    if args.decode_ticks == "auto":
+        from shellac_tpu_torch.inference.autotune import maybe_autotune
+
+        maybe_autotune(eng, log=lambda m: print(m, file=sys.stderr))
     rows = []
     with open(args.input) as f:
         for line in f:
@@ -214,7 +218,6 @@ def cmd_serve(args):
     from shellac_tpu_torch.inference.server import serve
     from shellac_tpu_torch.training.tokenizer import get_tokenizer
 
-    _engine_opts(args)
     if not args.metrics:
         # One switch for the process: engines, the server and the spans
         # deposit into the global registry, which now no-ops every write.
@@ -228,7 +231,11 @@ def cmd_serve(args):
         max_len=args.max_len or cfg.max_seq_len,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         min_p=args.min_p, eos_id=args.eos_id, seed=args.seed,
-        decode_ticks=args.decode_ticks, logprobs=args.logprobs,
+        decode_ticks=args.decode_ticks,
+        overlap_decode=args.overlap_decode,
+        overlap_prefill=args.overlap_prefill,
+        max_prefills_per_step=args.max_prefills_per_step,
+        prefill_chunk=args.prefill_chunk, logprobs=args.logprobs,
         cache_backend=args.cache_backend, device=args.device,
     )
     try:
@@ -236,7 +243,7 @@ def cmd_serve(args):
             cfg, params, host=args.host, port=args.port,
             tokenizer=get_tokenizer(args.tokenizer),
             model_name=(args.model or "shellac_tpu"),
-            engine=engine, max_pending=args.max_pending,
+            engine=engine, max_pending=args.max_pending, autotune=True,
         )
     except KeyboardInterrupt:
         # SIGINT is the stop signal: serve() closed the server on its
@@ -266,13 +273,19 @@ def build_parser() -> argparse.ArgumentParser:
                         help="checkpoint directory (not ported yet: raises)")
 
     def overlap(sp):
-        for name in ("decode", "prefill"):
-            sp.add_argument(
-                f"--overlap-{name}", dest=f"overlap_{name}",
-                action=argparse.BooleanOptionalAction, default=False,
-                help=f"the overlapped {name} pipeline: not ported yet, so "
-                     "the default is off (the JAX CLI's is on) and "
-                     "asking for it raises")
+        sp.add_argument(
+            "--overlap-decode", dest="overlap_decode",
+            action=argparse.BooleanOptionalAction, default=True,
+            help="two-deep decode pipeline: queue window k+1 while the "
+                 "host settles window k (greedy outputs are "
+                 "token-identical either way; --no-overlap-decode "
+                 "restores strict ordering)")
+        sp.add_argument(
+            "--overlap-prefill", dest="overlap_prefill",
+            action=argparse.BooleanOptionalAction, default=True,
+            help="in-flight prefills: an admission queues its prefill "
+                 "and returns, and every prefill in flight settles at "
+                 "the next step boundary (TTFT is marked there)")
 
     g = sub.add_parser("generate", help="sample tokens")
     common(g)
@@ -302,8 +315,8 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--eos-id", type=int, default=None, dest="eos_id")
     b.add_argument("--decode-ticks", type=_decode_ticks_arg, default=4,
                    dest="decode_ticks",
-                   help="decode steps per host sync ('auto' is not "
-                        "ported yet)")
+                   help="decode steps per host sync, or 'auto' to sweep "
+                        "before the drain")
     overlap(b)
     b.add_argument("--cache-backend", default="dense", dest="cache_backend",
                    choices=backends, help="KV-cache storage policy")
@@ -323,11 +336,22 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--eos-id", type=int, default=None, dest="eos_id")
     s.add_argument("--cache-backend", default="dense", dest="cache_backend",
                    choices=backends, help="KV-cache storage policy")
-    s.add_argument("--decode-ticks", type=_decode_ticks_arg, default=1,
-                   dest="decode_ticks",
-                   help="decode steps per host sync ('auto' is not "
-                        "ported yet)")
+    s.add_argument("--decode-ticks", type=_decode_ticks_arg,
+                   default="auto", dest="decode_ticks",
+                   help="decode steps per host sync: an int, or 'auto' "
+                        "(the default) to sweep candidates against the "
+                        "live engine at startup and keep the fastest")
     overlap(s)
+    s.add_argument("--max-prefills-per-step", type=int, default=1,
+                   dest="max_prefills_per_step",
+                   help="cap prefills per engine step so prompt bursts "
+                        "don't stall active decodes")
+    s.add_argument("--prefill-chunk", type=_prefill_chunk_arg,
+                   default=None, dest="prefill_chunk",
+                   help="prefill prompts longer than this incrementally "
+                        "(one chunk per step) so a long prompt cannot "
+                        "stall active decodes; 'auto' sweeps chunk "
+                        "candidates on the live engine at startup")
     s.add_argument("--max-pending", type=int, default=None,
                    dest="max_pending",
                    help="reject new requests with HTTP 429 + Retry-After "

@@ -1,36 +1,65 @@
 """Continuous batching: many requests share one fixed device batch.
 
 Ports `shellac_tpu/inference/batching.py` (`BatchingEngine` :183,
-`PagedBatchingEngine` :2439) in strict ordering. The engine keeps a
-fixed-shape slot batch on the device and multiplexes requests onto it:
+`PagedBatchingEngine` :2439) with its admission and decode pipelines.
+The engine keeps a fixed-shape slot batch on the device and multiplexes
+requests onto it:
 
   - a free slot is filled by prefilling one request's prompt into a
     batch-1 dense mini cache (prompt lengths bucket to powers of two) and
     scattering it into the slot: a dense row (`scatter_slot`), or the
-    slot's pages of the block pool through its table row;
+    slot's pages of the block pool through its table row. The prefill is
+    one program per (bucket, greedy or sampling): it reads a fixed token
+    buffer, the slot, the prompt length and the budget as device
+    tensors, and the slot's sampling settings from the per-slot vectors,
+    and writes the slot's first token and stop state on the device, so
+    on the card it runs as a CUDA graph (`inference/graphs.py`), the
+    counterpart of the JAX engine's prefill jitted per bucket (:1433):
+    the bucket's first prefill runs eagerly, every later one replays.
+    The prefill graphs share one memory pool;
+  - a prompt longer than `prefill_chunk` prefills chunk by chunk, one
+    chunk program per step under the prefill budget (`_advance_prefills`
+    :1638); a continuation chunk attends through the plain attention, as
+    the JAX engine pins it there (:1744, :2673);
   - every decode window runs `decode_ticks` single-token forwards over
     ALL slots; idle slots compute values that are discarded, and a slot
     that finishes inside the window (EOS or budget) freezes on the
-    device, so shapes never change; the host syncs once per window. The
-    window reads and writes only tensors that keep their identity for
-    the engine's life (the cache, the next tokens, the stop state, the
-    sampling settings, the active mask), so on the card it runs as a
-    CUDA graph (`inference/graphs.py`), the counterpart of the JAX
-    package's jitted `lax.scan`: one graph per window variant (greedy
-    only, or sampling), whose first window runs eagerly and every later
-    one replays the graph. On the CPU every window runs eagerly;
+    device, so shapes never change. The window reads and writes only
+    tensors that keep their identity for the engine's life (the cache,
+    the next tokens, the stop state, the sampling settings, the active
+    mask), so on the card it runs as a CUDA graph, the counterpart of the
+    JAX package's jitted `lax.scan`: one graph per (decode_ticks, greedy
+    only or sampling), whose first window runs eagerly and every later
+    one replays. On the CPU every program runs eagerly;
   - a request leaves its slot on EOS, a stop sequence or its max_new
     budget, and the slot is refillable at once.
+
+Pipelines (the reference's `overlap_prefill` and `overlap_decode`):
+every program's results are copied into pinned host memory on the
+stream right after it is queued, and an event marks them (`HostPull`);
+the host waits on that event, never on later work. With
+`overlap_prefill` an admission queues its prefill and moves on; every
+prefill in flight settles at the next step boundary (`_PrefillFlight`
+:139), and TTFT is marked there. With `overlap_decode` the step queues
+the next window before it waits for the previous one (`_DecodeWindow`
+:162), so the card computes window k+1 while the host settles window k;
+a window's pairs record which request owned each slot at dispatch, and
+results for a slot cancelled or refilled in flight are discarded. Both
+off is strict ordering: every program's results are waited for at
+once. Everything runs on one stream: in-place writes, releases and
+block-table writes stay ordered behind the programs in flight, and no
+host-to-device copy blocks (`ops.dispatch.copy_from_host`).
 
 Greedy output for any request is what the single-request Engine gives:
 the scheduling is invisible to the math.
 
 The host owns the cache's length bookkeeping: it knows each slot's
-length (prompt + tokens written) and sets the cache's `max_length` to
-the true maximum before each window, so a long-running engine whose
-slots recycle never trips the write guard that `forward_with_cache`
-keeps for a growing batch. A released slot's device length is reset to
-0, so an idle slot attends one position.
+length (prompt + tokens written, projected past the windows in flight)
+and sets the cache's `max_length` to the true maximum before each
+window, so a long-running engine whose slots recycle never trips the
+write guard that `forward_with_cache` keeps for a growing batch. A
+released slot's device length is reset to 0, so an idle slot attends
+one position.
 
 The cache backend is dense or paged, in the compute dtype or int8
 (`dense-int8`, `paged-int8`, or the legacy `kv_quant="int8"`): the
@@ -39,19 +68,18 @@ prefill quantizes into an int8 mini and scatters values and scales.
 Observability (`obs/`): the engine writes its `EngineMetrics` (prefill
 section and decode window seconds, host overhead, step phases, batch
 occupancy, slots busy, queue depth, KV utilization) into `registry`
-(the process default unless given one) once per `step()`, on the host
-after the window's one sync; a request submitted with `trace=` (an
-`obs.RequestTrace`) gets the JAX engine's marks: queue at submit,
-prefill_start at admission, first_token when the prefill's token is on
-the host, window-dispatch and window-settle per window, and
-abort("cancelled") on cancel. Nothing is recorded inside the captured
-window.
+(the process default unless given one) once per `step()`, on the host;
+a request submitted with `trace=` (an `obs.RequestTrace`) gets the JAX
+engine's marks: queue at submit, prefill_start at admission,
+prefill-dispatch under overlap_prefill, first_token when the prefill's
+token is on the host (its settle), window-dispatch and window-settle per
+window, and abort("cancelled") on cancel. Nothing is recorded inside a
+captured program.
 
-Not ported yet; each raises NotImplementedError: overlapped decode and
-prefill, chunked prefill, meshes and pipeline stages, rolling caches,
-the prefix cache, beam search, preemption, and at `submit` logit bias,
-presence and frequency penalties, per-request seeds, constraints,
-prompt logprobs, prefill-only requests and QoS tags.
+Not ported yet; each raises NotImplementedError: meshes and pipeline
+stages, rolling caches, the prefix cache, beam search, preemption, and
+at `submit` logit bias, presence and frequency penalties, per-request
+seeds, constraints, prompt logprobs, prefill-only requests and QoS tags.
 """
 
 from __future__ import annotations
@@ -73,11 +101,17 @@ from shellac_tpu_torch.inference.cache import (
     make_backend,
     resolve_backend_name,
     scatter_slot,
+    slot_view,
 )
-from shellac_tpu_torch.inference.graphs import StepGraph
+from shellac_tpu_torch.inference.graphs import HostPull, StepGraph
 from shellac_tpu_torch.models import transformer
 from shellac_tpu_torch.obs import EngineMetrics, get_registry
-from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
+from shellac_tpu_torch.ops.dispatch import (
+    DeviceLike,
+    check_on,
+    copy_from_host,
+    resolve_device,
+)
 from shellac_tpu_torch.ops.sampling import NEG_INF, sample_batched
 
 
@@ -126,11 +160,50 @@ class _Request:
         return None
 
 
+def _put(t: torch.Tensor, slot: int, value) -> None:
+    """t[slot] = value as a fill on the device. (Assigning a Python scalar
+    to one element copies a host scalar tensor into it, and a copy from
+    pageable host memory waits for every program queued before it, the
+    windows in flight included.)"""
+    t[slot:slot + 1].fill_(value)
+
+
 def _bucket(n: int, lo: int = 16) -> int:
     b = lo
     while b < n:
         b *= 2
     return b
+
+
+class _PrefillFlight:
+    """Host-side record of ONE queued, not yet settled prefill (or final
+    chunk). `pull` carries its packed results (first token, its raw
+    logprob, the top-K alternatives) to the host. `req` is the request
+    that owned the slot at dispatch: the settle discards results for a
+    slot cancelled or refilled in flight (identity check, as for decode
+    windows)."""
+
+    __slots__ = ("slot", "req", "pull")
+
+    def __init__(self, slot: int, req: _Request, pull: HostPull):
+        self.slot = slot
+        self.req = req
+        self.pull = pull
+
+
+class _DecodeWindow:
+    """Host-side record of ONE queued, not yet synced decode window.
+    `pairs` records which request owned each active slot at dispatch;
+    `ticks` is the window's decode_ticks at dispatch (the autotuner may
+    retune between windows); `pull` carries its packed results."""
+
+    __slots__ = ("pairs", "ticks", "pull", "t_dispatch")
+
+    def __init__(self, pairs, ticks: int, pull: HostPull):
+        self.pairs = pairs  # [(slot, _Request)] active at dispatch
+        self.ticks = ticks
+        self.pull = pull
+        self.t_dispatch = time.perf_counter()
 
 
 class BatchingEngine:
@@ -176,12 +249,8 @@ class BatchingEngine:
         registry=None,
         device: DeviceLike = None,
     ):
-        _unported(overlap_decode=overlap_decode,
-                  overlap_prefill=overlap_prefill,
-                  prefill_chunk=None if prefill_chunk == "auto"
-                  else prefill_chunk,
-                  mesh=mesh,
-                  rolling_window=rolling_window, pp_pipeline=pp_pipeline)
+        _unported(mesh=mesh, rolling_window=rolling_window,
+                  pp_pipeline=pp_pipeline)
         top_logprobs = int(top_logprobs or 0)
         if top_logprobs < 0 or top_logprobs > 32:
             raise ValueError(
@@ -189,7 +258,9 @@ class BatchingEngine:
             )
         if top_logprobs and not logprobs:
             raise ValueError("top_logprobs needs logprobs=True")
-        # "auto" runs as 1 until an autotuner (not ported) rewrites it.
+        # decode_ticks "auto" runs as 1 until the serving entry points'
+        # autotuner (inference/autotune.py) writes the winner back.
+        self.decode_ticks_requested = decode_ticks
         if decode_ticks == "auto":
             decode_ticks = 1
         elif isinstance(decode_ticks, str):
@@ -200,6 +271,17 @@ class BatchingEngine:
             raise ValueError(f"decode_ticks must be >= 1, got {decode_ticks}")
         if max_prefills_per_step is not None and max_prefills_per_step < 1:
             raise ValueError("max_prefills_per_step must be >= 1")
+        # prefill_chunk "auto" runs as None (whole prompts) until tuned.
+        self.prefill_chunk_requested = prefill_chunk
+        if prefill_chunk == "auto":
+            prefill_chunk = None
+        elif isinstance(prefill_chunk, str):
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk!r}: need an int >= 1, "
+                "None, or 'auto'"
+            )
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
         transformer.check_supported(cfg)
         self.device = resolve_device(device)
         check_on(self.device, embed=params["embed"])
@@ -211,6 +293,9 @@ class BatchingEngine:
         self.attn_impl = attn_impl
         self.decode_ticks = decode_ticks
         self.max_prefills_per_step = max_prefills_per_step
+        self.prefill_chunk = prefill_chunk
+        self.overlap_decode = bool(overlap_decode)
+        self.overlap_prefill = bool(overlap_prefill)
         self.logprobs = logprobs
         self.top_logprobs = top_logprobs
 
@@ -269,15 +354,39 @@ class BatchingEngine:
         self._srem = full(0, torch.int32)
         self._sdone = full(False, torch.bool)
         self._cur = full(0, torch.int64)
-        # The slots a window advances, copied in before each window.
+        # The slots a window advances, and the host's copy of it: each
+        # window rewrites (by fills) the slots that changed.
         self._active = full(False, torch.bool)
+        self._active_host = [False] * n
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(int(seed))
-        # The decode window's runner per variant (greedy_only).
-        self._windows: Dict[bool, StepGraph] = {}
+        # Program runners (a StepGraph on the card): decode windows by
+        # (decode_ticks, greedy_only), prefills by (bucket, greedy).
+        self._window_graphs: Dict[Tuple[int, bool], Any] = {}
+        self._prefill_graphs: Dict[Tuple[int, bool], Any] = {}
+        # The memory pool every prefill graph shares (the card only).
+        self._prefill_pool = None
+        # The prefill programs' fixed inputs, built at the first
+        # prefill: (slot, prompt length, max_new, padded tokens...) and
+        # one max_len mini cache whose prefix each bucket writes.
+        self._pf_in: Optional[torch.Tensor] = None
+        self._pf_mini = None
+        self._pf_zero: Optional[torch.Tensor] = None
+        # Queued, un-synced decode windows, oldest first (at most 2 deep
+        # by step()'s structure), and queued, unsettled prefills.
+        self._windows: Deque[_DecodeWindow] = deque()
+        self._pflights: List[_PrefillFlight] = []
+        # Chunked prefills under way: slot -> prompt tokens written.
+        self._prefilling: Dict[int, int] = {}
+        # Test and bench seams (inference.autotune.SimulatedHostLatency):
+        # None, or objects with on_dispatch(window)/before_sync(window)
+        # and on_prefill_dispatch(flight)/before_prefill_sync(flights).
+        self._window_hooks = None
+        self._prefill_hooks = None
 
         self._cache = backend.init_cache(dev)
-        # Host copy of each slot's cache length (positions written).
+        # Host copy of each slot's cache length (positions written),
+        # behind the device by the windows in flight.
         self._host_len: List[int] = [0] * n_slots
         self._queue: Deque[_Request] = deque()
         self._slots: List[Optional[_Request]] = [None] * n_slots
@@ -290,19 +399,34 @@ class BatchingEngine:
             "tokens_generated": 0,
             "engine_steps": 0,
             "prefills": 0,
+            "prefill_chunks": 0,
             "requests_cancelled": 0,
+            # The live pipeline configuration, mirrored at /metrics:
+            # decode_ticks (the autotuner rewrites it), the window
+            # pipeline depth (2 overlapped, 1 strict), whether prefills
+            # overlap, the live chunk size (0 = whole prompts).
+            "decode_ticks": decode_ticks,
+            "overlap_depth": 2 if self.overlap_decode else 1,
+            "overlap_prefill": 1 if self.overlap_prefill else 0,
+            "prefill_chunk": prefill_chunk or 0,
             # Admissions put back because the backend had no room.
             "pool_exhausted": 0,
             "decode_windows": 0,
             # Window variants captured as CUDA graphs (the card only).
             "decode_graphs": 0,
         }
+        # How decode_ticks and prefill_chunk were chosen: "fixed", or
+        # "auto" until the autotuner rewrites it to "auto-tuned".
+        self.decode_ticks_source = (
+            "auto" if self.decode_ticks_requested == "auto" else "fixed")
+        self.prefill_chunk_source = (
+            "auto" if self.prefill_chunk_requested == "auto" else "fixed")
         # Engine instruments over the shared registry, written once per
-        # step on the host (never inside the captured window).
+        # step on the host (never inside a captured program).
         self.obs = EngineMetrics(
             registry if registry is not None else get_registry())
         # Per-step phase seconds (obs.STEP_PHASES) and the time blocked
-        # in the window's sync, reset by each step().
+        # in window syncs, reset by each step().
         self._phase_s: Dict[str, float] = {}
         self._sync_block_s = 0.0
 
@@ -330,26 +454,35 @@ class BatchingEngine:
                                         x[:, self.eos_id])
         return x
 
-    def _sample_first(self, last, req: _Request):
-        """The prefill's first output token from the adjusted logits of
-        the last prompt position, its raw logprob, and its top-K."""
-        adj = self._adjust_logits(
-            last[None], torch.full((1,), req.min_tokens, device=self.device))
-        if req.temperature == 0.0:
+    def _first_token(self, last, slot, max_new, greedy: bool):
+        """A prefill's exit, on the device: sample the first output token
+        from the last prompt position's (1, V) raw logits under the
+        slot's settings, and arm the slot's decode state (its next
+        token, its remaining budget, done cleared, one unit of the EOS
+        ban used). `slot` and `max_new` are (1,) device tensors. Returns
+        the packed (2 + 2K,) fp64 results: the token, its raw logprob,
+        then the top-K logprobs and ids."""
+        min_rem = self._smin.index_select(0, slot)
+        adj = self._adjust_logits(last, min_rem)
+        if greedy:
             first = torch.argmax(adj, dim=-1)
         else:
-            def one(value, dtype):
-                return torch.full((1,), value, dtype=dtype,
-                                  device=self.device)
-
             first = sample_batched(
-                self._gen, adj, one(req.temperature, torch.float32),
-                one(req.top_k, torch.int64), one(req.top_p, torch.float32),
-                one(req.min_p, torch.float32))
+                self._gen, adj, self._stemp.index_select(0, slot),
+                self._stopk.index_select(0, slot),
+                self._stopp.index_select(0, slot),
+                self._sminp.index_select(0, slot))
         lsm = torch.log_softmax(last.float(), dim=-1)
-        tl = (torch.topk(lsm[None], self.top_logprobs, dim=-1)
-              if self.top_logprobs else None)
-        return first[0], lsm[first[0]], tl
+        parts = [first.double(), torch.gather(lsm, 1, first[:, None])[:, 0]
+                 .double()]
+        if self.top_logprobs:
+            tlv, tli = torch.topk(lsm, self.top_logprobs, dim=-1)
+            parts += [tlv[0].double(), tli[0].double()]
+        self._cur.index_copy_(0, slot, first.to(self._cur.dtype))
+        self._srem.index_copy_(0, slot, (max_new - 1).to(torch.int32))
+        self._sdone.index_fill_(0, slot, False)
+        self._smin.index_copy_(0, slot, (min_rem - 1).clamp_min(0))
+        return torch.cat(parts)
 
     # ---- admission ---------------------------------------------------
 
@@ -419,73 +552,93 @@ class BatchingEngine:
 
     def _release_slot(self, slot: int) -> None:
         """A request left `slot`: the backend releases its storage and
-        the slot's device length returns to 0."""
+        the slot's device length returns to 0 (in stream order, behind
+        any program in flight)."""
         self.cache_backend.release_slot(slot)
-        self._cache.lengths[slot] = 0
+        _put(self._cache.lengths, slot, 0)
         self._host_len[slot] = 0
 
     def _set_slot_sampling(self, slot: int, req: _Request) -> None:
-        self._stemp[slot] = req.temperature
-        self._stopk[slot] = req.top_k
-        self._stopp[slot] = req.top_p
-        self._sminp[slot] = req.min_p
-        self._smin[slot] = req.min_tokens
-
-    def _prefill_mini(self, tokens, s: int):
-        """Prefill a batch-1 dense mini cache of the pad length; returns
-        (last real position's logits, mini)."""
-        mini = self.cache_backend.init_mini(tokens.shape[1], self.device)
-        logits, mini = transformer.forward_with_cache(
-            self.cfg, self.params, tokens, mini,
-            new_tokens_len=torch.full((1,), s, dtype=torch.int32,
-                                      device=self.device),
-            fresh_cache=True, attn_impl=self.attn_impl,
-        )
-        return logits[0, s - 1], mini
-
-    def _prefill_impl(self, tokens, s: int, slot: int):
-        """Prefill one request and scatter it into `slot`'s dense row;
-        returns the last prompt position's logits."""
-        last, mini = self._prefill_mini(tokens, s)
-        scatter_slot(self._cache, mini, slot)
-        return last
+        _put(self._stemp, slot, req.temperature)
+        _put(self._stopk, slot, req.top_k)
+        _put(self._stopp, slot, req.top_p)
+        _put(self._sminp, slot, req.min_p)
+        _put(self._smin, slot, req.min_tokens)
 
     def _add_phase(self, phase: str, seconds: float) -> None:
         self._phase_s[phase] = self._phase_s.get(phase, 0.0) + seconds
 
-    def _run_prefill(self, slot: int, req: _Request) -> None:
-        t0 = time.perf_counter()
+    def _graph(self, fn, generator, pool=None):
+        """The runner of a program `fn`: a CUDA graph on the card."""
+        return StepGraph(fn, self.device, generator, pool)
+
+    def _prefill_inputs(self):
+        """The prefill programs' fixed inputs, built once: an int64
+        buffer (slot, prompt length, max_new, then max_len padded token
+        ids), a max_len mini cache of the backend's kind whose first
+        `pad` positions a bucket's program writes, and its zero
+        lengths."""
+        if self._pf_in is None:
+            self._pf_in = torch.zeros((3 + self.max_len,), dtype=torch.int64,
+                                      device=self.device)
+            self._pf_mini = self.cache_backend.init_mini(self.max_len,
+                                                         self.device)
+            self._pf_zero = torch.zeros((1,), dtype=torch.int32,
+                                        device=self.device)
+        return self._pf_in
+
+    def _prefill_program(self, pad: int, greedy: bool):
+        """One bucket's prefill: the padded prompt through a fresh view
+        of the mini cache, the scatter into the slot, and the first
+        token (`_first_token`). Reads only the fixed inputs, so on the
+        card it is captured once per (pad, greedy) and replayed."""
+        args = self._pf_in
+        slot, s, max_new = args[0:1], args[1:2], args[2:3]
+        mini = self._pf_mini
+        view = mini.replace(
+            **{n: getattr(mini, n)[:, :, :, :pad]
+               for n in kv_field_names(self.kv_quant)},
+            lengths=self._pf_zero, max_length=0)
+        logits, _ = transformer.forward_with_cache(
+            self.cfg, self.params, args[3:3 + pad][None], view,
+            fresh_cache=True, attn_impl=self.attn_impl,
+        )
+        # The last real position's logits, gathered by the device length.
+        last = logits[0].index_select(0, s - 1)
+        self._scatter_prefill(view.replace(lengths=s.to(torch.int32)), slot)
+        return self._first_token(last, slot, max_new, greedy)
+
+    def _scatter_prefill(self, mini, slot) -> None:
+        """Write a prefilled mini into the slot's dense row (`slot` a
+        (1,) device tensor)."""
+        scatter_slot(self._cache, mini, slot)
+
+    def _prefill_replay(self, pad: int, greedy: bool):
+        """One prefill through its bucket's runner (a graph replay on the
+        card after the bucket's first, eager prefill)."""
+        key = (pad, greedy)
+        runner = self._prefill_graphs.get(key)
+        if runner is None:
+            if self.device.type == "cuda" and self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            runner = self._prefill_graphs[key] = self._graph(
+                functools.partial(self._prefill_program, pad, greedy),
+                self._gen, self._prefill_pool)
+        return runner()
+
+    def _run_prefill(self, slot: int, req: _Request) -> HostPull:
+        """Stage the request's prompt, slot and budget (one pinned copy),
+        queue its bucket's prefill, and start its results' copy to the
+        host. No host sync."""
         s = req.tokens.size
         # Cap the bucket at max_len: a larger pad would index past the
         # slot's row or its block table.
         pad = min(_bucket(s), self.max_len)
-        padded = torch.zeros((1, pad), dtype=torch.int64)
-        padded[0, :s] = torch.from_numpy(req.tokens)
-        last = self._prefill_impl(padded.to(self.device), s, slot)
-        first, lp, tl = self._sample_first(last, req)
-        t1 = time.perf_counter()
-        first_tok = int(first)  # the prefill's one host sync
-        req.t_first = time.perf_counter()
-        self._host_len[slot] = s
-        self._cur[slot] = first_tok
-        # The prefill token is the first of max_new; the window may emit
-        # max_new - 1 more. It also used one unit of the EOS ban.
-        self._srem[slot] = req.max_new - 1
-        self._sdone[slot] = False
-        if req.min_tokens > 0:
-            self._smin[slot] = req.min_tokens - 1
-        req.out.append(first_tok)
-        if self.logprobs:
-            req.lps.append(float(lp))
-        if tl is not None:
-            req.tlp = [(tl[1][0].tolist(), tl[0][0].tolist())]
-        if req.trace is not None:
-            # The first token is a host value: the request's TTFT point.
-            req.trace.first_token()
-        # Phase attribution: the prefill's launches, then its sync and
-        # the host bookkeeping after it.
-        self._add_phase("prefill_dispatch", t1 - t0)
-        self._add_phase("prefill_settle", time.perf_counter() - t1)
+        staged = np.zeros((3 + pad,), np.int64)
+        staged[:3] = (slot, s, req.max_new)
+        staged[3:3 + s] = req.tokens
+        copy_from_host(self._prefill_inputs()[:3 + pad], staged)
+        return HostPull(self._prefill_replay(pad, req.temperature == 0.0))
 
     def _fill_slots(self, budget: Optional[int] = None) -> None:
         done = 0
@@ -511,13 +664,300 @@ class BatchingEngine:
                 # requeues the request, so its wait goes on).
                 req.trace.prefill_start()
             self._set_slot_sampling(i, req)
-            self._slots[i] = req
-            self.stats["prefills"] += 1
-            self._run_prefill(i, req)
+            off = self.cache_backend.prefill_offset(i)
+            if (self.prefill_chunk is not None
+                    and req.tokens.size - off > self.prefill_chunk):
+                # A long prompt: admitted now, prefilled chunk by chunk
+                # in step() (the slot stays out of decode until done).
+                self._slots[i] = req
+                self._prefilling[i] = off
+                continue
+            t_pf = time.perf_counter()
+            self._dispatch_prefill(i, req, self._run_prefill(i, req))
+            # The dispatch, apart from the admission bookkeeping around
+            # it (the settle times itself into prefill_settle).
+            self._add_phase("prefill_dispatch", time.perf_counter() - t_pf)
+            if not self.overlap_prefill:
+                self._settle_prefills()
+
+    def _dispatch_prefill(self, slot: int, req: _Request,
+                          pull: HostPull) -> None:
+        """A prefill (or final chunk) was queued for `req`: record it in
+        flight. The slot is occupied from here, but prefill-pending:
+        `_active_rows` keeps it out of decode windows until it settles."""
+        self._slots[slot] = req
+        self.stats["prefills"] += 1
+        fl = _PrefillFlight(slot, req, pull)
+        self._pflights.append(fl)
+        if self._prefill_hooks is not None:
+            self._prefill_hooks.on_prefill_dispatch(fl)
+        if self.overlap_prefill and req.trace is not None:
+            # The dispatch half of the prefill pipeline (the settle lands
+            # as the span's first_token).
+            req.trace.record("prefill-dispatch", src="engine",
+                             rid=req.rid, slot=slot,
+                             depth=len(self._pflights))
+
+    def _pending_prefill_slots(self):
+        """Slots whose prefill is queued but not settled, and whose
+        request still owns the slot."""
+        return {fl.slot for fl in self._pflights
+                if self._slots[fl.slot] is fl.req}
+
+    def _settle_prefills(self) -> bool:
+        """Settle EVERY prefill in flight: wait on their copies (the
+        last one's event covers the rest), read their first tokens,
+        logprobs and top-K, and mark TTFT. Results for a slot cancelled
+        or refilled in flight are discarded. False if none was in
+        flight."""
+        if not self._pflights:
+            return False
+        flights, self._pflights = self._pflights, []
+        t0 = time.perf_counter()
+        if self._prefill_hooks is not None:
+            self._prefill_hooks.before_prefill_sync(flights)
+        host = [fl.pull.get() for fl in flights]
+        for fl, vals in zip(flights, host):
+            if self._slots[fl.slot] is not fl.req:
+                continue
+            self._finish_prefill_host(fl.slot, fl.req, vals)
+        self._add_phase("prefill_settle", time.perf_counter() - t0)
+        return True
+
+    def _finish_prefill_host(self, slot: int, req: _Request, vals) -> None:
+        """The host half of a prefill's completion, from its settled
+        packed results; its device half ran in the program."""
+        self.cache_backend.on_prefill_complete(slot)
+        self._host_len[slot] = req.tokens.size
+        req.out.append(int(vals[0]))
+        req.t_first = time.perf_counter()
+        if req.trace is not None:
+            # The first token is a host value: the request's TTFT point,
+            # under overlap_prefill the settle, not the dispatch.
+            req.trace.first_token()
+        if self.logprobs:
+            req.lps.append(float(vals[1]))
+        k = self.top_logprobs
+        if k:
+            req.tlp = [(vals[2 + k:2 + 2 * k].astype(np.int64).tolist(),
+                        vals[2:2 + k].tolist())]
+
+    # ---- chunked prefill ---------------------------------------------
+
+    def _advance_prefills(self, budget: Optional[int]) -> int:
+        """Run up to `budget` prefill chunks (all of them when None);
+        returns how many ran. Lowest slot first, depth-first: chunk n+1
+        follows chunk n while its rows are hot."""
+        used = 0
+        t_pf = time.perf_counter()
+        settle0 = self._phase_s.get("prefill_settle", 0.0)
+        while self._prefilling and (budget is None or used < budget):
+            slot = min(self._prefilling)
+            used += 1
+            self.stats["prefill_chunks"] += 1
+            req = self._slots[slot]
+            off = self._prefilling[slot]
+            chunk = req.tokens[off:off + self.prefill_chunk]
+            s = chunk.size
+            pad = min(_bucket(s), self.max_len - off)
+            final = off + s >= req.tokens.size
+            last = self._chunk_prefill(slot, chunk, off, pad)
+            if not final:
+                self._prefilling[slot] = off + s
+                continue
+            del self._prefilling[slot]
+            out = self._first_token(
+                last, torch.full((1,), slot, dtype=torch.int64,
+                                 device=self.device),
+                torch.full((1,), req.max_new, dtype=torch.int64,
+                           device=self.device),
+                req.temperature == 0.0)
+            self._dispatch_prefill(slot, req, HostPull(out))
+            if not self.overlap_prefill:
+                self._settle_prefills()
+        if used:
+            # The chunks' dispatch work; a final chunk's inline settle
+            # timed itself into prefill_settle and is taken out.
+            self._add_phase(
+                "prefill_dispatch", time.perf_counter() - t_pf
+                - (self._phase_s.get("prefill_settle", 0.0) - settle0))
+        return used
+
+    def _chunk_prefill(self, slot: int, chunk, off: int, pad: int):
+        """Write one prompt chunk at `off` into the slot's dense row,
+        through a batch-1 view of it (in place); returns the chunk's last
+        real position's (1, V) logits. The first chunk prefills fresh
+        (kernel 2); a continuation attends the row's earlier positions
+        through the plain attention, as the JAX engine pins it (:1744)."""
+        fresh = off == 0
+        view = slot_view(self._cache, slot, self._offset(off))
+        view.max_length = off
+        return self._chunk_forward(chunk, pad, view, fresh,
+                                   self.attn_impl if fresh else "ref", slot,
+                                   off)
+
+    def _offset(self, off: int) -> torch.Tensor:
+        return torch.full((1,), off, dtype=torch.int32, device=self.device)
+
+    def _chunk_forward(self, chunk, pad: int, view, fresh: bool,
+                       attn_impl: str, slot: int, off: int):
+        s = chunk.size
+        tokens = torch.empty((1, pad), dtype=torch.int64, device=self.device)
+        padded = np.zeros((1, pad), np.int64)
+        padded[0, :s] = chunk
+        copy_from_host(tokens, padded)
+        logits, _ = transformer.forward_with_cache(
+            self.cfg, self.params, tokens, view, fresh_cache=fresh,
+            attn_impl=attn_impl,
+        )
+        _put(self._cache.lengths, slot, off + s)
+        return logits[0, s - 1:s]
+
+    # ---- the engine step ---------------------------------------------
+
+    def step(self) -> List[Tuple[Any, List[int]]]:
+        """Fill free slots, run one decode window (decode_ticks ticks);
+        returns the finished requests. The engine's metrics are written
+        here, on the host.
+
+        overlap_decode=True makes this a two-deep pipeline: the next
+        window is queued against the current slot view before the
+        previous window's results are waited for, so the card computes
+        window k+1 while the host settles window k and admits. Requests
+        admitted in a step join at the next window boundary; a slot
+        whose request finished in the un-synced window decodes one more
+        (frozen or discarded) window; settle discards results for slots
+        cancelled or refilled in flight.
+
+        overlap_prefill=True pipelines admission the same way: prefills
+        queued in earlier steps settle first, and their slots join this
+        step's window; admissions later in the step leave their prefill
+        in flight. Both off is strict ordering."""
+        finished: List[Tuple[Any, List[int]]] = []
+        self.stats["engine_steps"] += 1
+        t_step0 = time.perf_counter()
+        self._sync_block_s = 0.0
+        self._phase_s = {}
+        synced = False
+        settled_prefills = False
+        if self._pflights:
+            # Step boundary: the prefills queued in earlier steps settle
+            # before the next window is queued, so their slots join it; a
+            # request satisfied by its prefill alone finishes here.
+            settled_prefills = self._settle_prefills()
+            if settled_prefills:
+                self._finish_check(finished)
+        if self.overlap_decode and self._windows:
+            # Keep the card busy across the sync: queue the next window
+            # on the current slot view, then wait for the previous one.
+            rows = self._active_rows()
+            if any(rows):
+                self.obs.occupancy.observe(sum(rows) / self.n_slots)
+                self._dispatch_window(rows)
+            t_settle0 = time.perf_counter()
+            synced = self._settle_window(finished)
+            self._phase_s["decode_sync"] = self._sync_block_s
+            self._phase_s["settle"] = max(
+                0.0, time.perf_counter() - t_settle0 - self._sync_block_s)
+        t_fill0 = time.perf_counter()
+        settle_fill0 = self._phase_s.get("prefill_settle", 0.0)
+        prefills0 = self.stats["prefills"] + self.stats["prefill_chunks"]
+        # Fill and check until stable: a request satisfied by its prefill
+        # alone (max_new=1, instant EOS, a stop completed by the first
+        # token) frees its slot for the next queued request. The prefill
+        # budget is shared across the step; chunks under way go first,
+        # so a stream of short prompts cannot starve a long one.
+        remaining = self.max_prefills_per_step
+        if self._prefilling:
+            used = self._advance_prefills(remaining)
+            if remaining is not None:
+                remaining -= used
+            self._finish_check(finished)
+        while True:
+            before = self.stats["prefills"]
+            self._fill_slots(remaining)
+            if remaining is not None:
+                remaining -= self.stats["prefills"] - before
+            n_done = len(finished)
+            self._finish_check(finished)
+            if len(finished) == n_done or (
+                remaining is not None and remaining <= 0
+            ):
+                break
+        if self._prefilling and (remaining is None or remaining > 0):
+            # Long prompts admitted this step start their first chunk now.
+            self._advance_prefills(remaining)
+            self._finish_check(finished)
+        if self.stats["prefills"] + self.stats["prefill_chunks"] > prefills0:
+            # The prefill section's wall time, on steps that prefilled.
+            self.obs.prefill_seconds.observe(time.perf_counter() - t_fill0)
+        # Admission: the fill section minus the prefill dispatches and
+        # any inline settles it ran.
+        self._phase_s["admission"] = max(
+            0.0, time.perf_counter() - t_fill0
+            - self._phase_s.get("prefill_dispatch", 0.0)
+            - (self._phase_s.get("prefill_settle", 0.0) - settle_fill0))
+        active_rows = self._active_rows()
+        if any(active_rows) and not self._windows:
+            self.obs.occupancy.observe(sum(active_rows) / self.n_slots)
+            if self.overlap_decode:
+                # Pipeline warm-up (or refill after an idle gap): queue
+                # and leave in flight; the next step settles it.
+                self._dispatch_window(active_rows)
+            else:
+                sync0 = self._sync_block_s
+                w = self._dispatch_window(active_rows)
+                self._windows.pop()  # settled here, not by the pipeline
+                decoded = self._sync_window(w)
+                self._add_phase("decode_sync", self._sync_block_s - sync0)
+                t_settle0 = time.perf_counter()
+                self._apply_pairs(w.pairs, *decoded)
+                self._finish_check(finished)
+                self._add_phase("settle", time.perf_counter() - t_settle0)
+                synced = True
+        self._observe_cache_gauges()
+        if synced:
+            # The host's share of the step: wall time minus the time
+            # blocked awaiting the window's results.
+            self.obs.host_overhead.observe(max(
+                0.0, time.perf_counter() - t_step0 - self._sync_block_s))
+        self._observe_step_phases(t_step0, synced, finished, prefills0,
+                                  settled_prefills)
+        return finished
+
+    def _observe_step_phases(self, t_step0: float, synced: bool,
+                             finished, prefills0: int,
+                             settled_prefills: bool = False) -> None:
+        """Deposit this step's phase attribution (obs.STEP_PHASES), only
+        for steps that did work; host_bookkeeping is the remainder, so
+        the phases add up to the step's wall time."""
+        did_work = (synced or settled_prefills or bool(finished)
+                    or self.stats["prefills"] + self.stats["prefill_chunks"]
+                    > prefills0)
+        if not did_work or not self.obs.registry.enabled:
+            return
+        attributed = 0.0
+        for phase in ("admission", "prefill_dispatch", "prefill_settle",
+                      "decode_sync", "settle"):
+            v = self._phase_s.get(phase, 0.0)
+            attributed += v
+            self.obs.step_phase.labels(phase=phase).observe(v)
+        self.obs.step_phase.labels(phase="host_bookkeeping").observe(
+            max(0.0, time.perf_counter() - t_step0 - attributed))
+
+    def _observe_cache_gauges(self) -> None:
+        """Per-step utilization gauges from host state only."""
+        obs = self.obs
+        if not obs.registry.enabled:
+            return
+        obs.slots_busy.set(sum(r is not None for r in self._slots))
+        obs.queue_depth.set(len(self._queue))
+        obs.kv_util.set(self.cache_backend.utilization())
 
     def _finish_check(self, finished) -> None:
         for i, req in enumerate(self._slots):
             if req is None or not req.out:
+                # Mid-chunked-prefill or prefill-pending: no output yet.
                 continue
             last = req.out[-1]
             nstop = req.hit_stop()
@@ -545,173 +985,141 @@ class BatchingEngine:
                 self._slots[i] = None
                 self._release_slot(i)
 
-    # ---- the engine step ---------------------------------------------
-
-    def step(self) -> List[Tuple[Any, List[int]]]:
-        """Fill free slots, run one decode window (decode_ticks ticks);
-        returns the finished requests. One host sync per window. The
-        engine's metrics are written here, on the host, after the sync."""
-        finished: List[Tuple[Any, List[int]]] = []
-        self.stats["engine_steps"] += 1
-        t_step0 = time.perf_counter()
-        self._sync_block_s = 0.0
-        self._phase_s = {}
-        synced = False
-        prefills0 = self.stats["prefills"]
-        # Fill and check until stable: a request satisfied by its prefill
-        # alone (max_new=1, instant EOS, a stop completed by the first
-        # token) frees its slot for the next queued request. The prefill
-        # budget is shared across the loop.
-        remaining = self.max_prefills_per_step
-        while True:
-            before = self.stats["prefills"]
-            self._fill_slots(remaining)
-            if remaining is not None:
-                remaining -= self.stats["prefills"] - before
-            n_done = len(finished)
-            self._finish_check(finished)
-            if len(finished) == n_done or (
-                remaining is not None and remaining <= 0
-            ):
-                break
-        if self.stats["prefills"] > prefills0:
-            # The prefill section's wall time, on steps that prefilled.
-            self.obs.prefill_seconds.observe(time.perf_counter() - t_step0)
-        # Admission: the fill section minus the prefills' own time.
-        self._phase_s["admission"] = max(
-            0.0, time.perf_counter() - t_step0
-            - self._phase_s.get("prefill_dispatch", 0.0)
-            - self._phase_s.get("prefill_settle", 0.0))
-        active_rows = self._active_rows()
-        if any(active_rows):
-            self.obs.occupancy.observe(sum(active_rows) / self.n_slots)
-            pairs = [(i, self._slots[i])
-                     for i in range(self.n_slots) if active_rows[i]]
-            decoded = self._decode_tokens(active_rows)
-            self._phase_s["decode_sync"] = self._sync_block_s
-            t_settle0 = time.perf_counter()
-            self._apply_pairs(pairs, *decoded)
-            self._finish_check(finished)
-            self._phase_s["settle"] = time.perf_counter() - t_settle0
-            synced = True
-        self._observe_cache_gauges()
-        if synced:
-            # The host's share of the step: wall time minus the time
-            # blocked awaiting the window's results.
-            self.obs.host_overhead.observe(max(
-                0.0, time.perf_counter() - t_step0 - self._sync_block_s))
-        self._observe_step_phases(t_step0, synced, finished, prefills0)
-        return finished
-
-    def _observe_step_phases(self, t_step0: float, synced: bool,
-                             finished, prefills0: int) -> None:
-        """Deposit this step's phase attribution (obs.STEP_PHASES), only
-        for steps that did work; host_bookkeeping is the remainder, so
-        the phases add up to the step's wall time."""
-        did_work = (synced or bool(finished)
-                    or self.stats["prefills"] > prefills0)
-        if not did_work or not self.obs.registry.enabled:
-            return
-        attributed = 0.0
-        for phase in ("admission", "prefill_dispatch", "prefill_settle",
-                      "decode_sync", "settle"):
-            v = self._phase_s.get(phase, 0.0)
-            attributed += v
-            self.obs.step_phase.labels(phase=phase).observe(v)
-        self.obs.step_phase.labels(phase="host_bookkeeping").observe(
-            max(0.0, time.perf_counter() - t_step0 - attributed))
-
-    def _observe_cache_gauges(self) -> None:
-        """Per-step utilization gauges from host state only."""
-        obs = self.obs
-        if not obs.registry.enabled:
-            return
-        obs.slots_busy.set(sum(r is not None for r in self._slots))
-        obs.queue_depth.set(len(self._queue))
-        obs.kv_util.set(self.cache_backend.utilization())
+    # ---- decode windows: dispatch and settle -------------------------
 
     def _active_rows(self) -> List[bool]:
-        """Slots a decode window advances: the occupied ones."""
-        return [r is not None for r in self._slots]
+        """Slots a decode window advances now: occupied, not mid-chunked
+        prefill, not awaiting a prefill's settle."""
+        pending = (self._pending_prefill_slots() if self._pflights
+                   else ())
+        return [r is not None and i not in self._prefilling
+                and i not in pending for i, r in enumerate(self._slots)]
 
-    def _decode_tokens(self, active_rows):
-        """Run one window over every slot and sync it once; returns
-        (tokens per slot, logprobs per slot or None, top-K per slot or
-        None), each cut to the slot's valid ticks."""
-        self.cache_backend.pre_window(active_rows, self.decode_ticks)
-        top = max(self._host_len)
+    def _inflight_advance(self) -> Dict[int, int]:
+        """Tokens the un-synced windows will have appended to each slot's
+        current request by the time they settle (a continuing request
+        takes the whole window; one that finished is discarded with its
+        slot), so the host projects lengths without a sync."""
+        adv: Dict[int, int] = {}
+        for w in self._windows:
+            for slot, req in w.pairs:
+                if self._slots[slot] is req:
+                    adv[slot] = adv.get(slot, 0) + w.ticks
+        return adv
+
+    def _dispatch_window(self, active_rows) -> _DecodeWindow:
+        """Queue ONE decode window and start its results' copy to the
+        host; record it in flight. No host sync."""
+        adv = self._inflight_advance()
+        ticks = self.decode_ticks
+        self.cache_backend.pre_window(active_rows, adv, ticks)
         # The write guard forward_with_cache keeps runs at capture only,
-        # so the window is checked here.
-        if top + self.decode_ticks > self._cache.max_len:
+        # so the window is checked here. An active slot writes one
+        # position a tick from its length projected past the windows in
+        # flight, and never past prompt + max_new - 1 (its budget freezes
+        # it there); an idle one rewrites the position at its length.
+        top = 0
+        for i, req in enumerate(self._slots):
+            if active_rows[i]:
+                top = max(top, min(self._host_len[i] + adv.get(i, 0) + ticks,
+                                   req.tokens.size + req.max_new - 1))
+        if top > self._cache.max_len:
             raise ValueError(
-                f"cache write of {self.decode_ticks} positions at length "
-                f"{top} passes max_len={self._cache.max_len}"
+                f"cache write up to position {top} passes "
+                f"max_len={self._cache.max_len}"
             )
-        self._cache.max_length = top
+        # forward_with_cache's own check grows max_length a tick at a
+        # time, as if every slot wrote every tick; starting it `ticks`
+        # below the true bound makes it pass exactly when the bound does.
+        self._cache.max_length = max(top - ticks, 0)
         greedy_only = all(
             r is None or r.temperature == 0.0 for r in self._slots
         )
-        self._active.copy_(torch.tensor(active_rows))
-        t0 = time.perf_counter()
-        toks, lps, tlv, tli, acts = self._decode_impl(greedy_only)
+        for i, act in enumerate(active_rows):
+            if act != self._active_host[i]:
+                _put(self._active, i, act)
+                self._active_host[i] = act
+        w = _DecodeWindow(
+            [(i, self._slots[i]) for i in range(self.n_slots)
+             if active_rows[i]],
+            ticks, HostPull(self._decode_impl(greedy_only)))
+        self._windows.append(w)
         self.stats["decode_windows"] += 1
-        for i, req in enumerate(self._slots):
-            if active_rows[i] and req.trace is not None:
+        for slot, req in w.pairs:
+            if req.trace is not None:
                 req.trace.record("window-dispatch", src="engine",
-                                 rid=req.rid, slot=i,
-                                 ticks=self.decode_ticks, depth=1)
+                                 rid=req.rid, slot=slot, ticks=ticks,
+                                 depth=len(self._windows))
+        if self._window_hooks is not None:
+            self._window_hooks.on_dispatch(w)
+        return w
+
+    def _sync_window(self, w: _DecodeWindow):
+        """THE host sync of a window: wait for its packed results and cut
+        each slot's valid prefix. Returns (tokens, logprobs or None,
+        top-K or None) per slot."""
+        t0 = time.perf_counter()
+        if self._window_hooks is not None:
+            self._window_hooks.before_sync(w)
+        host = w.pull.get()  # (ticks, n_slots, 3 + 2K) fp64
         t1 = time.perf_counter()
-        packed = torch.cat([toks, acts.to(torch.int64)]).cpu().numpy()
-        t2 = time.perf_counter()
-        self._sync_block_s += t2 - t1
-        # Window wall time, dispatch to results on the host.
-        self.obs.decode_window_seconds.observe(t2 - t0)
-        host_toks, host_acts = packed[:len(toks)], packed[len(toks):]
+        self._sync_block_s += t1 - t0
+        # Window wall time, dispatch to results on the host (under
+        # overlap it spans the host work interleaved with the window).
+        self.obs.decode_window_seconds.observe(t1 - w.t_dispatch)
+        toks = host[..., 0].astype(np.int64)
         # Valid ticks are a prefix (done is sticky): each slot's tokens
         # are a slice, and its cache grew by as many positions.
-        n_valid = host_acts.sum(axis=0)
-        for i in range(self.n_slots):
-            self._host_len[i] += int(n_valid[i])
-        per_slot = [host_toks[:n_valid[i], i].tolist()
+        n_valid = (host[..., 1] > 0).sum(axis=0)
+        per_slot = [toks[:n_valid[i], i].tolist()
                     for i in range(self.n_slots)]
         if not self.logprobs:
             return per_slot, None, None
-        host_lps = lps.cpu().numpy()
-        per_lps = [host_lps[:n_valid[i], i].tolist()
+        per_lps = [host[:n_valid[i], i, 2].tolist()
                    for i in range(self.n_slots)]
-        if not self.top_logprobs:
+        k = self.top_logprobs
+        if not k:
             return per_slot, per_lps, None
-        host_tlv, host_tli = tlv.cpu().numpy(), tli.cpu().numpy()
+        ids = host[..., 3 + k:3 + 2 * k].astype(np.int64)
         per_tl = [
-            [(host_tli[j, i].tolist(), host_tlv[j, i].tolist())
+            [(ids[j, i].tolist(), host[j, i, 3:3 + k].tolist())
              for j in range(n_valid[i])]
             for i in range(self.n_slots)
         ]
         return per_slot, per_lps, per_tl
 
-    def _graph(self, fn, generator):
-        """The runner of a window program `fn`: a CUDA graph on the card."""
-        return StepGraph(fn, self.device, generator)
+    def _settle_window(self, finished) -> bool:
+        """Sync and settle the OLDEST window in flight; False if none."""
+        if not self._windows:
+            return False
+        w = self._windows.popleft()
+        self._apply_pairs(w.pairs, *self._sync_window(w))
+        self._finish_check(finished)
+        return True
 
     def _decode_impl(self, greedy_only: bool):
         """One window through its variant's runner (a graph replay on the
         card, after the variant's first, eager window)."""
-        window = self._windows.get(greedy_only)
+        key = (self.decode_ticks, greedy_only)
+        window = self._window_graphs.get(key)
         if window is None:
-            window = self._windows[greedy_only] = self._graph(
+            window = self._window_graphs[key] = self._graph(
                 functools.partial(self._window, greedy_only), self._gen)
         out = window()
         self.stats["decode_graphs"] = sum(
-            w.graph is not None for w in self._windows.values())
+            w.graph is not None for w in self._window_graphs.values())
         return out
 
     def _window(self, greedy_only: bool):
-        """decode_ticks single-token forwards over every slot. A slot
-        whose sampled token is EOS, or whose budget runs out, sets its
-        sticky done flag and freezes (length, stop state, token) for the
-        rest of the window. The cache, the next tokens and the stop state
-        are written back in place. Returns (tokens, logprobs, top-K values,
-        top-K ids, validity flags), each stacked (ticks, n_slots, ...)."""
+        """decode_ticks single-token forwards over every slot (a runner
+        keyed by decode_ticks only runs while it is the engine's). A
+        slot whose sampled token is EOS, or whose budget runs out, sets
+        its sticky done flag and freezes (length, stop state, token) for
+        the rest of the window. The cache, the next tokens
+        and the stop state are written back in place. Returns the packed
+        (ticks, n_slots, 3 + 2K) fp64 results: per tick and slot the
+        token, its validity, its raw logprob, the top-K logprobs and
+        ids."""
         cache, cur, active = self._cache, self._cur, self._active
         min_rem, rem, done = self._smin, self._srem, self._sdone
         outs = []
@@ -736,8 +1144,10 @@ class BatchingEngine:
             done.logical_or_(fin)
             min_rem.copy_(new_min)
             cur.copy_(nxt)
-            outs.append((nxt, lp, tlv, tli, act))
-        return tuple(torch.stack(x) for x in zip(*outs))
+            outs.append(torch.cat(
+                [nxt[:, None].double(), act[:, None].double(),
+                 lp[:, None].double(), tlv.double(), tli.double()], dim=1))
+        return torch.stack(outs)
 
     def _row_decode_step(self, logits, cur, act, min_rem, greedy_only):
         """One tick's exit math over (n_slots, V) raw fp32 logits: the
@@ -764,10 +1174,17 @@ class BatchingEngine:
 
     def _apply_pairs(self, pairs, per_slot, per_lps, per_tl) -> None:
         """Append a window's valid tokens to the requests that owned the
-        slots, stopping at the host-only finish conditions (stop
+        slots at dispatch. The identity check discards results for slots
+        cancelled or refilled while the window was in flight; the
+        per-token break re-checks the host-only finish conditions (stop
         sequences; EOS and budget were cut on the device and are checked
         again as the single source of truth)."""
         for slot, req in pairs:
+            if self._slots[slot] is not req or slot in self._prefilling:
+                # Results discarded, and no settle event: a cancelled
+                # request's timeline ends at its cancellation.
+                continue
+            self._host_len[slot] += len(per_slot[slot])
             if req.trace is not None:
                 req.trace.record("window-settle", src="engine",
                                  rid=req.rid, slot=slot,
@@ -785,13 +1202,55 @@ class BatchingEngine:
                 ) or req.hit_stop() is not None:
                     break
 
+    # ---- live retuning -----------------------------------------------
+
+    def set_decode_ticks(self, k: int) -> None:
+        """Rewrite decode_ticks between windows (the autotuner's
+        write-back); windows in flight keep the tick count they were
+        queued with. The window graphs of other tick counts are dropped,
+        after the windows in flight have landed."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"decode_ticks must be >= 1, got {k}")
+        if k != self.decode_ticks:
+            self.decode_ticks = k
+            for w in self._windows:
+                w.pull.get()
+            self._window_graphs = {key: g for key, g in
+                                   self._window_graphs.items()
+                                   if key[0] == k}
+        self.stats["decode_ticks"] = k
+
+    def set_prefill_chunk(self, chunk: Optional[int]) -> None:
+        """Rewrite prefill_chunk between steps (the prefill autotuner's
+        write-back; None = whole prompts)."""
+        if chunk is not None:
+            chunk = int(chunk)
+            if chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got {chunk}")
+        self.prefill_chunk = chunk
+        self.stats["prefill_chunk"] = chunk or 0
+
     # ---- cancellation and draining -----------------------------------
 
+    def _drain_flights(self) -> None:
+        """Wait for every window and prefill in flight and discard their
+        results, so none can be attributed to a later request and the
+        card is quiet for the caller. The hooks are not consulted: this
+        is cleanup, not a measured settle."""
+        while self._windows:
+            self._windows.popleft().pull.get()
+        while self._pflights:
+            self._pflights.pop().pull.get()
+
     def cancel(self, rid) -> bool:
-        """Drop a queued or running request; its slot frees at once."""
+        """Drop a queued or running request; its slot frees at once. A
+        program in flight for it settles into nothing (identity check);
+        the slot's device rows need no repair."""
         for i, req in enumerate(self._slots):
             if req is not None and req.rid == rid:
                 self._slots[i] = None
+                self._prefilling.pop(i, None)
                 self._release_slot(i)
                 self.finished_logprobs.pop(rid, None)
                 self.finished_top_logprobs.pop(rid, None)
@@ -810,7 +1269,9 @@ class BatchingEngine:
 
     def abort_all(self) -> List[Any]:
         """Drop every queued and running request; returns their rids.
+        Windows and prefills in flight are drained and discarded first.
         The backend's allocator returns to its pristine state."""
+        self._drain_flights()
         dropped = []
         for req in self._queue:
             dropped.append(req.rid)
@@ -825,6 +1286,7 @@ class BatchingEngine:
                 req.trace.abort("cancelled")
             self._slots[i] = None
             self._release_slot(i)
+        self._prefilling.clear()
         self.finished_logprobs.clear()
         self.finished_top_logprobs.clear()
         self.cache_backend.reset()
@@ -836,12 +1298,16 @@ class BatchingEngine:
         return len(self._queue) + sum(r is not None for r in self._slots)
 
     def close(self) -> None:
-        """Drop the captured decode graphs and the device cache, so
-        their memory returns to the allocator; the engine cannot step
-        afterwards. Call it on the thread that drives the engine, or
-        once that thread has exited: freeing a graph is a CUDA call,
-        which a capture running on another thread would refuse."""
-        self._windows = {}
+        """Drain what is in flight, then drop the captured graphs, their
+        inputs and the device cache, so their memory returns to the
+        allocator; the engine cannot step afterwards. Call it on the
+        thread that drives the engine, or once that thread has exited:
+        freeing a graph is a CUDA call, which a capture running on
+        another thread would refuse."""
+        self._drain_flights()
+        self._window_graphs = {}
+        self._prefill_graphs = {}
+        self._pf_in = self._pf_mini = self._pf_zero = None
         self._cache = None
 
     def run(self, requests=None) -> Dict[Any, List[int]]:
@@ -925,15 +1391,15 @@ class PagedBatchingEngine(BatchingEngine):
                          **kw)
         self.block_size = self.cache_backend.block_size
 
-    def _prefill_impl(self, tokens, s: int, slot: int):
-        """Dense mini prefill, then a scatter of its pad positions through
-        the slot's table row (positions past the slot's blocks land in
-        scratch block 0). An int8 mini's scales scatter through the same
-        (block, offset) coordinates."""
-        last, mini = self._prefill_mini(tokens, s)
+    def _scatter_prefill(self, mini, slot) -> None:
+        """Scatter a prefilled mini's pad positions through the slot's
+        table row (`slot` a (1,) device tensor; positions past the slot's
+        blocks land in scratch block 0). An int8 mini's scales scatter
+        through the same (block, offset) coordinates."""
         cache, bs = self._cache, self.block_size
-        pos = torch.arange(tokens.shape[1], device=self.device)
-        blocks = cache.tables[slot].to(torch.int64)[pos // bs]
+        pos = torch.arange(mini.k.shape[3], device=self.device)
+        row = cache.tables.index_select(0, slot)[0].to(torch.int64)
+        blocks = row[pos // bs]
         offs = pos % bs
         # Advanced indices at dims 1 and 3 (split by the head slice) put
         # the token rows first: the target is (S, L, Hkv[, Dh]), from the
@@ -941,5 +1407,16 @@ class PagedBatchingEngine(BatchingEngine):
         for name in kv_field_names(self.kv_quant):
             src = getattr(mini, name)[:, 0]
             getattr(cache, name)[:, blocks, :, offs] = src.movedim(2, 0)
-        cache.lengths[slot:slot + 1] = mini.lengths
-        return last
+        cache.lengths.index_copy_(0, slot, mini.lengths)
+
+    def _chunk_prefill(self, slot: int, chunk, off: int, pad: int):
+        """Continue the slot's prompt past `off` resident tokens through a
+        batch-1 view of its table row over the shared pool (the
+        reference's `_prefix_prefill_impl` :2640): every chunk, the first
+        included, attends through the plain paged attention, as the JAX
+        engine pins it (reason at :2655-2658). Pad positions past the
+        slot's blocks land in scratch block 0."""
+        view = self._cache.replace(
+            tables=self._cache.tables[slot:slot + 1],
+            lengths=self._offset(off), max_length=off)
+        return self._chunk_forward(chunk, pad, view, False, "ref", slot, off)

@@ -32,6 +32,7 @@ from shellac_tpu_torch.inference.cache.layout import (
     quant_update_layer,
     quantize_kv,
     scatter_slot,
+    slot_view,
     update_layer,
 )
 from shellac_tpu_torch.inference.cache.paged import (
@@ -67,6 +68,7 @@ __all__ = [
     "quantize_kv",
     "resolve_backend_name",
     "scatter_slot",
+    "slot_view",
     "update_layer",
 ]
 

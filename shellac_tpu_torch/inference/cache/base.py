@@ -15,9 +15,14 @@ dtype, or int8 values with per-(token, kv head) fp32 scales;
 The accounting the observability layer reads, `utilization` (:141)
 and `residency` (:146), comes from host state only.
 
-Not ported yet: sharding axes (meshes), the prefix-cache hooks
-(`on_prefill_complete`, `prefill_offset`, `prefix_manifest`) and the
-rolling storage.
+The slot lifecycle hooks are the reference's: `prepare_slot`,
+`on_prefill_complete` (:104, at a prefill's settle), `release_slot`,
+`pre_window` (:111, with `advance`, the tokens un-synced windows will
+still append), `prefill_offset` (:117) and `reset`.
+
+Not ported yet: sharding axes (meshes), the prefix cache (so
+`on_prefill_complete` has nothing to register and `prefill_offset` is
+0), `prefix_manifest` and the rolling storage.
 """
 
 from __future__ import annotations
@@ -91,12 +96,23 @@ class CacheBackend:
         """Reserve residency for `req` (worst case `footprint` tokens)
         before its prefill. May raise PoolExhausted."""
 
+    def on_prefill_complete(self, slot: int) -> None:
+        """The slot's prompt KV is now real (its prefill settled); the
+        prefix cache would register the prompt blocks here."""
+
     def release_slot(self, slot: int) -> None:
         """The request left `slot` (finish, cancel or abort)."""
 
-    def pre_window(self, active_rows, span: int) -> None:
+    def pre_window(self, active_rows, advance: Optional[Dict[int, int]],
+                   span: int) -> None:
         """About to run one decode window writing up to `span` tokens
-        per active slot."""
+        per active slot; `advance` maps slot -> tokens an un-synced
+        window in flight will still append (overlapped dispatch)."""
+
+    def prefill_offset(self, slot: int) -> int:
+        """Tokens already resident when the slot's prefill starts (the
+        prefix cache's matched length; 0 without one)."""
+        return 0
 
     def reset(self) -> None:
         """abort_all: restore the allocator to its pristine state."""

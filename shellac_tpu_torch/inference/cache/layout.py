@@ -2,12 +2,13 @@
 block pool.
 
 Ports `shellac_tpu/inference/cache/layout.py` (`KVCache`, `init_cache`,
-`update_layer`, `scatter_slot`, `PagedKVCache` :309, `init_paged_cache`
-:341, `paged_update_layer` :359, `paged_gather_layer` :392) and its int8
-storage (`QuantKVCache` :77, `init_quant_cache` :101, `kv_field_names`
-:123, `init_cache_for` :131, `quantize_kv` :180, `quant_update_layer`
-:198, `QuantPagedKVCache` :417, `init_quant_paged_cache` :449,
-`quant_paged_update_layer` :479, `paged_gather_scales` :505).
+`update_layer`, `scatter_slot`, `slot_view` :280, `PagedKVCache` :309,
+`init_paged_cache` :341, `paged_update_layer` :359, `paged_gather_layer`
+:392) and its int8 storage (`QuantKVCache` :77, `init_quant_cache` :101,
+`kv_field_names` :123, `init_cache_for` :131, `quantize_kv` :180,
+`quant_update_layer` :198, `QuantPagedKVCache` :417,
+`init_quant_paged_cache` :449, `quant_paged_update_layer` :479,
+`paged_gather_scales` :505).
 
 Dense layout: stacked over layers and HEAD-MAJOR, (L, B, Hkv, max_len, Dh), as
 in the JAX package: each (slot, kv head) reads one contiguous
@@ -111,17 +112,34 @@ def _write_rows(targets, news, index):
         target[rows, :, pos] = new.to(target.dtype)
 
 
-def scatter_slot(cache: KVCache, mini: KVCache, slot: int) -> KVCache:
+def scatter_slot(cache: KVCache, mini: KVCache, slot) -> KVCache:
     """Write a batch-1 mini cache into `slot` of a dense slot cache (a
     KVCache or a QuantKVCache, values and scales), in place. A mini
     shorter than the cache fills the first positions of the
     slot's rows (JAX's dynamic_update_slice); its length becomes the
-    slot's."""
+    slot's. `slot` is an int or a (1,) int64 tensor on the cache's
+    device: a captured program takes the tensor, so that it does not
+    bake in one slot."""
+    if not isinstance(slot, torch.Tensor):
+        slot = torch.full((1,), int(slot), dtype=torch.int64,
+                          device=cache.k.device)
     n = mini.k.shape[3]
     for name in kv_field_names(cache_quant(cache)):
-        getattr(cache, name)[:, slot:slot + 1, :, :n] = getattr(mini, name)
-    cache.lengths[slot:slot + 1] = mini.lengths
+        getattr(cache, name)[:, :, :, :n].index_copy_(
+            1, slot, getattr(mini, name))
+    cache.lengths.index_copy_(0, slot, mini.lengths.to(torch.int32))
     return cache
+
+
+def slot_view(cache, slot: int, lengths: torch.Tensor):
+    """Batch-1 view of one slot's rows of a dense cache (values and
+    scales), sharing their storage, so a forward through it writes the
+    slot in place; `lengths` (1,) replaces the stored per-slot lengths
+    (a chunked prefill's continuation resumes from an explicit offset).
+    The view's host `max_length` is left for the caller to set."""
+    fields = {n: getattr(cache, n)[:, slot:slot + 1]
+              for n in kv_field_names(cache_quant(cache))}
+    return cache.replace(**fields, lengths=lengths.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,13 @@ Ports `shellac_tpu/inference/cache/paged.py` (`PagedBackend` :45 and
 the int8 pool `QuantPagedBackend` :474) without the prefix cache: the
 free list in constructor order, `ensure_blocks` :163, `prepare_slot`
 :234 (the full footprint is reserved at admission), `release_slot`
-:291, `pre_window` :310, `reset`, `utilization` :456 and `residency`
-:462. All allocator state is host-side; the device sees only the block
-tables, which are written in place. Block 0 is scratch: free table
-entries point at it, so an idle slot (length 0, table row all 0)
-attends one position of block 0.
+:291, `pre_window` :310 (lengths projected past the windows in flight),
+`reset`, `utilization` :456 and `residency` :462. All allocator state is
+host-side; the device sees only the block tables, which are written in
+place, in stream order: a new table segment goes through pinned memory
+(`copy_from_host`), so the write never waits for a window in flight.
+Block 0 is scratch: free table entries point at it, so an idle slot
+(length 0, table row all 0) attends one position of block 0.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from shellac_tpu_torch.inference.cache.layout import (
     init_paged_cache,
     init_quant_paged_cache,
 )
+from shellac_tpu_torch.ops.dispatch import copy_from_host
 
 
 class PagedBackend(CacheBackend):
@@ -82,9 +85,7 @@ class PagedBackend(CacheBackend):
             return False
         new_ids = [self._free.pop() for _ in range(need - have)]
         self._slot_blocks[slot].extend(new_ids)
-        tables = self.engine._cache.tables
-        tables[slot, have:need] = torch.tensor(new_ids, dtype=torch.int32,
-                                               device=tables.device)
+        copy_from_host(self.engine._cache.tables[slot, have:need], new_ids)
         self.peak_blocks_used = max(self.peak_blocks_used, self.blocks_used())
         return True
 
@@ -100,19 +101,21 @@ class PagedBackend(CacheBackend):
     def release_slot(self, slot: int) -> None:
         self._free.extend(reversed(self._slot_blocks[slot]))
         self._slot_blocks[slot] = []
-        self.engine._cache.tables[slot] = 0
+        self.engine._cache.tables[slot].fill_(0)
 
-    def pre_window(self, active_rows, span: int) -> None:
+    def pre_window(self, active_rows, advance, span: int) -> None:
         # Backstop only: admission reserved the footprint. Lengths are
-        # host-known (prompt + generated), so the hot loop never reads
+        # host-known (prompt + generated, projected past any un-synced
+        # window in flight by `advance`), so the hot loop never reads
         # the device; writes past a request's footprint land in block 0.
         eng = self.engine
         for i, active in enumerate(active_rows):
             if not active:
                 continue
             req = eng._slots[i]
-            need = min(req.tokens.size + len(req.out) + span,
-                       eng._slot_footprint(req))
+            length = (req.tokens.size + len(req.out)
+                      + (advance.get(i, 0) if advance else 0))
+            need = min(length + span, eng._slot_footprint(req))
             if not self.ensure_blocks(i, need):
                 raise RuntimeError(
                     "paged KV pool exhausted mid-decode; size pool_tokens "

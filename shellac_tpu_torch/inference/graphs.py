@@ -1,9 +1,10 @@
-"""The engines' decode steps as captured CUDA graphs: the port's
-counterpart of the JAX package's jitted `lax.scan` windows.
+"""The engines' programs as captured CUDA graphs: the port's counterpart
+of the JAX package's jitted `lax.scan` windows and per-bucket prefills.
 
-A `StepGraph` wraps one decode program (`Engine`'s decode step, a
-batching engine's window of `decode_ticks` ticks) that reads and writes
-only tensors which keep their identity from call to call. On a CUDA
+A `StepGraph` wraps one program (`Engine`'s decode step, a batching
+engine's window of `decode_ticks` ticks, or its prefill of one bucket
+length) that reads and writes only tensors which keep their identity
+from call to call. On a CUDA
 device its first call runs the program eagerly: a real step, and the
 warm-up that capture needs (lazy initialisation, the kernels' one-time
 host queries). The second call captures the program, which executes
@@ -13,6 +14,19 @@ there is no eager fallback on the card.
 
 Random numbers: a program that samples draws from a `torch.Generator`
 registered with its graph, so each replay draws fresh numbers.
+
+Memory: each graph captures into a private memory pool unless it is
+given one to share. Graphs that share a pool may hand each other's
+intermediate memory out as their outputs, so a graph's outputs are only
+good until another graph of the pool replays: the caller copies them
+out (`HostPull`) before the next replay is queued, and stream order does
+the rest.
+
+Outputs: a replay overwrites the previous replay's outputs. `HostPull`
+copies a program's outputs into pinned host memory on the stream, right
+after the replay, and records an event; the host reads them after
+waiting on that event, so a later replay cannot reach them and the host
+never blocks on work queued after them.
 
 Launch counters: each kernel wrapper counts its launches in Python when
 it is called, which a replay does not do. The capture restores every
@@ -62,10 +76,13 @@ class StepGraph:
     captures = 0
 
     def __init__(self, fn: Callable, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, pool=None):
         self.fn = fn
         self.device = device
         self.generator = generator
+        # A memory pool shared with other graphs, or None for a private
+        # one (torch.cuda.graph_pool_handle()).
+        self.pool = pool
         self.calls = 0
         self.graph = None
         self._out = None
@@ -88,7 +105,8 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        pool = torch.cuda.graph_pool_handle()
+        pool = (self.pool if self.pool is not None
+                else torch.cuda.graph_pool_handle())
         torch.cuda.synchronize(self.device)
         collecting = gc.isenabled()
         gc.disable()
@@ -111,6 +129,30 @@ class StepGraph:
         self.graph, self._out = graph, out
         self._launches = tuple((w, n) for w, n in zip(wrappers, grown) if n)
         StepGraph.captures += 1
+
+
+class HostPull:
+    """A device tensor's values on their way to the host: on the card a
+    copy into pinned memory queued on the current stream behind the
+    program that wrote them, and an event after it; on the CPU the
+    tensor itself. `get()` waits for the copy (not for later work) and
+    returns a numpy array."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = t, None
+
+    def get(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 def _abandon(graph, pool, device: torch.device) -> None:

@@ -8,11 +8,13 @@ requests. Handler threads parse JSON, enqueue work and wait on
 per-request events; tokens reach them as Python lists (the engine's
 host copy of each request's output), so no handler thread ever makes a
 CUDA call. That matters on the card: the engine captures its decode
-window as a CUDA graph on the scheduler thread, in the "thread_local"
-capture mode, and no other thread may launch work while a capture
-runs (`inference/graphs.py`). The engine may be built on the caller's
-thread; its first eager window and its capture run on the scheduler
-thread, as every later window does.
+windows and prefills as CUDA graphs on the thread that drives it, in
+the "thread_local" capture mode, and no other thread may launch work
+while a capture runs (`inference/graphs.py`). The engine may be built on
+the caller's thread; with `autotune=True` (:506-523) the startup sweep
+of decode_ticks (and of prefill_chunk, when it is "auto") runs there too,
+before the scheduler thread starts, and a rebuilt generation inherits
+the tuned values. Every later program runs on the scheduler thread.
 
 A SUPERVISOR wraps the scheduler in engine generations (:167): when the
 step watchdog trips (`step_timeout`, :1109) or the scheduler thread
@@ -42,7 +44,7 @@ resume paths (`/kv/*`, `prefill_only`, `adopt`, `resume`), preemption
 and parking (`preempt_after`, `park_dir`), QoS tenants
 (`tenant_config`; the x-shellac-tenant header still labels the request
 counters, as it does in the reference without a tenant config),
-`autotune`, `profile_dir` and /debug/profile, `incident_dir` and
+`profile_dir` and /debug/profile, `incident_dir` and
 /debug/incident(s), `spool_dir`, constraints, tools and response_format,
 a `role` other than "monolith", and the submit options the engine still
 refuses (logit_bias, presence and frequency penalties, seed, prompt
@@ -107,6 +109,10 @@ class ServerUnavailable(RuntimeError):
         super().__init__(msg)
         self.http_status = http_status
         self.retry_after = retry_after
+
+
+# "Never tuned", as distinct from a prefill_chunk tuned to None.
+_UNTUNED = object()
 
 
 class _Generation:
@@ -200,7 +206,7 @@ class InferenceServer:
         if role not in ROLES:
             raise ValueError(f"role={role!r}; have {ROLES}")
         _unported(role=None if role == "monolith" else role,
-                  autotune=autotune, profile_dir=profile_dir,
+                  profile_dir=profile_dir,
                   spool_dir=spool_dir, incident_dir=incident_dir,
                   park_dir=park_dir, tenant_config=tenant_config,
                   preempt_after=preempt_after)
@@ -271,6 +277,26 @@ class InferenceServer:
         # freed once their threads have exited (on the scheduler thread
         # or in close()).
         self._retired: List[_Generation] = []
+        # Startup autotune (serve --decode-ticks auto, the CLI default;
+        # --prefill-chunk auto): sweep against the live engine BEFORE the
+        # scheduler thread exists (the engine has one owner here), write
+        # the winners back, and remember them so a rebuilt generation
+        # inherits them instead of sweeping mid-recovery. The sentinel
+        # tells "never tuned" from "tuned to whole prompts (None)".
+        self._tuned_ticks: Optional[int] = None
+        self._tuned_chunk: Any = _UNTUNED
+        if autotune:
+            from shellac_tpu_torch.inference.autotune import (
+                maybe_autotune,
+                maybe_autotune_prefill_chunk,
+            )
+
+            res = maybe_autotune(engine)
+            if res is not None:
+                self._tuned_ticks = res.best
+            cres = maybe_autotune_prefill_chunk(engine)
+            if cres is not None:
+                self._tuned_chunk = cres.best
         self._hb = Heartbeat(heartbeat_path) if heartbeat_path else None
         self._hb_last = 0.0
         self._hb_lock = threading.Lock()
@@ -399,6 +425,7 @@ class InferenceServer:
         g = self._g
         eng = g.engine
         slots = list(getattr(eng, "_slots", ()) or ())
+        prefilling = set(getattr(eng, "_prefilling", ()) or ())
         slot_of = {req.rid: i for i, req in enumerate(slots)
                    if req is not None}
         now = time.monotonic()
@@ -410,7 +437,9 @@ class InferenceServer:
                 "rid": rid,
                 "trace_id": getattr(t, "trace_id", None),
                 "slot": slot,
-                "state": "queued" if slot is None else "decoding",
+                "state": ("queued" if slot is None
+                          else "prefilling" if slot in prefilling
+                          else "decoding"),
                 "tenant": p.tenant,
                 "stream": p.chunks is not None,
                 "age_s": (round(now - t.t_submit, 3)
@@ -434,8 +463,8 @@ class InferenceServer:
         out: Dict[str, Any] = {
             "in_flight": rows,
             "pending": len(self._pending),
-            # Strict ordering: no window is in flight between steps.
-            "overlap_window_depth": 0,
+            "overlap_window_depth": len(getattr(eng, "_windows", ())
+                                        or ()),
             "generation": g.gen,
             "recorder": self._recorder.stats(),
             "exemplars": {
@@ -528,6 +557,16 @@ class InferenceServer:
             threading.Thread(target=_rebuild_beater, daemon=True).start()
         try:
             engine = self._engine_factory()
+            if (self._tuned_ticks is not None
+                    and engine.decode_ticks_requested == "auto"):
+                # The rebuilt generation inherits the startup tune; a
+                # fresh sweep mid-recovery would stretch the outage.
+                engine.set_decode_ticks(self._tuned_ticks)
+                engine.decode_ticks_source = "auto-tuned"
+            if (self._tuned_chunk is not _UNTUNED
+                    and engine.prefill_chunk_requested == "auto"):
+                engine.set_prefill_chunk(self._tuned_chunk)
+                engine.prefill_chunk_source = "auto-tuned"
         except Exception as e:  # noqa: BLE001 — any rebuild fault is fatal
             with self._lock:
                 self._recovering = False

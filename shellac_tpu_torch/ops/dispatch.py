@@ -57,3 +57,21 @@ def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
             f"{name} is inference-only (its kernel has no backward); call "
             "it under torch.no_grad() or on tensors that do not require grad"
         )
+
+
+def copy_from_host(dst: torch.Tensor, values) -> None:
+    """Write host `values` (numpy or a list) into the device tensor `dst`
+    without blocking the host.
+
+    A plain host-to-card copy from pageable memory returns only once
+    every kernel queued before it has run, which would wait out a decode
+    window in flight. On the card the values go through pinned memory
+    with `non_blocking=True`, in stream order; the pinned block comes
+    from torch's caching host allocator, which keeps it until the copy
+    has run. On the CPU it is a plain copy.
+    """
+    src = torch.as_tensor(values, dtype=dst.dtype)
+    if dst.is_cuda:
+        dst.copy_(src.reshape(dst.shape).pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src.reshape(dst.shape))

@@ -512,8 +512,7 @@ def test_cache_registry():
 
 
 _ENGINE_OPTS = [
-    {"overlap_decode": True}, {"overlap_prefill": True},
-    {"prefill_chunk": 16}, {"mesh": object()}, {"pp_pipeline": True},
+    {"mesh": object()}, {"pp_pipeline": True},
     {"kv_quant": "int8", "rolling_window": True}, {"rolling_window": True},
 ]
 _SUBMIT_OPTS = [
@@ -544,6 +543,10 @@ def test_unported_options_raise(paged):
     eng.submit("ok", [1, 2, 3], 2, presence_penalty=0.0, logit_bias={},
                prompt_logprobs=False)
     assert eng.pending == 1
+    # The admission and decode pipelines and chunked prefill are ported.
+    eng = cls(cfg, params, n_slots=2, max_len=32, overlap_decode=True,
+              overlap_prefill=True, prefill_chunk=16, device=CPU)
+    assert eng.run([("p", [1, 2, 3], 2)])["p"]
     # The observability hooks are ported: an engine takes a registry and
     # a request takes a trace.
     reg = Registry()

@@ -4,7 +4,9 @@
 {"serving": url} line, answers requests with the tokens the port's
 engines give in process on the same seed, and exits 0 on SIGINT.
 `generate` and `batch` print or write the tokens of the port's `Engine`
-and batching engines on the same seed. The options the port lacks raise
+and batching engines on the same seed. The serving defaults (the overlap
+pipelines, `--decode-ticks auto`, `--max-prefills-per-step`) are the
+reference parser's. The options the port lacks raise
 NotImplementedError, and without `--device cpu` the commands want a card.
 """
 
@@ -92,7 +94,7 @@ class _Served:
 
 def test_serve_answers_and_stops_on_sigint():
     srv = _Served("--model", "tiny", "--seed", "5", "--slots", "2",
-                  "--logprobs")
+                  "--max-len", "64", "--logprobs")
     try:
         out = json.loads(_post(srv.base, "/generate",
                                {"tokens": [1, 2, 3], "max_new": 5}))
@@ -116,7 +118,7 @@ def test_serve_config_over_the_paged_engine(tmp_path):
     conf.write_text(json.dumps({"preset": "tiny", "dtype": "float32",
                                 "n_layers": 1}))
     srv = _Served("--config", str(conf), "--cache-backend", "paged",
-                  "--slots", "2", "--seed", "2")
+                  "--slots", "2", "--max-len", "64", "--seed", "2")
     msgs = [{"role": "user", "content": "hi"}]
     try:
         native = json.loads(_post(srv.base, "/generate",
@@ -187,16 +189,33 @@ def test_batch_gives_the_batching_engine_tokens(tmp_path, backend):
 
 @pytest.mark.parametrize("argv", [
     ["generate", "--device", "cpu", "--prompt", "1", "--ckpt-dir", "ck"],
-    ["batch", "--device", "cpu", "--input", "i", "--output", "o",
-     "--overlap-decode"],
-    ["batch", "--device", "cpu", "--input", "i", "--output", "o",
-     "--overlap-prefill"],
-    ["serve", "--device", "cpu", "--decode-ticks", "auto"],
     ["generate", "--device", "cpu", "--prompt", "1", "--tokenizer", "t.json"],
 ])
 def test_unported_options_raise(argv):
     with pytest.raises(NotImplementedError):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--overlap-decode", "--no-overlap-prefill"],
+    ["--no-overlap-decode", "--overlap-prefill"],
+    ["--decode-ticks", "auto"],
+])
+def test_pipeline_options_run(tmp_path, flags):
+    """The options the port once refused run, and keep the strict
+    engine's tokens: each overlap pipeline alone, and the autotuner."""
+    src, dst = tmp_path / "in.jsonl", tmp_path / "out.jsonl"
+    src.write_text("".join(json.dumps({"prompt": p}) + "\n"
+                           for p in ("abc", "hello there", "z")))
+    cli.main(["batch", "--device", "cpu", "--seed", "6", "--input",
+              str(src), "--output", str(dst), "--max-new", "6", "--slots",
+              "2", "--max-len", "48", *flags])
+    got = [json.loads(ln)["tokens"] for ln in dst.read_text().splitlines()]
+    cfg, params = _model(6)
+    want = BatchingEngine(cfg, params, n_slots=2, device=CPU).run(
+        [(i, TOK.encode(p), 6)
+         for i, p in enumerate(("abc", "hello there", "z"))])
+    assert got == [want[i] for i in range(3)]
 
 
 def test_commands_want_a_card_unless_told_cpu():
@@ -206,8 +225,47 @@ def test_commands_want_a_card_unless_told_cpu():
         cli.main(["generate", "--prompt", "1,2"])
 
 
+def _reference_parser():
+    from shellac_tpu import cli as jcli
+
+    return jcli.build_parser()
+
+
 def test_overlap_defaults_are_off():
+    """The defaults of the pipeline flags and of --decode-ticks equal the
+    reference CLI's (its `serve` leaves the overlap flags None and turns
+    them on unless --draft-model is given, which the port lacks)."""
+    ref = _reference_parser()
     for cmd in (["batch", "--input", "i", "--output", "o"], ["serve"]):
         args = cli.build_parser().parse_args(cmd)
-        assert args.overlap_decode is False and args.overlap_prefill is False
+        want = ref.parse_args(cmd)
+        for name in ("overlap_decode", "overlap_prefill"):
+            assert getattr(args, name) == (
+                True if getattr(want, name) is None
+                else getattr(want, name)), (cmd, name)
+        assert args.decode_ticks == want.decode_ticks
         assert args.device == "cuda"
+    args, want = (p.parse_args(["serve"]) for p in (cli.build_parser(), ref))
+    assert args.prefill_chunk == want.prefill_chunk is None
+
+
+def test_serve_engine_caps_prefills_like_the_reference(monkeypatch):
+    """`serve` builds its engine with the reference's default
+    --max-prefills-per-step (1), its overlap pipelines and
+    --decode-ticks auto, and asks the server for the startup
+    autotune. The engine options go to the engine alone: the server
+    reads them only when it builds its own engine."""
+    from shellac_tpu_torch.inference import server
+
+    seen = {}
+    monkeypatch.setattr(server, "serve",
+                        lambda cfg, params, **kw: seen.update(kw))
+    assert cli.main(["serve", "--device", "cpu", "--port", "0"]) == 0
+    eng = seen["engine"]
+    want = _reference_parser().parse_args(["serve"])
+    assert want.max_prefills_per_step == 1
+    assert eng.max_prefills_per_step == want.max_prefills_per_step
+    assert set(seen) == {"host", "port", "tokenizer", "model_name",
+                         "engine", "max_pending", "autotune"}
+    assert eng.overlap_decode and eng.overlap_prefill
+    assert eng.decode_ticks_requested == "auto" and seen["autotune"]

@@ -1,4 +1,5 @@
-"""The engines' decode loops as CUDA graphs, on a card.
+"""The engines' decode loops and prefills as CUDA graphs, and the
+batching engines' pipelines, on a card.
 
 Marked `gpu`: each test skips in its body when no CUDA device is present.
 On a card:
@@ -8,7 +9,11 @@ On a card:
 At shellac-1b's width cut to 2 layers, in bf16 (random weights from a
 seed), over the dense and paged caches in bf16 and int8: greedy tokens
 through the graphs equal the eager loop's (the same tick code run
-without a graph) exactly, and so do the kernels' launch counts; sampled
+without a graph) exactly, and so do the kernels' launch counts; each
+prefill bucket's graph gives the eager prefill's tokens, logprobs and
+launch counts; two windows in flight (replays of one graph) keep their
+own results, and so do prefill graphs of two buckets replayed in turns
+(they share one memory pool); sampled
 windows draw fresh numbers on every replay and the same numbers from the
 same seed; a capture that fails raises. The HTTP server over the paged
 engine gives the engine's tokens while a stream is in flight over the
@@ -54,14 +59,24 @@ class _EagerEngine(Engine):
         return fn
 
 
-def _eager(cls):
-    """A batching engine class whose windows run eagerly."""
+def _eager(cls, prefill=True, windows=True):
+    """A batching engine class whose windows and prefills run eagerly
+    (each, or both)."""
 
     class Eager(cls):
-        def _decode_impl(self, greedy_only):
-            return self._window(greedy_only)
+        if windows:
+            def _decode_impl(self, greedy_only):
+                return self._window(greedy_only)
+
+        if prefill:
+            def _prefill_replay(self, pad, greedy):
+                return self._prefill_program(pad, greedy)
 
     return Eager
+
+
+def _prefill_graphs(eng):
+    return sum(g.graph is not None for g in eng._prefill_graphs.values())
 
 
 def _counts():
@@ -156,6 +171,92 @@ def test_batching_graph_matches_eager(backend, ticks):
     assert counts["graph"][decode] == cfg.n_layers * ticks * windows
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_prefill_graph_matches_eager_prefill(backend):
+    """Every bucket's prefill after its first runs as a graph replay, with
+    the eager prefill's first tokens, logprobs and launch counts (the
+    windows run eagerly in both, so only the prefill differs)."""
+    dev = _card()
+    cfg, params = _model(dev)
+    rng = np.random.default_rng(5)
+    # Three prompts in each of the buckets 32 and 128, two in 16.
+    lens = [20, 100, 30, 9, 120, 25, 70, 12]
+    reqs = [(f"p{i}", rng.integers(0, cfg.vocab_size, n), 4)
+            for i, n in enumerate(lens)]
+    cls = _batching_cls(backend)
+    out, counts, engines = {}, {}, {}
+    for name, c in (("eager", _eager(cls)),
+                    ("graph", _eager(cls, prefill=False))):
+        eng = c(cfg, params, logprobs=True, top_logprobs=2, device=dev,
+                **_engine_kw(backend))
+        _reset()
+        out[name] = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts[name], engines[name] = _counts(), eng
+    g, e = engines["graph"], engines["eager"]
+    assert out["graph"] == out["eager"]
+    for rid, _, _ in reqs:
+        assert g.finished_logprobs[rid] == e.finished_logprobs[rid]
+        assert g.finished_top_logprobs[rid] == e.finished_top_logprobs[rid]
+    assert counts["graph"] == counts["eager"]
+    assert counts["graph"]["flash_attention_cuda"] == cfg.n_layers * 8
+    assert _prefill_graphs(g) == 3 and _prefill_graphs(e) == 0
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense-int8"])
+def test_two_windows_in_flight_keep_their_results(backend):
+    """Under overlap_decode two windows are in flight, both replays of one
+    graph whose outputs the second overwrites: each window's results are
+    its own (they were copied out at dispatch)."""
+    dev = _card()
+    cfg, params = _model(dev)
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 40)
+    cls = _batching_cls(backend)
+    want = cls(cfg, params, decode_ticks=2, device=dev,
+               **_engine_kw(backend)).run([("a", prompt, 40)])["a"]
+    eng = cls(cfg, params, decode_ticks=2, overlap_decode=True, device=dev,
+              **_engine_kw(backend))
+    eng.submit("a", prompt, 40)
+    for _ in range(4):  # the first window runs eagerly, the second captures
+        eng.step()
+    assert eng.stats["decode_graphs"] == 1 and len(eng._windows) == 1
+    eng._dispatch_window(eng._active_rows())
+    windows = list(eng._windows)
+    eng._windows.clear()
+    slot = windows[0].pairs[0][0]
+    k = len(eng._slots[slot].out)
+    results = [eng._sync_window(w) for w in windows]
+    assert results[0][0][slot] == want[k:k + 2]
+    assert results[1][0][slot] == want[k + 2:k + 4]
+    for w, res in zip(windows, results):
+        eng._apply_pairs(w.pairs, *res)
+    got = {}
+    while eng.pending:
+        got.update(eng.step())
+    assert got["a"] == want
+
+
+def test_prefill_buckets_alternate_over_a_shared_pool():
+    """Prefill graphs of two buckets share one memory pool. Admitted in
+    turns, with every prefill of a step in flight at once (no cap), each
+    flight settles to the eager prefill's first token and logprob."""
+    dev = _card()
+    cfg, params = _model(dev)
+    rng = np.random.default_rng(8)
+    reqs = [(f"q{i}", rng.integers(0, cfg.vocab_size, n), 3)
+            for i, n in enumerate([20, 100] * 4)]
+    cls = batching.PagedBatchingEngine
+    kw = dict(n_slots=4, max_len=256, logprobs=True, device=dev)
+    want_eng = _eager(cls)(cfg, params, **kw)
+    want = want_eng.run(reqs)
+    eng = cls(cfg, params, overlap_prefill=True, overlap_decode=True, **kw)
+    got = eng.run(reqs)
+    assert got == want
+    assert eng._prefill_pool is not None and _prefill_graphs(eng) == 2
+    for rid, _, _ in reqs:
+        assert eng.finished_logprobs[rid] == want_eng.finished_logprobs[rid]
+
+
 def _uniform(dev):
     """The 2-layer model with a final norm that zeroes every logit, so a
     sampled token depends on the random numbers alone."""
@@ -168,23 +269,31 @@ def _uniform(dev):
 @pytest.mark.parametrize("backend", ["dense", "paged-int8"])
 def test_sampled_windows_draw_fresh_numbers(backend):
     """Uniform logits: a replay that reused its capture's numbers would
-    repeat one token. Consecutive replays draw different tokens; a fresh
-    engine with the same seed draws the same ones."""
+    repeat one token. Consecutive window replays draw different tokens,
+    and so do the sampling prefill graph's replays (four prompts of
+    bucket 16: one eager prefill, the capture's replay, two more
+    replays); a fresh engine with the same seed draws the same ones."""
     dev = _card()
     cfg, params = _uniform(dev)
-    reqs = [("a", np.arange(1, 9), 24), ("b", np.arange(3, 40), 24)]
+    reqs = [("a", np.arange(1, 9), 24), ("b", np.arange(3, 40), 24),
+            ("c", np.arange(5, 15), 24), ("d", np.arange(7, 19), 24),
+            ("e", np.arange(2, 16), 24)]
     outs = []
     for _ in range(2):
         eng = _batching_cls(backend)(cfg, params, temperature=1.0, seed=5,
                                      device=dev, **_engine_kw(backend))
         outs.append(eng.run(reqs))
         assert eng.stats["decode_graphs"] == 1
+        bucket = eng._prefill_graphs[(16, False)]
+        assert bucket.calls == 4 and bucket.graph is not None
     assert outs[0] == outs[1]
-    for rid in ("a", "b"):
+    for rid, _, _ in reqs:
         toks = outs[0][rid]
         assert len(set(toks)) > len(toks) // 2, toks
         assert sum(a != b for a, b in zip(toks, toks[1:])) > len(toks) // 2
     assert outs[0]["a"] != outs[0]["b"]
+    # The replayed prefills' first tokens (prompts c, d, e).
+    assert len({outs[0][rid][0] for rid in "cde"}) == 3
 
 
 def test_sampled_generate_draws_fresh_numbers():

@@ -213,12 +213,9 @@ _PORT_ONLY = {"shellac_engine_pool_exhausted", "shellac_engine_decode_windows",
               "shellac_engine_decode_graphs"}
 # Families the reference's registry has that the port's lacks: the
 # mirrors of the JAX engine's stats keys that the port's engine leaves
-# out (tests/test_torch_server.py's UNPORTED_STATS, and decode_ticks and
-# overlap_prefill, which /stats answers from the engine's attributes).
+# out (tests/test_torch_server.py's UNPORTED_STATS).
 _UNPORTED = {"shellac_engine_" + k for k in (
-    "prefill_chunks", "overlap_depth", "prefill_chunk", "kv_exports",
-    "kv_imports", "kv_bytes_per_token", "preemptions", "decode_ticks",
-    "overlap_prefill")}
+    "kv_exports", "kv_imports", "kv_bytes_per_token", "preemptions")}
 
 _PROMPTS = ["hello", "ab", "the quick", "zz top", "x"]
 

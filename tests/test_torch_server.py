@@ -63,12 +63,10 @@ TOK = ByteTokenizer()
 # engine's: pool requeues, decode windows, decode graphs captured.
 PORT_ONLY_STATS = {"pool_exhausted", "decode_windows", "decode_graphs"}
 # The JAX engine's stats keys the port's engine leaves out: counters of
-# unported features (chunked prefill, the overlap pipeline, KV export and
-# import, preemption) and the per-token KV price, which would only hold
-# constants. /stats still answers decode_ticks, overlap_prefill and
-# cache_backend from the engine's attributes.
-UNPORTED_STATS = {"prefill_chunks", "overlap_depth", "prefill_chunk",
-                  "kv_exports", "kv_imports", "kv_bytes_per_token",
+# unported features (KV export and import, preemption) and the per-token
+# KV price, which would only hold constants. /stats answers
+# cache_backend from the engine's backend.
+UNPORTED_STATS = {"kv_exports", "kv_imports", "kv_bytes_per_token",
                   "preemptions"}
 
 
@@ -712,13 +710,38 @@ def test_unported_get_paths_answer_501(pair):
 
 
 @pytest.mark.parametrize("opt", [
-    {"autotune": True}, {"profile_dir": "p"}, {"spool_dir": "s"},
+    {"profile_dir": "p"}, {"spool_dir": "s"},
     {"incident_dir": "i"}, {"park_dir": "k"}, {"tenant_config": {}},
-    {"preempt_after": 1.0}, {"role": "decode"}, {"overlap_decode": True},
-    {"prefill_chunk": 16},
+    {"preempt_after": 1.0}, {"role": "decode"},
 ])
 def test_unported_server_options_raise(opt):
     cfg, params = _tiny()
     with pytest.raises(NotImplementedError):
         InferenceServer(cfg, params, n_slots=2, max_len=64, device=CPU,
                         registry=Registry(), **opt)
+
+
+@pytest.mark.parametrize("opt", [
+    {"autotune": True, "decode_ticks": "auto"},
+    {"overlap_decode": True, "overlap_prefill": True},
+    {"prefill_chunk": 4, "max_prefills_per_step": 1},
+])
+def test_pipeline_server_options_serve_the_engine_tokens(opt):
+    """The options this server once refused: the startup autotune, the
+    overlap pipelines and chunked prefill serve the tokens of a strict
+    engine, and the autotune's winner is what the engine runs."""
+    cfg, params = _tiny()
+    srv = InferenceServer(cfg, params, n_slots=2, max_len=64, device=CPU,
+                          registry=Registry(), **opt)
+    try:
+        got = [srv.generate(p, 6)
+               for p in ([1, 2, 3], list(range(5, 17)))]
+        eng = srv.engine
+        if opt.get("autotune"):
+            assert eng.decode_ticks_source == "auto-tuned"
+            assert eng.stats["decode_ticks"] == eng.decode_ticks
+    finally:
+        srv.close()
+    want = _engine(batching.BatchingEngine, cfg, params).run(
+        [(0, [1, 2, 3], 6), (1, list(range(5, 17)), 6)])
+    assert got == [want[0], want[1]]

@@ -41,7 +41,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 512, 64 new tokens, greedy, every decode step after the
                 first a CUDA-graph replay; prefill logits of the kernels
                 against the plain attention; kernel launch counts of the
-                run and the graphs captured; the wall ms per decode step
+                run and the graphs captured; two later calls at the same
+                (batch, pad), which must capture nothing and give the
+                same tokens (their prefill wall ms and ms a token); the
+                wall ms per decode step
                 through the graph and of the same loop run eagerly, whose
                 greedy tokens must be equal, and the device-busy share of
                 the decode; a depth-cut fp32 run whose greedy tokens must
@@ -118,7 +121,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 graphs (windows and per-bucket prefills) and with both run
                 eagerly: greedy tokens and logprobs identical to the eager
                 strict engine's, launch counts identical between graph and
-                eager runs and to what each run's prefills and windows make.
+                eager runs and to what each run's prefills and windows make;
+                per cache, a pass with 64-token chunked prefill (and, over
+                the pools, prefix-cache hits) whose continuation graphs
+                give the eager programs' tokens, logprobs and launches.
  11. http-serve — serve's 48 requests over HTTP: InferenceServer over the
                 serve phase's PagedBatchingEngine configuration (shellac-1b,
                 16 slots, max_len 2048, 16-token blocks, one tick a window,
@@ -138,6 +144,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 TTFT, queue wait, TPOT and e2e p50/p99 (each request's
                 flight-recorder timeline, and the /stats and /metrics
                 digests), with serve's numbers beside them.
+ 11b. prefix-serve — serve's engine under the reference serve's
+                scheduling on chat-shaped traffic: 48 requests on one
+                shared 1024-token system prompt, tails of 16-256 tokens,
+                32-128 new tokens, greedy, with prefix_cache off and on,
+                over the bf16 and the int8 pool; each timed run after a
+                warm-up captures no graph and makes exactly the launches
+                its fresh prefills, suffix prefills and windows make (47
+                hits when cached); the hit share, TTFT, TPOT, tokens/s,
+                peak memory, a hit's suffix prefill device ms split into
+                the plain attention and the rest (a miss's beside it), the
+                share of sequences equal to the uncached run's and the
+                largest first-token logprob difference (not gated); a
+                pass on four system prompts over a 6144-token pool that
+                must evict; a 2-layer fp32 copy whose cached and uncached
+                tokens must be equal.
+ 11c. sampling-controls — serve's engine with the per-request controls: a
+                seeded request (temperature 0.8) gives the same tokens
+                alone, among 15 neighbours (seeded, penalised, biased,
+                scoring, sampled) in slot 15, at decode_ticks 1 and 8, and
+                with and without the pipelines; a logit bias of +100
+                forces its token and -100 bans it; prompt logprobs match a
+                plain forward's log-softmax within 5e-2 of its largest
+                magnitude; four runs of one control each capture exactly
+                the window graphs their keys name.
  12. cli-serve — `python -m shellac_tpu_torch serve --config F
                 --cache-backend paged --slots 4 --port 0 --logprobs` (F:
                 shellac-1b cut to 2 layers) as a subprocess, on the CLI's
@@ -167,7 +197,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 serve-int8's ragged steps and with every slot live to 2048;
                 every row carries its achieved TFLOP/s.
 Then the card's name and power limit, one {"kernels": [...]} line, and as
-the last line {"ok": true, "device": {...}}.
+the last line {"ok": true, "device": {...}}. `--only PHASES` (generate,
+prefix-serve, sampling-controls, graph-parity) runs those after the build
+and prints neither of the last two lines.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -889,18 +921,19 @@ def eager_engine(cls):
     eagerly, tick by tick, and a batching engine's prefills run eagerly
     too: the programs its CUDA graphs replace."""
     from shellac_tpu_torch import Engine
+    from shellac_tpu_torch.inference.batching import _NO_CTL
 
     if issubclass(cls, Engine):
         class Eager(cls):
-            def _graph(self, fn, generator):
+            def _graph(self, fn, generator, pool=None):
                 return fn
     else:
         class Eager(cls):
-            def _decode_impl(self, greedy_only):
-                return self._window(greedy_only)
+            def _decode_impl(self, greedy_only, ctl=_NO_CTL):
+                return self._window(greedy_only, ctl)
 
-            def _prefill_replay(self, pad, greedy):
-                return self._prefill_program(pad, greedy)
+            def _prefill_replay(self, key):
+                return self._program(key)
     return Eager
 
 
@@ -1022,6 +1055,31 @@ def phase_generate(seed, dev, table, card):
          max_memory_allocated=peak, card=card)
     if counts != expect or not tokens_ok:
         raise SystemExit("main path: wrong launch counts or bad tokens")
+
+    # Two later calls at the same (batch, pad): the engine keeps its
+    # prefill and decode-step programs across calls, so they replay
+    # their graphs and capture nothing. The call of one token is the
+    # prefill (and its first token) alone.
+    later = []
+    for max_new in (NEW_TOKENS, 1):
+        before = StepGraph.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate(toks, lens, max_new_tokens=max_new)
+        torch.cuda.synchronize()
+        later.append(((time.perf_counter() - t0) * 1e3,
+                      StepGraph.captures - before, out))
+    (call_ms, call_caps, again), (prefill_ms, prefill_caps, _) = later
+    replay_ok = (call_caps == prefill_caps == 0
+                 and bool(torch.equal(again.tokens, res.tokens)))
+    emit("generate", step="calls_after_the_first",
+         captures_by_call=[captured, call_caps, prefill_caps],
+         call_wall_ms=call_ms, prefill_wall_ms=prefill_ms,
+         decode_ms_per_token=(call_ms - prefill_ms) / (NEW_TOKENS - 1),
+         tokens_equal_to_main_path=replay_ok, card=card)
+    if not replay_ok:
+        raise SystemExit("generate: a later call at the same shape captured "
+                         "a graph or changed its tokens")
 
     # Split timing of the same run: prefill, then the decode loop through
     # its CUDA graph, beside the same loop run eagerly.
@@ -2197,6 +2255,380 @@ def phase_serve_parity_int8(seed, dev, table):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# prefix-serve: the prefix cache; sampling-controls: the per-request controls
+# --------------------------------------------------------------------------
+
+# prefix-serve's traffic: one shared system prompt, distinct tails.
+SYSTEM, TAIL_LO, TAIL_HI, PFX_NEW_LO, PFX_NEW_HI = 1024, 16, 256, 32, 128
+# The eviction pass's pool: four system prompts do not fit beside the
+# slots' own blocks.
+EVICT_POOL = 6144
+
+
+def prefix_requests(seed, vocab, n, systems=1, system_len=SYSTEM,
+                    tails=(TAIL_LO, TAIL_HI), new=(PFX_NEW_LO, PFX_NEW_HI)):
+    """n requests, request i on system prompt i % systems plus a tail of
+    its own."""
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, system_len) for _ in range(systems)]
+    out = []
+    for i in range(n):
+        tail = rng.integers(0, vocab, int(rng.integers(tails[0],
+                                                       tails[1] + 1)))
+        out.append((f"p{i}", np.concatenate([heads[i % systems], tail])
+                    .astype(np.int32),
+                    int(rng.integers(new[0], new[1] + 1))))
+    return out
+
+
+def prefix_warm_requests(seed, vocab):
+    """Two system prompts the timed run does not use: the first request
+    on each misses (a fresh prefill of the 2048 bucket: its eager run,
+    then its capture), and two hits at each suffix bucket 16-256 follow,
+    so the timed run replays every program it runs."""
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, SYSTEM) for _ in range(2)]
+    out = [(f"miss{j}", np.concatenate([heads[j], rng.integers(0, vocab, 16)])
+            .astype(np.int32), 8) for j in range(2)]
+    n = TAIL_LO
+    while n <= TAIL_HI:
+        for j in range(2):
+            out.append((f"hit{n}-{j}", np.concatenate(
+                [heads[0], rng.integers(0, vocab, n)]).astype(np.int32), 8))
+        n *= 2
+    return out
+
+
+def prefix_run(engine, table, reqs, n_layers, decode_kernel):
+    """One timed run of `reqs` on a warm engine: its results, metrics and
+    launch counts, with the counts its programs must make."""
+    from shellac_tpu_torch.inference.graphs import StepGraph
+
+    torch.cuda.synchronize()
+    reset_peak()
+    before = dict(engine.stats)
+    reset_counts(table)
+    captured = StepGraph.captures
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(table)
+    delta = {k: engine.stats[k] - before[k] for k in engine.stats
+             if isinstance(engine.stats[k], int)}
+    hits = delta.get("prefix_hit_tokens", 0) // SYSTEM
+    windows = delta["decode_windows"]
+    L = n_layers
+    expect = only(table,
+                  rms_norm=(2 * L + 1) * (delta["prefills"] + windows),
+                  flash_attention_fwd=L * (delta["prefills"] - hits),
+                  **{decode_kernel: L * windows})
+    ttft, tpot = [], []
+    for rid, _, m in reqs:
+        _, admitted, first, done = engine.finished_timings[rid]
+        ttft.append(first - admitted)
+        tpot.append((done - first) / max(m - 1, 1))
+    generated = sum(len(v) for v in results.values())
+    query = delta.get("prefix_query_tokens", 0)
+    return results, counts, expect, dict(
+        requests=len(reqs), generated_tokens=generated, wall_s=wall,
+        tokens_per_s=generated / wall,
+        ttft_ms_p50=pct(ttft, 50) * 1e3, ttft_ms_p99=pct(ttft, 99) * 1e3,
+        tpot_ms_p50=pct(tpot, 50) * 1e3,
+        hit_share=(delta.get("prefix_hit_tokens", 0) / query) if query
+        else 0.0, hit_requests=hits,
+        prefix_evictions=delta.get("prefix_evictions", 0),
+        prefills=delta["prefills"], decode_windows=windows,
+        graphs_captured=StepGraph.captures - captured,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=counts, expected=expect)
+
+
+def suffix_device_ms(engine, params, cfg, vocab, seed, dev, system):
+    """Device ms of one prefix hit's suffix prefill (a tail of 128 past
+    the cached `system` prompt; its program replayed alone on an idle
+    engine, profiled), split into its plain attention (the layers'
+    paged_decode_attention(impl="ref") at the same shapes, in one CUDA
+    graph) and the rest; beside a miss's fresh prefill of the same
+    prompt length."""
+    from shellac_tpu_torch.ops.decode_attention import paged_decode_attention
+
+    rng = np.random.default_rng(seed)
+    tail = rng.integers(0, vocab, 128)
+    hit = np.concatenate([system, tail]).astype(np.int32)
+    miss = rng.integers(0, vocab, hit.size).astype(np.int32)
+    out = {}
+    for name, prompt in (("miss", miss), ("hit", hit)):
+        engine.submit(f"probe-{name}", prompt, 2)
+        prof = profile_call(engine.step)
+        out[f"{name}_prefill_device_ms"] = prof["device_ms"]
+        while engine.pending:
+            engine.step()
+    cache = engine._cache
+    p, s = SYSTEM, 128
+    h, hkv, d = cfg.n_heads, cfg.kv_heads, cfg.dim_per_head
+    q = torch.randn((1, s, h, d), dtype=cfg.compute_dtype, device=dev)
+    row = torch.zeros((1, cache.tables.shape[1]), dtype=torch.int32,
+                      device=dev)
+    row[0, :(p + s) // engine.block_size] = torch.arange(
+        1, (p + s) // engine.block_size + 1, device=dev)
+    index = torch.full((1,), p, dtype=torch.int32, device=dev)
+    kw = ({"k_scale": cache.ks[0], "v_scale": cache.vs[0]}
+          if engine.kv_quant == "int8" else {})
+    attn = graph_ms(lambda: paged_decode_attention(
+        q, cache.k[0], cache.v[0], row, index, impl="ref", **kw), [()],
+        1) * cfg.n_layers
+    out["hit_plain_attention_device_ms"] = attn
+    out["hit_rest_device_ms"] = out["hit_prefill_device_ms"] - attn
+    return out
+
+
+def phase_prefix_serve(seed, dev, table, card):
+    """serve's engine under the reference serve's scheduling (PIPELINED)
+    on chat-shaped traffic: 48 requests on one shared 1024-token system
+    prompt, tails of 16-256 tokens, 32-128 new tokens, greedy; once with
+    prefix_cache=False and once with prefix_cache=True in one process,
+    over the bf16 pool and then the int8 pool. Each timed run follows a
+    warm-up and captures nothing; its launch counts are what its fresh
+    prefills, suffix prefills and windows make. Printed: the hit share,
+    TTFT, TPOT, tokens/s, the suffix prefill's device ms split into the
+    plain attention and the rest, evictions, peak memory; at full width
+    the share of sequences equal to the uncached run's and the largest
+    first-token logprob difference (the suffix attends through the plain
+    path, a fresh prefill through kernel 2: not gated). A second pass on
+    four system prompts over a small pool must evict. A 2-layer fp32
+    copy's cached and uncached tokens must be equal."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.models import transformer
+
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reqs = prefix_requests(seed + 20, cfg.vocab_size, REQUESTS)
+    warm = prefix_warm_requests(seed + 21, cfg.vocab_size)
+    main_counts = None
+    failed = []
+    for backend in ("paged", "paged-int8"):
+        kernel = DECODE_KERNEL[backend]
+        block = BLOCK if backend == "paged" else BLOCK_INT8
+        runs = {}
+        for cached in (False, True):
+            engine = PagedBatchingEngine(
+                cfg, params, n_slots=SLOTS, max_len=MAX_LEN,
+                block_size=block, cache_backend=backend, decode_ticks=1,
+                temperature=0.0, logprobs=True, prefix_cache=cached,
+                device=dev, **PIPELINED)
+            engine.run(warm)
+            results, counts, expect, m = prefix_run(
+                engine, table, reqs, cfg.n_layers, kernel)
+            if cached:
+                m.update(suffix_device_ms(engine, params, cfg,
+                                          cfg.vocab_size, seed + 22, dev,
+                                          reqs[0][1][:SYSTEM]))
+            first_lp = {rid: engine.finished_logprobs[rid][0]
+                        for rid in results}
+            runs[cached] = (results, first_lp, m)
+            ok = (counts == expect and m["graphs_captured"] == 0
+                  and len(results) == len(reqs)
+                  and (not cached or m["hit_requests"] == len(reqs) - 1))
+            emit("prefix-serve", step="main_path", backend=backend,
+                 prefix_cache=cached, model="shellac-1b", slots=SLOTS,
+                 max_len=MAX_LEN, block_size=block, system_tokens=SYSTEM,
+                 tails=[TAIL_LO, TAIL_HI], new=[PFX_NEW_LO, PFX_NEW_HI],
+                 **PIPELINED, ok=ok, card=card, **m)
+            if not ok:
+                failed.append((backend, cached))
+            if backend == "paged" and cached:
+                main_counts = counts
+            engine.close()
+            del engine
+            torch.cuda.empty_cache()
+        (plain, lp0, _), (hit, lp1, _) = runs[False], runs[True]
+        emit("prefix-serve", step="cached_vs_uncached", backend=backend,
+             sequences_equal=sum(hit[r] == plain[r] for r in plain),
+             requests=len(plain),
+             first_token_logprob_max_abs_diff=max(
+                 abs(lp0[r] - lp1[r]) for r in plain))
+
+    # Eviction: four system prompts, a pool too small for all of them.
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        cache_backend="paged", decode_ticks=1, temperature=0.0,
+        prefix_cache=True, pool_tokens=EVICT_POOL, device=dev, **PIPELINED)
+    evict_reqs = prefix_requests(seed + 23, cfg.vocab_size, REQUESTS,
+                                 systems=4)
+    t0 = time.perf_counter()
+    out = engine.run(evict_reqs)
+    torch.cuda.synchronize()
+    st = engine.stats
+    evicted = st["prefix_evictions"]
+    emit("prefix-serve", step="eviction", systems=4, pool_tokens=EVICT_POOL,
+         requests=len(evict_reqs), completed=len(out),
+         wall_s=time.perf_counter() - t0,
+         hit_share=st["prefix_hit_tokens"] / st["prefix_query_tokens"],
+         prefix_evictions=evicted, pool_exhausted=st["pool_exhausted"],
+         cached_blocks=engine.cache_backend.residency()[
+             "prefix_cached_blocks"], card=card)
+    engine.close()
+    del engine, params
+    torch.cuda.empty_cache()
+    if evicted < 1 or len(out) != len(evict_reqs):
+        failed.append("eviction")
+
+    # 2 layers in fp32: cached outputs token-equal to uncached ones.
+    cfg32 = cfg.replace(n_layers=2, dtype="float32")
+    p32 = transformer.init_params(cfg32, seed=seed, device=dev)
+    small = prefix_requests(seed + 24, cfg32.vocab_size, 14, system_len=256,
+                            tails=(8, 120), new=(4, 24))
+    outs = {}
+    for cached in (False, True):
+        eng = PagedBatchingEngine(cfg32, p32, n_slots=6, max_len=512,
+                                  prefix_cache=cached, device=dev,
+                                  **PIPELINED)
+        outs[cached] = eng.run(small)
+        hits = eng.stats.get("prefix_hit_tokens", 0)
+        eng.close()
+    equal = outs[False] == outs[True]
+    emit("prefix-serve", step="fp32_depth2_cached_vs_uncached",
+         requests=len(small), equal=equal, hit_tokens=hits)
+    del p32
+    torch.cuda.empty_cache()
+    if not equal or hits == 0:
+        failed.append("fp32")
+    if failed:
+        raise SystemExit(f"prefix-serve: failed {failed}")
+    return main_counts
+
+
+def phase_sampling_controls(seed, dev, table, card):
+    """serve's engine (shellac-1b, 16 slots, max_len 2048, 16-token
+    blocks) with the per-request controls. A seeded request (temperature
+    0.8) must give the same tokens alone, among 15 neighbours (seeded,
+    penalised, biased, scoring and plain sampled requests) in slot 15,
+    at decode_ticks 1 and 8, under both pipelines and strict; a bias of
+    +100 must force its token and -100 ban it; prompt logprobs must
+    match a plain forward's log-softmax within 5e-2 of its largest
+    magnitude; and runs of one control each must capture exactly the
+    window graphs their keys name. The neighbours' run is the phase's
+    main path (its launch counts)."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.models import transformer
+
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(seed + 30)
+
+    def prompt(n):
+        return rng.integers(0, vocab, n).astype(np.int32)
+
+    def engine(ticks=1, pipe=PIPELINED):
+        return PagedBatchingEngine(
+            cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+            decode_ticks=ticks, temperature=0.0, logprobs=True, device=dev,
+            **pipe)
+
+    seeded = ("seeded", prompt(200), 64, {"temperature": 0.8, "seed": 1234})
+    kinds = ([{"temperature": 0.9, "seed": i} for i in range(4)]
+             + [{"presence_penalty": 0.5}, {"frequency_penalty": 0.7},
+                {"presence_penalty": 0.3, "frequency_penalty": 0.3}]
+             + [{"logit_bias": {int(t): 2.0 for t in prompt(3)}}
+                for _ in range(3)]
+             + [{"prompt_logprobs": True}] * 2
+             + [{"temperature": 1.0}] * 3)
+    neighbours = [(f"n{i}", prompt(int(rng.integers(64, 513))), 48, k)
+                  for i, k in enumerate(kinds)]
+
+    def run(eng, reqs):
+        for rid, p, m, k in reqs:
+            eng.submit(rid, p, m, **k)
+        out = {}
+        while eng.pending:
+            out.update(eng.step())
+        return out
+
+    got = {}
+    eng = engine()
+    got["alone"] = run(eng, [seeded])["seeded"]
+    eng.close()
+    eng = engine()
+    run(eng, [seeded])  # warm-up: the graphs of this mix
+    reset_counts(table)
+    t0 = time.perf_counter()
+    mixed = run(eng, neighbours + [seeded])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(table)
+    got["neighbours_slot15"] = mixed["seeded"]
+    scoring = [(rid, p) for rid, p, _, k in neighbours
+               if k.get("prompt_logprobs")]
+    plp_err, plp_scale = 0.0, 0.0
+    with torch.inference_mode():
+        for rid, p in scoring:
+            toks = torch.from_numpy(p.astype(np.int64))[None].to(dev)
+            lsm = torch.log_softmax(transformer.forward(
+                cfg, params, toks, attn_impl="ref", device=dev)[0].float(),
+                dim=-1)
+            ref = lsm[:-1].gather(1, toks[0, 1:, None])[:, 0].cpu().numpy()
+            mine = np.asarray(eng.finished_prompt_logprobs[rid][1:])
+            plp_err = max(plp_err, float(np.abs(mine - ref).max()))
+            plp_scale = max(plp_scale, float(np.abs(ref).max()))
+    keys_mixed = sorted(eng._window_graphs)
+    eng.close()
+    for name, kw in (("decode_ticks_8", {"ticks": 8}),
+                     ("strict", {"pipe": {}})):
+        e = engine(**kw)
+        got[name] = run(e, neighbours + [seeded])["seeded"]
+        e.close()
+    seeded_ok = all(v == got["alone"] for v in got.values())
+
+    # Bias +100 forces its token; -100 bans the plain greedy token.
+    eng = engine()
+    base = prompt(100)
+    plain = run(eng, [("plain", base, 16, {})])["plain"]
+    forced_tok, banned_tok = int(rng.integers(0, vocab)), plain[0]
+    out = run(eng, [
+        ("forced", base, 16, {"logit_bias": {forced_tok: 100.0}}),
+        ("banned", base, 16, {"logit_bias": {banned_tok: -100.0}})])
+    bias_ok = (all(t == forced_tok for t in out["forced"])
+               and banned_tok not in out["banned"])
+    eng.close()
+
+    # One control per run: the window graphs its keys name.
+    eng = engine(pipe={})
+    plan = [({}, (1, True, False, False, False)),
+            ({"logit_bias": {5: 1.0}}, (1, True, True, False, False)),
+            ({"presence_penalty": 0.5}, (1, True, False, True, False)),
+            ({"temperature": 0.8, "seed": 7}, (1, False, False, False, True))]
+    for k, _ in plan:
+        run(eng, [(f"k{i}", prompt(32), 12, k) for i in range(SLOTS)])
+    keys = {key: r.graph is not None for key, r in eng._window_graphs.items()}
+    keys_ok = keys == {key: True for _, key in plan}
+    eng.close()
+    del params
+    torch.cuda.empty_cache()
+    plp_ok = plp_err <= 5e-2 * plp_scale
+    emit("sampling-controls", step="main_path", model="shellac-1b",
+         slots=SLOTS, requests=len(neighbours) + 1, wall_s=wall,
+         tokens_per_s=sum(len(v) for v in mixed.values()) / wall,
+         launches=counts, window_graph_keys_mixed=keys_mixed,
+         seeded_tokens_equal={k: v == got["alone"] for k, v in got.items()},
+         seeded_distinct_tokens=len(set(got["alone"])),
+         bias_forces_and_bans=bias_ok,
+         prompt_logprobs_max_abs_err=plp_err,
+         prompt_logprobs_ref_max_abs=plp_scale,
+         tol="max_abs_err <= 5e-2 * max|ref|",
+         window_graph_keys=[list(k) for k in keys],
+         window_graph_keys_as_predicted=keys_ok, card=card)
+    if not (seeded_ok and bias_ok and plp_ok and keys_ok):
+        raise SystemExit("sampling-controls: a seeded stream moved, a bias "
+                         "missed, prompt logprobs disagree or the window "
+                         "graphs differ from their keys")
+    return counts
+
+
 # The decode kernel each batching backend's windows launch.
 DECODE_KERNEL = {"paged": "paged_decode_attention",
                  "dense": "decode_attention_dense",
@@ -2229,7 +2661,10 @@ def phase_graph_parity(seed, dev, table):
     bit; a graph run's launch counts equal its eager twin's and what its
     prefills and windows make (a pipelined run makes other windows than
     a strict one: admissions join a window later, and a finished slot
-    rides one more)."""
+    rides one more). Per cache, a continuation pass: chunked prefill
+    (64-token chunks) and, over the pools, prefix-cache hits, whose
+    continuation programs' graphs give the eager programs' tokens,
+    logprobs and launch counts."""
     from shellac_tpu_torch import get_model_config
     from shellac_tpu_torch.inference.batching import (
         BatchingEngine,
@@ -2293,6 +2728,48 @@ def phase_graph_parity(seed, dev, table):
                      ok=ok)
                 if not ok:
                     failed.append((backend, ticks, mode))
+        # The continuation programs: chunked prefill (64-token chunks)
+        # and, over the pools, the prefix cache's suffix prefills, as
+        # graph replays against the same programs run eagerly.
+        creqs = prefix_requests(seed + 25, cfg.vocab_size, 10,
+                                system_len=96, tails=(8, 200), new=(4, 16))
+        kw = dict(n_slots=6, max_len=512, cache_backend=backend,
+                  prefill_chunk=64, logprobs=True, device=dev)
+        if backend.startswith("paged"):
+            kw["prefix_cache"] = True
+        runs = {}
+        for name, c in (("graph", cls), ("eager", eager_engine(cls))):
+            eng = c(cfg, params, **kw)
+            reset_counts(table)
+            out = eng.run(creqs)
+            torch.cuda.synchronize()
+            runs[name] = dict(
+                out=out, lps=dict(eng.finished_logprobs),
+                launches=read_counts(table), stats=dict(eng.stats),
+                chunk_graphs=sum(r.graph is not None for k, r in
+                                 eng._prefill_graphs.items()
+                                 if k.kind == "chunk"))
+            eng.close()
+            del eng
+        g, e = runs["graph"], runs["eager"]
+        ok = (g["out"] == e["out"] and g["lps"] == e["lps"]
+              and g["launches"] == e["launches"] and g["chunk_graphs"] > 0
+              and g["stats"]["prefill_chunks"] > 0
+              and (not backend.startswith("paged")
+                   or g["stats"]["prefix_hit_tokens"] > 0))
+        emit("graph-parity", backend=backend, ordering="strict",
+             pass_name="continuation", prefill_chunk=64,
+             prefix_cache=backend.startswith("paged"), layers=2,
+             dtype="bfloat16", requests=len(creqs),
+             prefill_chunks=g["stats"]["prefill_chunks"],
+             prefix_hit_tokens=g["stats"].get("prefix_hit_tokens", 0),
+             chunk_graphs_captured=g["chunk_graphs"],
+             tokens_identical_to_eager=g["out"] == e["out"],
+             logprobs_identical_to_eager=g["lps"] == e["lps"],
+             launches=g["launches"],
+             launches_equal_eager=g["launches"] == e["launches"], ok=ok)
+        if not ok:
+            failed.append((backend, "continuation"))
     del params
     torch.cuda.empty_cache()
     if failed:
@@ -2890,6 +3367,11 @@ def phase_timings(gen, dev, shapes, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after the build "
+                         "(generate, prefix-serve, sampling-controls, "
+                         "graph-parity); prints no kernels line and no ok "
+                         "line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2918,6 +3400,19 @@ def main():
                          f"are missing: {spills}")
 
     table = kernel_table()
+    if args.only:
+        only_phases = {
+            "generate": lambda: phase_generate(args.seed, dev, table, card),
+            "prefix-serve": lambda: phase_prefix_serve(args.seed, dev, table,
+                                                       card),
+            "sampling-controls": lambda: phase_sampling_controls(
+                args.seed, dev, table, card),
+            "graph-parity": lambda: phase_graph_parity(args.seed, dev,
+                                                       table),
+        }
+        for name in args.only.split(","):
+            only_phases[name]()
+        return 0
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     shapes = main_shapes(args.seed, dev)
@@ -2937,6 +3432,9 @@ def main():
                                                  card, serve_ref)
     paths["http-serve"] = phase_http_serve(args.seed, dev, table, card,
                                            serve_ref)
+    paths["prefix-serve"] = phase_prefix_serve(args.seed, dev, table, card)
+    paths["sampling-controls"] = phase_sampling_controls(args.seed, dev,
+                                                         table, card)
     paths["train"] = phase_train(args.seed, dev, table, card)
     decode = ("rms_norm", "flash_attention_fwd")
     for path, kinds in (("generate", decode + ("decode_attention_dense",)),
@@ -2948,6 +3446,10 @@ def main():
                         ("serve-overlap",
                          decode + ("paged_decode_attention",)),
                         ("http-serve", decode + ("paged_decode_attention",)),
+                        ("prefix-serve",
+                         decode + ("paged_decode_attention",)),
+                        ("sampling-controls",
+                         decode + ("paged_decode_attention",)),
                         ("train", ("rms_norm", "flash_attention_fwd",
                                    "flash_attention_bwd_dkdv",
                                    "flash_attention_bwd_dq"))):

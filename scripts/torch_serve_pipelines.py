@@ -94,8 +94,8 @@ def make_engine(a, cfg, params, dev, way, reg):
     cls = PagedBatchingEngine
     if way.get("eager_prefill"):
         class EagerPrefill(PagedBatchingEngine):
-            def _prefill_replay(self, pad, greedy):
-                return self._prefill_program(pad, greedy)
+            def _prefill_replay(self, key):
+                return self._program(key)
         cls = EagerPrefill
     return cls(cfg, params, n_slots=a.slots, max_len=a.max_len,
                block_size=16, cache_backend="paged", decode_ticks=1,
@@ -159,7 +159,7 @@ def local_way(a, name, cfg, params, dev, reqs, warm, profile=False):
         # The window graph replayed back to back: its wall on the card,
         # kernels and the gaps between them, with no host work between
         # windows (the slots decode on; abort_all resets them after).
-        graph = eng._window_graphs[1, True].graph
+        graph = eng._window_graphs[1, True, False, False, False].graph
         torch.cuda.synchronize()
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         ev0.record()

@@ -17,7 +17,8 @@ the reference's command lines, `--ckpt-dir` (checkpoints) raises
 NotImplementedError. The serving defaults are the reference's: both
 overlap pipelines on, `--decode-ticks auto` (the startup autotuner),
 `--max-prefills-per-step 1`, whole-prompt prefills (`--prefill-chunk`
-takes a size or `auto`).
+takes a size or `auto`). `serve --prefix-cache` (:1605) needs a paged
+backend and exits otherwise (:889).
 """
 
 from __future__ import annotations
@@ -224,8 +225,13 @@ def cmd_serve(args):
         from shellac_tpu_torch.obs import get_registry
 
         get_registry().disable()
+    if args.prefix_cache and not args.cache_backend.startswith("paged"):
+        raise SystemExit("--prefix-cache requires a paged cache backend "
+                         "(--cache-backend paged|paged-int8)")
     cfg = _model_config(args)
     params = _restore_params(args, cfg)
+    paged_extra = ({"prefix_cache": args.prefix_cache}
+                   if args.cache_backend.startswith("paged") else {})
     engine = engine_class(args.cache_backend)(
         cfg, params, n_slots=args.slots,
         max_len=args.max_len or cfg.max_seq_len,
@@ -236,7 +242,7 @@ def cmd_serve(args):
         overlap_prefill=args.overlap_prefill,
         max_prefills_per_step=args.max_prefills_per_step,
         prefill_chunk=args.prefill_chunk, logprobs=args.logprobs,
-        cache_backend=args.cache_backend, device=args.device,
+        cache_backend=args.cache_backend, device=args.device, **paged_extra,
     )
     try:
         serve(
@@ -336,6 +342,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--eos-id", type=int, default=None, dest="eos_id")
     s.add_argument("--cache-backend", default="dense", dest="cache_backend",
                    choices=backends, help="KV-cache storage policy")
+    s.add_argument("--prefix-cache", action="store_true", dest="prefix_cache",
+                   help="reuse cached KV blocks across prompts sharing a "
+                        "prefix (requires a paged backend)")
     s.add_argument("--decode-ticks", type=_decode_ticks_arg,
                    default="auto", dest="decode_ticks",
                    help="decode steps per host sync: an int, or 'auto' "

@@ -69,7 +69,7 @@ class SimulatedHostLatency:
     remote device.
 
     Installed via the engine's `_window_hooks` seam (and, when
-    `prefill_s` is set, its `_prefill_hooks` twin):
+    `prefill_s` or `prefill_token_s` is set, its `_prefill_hooks` twin):
 
       - `on_dispatch(window)`: sleeps `dispatch_s` (a host-blocking
         submit RPC) and stamps when the window's results will be
@@ -80,7 +80,8 @@ class SimulatedHostLatency:
         sync would block for.
       - `on_prefill_dispatch(flight)` / `before_prefill_sync(flights)`:
         the same clock shaping for prefill programs — each flight's
-        results become available `prefill_s` after its dispatch, so an
+        results become available `prefill_s` after its dispatch, plus
+        `prefill_token_s` for each token it computes, so an
         inline (non-overlapped) settle blocks the admission for the
         full round trip while the overlapped batched settle pays only
         whatever of it the host has not already spent on other work.
@@ -93,14 +94,20 @@ class SimulatedHostLatency:
     """
 
     def __init__(self, engine, *, device_s: float = 0.0,
-                 dispatch_s: float = 0.0, prefill_s: float = 0.0):
+                 dispatch_s: float = 0.0, prefill_s: float = 0.0,
+                 prefill_token_s: float = 0.0):
         self.engine = engine
         self.device_s = float(device_s)
         self.dispatch_s = float(dispatch_s)
         self.prefill_s = float(prefill_s)
+        # A per-token prefill cost on top of the fixed prefill_s, charged
+        # only for the tokens a prefill computes (the prompt past the
+        # prefix cache's offset): what lets a CPU run show a prefix
+        # hit's saving as wall time, as a card would.
+        self.prefill_token_s = float(prefill_token_s)
         self._ready: Dict[int, float] = {}
         engine._window_hooks = self
-        if self.prefill_s:
+        if self.prefill_s or self.prefill_token_s:
             engine._prefill_hooks = self
 
     def on_dispatch(self, window) -> None:
@@ -118,7 +125,15 @@ class SimulatedHostLatency:
     def on_prefill_dispatch(self, flight) -> None:
         if self.dispatch_s:
             time.sleep(self.dispatch_s)
-        self._ready[id(flight)] = time.monotonic() + self.prefill_s
+        self._ready[id(flight)] = time.monotonic() + self.prefill_cost(
+            flight)
+
+    def prefill_cost(self, flight) -> float:
+        """Seconds until a prefill flight's results are available:
+        prefill_s, plus prefill_token_s for each token it computes."""
+        computed = flight.req.tokens.size - (
+            self.engine.cache_backend.prefill_offset(flight.slot))
+        return self.prefill_s + self.prefill_token_s * max(0, computed)
 
     def before_prefill_sync(self, flights) -> None:
         # The batched settle becomes available when the LAST of its
@@ -138,10 +153,12 @@ class SimulatedHostLatency:
         self._ready.clear()
 
 
-def _window_key(engine) -> Tuple[int, bool]:
+def _window_key(engine) -> Tuple[int, bool, bool, bool, bool]:
     """The window graph that probes at the engine's default sampling
-    replay (`BatchingEngine._decode_impl`'s key)."""
-    return engine.decode_ticks, engine._defaults["temperature"] == 0.0
+    replay (`BatchingEngine._decode_impl`'s key: no bias, penalties or
+    seeds)."""
+    return (engine.decode_ticks, engine._defaults["temperature"] == 0.0,
+            False, False, False)
 
 
 def _warm_window(engine) -> None:

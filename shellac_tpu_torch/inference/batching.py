@@ -20,7 +20,15 @@ requests onto it:
   - a prompt longer than `prefill_chunk` prefills chunk by chunk, one
     chunk program per step under the prefill budget (`_advance_prefills`
     :1638); a continuation chunk attends through the plain attention, as
-    the JAX engine pins it there (:1744, :2673);
+    the JAX engine pins it there (:1744, :2673). The continuation is one
+    program per (pad, final or not, sampling variant), keyed as the
+    reference keys `_prefix_prefill_jit` (:2597): the offset, chunk
+    length and slot are device tensors staged with the tokens, so on the
+    card it too is a CUDA graph in the prefill graphs' pool;
+  - the paged engine's prefix cache (`prefix_cache=True`, the
+    reference's :2452): a prompt whose leading full blocks are cached
+    attaches them read-only and prefills only the suffix, through the
+    continuation program (`_run_prefill` :2610);
   - every decode window runs `decode_ticks` single-token forwards over
     ALL slots; idle slots compute values that are discarded, and a slot
     that finishes inside the window (EOS or budget) freezes on the
@@ -76,10 +84,18 @@ token is on the host (its settle), window-dispatch and window-settle per
 window, and abort("cancelled") on cancel. Nothing is recorded inside a
 captured program.
 
+Per-request controls (`submit`): logit bias, presence and frequency
+penalties over the generated tokens, per-request seeds and prompt
+logprobs, applied in `_row_decode_step`'s order (:775) inside the window
+and in every prefill's first token (`_sample_first` :1100). The bias and
+count matrices are allocated at the first request that needs them; the
+window graphs are keyed by (decode_ticks, greedy, bias, penalties,
+seeds) as the reference keys its decode jit, so requests without
+controls keep their graph.
+
 Not ported yet; each raises NotImplementedError: meshes and pipeline
-stages, rolling caches, the prefix cache, beam search, preemption, and
-at `submit` logit bias, presence and frequency penalties, per-request
-seeds, constraints, prompt logprobs, prefill-only requests and QoS tags.
+stages, rolling caches, beam search, preemption, and at `submit`
+constraints, prefill-only requests and QoS tags.
 """
 
 from __future__ import annotations
@@ -88,7 +104,7 @@ import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,7 +117,6 @@ from shellac_tpu_torch.inference.cache import (
     make_backend,
     resolve_backend_name,
     scatter_slot,
-    slot_view,
 )
 from shellac_tpu_torch.inference.graphs import HostPull, StepGraph
 from shellac_tpu_torch.models import transformer
@@ -136,6 +151,20 @@ class _Request:
     min_p: float = 0.0
     # EOS is banned from sampling until this many tokens are emitted.
     min_tokens: int = 0
+    # Per-request controls (validated at submit): additive logit biases
+    # by token id, OpenAI presence and frequency penalties over the
+    # generated tokens, a seed (folded to 31 bits; None = the shared
+    # stream), and whether the prompt is scored.
+    logit_bias: Optional[Dict[int, float]] = None
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    seed: Optional[int] = None
+    prompt_logprobs: bool = False
+    # The prompt's per-token logprobs once its prefill settled (position
+    # 0 reports 0.0), and on the way there each earlier chunk's scores:
+    # [(HostPull of (in-chunk scores, boundary score), chunk length)].
+    plp: Optional[List[float]] = None
+    plp_pieces: Optional[List[Tuple[HostPull, int]]] = None
     # Generated tokens so far; grows only, except that a stop-sequence
     # match removes the matched suffix once, at completion.
     out: List[int] = field(default_factory=list)
@@ -166,6 +195,42 @@ def _put(t: torch.Tensor, slot: int, value) -> None:
     pageable host memory waits for every program queued before it, the
     windows in flight included.)"""
     t[slot:slot + 1].fill_(value)
+
+
+class _Ctl(NamedTuple):
+    """Which per-request controls a program applies: the bias matrix,
+    the penalties over the count matrix, the seeded draw."""
+
+    bias: bool = False
+    pen: bool = False
+    seed: bool = False
+
+
+_NO_CTL = _Ctl()
+
+
+class _Program(NamedTuple):
+    """A prefill program's key. `kind` "fresh" prefills from position 0
+    through the mini cache (kernel 2); "chunk" continues a slot past the
+    device offset through the plain attention. `final` programs sample
+    the first token (a non-final chunk only writes the cache); `plp`
+    also returns the prompt's logprobs."""
+
+    kind: str
+    pad: int
+    final: bool = True
+    greedy: bool = True
+    ctl: _Ctl = _NO_CTL
+    plp: bool = False
+
+
+def _plp_within(logits, tokens):
+    """Each token's logprob given its in-row predecessor (position t
+    scores from logits row t-1; position 0 reports 0.0): the reference's
+    `_plp_within` (:657), shared by whole prompts and chunks."""
+    lps = torch.log_softmax(logits[0, :-1].float(), dim=-1)
+    tok = torch.gather(lps, 1, tokens[0, 1:, None])[:, 0]
+    return torch.cat([tok.new_zeros((1,)), tok])
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -358,17 +423,34 @@ class BatchingEngine:
         # window rewrites (by fills) the slots that changed.
         self._active = full(False, torch.bool)
         self._active_host = [False] * n
+        # Per-slot controls (the reference's :451-482): the (n_slots, V)
+        # bias and fp32 count matrices, allocated at the first request
+        # that needs them, and the host's record of which slots use
+        # them; presence and frequency coefficients; each slot's seed
+        # (-1 = the shared stream) and its generated-token count at a
+        # window's start (staged per seeded window).
+        self._sbias: Optional[torch.Tensor] = None
+        self._slot_bias: List[Optional[Dict[int, float]]] = [None] * n
+        self._scounts: Optional[torch.Tensor] = None
+        self._slot_pen = [False] * n
+        self._spres = full(0.0, torch.float32)
+        self._sfreq = full(0.0, torch.float32)
+        self._sseed = full(-1, torch.int64)
+        self._sgen0 = full(0, torch.int64)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(int(seed))
         # Program runners (a StepGraph on the card): decode windows by
-        # (decode_ticks, greedy_only), prefills by (bucket, greedy).
-        self._window_graphs: Dict[Tuple[int, bool], Any] = {}
-        self._prefill_graphs: Dict[Tuple[int, bool], Any] = {}
+        # (decode_ticks, greedy_only, bias, penalties, seeds), prefills
+        # by _Program.
+        self._window_graphs: Dict[Tuple[int, bool, bool, bool, bool],
+                                  Any] = {}
+        self._prefill_graphs: Dict[_Program, Any] = {}
         # The memory pool every prefill graph shares (the card only).
         self._prefill_pool = None
         # The prefill programs' fixed inputs, built at the first
-        # prefill: (slot, prompt length, max_new, padded tokens...) and
-        # one max_len mini cache whose prefix each bucket writes.
+        # prefill: (slot, chunk length, max_new, offset, the next
+        # chunk's first token, padded tokens...) and one max_len mini
+        # cache whose prefix each bucket writes.
         self._pf_in: Optional[torch.Tensor] = None
         self._pf_mini = None
         self._pf_zero: Optional[torch.Tensor] = None
@@ -392,6 +474,9 @@ class BatchingEngine:
         self._slots: List[Optional[_Request]] = [None] * n_slots
         self.finished_logprobs: Dict[Any, List[float]] = {}
         self.finished_top_logprobs: Dict[Any, List] = {}
+        # prompt_logprobs=True requests: rid -> the prompt's per-token
+        # logprobs (position 0 has no predictor and reports 0.0).
+        self.finished_prompt_logprobs: Dict[Any, List[float]] = {}
         # rid -> (queued, admitted, first token, finished), host clock.
         self.finished_timings: Dict[Any, Tuple[float, ...]] = {}
         self.stats: Dict[str, int] = {
@@ -415,6 +500,7 @@ class BatchingEngine:
             # Window variants captured as CUDA graphs (the card only).
             "decode_graphs": 0,
         }
+        self.stats.update(backend.initial_stats())
         # How decode_ticks and prefill_chunk were chosen: "fixed", or
         # "auto" until the autotuner rewrites it to "auto-tuned".
         self.decode_ticks_source = (
@@ -443,27 +529,43 @@ class BatchingEngine:
         if not 0 <= d["min_p"] < 1:
             raise ValueError(f"{label}: min_p must be in [0, 1)")
 
-    def _adjust_logits(self, logits, min_rem):
-        """The min_tokens EOS ban on a (B, V) fp32 logit block; sampling
-        consumes the result while logprobs keep the raw distribution."""
+    def _adjust_logits(self, logits, min_rem, bias=None):
+        """Per-row logit biases and the min_tokens EOS ban on a (B, V)
+        fp32 logit block; sampling consumes the result while logprobs
+        keep the raw distribution."""
         x = logits.float()
+        if bias is not None:
+            x = x + bias
         if self.eos_id is None:
             return x
-        x = x.clone()
+        if bias is None:
+            x = x.clone()
         x[:, self.eos_id] = torch.where(min_rem > 0, NEG_INF,
                                         x[:, self.eos_id])
         return x
 
-    def _first_token(self, last, slot, max_new, greedy: bool):
+    @staticmethod
+    def _request_ctl(req: _Request) -> _Ctl:
+        """The controls `req`'s prefill applies (a greedy request's seed
+        draws nothing)."""
+        return _Ctl(bias=bool(req.logit_bias),
+                    pen=(req.presence_penalty != 0.0
+                         or req.frequency_penalty != 0.0),
+                    seed=req.seed is not None and req.temperature > 0.0)
+
+    def _first_token(self, last, slot, max_new, greedy: bool,
+                     ctl: _Ctl = _NO_CTL):
         """A prefill's exit, on the device: sample the first output token
-        from the last prompt position's (1, V) raw logits under the
-        slot's settings, and arm the slot's decode state (its next
-        token, its remaining budget, done cleared, one unit of the EOS
-        ban used). `slot` and `max_new` are (1,) device tensors. Returns
-        the packed (2 + 2K,) fp64 results: the token, its raw logprob,
-        then the top-K logprobs and ids."""
+        from the last prompt position's (1, V) logits, adjusted under the
+        slot's settings (bias, EOS ban; a seeded draw is its stream's
+        gen_idx 0), and arm the slot's decode state (its next token, its
+        remaining budget, done cleared, one unit of the EOS ban used; a
+        penalized slot counts the token). `slot` and `max_new` are (1,)
+        device tensors. Returns the packed (2 + 2K,) fp64 results: the
+        token, its raw logprob, then the top-K logprobs and ids."""
         min_rem = self._smin.index_select(0, slot)
-        adj = self._adjust_logits(last, min_rem)
+        bias = self._sbias.index_select(0, slot) if ctl.bias else None
+        adj = self._adjust_logits(last, min_rem, bias)
         if greedy:
             first = torch.argmax(adj, dim=-1)
         else:
@@ -471,7 +573,14 @@ class BatchingEngine:
                 self._gen, adj, self._stemp.index_select(0, slot),
                 self._stopk.index_select(0, slot),
                 self._stopp.index_select(0, slot),
-                self._sminp.index_select(0, slot))
+                self._sminp.index_select(0, slot),
+                seed=self._sseed.index_select(0, slot) if ctl.seed else None,
+                gen_idx=torch.zeros_like(slot) if ctl.seed else None)
+        if ctl.pen:
+            self._scounts.index_put_(
+                (slot, first), torch.ones((1,), dtype=torch.float32,
+                                          device=first.device),
+                accumulate=True)
         lsm = torch.log_softmax(last.float(), dim=-1)
         parts = [first.double(), torch.gather(lsm, 1, first[:, None])[:, 0]
                  .double()]
@@ -495,13 +604,13 @@ class BatchingEngine:
         """Queue a request. `stop`: token-id sequences; generation ends
         when the output ends with one, and the match is removed from the
         returned tokens. temperature/top_k/top_p/min_p override the
-        engine defaults for this request only. `trace` (an
+        engine defaults for this request only. `logit_bias` ({token id:
+        additive bias}), `presence_penalty` and `frequency_penalty` (over
+        the generated tokens), `seed` (a deterministic stream of its
+        own) and `prompt_logprobs` (kept in finished_prompt_logprobs)
+        are validated as the reference's (:1167-1204). `trace` (an
         obs.RequestTrace) receives the request's lifecycle marks."""
-        _unported(logit_bias=logit_bias or None,
-                  presence_penalty=presence_penalty or None,
-                  frequency_penalty=frequency_penalty or None,
-                  prompt_logprobs=prompt_logprobs, seed=seed,
-                  constraint=constraint,
+        _unported(constraint=constraint,
                   prefill_only=prefill_only, tenant=tenant,
                   qos_class=qos_class, qos_weight=qos_weight)
         tokens = np.asarray(tokens, np.int32).reshape(-1)
@@ -535,8 +644,47 @@ class BatchingEngine:
             raise ValueError(
                 f"request {rid!r}: min_tokens needs the engine's eos_id"
             )
+        if logit_bias is not None:
+            try:
+                logit_bias = {int(k): float(v)
+                              for k, v in dict(logit_bias).items()}
+            except (TypeError, ValueError) as e:
+                raise ValueError(f"request {rid!r}: bad logit_bias: {e}")
+            oob = [k for k in logit_bias if not 0 <= k < self.cfg.vocab_size]
+            if oob:
+                raise ValueError(
+                    f"request {rid!r}: logit_bias token ids {oob} outside "
+                    f"vocab [0, {self.cfg.vocab_size})"
+                )
+        if prompt_logprobs and getattr(self, "prefix_cache", False):
+            raise ValueError(
+                f"request {rid!r}: prompt_logprobs does not compose "
+                "with the prefix cache (a cache hit skips exactly the "
+                "forward passes that would score the prefix); use a "
+                "non-prefix-cached engine for scoring"
+            )
+        pres = float(presence_penalty) if presence_penalty is not None \
+            else 0.0
+        freq = float(frequency_penalty) if frequency_penalty is not None \
+            else 0.0
+        for nm, v in (("presence_penalty", pres),
+                      ("frequency_penalty", freq)):
+            if not np.isfinite(v):
+                raise ValueError(f"request {rid!r}: {nm} must be finite")
+        if seed is not None:
+            seed = int(seed)
+            if seed < 0:
+                raise ValueError(
+                    f"request {rid!r}: seed must be >= 0 (negative is "
+                    "the unseeded sentinel)"
+                )
+            # OpenAI clients send 63-bit seeds; fold them to 31 bits.
+            seed &= 0x7FFFFFFF
         self._queue.append(_Request(
             rid, tokens, max_new, stop=stop, min_tokens=min_tokens,
+            logit_bias=logit_bias, presence_penalty=pres,
+            frequency_penalty=freq, seed=seed,
+            prompt_logprobs=bool(prompt_logprobs),
             t_queued=time.perf_counter(), trace=trace, **samp,
         ))
         if trace is not None:
@@ -551,19 +699,56 @@ class BatchingEngine:
         return req.tokens.size + req.max_new + 1 + self._footprint_slack
 
     def _release_slot(self, slot: int) -> None:
-        """A request left `slot`: the backend releases its storage and
-        the slot's device length returns to 0 (in stream order, behind
-        any program in flight)."""
+        """A request left `slot`: the backend releases its storage, the
+        slot's device length returns to 0 and its bias row and counts
+        are cleared (in stream order, behind any program in flight), so
+        a later request on the slot inherits nothing."""
         self.cache_backend.release_slot(slot)
         _put(self._cache.lengths, slot, 0)
         self._host_len[slot] = 0
+        if self._slot_bias[slot] is not None:
+            self._sbias[slot].zero_()
+            self._slot_bias[slot] = None
+        if self._slot_pen[slot]:
+            _put(self._spres, slot, 0.0)
+            _put(self._sfreq, slot, 0.0)
+            self._scounts[slot].zero_()
+            self._slot_pen[slot] = False
+
+    def _zeros_v(self) -> torch.Tensor:
+        return torch.zeros((self.n_slots, self.cfg.vocab_size),
+                           dtype=torch.float32, device=self.device)
 
     def _set_slot_sampling(self, slot: int, req: _Request) -> None:
+        """Write the request's settings into the per-slot vectors the
+        programs sample with: fills, and one pinned copy for a bias row
+        (`_set_slot_sampling` :1353)."""
         _put(self._stemp, slot, req.temperature)
         _put(self._stopk, slot, req.top_k)
         _put(self._stopp, slot, req.top_p)
         _put(self._sminp, slot, req.min_p)
         _put(self._smin, slot, req.min_tokens)
+        _put(self._sseed, slot, req.seed if req.seed is not None else -1)
+        bias = req.logit_bias or None
+        if bias != self._slot_bias[slot]:
+            if self._sbias is None:
+                self._sbias = self._zeros_v()
+            if bias is None:
+                self._sbias[slot].zero_()
+            else:
+                row = np.zeros((self.cfg.vocab_size,), np.float32)
+                for k, v in bias.items():
+                    row[k] = v
+                copy_from_host(self._sbias[slot], row)
+            self._slot_bias[slot] = bias
+        penalized = self._request_ctl(req).pen
+        if penalized or self._slot_pen[slot]:
+            if self._scounts is None:
+                self._scounts = self._zeros_v()
+            _put(self._spres, slot, req.presence_penalty)
+            _put(self._sfreq, slot, req.frequency_penalty)
+            self._scounts[slot].zero_()
+        self._slot_pen[slot] = penalized
 
     def _add_phase(self, phase: str, seconds: float) -> None:
         self._phase_s[phase] = self._phase_s.get(phase, 0.0) + seconds
@@ -572,59 +757,121 @@ class BatchingEngine:
         """The runner of a program `fn`: a CUDA graph on the card."""
         return StepGraph(fn, self.device, generator, pool)
 
+    # The prefill programs' staged header: (slot, chunk length, max_new,
+    # offset, the next chunk's first token), then the padded tokens.
+    _HEAD = 5
+
     def _prefill_inputs(self):
         """The prefill programs' fixed inputs, built once: an int64
-        buffer (slot, prompt length, max_new, then max_len padded token
-        ids), a max_len mini cache of the backend's kind whose first
-        `pad` positions a bucket's program writes, and its zero
-        lengths."""
+        buffer (the header, then max_len padded token ids), a max_len
+        mini cache of the backend's kind whose first `pad` positions a
+        fresh program writes, and its zero lengths."""
         if self._pf_in is None:
-            self._pf_in = torch.zeros((3 + self.max_len,), dtype=torch.int64,
-                                      device=self.device)
+            self._pf_in = torch.zeros((self._HEAD + self.max_len,),
+                                      dtype=torch.int64, device=self.device)
             self._pf_mini = self.cache_backend.init_mini(self.max_len,
                                                          self.device)
             self._pf_zero = torch.zeros((1,), dtype=torch.int32,
                                         device=self.device)
         return self._pf_in
 
-    def _prefill_program(self, pad: int, greedy: bool):
-        """One bucket's prefill: the padded prompt through a fresh view
-        of the mini cache, the scatter into the slot, and the first
-        token (`_first_token`). Reads only the fixed inputs, so on the
-        card it is captured once per (pad, greedy) and replayed."""
+    def _stage(self, slot: int, req: _Request, off: int, s: int,
+               pad: int) -> None:
+        """Stage one prefill's header and its `s` tokens at `off` of the
+        prompt, padded to `pad`, in one pinned copy."""
+        end = off + s
+        staged = np.zeros((self._HEAD + pad,), np.int64)
+        staged[:self._HEAD] = (slot, s, req.max_new, off,
+                               req.tokens[end] if end < req.tokens.size
+                               else 0)
+        staged[self._HEAD:self._HEAD + s] = req.tokens[off:end]
+        copy_from_host(self._prefill_inputs()[:self._HEAD + pad], staged)
+
+    def _program(self, key: _Program):
+        """Run the prefill program `key` over the staged inputs. Reads
+        only the fixed inputs, so on the card it is captured once per
+        key and replayed."""
         args = self._pf_in
-        slot, s, max_new = args[0:1], args[1:2], args[2:3]
+        slot, s, max_new, off, nxt = (args[i:i + 1] for i in range(5))
+        tokens = args[self._HEAD:self._HEAD + key.pad][None]
+        if key.kind == "fresh":
+            logits = self._fresh_forward(key.pad, tokens, slot, s)
+        else:
+            logits = self._chunk_forward(key.pad, tokens, slot, s, off)
+        parts = []
+        if key.final:
+            # The last real position's logits, gathered by the device
+            # length.
+            last = logits[0].index_select(0, s - 1)
+            parts.append(self._first_token(last, slot, max_new, key.greedy,
+                                           key.ctl))
+        if key.plp:
+            parts.append(_plp_within(logits, tokens).double())
+            if not key.final:
+                # The next chunk's first token, scored from this chunk's
+                # last position (stitched across chunks at the settle).
+                lsm = torch.log_softmax(
+                    logits[0].index_select(0, s - 1).float(), dim=-1)
+                parts.append(lsm[0].index_select(0, nxt).double())
+        return torch.cat(parts) if parts else None
+
+    def _fresh_forward(self, pad: int, tokens, slot, s):
+        """The padded prompt through a fresh view of the mini cache
+        (kernel 2), scattered into the slot with length `s`."""
         mini = self._pf_mini
         view = mini.replace(
             **{n: getattr(mini, n)[:, :, :, :pad]
                for n in kv_field_names(self.kv_quant)},
             lengths=self._pf_zero, max_length=0)
         logits, _ = transformer.forward_with_cache(
-            self.cfg, self.params, args[3:3 + pad][None], view,
-            fresh_cache=True, attn_impl=self.attn_impl,
+            self.cfg, self.params, tokens, view, fresh_cache=True,
+            attn_impl=self.attn_impl,
         )
-        # The last real position's logits, gathered by the device length.
-        last = logits[0].index_select(0, s - 1)
         self._scatter_prefill(view.replace(lengths=s.to(torch.int32)), slot)
-        return self._first_token(last, slot, max_new, greedy)
+        return logits
 
     def _scatter_prefill(self, mini, slot) -> None:
         """Write a prefilled mini into the slot's dense row (`slot` a
         (1,) device tensor)."""
         scatter_slot(self._cache, mini, slot)
 
-    def _prefill_replay(self, pad: int, greedy: bool):
-        """One prefill through its bucket's runner (a graph replay on the
-        card after the bucket's first, eager prefill)."""
-        key = (pad, greedy)
+    def _chunk_forward(self, pad: int, tokens, slot, s, off):
+        """Continue the slot's dense row past `off` resident positions
+        (device tensors throughout): the row is copied into the mini
+        cache, the chunk attends it through the plain attention, as the
+        JAX engine pins it (:1744), and the row is written back. The
+        view's host max_length is fixed per pad; the host checked
+        off + pad <= max_len."""
+        mini = self._pf_mini
+        names = kv_field_names(self.kv_quant)
+        for n in names:
+            torch.index_select(getattr(self._cache, n), 1, slot,
+                               out=getattr(mini, n))
+        view = mini.replace(lengths=off.to(torch.int32),
+                            max_length=self.max_len - pad)
+        logits, _ = transformer.forward_with_cache(
+            self.cfg, self.params, tokens, view, attn_impl="ref",
+        )
+        for n in names:
+            getattr(self._cache, n).index_copy_(1, slot, getattr(mini, n))
+        self._cache.lengths.index_copy_(0, slot, (off + s).to(torch.int32))
+        return logits
+
+    def _prefill_replay(self, key: _Program):
+        """One prefill program through its runner (a graph replay on the
+        card after the key's first, eager run)."""
         runner = self._prefill_graphs.get(key)
         if runner is None:
             if self.device.type == "cuda" and self._prefill_pool is None:
                 self._prefill_pool = torch.cuda.graph_pool_handle()
             runner = self._prefill_graphs[key] = self._graph(
-                functools.partial(self._prefill_program, pad, greedy),
-                self._gen, self._prefill_pool)
+                functools.partial(self._program, key), self._gen,
+                self._prefill_pool)
         return runner()
+
+    def _final_key(self, kind: str, pad: int, req: _Request) -> _Program:
+        return _Program(kind, pad, True, req.temperature == 0.0,
+                        self._request_ctl(req), req.prompt_logprobs)
 
     def _run_prefill(self, slot: int, req: _Request) -> HostPull:
         """Stage the request's prompt, slot and budget (one pinned copy),
@@ -634,11 +881,9 @@ class BatchingEngine:
         # Cap the bucket at max_len: a larger pad would index past the
         # slot's row or its block table.
         pad = min(_bucket(s), self.max_len)
-        staged = np.zeros((3 + pad,), np.int64)
-        staged[:3] = (slot, s, req.max_new)
-        staged[3:3 + s] = req.tokens
-        copy_from_host(self._prefill_inputs()[:3 + pad], staged)
-        return HostPull(self._prefill_replay(pad, req.temperature == 0.0))
+        self._stage(slot, req, 0, s, pad)
+        return HostPull(self._prefill_replay(self._final_key("fresh", pad,
+                                                             req)))
 
     def _fill_slots(self, budget: Optional[int] = None) -> None:
         done = 0
@@ -665,6 +910,12 @@ class BatchingEngine:
                 req.trace.prefill_start()
             self._set_slot_sampling(i, req)
             off = self.cache_backend.prefill_offset(i)
+            if off:
+                # A prefix hit: the slot's device length starts at the
+                # matched prefix, so a window that runs before its
+                # prefill writes its idle position past the shared
+                # blocks, into the slot's own.
+                _put(self._cache.lengths, i, off)
             if (self.prefill_chunk is not None
                     and req.tokens.size - off > self.prefill_chunk):
                 # A long prompt: admitted now, prefilled chunk by chunk
@@ -741,6 +992,27 @@ class BatchingEngine:
         if k:
             req.tlp = [(vals[2 + k:2 + 2 * k].astype(np.int64).tolist(),
                         vals[2:2 + k].tolist())]
+        if req.prompt_logprobs:
+            req.plp = self._stitch_plp(req, vals[2 + 2 * k:])
+
+    @staticmethod
+    def _stitch_plp(req: _Request, final) -> List[float]:
+        """The prompt's per-token logprobs from the final program's
+        scores and, for a chunked prompt, every earlier chunk's
+        (in-chunk scores, boundary score) (the reference's
+        `_stitch_plp` :1559). Position 0 reports 0.0."""
+        if req.plp_pieces is None:
+            return final[:req.tokens.size].tolist()
+        flat = [0.0]
+        done = 0
+        for pull, sz in req.plp_pieces:
+            v = pull.get()
+            flat.extend(v[1:sz].tolist())
+            flat.append(float(v[-1]))
+            done += sz
+        flat.extend(final[1:req.tokens.size - done].tolist())
+        req.plp_pieces = None
+        return flat
 
     # ---- chunked prefill ---------------------------------------------
 
@@ -757,21 +1029,25 @@ class BatchingEngine:
             self.stats["prefill_chunks"] += 1
             req = self._slots[slot]
             off = self._prefilling[slot]
-            chunk = req.tokens[off:off + self.prefill_chunk]
-            s = chunk.size
+            s = min(self.prefill_chunk, req.tokens.size - off)
             pad = min(_bucket(s), self.max_len - off)
             final = off + s >= req.tokens.size
-            last = self._chunk_prefill(slot, chunk, off, pad)
+            self._stage(slot, req, off, s, pad)
+            if final:
+                key = self._final_key("chunk", pad, req)
+            else:
+                key = _Program(self._first_chunk_kind if off == 0
+                               else "chunk", pad, final=False,
+                               plp=req.prompt_logprobs)
+            out = self._prefill_replay(key)
             if not final:
+                if req.prompt_logprobs:
+                    if req.plp_pieces is None:
+                        req.plp_pieces = []
+                    req.plp_pieces.append((HostPull(out), s))
                 self._prefilling[slot] = off + s
                 continue
             del self._prefilling[slot]
-            out = self._first_token(
-                last, torch.full((1,), slot, dtype=torch.int64,
-                                 device=self.device),
-                torch.full((1,), req.max_new, dtype=torch.int64,
-                           device=self.device),
-                req.temperature == 0.0)
             self._dispatch_prefill(slot, req, HostPull(out))
             if not self.overlap_prefill:
                 self._settle_prefills()
@@ -783,35 +1059,9 @@ class BatchingEngine:
                 - (self._phase_s.get("prefill_settle", 0.0) - settle0))
         return used
 
-    def _chunk_prefill(self, slot: int, chunk, off: int, pad: int):
-        """Write one prompt chunk at `off` into the slot's dense row,
-        through a batch-1 view of it (in place); returns the chunk's last
-        real position's (1, V) logits. The first chunk prefills fresh
-        (kernel 2); a continuation attends the row's earlier positions
-        through the plain attention, as the JAX engine pins it (:1744)."""
-        fresh = off == 0
-        view = slot_view(self._cache, slot, self._offset(off))
-        view.max_length = off
-        return self._chunk_forward(chunk, pad, view, fresh,
-                                   self.attn_impl if fresh else "ref", slot,
-                                   off)
-
-    def _offset(self, off: int) -> torch.Tensor:
-        return torch.full((1,), off, dtype=torch.int32, device=self.device)
-
-    def _chunk_forward(self, chunk, pad: int, view, fresh: bool,
-                       attn_impl: str, slot: int, off: int):
-        s = chunk.size
-        tokens = torch.empty((1, pad), dtype=torch.int64, device=self.device)
-        padded = np.zeros((1, pad), np.int64)
-        padded[0, :s] = chunk
-        copy_from_host(tokens, padded)
-        logits, _ = transformer.forward_with_cache(
-            self.cfg, self.params, tokens, view, fresh_cache=fresh,
-            attn_impl=attn_impl,
-        )
-        _put(self._cache.lengths, slot, off + s)
-        return logits[0, s - 1:s]
+    # A dense prompt's first chunk prefills fresh (kernel 2) into its
+    # row; every later chunk continues it.
+    _first_chunk_kind = "fresh"
 
     # ---- the engine step ---------------------------------------------
 
@@ -976,6 +1226,8 @@ class BatchingEngine:
                     self.finished_top_logprobs[req.rid] = (
                         req.tlp[:len(req.out)]
                     )
+                if req.plp is not None:
+                    self.finished_prompt_logprobs[req.rid] = req.plp
                 self.finished_timings[req.rid] = (
                     req.t_queued, req.t_admitted, req.t_first,
                     time.perf_counter(),
@@ -1035,6 +1287,19 @@ class BatchingEngine:
         greedy_only = all(
             r is None or r.temperature == 0.0 for r in self._slots
         )
+        ctl = _Ctl(
+            bias=any(b is not None for b in self._slot_bias),
+            pen=any(self._slot_pen),
+            seed=not greedy_only and any(
+                r is not None and r.seed is not None for r in self._slots))
+        if ctl.seed:
+            # Each slot's generated-token count at the window's start,
+            # projected past the windows in flight, so a seeded stream
+            # draws the same numbers in any pipeline (the reference's
+            # gen0, :2030).
+            copy_from_host(self._sgen0, [
+                len(r.out) + adv.get(i, 0) if r is not None else 0
+                for i, r in enumerate(self._slots)])
         for i, act in enumerate(active_rows):
             if act != self._active_host[i]:
                 _put(self._active, i, act)
@@ -1042,7 +1307,7 @@ class BatchingEngine:
         w = _DecodeWindow(
             [(i, self._slots[i]) for i in range(self.n_slots)
              if active_rows[i]],
-            ticks, HostPull(self._decode_impl(greedy_only)))
+            ticks, HostPull(self._decode_impl(greedy_only, ctl)))
         self._windows.append(w)
         self.stats["decode_windows"] += 1
         for slot, req in w.pairs:
@@ -1097,33 +1362,34 @@ class BatchingEngine:
         self._finish_check(finished)
         return True
 
-    def _decode_impl(self, greedy_only: bool):
+    def _decode_impl(self, greedy_only: bool, ctl: _Ctl = _NO_CTL):
         """One window through its variant's runner (a graph replay on the
         card, after the variant's first, eager window)."""
-        key = (self.decode_ticks, greedy_only)
+        key = (self.decode_ticks, greedy_only, *ctl)
         window = self._window_graphs.get(key)
         if window is None:
             window = self._window_graphs[key] = self._graph(
-                functools.partial(self._window, greedy_only), self._gen)
+                functools.partial(self._window, greedy_only, ctl), self._gen)
         out = window()
         self.stats["decode_graphs"] = sum(
             w.graph is not None for w in self._window_graphs.values())
         return out
 
-    def _window(self, greedy_only: bool):
+    def _window(self, greedy_only: bool, ctl: _Ctl = _NO_CTL):
         """decode_ticks single-token forwards over every slot (a runner
         keyed by decode_ticks only runs while it is the engine's). A
         slot whose sampled token is EOS, or whose budget runs out, sets
         its sticky done flag and freezes (length, stop state, token) for
-        the rest of the window. The cache, the next tokens
-        and the stop state are written back in place. Returns the packed
-        (ticks, n_slots, 3 + 2K) fp64 results: per tick and slot the
-        token, its validity, its raw logprob, the top-K logprobs and
-        ids."""
+        the rest of the window. The cache, the next tokens, the stop
+        state and the token counts are written back in place. Returns
+        the packed (ticks, n_slots, 3 + 2K) fp64 results: per tick and
+        slot the token, its validity, its raw logprob, the top-K
+        logprobs and ids."""
         cache, cur, active = self._cache, self._cur, self._active
         min_rem, rem, done = self._smin, self._srem, self._sdone
+        rows = torch.arange(self.n_slots, device=self.device)
         outs = []
-        for _ in range(self.decode_ticks):
+        for i in range(self.decode_ticks):
             act = active & ~done
             logits, grown = transformer.forward_with_cache(
                 self.cfg, self.params, cur[:, None], cache,
@@ -1133,7 +1399,11 @@ class BatchingEngine:
                 torch.where(act, grown.lengths, cache.lengths))
             cache.max_length = grown.max_length
             nxt, new_min, lp, tlv, tli = self._row_decode_step(
-                logits[:, 0], cur, act, min_rem, greedy_only)
+                logits[:, 0], cur, act, min_rem, greedy_only, ctl,
+                self._sgen0 + i if ctl.seed else None)
+            if ctl.pen:
+                self._scounts.index_put_((rows, nxt), act.float(),
+                                         accumulate=True)
             # This token ends the request when it is EOS (min_tokens has
             # banned EOS while its countdown runs) or the last of the
             # budget.
@@ -1149,16 +1419,27 @@ class BatchingEngine:
                  lp[:, None].double(), tlv.double(), tli.double()], dim=1))
         return torch.stack(outs)
 
-    def _row_decode_step(self, logits, cur, act, min_rem, greedy_only):
-        """One tick's exit math over (n_slots, V) raw fp32 logits: the
-        EOS ban, sampling (greedy rows take the argmax), and logprob and
-        top-K extraction from the raw distribution."""
-        adj = self._adjust_logits(logits, min_rem)
+    def _row_decode_step(self, logits, cur, act, min_rem, greedy_only,
+                         ctl: _Ctl = _NO_CTL, gen_idx=None):
+        """One tick's exit math over (n_slots, V) raw fp32 logits, in the
+        reference's order (:775): the logit bias and EOS ban, the OpenAI
+        penalties over the generated-token counts (presence once per
+        seen token, frequency per count), sampling (greedy rows take the
+        argmax; a seeded row draws from its own stream at `gen_idx`),
+        and logprob and top-K extraction from the raw distribution."""
+        adj = self._adjust_logits(logits, min_rem,
+                                  self._sbias if ctl.bias else None)
+        if ctl.pen:
+            counts = self._scounts
+            adj = adj - (self._spres[:, None] * (counts > 0.0)
+                         + self._sfreq[:, None] * counts)
         if greedy_only:
             nxt = torch.argmax(adj, dim=-1)
         else:
-            nxt = sample_batched(self._gen, adj, self._stemp, self._stopk,
-                                 self._stopp, self._sminp)
+            nxt = sample_batched(
+                self._gen, adj, self._stemp, self._stopk, self._stopp,
+                self._sminp, seed=self._sseed if ctl.seed else None,
+                gen_idx=gen_idx)
         nxt = torch.where(act, nxt, cur)
         min_rem = torch.where(act, (min_rem - 1).clamp_min(0), min_rem)
         n = nxt.shape[0]
@@ -1254,6 +1535,7 @@ class BatchingEngine:
                 self._release_slot(i)
                 self.finished_logprobs.pop(rid, None)
                 self.finished_top_logprobs.pop(rid, None)
+                self.finished_prompt_logprobs.pop(rid, None)
                 self.stats["requests_cancelled"] += 1
                 if req.trace is not None:
                     req.trace.abort("cancelled")
@@ -1289,6 +1571,7 @@ class BatchingEngine:
         self._prefilling.clear()
         self.finished_logprobs.clear()
         self.finished_top_logprobs.clear()
+        self.finished_prompt_logprobs.clear()
         self.cache_backend.reset()
         self.stats["requests_cancelled"] += len(dropped)
         return dropped
@@ -1340,10 +1623,14 @@ class PagedBatchingEngine(BatchingEngine):
     the capacity knob, and admission waits in the queue while the pool
     cannot cover a request's footprint. Block 0 is scratch. Decode
     attends through the block tables (`paged_decode_attention`). An int8
-    pool (`paged-int8`) defaults to 64-token blocks.
+    pool (`paged-int8`) defaults to 64-token blocks. `prefix_cache=True`
+    keeps full prompt blocks cached across requests (cache/paged.py);
+    a hit prefills only the suffix.
     """
 
     _backend_family = ("paged", "paged-int8")
+    # Every chunk continues through the block table, the first included.
+    _first_chunk_kind = "chunk"
 
     def __init__(
         self,
@@ -1359,7 +1646,6 @@ class PagedBatchingEngine(BatchingEngine):
         kv_quant: Optional[str] = None,
         **kw,
     ):
-        _unported(prefix_cache=prefix_cache)
         if not isinstance(cache_backend, CacheBackend):
             name = resolve_backend_name(cache_backend,
                                         paged=cache_backend is None,
@@ -1377,6 +1663,7 @@ class PagedBatchingEngine(BatchingEngine):
             cache_backend = make_backend(
                 name, cfg, n_slots, max_len or cfg.max_seq_len,
                 block_size=block_size, pool_tokens=pool_tokens,
+                prefix_cache=prefix_cache,
             )
         elif (block_size is not None
               and block_size != cache_backend.block_size) \
@@ -1386,6 +1673,16 @@ class PagedBatchingEngine(BatchingEngine):
                 f"{cache_backend.name!r} backend; pass them to its "
                 "constructor"
             )
+        elif prefix_cache and not getattr(cache_backend, "prefix_cache",
+                                          False):
+            raise ValueError(
+                f"prefix_cache=True conflicts with the "
+                f"{cache_backend.name!r} backend instance "
+                "(constructed without prefix_cache)"
+            )
+        # Read by submit and by the server's capability checks.
+        self.prefix_cache = bool(getattr(cache_backend, "prefix_cache",
+                                         False))
         super().__init__(cfg, params, n_slots=n_slots, max_len=max_len,
                          cache_backend=cache_backend, kv_quant=kv_quant,
                          **kw)
@@ -1409,14 +1706,41 @@ class PagedBatchingEngine(BatchingEngine):
             getattr(cache, name)[:, blocks, :, offs] = src.movedim(2, 0)
         cache.lengths.index_copy_(0, slot, mini.lengths)
 
-    def _chunk_prefill(self, slot: int, chunk, off: int, pad: int):
+    def _chunk_forward(self, pad: int, tokens, slot, s, off):
         """Continue the slot's prompt past `off` resident tokens through a
         batch-1 view of its table row over the shared pool (the
-        reference's `_prefix_prefill_impl` :2640): every chunk, the first
-        included, attends through the plain paged attention, as the JAX
-        engine pins it (reason at :2655-2658). Pad positions past the
-        slot's blocks land in scratch block 0."""
-        view = self._cache.replace(
-            tables=self._cache.tables[slot:slot + 1],
-            lengths=self._offset(off), max_length=off)
-        return self._chunk_forward(chunk, pad, view, False, "ref", slot, off)
+        reference's `_prefix_prefill_impl` :2640; every device value a
+        tensor, the row taken by `index_select` on the device slot):
+        every chunk, the first included, and a prefix hit's suffix
+        attend through the plain paged attention, as the JAX engine pins
+        them (reason at :2655-2658). Pad positions past the slot's
+        blocks land in scratch block 0; the view's host max_length is
+        fixed per pad (the host checked off + pad <= max_len)."""
+        cache = self._cache
+        view = cache.replace(
+            tables=cache.tables.index_select(0, slot),
+            lengths=off.to(torch.int32), max_length=self.max_len - pad)
+        logits, _ = transformer.forward_with_cache(
+            self.cfg, self.params, tokens, view, attn_impl="ref",
+        )
+        cache.lengths.index_copy_(0, slot, (off + s).to(torch.int32))
+        return logits
+
+    def _run_prefill(self, slot: int, req: _Request) -> HostPull:
+        """A prefix hit prefills only the unmatched suffix, through the
+        continuation program (the reference's :2610): its pad is capped
+        at the table space left past the prefix."""
+        p = self.cache_backend.prefill_offset(slot)
+        if p == 0:
+            return super()._run_prefill(slot, req)
+        s = req.tokens.size - p  # >= 1 by the match cap
+        pad = min(_bucket(s), self.max_len - p)
+        self._stage(slot, req, p, s, pad)
+        return HostPull(self._prefill_replay(self._final_key("chunk", pad,
+                                                             req)))
+
+    def _observe_cache_gauges(self) -> None:
+        super()._observe_cache_gauges()
+        if self.prefix_cache and self.obs.registry.enabled:
+            self.obs.prefix_blocks.set(
+                len(self.cache_backend._hash_to_block))

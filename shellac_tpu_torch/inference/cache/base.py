@@ -18,11 +18,11 @@ and `residency` (:146), comes from host state only.
 The slot lifecycle hooks are the reference's: `prepare_slot`,
 `on_prefill_complete` (:104, at a prefill's settle), `release_slot`,
 `pre_window` (:111, with `advance`, the tokens un-synced windows will
-still append), `prefill_offset` (:117) and `reset`.
+still append), `prefill_offset` (:117), `reset` and `initial_stats`
+(:127, the counters a backend adds to the engine's stats).
 
-Not ported yet: sharding axes (meshes), the prefix cache (so
-`on_prefill_complete` has nothing to register and `prefill_offset` is
-0), `prefix_manifest` and the rolling storage.
+Not ported yet: sharding axes (meshes), `prefix_manifest` and the
+rolling storage.
 """
 
 from __future__ import annotations
@@ -116,6 +116,11 @@ class CacheBackend:
 
     def reset(self) -> None:
         """abort_all: restore the allocator to its pristine state."""
+
+    def initial_stats(self) -> Dict[str, int]:
+        """Counters this backend adds to the engine's stats at
+        construction (the paged prefix cache adds its hit counters)."""
+        return {}
 
     # ---- accounting --------------------------------------------------
 

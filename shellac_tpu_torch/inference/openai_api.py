@@ -21,9 +21,10 @@ nothing of the JAX package. Tool calling (`tools`, `tool_choice`,
 `parallel_tool_calls`, assistant turns carrying `tool_calls`) and
 constrained output (`response_format` json_object / json_schema) are not
 ported yet: they raise NotImplementedError, which the server answers
-with 501. Knobs that translate here but that the port's engine does not
-have yet (logit_bias, penalties, seed, num_beams, echo with logprobs)
-are refused by the server the same way.
+with 501. A knob that translates here but that the port's engine does
+not have yet (num_beams) is refused by the server the same way; the
+sampling controls (logit_bias, the penalties, seed) and echo with
+logprobs (:162-172) reach the engine.
 """
 
 from __future__ import annotations

@@ -35,7 +35,11 @@ API (as the reference): GET /v1/models, /health, /stats, /metrics,
 "stream": true ndjson, with stop-length holdback), /v1/completions,
 /v1/chat/completions (blocking or SSE), /drain. Every response carries
 `x-request-id`, the trace id adopted from `x-shellac-trace` or minted.
-`n`/`best_of`, logprobs and top logprobs work as in the reference.
+`n`/`best_of`, logprobs, top logprobs and the per-request controls
+(`logit_bias`, `presence_penalty`, `frequency_penalty`, `seed`,
+`prompt_logprobs`, and /v1/completions' `echo` with `logprobs`) work as
+in the reference (:2165-2189); prompt logprobs come back as
+`prompt_logprobs`, position 0 null (`_render_plp` :127).
 
 Not ported yet; configuring any of these raises NotImplementedError, and
 an HTTP request for one gets a 501 whose body says so: beam search
@@ -46,9 +50,7 @@ and parking (`preempt_after`, `park_dir`), QoS tenants
 counters, as it does in the reference without a tenant config),
 `profile_dir` and /debug/profile, `incident_dir` and
 /debug/incident(s), `spool_dir`, constraints, tools and response_format,
-a `role` other than "monolith", and the submit options the engine still
-refuses (logit_bias, presence and frequency penalties, seed, prompt
-logprobs and echo with logprobs).
+and a `role` other than "monolith".
 """
 
 from __future__ import annotations
@@ -115,6 +117,12 @@ class ServerUnavailable(RuntimeError):
 _UNTUNED = object()
 
 
+def _render_plp(plp):
+    """Prompt logprobs for a response: position 0 has no predictor and
+    renders as null (the OpenAI convention)."""
+    return [None] + plp[1:]
+
+
 class _Generation:
     """One scheduler-thread + engine incarnation. The supervisor replaces
     the whole object on recovery, so a wedged thread keeps its own
@@ -139,7 +147,8 @@ class _Generation:
 
 class _Pending:
     __slots__ = ("event", "result", "error", "chunks", "emitted", "holdback",
-                 "lps", "tlp", "rid", "deadline", "kind", "trace", "tenant")
+                 "lps", "plp", "tlp", "rid", "deadline", "kind", "trace",
+                 "tenant")
 
     def __init__(self, rid, stream: bool = False, holdback: int = 0,
                  deadline: Optional[float] = None, trace=None,
@@ -165,6 +174,7 @@ class _Pending:
         # longest stop length at the end of the output.
         self.holdback = holdback
         self.lps = None
+        self.plp = None  # the prompt's per-token logprobs (prompt_logprobs)
         self.tlp = None
 
     def finish(self):
@@ -759,6 +769,7 @@ class InferenceServer:
         """Settle every (rid, out) the engine finished this step."""
         engine = g.engine
         lp_store = getattr(engine, "finished_logprobs", {})
+        plp_store = getattr(engine, "finished_prompt_logprobs", {})
         tl_store = getattr(engine, "finished_top_logprobs", {})
         timings = getattr(engine, "finished_timings", {})
         for rid, out in finished:
@@ -771,12 +782,14 @@ class InferenceServer:
                 if p.trace is not None:
                     p.trace.finish(len(out))
                 p.lps = lp_store.pop(rid, None)
+                p.plp = plp_store.pop(rid, None)
                 p.tlp = tl_store.pop(rid, None)
                 if p.chunks is not None and len(out) > p.emitted:
                     p.chunks.put(list(out[p.emitted:]))
                 p.finish()
             else:
                 lp_store.pop(rid, None)
+                plp_store.pop(rid, None)
                 tl_store.pop(rid, None)
 
     # ---- client surface ---------------------------------------------
@@ -900,7 +913,7 @@ class InferenceServer:
             self._cancel(p)
             raise
         if return_logprobs:
-            return p.result, p.lps, None, p.tlp
+            return p.result, p.lps, p.plp, p.tlp
         return p.result
 
     def generate_stream(self, tokens, max_new: int,
@@ -909,8 +922,8 @@ class InferenceServer:
                         trace_ctx: Optional[Tuple[str, int]] = None,
                         tenant: Optional[str] = None, **samp):
         """Yield ("delta", [token ids]) as generation progresses, then
-        ("done", output), or ("done", (output, logprobs, None, top
-        logprobs)) with return_logprobs=True. `timeout` bounds the wait
+        ("done", output), or ("done", (output, logprobs, prompt logprobs,
+        top logprobs)) with return_logprobs=True. `timeout` bounds the wait
         per chunk and doubles as the admission deadline. Abandoning the
         generator cancels the request."""
         p = self._submit(tokens, max_new, stop, samp, stream=True,
@@ -930,7 +943,7 @@ class InferenceServer:
                 self._raise(p)
             finished = True
             yield ("done",
-                   (p.result, p.lps, None, p.tlp) if return_logprobs
+                   (p.result, p.lps, p.plp, p.tlp) if return_logprobs
                    else p.result)
         finally:
             if not finished:
@@ -1004,27 +1017,17 @@ class InferenceServer:
                             f"{key} must be an integer, got {v}"
                         )
                     samp[key] = int(v)
-            lb = payload.get("logit_bias")
-            if lb is not None and not isinstance(lb, dict):
-                raise ValueError(
-                    "logit_bias must be a {token id: bias} object"
-                )
+            if payload.get("prompt_logprobs"):
+                samp["prompt_logprobs"] = True
+            if payload.get("logit_bias") is not None:
+                lb = payload["logit_bias"]
+                if not isinstance(lb, dict):
+                    raise ValueError(
+                        "logit_bias must be a {token id: bias} object"
+                    )
+                samp["logit_bias"] = lb  # entries validated by submit
         except (TypeError, ValueError) as e:
             raise ValueError(f"bad sampling parameters: {e}")
-        # Options the port's engine refuses: checked here, on the
-        # handler thread, so the request answers 501 before it queues.
-        for key in ("presence_penalty", "frequency_penalty"):
-            if samp.pop(key, 0.0):
-                raise NotImplementedError(
-                    f"{key} is not ported yet (the engine has no "
-                    "penalties)")
-        if samp.pop("seed", None) is not None:
-            raise NotImplementedError(
-                "per-request seeds are not ported yet")
-        if lb:
-            raise NotImplementedError("logit_bias is not ported yet")
-        if payload.get("prompt_logprobs"):
-            raise NotImplementedError("prompt logprobs are not ported yet")
         return tokens, max_new, stop, samp
 
     def _check_logprobs(self, payload) -> bool:
@@ -1078,35 +1081,42 @@ class InferenceServer:
         tlk = self._check_top_logprobs(payload, want_lps)
         n, best_of = self._parse_n(payload, samp)
         if n == 1 and best_of == 1:
-            out, lps, _, tlp = self.generate(
+            out, lps, plp, tlp = self.generate(
                 tokens, max_new, timeout=payload.get("timeout"), stop=stop,
                 return_logprobs=True, trace_ctx=trace_ctx, tenant=tenant,
                 **samp,
             )
-            result = self._format_completion(out, lps, want_lps, tlp=tlp,
-                                             tlk=tlk)
+            result = self._format_completion(out, lps, want_lps, plp=plp,
+                                             tlp=tlp, tlk=tlk)
             result["trace_id"] = trace_ctx[0]
             return result
         # Parallel sampling: best_of independent completions share the
         # slot batch; the n best by mean token logprob come back as
-        # "choices", under one overall deadline.
+        # "choices", under one overall deadline. The prompt is the same
+        # for all, so its logprobs are computed once, by the first.
+        rest_samp = {k: v for k, v in samp.items()
+                     if k != "prompt_logprobs"}
         deadline = self._deadline(payload.get("timeout"))
         pendings = []
         try:
-            for _ in range(best_of):
+            for i in range(best_of):
                 pendings.append(self._submit(
-                    tokens, max_new, stop, samp, stream=False,
-                    deadline=deadline, trace_ctx=trace_ctx, tenant=tenant,
+                    tokens, max_new, stop, samp if i == 0 else rest_samp,
+                    stream=False, deadline=deadline, trace_ctx=trace_ctx,
+                    tenant=tenant,
                 ))
         except RuntimeError:
             for p in pendings:
                 self._cancel(p)
             raise
         choices = []
+        plp = None
         try:
             for p in pendings:
                 self._await(p, deadline)
                 choices.append((p.result, p.lps, p.tlp))
+                if p.plp is not None:
+                    plp = p.plp
         except (TimeoutError, ValueError, RuntimeError):
             for p in pendings:
                 self._cancel(p)
@@ -1121,16 +1131,20 @@ class InferenceServer:
             self._format_completion(out, lps, want_lps, tlp=tlp, tlk=tlk)
             for out, lps, tlp in choices[:n]
         ]}
+        if plp is not None:
+            result["prompt_logprobs"] = _render_plp(plp)
         result["trace_id"] = trace_ctx[0]
         return result
 
-    def _format_completion(self, out, lps, want_lps, tlp=None,
+    def _format_completion(self, out, lps, want_lps, plp=None, tlp=None,
                            tlk=0) -> Dict[str, Any]:
         result: Dict[str, Any] = {"tokens": out}
         if want_lps:
             result["logprobs"] = lps
         if tlk and tlp is not None:
             result["top_logprobs"] = self._render_tlp(tlp, tlk)
+        if plp is not None:
+            result["prompt_logprobs"] = _render_plp(plp)
         if self.tokenizer is not None:
             result["text"] = self.tokenizer.decode(out)
         return result
@@ -1194,13 +1208,15 @@ class InferenceServer:
             if kind == "delta":
                 yield {"tokens": val, "trace_id": tid}
             else:
-                out, lps, _, tlp = val
+                out, lps, plp, tlp = val
                 final: Dict[str, Any] = {"done": True, "tokens": out,
                                          "trace_id": tid}
                 if want_lps:
                     final["logprobs"] = lps
                 if tlk and tlp is not None:
                     final["top_logprobs"] = self._render_tlp(tlp, tlk)
+                if plp is not None:
+                    final["prompt_logprobs"] = _render_plp(plp)
                 if self.tokenizer is not None:
                     final["text"] = self.tokenizer.decode(out)
                 yield final
@@ -1214,16 +1230,25 @@ class InferenceServer:
             tenant = str(payload["user"])
         native = (chat_to_native(payload, self.tokenizer) if chat
                   else completion_to_native(payload, self.tokenizer))
-        if native.get("prompt_logprobs"):
-            raise NotImplementedError(
-                "echo with logprobs (prompt logprobs) is not ported yet")
         return native, tenant
+
+    def _prompt_lp_capable(self) -> bool:
+        """Whether the engine scores prompts: a prefix-cached prefill
+        skips exactly the forward passes that would score the prefix."""
+        return (hasattr(self.engine, "finished_prompt_logprobs")
+                and not getattr(self.engine, "prefix_cache", False))
 
     def handle_openai(self, payload: dict, chat: bool,
                       trace_ctx: Optional[Tuple[str, int]] = None,
                       tenant: Optional[str] = None) -> dict:
         native, tenant = self._to_native(payload, chat, tenant)
         echo = bool(native.pop("echo", False))
+        if native.get("prompt_logprobs") and not self._prompt_lp_capable():
+            raise ValueError(
+                "echo with logprobs is unavailable on this server: the "
+                "engine cannot score prompts (a prefix-cached prefill "
+                "skips the scoring forwards)"
+            )
         tokens = self._parse(native)[0]
         # Hand handle() the ids so the prompt is not tokenized twice.
         native.pop("text", None)
@@ -1249,6 +1274,7 @@ class InferenceServer:
                 "echo does not compose with streaming (the prompt is "
                 "known to the client; request it unstreamed)"
             )
+        native.pop("prompt_logprobs", None)
         max_new = int(native.get("max_new", 32))
         translator = StreamTranslator(model=self.model_name,
                                       tokenizer=self.tokenizer, chat=chat)

@@ -1,11 +1,12 @@
 """Token sampling: temperature, top-k, nucleus (top-p), min-p, greedy.
 
 Ports `shellac_tpu/ops/sampling.py`, including the per-row batched
-sampler (`filter_logits_batched` :86, `sample_batched` :131) that the
-batching engines use. All filtering happens in fp32 logit space with
-masks. Random draws come from an explicit `torch.Generator`; they cannot
-match JAX's threefry bits, so sampled tokens agree with the JAX package
-in distribution, not token for token.
+sampler (`filter_logits_batched` :86, `sample_batched` :131 with its
+per-row seeds) that the batching engines use. All filtering happens in
+fp32 logit space with masks. Random draws come from an explicit
+`torch.Generator`, or for a seeded row from a counter-based hash
+(`seeded_uniform`); neither can match JAX's threefry bits, so sampled
+tokens agree with the JAX package in distribution, not token for token.
 """
 
 from __future__ import annotations
@@ -119,6 +120,41 @@ def filter_logits_batched(
     return torch.where(probs_x < cutoff, NEG_INF, x)
 
 
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) and a 32-bit constant,
+    in two 16-bit halves so no product leaves the int64 range."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer (lowbias32) over int64 values in
+    [0, 2**32): every output bit depends on every input bit."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def seeded_uniform(seed: torch.Tensor, gen_idx: torch.Tensor,
+                   vocab: int) -> torch.Tensor:
+    """(B, vocab) fp32 uniforms in (0, 1), a pure function of each row's
+    (seed, gen_idx) and the vocabulary index: a counter-based hash in
+    int64 tensor ops, so it runs inside a CUDA graph with no host sync
+    and gives the same bits on the CPU and on the card. It stands in
+    for the JAX package's fold_in(PRNGKey(seed), gen_idx) stream, whose
+    threefry bits cannot be matched."""
+    s = seed.to(torch.int64).clamp_min(0) & 0xFFFFFFFF
+    g = gen_idx.to(torch.int64) & 0xFFFFFFFF
+    row = _mix32(_mix32(s) ^ g)[:, None]
+    col = _mix32(torch.arange(vocab, dtype=torch.int64,
+                              device=seed.device) + 0x9E3779B9)[None, :]
+    bits = _mix32(row ^ col) >> 8  # 24 bits: exact in fp32
+    return (bits.to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
 def sample_batched(
     generator: Optional[torch.Generator],
     logits: torch.Tensor,  # (B, V)
@@ -126,6 +162,8 @@ def sample_batched(
     top_k: torch.Tensor,  # (B,) int; >= V disables
     top_p: torch.Tensor,  # (B,) fp32; 1.0 disables
     min_p: torch.Tensor,  # (B,) fp32; 0.0 disables
+    seed: Optional[torch.Tensor] = None,  # (B,) int; < 0 = unseeded
+    gen_idx: Optional[torch.Tensor] = None,  # (B,) int; tokens generated
 ) -> torch.Tensor:
     """`sample` with per-row settings (int64 ids): greedy rows take the
     argmax of their unfiltered logits, the others draw from their
@@ -135,10 +173,20 @@ def sample_batched(
     categorical distribution of softmax(x), and unlike torch.multinomial
     it never raises on a row that is all masked or not finite, which the
     engines' idle slots produce.
+
+    seed/gen_idx (the reference's :131-170): a row with seed >= 0 draws
+    its U from `seeded_uniform(seed, gen_idx)`, so its token depends only
+    on (seed, gen_idx, its filtered logits), never on its slot, its
+    neighbours or the generator. Rows with seed < 0 keep the generator's
+    stream, which is drawn at full shape either way, so a seeded
+    neighbour does not move an unseeded row.
     """
     logits = logits.float()
     x = filter_logits_batched(logits, temperature, top_k, top_p, min_p)
     u = torch.rand(x.shape, generator=generator, device=x.device)
+    if seed is not None:
+        u = torch.where(seed[:, None] >= 0,
+                        seeded_uniform(seed, gen_idx, x.shape[-1]), u)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     sampled = torch.argmax(x + gumbel, dim=-1)
     return torch.where(temperature <= 0.0, torch.argmax(logits, dim=-1),

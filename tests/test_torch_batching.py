@@ -78,14 +78,14 @@ def _scatter_pool(rng, dense_k, dense_v, bs, extra=3):
 
 
 _PAGED = {
-    # D 128 with a table of several 512-position groups: kernel 7.
-    "grouped": dict(s=1, h=4, hkv=2, d=128, length=1024, bs=16),
+    # D 128 with a table of several page groups (two of 24 pages): kernel 7.
+    "grouped": dict(s=1, h=4, hkv=2, d=128, length=768, bs=16),
     "grouped_window_softcap_sinks": dict(s=1, h=4, hkv=2, d=128,
-                                         length=1024, bs=16, window=100,
+                                         length=768, bs=16, window=100,
                                          softcap=20.0, sinks=True),
     # A block size that is no power of two and does not divide the CUDA
     # kernel's 32-position tiles (the JAX kernels take bs % 8 == 0 only).
-    "grouped_bs24": dict(s=1, h=4, hkv=2, d=128, length=1008, bs=24),
+    "grouped_bs24": dict(s=1, h=4, hkv=2, d=128, length=720, bs=24),
     # D 64 takes the one-page kernel: kernel 8.
     "one_page_d64": dict(s=1, h=4, hkv=2, d=64, length=256, bs=16),
     "one_page_d64_s2_bs8": dict(s=2, h=4, hkv=4, d=64, length=128, bs=8),
@@ -516,10 +516,13 @@ _ENGINE_OPTS = [
     {"kv_quant": "int8", "rolling_window": True}, {"rolling_window": True},
 ]
 _SUBMIT_OPTS = [
-    {"logit_bias": {1: 2.0}}, {"presence_penalty": 0.5},
-    {"frequency_penalty": 0.5}, {"seed": 0}, {"constraint": object()},
-    {"prompt_logprobs": True}, {"prefill_only": True},
+    {"constraint": object()}, {"prefill_only": True},
     {"tenant": "a"}, {"qos_class": 0}, {"qos_weight": 2.0},
+]
+# Ported since the prefix cache and sampling controls landed.
+_PORTED_SUBMIT_OPTS = [
+    {"logit_bias": {1: 2.0}}, {"presence_penalty": 0.5},
+    {"frequency_penalty": 0.5}, {"seed": 0}, {"prompt_logprobs": True},
 ]
 
 
@@ -528,7 +531,7 @@ def test_unported_options_raise(paged):
     cfg = get_model_config("tiny")
     params = tt.init_params(cfg, device=CPU)
     cls = batching.PagedBatchingEngine if paged else batching.BatchingEngine
-    for kw in _ENGINE_OPTS + ([{"prefix_cache": True}] if paged else []):
+    for kw in _ENGINE_OPTS:
         with pytest.raises(NotImplementedError):
             cls(cfg, params, device=CPU, **kw)
     eng = cls(cfg, params, n_slots=2, max_len=32, device=CPU)
@@ -539,10 +542,13 @@ def test_unported_options_raise(paged):
                lambda: eng.release_frozen("x")):
         with pytest.raises(NotImplementedError):
             fn()
-    # The off values of those options are accepted.
+    # The off values of those options are accepted, and so are the
+    # ported controls.
     eng.submit("ok", [1, 2, 3], 2, presence_penalty=0.0, logit_bias={},
                prompt_logprobs=False)
-    assert eng.pending == 1
+    for i, kw in enumerate(_PORTED_SUBMIT_OPTS):
+        eng.submit(f"c{i}", [1, 2, 3], 2, **kw)
+    assert eng.pending == 1 + len(_PORTED_SUBMIT_OPTS)
     # The admission and decode pipelines and chunked prefill are ported.
     eng = cls(cfg, params, n_slots=2, max_len=32, overlap_decode=True,
               overlap_prefill=True, prefill_chunk=16, device=CPU)

@@ -3,8 +3,9 @@
 `serve` runs as a subprocess on `--port 0`: it prints its
 {"serving": url} line, answers requests with the tokens the port's
 engines give in process on the same seed, and exits 0 on SIGINT.
-`generate` and `batch` print or write the tokens of the port's `Engine`
-and batching engines on the same seed. The serving defaults (the overlap
+`generate` and `batch` (run in process through `cli.main`, as the
+subprocesses already cover `python -m`) print or write the tokens of the
+port's `Engine` and batching engines on the same seed. The serving defaults (the overlap
 pipelines, `--decode-ticks auto`, `--max-prefills-per-step`) are the
 reference parser's. The options the port lacks raise
 NotImplementedError, and without `--device cpu` the commands want a card.
@@ -40,12 +41,11 @@ TOK = ByteTokenizer()
 ENV = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
 
 
-def _cli(*args, timeout=120):
-    res = subprocess.run([sys.executable, "-m", "shellac_tpu_torch", *args],
-                         cwd=REPO, env=ENV, capture_output=True, text=True,
-                         timeout=timeout)
-    assert res.returncode == 0, res.stderr
-    return res.stdout
+def _cli(capsys, *args):
+    """A command's standard output, run in process."""
+    capsys.readouterr()
+    assert cli.main(list(args)) == 0
+    return capsys.readouterr().out
 
 
 def _model(seed, **over):
@@ -140,7 +140,7 @@ def test_serve_config_over_the_paged_engine(tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["greedy", "sampled", "stop"])
-def test_generate_gives_the_engine_tokens(mode):
+def test_generate_gives_the_engine_tokens(capsys, mode):
     args = ["generate", "--device", "cpu", "--seed", "4", "--max-new", "7"]
     cfg, params = _model(4)
     text = "hello"
@@ -159,18 +159,18 @@ def test_generate_gives_the_engine_tokens(mode):
         args += ["--stop", ",".join(map(str, stop))]
         want = want[:next(i for i in range(len(want))
                           if want[i:i + 2] == stop)]
-    out = json.loads(_cli(*args).strip().splitlines()[-1])
+    out = json.loads(_cli(capsys, *args).strip().splitlines()[-1])
     assert out["tokens"] == want
 
 
 @pytest.mark.parametrize("backend", ["dense", "paged"])
-def test_batch_gives_the_batching_engine_tokens(tmp_path, backend):
+def test_batch_gives_the_batching_engine_tokens(capsys, tmp_path, backend):
     rows = [{"prompt": "abc"}, {"prompt": [3, 4, 5, 6], "max_tokens": 3},
             {"prompt": "zz", "max_tokens": 9, "stop": "q"}]
     src, dst = tmp_path / "in.jsonl", tmp_path / "out.jsonl"
     src.write_text("".join(json.dumps(r) + "\n" for r in rows))
     summary = json.loads(_cli(
-        "batch", "--device", "cpu", "--seed", "3", "--input", str(src),
+        capsys, "batch", "--device", "cpu", "--seed", "3", "--input", str(src),
         "--output", str(dst), "--max-new", "5", "--slots", "2",
         "--decode-ticks", "2", "--cache-backend", backend))
     got = [json.loads(ln) for ln in dst.read_text().splitlines()]
@@ -269,3 +269,24 @@ def test_serve_engine_caps_prefills_like_the_reference(monkeypatch):
                          "engine", "max_pending", "autotune"}
     assert eng.overlap_decode and eng.overlap_prefill
     assert eng.decode_ticks_requested == "auto" and seen["autotune"]
+
+
+def test_serve_prefix_cache_needs_a_paged_backend(monkeypatch):
+    """`serve --prefix-cache` builds a prefix-cached paged engine, and
+    exits as the reference does (:889) over a dense backend."""
+    from shellac_tpu_torch.inference import server
+
+    seen = {}
+    monkeypatch.setattr(server, "serve",
+                        lambda cfg, params, **kw: seen.update(kw))
+    with pytest.raises(SystemExit, match="paged"):
+        cli.main(["serve", "--device", "cpu", "--prefix-cache"])
+    assert not seen
+    for backend in ("paged", "paged-int8"):
+        assert cli.main(["serve", "--device", "cpu", "--port", "0",
+                         "--cache-backend", backend, "--prefix-cache"]) == 0
+        eng = seen["engine"]
+        assert eng.prefix_cache and eng.cache_backend.name == backend
+        assert eng.stats["prefix_hit_tokens"] == 0
+    want = _reference_parser().parse_args(["serve", "--prefix-cache"])
+    assert want.prefix_cache

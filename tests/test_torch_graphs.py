@@ -18,6 +18,12 @@ windows draw fresh numbers on every replay and the same numbers from the
 same seed; a capture that fails raises. The HTTP server over the paged
 engine gives the engine's tokens while a stream is in flight over the
 engine's first capture, which runs on the server's scheduler thread.
+`Engine.generate` keeps its graphs across calls (the third call at a
+shape captures nothing); the continuation programs (chunked prefill, and
+the prefix cache's suffix prefills over the pools) and the windows with
+logit bias, penalties and seeds give their eager programs' tokens and
+launch counts; a seeded request's replayed windows draw per position and
+the same numbers for the same (seed, position) in any slot.
 """
 
 import numpy as np
@@ -53,9 +59,9 @@ def _model(dev):
 
 
 class _EagerEngine(Engine):
-    """Engine whose decode steps run eagerly: the loop the graph replaces."""
+    """Engine whose programs run eagerly: the loop the graph replaces."""
 
-    def _graph(self, fn, generator):
+    def _graph(self, fn, generator, pool=None):
         return fn
 
 
@@ -65,12 +71,12 @@ def _eager(cls, prefill=True, windows=True):
 
     class Eager(cls):
         if windows:
-            def _decode_impl(self, greedy_only):
-                return self._window(greedy_only)
+            def _decode_impl(self, greedy_only, ctl=batching._NO_CTL):
+                return self._window(greedy_only, ctl)
 
         if prefill:
-            def _prefill_replay(self, pad, greedy):
-                return self._prefill_program(pad, greedy)
+            def _prefill_replay(self, key):
+                return self._program(key)
 
     return Eager
 
@@ -284,7 +290,8 @@ def test_sampled_windows_draw_fresh_numbers(backend):
                                      device=dev, **_engine_kw(backend))
         outs.append(eng.run(reqs))
         assert eng.stats["decode_graphs"] == 1
-        bucket = eng._prefill_graphs[(16, False)]
+        bucket = eng._prefill_graphs[batching._Program("fresh", 16,
+                                                        greedy=False)]
         assert bucket.calls == 4 and bucket.graph is not None
     assert outs[0] == outs[1]
     for rid, _, _ in reqs:
@@ -422,3 +429,139 @@ def test_http_server_streams_through_the_first_capture():
         httpd.shutdown()
         srv.close()
     assert not srv._thread.is_alive()
+
+
+# --------------------------------------------------------------------------
+# generate's programs kept across calls, the continuation graphs, and the
+# windows with per-request controls
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_generate_replays_its_graphs_on_later_calls(kv_quant):
+    """The second call at a (batch, pad) captures its prefill, the third
+    captures nothing; every call gives the eager engine's tokens and
+    logprobs and its launch counts."""
+    dev = _card()
+    cfg, params = _model(dev)
+    toks, lens = _prompts(cfg.vocab_size)
+    eager = _EagerEngine(cfg, params, max_len=256, temperature=0.0,
+                         kv_quant=kv_quant, device=dev)
+    _reset()
+    want = eager.generate(toks.to(dev), lens.to(dev), max_new_tokens=12)
+    torch.cuda.synchronize()
+    want_counts = _counts()
+    eng = Engine(cfg, params, max_len=256, temperature=0.0,
+                 kv_quant=kv_quant, device=dev)
+    for call, captures in enumerate((1, 1, 0)):
+        _reset()
+        captured = StepGraph.captures
+        got = eng.generate(toks.to(dev), lens.to(dev), max_new_tokens=12)
+        torch.cuda.synchronize()
+        assert StepGraph.captures - captured == captures, call
+        assert torch.equal(got.tokens, want.tokens), call
+        assert torch.equal(got.logprobs, want.logprobs), call
+        assert _counts() == want_counts, call
+
+
+def _chunked_requests(vocab):
+    rng = np.random.default_rng(12)
+    shared = rng.integers(0, vocab, 80)
+    return [(f"c{i}", np.concatenate([shared, rng.integers(0, vocab, n)]),
+             5) for i, n in enumerate([30, 45, 9, 60, 20, 77])]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_continuation_graphs_match_eager(backend):
+    """Chunked prefill (32-token chunks) and, over the paged pools, the
+    prefix cache's suffix prefills: every continuation program after its
+    key's first runs as a graph replay, with the eager programs' tokens,
+    logprobs and launch counts."""
+    dev = _card()
+    cfg, params = _model(dev)
+    reqs = _chunked_requests(cfg.vocab_size)
+    cls = _batching_cls(backend)
+    kw = dict(_engine_kw(backend), prefill_chunk=32, logprobs=True)
+    if backend.startswith("paged"):
+        kw["prefix_cache"] = True
+    out, counts, engines = {}, {}, {}
+    for name, c in (("eager", _eager(cls)),
+                    ("graph", _eager(cls, prefill=False))):
+        eng = c(cfg, params, device=dev, **kw)
+        _reset()
+        out[name] = {}
+        for r in reqs:  # one at a time: later prompts hit the cache
+            out[name].update(eng.run([r]))
+        torch.cuda.synchronize()
+        counts[name], engines[name] = _counts(), eng
+    g, e = engines["graph"], engines["eager"]
+    assert out["graph"] == out["eager"]
+    for rid, _, _ in reqs:
+        assert g.finished_logprobs[rid] == e.finished_logprobs[rid]
+    assert counts["graph"] == counts["eager"]
+    chunk_graphs = [k for k, r in g._prefill_graphs.items()
+                    if k.kind == "chunk" and r.graph is not None]
+    assert chunk_graphs and g.stats["prefill_chunks"] > len(reqs)
+    if backend.startswith("paged"):
+        assert g.stats["prefix_hit_tokens"] > 0
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense-int8"])
+def test_control_windows_match_eager(backend):
+    """Windows and prefills with logit bias, penalties and seeds through
+    their graphs: the eager programs' tokens and launch counts, and the
+    window graphs the keys name."""
+    dev = _card()
+    cfg, params = _model(dev)
+    reqs = _requests(cfg.vocab_size, n=8)
+    ctl = [{}, {"logit_bias": {7: 2.0, 11: -3.0}},
+           {"presence_penalty": 0.8, "frequency_penalty": 0.4},
+           {"temperature": 0.9, "seed": 5}, {"temperature": 0.7},
+           {"logit_bias": {3: 1.0}, "temperature": 1.1, "seed": 9},
+           {"frequency_penalty": 1.0}, {}]
+    cls = _batching_cls(backend)
+    out, counts, engines = {}, {}, {}
+    for name, c in (("eager", _eager(cls)), ("graph", cls)):
+        eng = c(cfg, params, decode_ticks=2, device=dev, seed=3,
+                **_engine_kw(backend))
+        _reset()
+        for (rid, p, m), k in zip(reqs, ctl):
+            eng.submit(rid, p, m, **k)
+        out[name] = eng.run()
+        torch.cuda.synchronize()
+        counts[name], engines[name] = _counts(), eng
+    assert out["graph"] == out["eager"]
+    assert counts["graph"] == counts["eager"]
+    # (ticks, greedy_only, bias, penalties, seeds): variants with each
+    # control were captured.
+    keys = [k for k, r in engines["graph"]._window_graphs.items()
+            if r.graph is not None]
+    assert any(k[2] for k in keys) and any(k[3] for k in keys)
+    assert any(k[4] for k in keys)
+
+
+def test_seeded_graphs_draw_per_position():
+    """Uniform logits: a seeded request's replayed windows draw fresh
+    numbers at every position and the same numbers for the same (seed,
+    position), alone or beside other requests in another slot."""
+    dev = _card()
+    cfg, params = _uniform(dev)
+
+    def run(neighbours):
+        eng = batching.PagedBatchingEngine(
+            cfg, params, temperature=1.0, seed=1, device=dev,
+            **_engine_kw("paged"))
+        for i in range(neighbours):
+            eng.submit(f"n{i}", np.arange(2, 12 + i), 24, seed=40 + i)
+        eng.submit("s", np.arange(1, 9), 24, seed=77)
+        return eng.run(), eng
+
+    alone, eng = run(0)
+    assert eng.stats["decode_graphs"] == 1
+    toks = alone["s"]
+    assert len(set(toks)) > len(toks) // 2, toks
+    assert run(2)[0]["s"] == toks
+    other = batching.PagedBatchingEngine(cfg, params, temperature=1.0,
+                                         device=dev, **_engine_kw("paged"))
+    other.submit("s", np.arange(1, 9), 24, seed=78)
+    assert other.run()["s"] != toks

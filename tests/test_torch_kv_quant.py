@@ -224,7 +224,7 @@ def test_quant_decode_plain_matches_jax(case):
 
 
 _PAGED = {
-    "bs64_two_groups": dict(bs=64, length=1024),
+    "bs64_two_groups": dict(bs=64, length=640),
     "bs32_window_softcap_sinks": dict(bs=32, length=128, window=50,
                                       softcap=20.0, sinks=True),
 }

@@ -18,6 +18,10 @@ port's server, against the JAX server where the two can be compared:
     does not port (named per surface below);
   - stop holdback, cancellation on disconnect, max_pending's 429, drain,
     deadline shedding and the supervisor work on the port's server;
+  - logit bias and the penalties give the JAX server's greedy tokens
+    (compared up to the first position whose top-2 margin under the
+    controls is under MARGIN), prompt logprobs (native and echo) its
+    scores within 1e-4, and a seed the same tokens on every ask;
   - an option this slice does not port answers 501 (and raises
     NotImplementedError where it is a constructor argument).
 
@@ -407,6 +411,34 @@ def test_stats_count_the_port_engine(pair):
 # --------------------------------------------------------------------------
 
 
+def test_prefix_cached_stats_keys_match_the_reference(pair):
+    """Over a prefix-cached paged engine /stats (the engine's stats and
+    the server's fixed keys) carries the reference's prefix counters:
+    the engine's keys are the JAX engine's minus UNPORTED_STATS plus the
+    port's own, and the shellac_prefix_cache_blocks gauge counts the
+    cached blocks after a hit."""
+    from shellac_tpu.inference.batching import PagedBatchingEngine as JPaged
+
+    jc = jget("tiny").replace(dtype="float32")
+    kw = dict(n_slots=2, max_len=64, block_size=8, prefix_cache=True)
+    jeng = JPaged(jc, jt.init_params(jc, jax.random.PRNGKey(0)), **kw)
+    reg = Registry()
+    teng = batching.PagedBatchingEngine(pair["tc"], pair["tp"], device=CPU,
+                                        registry=reg, **kw)
+    assert {k for k in jeng.stats if k.startswith("prefix_")} == {
+        "prefix_hit_tokens", "prefix_query_tokens", "prefix_evictions",
+        "prefix_seeded_blocks"}
+    # /stats adds cache_backend beside the engine's stats.
+    assert set(teng.stats) | {"cache_backend"} == (
+        set(jeng.stats) - UNPORTED_STATS) | PORT_ONLY_STATS
+    prompt = list(range(1, 21))
+    teng.run([("a", prompt, 2)])
+    teng.run([("b", prompt, 2)])
+    assert teng.stats["prefix_hit_tokens"] == 16
+    assert reg.value("shellac_prefix_cache_blocks") == len(
+        teng.cache_backend._hash_to_block) == 2
+
+
 def test_stream_stop_holdback(pair):
     """Stop-truncated tokens are never streamed: every delta token is
     part of the final (truncated) output."""
@@ -668,14 +700,6 @@ _UNPORTED_HTTP = {
     "adopt": ("/generate", {"adopt": "00-abc"}),
     "resume": ("/generate", {"resume": "park-1"}),
     "constraint": ("/generate", {"tokens": [1], "constraint": {"regex": "a"}}),
-    "logit_bias": ("/generate", {"tokens": [1], "logit_bias": {"7": 1e9}}),
-    "presence_penalty": ("/generate", {"tokens": [1],
-                                       "presence_penalty": 0.5}),
-    "seed": ("/v1/completions", {"prompt": "a", "seed": 3}),
-    "stream_seed": ("/generate", {"tokens": [1], "seed": 3,
-                                  "stream": True}),
-    "echo_logprobs": ("/v1/completions", {"prompt": "a", "echo": True,
-                                          "logprobs": 1}),
     "tools": ("/v1/chat/completions",
               {"messages": [{"role": "user", "content": "x"}],
                "tools": [{"type": "function",
@@ -701,6 +725,119 @@ def test_unported_requests_answer_501(pair, case):
     msg = err["message"] if isinstance(err, dict) else err
     assert "not ported yet" in msg
     assert headers.get("x-request-id")
+
+
+def _adjusted_upto(pair, prompt, out, bias=None, pres=0.0, freq=0.0):
+    """How many leading greedy tokens of `out` have a top-2 margin of at
+    least MARGIN under the controls (the raw logits plus the bias, less
+    the penalties over the tokens generated before each), from a plain
+    fp32 forward of the port's model over prompt + out."""
+    tc, tp = pair["tc"], pair["tp"]
+    ids = list(prompt) + list(out)
+    logits = tt.forward(tc, tp, np.asarray([ids], np.int64),
+                        device=CPU)[0].detach().numpy()
+    counts = np.zeros((tc.vocab_size,), np.float32)
+    for j, tok in enumerate(out):
+        row = logits[len(prompt) + j - 1].copy()
+        for k, v in (bias or {}).items():
+            row[int(k)] += v
+        row -= pres * (counts > 0) + freq * counts
+        top = np.sort(row)[-2:]
+        if top[1] - top[0] < MARGIN:
+            return j
+        counts[tok] += 1
+    return len(out)
+
+
+_TEXT = "hello there"
+# (path, payload, controls for the margin rule); each answer is held to
+# the JAX server's under the margin rule.
+_CONTROLS = {
+    "logit_bias": ("/generate", {"text": _TEXT, "max_new": 8,
+                                 "logit_bias": {"202": -5.0, "91": 0.1}},
+                   dict(bias={202: -5.0, 91: 0.1})),
+    "presence_penalty": ("/generate", {"text": _TEXT, "max_new": 8,
+                                       "presence_penalty": 1.5},
+                         dict(pres=1.5)),
+    "frequency_penalty": ("/v1/completions",
+                          {"prompt": _TEXT, "max_tokens": 8,
+                           "temperature": 0, "frequency_penalty": 0.7,
+                           "logit_bias": {"108": 1.0}},
+                          dict(freq=0.7, bias={108: 1.0})),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CONTROLS))
+def test_controls_match_the_jax_server(pair, case):
+    """Greedy answers under logit bias and the penalties: the JAX
+    server's tokens, up to the first position whose adjusted top-2
+    margin is under MARGIN (most positions qualify)."""
+    path, payload, ctl = _CONTROLS[case]
+    got = {side: _json(pair[side], path, payload) for side in ("jax", "port")}
+    prompt = [int(t) for t in TOK.encode(_TEXT)]
+    if path == "/generate":
+        want = got["jax"]["tokens"]
+        upto = _adjusted_upto(pair, prompt, want, **ctl)
+        assert got["port"]["tokens"][:upto] == want[:upto]
+    else:
+        text = got["jax"]["choices"][0]["text"]
+        want = [int(t) for t in TOK.encode(text)]
+        upto = _stable(want, _adjusted_upto(pair, prompt, want, **ctl))
+        assert (got["port"]["choices"][0]["text"][:len(TOK.decode(
+            want[:upto]))] == TOK.decode(want[:upto]))
+    assert upto >= 4, upto
+
+
+@pytest.mark.parametrize("route", ["seed", "stream_seed"])
+def test_seeded_answers_are_self_consistent(pair, route):
+    """A seed's tokens cannot be the JAX server's (threefry against the
+    port's counter hash), so both servers answer, and the port gives the
+    same tokens for the same seed, blocking or streamed, and other
+    tokens for another seed."""
+    body = {"text": _TEXT, "max_new": 12, "temperature": 1.0}
+
+    def port(seed, stream=False):
+        payload = dict(body, seed=seed)
+        if stream:
+            return _ndjson(pair["port"], payload)[-1]["tokens"]
+        return _json(pair["port"], "/generate", payload)["tokens"]
+
+    if route == "seed":
+        oa = {"prompt": _TEXT, "max_tokens": 12, "temperature": 1.0,
+              "seed": 3}
+        for side in ("jax", "port"):
+            assert len(_json(pair[side], "/v1/completions",
+                             oa)["choices"]) == 1
+        first = port(3)
+        assert port(3) == first and port(4) != first
+    else:
+        assert _ndjson(pair["jax"], dict(body, seed=3))[-1]["done"]
+        assert port(3, stream=True) == port(3)
+
+
+@pytest.mark.parametrize("route", ["echo_logprobs", "prompt_logprobs"])
+def test_prompt_logprobs_match_the_jax_server(pair, route):
+    """The prompt's logprobs, over /v1/completions' echo with logprobs
+    and the native prompt_logprobs, equal the JAX server's within 1e-4
+    (the first position null)."""
+    if route == "echo_logprobs":
+        payload = {"prompt": _TEXT, "echo": True, "logprobs": 1,
+                   "max_tokens": 2, "temperature": 0}
+        got = {side: _json(pair[side], "/v1/completions", payload)
+               for side in ("jax", "port")}
+        n = len(TOK.encode(_TEXT))
+        lps = {side: got[side]["choices"][0]["logprobs"]["token_logprobs"][:n]
+               for side in got}
+        for side in got:
+            assert got[side]["choices"][0]["text"].startswith(_TEXT)
+    else:
+        payload = {"text": _TEXT, "max_new": 2, "prompt_logprobs": True}
+        lps = {side: _json(pair[side], "/generate",
+                           payload)["prompt_logprobs"]
+               for side in ("jax", "port")}
+    assert lps["port"][0] is None and lps["jax"][0] is None
+    np.testing.assert_allclose(lps["port"][1:], lps["jax"][1:], atol=1e-4)
+    assert len(lps["port"]) == len(TOK.encode(_TEXT))
 
 
 def test_unported_get_paths_answer_501(pair):

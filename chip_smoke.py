@@ -124,7 +124,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 eager runs and to what each run's prefills and windows make;
                 per cache, a pass with 64-token chunked prefill (and, over
                 the pools, prefix-cache hits) whose continuation graphs
-                give the eager programs' tokens, logprobs and launches.
+                give the eager programs' tokens, logprobs and launches;
+                per cache, at 1 and 4 ticks, strict and pipelined, a
+                constrained pass (three grammars and free requests
+                sharing the slots; the largest table admitted last, so it
+                grows the resident table while windows are in flight)
+                bit-equal to its eager twin with equal launch counts.
  11. http-serve — serve's 48 requests over HTTP: InferenceServer over the
                 serve phase's PagedBatchingEngine configuration (shellac-1b,
                 16 slots, max_len 2048, 16-token blocks, one tick a window,
@@ -164,10 +169,32 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 alone, among 15 neighbours (seeded, penalised, biased,
                 scoring, sampled) in slot 15, at decode_ticks 1 and 8, and
                 with and without the pipelines; a logit bias of +100
-                forces its token and -100 bans it; prompt logprobs match a
-                plain forward's log-softmax within 5e-2 of its largest
-                magnitude; four runs of one control each capture exactly
-                the window graphs their keys name.
+                forces its token and -100 bans it; a +100 bias toward a
+                token a constrained request's grammar never allows loses;
+                prompt logprobs match a plain forward's log-softmax within
+                5e-2 of its largest magnitude; four runs of one control
+                each capture exactly the window graphs their keys name.
+ 11d. constrained-serve — serve-overlap's engine (both pipelines, one
+                prefill a step, one tick a window, greedy, eos_id 257, the
+                byte tokenizer's EOS) over the paged pool, then the
+                paged-int8 pool, on serve's 48 requests: a third under a
+                finite JSON schema, a third under a finite regex, a third
+                free; then the same requests all free. Each pattern's
+                compile ms at vocab 32768 and its states, the resident
+                table's bytes and one table's upload ms; tokens/s, TTFT
+                p50/p99 and TPOT p50 of the constrained and the free
+                requests; the device ms of one profiled decode-only step
+                of 16 constrained slots and of 16 free ones. Every
+                constrained output walks its DFA without meeting -1, every
+                one that ended with EOS matches its pattern in full (the
+                schema's parse as JSON with its keys), each timed run
+                captures 0 graphs and makes exactly the launches its
+                prefills and windows make. Then a short HTTP pass
+                (InferenceServer with the byte tokenizer): chat
+                completions with tools required, a named tool and
+                response_format json_schema, streamed and not, whose
+                tool_calls arguments and content parse and obey their
+                schemas, and /metrics' constraint cache hits and misses.
  12. cli-serve — `python -m shellac_tpu_torch serve --config F
                 --cache-backend paged --slots 4 --port 0 --logprobs` (F:
                 shellac-1b cut to 2 layers) as a subprocess, on the CLI's
@@ -198,8 +225,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 every row carries its achieved TFLOP/s.
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}. `--only PHASES` (generate,
-prefix-serve, sampling-controls, graph-parity) runs those after the build
-and prints neither of the last two lines.
+prefix-serve, sampling-controls, constrained-serve, graph-parity) runs
+those after the build and prints neither of the last two lines.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -228,6 +255,27 @@ LEN_LO, LEN_HI = 128, 512
 SLOTS, BLOCK, REQUESTS = 16, 16, 48
 BLOCK_INT8 = 64
 PROMPT_LO, PROMPT_HI, NEW_LO, NEW_HI = 64, 1024, 16, 128
+# Constrained decoding: the byte tokenizer's EOS, a finite JSON schema and
+# a finite regex (every path ends in EOS within serve's budgets), and the
+# tools of the HTTP pass (finite parameters).
+EOS_BYTE = 257
+CON_SCHEMA = {"type": "object", "properties": {
+    "city": {"enum": ["oslo", "rio", "lima", "pune"]},
+    "days": {"enum": [1, 2, 3, 7]}, "ok": {"type": "boolean"},
+    "unit": {"const": "celsius"}},
+    "required": ["city", "days", "ok", "unit"]}
+CON_REGEX = r"(yes|no|maybe)( (yes|no|maybe)){0,3}"
+TOOLS = [
+    {"type": "function", "function": {
+        "name": "get_weather", "description": "weather lookup",
+        "parameters": {"type": "object", "properties": {
+            "city": {"enum": ["oslo", "rio"]}, "days": {"enum": [1, 2, 3]}},
+            "required": ["city", "days"]}}},
+    {"type": "function", "function": {
+        "name": "calc", "description": "arithmetic",
+        "parameters": {"type": "object", "properties": {
+            "op": {"enum": ["add", "mul"]}}, "required": ["op"]}}},
+]
 # The train workload: bench.py's recipe.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 6, 2048, 10
 
@@ -2596,12 +2644,32 @@ def phase_sampling_controls(seed, dev, table, card):
                and banned_tok not in out["banned"])
     eng.close()
 
+    # A +100 bias toward tokens the grammar never allows loses to the
+    # mask; without the grammar the same bias forces its token.
+    from shellac_tpu_torch.inference.constraints import compile_token_dfa
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    dfa = compile_token_dfa(r"[a-z]{3,8}", ByteTokenizer(), vocab, EOS_BYTE)
+    lost = {ord("Z"): 100.0, 300: 100.0}
+    eng = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        decode_ticks=1, temperature=0.0, eos_id=EOS_BYTE, device=dev,
+        **PIPELINED)
+    eng.submit("grammar", base, 12, constraint=dfa, logit_bias=lost)
+    eng.submit("no_grammar", base, 12, logit_bias=lost)
+    out = eng.run()
+    eng.close()
+    grammar_ok = (dfa_walk(dfa, out["grammar"])[0]
+                  and not set(out["grammar"]) & set(lost)
+                  and set(out["no_grammar"]) <= set(lost))
+
     # One control per run: the window graphs its keys name.
     eng = engine(pipe={})
-    plan = [({}, (1, True, False, False, False)),
-            ({"logit_bias": {5: 1.0}}, (1, True, True, False, False)),
-            ({"presence_penalty": 0.5}, (1, True, False, True, False)),
-            ({"temperature": 0.8, "seed": 7}, (1, False, False, False, True))]
+    plan = [({}, (1, True, False, False, False, False)),
+            ({"logit_bias": {5: 1.0}}, (1, True, True, False, False, False)),
+            ({"presence_penalty": 0.5}, (1, True, False, True, False, False)),
+            ({"temperature": 0.8, "seed": 7},
+             (1, False, False, False, True, False))]
     for k, _ in plan:
         run(eng, [(f"k{i}", prompt(32), 12, k) for i in range(SLOTS)])
     keys = {key: r.graph is not None for key, r in eng._window_graphs.items()}
@@ -2617,16 +2685,412 @@ def phase_sampling_controls(seed, dev, table, card):
          seeded_tokens_equal={k: v == got["alone"] for k, v in got.items()},
          seeded_distinct_tokens=len(set(got["alone"])),
          bias_forces_and_bans=bias_ok,
+         grammar_beats_bias=grammar_ok,
+         grammar_with_bias_tokens=out["grammar"],
          prompt_logprobs_max_abs_err=plp_err,
          prompt_logprobs_ref_max_abs=plp_scale,
          tol="max_abs_err <= 5e-2 * max|ref|",
          window_graph_keys=[list(k) for k in keys],
          window_graph_keys_as_predicted=keys_ok, card=card)
-    if not (seeded_ok and bias_ok and plp_ok and keys_ok):
+    if not (seeded_ok and bias_ok and plp_ok and keys_ok and grammar_ok):
         raise SystemExit("sampling-controls: a seeded stream moved, a bias "
-                         "missed, prompt logprobs disagree or the window "
-                         "graphs differ from their keys")
+                         "missed or beat a grammar, prompt logprobs "
+                         "disagree or the window graphs differ from their "
+                         "keys")
     return counts
+
+
+# --------------------------------------------------------------------------
+# constrained-serve: the DFA mask and state advance in the window and
+# prefill graphs; tools and response_format over HTTP
+# --------------------------------------------------------------------------
+
+def dfa_walk(dfa, tokens):
+    """(legal, last state) of `tokens` through a TokenDFA: legal when no
+    token meets -1 (EOS reads the last column)."""
+    st = 0
+    for t in tokens:
+        nxt = int(dfa.trans[st, -1 if t == dfa.eos_id else t])
+        if nxt < 0:
+            return False, st
+        st = nxt
+    return True, st
+
+
+def schema_ok(v):
+    """Whether a parsed value obeys CON_SCHEMA."""
+    props = CON_SCHEMA["properties"]
+    return (isinstance(v, dict) and set(v) == set(CON_SCHEMA["required"])
+            and v["city"] in props["city"]["enum"]
+            and v["days"] in props["days"]["enum"]
+            and isinstance(v["ok"], bool) and v["unit"] == "celsius")
+
+
+def obeys(out, dfa, kind):
+    """(obeys, ended) of one constrained output: it walks its DFA without
+    meeting -1, and if it ended with EOS its text matches the pattern in
+    full (the schema's parses as JSON and obeys the schema)."""
+    import re
+
+    legal, _ = dfa_walk(dfa, out)
+    ended = bool(out) and out[-1] == EOS_BYTE
+    if not legal or not ended:
+        return legal, ended
+    try:
+        text = bytes(out[:-1]).decode("utf-8")
+    except (ValueError, UnicodeDecodeError):
+        return False, ended
+    if kind == "schema":
+        try:
+            return schema_ok(json.loads(text)), ended
+        except ValueError:
+            return False, ended
+    return re.fullmatch(CON_REGEX, text) is not None, ended
+
+
+def class_latency(engine, results, rids, wall):
+    """TTFT p50/p99 (admission to first token) and TPOT p50 of `rids`,
+    and their tokens a second over the run's wall."""
+    ttft, tpot, n = [], [], 0
+    for rid in rids:
+        _, admitted, first, done = engine.finished_timings[rid]
+        k = len(results[rid])
+        n += k
+        ttft.append(first - admitted)
+        tpot.append((done - first) / max(k - 1, 1))
+    return dict(requests=len(rids), tokens=n, tokens_per_s=n / wall,
+                ttft_ms_p50=pct(ttft, 50) * 1e3,
+                ttft_ms_p99=pct(ttft, 99) * 1e3,
+                tpot_ms_p50=pct(tpot, 50) * 1e3)
+
+
+def phase_constrained_serve(seed, dev, table, card):
+    """serve-overlap's engine with constrained requests, over the paged
+    and paged-int8 pools (see the module docstring, 11d), then the HTTP
+    pass. Returns the kernel launch counts of the two timed constrained
+    runs (each counted from 0 just before it)."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.inference.constraints import (
+        compile_token_dfa,
+        constraint_pattern,
+    )
+    from shellac_tpu_torch.inference.graphs import StepGraph
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.ops.dispatch import copy_from_host
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    tok = ByteTokenizer()
+    patterns = {"schema": constraint_pattern({"json_schema": CON_SCHEMA}),
+                "regex": CON_REGEX,
+                # The profiled fill: a grammar no budget here ends.
+                "open": r"[a-z]+( [a-z]+)*"}
+    dfas, compiled = {}, {}
+    for kind, pat in patterns.items():
+        t0 = time.perf_counter()
+        dfas[kind] = compile_token_dfa(pat, tok, cfg.vocab_size, EOS_BYTE)
+        compiled[kind] = dict(
+            compile_ms=(time.perf_counter() - t0) * 1e3,
+            states=dfas[kind].n_states,
+            table_bytes=int(dfas[kind].trans.nbytes))
+    emit("constrained-serve", step="compile", vocab=cfg.vocab_size,
+         tokenizer="byte", patterns=compiled, card=card)
+    base = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
+                          (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
+    kinds = ("schema", "regex", "free")
+    reqs = [(rid, toks, m, kinds[i % 3])
+            for i, (rid, toks, m) in enumerate(base)]
+    warm = warm_requests(seed + 2, cfg.vocab_size)
+    full = serve_requests(seed + 3, cfg.vocab_size, SLOTS,
+                          (PROMPT_HI // 2, PROMPT_HI // 2),
+                          (NEW_HI * 2, NEW_HI * 2))
+    total = {k["name"]: 0 for k in table}
+    failed = []
+    for backend in ("paged", "paged-int8"):
+        engine = PagedBatchingEngine(
+            cfg, params, n_slots=SLOTS, max_len=MAX_LEN,
+            block_size=BLOCK if backend == "paged" else BLOCK_INT8,
+            cache_backend=backend, decode_ticks=1, temperature=0.0,
+            eos_id=EOS_BYTE, device=dev, **PIPELINED)
+        # The schema's and the regex's tables placed by two requests live
+        # together (the second grows the table), so the timed runs
+        # upload nothing; then each table's restack, the pinned copy of
+        # its rows into place, timed on its own rows.
+        for i, kind in enumerate(("schema", "regex")):
+            engine.submit(f"place{i}", warm[0][1], 4,
+                          constraint=dfas[kind])
+        engine.run()
+        uploads = {}
+        for kind in ("schema", "regex"):
+            off = engine._cres[id(dfas[kind])][1]
+            rows = engine._ctrans[off:off + dfas[kind].n_states]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            copy_from_host(rows, dfas[kind].trans)
+            torch.cuda.synchronize()
+            uploads[kind] = (time.perf_counter() - t0) * 1e3
+        # Warm-up, not counted: every bucket's free and constrained
+        # prefill graphs and both window graphs are captured.
+        engine.run(warm)
+        for i, (rid, toks, m) in enumerate(warm):
+            engine.submit("c" + rid, toks, m,
+                          constraint=dfas[kinds[i % 2]])
+        engine.run()
+        torch.cuda.synchronize()
+        runs = {}
+        for name, constrained in (("constrained", True), ("free", False)):
+            before = dict(engine.stats)
+            captures0 = StepGraph.captures
+            reset_counts(table)
+            t0 = time.perf_counter()
+            for rid, toks, m, kind in reqs:
+                engine.submit(rid, toks, m, **(
+                    {"constraint": dfas[kind]}
+                    if constrained and kind != "free" else {}))
+            results = engine.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(table)
+            delta = {k: engine.stats[k] - before[k] for k in
+                     ("prefills", "decode_windows", "engine_steps")}
+            expect = expected_launches(table, cfg.n_layers, delta, 1,
+                                       DECODE_KERNEL[backend])
+            runs[name] = dict(results=results, wall=wall, counts=counts,
+                              expect=expect,
+                              captures=StepGraph.captures - captures0)
+        con = runs["constrained"]
+        checks = {}
+        for kind in ("schema", "regex"):
+            rids = [r for r, _, _, k in reqs if k == kind]
+            res = [obeys(con["results"][r], dfas[kind], kind) for r in rids]
+            checks[kind] = dict(requests=len(rids),
+                                obey=sum(ok for ok, _ in res),
+                                ended_with_eos=sum(e for _, e in res))
+        free_rids = [r for r, _, _, k in reqs if k == "free"]
+        con_rids = [r for r, _, _, k in reqs if k != "free"]
+        table_bytes = int(engine._ctrans.nbytes)
+        # 20 decode-only steps of 16 constrained slots, then of 16 free
+        # ones (same prompts; the open grammar ends only where the model
+        # picks EOS), their wall ms a step, and one more profiled.
+        steps = {}
+        for name, kw in (("constrained", {"constraint": dfas["open"]}),
+                         ("free", {})):
+            for rid, toks, m in full:
+                engine.submit(name + rid, toks, m, **kw)
+            while (engine._queue or engine._pflights or engine._prefilling
+                   or any(r is not None and not r.out
+                          for r in engine._slots)):
+                engine.step()
+            engine.step()
+            walls = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                engine.step()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            decoding = sum(r is not None for r in engine._slots)
+            prof = profile_call(engine.step)
+            steps[name] = dict(wall_ms_per_step=walls,
+                               wall_ms_per_step_p50=float(np.median(walls)),
+                               slots_decoding_after=decoding,
+                               device_ms=prof["device_ms"],
+                               wall_ms=prof["wall_ms"],
+                               device_ms_by_kind=prof["device_ms_by_kind"],
+                               launches=prof["launches"])
+            engine.abort_all()
+        clean = pristine(engine)
+        ok = (all(c["obey"] == c["requests"] and c["ended_with_eos"] > 0
+                  for c in checks.values())
+              and all(r["captures"] == 0 and r["counts"] == r["expect"]
+                      for r in runs.values())
+              and set(con["results"]) == {r for r, _, _, _ in reqs}
+              and clean)
+        emit("constrained-serve", step="main_path", backend=backend,
+             model="shellac-1b", slots=SLOTS, max_len=MAX_LEN, **PIPELINED,
+             requests=len(reqs), eos_id=EOS_BYTE, checks=checks,
+             table_bytes=table_bytes,
+             table_rows=int(engine._ctrans.shape[0]),
+             resident_tables=len(engine._cres), upload_ms=uploads,
+             constrained_run=dict(
+                 wall_s=con["wall"],
+                 tokens_per_s=sum(len(v) for v in con["results"].values())
+                 / con["wall"],
+                 constrained=class_latency(engine, con["results"],
+                                           con_rids, con["wall"]),
+                 free=class_latency(engine, con["results"], free_rids,
+                                    con["wall"]),
+                 graphs_captured=con["captures"], launches=con["counts"],
+                 launches_as_expected=con["counts"] == con["expect"]),
+             free_run=dict(
+                 wall_s=runs["free"]["wall"],
+                 tokens_per_s=sum(len(v) for v in
+                                  runs["free"]["results"].values())
+                 / runs["free"]["wall"],
+                 all=class_latency(engine, runs["free"]["results"],
+                                   [r for r, _, _, _ in reqs],
+                                   runs["free"]["wall"]),
+                 graphs_captured=runs["free"]["captures"],
+                 launches_as_expected=(runs["free"]["counts"]
+                                       == runs["free"]["expect"])),
+             decode_step_16_slots=steps,
+             mask_device_ms=(steps["constrained"]["device_ms"]
+                             - steps["free"]["device_ms"]),
+             allocator_pristine=clean, ok=ok, card=card)
+        if not ok:
+            failed.append(backend)
+        for n, c in con["counts"].items():
+            total[n] += c
+        engine.close()
+        del engine
+        reset_peak()
+    failed += constrained_http(cfg, params, dev, card)
+    del params
+    reset_peak()
+    emit("constrained-serve", step="done",
+         seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise SystemExit(f"constrained-serve: {failed}: an output left its "
+                         "grammar, no output ended, a timed run captured a "
+                         "graph, the launches are off or a block leaked")
+    return total
+
+
+def reassemble_tools(chunks):
+    """An OpenAI client's reassembly of streamed tool calls: (calls by
+    index, content, finish reason)."""
+    calls, content, finish = {}, "", None
+    for c in chunks:
+        choice = c["choices"][0]
+        finish = choice["finish_reason"] or finish
+        d = choice["delta"]
+        content += d.get("content") or ""
+        for item in d.get("tool_calls", []):
+            slot = calls.setdefault(item["index"],
+                                    {"name": None, "args": ""})
+            if "id" in item:
+                slot["name"] = item["function"]["name"]
+            slot["args"] += item["function"].get("arguments", "")
+    return calls, content, finish
+
+
+def tool_args_ok(name, args):
+    fn = {t["function"]["name"]: t["function"]["parameters"]
+          for t in TOOLS}[name]
+    props = fn["properties"]
+    return (set(args) == set(fn["required"])
+            and all(args[k] in props[k]["enum"] for k in args))
+
+
+def constrained_http(cfg, params, dev, card):
+    """The HTTP pass of constrained-serve: chat completions with tools
+    required, a named tool and response_format json_schema, streamed and
+    not, through InferenceServer over the paged engine with the byte
+    tokenizer. Returns the names of the checks that failed."""
+    import threading
+
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.inference.server import (
+        InferenceServer,
+        make_http_server,
+    )
+    from shellac_tpu_torch.obs import Registry
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        decode_ticks=1, temperature=0.0, eos_id=EOS_BYTE, device=dev,
+        **PIPELINED)
+    srv = InferenceServer(cfg, params, tokenizer=ByteTokenizer(),
+                          engine=engine, model_name="shellac-1b",
+                          registry=Registry())
+    httpd = make_http_server(srv)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    user = [{"role": "user", "content": "weather in oslo for two days?"}]
+    bodies = {
+        "required": {"messages": user, "max_tokens": 200, "tools": TOOLS,
+                     "tool_choice": "required",
+                     "parallel_tool_calls": False},
+        "named": {"messages": user, "max_tokens": 200, "tools": TOOLS,
+                  "tool_choice": {"type": "function",
+                                  "function": {"name": "calc"}},
+                  "parallel_tool_calls": False},
+        "json_schema": {"messages": user, "max_tokens": 200,
+                        "response_format": {"type": "json_schema",
+                                            "json_schema": {
+                                                "name": "w",
+                                                "schema": CON_SCHEMA}}},
+    }
+    checks, failed = {}, []
+    try:
+        for name, body in bodies.items():
+            t0 = time.perf_counter()
+            status, _, raw, _ = http_call(url, "/v1/chat/completions", body)
+            wall = time.perf_counter() - t0
+            sstatus, _, sraw, _ = http_call(
+                url, "/v1/chat/completions", dict(body, stream=True),
+                stream=True)
+            rec = dict(status=status, stream_status=sstatus, wall_s=wall)
+            ok = status == 200 and sstatus == 200
+            if not ok:
+                rec["error"] = (raw if status != 200 else sraw)[:400].decode(
+                    errors="replace")
+            if ok:
+                ch = json.loads(raw)["choices"][0]
+                data = [ln[6:] for ln in sraw.decode().splitlines()
+                        if ln.startswith("data: ")]
+                calls, content, finish = reassemble_tools(
+                    [json.loads(d) for d in data[:-1]])
+                rec["finish_reason"] = ch["finish_reason"]
+                if name == "json_schema":
+                    text = ch["message"]["content"]
+                    try:
+                        ok = schema_ok(json.loads(text))
+                    except ValueError:
+                        ok = False
+                    ok = ok and content == text and finish == "stop"
+                    rec["content"] = text
+                else:
+                    tc = (ch["message"].get("tool_calls") or [None])[0]
+                    ok = (ch["finish_reason"] == "tool_calls"
+                          and tc is not None
+                          and finish == "tool_calls" and content == ""
+                          and calls.get(0, {}).get("name")
+                          == tc["function"]["name"]
+                          and calls[0]["args"]
+                          == tc["function"]["arguments"])
+                    if ok:
+                        args = json.loads(tc["function"]["arguments"])
+                        ok = tool_args_ok(tc["function"]["name"], args)
+                        ok = ok and (name != "named"
+                                     or tc["function"]["name"] == "calc")
+                        rec["call"] = tc["function"]
+            rec["ok"] = ok
+            checks[name] = rec
+            if not ok:
+                failed.append(f"http:{name}")
+        _, _, metrics, _ = http_call(url, "/metrics")
+        text = metrics.decode()
+        cache = {r: metric_value(
+            text, f'shellac_constraint_cache_total{{result="{r}"}}')
+            for r in ("hit", "miss")}
+        tools_ok = metric_value(
+            text, 'shellac_tool_requests_total{outcome="call"}')
+        compile_n = metric_value(text,
+                                 "shellac_constraint_compile_seconds_count")
+        metrics_ok = (cache["miss"] == 3 and (cache["hit"] or 0) >= 2
+                      and compile_n == 3 and tools_ok == 4)
+        if not metrics_ok:
+            failed.append("http:metrics")
+    finally:
+        httpd.shutdown()
+        srv.close()
+    emit("constrained-serve", step="http", requests=checks,
+         constraint_cache=cache, constraint_compiles=compile_n,
+         tool_calls_counted=tools_ok, metrics_ok=metrics_ok, card=card)
+    return failed
 
 
 # The decode kernel each batching backend's windows launch.
@@ -2770,11 +3234,108 @@ def phase_graph_parity(seed, dev, table):
              launches_equal_eager=g["launches"] == e["launches"], ok=ok)
         if not ok:
             failed.append((backend, "continuation"))
+        failed += constrained_parity(cfg, params, dev, table, cls, backend,
+                                     seed)
     del params
     torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"graph-parity: the CUDA graphs or the pipelines "
                          f"differ from the eager strict engine: {failed}")
+
+
+def constrained_parity(cfg, params, dev, table, cls, backend, seed):
+    """graph-parity's constrained pass over one cache: a 60-letter
+    grammar (61 rows, live for 61 tokens), the schema (62 rows) twice
+    and a date-time/uuid schema (84 rows) admitted last, beside free
+    requests, at 1 and 4 ticks, strict and pipelined. Its first
+    admissions grow the resident table to 128 rows; the last grows it
+    to 256 while the 60-letter request decodes (under the pipelines,
+    with a window in flight), dropping the graphs of the old table. The
+    graph run's tokens, logprobs and launches equal its eager twin's,
+    and both equal the eager strict run's. Returns the failed runs."""
+    from shellac_tpu_torch.inference.constraints import (
+        compile_token_dfa,
+        constraint_pattern,
+    )
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    big = {"type": "object", "properties": {
+        "a": {"type": "string", "format": "date-time"},
+        "b": {"type": "string", "format": "uuid"}}, "required": ["a", "b"]}
+    dfas = {k: compile_token_dfa(p, tok, cfg.vocab_size, EOS_BYTE)
+            for k, p in (("letters", "[a-z]{60}"),
+                         ("schema", constraint_pattern(
+                             {"json_schema": CON_SCHEMA})),
+                         ("big", constraint_pattern({"json_schema": big})))}
+    t_pass = time.perf_counter()
+    rng = np.random.default_rng(seed + 41)
+    plan = [("letters", 64), ("schema", 56), (None, 4), (None, 6),
+            (None, 5), (None, 8), ("big", 40), ("schema", 30), (None, 8)]
+    reqs = [(f"c{i}", rng.integers(0, cfg.vocab_size,
+                                   int(rng.integers(16, 200)))
+             .astype(np.int32), m, kind)
+            for i, (kind, m) in enumerate(plan)]
+    failed = []
+    for ticks in (1, 4):
+        runs = {}
+        for mode, pipe in (("strict", {}), ("pipelined", PIPELINED)):
+            for name, c in (("graph", cls), ("eager", eager_engine(cls))):
+                eng = c(cfg, params, n_slots=6, max_len=512,
+                        cache_backend=backend, decode_ticks=ticks,
+                        logprobs=True, eos_id=EOS_BYTE, device=dev, **pipe)
+                grown = []
+                grow = eng._grow_table
+
+                def counting(rows, grow=grow, grown=grown, eng=eng):
+                    grown.append(bool(eng._windows))
+                    grow(rows)
+
+                eng._grow_table = counting
+                reset_counts(table)
+                for rid, toks, m, kind in reqs:
+                    eng.submit(rid, toks, m, **(
+                        {"constraint": dfas[kind]} if kind else {}))
+                out = eng.run()
+                torch.cuda.synchronize()
+                st = dict(eng.stats)
+                runs[mode, name] = dict(
+                    out=out, lps=dict(eng.finished_logprobs),
+                    launches=read_counts(table), stats=st, grown=grown,
+                    rows=int(eng._ctrans.shape[0]),
+                    expected=expected_launches(table, cfg.n_layers, st,
+                                               ticks, DECODE_KERNEL[backend]))
+                eng.close()
+                del eng
+        ref = runs["strict", "eager"]
+        for mode in ("strict", "pipelined"):
+            g, e = runs[mode, "graph"], runs[mode, "eager"]
+            walks = all(dfa_walk(dfas[kind], g["out"][rid])[0]
+                        for rid, _, _, kind in reqs if kind)
+            ok = (g["out"] == e["out"] == ref["out"]
+                  and g["lps"] == e["lps"] == ref["lps"]
+                  and g["launches"] == e["launches"] == g["expected"]
+                  and g["grown"] == e["grown"] and len(g["grown"]) == 3
+                  and g["rows"] == 256 and walks
+                  and (mode == "strict" or g["grown"][-1]))
+            emit("graph-parity", backend=backend, decode_ticks=ticks,
+                 ordering=mode, pass_name="constrained", layers=2,
+                 dtype="bfloat16", requests=len(reqs),
+                 tokens=sum(len(v) for v in g["out"].values()),
+                 table_growths_window_in_flight=g["grown"],
+                 table_rows=g["rows"], outputs_walk_their_dfas=walks,
+                 tokens_identical_to_eager_strict=g["out"] == e["out"]
+                 == ref["out"],
+                 logprobs_identical_to_eager_strict=g["lps"] == e["lps"]
+                 == ref["lps"], launches=g["launches"],
+                 launches_equal_eager_and_expected=(
+                     g["launches"] == e["launches"] == g["expected"]),
+                 ok=ok)
+            if not ok:
+                failed.append((backend, ticks, mode, "constrained"))
+    emit("graph-parity", backend=backend, pass_name="constrained",
+         seconds=time.perf_counter() - t_pass)
+    return failed
 
 
 # --------------------------------------------------------------------------
@@ -3370,8 +3931,8 @@ def main():
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
                          "(generate, prefix-serve, sampling-controls, "
-                         "graph-parity); prints no kernels line and no ok "
-                         "line")
+                         "constrained-serve, graph-parity); prints no "
+                         "kernels line and no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3407,6 +3968,8 @@ def main():
                                                        card),
             "sampling-controls": lambda: phase_sampling_controls(
                 args.seed, dev, table, card),
+            "constrained-serve": lambda: phase_constrained_serve(
+                args.seed, dev, table, card),
             "graph-parity": lambda: phase_graph_parity(args.seed, dev,
                                                        table),
         }
@@ -3435,6 +3998,8 @@ def main():
     paths["prefix-serve"] = phase_prefix_serve(args.seed, dev, table, card)
     paths["sampling-controls"] = phase_sampling_controls(args.seed, dev,
                                                          table, card)
+    paths["constrained-serve"] = phase_constrained_serve(args.seed, dev,
+                                                         table, card)
     paths["train"] = phase_train(args.seed, dev, table, card)
     decode = ("rms_norm", "flash_attention_fwd")
     for path, kinds in (("generate", decode + ("decode_attention_dense",)),
@@ -3450,6 +4015,9 @@ def main():
                          decode + ("paged_decode_attention",)),
                         ("sampling-controls",
                          decode + ("paged_decode_attention",)),
+                        ("constrained-serve",
+                         decode + ("paged_decode_attention",
+                                   "paged_decode_attention_int8")),
                         ("train", ("rms_norm", "flash_attention_fwd",
                                    "flash_attention_bwd_dkdv",
                                    "flash_attention_bwd_dq"))):

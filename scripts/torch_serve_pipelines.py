@@ -159,7 +159,7 @@ def local_way(a, name, cfg, params, dev, reqs, warm, profile=False):
         # The window graph replayed back to back: its wall on the card,
         # kernels and the gaps between them, with no host work between
         # windows (the slots decode on; abort_all resets them after).
-        graph = eng._window_graphs[1, True, False, False, False].graph
+        graph = eng._window_graphs[1, True, False, False, False, False].graph
         torch.cuda.synchronize()
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         ev0.record()

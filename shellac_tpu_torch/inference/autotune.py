@@ -153,12 +153,12 @@ class SimulatedHostLatency:
         self._ready.clear()
 
 
-def _window_key(engine) -> Tuple[int, bool, bool, bool, bool]:
+def _window_key(engine) -> Tuple[int, bool, bool, bool, bool, bool]:
     """The window graph that probes at the engine's default sampling
-    replay (`BatchingEngine._decode_impl`'s key: no bias, penalties or
-    seeds)."""
+    replay (`BatchingEngine._decode_impl`'s key: no bias, penalties,
+    seeds or constraints)."""
     return (engine.decode_ticks, engine._defaults["temperature"] == 0.0,
-            False, False, False)
+            False, False, False, False)
 
 
 def _warm_window(engine) -> None:

@@ -90,12 +90,28 @@ logprobs, applied in `_row_decode_step`'s order (:775) inside the window
 and in every prefill's first token (`_sample_first` :1100). The bias and
 count matrices are allocated at the first request that needs them; the
 window graphs are keyed by (decode_ticks, greedy, bias, penalties,
-seeds) as the reference keys its decode jit, so requests without
-controls keep their graph.
+seeds, constraints) as the reference keys its decode jit (:2026-2050),
+so requests without controls keep their graph.
+
+Constrained decoding (`submit(constraint=)`, a compiled
+`constraints.TokenDFA`): each slot carries a row offset into one
+resident table of DFA rows (-1 = unconstrained) and its DFA state, both
+device vectors. Every tick of a window masks the adjusted logits with
+the row `trans[off + state]` (disallowed tokens get NEG_INF whatever
+the bias says; EOS legality is the last column) and advances the state
+by the sampled token, in place; each final prefill program samples the
+first token under the DFA's state-0 row and sets the slot's state from
+it on the device. The table holds one copy of each distinct TokenDFA:
+an admission places its DFA's rows (first fit, an upload only when the
+table is not already resident) before its prefill is queued, so stream
+order keeps every program in flight on the rows it was queued with.
+When no gap holds a new table, the tables no slot uses are dropped, and
+failing that the buffer is replaced by one of the next power of two of
+rows, which drops the graphs that read the old buffer.
 
 Not ported yet; each raises NotImplementedError: meshes and pipeline
 stages, rolling caches, beam search, preemption, and at `submit`
-constraints, prefill-only requests and QoS tags.
+prefill-only requests and QoS tags.
 """
 
 from __future__ import annotations
@@ -118,6 +134,7 @@ from shellac_tpu_torch.inference.cache import (
     resolve_backend_name,
     scatter_slot,
 )
+from shellac_tpu_torch.inference.constraints import TokenDFA
 from shellac_tpu_torch.inference.graphs import HostPull, StepGraph
 from shellac_tpu_torch.models import transformer
 from shellac_tpu_torch.obs import EngineMetrics, get_registry
@@ -165,6 +182,8 @@ class _Request:
     # [(HostPull of (in-chunk scores, boundary score), chunk length)].
     plp: Optional[List[float]] = None
     plp_pieces: Optional[List[Tuple[HostPull, int]]] = None
+    # A compiled constraints.TokenDFA every sampled token obeys.
+    constraint: Optional[Any] = None
     # Generated tokens so far; grows only, except that a stop-sequence
     # match removes the matched suffix once, at completion.
     out: List[int] = field(default_factory=list)
@@ -199,11 +218,13 @@ def _put(t: torch.Tensor, slot: int, value) -> None:
 
 class _Ctl(NamedTuple):
     """Which per-request controls a program applies: the bias matrix,
-    the penalties over the count matrix, the seeded draw."""
+    the penalties over the count matrix, the seeded draw, the DFA
+    mask and state advance."""
 
     bias: bool = False
     pen: bool = False
     seed: bool = False
+    con: bool = False
 
 
 _NO_CTL = _Ctl()
@@ -439,10 +460,21 @@ class BatchingEngine:
         self._sgen0 = full(0, torch.int64)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(int(seed))
+        # Constrained decoding (the reference's :483-496): each slot's
+        # TokenDFA (host), its row offset into the resident table (-1 =
+        # unconstrained) and its DFA state; the (rows, V + 1) int32
+        # table, allocated at the first constrained request, and the
+        # tables resident in it: id(dfa) -> (dfa, row offset), kept
+        # after their last slot leaves until their rows are needed.
+        self._slot_dfa: List[Optional[Any]] = [None] * n
+        self._coff = full(-1, torch.int64)
+        self._cstate = full(0, torch.int64)
+        self._ctrans: Optional[torch.Tensor] = None
+        self._cres: Dict[int, Tuple[Any, int]] = {}
         # Program runners (a StepGraph on the card): decode windows by
-        # (decode_ticks, greedy_only, bias, penalties, seeds), prefills
-        # by _Program.
-        self._window_graphs: Dict[Tuple[int, bool, bool, bool, bool],
+        # (decode_ticks, greedy_only, bias, penalties, seeds,
+        # constraints), prefills by _Program.
+        self._window_graphs: Dict[Tuple[int, bool, bool, bool, bool, bool],
                                   Any] = {}
         self._prefill_graphs: Dict[_Program, Any] = {}
         # The memory pool every prefill graph shares (the card only).
@@ -551,7 +583,28 @@ class BatchingEngine:
         return _Ctl(bias=bool(req.logit_bias),
                     pen=(req.presence_penalty != 0.0
                          or req.frequency_penalty != 0.0),
-                    seed=req.seed is not None and req.temperature > 0.0)
+                    seed=req.seed is not None and req.temperature > 0.0,
+                    con=req.constraint is not None)
+
+    def _mask_constrained(self, adj, row, con=None):
+        """Mask (B, V) adjusted logits with (B, V + 1) DFA rows: a token
+        the row disallows gets NEG_INF whatever the bias says, and EOS
+        legality comes from the last column (the reference's :799-812).
+        `con` (B,) picks the constrained rows; None means all."""
+        allowed = row[:, :-1] >= 0
+        if self.eos_id is not None:
+            allowed[:, self.eos_id] = row[:, -1] >= 0
+        bad = ~allowed if con is None else con[:, None] & ~allowed
+        return adj.masked_fill(bad, NEG_INF)
+
+    def _dfa_next(self, row, tok):
+        """The DFA states after `tok` (B,) from (B, V + 1) rows; EOS
+        reads the last column, and a disallowed token (-1) gives 0, as
+        the reference clamps it (:826-837)."""
+        col = tok
+        if self.eos_id is not None:
+            col = torch.where(tok == self.eos_id, row.shape[1] - 1, tok)
+        return row.gather(1, col[:, None])[:, 0].to(torch.int64).clamp_min(0)
 
     def _first_token(self, last, slot, max_new, greedy: bool,
                      ctl: _Ctl = _NO_CTL):
@@ -566,6 +619,12 @@ class BatchingEngine:
         min_rem = self._smin.index_select(0, slot)
         bias = self._sbias.index_select(0, slot) if ctl.bias else None
         adj = self._adjust_logits(last, min_rem, bias)
+        if ctl.con:
+            # The DFA's state-0 row, added last (`_sample_first`
+            # :1111): the first token obeys the grammar too.
+            row = self._ctrans.index_select(
+                0, self._coff.index_select(0, slot))
+            adj = self._mask_constrained(adj, row)
         if greedy:
             first = torch.argmax(adj, dim=-1)
         else:
@@ -581,6 +640,10 @@ class BatchingEngine:
                 (slot, first), torch.ones((1,), dtype=torch.float32,
                                           device=first.device),
                 accumulate=True)
+        if ctl.con:
+            # The slot's state past the first token, set here on the
+            # device (the reference sets it at the settle, :1593-1601).
+            self._cstate.index_copy_(0, slot, self._dfa_next(row, first))
         lsm = torch.log_softmax(last.float(), dim=-1)
         parts = [first.double(), torch.gather(lsm, 1, first[:, None])[:, 0]
                  .double()]
@@ -608,10 +671,11 @@ class BatchingEngine:
         additive bias}), `presence_penalty` and `frequency_penalty` (over
         the generated tokens), `seed` (a deterministic stream of its
         own) and `prompt_logprobs` (kept in finished_prompt_logprobs)
-        are validated as the reference's (:1167-1204). `trace` (an
-        obs.RequestTrace) receives the request's lifecycle marks."""
-        _unported(constraint=constraint,
-                  prefill_only=prefill_only, tenant=tenant,
+        are validated as the reference's (:1167-1204). `constraint` (a
+        compiled constraints.TokenDFA over vocab + 1 columns, with the
+        engine's eos_id) masks every sampled token (:1205-1240). `trace`
+        (an obs.RequestTrace) receives the request's lifecycle marks."""
+        _unported(prefill_only=prefill_only, tenant=tenant,
                   qos_class=qos_class, qos_weight=qos_weight)
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if tokens.size == 0:
@@ -680,11 +744,37 @@ class BatchingEngine:
                 )
             # OpenAI clients send 63-bit seeds; fold them to 31 bits.
             seed &= 0x7FFFFFFF
+        if constraint is not None:
+            if not isinstance(constraint, TokenDFA):
+                raise ValueError(
+                    f"request {rid!r}: constraint must be a compiled "
+                    "constraints.TokenDFA (the server compiles specs; "
+                    "library users call compile_token_dfa)"
+                )
+            if constraint.trans.shape[1] != self.cfg.vocab_size + 1:
+                raise ValueError(
+                    f"request {rid!r}: constraint table covers "
+                    f"{constraint.trans.shape[1] - 1} tokens, model "
+                    f"vocab is {self.cfg.vocab_size}"
+                )
+            if self.eos_id is None or constraint.eos_id != self.eos_id:
+                raise ValueError(
+                    f"request {rid!r}: constraint eos_id "
+                    f"{constraint.eos_id} must equal the engine's "
+                    f"eos_id {self.eos_id} (termination and EOS "
+                    "masking must agree)"
+                )
+            if min_tokens > 0:
+                raise ValueError(
+                    f"request {rid!r}: min_tokens does not compose "
+                    "with constraint (the EOS ban can contradict a "
+                    "state where only EOS is legal)"
+                )
         self._queue.append(_Request(
             rid, tokens, max_new, stop=stop, min_tokens=min_tokens,
             logit_bias=logit_bias, presence_penalty=pres,
             frequency_penalty=freq, seed=seed,
-            prompt_logprobs=bool(prompt_logprobs),
+            prompt_logprobs=bool(prompt_logprobs), constraint=constraint,
             t_queued=time.perf_counter(), trace=trace, **samp,
         ))
         if trace is not None:
@@ -700,9 +790,10 @@ class BatchingEngine:
 
     def _release_slot(self, slot: int) -> None:
         """A request left `slot`: the backend releases its storage, the
-        slot's device length returns to 0 and its bias row and counts
-        are cleared (in stream order, behind any program in flight), so
-        a later request on the slot inherits nothing."""
+        slot's device length returns to 0 and its bias row, counts and
+        DFA offset and state are cleared (in stream order, behind any
+        program in flight), so a later request on the slot inherits
+        nothing. Its DFA's table stays resident for a later request."""
         self.cache_backend.release_slot(slot)
         _put(self._cache.lengths, slot, 0)
         self._host_len[slot] = 0
@@ -714,6 +805,10 @@ class BatchingEngine:
             _put(self._sfreq, slot, 0.0)
             self._scounts[slot].zero_()
             self._slot_pen[slot] = False
+        if self._slot_dfa[slot] is not None:
+            self._slot_dfa[slot] = None
+            _put(self._coff, slot, -1)
+            _put(self._cstate, slot, 0)
 
     def _zeros_v(self) -> torch.Tensor:
         return torch.zeros((self.n_slots, self.cfg.vocab_size),
@@ -749,6 +844,78 @@ class BatchingEngine:
             _put(self._sfreq, slot, req.frequency_penalty)
             self._scounts[slot].zero_()
         self._slot_pen[slot] = penalized
+        if req.constraint is not None:
+            # Placed now, before the prefill that reads its state-0 row
+            # is queued (the reference restacks lazily before the next
+            # window, :1387, and masks the first token from a host row).
+            _put(self._coff, slot, self._place_constraint(req.constraint))
+            _put(self._cstate, slot, 0)
+            self._slot_dfa[slot] = req.constraint
+
+    # ---- the constraint table ----------------------------------------
+
+    def _fit_rows(self, rows: int) -> Optional[int]:
+        """The lowest row offset where `rows` rows fit between the
+        resident tables, or None."""
+        if self._ctrans is None:
+            return None
+        at = 0
+        for off, end in sorted((o, o + d.trans.shape[0])
+                               for d, o in self._cres.values()):
+            if off - at >= rows:
+                return at
+            at = max(at, end)
+        return at if self._ctrans.shape[0] - at >= rows else None
+
+    def _place_constraint(self, dfa) -> int:
+        """The row offset of `dfa`'s table in the resident table. A
+        table not resident is uploaded (one pinned copy, in stream
+        order) into the first gap that holds it; without one, the
+        tables no slot uses are dropped, and failing that the table
+        grows."""
+        hit = self._cres.get(id(dfa))
+        if hit is not None:
+            return hit[1]
+        rows = dfa.trans.shape[0]
+        off = self._fit_rows(rows)
+        if off is None:
+            live = {id(d) for d in self._slot_dfa if d is not None}
+            self._cres = {k: v for k, v in self._cres.items() if k in live}
+            off = self._fit_rows(rows)
+        if off is None:
+            self._grow_table(rows)
+            off = self._fit_rows(rows)
+        copy_from_host(self._ctrans[off:off + rows], dfa.trans)
+        self._cres[id(dfa)] = (dfa, off)
+        return off
+
+    def _grow_table(self, rows: int) -> None:
+        """Replace the table by one of the next power of two rows (at
+        least 64) that holds the live tables, packed from row 0 (device
+        copies), and `rows` rows more. The programs in flight
+        land first, and every graph that captured the old table is
+        dropped: a replay reads the storage it captured."""
+        for w in self._windows:
+            w.pull.get()
+        for fl in self._pflights:
+            fl.pull.get()
+        need = rows + sum(d.trans.shape[0] for d, _ in self._cres.values())
+        new = torch.full((_bucket(need, 64), self.cfg.vocab_size + 1), -1,
+                         dtype=torch.int32, device=self.device)
+        moved, at = {}, 0
+        for key, (d, off) in self._cres.items():
+            n = d.trans.shape[0]
+            new[at:at + n].copy_(self._ctrans[off:off + n])
+            moved[key] = (d, at)
+            at += n
+        self._ctrans, self._cres = new, moved
+        copy_from_host(self._coff, [
+            moved[id(d)][1] if d is not None else -1
+            for d in self._slot_dfa])
+        self._window_graphs = {k: g for k, g in self._window_graphs.items()
+                               if not k[5]}
+        self._prefill_graphs = {k: g for k, g in self._prefill_graphs.items()
+                                if not k.ctl.con}
 
     def _add_phase(self, phase: str, seconds: float) -> None:
         self._phase_s[phase] = self._phase_s.get(phase, 0.0) + seconds
@@ -1291,7 +1458,8 @@ class BatchingEngine:
             bias=any(b is not None for b in self._slot_bias),
             pen=any(self._slot_pen),
             seed=not greedy_only and any(
-                r is not None and r.seed is not None for r in self._slots))
+                r is not None and r.seed is not None for r in self._slots),
+            con=any(d is not None for d in self._slot_dfa))
         if ctl.seed:
             # Each slot's generated-token count at the window's start,
             # projected past the windows in flight, so a seeded stream
@@ -1424,15 +1592,22 @@ class BatchingEngine:
         """One tick's exit math over (n_slots, V) raw fp32 logits, in the
         reference's order (:775): the logit bias and EOS ban, the OpenAI
         penalties over the generated-token counts (presence once per
-        seen token, frequency per count), sampling (greedy rows take the
-        argmax; a seeded row draws from its own stream at `gen_idx`),
-        and logprob and top-K extraction from the raw distribution."""
+        seen token, frequency per count), the DFA mask of the
+        constrained rows, sampling (greedy rows take the argmax; a
+        seeded row draws from its own stream at `gen_idx`), the DFA
+        state advance of the active constrained rows (in place), and
+        logprob and top-K extraction from the raw distribution."""
         adj = self._adjust_logits(logits, min_rem,
                                   self._sbias if ctl.bias else None)
         if ctl.pen:
             counts = self._scounts
             adj = adj - (self._spres[:, None] * (counts > 0.0)
                          + self._sfreq[:, None] * counts)
+        if ctl.con:
+            con = self._coff >= 0
+            row = self._ctrans.index_select(
+                0, self._coff.clamp_min(0) + self._cstate)
+            adj = self._mask_constrained(adj, row, con)
         if greedy_only:
             nxt = torch.argmax(adj, dim=-1)
         else:
@@ -1441,6 +1616,10 @@ class BatchingEngine:
                 self._sminp, seed=self._sseed if ctl.seed else None,
                 gen_idx=gen_idx)
         nxt = torch.where(act, nxt, cur)
+        if ctl.con:
+            self._cstate.copy_(torch.where(con & act,
+                                           self._dfa_next(row, nxt),
+                                           self._cstate))
         min_rem = torch.where(act, (min_rem - 1).clamp_min(0), min_rem)
         n = nxt.shape[0]
         lp = torch.zeros((n,), dtype=torch.float32, device=self.device)
@@ -1591,6 +1770,7 @@ class BatchingEngine:
         self._window_graphs = {}
         self._prefill_graphs = {}
         self._pf_in = self._pf_mini = self._pf_zero = None
+        self._ctrans, self._cres = None, {}
         self._cache = None
 
     def run(self, requests=None) -> Dict[Any, List[int]]:

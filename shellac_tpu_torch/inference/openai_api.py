@@ -18,13 +18,14 @@ The port's own copy of `shellac_tpu/inference/openai_api.py`
 :201, `chat_to_native` :279, `completion_response` :379,
 `StreamTranslator` :458), kept as a copy because the port imports
 nothing of the JAX package. Tool calling (`tools`, `tool_choice`,
-`parallel_tool_calls`, assistant turns carrying `tool_calls`) and
-constrained output (`response_format` json_object / json_schema) are not
-ported yet: they raise NotImplementedError, which the server answers
-with 501. A knob that translates here but that the port's engine does
-not have yet (num_beams) is refused by the server the same way; the
-sampling controls (logit_bias, the penalties, seed) and echo with
-logprobs (:162-172) reach the engine.
+`parallel_tool_calls`, assistant turns carrying `tool_calls`, :202-302,
+:409-417, and their streamed deltas) and constrained output
+(`response_format` json_object / json_schema, :115-130) translate as in
+the reference, through the port's `inference/tools.py`. A knob that
+translates here but that the port's engine does not have yet
+(num_beams) is refused by the server with 501; the sampling controls
+(logit_bias, the penalties, seed) and echo with logprobs (:162-172)
+reach the engine.
 """
 
 from __future__ import annotations
@@ -32,6 +33,12 @@ from __future__ import annotations
 import time
 import uuid
 from typing import Any, Dict, List, Optional
+
+from shellac_tpu_torch.inference.tools import (
+    parse_payload_tools,
+    render_tool_calls,
+    tools_prompt_block,
+)
 
 
 def _bad(msg: str):
@@ -128,11 +135,18 @@ def _common_sampling(payload: dict, native: dict):
     rf = payload.get("response_format")
     if rf is not None:
         t = rf.get("type") if isinstance(rf, dict) else None
-        if t in ("json_object", "json_schema"):
-            raise NotImplementedError(
-                f"response_format type {t!r} (constrained output) is not "
-                "ported yet")
-        if t not in (None, "text"):
+        if t == "json_object":
+            native["constraint"] = {"json_object": True}
+        elif t == "json_schema":
+            js = (rf.get("json_schema") or {})
+            schema = js.get("schema") if isinstance(js, dict) else None
+            if schema is None:
+                _bad(
+                    'response_format.json_schema needs a "json_schema": '
+                    '{"schema": {...}} block'
+                )
+            native["constraint"] = {"json_schema": schema}
+        elif t not in (None, "text"):
             _bad(f"response_format type {t!r} not supported "
                  "(text, json_object, json_schema)")
     if payload.get("stream"):
@@ -204,12 +218,17 @@ def completion_to_native(payload: dict, tokenizer) -> dict:
 _FALLBACK_TEMPLATE_ROLES = ("system", "user", "assistant", "tool")
 
 
-def render_chat(messages: List[dict], tokenizer) -> str:
+def render_chat(messages: List[dict], tokenizer,
+                tools: Optional[List[dict]] = None) -> str:
     """Messages -> prompt text, via the tokenizer's chat template when
-    it has one (HF tokenizers), else a plain fallback format. `tool`
-    turns carry their `tool_call_id` inline; assistant turns carrying
-    `tool_calls` raise NotImplementedError (tool calling is not ported
-    yet)."""
+    it has one (HF tokenizers), else a plain fallback format.
+
+    Tool-aware: `tools` (validated function specs) render as a leading
+    system turn stating the wire contract (the sentinel + calls-array
+    surface the tool grammar enforces). History messages compose the
+    other direction: an assistant turn carrying `tool_calls` renders
+    back into the exact surface the model emits, and `tool` turns carry
+    their `tool_call_id` inline."""
     if not messages:
         _bad('"messages" must be non-empty')
     def content_text(m):
@@ -239,9 +258,15 @@ def render_chat(messages: List[dict], tokenizer) -> str:
         if role not in _FALLBACK_TEMPLATE_ROLES:
             _bad(f"unknown role {role!r}")
         if role == "assistant" and m.get("tool_calls"):
-            raise NotImplementedError(
-                "assistant turns with tool_calls (tool calling) are not "
-                "ported yet")
+            # Multi-turn agentic history: the model sees its own past
+            # calls in the format it produces (content, when present,
+            # precedes them).
+            text = content_text(m) if m.get("content") is not None else ""
+            calls = render_tool_calls(m["tool_calls"])
+            norm.append({"role": role,
+                         "content": (text + "\n" + calls) if text
+                         else calls})
+            continue
         if m.get("content") is None:
             _bad('each message needs "role" and "content" (content may '
                  'be omitted only on assistant turns with tool_calls)')
@@ -249,6 +274,9 @@ def render_chat(messages: List[dict], tokenizer) -> str:
         if role == "tool" and m.get("tool_call_id"):
             text = f"[{m['tool_call_id']}] {text}"
         norm.append({"role": role, "content": text})
+    if tools:
+        norm.insert(0, {"role": "system",
+                        "content": tools_prompt_block(tools)})
     hf_tok = getattr(tokenizer, "_tok", None)
     if hf_tok is not None and getattr(hf_tok, "chat_template", None):
         try:
@@ -268,13 +296,23 @@ def chat_to_native(payload: dict, tokenizer) -> dict:
     _check_unsupported(payload)
     if tokenizer is None:
         _bad("chat completions need a server-side tokenizer")
-    for key in ("tools", "tool_choice", "parallel_tool_calls"):
-        if payload.get(key) is not None:
-            raise NotImplementedError(
-                f"{key} (tool calling) is not ported yet")
+    # Tool calling: validate the OpenAI shapes here (clean 400s),
+    # render the tool definitions into the prompt, and forward the keys
+    # verbatim; the server compiles the grammar through its DFA cache
+    # and parses the constrained output back into tool_calls.
+    tool_ctx = parse_payload_tools(payload)
     native: Dict[str, Any] = {
-        "text": render_chat(payload.get("messages"), tokenizer)
+        "text": render_chat(
+            payload.get("messages"), tokenizer,
+            tools=tool_ctx.functions if tool_ctx is not None else None,
+        )
     }
+    if tool_ctx is not None:
+        native["tools"] = payload["tools"]
+        if payload.get("tool_choice") is not None:
+            native["tool_choice"] = payload["tool_choice"]
+        if payload.get("parallel_tool_calls") is not None:
+            native["parallel_tool_calls"] = payload["parallel_tool_calls"]
     if payload.get("logprobs"):
         native["logprobs"] = True
     tl = payload.get("top_logprobs")
@@ -377,7 +415,20 @@ def completion_response(
             "finish_reason": _finish_reason(toks, max_new),
         }
         if chat:
-            entry["message"] = {"role": "assistant", "content": text}
+            if c.get("tool_calls") is not None:
+                # The DFA-constrained tool branch parsed back into calls:
+                # a null-content assistant message and finish_reason
+                # "tool_calls" (the parse only succeeds on a complete
+                # calls array).
+                entry["message"] = {"role": "assistant", "content": None,
+                                    "tool_calls": c["tool_calls"]}
+                entry["finish_reason"] = "tool_calls"
+            else:
+                # Tool-enabled requests carry the decided free text in
+                # "content" (a truncated tool branch falls back here
+                # rather than fabricating a call).
+                entry["message"] = {"role": "assistant",
+                                    "content": c.get("content", text)}
         else:
             entry["text"] = (prompt_text + text) if echo else text
         if c.get("logprobs") is not None:
@@ -417,13 +468,21 @@ class StreamTranslator:
 
     Text deltas come from cumulative decode (decode(all) minus what was
     already emitted) so multi-token characters never split mid-byte.
-    Tool-call streams are not ported yet.
+
+    tool_mode (chat with tools, tool_choice != "none"): the native
+    records' `tool_stream` field, produced by the server's one
+    incremental scanner, replaces the raw-text delta path: decided free
+    text arrives as `delta.content`, call fragments as OpenAI
+    `delta.tool_calls` items, and a final record carrying the complete
+    `tool_calls` finishes with `finish_reason: "tool_calls"`.
     """
 
-    def __init__(self, *, model: str, tokenizer, chat: bool):
+    def __init__(self, *, model: str, tokenizer, chat: bool,
+                 tool_mode: bool = False):
         self.model = model
         self.tokenizer = tokenizer
         self.chat = chat
+        self.tool_mode = tool_mode
         self.id = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
         self.created = int(time.time())
         self._tokens: List[int] = []
@@ -452,8 +511,56 @@ class StreamTranslator:
             "choices": [choice],
         }
 
+    def _tool_chunk(self, tool_stream: Optional[dict],
+                    finish: Optional[str] = None):
+        delta: Dict[str, Any] = {}
+        if self.first and finish is None:
+            delta["role"] = "assistant"
+        if tool_stream:
+            if tool_stream.get("content"):
+                delta["content"] = tool_stream["content"]
+            if tool_stream.get("tool_calls"):
+                delta["tool_calls"] = tool_stream["tool_calls"]
+        choice = {"index": 0, "delta": delta, "finish_reason": finish}
+        self.first = False
+        return {
+            "id": self.id,
+            "object": "chat.completion.chunk",
+            "created": self.created,
+            "model": self.model,
+            "choices": [choice],
+        }
+
+    def _feed_tools(self, record: dict, max_new: int):
+        out = []
+        ts = record.get("tool_stream")
+        if ts:
+            out.append(self._tool_chunk(ts))
+        if not record.get("done"):
+            return out
+        self._tokens = list(record["tokens"])
+        finish = self._tool_chunk(
+            None,
+            ("tool_calls" if record.get("tool_calls") is not None
+             else _finish_reason(self._tokens, max_new)),
+        )
+        if record.get("logprobs") is not None:
+            tlp = record.get("top_logprobs")
+            lp = _lp_block(self._tokens, record["logprobs"],
+                           self.tokenizer, tlp=tlp)
+            finish["choices"][0]["logprobs"] = {
+                "content": _chat_content(
+                    lp["tokens"], lp["token_logprobs"], tlp,
+                    self.tokenizer,
+                )
+            }
+        out.append(finish)
+        return out
+
     def feed(self, record: dict, max_new: int):
         """Native stream record -> list of SSE chunk objects."""
+        if self.tool_mode:
+            return self._feed_tools(record, max_new)
         if record.get("done"):
             # The engine's final record carries the authoritative token
             # list (stop-sequence holdback may have trimmed the tail).

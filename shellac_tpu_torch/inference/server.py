@@ -41,6 +41,19 @@ API (as the reference): GET /v1/models, /health, /stats, /metrics,
 in the reference (:2165-2189); prompt logprobs come back as
 `prompt_logprobs`, position 0 null (`_render_plp` :127).
 
+Constrained output and tool calling work as in the reference: the
+native `constraint` ({"regex"}, {"json_schema"} or {"json_object"}),
+the OpenAI `response_format` (json_object, json_schema) and `tools` /
+`tool_choice` / `parallel_tool_calls` compile to a token DFA on the
+handler thread (`_compile_constraint` :2198, an LRU of 32 per pattern,
+feeding `shellac_constraint_compile_seconds` and
+`shellac_constraint_cache_total`), which the engine enforces inside its
+programs. A tool-enabled request's output is parsed back into
+`tool_calls` (`_format_completion` :2947; streamed through one
+`ToolCallStreamParser`, :3044-3098) and counted in
+`shellac_tool_requests_total`. Compiling needs a server-side tokenizer
+and the engine's `eos_id`.
+
 Not ported yet; configuring any of these raises NotImplementedError, and
 an HTTP request for one gets a 501 whose body says so: beam search
 (`num_beams`), the KV import / seed / push / migrate / adopt / park /
@@ -49,8 +62,7 @@ and parking (`preempt_after`, `park_dir`), QoS tenants
 (`tenant_config`; the x-shellac-tenant header still labels the request
 counters, as it does in the reference without a tenant config),
 `profile_dir` and /debug/profile, `incident_dir` and
-/debug/incident(s), `spool_dir`, constraints, tools and response_format,
-and a `role` other than "monolith".
+/debug/incident(s), `spool_dir`, and a `role` other than "monolith".
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ import queue
 import random
 import threading
 import time
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -69,12 +82,23 @@ import numpy as np
 
 from shellac_tpu_torch.config import ModelConfig
 from shellac_tpu_torch.inference.batching import BatchingEngine, _unported
+from shellac_tpu_torch.inference.constraints import (
+    compile_token_dfa,
+    constraint_pattern,
+)
 from shellac_tpu_torch.inference.openai_api import (
     StreamTranslator,
     chat_to_native,
     completion_response,
     completion_to_native,
     stream_error_payload,
+)
+from shellac_tpu_torch.inference.tools import (
+    ToolCallStreamParser,
+    events_to_stream,
+    parse_payload_tools,
+    parse_tool_calls,
+    safe_stream_text,
 )
 from shellac_tpu_torch.obs import (
     REQUEST_ID_HEADER,
@@ -263,6 +287,8 @@ class InferenceServer:
         self.model_name = model_name
         self.tokenizer = tokenizer
         self._pending: Dict[int, _Pending] = {}
+        # Compiled constraints by pattern, least recently used first.
+        self._constraint_cache: "OrderedDict[str, Any]" = OrderedDict()
         self._ids = itertools.count()
         # Serializes admission against the supervisor's generation swap
         # and pending sweep. Never held across an engine step.
@@ -960,10 +986,6 @@ class InferenceServer:
             ("park", "KV parking"),
             ("adopt", "KV adoption"),
             ("resume", "park-spool resume"),
-            ("constraint", "constrained decoding"),
-            ("tools", "tool calling"),
-            ("tool_choice", "tool calling"),
-            ("response_format", "constrained output"),
         ):
             v = payload.get(key)
             if v is not None and v is not False:
@@ -971,6 +993,7 @@ class InferenceServer:
                     f"{key} ({what}) is not ported yet")
 
     def _parse(self, payload: dict):
+        self._refuse_compositions(payload, self._tool_context(payload))
         self._refuse_unported(payload)
         if "tokens" in payload:
             tokens = np.asarray(payload["tokens"], np.int32)
@@ -1026,9 +1049,106 @@ class InferenceServer:
                         "logit_bias must be a {token id: bias} object"
                     )
                 samp["logit_bias"] = lb  # entries validated by submit
+            if payload.get("constraint") is not None:
+                samp["constraint"] = self._compile_constraint(
+                    payload["constraint"]
+                )
         except (TypeError, ValueError) as e:
             raise ValueError(f"bad sampling parameters: {e}")
         return tokens, max_new, stop, samp
+
+    def _compile_constraint(self, spec):
+        """Compile a constraint spec ({"regex"|"json_schema"|
+        "json_object"}) to a TokenDFA over this server's tokenizer, on
+        the handler thread, cached per pattern (an LRU of 32): the
+        compile walks the whole vocab, so a repeated schema pays it
+        once."""
+        if self.tokenizer is None:
+            raise ValueError(
+                "constrained decoding needs a server-side tokenizer "
+                "(the grammar compiles against token strings)"
+            )
+        eos_id = getattr(self.engine, "eos_id", None)
+        if eos_id is None:
+            raise ValueError(
+                "constrained decoding needs the engine's eos_id (serve "
+                "--eos-id or a tokenizer that defines one)"
+            )
+        pattern = constraint_pattern(spec)
+        with self._lock:
+            cached = self._constraint_cache.get(pattern)
+            if cached is not None:
+                self._constraint_cache.move_to_end(pattern)
+        if cached is None:
+            self._m.constraint_cache.labels(result="miss").inc()
+            t0 = time.monotonic()
+            cached = compile_token_dfa(
+                pattern, self.tokenizer, self.engine.cfg.vocab_size, eos_id,
+            )
+            self._m.constraint_compile.observe(time.monotonic() - t0)
+            with self._lock:
+                self._constraint_cache[pattern] = cached
+                while len(self._constraint_cache) > 32:
+                    self._constraint_cache.popitem(last=False)
+        else:
+            self._m.constraint_cache.labels(result="hit").inc()
+        return cached
+
+    def _tool_context(self, payload: dict):
+        """Validate `tools`/`tool_choice` on a native payload and return
+        the ToolContext (None when the request declares no tools). The
+        native surface takes the OpenAI tool shapes verbatim but does not
+        render tools into the prompt: a native caller owns its prompt."""
+        ctx = parse_payload_tools(payload)
+        if ctx is None:
+            return None
+        if self.tokenizer is None:
+            raise ValueError(
+                "tools need a server-side tokenizer (the tool grammar "
+                "compiles against token strings)"
+            )
+        if payload.get("constraint") is not None:
+            raise ValueError(
+                "tools do not compose with an explicit constraint "
+                "(the tool grammar IS the request's constraint)"
+            )
+        return ctx
+
+    def _tool_constraint(self, samp: dict, tool_ctx) -> None:
+        if tool_ctx is not None and tool_ctx.pattern is not None:
+            samp["constraint"] = self._compile_constraint(
+                {"regex": tool_ctx.pattern}
+            )
+
+    def _tool_outcome(self, text: str, calls) -> None:
+        # The grammar's free-text branch can never start with '<'
+        # (entering the sentinel commits to the tool branch), so any
+        # unparsed '<'-prefixed output is a truncated call.
+        outcome = ("call" if calls is not None
+                   else "truncated" if text.startswith("<")
+                   else "text")
+        self._m.tool_requests.labels(outcome=outcome).inc()
+
+    def _refuse_compositions(self, payload: dict, tool_ctx) -> None:
+        """The reference's 400s for options that do not compose with
+        tools or a constraint, ahead of the 501 for the unported option
+        itself (:2843-2866, :2702)."""
+        if payload.get("prefill_only"):
+            if tool_ctx is not None:
+                raise ValueError(
+                    "tools do not compose with prefill_only (tool "
+                    "grammar state does not migrate)"
+                )
+            if payload.get("constraint") is not None:
+                raise ValueError(
+                    "constraint does not compose with prefill_only (the "
+                    "compiled DFA table does not migrate)"
+                )
+        if payload.get("num_beams") is not None and tool_ctx is not None:
+            raise ValueError(
+                "tools do not compose with num_beams (a beam is a "
+                "ranked whole sequence, not an assistant turn)"
+            )
 
     def _check_logprobs(self, payload) -> bool:
         want = bool(payload.get("logprobs"))
@@ -1076,7 +1196,9 @@ class InferenceServer:
         # One trace id for the whole request, fan-out included.
         if trace_ctx is None:
             trace_ctx = (new_trace_id(), 0)
+        tool_ctx = self._tool_context(payload)
         tokens, max_new, stop, samp = self._parse(payload)
+        self._tool_constraint(samp, tool_ctx)
         want_lps = self._check_logprobs(payload)
         tlk = self._check_top_logprobs(payload, want_lps)
         n, best_of = self._parse_n(payload, samp)
@@ -1087,7 +1209,8 @@ class InferenceServer:
                 **samp,
             )
             result = self._format_completion(out, lps, want_lps, plp=plp,
-                                             tlp=tlp, tlk=tlk)
+                                             tlp=tlp, tlk=tlk,
+                                             tool_ctx=tool_ctx)
             result["trace_id"] = trace_ctx[0]
             return result
         # Parallel sampling: best_of independent completions share the
@@ -1128,7 +1251,8 @@ class InferenceServer:
 
             choices.sort(key=score, reverse=True)
         result: Dict[str, Any] = {"choices": [
-            self._format_completion(out, lps, want_lps, tlp=tlp, tlk=tlk)
+            self._format_completion(out, lps, want_lps, tlp=tlp, tlk=tlk,
+                                    tool_ctx=tool_ctx)
             for out, lps, tlp in choices[:n]
         ]}
         if plp is not None:
@@ -1137,7 +1261,7 @@ class InferenceServer:
         return result
 
     def _format_completion(self, out, lps, want_lps, plp=None, tlp=None,
-                           tlk=0) -> Dict[str, Any]:
+                           tlk=0, tool_ctx=None) -> Dict[str, Any]:
         result: Dict[str, Any] = {"tokens": out}
         if want_lps:
             result["logprobs"] = lps
@@ -1147,6 +1271,16 @@ class InferenceServer:
             result["prompt_logprobs"] = _render_plp(plp)
         if self.tokenizer is not None:
             result["text"] = self.tokenizer.decode(out)
+            if tool_ctx is not None and tool_ctx.pattern is not None:
+                content, calls = parse_tool_calls(result["text"],
+                                                  tool_ctx.mode)
+                self._tool_outcome(result["text"], calls)
+                if calls is not None:
+                    result["tool_calls"] = calls
+                else:
+                    # Free text (auto) or a length-truncated call: the
+                    # content, never a fabricated call.
+                    result["content"] = content
         return result
 
     def _parse_n(self, payload: dict, samp: dict):
@@ -1189,15 +1323,25 @@ class InferenceServer:
         """Yield response dicts for a streaming request: delta lines
         {"tokens": [...]}, then {"done": true, "tokens", "text"?,
         "logprobs"?}; every record carries the request's trace_id. Parse
-        errors raise before the first yield (a clean 400 or 501)."""
+        errors raise before the first yield (a clean 400 or 501). A
+        tool-enabled stream's records also carry `tool_stream`, the
+        incremental OpenAI tool_calls deltas or decided free text of one
+        ToolCallStreamParser, and its final record the parsed
+        `tool_calls` (:3044-3098)."""
         if trace_ctx is None:
             trace_ctx = (new_trace_id(), 0)
+        tool_ctx = self._tool_context(payload)
         tokens, max_new, stop, samp = self._parse(payload)
+        self._tool_constraint(samp, tool_ctx)
         want_lps = self._check_logprobs(payload)
         tlk = self._check_top_logprobs(payload, want_lps)
         n, best_of = self._parse_n(payload, samp)
         if n != 1 or best_of != 1:
             raise ValueError("streaming does not support n/best_of > 1")
+        scanner = None
+        streamed: list = []
+        if tool_ctx is not None and tool_ctx.pattern is not None:
+            scanner = ToolCallStreamParser(tool_ctx.mode)
         stream = self.generate_stream(
             tokens, max_new, timeout=payload.get("timeout"), stop=stop,
             return_logprobs=True, trace_ctx=trace_ctx, tenant=tenant,
@@ -1206,7 +1350,15 @@ class InferenceServer:
         tid = trace_ctx[0]
         for kind, val in stream:
             if kind == "delta":
-                yield {"tokens": val, "trace_id": tid}
+                rec: Dict[str, Any] = {"tokens": val, "trace_id": tid}
+                if scanner is not None:
+                    streamed.extend(val)
+                    ts = events_to_stream(scanner.feed(safe_stream_text(
+                        self.tokenizer.decode(streamed)
+                    )))
+                    if ts is not None:
+                        rec["tool_stream"] = ts
+                yield rec
             else:
                 out, lps, plp, tlp = val
                 final: Dict[str, Any] = {"done": True, "tokens": out,
@@ -1219,6 +1371,17 @@ class InferenceServer:
                     final["prompt_logprobs"] = _render_plp(plp)
                 if self.tokenizer is not None:
                     final["text"] = self.tokenizer.decode(out)
+                    if scanner is not None:
+                        # The final (stop-trimmed) text settles the scan:
+                        # tail events ride the final record with the
+                        # complete parsed call list.
+                        ts = events_to_stream(scanner.feed(final["text"]))
+                        if ts is not None:
+                            final["tool_stream"] = ts
+                        calls = scanner.result()
+                        self._tool_outcome(final["text"], calls)
+                        if calls is not None:
+                            final["tool_calls"] = calls
                 yield final
 
     # ---- OpenAI-compatible facade -----------------------------------
@@ -1276,8 +1439,13 @@ class InferenceServer:
             )
         native.pop("prompt_logprobs", None)
         max_new = int(native.get("max_new", 32))
-        translator = StreamTranslator(model=self.model_name,
-                                      tokenizer=self.tokenizer, chat=chat)
+        translator = StreamTranslator(
+            model=self.model_name, tokenizer=self.tokenizer, chat=chat,
+            # Tool-enabled chat streams translate the server's
+            # tool_stream scan, not the raw token text.
+            tool_mode=bool(native.get("tools"))
+            and native.get("tool_choice") != "none",
+        )
         for record in self.handle_stream(native, trace_ctx=trace_ctx,
                                          tenant=tenant):
             for chunk in translator.feed(record, max_new):

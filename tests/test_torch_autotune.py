@@ -206,7 +206,7 @@ def test_timed_drain_replays_steady_windows(pair, paged):
 
     def timer():
         runner = eng._window_graphs.get(
-            (eng.decode_ticks, True, False, False, False))
+            (eng.decode_ticks, True, False, False, False, False))
         seen.append(dict(
             k=eng.decode_ticks, runner=runner,
             calls=runner.calls if runner is not None else 0,

@@ -516,9 +516,12 @@ _ENGINE_OPTS = [
     {"kv_quant": "int8", "rolling_window": True}, {"rolling_window": True},
 ]
 _SUBMIT_OPTS = [
-    {"constraint": object()}, {"prefill_only": True},
+    {"prefill_only": True},
     {"tenant": "a"}, {"qos_class": 0}, {"qos_weight": 2.0},
 ]
+# Ported since constrained decoding landed: a constraint that is not a
+# compiled TokenDFA is a bad request, as in the reference.
+_BAD_PORTED_SUBMIT_OPTS = [{"constraint": object()}]
 # Ported since the prefix cache and sampling controls landed.
 _PORTED_SUBMIT_OPTS = [
     {"logit_bias": {1: 2.0}}, {"presence_penalty": 0.5},
@@ -537,6 +540,9 @@ def test_unported_options_raise(paged):
     eng = cls(cfg, params, n_slots=2, max_len=32, device=CPU)
     for kw in _SUBMIT_OPTS:
         with pytest.raises(NotImplementedError):
+            eng.submit("x", [1, 2, 3], 4, **kw)
+    for kw in _BAD_PORTED_SUBMIT_OPTS:
+        with pytest.raises(ValueError, match="TokenDFA"):
             eng.submit("x", [1, 2, 3], 4, **kw)
     for fn in (eng.beam_search, lambda: eng.preempt("x"),
                lambda: eng.release_frozen("x")):

@@ -23,7 +23,11 @@ shape captures nothing); the continuation programs (chunked prefill, and
 the prefix cache's suffix prefills over the pools) and the windows with
 logit bias, penalties and seeds give their eager programs' tokens and
 launch counts; a seeded request's replayed windows draw per position and
-the same numbers for the same (seed, position) in any slot.
+the same numbers for the same (seed, position) in any slot. Constrained
+windows and first tokens through their graphs give the eager programs'
+tokens, logprobs and launch counts, across a growth of the resident DFA
+table while a window is in flight (the graphs of the old table dropped
+and captured anew), and every output walks its DFA.
 """
 
 import numpy as np
@@ -532,8 +536,8 @@ def test_control_windows_match_eager(backend):
         counts[name], engines[name] = _counts(), eng
     assert out["graph"] == out["eager"]
     assert counts["graph"] == counts["eager"]
-    # (ticks, greedy_only, bias, penalties, seeds): variants with each
-    # control were captured.
+    # (ticks, greedy_only, bias, penalties, seeds, constraints): variants
+    # with each control were captured.
     keys = [k for k, r in engines["graph"]._window_graphs.items()
             if r.graph is not None]
     assert any(k[2] for k in keys) and any(k[3] for k in keys)
@@ -565,3 +569,80 @@ def test_seeded_graphs_draw_per_position():
                                          device=dev, **_engine_kw("paged"))
     other.submit("s", np.arange(1, 9), 24, seed=78)
     assert other.run()["s"] != toks
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("overlap", [False, True])
+def test_constrained_graphs_match_eager_across_a_restack(backend, overlap):
+    """A 60-letter grammar (61 rows, live for 61 tokens) and a schema
+    placed first grow the resident table to 128 rows; a third grammar
+    admitted while the first decodes grows it to 256 (with a window in
+    flight under the pipelines), which drops the constrained graphs of
+    the old table. The graph engine's tokens, logprobs and launch counts
+    equal the eager engine's, and every output walks its DFA."""
+    from shellac_tpu_torch.inference.constraints import (
+        compile_token_dfa,
+        constraint_pattern,
+    )
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    dev = _card()
+    cfg, params = _model(dev)
+    tok, eos = ByteTokenizer(), ByteTokenizer.EOS
+    dfas = [compile_token_dfa(p, tok, cfg.vocab_size, eos) for p in (
+        "[a-z]{60}",
+        constraint_pattern({"json_schema": {
+            "type": "object", "properties": {
+                "k": {"enum": ["a", "bb", "ccc"]}, "ok": {"type": "boolean"}},
+            "required": ["k", "ok"]}}),
+        constraint_pattern({"json_schema": {
+            "type": "object", "properties": {
+                "a": {"type": "string", "format": "date-time"},
+                "b": {"type": "string", "format": "uuid"}},
+            "required": ["a", "b"]}}))]
+    assert dfas[0].n_states + dfas[1].n_states <= 128
+    assert dfas[0].n_states + dfas[2].n_states > 128
+    rng = np.random.default_rng(13)
+    plan = [(0, 64), (1, 40), (None, 4), (None, 6), (2, 60), (None, 5)]
+    prompts = [rng.integers(0, cfg.vocab_size, 40 + 9 * i)
+               for i in range(len(plan))]
+    cls = _batching_cls(backend)
+    kw = dict(_engine_kw(backend), decode_ticks=2, logprobs=True, eos_id=eos)
+    if overlap:
+        kw.update(overlap_decode=True, overlap_prefill=True,
+                  max_prefills_per_step=1)
+    out, counts, engines, grown = {}, {}, {}, {}
+    for name, c in (("eager", _eager(cls)), ("graph", cls)):
+        eng = c(cfg, params, device=dev, **kw)
+        grown[name] = []
+        grow = eng._grow_table
+
+        def counting(rows, grow=grow, log=grown[name], eng=eng):
+            log.append(bool(eng._windows))
+            grow(rows)
+
+        eng._grow_table = counting
+        _reset()
+        for i, ((d, m), p) in enumerate(zip(plan, prompts)):
+            eng.submit(f"c{i}", p, m,
+                       **({"constraint": dfas[d]} if d is not None else {}))
+        out[name] = eng.run()
+        torch.cuda.synchronize()
+        counts[name], engines[name] = _counts(), eng
+    g, e = engines["graph"], engines["eager"]
+    assert out["graph"] == out["eager"]
+    assert g.finished_logprobs == e.finished_logprobs
+    assert counts["graph"] == counts["eager"]
+    assert grown["graph"] == grown["eager"] and len(grown["graph"]) == 3
+    assert g._ctrans.shape[0] == 256
+    if overlap:
+        assert grown["graph"][-1]
+    assert any(k[5] and r.graph is not None
+               for k, r in g._window_graphs.items())
+    for i, (d, _) in enumerate(plan):
+        if d is None:
+            continue
+        st = 0
+        for t in out["graph"][f"c{i}"]:
+            st = int(dfas[d].trans[st, -1 if t == eos else t])
+            assert st >= 0

@@ -699,17 +699,6 @@ _UNPORTED_HTTP = {
                                    "migrate_to": "http://x"}),
     "adopt": ("/generate", {"adopt": "00-abc"}),
     "resume": ("/generate", {"resume": "park-1"}),
-    "constraint": ("/generate", {"tokens": [1], "constraint": {"regex": "a"}}),
-    "tools": ("/v1/chat/completions",
-              {"messages": [{"role": "user", "content": "x"}],
-               "tools": [{"type": "function",
-                          "function": {"name": "f", "parameters": {}}}]}),
-    "response_format": ("/v1/chat/completions",
-                        {"messages": [{"role": "user", "content": "x"}],
-                         "response_format": {"type": "json_object"}}),
-    "sse_response_format": ("/v1/completions",
-                            {"prompt": "a", "stream": True,
-                             "response_format": {"type": "json_object"}}),
     "kv_import": ("/kv/import", {}),
     "profile": ("/debug/profile?seconds=1", {}),
     "incident": ("/debug/incident", {}),
@@ -725,6 +714,35 @@ def test_unported_requests_answer_501(pair, case):
     msg = err["message"] if isinstance(err, dict) else err
     assert "not ported yet" in msg
     assert headers.get("x-request-id")
+
+
+# Ported since constrained decoding and tool calling landed: each answers
+# as the JAX server does. This pair's engines have no eos_id, which a
+# constraint needs, so both answer 400 with the same message (the 200
+# answers over an engine with an eos_id are in test_torch_tools.py).
+_PORTED_HTTP = {
+    "constraint": ("/generate", {"tokens": [1], "constraint": {"regex": "a"}}),
+    "tools": ("/v1/chat/completions",
+              {"messages": [{"role": "user", "content": "x"}],
+               "tools": [{"type": "function",
+                          "function": {"name": "f", "parameters": {}}}]}),
+    "response_format": ("/v1/chat/completions",
+                        {"messages": [{"role": "user", "content": "x"}],
+                         "response_format": {"type": "json_object"}}),
+    "sse_response_format": ("/v1/completions",
+                            {"prompt": "a", "stream": True,
+                             "response_format": {"type": "json_object"}}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PORTED_HTTP))
+def test_formerly_unported_requests_answer_as_the_reference(pair, case):
+    path, payload = _PORTED_HTTP[case]
+    want = _request(pair["jax"], path, payload)
+    got = _request(pair["port"], path, payload)
+    assert got[0] == want[0] == 400, (got, want)
+    assert json.loads(got[2]) == json.loads(want[2])
+    assert got[1].get("x-request-id")
 
 
 def _adjusted_upto(pair, prompt, out, bias=None, pres=0.0, freq=0.0):

@@ -103,6 +103,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 both at the split-K body's edges (kernel 6 as kernel 5's
                 above, its scales NaN past each slot's length and before
                 its window);
+                kernels-beam: kernels 5 and 6 over a beam cache (K 4 and
+                16, 1024 positions, two rows equal as after a reorder),
+                kernel 7 in bf16 and int8 over copy-on-write tables (rows
+                sharing the prompt's sealed blocks, one row sharing
+                another's generated blocks, a frozen row's table all
+                block 0, lengths on both sides of a block boundary; rows
+                no beam attends NaN), in bf16 and fp32;
                 generate-int8: Engine(kv_quant="int8").generate on generate's
                 prompts (the first token of every row must equal bf16
                 generate's, since the prefill is exact; exact launch counts;
@@ -129,7 +136,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 constrained pass (three grammars and free requests
                 sharing the slots; the largest table admitted last, so it
                 grows the resident table while windows are in flight)
-                bit-equal to its eager twin with equal launch counts.
+                bit-equal to its eager twin with equal launch counts;
+                per cache, a beam pass (constrained and not, K 1 and 4)
+                whose graphs give the eager programs' beams and scores bit
+                for bit, and their launches plus the prefill's warm-up.
  11. http-serve — serve's 48 requests over HTTP: InferenceServer over the
                 serve phase's PagedBatchingEngine configuration (shellac-1b,
                 16 slots, max_len 2048, 16-token blocks, one tick a window,
@@ -195,6 +205,34 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 response_format json_schema, streamed and not, whose
                 tool_calls arguments and content parse and obey their
                 schemas, and /metrics' constraint cache hits and misses.
+ 11e. beam    — beam search at full width (shellac-1b): one 512-token
+                prompt, K 4, 64 new tokens, length penalty 1, through each
+                cache's serving engine (BatchingEngine's single-request
+                delegate over dense and dense-int8, PagedBatchingEngine's
+                copy-on-write search over paged and paged-int8), and on
+                paged also K 16 and a prefix hit (a cached 496-token prefix
+                attached read-only): per pass the wall ms of a search, the
+                ms a step between CUDA events (a whole search less a
+                one-step search, over 63), the device ms of a step (its
+                graph replayed 20 times back to back), on dense and paged
+                one profiled search (device ms by kind, gathers and copies
+                apart), the graphs captured by the first search (2) and
+                the second (0, with equal beams), exact launch counts,
+                peak memory, the pool blocks borrowed, the scores (finite,
+                best first);
+                whether dense and paged agree on the top beam (reported);
+                then an HTTP pass (the paged engine under the reference
+                serve's scheduling, 8 streaming clients of 160 tokens,
+                alone and beside one num_beams 4 /generate request and one
+                /v1/completions request under a json_schema
+                response_format): the beams equal the in-process engine's,
+                every constrained beam parses and obeys the schema, the
+                streams' TPOT p50/p99 and chunk gaps with and without.
+ 11f. beam-parity — 2 layers, fp32: each cache's beams through the
+                kernels against the same search with every kernel swapped
+                for its plain version (attn_impl="ref" and RMSNorm's plain
+                version): equal sequences, scores within 1e-4; dense
+                against paged and dense-int8 against paged-int8 reported.
  12. cli-serve — `python -m shellac_tpu_torch serve --config F
                 --cache-backend paged --slots 4 --port 0 --logprobs` (F:
                 shellac-1b cut to 2 layers) as a subprocess, on the CLI's
@@ -225,8 +263,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 every row carries its achieved TFLOP/s.
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}. `--only PHASES` (generate,
-prefix-serve, sampling-controls, constrained-serve, graph-parity) runs
-those after the build and prints neither of the last two lines.
+prefix-serve, sampling-controls, constrained-serve, graph-parity, beam,
+beam-parity, kernels-beam) runs those after the build and prints
+neither of the last two lines.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -982,6 +1021,11 @@ def eager_engine(cls):
 
             def _prefill_replay(self, key):
                 return self._program(key)
+
+            def _graph(self, fn, generator, pool=None):
+                # The beam programs (the paged search's, and the dense
+                # caches' delegate, which takes the engine's runner).
+                return fn
     return Eager
 
 
@@ -3236,6 +3280,8 @@ def phase_graph_parity(seed, dev, table):
             failed.append((backend, "continuation"))
         failed += constrained_parity(cfg, params, dev, table, cls, backend,
                                      seed)
+        failed += beam_graph_parity(cfg, params, dev, table, cls, backend,
+                                    seed)
     del params
     torch.cuda.empty_cache()
     if failed:
@@ -3550,6 +3596,605 @@ def phase_train_parity(seed, dev):
         torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"train-parity failed (packed={failed})")
+
+
+# --------------------------------------------------------------------------
+# beam search: beam, beam-parity, the kernels at the beam's shapes
+# --------------------------------------------------------------------------
+
+# One prompt, K beams (and K_WIDE on the pool), BEAM_NEW tokens.
+BEAM_PROMPT, BEAM_K, BEAM_K_WIDE, BEAM_NEW = 512, 4, 16, 64
+# The beam cache's length at those sizes: the bucket of 512 + 64.
+BEAM_CACHE = 1024
+# Step replays timed back to back (their writes stay inside the beam
+# cache, or go to the blocks the search gave back).
+BEAM_REPLAYS = 20
+# The HTTP pass: streaming clients, their prompt and output lengths.
+BEAM_STREAMS, BEAM_STREAM_PROMPT, BEAM_STREAM_NEW = 8, 256, 160
+
+
+def cow_tables(gen, dev, bs, max_blocks, prompt, lengths, frozen):
+    """Block tables as the copy-on-write beam search leaves them before a
+    step: the prompt's sealed blocks shared by every live row, each live
+    row's later blocks its own, except that row 1 shares row 0's sealed
+    generated blocks (it adopted row 0's lineage), and the frozen rows'
+    tables all block 0 (scratch) at their stale lengths. The step's query
+    sits at `lengths`, so a length that is a multiple of bs attends the
+    first position of a new block. Returns (tables, index, live, n_blocks),
+    `live` (n_blocks, bs) marking the rows some row attends."""
+    k = len(lengths)
+    index = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sealed = prompt // bs
+    need = [-(-(n + 1) // bs) for n in lengths]
+    n_blocks = 2 + sealed + sum(need) + 64
+    ids = (torch.randperm(n_blocks - 1, generator=gen, device=dev)
+           + 1).tolist()
+    tables = torch.zeros((k, max_blocks), dtype=torch.int32, device=dev)
+    row = ids[:sealed]
+    at = sealed
+    for b in range(k):
+        if b in frozen:
+            continue
+        tables[b, :sealed] = torch.tensor(row, dtype=torch.int32)
+        for j in range(sealed, need[b]):
+            if b == 1 and j < min(need[0], need[1]) - 1:
+                tables[1, j] = tables[0, j]
+            else:
+                tables[b, j] = ids[at]
+                at += 1
+    pos = torch.arange(max_blocks * bs, device=dev)[None, :]
+    attended = pos < index[:, None].long() + 1
+    pages = tables.long().gather(1, (pos // bs).expand(k, -1))
+    live = torch.zeros((n_blocks, bs), dtype=torch.bool, device=dev)
+    live[pages[attended], (pos % bs).expand(k, -1)[attended]] = True
+    return tables, index, live, n_blocks
+
+
+# The beam kernels' cases: name -> (kernel, K, block size, lengths,
+# frozen rows). Dense: every beam at the last step's length, one frozen
+# beam rolled back. Paged: lengths on both sides of a block boundary.
+BEAM_KERNEL_CASES = {
+    "dense_k4": ("dense", 4, None, [575, 575, 575, 540], ()),
+    "dense_k16": ("dense", 16, None, [560] * 12 + [530, 560, 513, 560], ()),
+    "paged_k4_cow": ("paged", 4, BLOCK, [528, 528, 527, 520], (3,)),
+    "paged_k16_cow": ("paged", 16, BLOCK,
+                      [543, 543, 544, 544] * 3 + [544, 520, 544, 543],
+                      (13,)),
+    "paged_int8_k4_cow": ("paged", 4, BLOCK_INT8, [576, 576, 575, 540],
+                          (3,)),
+}
+
+
+def phase_kernels_beam(gen, dev):
+    """Kernels 5 and 6 over a beam cache (B = K, length BEAM_CACHE, rows
+    0 and 1 equal as after a reorder), and kernel 7 in bf16 and int8 over
+    copy-on-write tables (`cow_tables`), each against its plain version,
+    in bf16 and fp32. The paged kernel reads pools (or int8 scales) whose
+    rows no beam attends are NaN, the plain version the clean ones."""
+    from shellac_tpu_torch.ops.decode_attention import (
+        _decode_ref,
+        _paged_decode_ref,
+        decode_attention_cuda,
+        decode_attention_quant_cuda,
+        paged_decode_attention_cuda,
+        paged_decode_attention_quant_cuda,
+    )
+
+    failed = []
+    h, hkv, d = 16, 8, 128
+    scale = d ** -0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, (kind, k, bs, lengths, frozen) in \
+                BEAM_KERNEL_CASES.items():
+            int8 = bs == BLOCK_INT8
+            q = randn(gen, (k, 1, h, d), dtype, dev)
+            if kind == "dense":
+                idx = torch.tensor(lengths, dtype=torch.int32, device=dev)
+                ck = randn(gen, (k, hkv, BEAM_CACHE, d), dtype, dev)
+                cv = randn(gen, (k, hkv, BEAM_CACHE, d), dtype, dev)
+                ck[1], cv[1] = ck[0], cv[0]
+                out = decode_attention_cuda(q, ck, cv, idx)
+                ref = _decode_ref(q, ck, cv, idx, None, scale)
+                res = [("decode_attention_dense", out, ref)]
+                qk, sk = quant_rows(gen, (k, hkv, BEAM_CACHE, d), dev)
+                qv, sv = quant_rows(gen, (k, hkv, BEAM_CACHE, d), dev)
+                res.append(("decode_attention_dense_int8",
+                            decode_attention_quant_cuda(q, qk, qv, sk, sv,
+                                                        idx),
+                            _decode_ref(q, qk, qv, idx, None, scale,
+                                        k_scale=sk, v_scale=sv)))
+            else:
+                tab, idx, live, nb = cow_tables(
+                    gen, dev, bs, MAX_LEN // bs, BEAM_PROMPT, lengths,
+                    frozen)
+                dead = ~live[:, None, :].expand(nb, hkv, bs)
+                if int8:
+                    pk, sk = quant_rows(gen, (nb, hkv, bs, d), dev)
+                    pv, sv = quant_rows(gen, (nb, hkv, bs, d), dev)
+                    out = paged_decode_attention_quant_cuda(
+                        q, pk, pv, sk.masked_fill(dead, float("nan")),
+                        sv.masked_fill(dead, float("nan")), tab, idx)
+                    ref = _paged_decode_ref(q, pk, pv, tab, idx, None, scale,
+                                            k_scale=sk, v_scale=sv)
+                    res = [("paged_decode_attention_int8", out, ref)]
+                else:
+                    pk = randn(gen, (nb, hkv, bs, d), dtype, dev)
+                    pv = randn(gen, (nb, hkv, bs, d), dtype, dev)
+                    out = paged_decode_attention_cuda(
+                        q, pk.masked_fill(dead[..., None], float("nan")),
+                        pv.masked_fill(dead[..., None], float("nan")), tab,
+                        idx)
+                    ref = _paged_decode_ref(q, pk, pv, tab, idx, None, scale)
+                    res = [("paged_decode_attention", out, ref)]
+            for kernel, out, ref in res:
+                torch.cuda.synchronize()
+                r = compare(out, ref, dtype)
+                emit("kernels-beam", kernel=kernel, case=case,
+                     dtype=str(dtype), beams=k, block_size=bs,
+                     lengths=lengths, frozen_rows=list(frozen), **r)
+                if not r["ok"]:
+                    failed.append((kernel, case, str(dtype)))
+    if failed:
+        raise SystemExit(f"kernels-beam: kernels disagree with their plain "
+                         f"versions over the beam's shapes: {failed}")
+
+
+def beam_engine(cfg, params, dev, backend, **kw):
+    """The server's engine of a cache: a BatchingEngine (its beam search
+    the single-request delegate) or a PagedBatchingEngine (copy-on-write
+    over its pool), at serve's slots and max_len."""
+    from shellac_tpu_torch.inference.batching import (
+        BatchingEngine,
+        PagedBatchingEngine,
+    )
+
+    cls = (PagedBatchingEngine if backend.startswith("paged")
+           else BatchingEngine)
+    return cls(cfg, params, n_slots=SLOTS, max_len=MAX_LEN,
+               cache_backend=backend, temperature=0.0, device=dev, **kw)
+
+
+def timed_search(eng, prompt, k, steps, **kw):
+    """One beam search: (sequences, scores, wall ms on the host, ms
+    between CUDA events around it, graphs captured)."""
+    from shellac_tpu_torch.inference.graphs import StepGraph
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    captured = StepGraph.captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    seqs, scores = eng.beam_search(prompt, num_beams=k, max_new_tokens=steps,
+                                   **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return dict(seqs=seqs, scores=scores,
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+                event_ms=start.elapsed_time(end),
+                captured=StepGraph.captures - captured)
+
+
+def beam_launches(table, L, backend, searches, steps, prefix=False):
+    """Launches of `searches` searches of `steps` tokens: per search 2L + 1
+    RMSNorms a prefill and a step, L flash forwards (none on a prefix
+    hit, whose suffix attends through the plain attention), L decode
+    attentions a step after the first token."""
+    return only(table, rms_norm=(2 * L + 1) * steps * searches,
+                flash_attention_fwd=0 if prefix else L * searches,
+                **{DECODE_KERNEL[backend]: L * (steps - 1) * searches})
+
+
+def gather_copy_ms(prof):
+    """Device ms of a profile's gathers, scatters and copies (the row
+    reorder, the copy-on-write, the state copies), from its top rows."""
+    return sum(r["ms"] for r in prof["top"]
+               if any(t in r["kernel"].lower()
+                      for t in ("index", "copy", "gather", "scatter")))
+
+
+def beam_pass(eng, table, L, backend, prompt, k, card, name, prefix=False,
+              profiled=False):
+    """One cache's pass of phase `beam`: a first search (it captures the
+    prefill graph after an eager warm-up, and the step graph), a second
+    (it must capture none and give the same beams), a one-step search
+    over the same programs; the ms a step between the events of a search
+    (second minus one-step, over BEAM_NEW - 1: the host's gaps
+    included), the device ms of a step (the key's step graph replayed
+    BEAM_REPLAYS times back to back after the searches, on their last
+    state: the host only queues), with `profiled` one profiled search
+    (device ms by kind, the gathers and copies apart), exact launch
+    counts, peak memory and the pool blocks borrowed."""
+    be = eng.cache_backend
+    reset_peak()
+    if be.is_paged:
+        be.peak_blocks_used = be.blocks_used()
+    before = read_counts(table)
+    first = timed_search(eng, prompt, k, BEAM_NEW)
+    second = timed_search(eng, prompt, k, BEAM_NEW)
+    one = timed_search(eng, prompt, k, 1)
+    counts = {n: c - before[n] for n, c in read_counts(table).items()}
+    # Two whole searches, then the one-step search's prefill and the
+    # first search's prefill warm-up (before its capture).
+    expect = beam_launches(table, L, backend, 2, BEAM_NEW, prefix)
+    expect = {n: expect[n] + beam_launches(table, L, backend, 2, 1,
+                                           prefix)[n] for n in expect}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    beams = (eng._beam_delegate._beams if eng._beam_delegate is not None
+             else eng._beams)
+    step = next(reversed(beams.values())).step
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():  # Engine's beam buffers are its tensors
+        start.record()
+        for _ in range(BEAM_REPLAYS):
+            step()
+        end.record()
+    torch.cuda.synchronize()
+    step_device_ms = start.elapsed_time(end) / BEAM_REPLAYS
+    prof = {}
+    if profiled:
+        p = profile_call(lambda: eng.beam_search(
+            prompt, num_beams=k, max_new_tokens=BEAM_NEW), top=40)
+        prof = dict(profiled_search_device_ms=p["device_ms"],
+                    profiled_search_busy_share=p["device_busy_share"],
+                    profiled_device_ms_by_kind=p["device_ms_by_kind"],
+                    profiled_gather_copy_ms=gather_copy_ms(p),
+                    profiled_top=p["top"][:12])
+    step_ms = (second["event_ms"] - one["event_ms"]) / (BEAM_NEW - 1)
+    scores = second["scores"]
+    ok = (first["seqs"] == second["seqs"] and first["scores"] == scores
+          and len(scores) == k and all(np.isfinite(scores))
+          and scores == sorted(scores, reverse=True)
+          and all(len(q) == BEAM_NEW for q in second["seqs"])
+          and first["captured"] == 2 and second["captured"] == 0
+          and one["captured"] == 0 and counts == expect)
+    emit("beam", pass_name=name, backend=backend, beams=k,
+         prompt=len(prompt), new_tokens=BEAM_NEW, length_penalty=1.0,
+         search_wall_ms=[first["wall_ms"], second["wall_ms"]],
+         one_step_search_wall_ms=one["wall_ms"],
+         step_ms_between_events=step_ms, step_device_ms=step_device_ms,
+         **prof,
+         graphs_captured=[first["captured"], second["captured"],
+                          one["captured"]],
+         peak_memory_gib=peak,
+         pool_blocks_borrowed=(be.peak_blocks_used - be.blocks_used()
+                               if be.is_paged else None),
+         launches=counts, launches_expected=expect,
+         scores=scores, top_beam=second["seqs"][0][:16], ok=ok, card=card)
+    return ok, second
+
+
+def beam_http(cfg, params, dev, card, prompt):
+    """phase `beam`'s HTTP pass: InferenceServer over the paged engine
+    with serve's scheduling (PIPELINED, one tick a window) and the byte
+    tokenizer; BEAM_STREAMS streaming /generate clients, run once to warm
+    the graphs, once alone and once beside a num_beams = 4 /generate
+    request and a num_beams = 4 /v1/completions request under a
+    json_schema response_format (sent once every stream has its first
+    token). The beams must equal the in-process engine's (searched
+    before the server starts), every constrained beam parse and obey the
+    schema. Returns (the names of the failed checks, its counts)."""
+    import threading
+
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.inference.constraints import (
+        compile_token_dfa,
+        constraint_pattern,
+    )
+    from shellac_tpu_torch.inference.server import (
+        InferenceServer,
+        make_http_server,
+    )
+    from shellac_tpu_torch.obs import Registry
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        decode_ticks=1, temperature=0.0, eos_id=EOS_BYTE, device=dev,
+        **PIPELINED)
+    text = "the weather, as json: "
+    ctoks = [int(t) for t in tok.encode(text)]
+    dfa = compile_token_dfa(constraint_pattern({"json_schema": CON_SCHEMA}),
+                            tok, cfg.vocab_size, EOS_BYTE)
+    want = engine.beam_search(prompt, num_beams=BEAM_K,
+                              max_new_tokens=BEAM_NEW, eos_id=EOS_BYTE)
+    want_con = engine.beam_search(ctoks, num_beams=BEAM_K,
+                                  max_new_tokens=96, constraint=dfa)
+    srv = InferenceServer(cfg, params, tokenizer=tok, engine=engine,
+                          model_name="shellac-1b", registry=Registry())
+    httpd = make_http_server(srv)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rng = np.random.default_rng(77)
+    streams = [rng.integers(0, 256, BEAM_STREAM_PROMPT).tolist()
+               for _ in range(BEAM_STREAMS)]
+
+    def streamed(toks, new, out, started):
+        import urllib.request
+
+        req = urllib.request.Request(
+            url + "/generate", data=json.dumps(
+                {"tokens": toks, "max_new": new, "stream": True}).encode(),
+            headers={"Content-Type": "application/json"})
+        times, n = [], 0
+        with urllib.request.urlopen(req, timeout=600) as r:
+            for raw in r:
+                rec = json.loads(raw)
+                if rec.get("tokens") and not rec.get("done"):
+                    times.append(time.perf_counter())
+                    n += len(rec["tokens"])
+                    started.set()
+        out.append((times, n))
+
+    def run(with_beams, new=BEAM_STREAM_NEW):
+        outs, threads, flags = [], [], []
+        for toks in streams:
+            ev = threading.Event()
+            th = threading.Thread(target=streamed,
+                                  args=(toks, new, outs, ev))
+            th.start()
+            threads.append(th)
+            flags.append(ev)
+        beams = {}
+        if with_beams:
+            for ev in flags:
+                ev.wait(120)
+            beams["generate"] = http_call(url, "/generate", {
+                "tokens": [int(t) for t in prompt], "num_beams": BEAM_K,
+                "max_new": BEAM_NEW})
+            beams["completions"] = http_call(url, "/v1/completions", {
+                "prompt": text, "num_beams": BEAM_K, "max_tokens": 96,
+                "response_format": {"type": "json_schema", "json_schema": {
+                    "name": "w", "schema": CON_SCHEMA}}})
+        for th in threads:
+            th.join(600)
+        tpot = [(t[-1] - t[0]) * 1e3 / max(n - 1, 1) for t, n in outs]
+        gaps = [b - a for t, _ in outs for a, b in zip(t, t[1:])]
+        return beams, dict(
+            streams=len(outs), tpot_ms_p50=pct(tpot, 50),
+            tpot_ms_p99=pct(tpot, 99),
+            chunk_gap_ms_p99=pct(gaps, 99) * 1e3 if gaps else None,
+            chunk_gap_ms_max=max(gaps) * 1e3 if gaps else None)
+
+    failed = []
+    try:
+        run(False, 8)  # the warm-up: the prefill bucket and window graphs
+        _, alone = run(False)
+        beams, beside = run(True)
+    finally:
+        httpd.shutdown()
+        srv.close()
+    status, _, body, _ = beams["generate"]
+    got = json.loads(body) if status == 200 else {}
+    gen_ok = (status == 200
+              and [c["tokens"] for c in got["choices"]] == want[0]
+              and [c["beam_score"] for c in got["choices"]]
+              == [round(x, 6) for x in want[1]])
+    status, _, body, _ = beams["completions"]
+    got = json.loads(body) if status == 200 else {}
+    texts = [c["text"] for c in got.get("choices", [])]
+    con_ok = (status == 200 and texts == [tok.decode(q) for q in want_con[0]]
+              and len(texts) > 0)
+    parsed = []
+    for q in want_con[0]:
+        try:
+            parsed.append(q[-1] == EOS_BYTE
+                          and schema_ok(json.loads(bytes(q[:-1]).decode())))
+        except ValueError:
+            parsed.append(False)
+    con_ok = con_ok and all(parsed)
+    if not gen_ok:
+        failed.append("http:generate")
+    if not con_ok:
+        failed.append("http:completions_json_schema")
+    if not (alone["streams"] == beside["streams"] == BEAM_STREAMS):
+        failed.append("http:streams")
+    emit("beam", pass_name="http", streams=BEAM_STREAMS,
+         stream_prompt=BEAM_STREAM_PROMPT, stream_new=BEAM_STREAM_NEW,
+         without_beams=alone, with_beams=beside,
+         generate_beams_equal_engine=gen_ok,
+         constrained_beams_equal_engine=con_ok,
+         constrained_beams=len(want_con[0]),
+         constrained_beams_parse_and_obey=parsed,
+         constrained_top=tok.decode(want_con[0][0]) if want_con[0] else None,
+         card=card)
+    return failed
+
+
+def phase_beam(seed, dev, table, card):
+    """Beam search at full width (shellac-1b, random weights): one
+    BEAM_PROMPT-token prompt, K = 4, BEAM_NEW tokens, length penalty 1,
+    through each cache's serving engine (`beam_pass`): dense, dense-int8,
+    paged, paged-int8; on paged also K = 16 and a prefix-hit pass (a
+    cached 496-token prefix attached read-only). Whether dense and paged
+    (and their int8 twins) agree on the top beam is reported: their bf16
+    kernels sum in other orders. Then the HTTP pass (`beam_http`).
+    Returns the launch counts of the phase."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.models import transformer
+
+    t0 = time.perf_counter()
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    L = cfg.n_layers
+    prompt = np.random.default_rng(seed + 41).integers(
+        0, cfg.vocab_size, BEAM_PROMPT).astype(np.int32)
+    reset_counts(table)
+    failed, tops = [], {}
+    for backend in ("dense", "dense-int8", "paged", "paged-int8"):
+        eng = beam_engine(cfg, params, dev, backend)
+        ok, res = beam_pass(eng, table, L, backend, prompt, BEAM_K, card,
+                            backend, profiled=backend in ("dense", "paged"))
+        tops[backend] = res
+        if not ok:
+            failed.append(backend)
+        if backend == "paged":
+            ok, _ = beam_pass(eng, table, L, backend, prompt, BEAM_K_WIDE,
+                              card, "paged_k16")
+            if not ok:
+                failed.append("paged_k16")
+        eng.close()
+        del eng
+    eng = beam_engine(cfg, params, dev, "paged", prefix_cache=True)
+    cached = BEAM_PROMPT - BLOCK  # 31 blocks registered
+    eng.run([("seed", prompt[:cached + 1], 1)])
+    before = dict(eng.stats)
+    ok, res = beam_pass(eng, table, L, "paged", prompt, BEAM_K, card,
+                        "paged_prefix_hit", prefix=True)
+    hit = eng.stats["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+    searches = (eng.stats["prefix_query_tokens"]
+                - before["prefix_query_tokens"]) // BEAM_PROMPT
+    emit("beam", pass_name="paged_prefix_hit", prefix_hit_tokens=hit,
+         searches=searches, top_beam_equal_uncached=(
+             res["seqs"][0] == tops["paged"]["seqs"][0]), card=card)
+    if not ok or searches != 3 or hit != searches * cached:
+        failed.append("paged_prefix_hit")
+    eng.close()
+    del eng
+    emit("beam", pass_name="agreement",
+         top_beam_dense_equals_paged=(tops["dense"]["seqs"][0]
+                                      == tops["paged"]["seqs"][0]),
+         top_beam_dense_int8_equals_paged_int8=(
+             tops["dense-int8"]["seqs"][0] == tops["paged-int8"]["seqs"][0]),
+         beams_dense_equal_paged=tops["dense"]["seqs"]
+         == tops["paged"]["seqs"],
+         top_score_dense_minus_paged=(tops["dense"]["scores"][0]
+                                      - tops["paged"]["scores"][0]),
+         card=card)
+    failed += beam_http(cfg, params, dev, card, prompt)
+    emit("beam", pass_name="done", seconds=time.perf_counter() - t0)
+    counts = read_counts(table)
+    del params
+    reset_peak()
+    if failed:
+        raise SystemExit(f"beam: checks failed: {failed}")
+    return counts
+
+
+def plain_kernels():
+    """A context in which the model's RMSNorm takes its plain version (the
+    attention's is attn_impl="ref"): beam-parity's plain searches."""
+    import contextlib
+
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.ops.norms import rms_norm_ref
+
+    @contextlib.contextmanager
+    def ctx():
+        kernel = transformer.rms_norm
+        transformer.rms_norm = rms_norm_ref
+        try:
+            yield
+        finally:
+            transformer.rms_norm = kernel
+    return ctx()
+
+
+def phase_beam_parity(seed, dev, table):
+    """Beam search at shellac-1b width cut to 2 layers in fp32: through
+    the kernels against the same search with every kernel swapped for
+    its plain version (attn_impl="ref", RMSNorm's plain version), over
+    the four caches: equal sequences and scores within 1e-4, and the
+    plain searches launch no kernel. Dense against paged, and dense-int8
+    against paged-int8 (the reference's bit-exact claim), reported."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.models import transformer
+
+    t0 = time.perf_counter()
+    cfg = get_model_config("shellac-1b").replace(n_layers=2, dtype="float32")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    prompt = np.random.default_rng(seed + 42).integers(
+        0, cfg.vocab_size, BEAM_PROMPT).astype(np.int32)
+    got, failed = {}, []
+    for backend in ("dense", "dense-int8", "paged", "paged-int8"):
+        res = {}
+        for impl in ("auto", "ref"):
+            eng = beam_engine(cfg, params, dev, backend, attn_impl=impl)
+            reset_counts(table)
+            if impl == "ref":
+                with plain_kernels():
+                    res[impl] = eng.beam_search(
+                        prompt, num_beams=BEAM_K, max_new_tokens=BEAM_NEW)
+            else:
+                res[impl] = eng.beam_search(prompt, num_beams=BEAM_K,
+                                            max_new_tokens=BEAM_NEW)
+            res[impl + "_launches"] = sum(read_counts(table).values())
+            eng.close()
+            del eng
+        diff = float(np.max(np.abs(np.subtract(res["auto"][1],
+                                               res["ref"][1]))))
+        ok = (res["auto"][0] == res["ref"][0] and diff <= 1e-4
+              and res["ref_launches"] == 0 and res["auto_launches"] > 0)
+        emit("beam-parity", backend=backend, layers=2, dtype="float32",
+             beams=BEAM_K, new_tokens=BEAM_NEW,
+             sequences_equal=res["auto"][0] == res["ref"][0],
+             max_score_diff=diff, plain_launches=res["ref_launches"],
+             kernel_launches=res["auto_launches"], ok=ok)
+        got[backend] = res["auto"]
+        if not ok:
+            failed.append(backend)
+    for a, b in (("dense", "paged"), ("dense-int8", "paged-int8")):
+        emit("beam-parity", pair=[a, b],
+             sequences_equal=got[a][0] == got[b][0],
+             scores_bit_equal=got[a][1] == got[b][1],
+             max_score_diff=float(np.max(np.abs(np.subtract(got[a][1],
+                                                            got[b][1])))))
+    emit("beam-parity", seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"beam-parity: kernels and plain versions give "
+                         f"other beams: {failed}")
+
+
+def beam_graph_parity(cfg, params, dev, table, cls, backend, seed):
+    """graph-parity's beam pass over one cache: constrained (CON_REGEX) and
+    not, K = 1 and 4, a search of 24 tokens through the engine's CUDA
+    graphs (the prefill's eager warm-up, capture and replay, the step's
+    first run eager, then 22 replays) against the same search on an
+    engine whose programs run eagerly: bit-equal beams and scores, and
+    the eager launches plus the warm-up prefill's. Returns the failed
+    runs."""
+    from shellac_tpu_torch.inference.constraints import compile_token_dfa
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    dfa = compile_token_dfa(CON_REGEX, ByteTokenizer(), cfg.vocab_size,
+                            EOS_BYTE)
+    prompt = np.random.default_rng(seed + 43).integers(
+        0, 256, 200).astype(np.int32)
+    failed = []
+    for con in (False, True):
+        for k in (1, BEAM_K):
+            runs = {}
+            for name, c in (("graph", cls), ("eager", eager_engine(cls))):
+                eng = c(cfg, params, n_slots=6, max_len=512,
+                        cache_backend=backend, eos_id=EOS_BYTE, device=dev)
+                reset_counts(table)
+                out = eng.beam_search(prompt, num_beams=k,
+                                      max_new_tokens=24,
+                                      constraint=dfa if con else None)
+                torch.cuda.synchronize()
+                runs[name] = (out, read_counts(table))
+                eng.close()
+                del eng
+            # The graph engine's first search warms its prefill up once
+            # before capturing it: one prefill's launches more.
+            warm = beam_launches(table, cfg.n_layers, backend, 1, 1)
+            ok = (runs["graph"][0] == runs["eager"][0]
+                  and runs["graph"][1] == {n: c + warm[n] for n, c in
+                                           runs["eager"][1].items()})
+            emit("graph-parity", backend=backend, pass_name="beam",
+                 constrained=con, beams=k, new_tokens=24,
+                 layers=2, dtype="bfloat16",
+                 beams_identical_to_eager=runs["graph"][0]
+                 == runs["eager"][0],
+                 launches=runs["graph"][1],
+                 launches_eager=runs["eager"][1], ok=ok)
+            if not ok:
+                failed.append((backend, "beam", con, k))
+    return failed
 
 
 # --------------------------------------------------------------------------
@@ -3931,8 +4576,9 @@ def main():
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
                          "(generate, prefix-serve, sampling-controls, "
-                         "constrained-serve, graph-parity); prints no "
-                         "kernels line and no ok line")
+                         "constrained-serve, graph-parity, beam, "
+                         "beam-parity, kernels-beam); prints no kernels "
+                         "line and no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3972,7 +4618,12 @@ def main():
                 args.seed, dev, table, card),
             "graph-parity": lambda: phase_graph_parity(args.seed, dev,
                                                        table),
+            "beam": lambda: phase_beam(args.seed, dev, table, card),
+            "beam-parity": lambda: phase_beam_parity(args.seed, dev, table),
+            "kernels-beam": lambda: phase_kernels_beam(gen, dev),
         }
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
         for name in args.only.split(","):
             only_phases[name]()
         return 0
@@ -3982,6 +4633,7 @@ def main():
     errs = phase_kernels(gen, dev, shapes)
     errs.update(phase_kernels_int8(gen, dev, shapes))
     errs.update(phase_kernels_train(gen, dev, shapes))
+    phase_kernels_beam(gen, dev)
     # The main paths, each with the counts set to 0 just before it; every
     # kernel of a path must have launched in its run.
     gen_counts, bf16_tokens = phase_generate(args.seed, dev, table, card)
@@ -4000,6 +4652,7 @@ def main():
                                                          table, card)
     paths["constrained-serve"] = phase_constrained_serve(args.seed, dev,
                                                          table, card)
+    paths["beam"] = phase_beam(args.seed, dev, table, card)
     paths["train"] = phase_train(args.seed, dev, table, card)
     decode = ("rms_norm", "flash_attention_fwd")
     for path, kinds in (("generate", decode + ("decode_attention_dense",)),
@@ -4018,6 +4671,10 @@ def main():
                         ("constrained-serve",
                          decode + ("paged_decode_attention",
                                    "paged_decode_attention_int8")),
+                        ("beam", decode + ("decode_attention_dense",
+                                           "decode_attention_dense_int8",
+                                           "paged_decode_attention",
+                                           "paged_decode_attention_int8")),
                         ("train", ("rms_norm", "flash_attention_fwd",
                                    "flash_attention_bwd_dkdv",
                                    "flash_attention_bwd_dq"))):
@@ -4027,6 +4684,7 @@ def main():
     phase_cli_serve(args.seed, dev, card)
     phase_serve_parity(args.seed, dev)
     phase_serve_parity_int8(args.seed, dev, table)
+    phase_beam_parity(args.seed, dev, table)
     phase_graph_parity(args.seed, dev, table)
     phase_train_parity(args.seed, dev)
     times = phase_timings(gen, dev, shapes, card)

@@ -2,7 +2,8 @@
 
 Commands (ports of `shellac_tpu/cli.py`):
   generate  autoregressive sampling from random weights (`cmd_generate`
-            :578) through `Engine`
+            :578) through `Engine`, or its beam search (`--num-beams`,
+            `--length-penalty`, `--eos-id`, `--json-schema`: :677-745)
   batch     offline batch generation, JSONL in and out, through the
             continuous-batching engine (`cmd_batch` :758)
   serve     the HTTP server over the continuous-batching engine
@@ -125,6 +126,59 @@ def cmd_generate(args):
     stop = _stop_seqs(args)
     eng = Engine(cfg, params, temperature=args.temperature,
                  top_k=args.top_k, top_p=args.top_p, device=args.device)
+    constraint = None
+    if args.json_schema:
+        # Schema-constrained beams, compiled as the server compiles a
+        # json_schema constraint.
+        if not args.num_beams or args.num_beams < 1:
+            raise SystemExit("--json-schema needs --num-beams >= 1 "
+                             "(constrained beam search)")
+        if args.eos_id is None:
+            raise SystemExit("--json-schema needs --eos-id (the DFA's "
+                             "EOS column and beam termination must "
+                             "agree)")
+        if stop:
+            # Truncating a schema-constrained beam could leave output
+            # outside the schema.
+            raise SystemExit("--stop does not compose with --json-schema "
+                             "(truncation could break the schema)")
+        raw = args.json_schema
+        if raw.startswith("@"):
+            with open(raw[1:]) as f:
+                raw = f.read()
+        try:
+            schema = json.loads(raw)
+        except ValueError as e:
+            raise SystemExit(f"--json-schema is not valid JSON: {e}")
+        from shellac_tpu_torch.inference.constraints import (
+            compile_token_dfa,
+            constraint_pattern,
+        )
+
+        try:
+            constraint = compile_token_dfa(
+                constraint_pattern({"json_schema": schema}), tok,
+                cfg.vocab_size, args.eos_id)
+        except ValueError as e:
+            raise SystemExit(f"--json-schema: {e}")
+    if args.num_beams and (args.num_beams > 1 or constraint is not None):
+        try:
+            seqs, scores = eng.beam_search(
+                prompt[0], num_beams=args.num_beams,
+                max_new_tokens=args.max_new, eos_id=args.eos_id,
+                length_penalty=args.length_penalty, constraint=constraint)
+        except ValueError as e:
+            raise SystemExit(f"beam search: {e}")
+        if not seqs:
+            raise SystemExit("constrained beam search returned no valid "
+                             "beams (max-new too small for the schema?)")
+        ids = truncate_at_stop(seqs[0], stop)
+        result = {"tokens": ids,
+                  "beam_scores": [round(x, 4) for x in scores]}
+        if args.text is not None or constraint is not None:
+            result["text"] = tok.decode(ids)
+        print(json.dumps(result))
+        return 0
     out = eng.generate(prompt, max_new_tokens=args.max_new)
     ids = truncate_at_stop(out.tokens[0].tolist(), stop)
     result = {"tokens": ids}
@@ -303,6 +357,20 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--top-p", type=float, default=None)
     g.add_argument("--stop", default=None,
                    help='token-id stop sequences, e.g. "13,10;0"')
+    g.add_argument("--num-beams", type=int, default=None, dest="num_beams",
+                   help="beam search with N beams (deterministic; "
+                        "ignores temperature/top-k/top-p)")
+    g.add_argument("--length-penalty", type=float, default=1.0,
+                   dest="length_penalty",
+                   help="beam ranking divides scores by len^alpha "
+                        "(0 = raw sum, 1 = mean logprob)")
+    g.add_argument("--eos-id", type=int, default=None, dest="eos_id",
+                   help="EOS token id for beam finishing")
+    g.add_argument("--json-schema", default=None, dest="json_schema",
+                   help="JSON schema (inline, or @file) compiled to a "
+                        "token-DFA constraint for beam search: every "
+                        "returned beam satisfies the schema. Needs "
+                        "--num-beams and --eos-id")
     g.set_defaults(fn=cmd_generate)
 
     backends = ["dense", "dense-int8", "paged", "paged-int8"]

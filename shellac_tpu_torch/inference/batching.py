@@ -109,9 +109,15 @@ When no gap holds a new table, the tables no slot uses are dropped, and
 failing that the buffer is replaced by one of the next power of two of
 rows, which drops the graphs that read the old buffer.
 
+Beam search (`beam_search`, the reference's :2407 and :2752): the dense
+caches delegate to a single-request `Engine` sharing the params; the
+paged engine searches over the pool with copy-on-write block tables
+(`_beam_paged_impl`), its prefill and step programs CUDA graphs kept
+across calls.
+
 Not ported yet; each raises NotImplementedError: meshes and pipeline
-stages, rolling caches, beam search, preemption, and at `submit`
-prefill-only requests and QoS tags.
+stages, rolling caches, preemption, and at `submit` prefill-only
+requests and QoS tags.
 """
 
 from __future__ import annotations
@@ -135,7 +141,23 @@ from shellac_tpu_torch.inference.cache import (
     scatter_slot,
 )
 from shellac_tpu_torch.inference.constraints import TokenDFA
-from shellac_tpu_torch.inference.graphs import HostPull, StepGraph
+from shellac_tpu_torch.inference.engine import (
+    Engine,
+    _bucket,
+    _dfa_table,
+    _pull_beams,
+    _upload_dfa,
+    beam_expand,
+    beam_filter_invalid,
+    beam_first_expand,
+    beam_rank,
+    check_beam_constraint,
+)
+from shellac_tpu_torch.inference.graphs import (
+    HostPull,
+    StepGraph,
+    call_captured,
+)
 from shellac_tpu_torch.models import transformer
 from shellac_tpu_torch.obs import EngineMetrics, get_registry
 from shellac_tpu_torch.ops.dispatch import (
@@ -254,13 +276,6 @@ def _plp_within(logits, tokens):
     return torch.cat([tok.new_zeros((1,)), tok])
 
 
-def _bucket(n: int, lo: int = 16) -> int:
-    b = lo
-    while b < n:
-        b *= 2
-    return b
-
-
 class _PrefillFlight:
     """Host-side record of ONE queued, not yet settled prefill (or final
     chunk). `pull` carries its packed results (first token, its raw
@@ -290,6 +305,29 @@ class _DecodeWindow:
         self.ticks = ticks
         self.pull = pull
         self.t_dispatch = time.perf_counter()
+
+
+@dataclass
+class _PagedBeam:
+    """One paged beam-search key's fixed buffers: the staged inputs, the
+    beams' tables and lengths over the engine's pool, and the search
+    state the step program updates in place."""
+
+    inp: torch.Tensor  # (_BEAM_HEAD + max_len,) int64 header + tokens
+    tables: torch.Tensor  # (K, max_blocks) int32
+    gen: torch.Tensor  # (max_blocks, K) int64 owned blocks per beam
+    lengths: torch.Tensor  # (K,) int32
+    cur: torch.Tensor  # (K,) int64
+    scores: torch.Tensor  # (K,) fp32
+    finished: torch.Tensor  # (K,) bool
+    out: torch.Tensor  # (K, max_len) int64
+    lens: torch.Tensor  # (K,) int32
+    cstate: torch.Tensor  # (K,) int64
+    at: torch.Tensor  # (1,) int64 the step index
+    ctrans: Optional[torch.Tensor]  # (rows, V + 1) int32 DFA table
+    dfa: Any = None
+    prefills: Dict[Tuple[int, bool], Any] = field(default_factory=dict)
+    step: Any = None
 
 
 class BatchingEngine:
@@ -497,6 +535,11 @@ class BatchingEngine:
         # and on_prefill_dispatch(flight)/before_prefill_sync(flights).
         self._window_hooks = None
         self._prefill_hooks = None
+        # beam_search's state: the dense caches' single-request Engine,
+        # built at the first search; the paged search's buffers and
+        # programs per (K, eos_id, constrained) key.
+        self._beam_delegate = None
+        self._beams: Dict[Tuple, Any] = {}
 
         self._cache = backend.init_cache(dev)
         # Host copy of each slot's cache length (positions written),
@@ -1771,6 +1814,7 @@ class BatchingEngine:
         self._prefill_graphs = {}
         self._pf_in = self._pf_mini = self._pf_zero = None
         self._ctrans, self._cres = None, {}
+        self._beam_delegate, self._beams = None, {}
         self._cache = None
 
     def run(self, requests=None) -> Dict[Any, List[int]]:
@@ -1783,10 +1827,35 @@ class BatchingEngine:
                 results[rid] = out
         return results
 
-    # ---- not ported yet ----------------------------------------------
+    # ---- beam search (dense caches) ----------------------------------
 
-    def beam_search(self, *args, **kw):
-        raise NotImplementedError("beam search is not ported yet")
+    def beam_search(self, prompt_tokens, *, num_beams: int = 4,
+                    max_new_tokens: int = 32, eos_id=None,
+                    length_penalty: float = 1.0, constraint=None):
+        """Deterministic beam decode of ONE prompt on this engine's
+        params (the reference's :2407): the server's `num_beams`. The
+        dense caches delegate to a lazily built single-request Engine
+        sharing the params and this engine's program runners; it keeps
+        its own (num_beams, length) beam caches (Engine.beam_search), so
+        the slot batch is untouched and the windows in flight, which
+        write only the slot cache, precede it in stream order. The paged
+        subclass overrides this with its copy-on-write search over the
+        pool. Call it on the engine's thread, as step() and submit()."""
+        if eos_id is None:
+            eos_id = self.eos_id
+        if self._beam_delegate is None:
+            self._beam_delegate = Engine(
+                self.cfg, self.params, max_len=self.max_len,
+                kv_quant=self.kv_quant, attn_impl=self.attn_impl,
+                device=self.device)
+            # Its programs run as this engine's do: graphs on the card.
+            self._beam_delegate._graph = self._graph
+        return self._beam_delegate.beam_search(
+            prompt_tokens, num_beams=num_beams,
+            max_new_tokens=max_new_tokens, eos_id=eos_id,
+            length_penalty=length_penalty, constraint=constraint)
+
+    # ---- not ported yet ----------------------------------------------
 
     def preempt(self, rid):
         raise NotImplementedError("preemption is not ported yet")
@@ -1871,12 +1940,17 @@ class PagedBatchingEngine(BatchingEngine):
     def _scatter_prefill(self, mini, slot) -> None:
         """Scatter a prefilled mini's pad positions through the slot's
         table row (`slot` a (1,) device tensor; positions past the slot's
-        blocks land in scratch block 0). An int8 mini's scales scatter
+        blocks land in scratch block 0)."""
+        self._scatter_row(mini, self._cache.tables.index_select(0, slot)[0])
+        self._cache.lengths.index_copy_(0, slot, mini.lengths)
+
+    def _scatter_row(self, mini, row) -> None:
+        """Scatter a batch-1 mini's pad positions into the pool through
+        one table row (max_blocks,). An int8 mini's scales scatter
         through the same (block, offset) coordinates."""
         cache, bs = self._cache, self.block_size
         pos = torch.arange(mini.k.shape[3], device=self.device)
-        row = cache.tables.index_select(0, slot)[0].to(torch.int64)
-        blocks = row[pos // bs]
+        blocks = row.to(torch.int64)[pos // bs]
         offs = pos % bs
         # Advanced indices at dims 1 and 3 (split by the head slice) put
         # the token rows first: the target is (S, L, Hkv[, Dh]), from the
@@ -1884,7 +1958,6 @@ class PagedBatchingEngine(BatchingEngine):
         for name in kv_field_names(self.kv_quant):
             src = getattr(mini, name)[:, 0]
             getattr(cache, name)[:, blocks, :, offs] = src.movedim(2, 0)
-        cache.lengths.index_copy_(0, slot, mini.lengths)
 
     def _chunk_forward(self, pad: int, tokens, slot, s, off):
         """Continue the slot's prompt past `off` resident tokens through a
@@ -1918,6 +1991,264 @@ class PagedBatchingEngine(BatchingEngine):
         self._stage(slot, req, p, s, pad)
         return HostPull(self._prefill_replay(self._final_key("chunk", pad,
                                                              req)))
+
+    # ---- beam search over the pool (copy-on-write tables) ------------
+
+    def beam_search(self, prompt_tokens, *, num_beams: int = 4,
+                    max_new_tokens: int = 32, eos_id=None,
+                    length_penalty: float = 1.0, constraint=None):
+        """Deterministic beam decode of ONE prompt over the block pool
+        (the reference's :2752): Engine.beam_search's contract and, by
+        the shared beam math, its beams.
+
+        Copy-on-write: the prompt prefills once into ceil(s / bs)
+        borrowed blocks that every beam's table shares read-only (with
+        prefix_cache=True a cached chain covering a prompt prefix
+        attaches read-only instead, counted in the prefix stats, and
+        only the suffix is computed, through the plain attention as the
+        slots' suffixes are); each beam owns one statically assigned
+        block per generated logical block (beams advance in lockstep, so
+        the assignment never collides); on a reorder the tables are
+        gathered and each live beam copies its partial tail block into
+        its own (gathering every source before writing any), and a
+        frozen beam's table points at scratch block 0. Sealed blocks
+        stay shared, never copied; int8 pools move their scales in
+        lockstep. The blocks come from the engine's allocator (evicting
+        unreferenced prefix blocks when the free list is dry) and return
+        in a `finally`; slots' tables and lengths are untouched. Every
+        program in flight was queued before the search and every later
+        one after it, on the one stream, so a block released at a
+        settle while a window in flight still writes it is written
+        before the search borrows it. Call it on the engine's thread.
+        """
+        k_beams, steps = int(num_beams), int(max_new_tokens)
+        if k_beams < 1:
+            raise ValueError("num_beams must be >= 1")
+        if steps < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if eos_id is None and constraint is not None:
+            eos_id = self.eos_id
+        dfa, eos_id = check_beam_constraint(constraint, eos_id,
+                                            self.cfg.vocab_size)
+        toks = np.asarray(prompt_tokens, np.int64).reshape(-1)
+        s, bs, be = int(toks.size), self.block_size, self.cache_backend
+        if s + steps + 1 > self.max_len:
+            raise ValueError(
+                f"prompt {s} + max_new {steps} exceeds max_len "
+                f"{self.max_len}"
+            )
+        lb0 = s // bs
+        # Owned generated blocks cover every copy-on-write target: the
+        # steps write positions s .. s + steps - 2 (the reference counts
+        # one more position, its copy after the last step; its count is
+        # kept, so the pool refuses the searches it refuses).
+        n_gen = 0 if steps == 1 else ((s + steps - 1) // bs - lb0 + 1)
+        matched: List[int] = []
+        if self.prefix_cache:
+            _, matched = be.attach_prefix(toks)
+        m_tokens = len(matched) * bs
+        prompt_n = -(-s // bs) - len(matched)
+        need = prompt_n + k_beams * n_gen
+        if need > len(be._free) + be.evictable():
+            be.detach_prefix(matched)
+            raise RuntimeError(
+                f"paged pool exhausted: beam search needs {need} "
+                f"blocks ({prompt_n} suffix-prompt past "
+                f"{len(matched)} cached prefix blocks + "
+                f"{k_beams}x{n_gen} owned tails); free "
+                f"{len(be._free)} + evictable {be.evictable()}"
+            )
+        if self.prefix_cache:
+            # Counted once the attach is certain, as a slot's.
+            self.stats["prefix_hit_tokens"] += m_tokens
+            self.stats["prefix_query_tokens"] += s
+        borrowed = [be.alloc_block() for _ in range(need)]
+        be.peak_blocks_used = max(be.peak_blocks_used, be.blocks_used())
+        try:
+            st = self._beam_state(k_beams, eos_id, dfa)
+            row = np.zeros((self._cache.max_blocks,), np.int64)
+            row[:len(matched) + prompt_n] = matched + borrowed[:prompt_n]
+            gen = np.zeros((self._cache.max_blocks, k_beams), np.int64)
+            gen[:n_gen] = np.asarray(borrowed[prompt_n:]).reshape(
+                n_gen, k_beams)
+            # Only the suffix past the matched prefix is computed; its
+            # pad is capped at the table space past the prefix (a pad
+            # past the table would index outside the row).
+            s_suf = s - m_tokens
+            pad = min(_bucket(s_suf), self.max_len - m_tokens)
+            staged = np.zeros((self._BEAM_HEAD + pad,), np.int64)
+            staged[:self._BEAM_HEAD] = (s, s_suf, m_tokens, lb0, n_gen)
+            staged[self._BEAM_HEAD:self._BEAM_HEAD + s_suf] = toks[m_tokens:]
+            copy_from_host(st.inp[:self._BEAM_HEAD + pad], staged)
+            copy_from_host(st.tables, np.tile(row, (k_beams, 1)))
+            copy_from_host(st.gen, gen)
+            key = (pad, m_tokens > 0)
+            prefill = st.prefills.get(key)
+            if prefill is None:
+                prefill = st.prefills[key] = self._graph(functools.partial(
+                    self._beam_paged_impl, st, pad, m_tokens > 0, eos_id),
+                    None)
+            # Captured at the key's first search (Engine.beam_search).
+            call_captured(prefill)
+            if steps > 1:
+                if st.step is None:
+                    st.step = self._graph(functools.partial(
+                        self._beam_paged_step, st, eos_id), None)
+                for _ in range(steps - 1):
+                    st.step()
+            got = _pull_beams(*beam_rank(st.scores, st.out[:, :steps],
+                                         st.lens, length_penalty))
+        finally:
+            be._free.extend(borrowed)
+            be.detach_prefix(matched)
+        return beam_filter_invalid(*got)
+
+    # The beam programs' staged header: (prompt length, suffix length,
+    # cached prefix length, the prompt's last logical block, owned
+    # blocks per beam), then the suffix's padded tokens.
+    _BEAM_HEAD = 5
+
+    def _beam_state(self, k: int, eos_id: Optional[int], dfa) -> "_PagedBeam":
+        """The (K, eos_id, constrained) key's buffers, built at its first
+        search, with the DFA's rows uploaded when another table than the
+        resident one is asked for (a larger table rebuilds the key)."""
+        key = (k, eos_id, dfa is not None)
+        st = self._beams.get(key)
+        if st is not None and dfa is not None \
+                and st.ctrans.shape[0] < dfa.n_states:
+            st = None
+        if st is None:
+            dev, mb = self.device, self._cache.max_blocks
+
+            def zeros(*shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            st = self._beams[key] = _PagedBeam(
+                inp=zeros(self._BEAM_HEAD + self.max_len, dtype=torch.int64),
+                tables=zeros(k, mb, dtype=torch.int32),
+                gen=zeros(mb, k, dtype=torch.int64),
+                lengths=zeros(k, dtype=torch.int32),
+                cur=zeros(k, dtype=torch.int64),
+                scores=zeros(k, dtype=torch.float32),
+                finished=zeros(k, dtype=torch.bool),
+                out=zeros(k, self.max_len, dtype=torch.int64),
+                lens=zeros(k, dtype=torch.int32),
+                cstate=zeros(k, dtype=torch.int64),
+                at=zeros(1, dtype=torch.int64),
+                ctrans=_dfa_table(dfa, self.cfg.vocab_size, dev))
+        _upload_dfa(st, dfa)
+        return st
+
+    def _beam_paged_impl(self, st: "_PagedBeam", pad: int, has_prefix: bool,
+                         eos_id: Optional[int]) -> None:
+        """The device side's first program (the reference's
+        `_beam_paged_impl` up to its scan, :2940-3030): the prompt
+        prefilled once through the shared table row, the first
+        expansion, and frozen beams' tables pointed at scratch block 0.
+        Without a prefix the padded prompt runs through the mini cache
+        (kernel 2) and scatters through the shared row: pad positions
+        past the prompt land in its tail block at offsets the beams
+        overwrite before reading, or in block 0. With one the suffix
+        continues the cached prefix through the row's view on the plain
+        attention, as the reference pins it (:2955). Reads only the
+        key's fixed buffers."""
+        h = self._BEAM_HEAD
+        s, s_suf, m = (st.inp[i:i + 1] for i in range(3))
+        tokens = st.inp[h:h + pad][None]
+        if has_prefix:
+            view = self._cache.replace(
+                tables=st.tables[:1], lengths=m.to(torch.int32),
+                max_length=self.max_len - pad)
+            logits, _ = transformer.forward_with_cache(
+                self.cfg, self.params, tokens, view, attn_impl="ref",
+            )
+            last = logits[0].index_select(0, s_suf - 1)[0]
+        else:
+            self._prefill_inputs()
+            mini = self._pf_mini
+            view = mini.replace(
+                **{n: getattr(mini, n)[:, :, :, :pad]
+                   for n in kv_field_names(self.kv_quant)},
+                lengths=self._pf_zero, max_length=0)
+            logits, _ = transformer.forward_with_cache(
+                self.cfg, self.params, tokens, view, fresh_cache=True,
+                attn_impl=self.attn_impl,
+            )
+            self._scatter_row(view, st.tables[0])
+            last = logits[0].index_select(0, s - 1)[0]
+        k = st.cur.shape[0]
+        # beam0 is 0 for every beam and the rows are equal: the
+        # reference's table gather is a no-op.
+        scores, _, tok, cstate = beam_first_expand(last, k, st.ctrans,
+                                                   eos_id)
+        st.lengths.copy_(s.to(torch.int32).expand(k))
+        st.scores.copy_(scores)
+        st.cur.copy_(tok)
+        if eos_id is not None:
+            torch.eq(tok, eos_id, out=st.finished)
+        else:
+            st.finished.zero_()
+        st.out.zero_()
+        st.out[:, 0].copy_(tok)
+        st.lens.fill_(1)
+        st.cstate.copy_(cstate)
+        st.at.fill_(1)
+        st.tables.masked_fill_(st.finished[:, None], 0)
+
+    def _beam_cow(self, st: "_PagedBeam") -> None:
+        """Each live beam owns the tail block it is about to write: the
+        (possibly shared) partial tail is copied into the beam's
+        statically assigned block and its table entry repointed. Every
+        source is gathered before any block is written, since a beam may
+        adopt the tail another beam rewrites in the same step. Frozen
+        beams copy block 0 onto itself."""
+        bs = self.block_size
+        lb0, n_gen = st.inp[3:4], st.inp[4:5]
+        live = ~st.finished
+        lb = (st.lengths // bs).to(torch.int64)
+        j = torch.minimum((lb - lb0).clamp(min=0), n_gen - 1)
+        ak = torch.arange(lb.shape[0], device=lb.device)
+        owned = torch.where(live, st.gen[j, ak], 0)
+        tail = st.tables.gather(1, lb[:, None])[:, 0].to(torch.int64)
+        src = torch.where(live, tail, 0)
+        for name in kv_field_names(self.kv_quant):
+            pool = getattr(self._cache, name)
+            pool.index_copy_(1, owned, pool.index_select(1, src))
+        st.tables.scatter_(1, lb[:, None],
+                           torch.where(live, owned, tail).to(
+                               torch.int32)[:, None])
+
+    def _beam_paged_step(self, st: "_PagedBeam",
+                         eos_id: Optional[int]) -> None:
+        """One beam step over the pool (the reference's `beam_step`
+        :3040-3066): copy-on-write of the live beams' tails (the
+        reference's copy at the end of the previous step, moved here so
+        the last step does not copy for nothing), the cached forward
+        through the beams' tables (kernel 7), the shared expansion, the
+        tables and lengths gathered by beam, a frozen beam's length
+        rolled back and its table pointed at scratch block 0. The host
+        checked that the whole search fits the table."""
+        self._beam_cow(st)
+        view = self._cache.replace(tables=st.tables, lengths=st.lengths,
+                                   max_length=0)
+        logits, grown = transformer.forward_with_cache(
+            self.cfg, self.params, st.cur[:, None], view,
+            attn_impl=self.attn_impl,
+        )
+        (scores, beam, tok, out, lens, finished, was_done,
+         cstate) = beam_expand(logits[:, 0], st.scores, st.finished, st.out,
+                               st.lens, st.at, eos_id, st.ctrans, st.cstate)
+        tables = st.tables.index_select(0, beam)
+        lengths = grown.lengths.index_select(0, beam)
+        st.tables.copy_(tables.masked_fill_(finished[:, None], 0))
+        st.lengths.copy_(torch.where(was_done, lengths - 1, lengths))
+        st.cur.copy_(tok)
+        st.scores.copy_(scores)
+        st.finished.copy_(finished)
+        st.out.copy_(out)
+        st.lens.copy_(lens)
+        st.cstate.copy_(cstate)
+        st.at.add_(1)
 
     def _observe_cache_gauges(self) -> None:
         super()._observe_cache_gauges()

@@ -131,6 +131,18 @@ class StepGraph:
         StepGraph.captures += 1
 
 
+def call_captured(runner):
+    """Call a program's runner so that on the card this very call replays
+    its graph: a StepGraph never called before runs its eager warm-up
+    first (the program must be idempotent over its fixed inputs, as the
+    beam searches' prefills are). Anything else (a StepGraph on the CPU,
+    or a plain function standing in for one) is called once."""
+    if (isinstance(runner, StepGraph) and runner.calls == 0
+            and runner.device.type == "cuda"):
+        runner()
+    return runner()
+
+
 class HostPull:
     """A device tensor's values on their way to the host: on the card a
     copy into pinned memory queued on the current stream behind the

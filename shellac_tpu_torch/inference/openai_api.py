@@ -21,11 +21,11 @@ nothing of the JAX package. Tool calling (`tools`, `tool_choice`,
 `parallel_tool_calls`, assistant turns carrying `tool_calls`, :202-302,
 :409-417, and their streamed deltas) and constrained output
 (`response_format` json_object / json_schema, :115-130) translate as in
-the reference, through the port's `inference/tools.py`. A knob that
-translates here but that the port's engine does not have yet
-(num_beams) is refused by the server with 501; the sampling controls
-(logit_bias, the penalties, seed) and echo with logprobs (:162-172)
-reach the engine.
+the reference, through the port's `inference/tools.py`. The sampling
+controls (logit_bias, the penalties, seed), echo with logprobs
+(:162-172) and `num_beams` with `length_penalty` (:100-105; with a
+`response_format` it is a constrained beam search, and each choice
+carries its `beam_score`, :404-407) reach the engine.
 """
 
 from __future__ import annotations
@@ -414,6 +414,10 @@ def completion_response(
             "index": i,
             "finish_reason": _finish_reason(toks, max_new),
         }
+        if "beam_score" in c:
+            # num_beams: the beam's length-penalized score rides its
+            # choice.
+            entry["beam_score"] = c["beam_score"]
         if chat:
             if c.get("tool_calls") is not None:
                 # The DFA-constrained tool branch parsed back into calls:

@@ -54,15 +54,25 @@ programs. A tool-enabled request's output is parsed back into
 `shellac_tool_requests_total`. Compiling needs a server-side tokenizer
 and the engine's `eos_id`.
 
+Beam search works as in the reference: a request with `num_beams`
+(`_handle_beam` :2307, and `length_penalty`, a `constraint` or an OpenAI
+`response_format`) runs one search on the scheduler thread between
+engine steps (`_run_beam` :1293; the dense caches' single-request
+delegate or the paged engine's copy-on-write search, whose faults fail
+only that request) and answers the ranked beams with their
+`beam_score`s. Sampling, streaming and logprob knobs must keep their
+neutral values (`_BEAM_NEUTRAL`), tools and streaming refuse it, and
+`num_beams` is capped at max(4 x slots, 16).
+
 Not ported yet; configuring any of these raises NotImplementedError, and
-an HTTP request for one gets a 501 whose body says so: beam search
-(`num_beams`), the KV import / seed / push / migrate / adopt / park /
-resume paths (`/kv/*`, `prefill_only`, `adopt`, `resume`), preemption
-and parking (`preempt_after`, `park_dir`), QoS tenants
-(`tenant_config`; the x-shellac-tenant header still labels the request
-counters, as it does in the reference without a tenant config),
-`profile_dir` and /debug/profile, `incident_dir` and
-/debug/incident(s), `spool_dir`, and a `role` other than "monolith".
+an HTTP request for one gets a 501 whose body says so: the KV import /
+seed / push / migrate / adopt / park / resume paths (`/kv/*`,
+`prefill_only`, `adopt`, `resume`), preemption and parking
+(`preempt_after`, `park_dir`), QoS tenants (`tenant_config`; the
+x-shellac-tenant header still labels the request counters, as it does in
+the reference without a tenant config), `profile_dir` and
+/debug/profile, `incident_dir` and /debug/incident(s), `spool_dir`, and
+a `role` other than "monolith".
 """
 
 from __future__ import annotations
@@ -731,6 +741,12 @@ class InferenceServer:
             if p is not None:
                 self._shed(rid, p)
             return
+        if samp and "_beam" in samp:
+            # A beam request runs whole on the scheduler thread (the
+            # engine's owner), like a long prefill: the search is the
+            # request, with no slot to multiplex.
+            self._run_beam(g, rid, tokens, max_new, samp["_beam"])
+            return
         pend = self._pending.get(rid)
         try:
             g.engine.submit(
@@ -742,6 +758,42 @@ class InferenceServer:
         except (ValueError, TypeError) as e:
             # A bad request, not a scheduler-killing fault.
             self._settle_error(rid, str(e), "error")
+
+    def _run_beam(self, g: _Generation, rid, tokens, max_new: int,
+                  beam: Dict[str, Any]) -> None:
+        """Run one beam-search request on the scheduler thread and settle
+        its pending. Engine faults stay with the request: a paged search
+        whose pool is exhausted (RuntimeError) fails this request loudly
+        instead of killing the scheduler."""
+        p = self._pending.get(rid)
+        if p is not None and p.trace is not None:
+            p.trace.prefill_start()
+        try:
+            seqs, scores = g.engine.beam_search(
+                tokens, num_beams=beam["num_beams"], max_new_tokens=max_new,
+                eos_id=getattr(g.engine, "eos_id", None),
+                length_penalty=beam["length_penalty"],
+                constraint=beam.get("constraint"),
+            )
+        except NotImplementedError as e:
+            self._settle_error(rid, str(e), "unported")
+            return
+        except (ValueError, TypeError) as e:
+            self._settle_error(rid, str(e), "error")
+            return
+        except Exception as e:  # noqa: BLE001 — a request-scoped fault
+            self._settle_error(
+                rid, f"beam search failed: {type(e).__name__}: {e}",
+                "fault", outcome="fault")
+            return
+        p = self._pending.pop(rid, None)
+        if p is None:
+            return  # cancelled or swept while the search ran
+        if p.trace is not None:
+            p.trace.first_token()
+            p.trace.finish(sum(len(q) for q in seqs))
+        p.result = {"beams": seqs, "scores": scores}
+        p.finish()
 
     def _run(self, g: _Generation) -> None:
         engine = g.engine
@@ -980,7 +1032,6 @@ class InferenceServer:
         """NotImplementedError (HTTP 501) for a request that asks for a
         feature this slice does not port."""
         for key, what in (
-            ("num_beams", "beam search"),
             ("prefill_only", "prefill-only KV migration"),
             ("migrate_to", "KV migration"),
             ("park", "KV parking"),
@@ -1144,11 +1195,6 @@ class InferenceServer:
                     "constraint does not compose with prefill_only (the "
                     "compiled DFA table does not migrate)"
                 )
-        if payload.get("num_beams") is not None and tool_ctx is not None:
-            raise ValueError(
-                "tools do not compose with num_beams (a beam is a "
-                "ranked whole sequence, not an assistant turn)"
-            )
 
     def _check_logprobs(self, payload) -> bool:
         want = bool(payload.get("logprobs"))
@@ -1190,6 +1236,69 @@ class InferenceServer:
             for ids, vals in tlp
         ]
 
+    # Knobs that do not compose with beam search, with their neutral
+    # values: beam decode is deterministic and returns whole ranked
+    # sequences, so a non-neutral sampling or streaming knob would be
+    # silently ignored; it is a 400 instead (the reference's :2296).
+    _BEAM_NEUTRAL = {
+        "stream": (None, False), "n": (None, 1), "best_of": (None, 1),
+        "logprobs": (None, False), "top_logprobs": (None, 0),
+        "min_tokens": (None, 0), "logit_bias": (None,),
+        "presence_penalty": (None, 0, 0.0),
+        "frequency_penalty": (None, 0, 0.0), "seed": (None,),
+        "prompt_logprobs": (None, False), "stop": (None,),
+        "temperature": (None, 0, 0.0), "top_p": (None, 1, 1.0),
+        "top_k": (None,), "min_p": (None, 0, 0.0),
+    }
+
+    def _handle_beam(self, payload: dict,
+                     trace_ctx: Optional[Tuple[str, int]] = None,
+                     tenant: Optional[str] = None) -> dict:
+        """A native beam-search request: `num_beams` (and optionally
+        `length_penalty`, `constraint`) answers the ranked beams as
+        {"choices": [{"tokens", "beam_score", "text"?}], "num_beams"}."""
+        try:
+            nb = int(payload["num_beams"])
+            lp = float(payload.get("length_penalty", 1.0))
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"bad num_beams/length_penalty: {e}")
+        if nb < 1:
+            raise ValueError(f"num_beams must be >= 1, got {nb}")
+        cap = max(4 * getattr(self.engine, "n_slots", 8), 16)
+        if nb > cap:
+            raise ValueError(
+                f"num_beams={nb} exceeds this server's cap of {cap}"
+            )
+        for key, neutral in self._BEAM_NEUTRAL.items():
+            if key in payload and payload[key] not in neutral:
+                raise ValueError(
+                    f"{key}={payload[key]!r} does not compose with "
+                    "num_beams (beam search is deterministic and "
+                    "unstreamed)"
+                )
+        tokens, max_new, _, samp = self._parse(payload)
+        deadline = self._deadline(payload.get("timeout"))
+        p = self._submit(
+            tokens, max_new, None,
+            {"_beam": {"num_beams": nb, "length_penalty": lp,
+                       "constraint": samp.get("constraint")}},
+            stream=False, deadline=deadline, trace_ctx=trace_ctx,
+            tenant=tenant,
+        )
+        try:
+            self._await(p, deadline)
+        except TimeoutError:
+            self._cancel(p)
+            raise
+        choices = []
+        for seq, score in zip(p.result["beams"], p.result["scores"]):
+            c: Dict[str, Any] = {"tokens": seq,
+                                 "beam_score": round(float(score), 6)}
+            if self.tokenizer is not None:
+                c["text"] = self.tokenizer.decode(seq)
+            choices.append(c)
+        return {"choices": choices, "num_beams": nb}
+
     def handle(self, payload: dict,
                trace_ctx: Optional[Tuple[str, int]] = None,
                tenant: Optional[str] = None) -> dict:
@@ -1197,6 +1306,16 @@ class InferenceServer:
         if trace_ctx is None:
             trace_ctx = (new_trace_id(), 0)
         tool_ctx = self._tool_context(payload)
+        if payload.get("num_beams") is not None:
+            if tool_ctx is not None:
+                raise ValueError(
+                    "tools do not compose with num_beams (a beam is a "
+                    "ranked whole sequence, not an assistant turn)"
+                )
+            result = self._handle_beam(payload, trace_ctx=trace_ctx,
+                                       tenant=tenant)
+            result["trace_id"] = trace_ctx[0]
+            return result
         tokens, max_new, stop, samp = self._parse(payload)
         self._tool_constraint(samp, tool_ctx)
         want_lps = self._check_logprobs(payload)
@@ -1330,6 +1449,11 @@ class InferenceServer:
         `tool_calls` (:3044-3098)."""
         if trace_ctx is None:
             trace_ctx = (new_trace_id(), 0)
+        if payload.get("num_beams") is not None:
+            raise ValueError(
+                "num_beams does not compose with streaming (beams are "
+                "ranked whole sequences; request them unstreamed)"
+            )
         tool_ctx = self._tool_context(payload)
         tokens, max_new, stop, samp = self._parse(payload)
         self._tool_constraint(samp, tool_ctx)

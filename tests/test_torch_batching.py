@@ -272,6 +272,26 @@ def _drive(eng, reqs, stop):
     return results, blocks, outs
 
 
+_JAX_ENGINES = {}
+
+
+def _jax_engine(name, paged, kw):
+    """The JAX engine of (name, paged), built once and shared by the
+    tick counts (its prefill programs do not depend on them): reset to a
+    pristine allocator and set to this case's decode_ticks."""
+    key = (name, paged)
+    if key not in _JAX_ENGINES:
+        jc, _, jp, _ = _cached_pair(name)
+        cls = (jbatching.PagedBatchingEngine if paged
+               else jbatching.BatchingEngine)
+        _JAX_ENGINES[key] = cls(jc, jp, **kw)
+    jeng = _JAX_ENGINES[key]
+    assert jeng.eos_id == kw["eos_id"]
+    jeng.abort_all()
+    jeng.set_decode_ticks(kw["decode_ticks"])
+    return jeng
+
+
 @pytest.mark.parametrize("ticks", [1, 3])
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
@@ -283,9 +303,8 @@ def test_engines_greedy_match_jax(name, paged, ticks):
               logprobs=True, top_logprobs=2)
     if paged:
         kw.update(block_size=8, pool_tokens=96)
-    jcls = jbatching.PagedBatchingEngine if paged else jbatching.BatchingEngine
     tcls = batching.PagedBatchingEngine if paged else batching.BatchingEngine
-    jeng = jcls(jc, jp, **kw)
+    jeng = _jax_engine(name, paged, kw)
     teng = tcls(tc, tp, device=CPU, **kw)
     want, jblocks, jouts = _drive(jeng, reqs, stop)
     got, tblocks, touts = _drive(teng, reqs, stop)
@@ -544,8 +563,7 @@ def test_unported_options_raise(paged):
     for kw in _BAD_PORTED_SUBMIT_OPTS:
         with pytest.raises(ValueError, match="TokenDFA"):
             eng.submit("x", [1, 2, 3], 4, **kw)
-    for fn in (eng.beam_search, lambda: eng.preempt("x"),
-               lambda: eng.release_frozen("x")):
+    for fn in (lambda: eng.preempt("x"), lambda: eng.release_frozen("x")):
         with pytest.raises(NotImplementedError):
             fn()
     # The off values of those options are accepted, and so are the

@@ -646,3 +646,52 @@ def test_constrained_graphs_match_eager_across_a_restack(backend, overlap):
         for t in out["graph"][f"c{i}"]:
             st = int(dfas[d].trans[st, -1 if t == eos else t])
             assert st >= 0
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_beam_search_graphs_match_eager(backend, constrained):
+    """Beam search's prefill and step programs through their graphs (the
+    dense caches through the single-request delegate) give the eager
+    programs' beams and scores bit for bit; the first search at a key
+    captures both (its prefill runs an eager warm-up first, one prefill's
+    launches more than the eager engine's), later ones capture nothing."""
+    from shellac_tpu_torch.inference.constraints import compile_token_dfa
+    from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+    dev = _card()
+    cfg, params = _model(dev)
+    eos = ByteTokenizer.EOS
+    dfa = (compile_token_dfa(r"(yes|no|maybe)( (yes|no|maybe)){0,3}",
+                             ByteTokenizer(), cfg.vocab_size, eos)
+           if constrained else None)
+    prompt = np.random.default_rng(17).integers(0, 256, 150)
+    cls = _batching_cls(backend)
+
+    class Eager(_eager(cls)):
+        def _graph(self, fn, generator, pool=None):
+            return fn
+
+    out, counts, captured = {}, {}, {}
+    for name, c in (("eager", Eager), ("graph", cls)):
+        kw = _engine_kw(backend)
+        if backend == "paged-int8":
+            kw["pool_tokens"] = 1024  # 64-token blocks: the search's 7
+        eng = c(cfg, params, eos_id=eos, device=dev, **kw)
+        _reset()
+        out[name], captured[name] = [], []
+        for _ in range(3):
+            before = StepGraph.captures
+            out[name].append(eng.beam_search(prompt, num_beams=4,
+                                             max_new_tokens=20,
+                                             constraint=dfa))
+            captured[name].append(StepGraph.captures - before)
+        torch.cuda.synchronize()
+        counts[name] = _counts()
+    L = cfg.n_layers
+    warm = {"rms_norm_cuda": 2 * L + 1,
+            "flash_attention_cuda": L}
+    assert out["graph"] == out["eager"]
+    assert counts["graph"] == {n: c + warm.get(n, 0)
+                               for n, c in counts["eager"].items()}
+    assert captured == {"eager": [0, 0, 0], "graph": [2, 0, 0]}

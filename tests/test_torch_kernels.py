@@ -968,3 +968,92 @@ def test_lm_head_on_tensor_cores_matches_the_fp32_product(tied):
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max()
         assert err <= atol * ref.float().abs().max(), err.item()
+
+
+# The beam search's shapes (K beams of one 512-token prompt): kernels 5
+# and 6 over a beam cache of 1024 positions (the bucket of 512 + 64), rows
+# 0 and 1 equal as after a reorder and one beam rolled back; kernel 7 over
+# copy-on-write tables (the prompt's sealed blocks shared by every live
+# row, row 1 sharing row 0's sealed generated blocks, the frozen rows'
+# tables all block 0) at lengths on both sides of a block boundary.
+# case -> (block size (None: dense), lengths, frozen rows).
+_BEAM = {
+    "dense_k4": (None, [575, 575, 575, 540], ()),
+    "dense_k16": (None, [560] * 12 + [530, 560, 513, 560], ()),
+    "paged_k4_cow": (16, [528, 528, 527, 520], (3,)),
+    "paged_k16_cow": (16, [543, 543, 544, 544] * 3 + [544, 520, 544, 543],
+                      (13,)),
+    "paged_int8_k4_cow": (64, [576, 576, 575, 540], (3,)),
+}
+
+
+def _cow_tables(bs, lengths, frozen, prompt=512, max_len=2048):
+    """(tables, n_blocks, dead (n_blocks, bs) rows no beam attends) of a
+    copy-on-write beam search before a step (queries at `lengths`)."""
+    k, sealed = len(lengths), prompt // bs
+    need = [-(-(n + 1) // bs) for n in lengths]
+    n_blocks = 2 + sealed + sum(need) + 8
+    ids = (torch.randperm(n_blocks - 1,
+                          generator=torch.Generator().manual_seed(bs)) + 1)
+    tables = torch.zeros((k, max_len // bs), dtype=torch.int32)
+    at = sealed
+    for b in range(k):
+        if b in frozen:
+            continue
+        tables[b, :sealed] = ids[:sealed]
+        for j in range(sealed, need[b]):
+            if b == 1 and j < min(need[0], need[1]) - 1:
+                tables[1, j] = tables[0, j]
+            else:
+                tables[b, j] = ids[at]
+                at += 1
+    dead = torch.ones((n_blocks, bs), dtype=torch.bool)
+    for b, n in enumerate(lengths):
+        pos = torch.arange(n + 1)
+        dead[tables[b, pos // bs].long(), pos % bs] = False
+    return tables, n_blocks, dead
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_BEAM))
+def test_decode_kernels_at_the_beam_shapes(dtype, case):
+    dev = _card()
+    bs, lengths, frozen = _BEAM[case]
+    k, h, hkv, d = len(lengths), 16, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(k + (bs or 0))
+    q = _randn(gen, (k, 1, h, d), dtype, dev)
+    idx = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+    if bs is None:
+        ck = _randn(gen, (k, hkv, 1024, d), dtype, dev)
+        cv = _randn(gen, (k, hkv, 1024, d), dtype, dev)
+        ck[1], cv[1] = ck[0], cv[0]
+        _close(da.decode_attention(q, ck, cv, idx),
+               da._decode_ref(q, ck, cv, idx, None, scale), dtype)
+        qk, sk = _quant_rows(gen, (k, hkv, 1024, d), dev)
+        qv, sv = _quant_rows(gen, (k, hkv, 1024, d), dev)
+        before = da.decode_attention_quant_cuda.launches
+        out = da.decode_attention(q, qk, qv, idx, k_scale=sk, v_scale=sv)
+        assert da.decode_attention_quant_cuda.launches == before + 1
+        _close(out, da._decode_ref(q, qk, qv, idx, None, scale, k_scale=sk,
+                                   v_scale=sv), dtype)
+        return
+    tables, nb, dead = _cow_tables(bs, lengths, frozen)
+    tables = tables.to(dev)
+    rows = dead[:, None, :].expand(nb, hkv, bs).to(dev)
+    if bs == 64:
+        pk, sk = _quant_rows(gen, (nb, hkv, bs, d), dev)
+        pv, sv = _quant_rows(gen, (nb, hkv, bs, d), dev)
+        out = da.paged_decode_attention(
+            q, pk, pv, tables, idx, k_scale=sk.masked_fill(rows, float("nan")),
+            v_scale=sv.masked_fill(rows, float("nan")))
+        ref = da._paged_decode_ref(q, pk, pv, tables, idx, None, scale,
+                                   k_scale=sk, v_scale=sv)
+    else:
+        pk = _randn(gen, (nb, hkv, bs, d), dtype, dev)
+        pv = _randn(gen, (nb, hkv, bs, d), dtype, dev)
+        out = da.paged_decode_attention(
+            q, pk.masked_fill(rows[..., None], float("nan")),
+            pv.masked_fill(rows[..., None], float("nan")), tables, idx)
+        ref = da._paged_decode_ref(q, pk, pv, tables, idx, None, scale)
+    _close(out, ref, dtype)

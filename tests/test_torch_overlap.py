@@ -6,10 +6,12 @@ The same numpy-seeded weights (tiny preset, fp32, through
 ordering and under `overlap_decode`, `overlap_prefill` and both, dense
 and paged, at 1 and 4 ticks a window: greedy tokens and logprobs must
 equal the strict engine's exactly (the pipelines reorder host work, not
-math). Against the JAX engine with both pipelines, tokens are compared
-while the JAX engine's own top-2 logprob margin is at least twice the
-logit tolerance of 1e-4 (as `tests/test_torch_batching.py` does), and
-logprobs there to 1e-4. The lifecycle cases are the reference's
+math). Against the JAX engine with both pipelines (over its dense cache,
+for both caches of the port: greedy tokens do not depend on the
+storage), tokens are compared while the JAX engine's own top-2 logprob
+margin is at least twice the logit tolerance of 1e-4 (as
+`tests/test_torch_batching.py` does), and logprobs there to 1e-4. The
+lifecycle cases are the reference's
 (`tests/test_overlap_decode.py:189-270`,
 `tests/test_overlap_prefill.py:176-255`): cancel and abort_all with
 windows and prefills in flight, the trailing window after the last
@@ -107,19 +109,21 @@ def _strict(tc, tp, **kw):
                                    **kw)
 
 
-# The JAX engine's run under both pipelines, per cache kind: its greedy
-# tokens do not depend on decode_ticks, so one reference serves both.
+# The JAX engine's run under both pipelines over its dense cache: its
+# greedy tokens depend neither on decode_ticks nor on dense versus paged
+# storage (tests/test_torch_batching.py holds the port's engines against
+# both JAX engines), so one reference serves every case.
 _JAX_RUNS = {}
 
 
-def _jax_reference(pair, paged, eos, stop, reqs):
-    if paged not in _JAX_RUNS:
+def _jax_reference(pair, eos, stop, reqs):
+    if not _JAX_RUNS:
         jc, _, jp, _ = pair
-        jeng = _cls(paged, jax_engine=True)(
-            jc, jp, **_kw(paged, eos_id=eos, decode_ticks=4,
+        jeng = _cls(False, jax_engine=True)(
+            jc, jp, **_kw(False, eos_id=eos, decode_ticks=4,
                           **PIPELINES["both"]))
-        _JAX_RUNS[paged] = _run(jeng, reqs, stop), jeng
-    return _JAX_RUNS[paged]
+        _JAX_RUNS["dense"] = _run(jeng, reqs, stop), jeng
+    return _JAX_RUNS["dense"]
 
 
 @pytest.mark.parametrize("ticks", [1, 4])
@@ -145,7 +149,7 @@ def test_greedy_pipelines_match_strict_and_jax(pair, paged, ticks):
         if paged:
             be = eng.cache_backend
             assert sorted(be._free) == list(range(1, be.n_blocks)), name
-    jwant, jeng = _jax_reference(pair, paged, eos, stop, reqs)
+    jwant, jeng = _jax_reference(pair, eos, stop, reqs)
     compared = total = 0
     for rid, _, _ in reqs:
         margins = np.array([lps[0] - lps[1]
@@ -363,12 +367,15 @@ def test_window_guard_admits_requests_tight_to_max_len(pair, pipe):
     prompt = _rng("tight").integers(0, tc.vocab_size, 20).astype(np.int32)
     kw = dict(n_slots=2, max_len=27, decode_ticks=4, logprobs=True,
               top_logprobs=2)
+    reqs = [("a", prompt, 6), ("b", prompt[:7], 19)]
     got = batching.BatchingEngine(
         tc, tp, device=CPU, **kw,
-        **(PIPELINES["both"] if pipe == "both" else {})).run(
-        [("a", prompt, 6), ("b", prompt[:7], 19)])
-    jeng = jbatching.BatchingEngine(jc, jp, **kw)
-    want = jeng.run([("a", prompt, 6), ("b", prompt[:7], 19)])
+        **(PIPELINES["both"] if pipe == "both" else {})).run(reqs)
+    # The JAX engine's run is the same for both cases: made once.
+    if "tight" not in _JAX_RUNS:
+        jeng = jbatching.BatchingEngine(jc, jp, **kw)
+        _JAX_RUNS["tight"] = jeng.run(reqs), jeng
+    want, jeng = _JAX_RUNS["tight"]
     for rid in ("a", "b"):
         margins = [lps[0] - lps[1]
                    for _, lps in jeng.finished_top_logprobs[rid]]

@@ -694,7 +694,6 @@ def test_no_metrics_and_no_debug_answer_404():
 # --------------------------------------------------------------------------
 
 _UNPORTED_HTTP = {
-    "num_beams": ("/generate", {"tokens": [1, 2], "num_beams": 2}),
     "prefill_only": ("/generate", {"tokens": [1, 2], "prefill_only": True,
                                    "migrate_to": "http://x"}),
     "adopt": ("/generate", {"adopt": "00-abc"}),
@@ -713,6 +712,30 @@ def test_unported_requests_answer_501(pair, case):
     err = json.loads(body)["error"]
     msg = err["message"] if isinstance(err, dict) else err
     assert "not ported yet" in msg
+    assert headers.get("x-request-id")
+
+
+def test_num_beams_answers_the_engine_beams(pair):
+    """Ported since beam search landed: /generate with num_beams answers
+    the ranked beams of the port's Engine on the same weights, with their
+    scores (tests/test_torch_beam_search.py holds those against the JAX
+    package's)."""
+    from shellac_tpu_torch.inference.engine import Engine
+
+    status, headers, body = _request(
+        pair["port"], "/generate",
+        {"tokens": [1, 2], "num_beams": 2, "max_new": 6})
+    assert status == 200, body
+    got = json.loads(body)
+    seqs, scores = Engine(pair["tc"], pair["tp"], max_len=64,
+                          device=CPU).beam_search([1, 2], num_beams=2,
+                                                  max_new_tokens=6)
+    assert got["num_beams"] == 2 and got["trace_id"]
+    assert [c["tokens"] for c in got["choices"]] == seqs
+    assert [c["beam_score"] for c in got["choices"]] == [
+        round(x, 6) for x in scores]
+    assert [c["text"] for c in got["choices"]] == [TOK.decode(q)
+                                                   for q in seqs]
     assert headers.get("x-request-id")
 
 

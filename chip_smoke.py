@@ -233,6 +233,47 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 for its plain version (attn_impl="ref" and RMSNorm's plain
                 version): equal sequences, scores within 1e-4; dense
                 against paged and dense-int8 against paged-int8 reported.
+ 11g. moe    — GPT-OSS-20B's shape (`gptoss_20b()`: the published
+                config through the JAX package's `_gptoss_config`
+                mapping; 24 layers, d 2880, 64 q heads over 8 kv heads
+                of 64, 32 experts top-4 of width 2880, vocab 201088, a
+                128-token window on alternate layers, sinks, q/k/v/o
+                biases, yarn rope, dropless; 20.9 B parameters, random
+                weights made on the card from --seed) at full width and
+                depth (its dropless MoE layers on the sorted-segment
+                product in bf16, `transformer.moe_experts`):
+                Engine.generate at generate's shape (exact launch
+                counts, no capture in the timed call, tokens/s, prefill
+                and decode ms, the decode step's device ms by kind and
+                one MoE layer's GEMMs against its routing, bucket fill,
+                activation and combine), then PagedBatchingEngine on
+                serve's 48 requests under the reference serve's
+                scheduling (tokens/s, TTFT and TPOT p50/p99, exact
+                launch counts, the graphs captured, the allocator
+                pristine, a 16-slot decode step by kind, a fresh
+                1024-token prefill's device ms, one MoE layer's prefill
+                through the capacity buckets against the grouped path,
+                peak memory), and the decode step's logits through the
+                kernels against attn_impl="ref" with the plain run on
+                the kernel run's experts (5e-2 of their scale; the rows
+                whose own experts differ are printed). Earlier phases'
+                engines are freed first.
+ 11h. moe-parity — GPT-OSS-20B's shape cut to 2 layers, fp32: greedy
+                tokens of Engine, BatchingEngine and PagedBatchingEngine,
+                through the kernels and with attn_impl="ref", identical;
+                the cached forward's logits against the full forward's
+                within 1e-3 of their scale.
+ 11i. graph-parity-moe — graph-parity's window, prefill and continuation
+                passes on GPT-OSS-20B's shape cut to 2 layers, bf16, over
+                the paged and dense caches.
+ 11j. kernels-moe — kernels 1, 2, 5 and 7 at GPT-OSS-20B's shapes (RMSNorm
+                at width 2880; 64 q over 8 kv heads of 64 with sinks, the
+                128-token window and full attention, at generate's and
+                serve's shapes) against their plain versions in bf16 and
+                fp32, then timed against their bounds, their plain
+                versions and library calls (F.rms_norm; for attention,
+                whose sinks no single library call takes on these inputs,
+                SDPA with the sink as an extra zero key).
  12. cli-serve — `python -m shellac_tpu_torch serve --config F
                 --cache-backend paged --slots 4 --port 0 --logprobs` (F:
                 shellac-1b cut to 2 layers) as a subprocess, on the CLI's
@@ -264,8 +305,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}. `--only PHASES` (generate,
 prefix-serve, sampling-controls, constrained-serve, graph-parity, beam,
-beam-parity, kernels-beam) runs those after the build and prints
-neither of the last two lines.
+beam-parity, kernels-beam, moe, moe-parity, graph-parity-moe,
+kernels-moe) runs those after the build and prints neither of the last
+two lines.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -3159,6 +3201,124 @@ def expected_launches(table, L, stats, ticks, decode_kernel):
                 **{decode_kernel: L * windows * ticks})
 
 
+def window_prefill_parity(cfg, params, dev, table, backend, reqs, phase):
+    """graph-parity's window and prefill pass over one cache: the engine
+    through its CUDA graphs and run eagerly (`eager_engine`), at 1 and 4
+    ticks a window, strict and pipelined (PIPELINED); every run's greedy
+    tokens and logprobs must equal the eager strict engine's bit for bit,
+    and a graph run's launch counts its eager twin's and what its
+    prefills and windows make. Returns the failed (backend, ticks,
+    ordering)."""
+    from shellac_tpu_torch.inference.batching import (
+        BatchingEngine,
+        PagedBatchingEngine,
+    )
+
+    cls = (PagedBatchingEngine if backend.startswith("paged")
+           else BatchingEngine)
+    failed = []
+    for ticks in (1, 4):
+        runs = {}
+        for mode, pipe in (("strict", {}), ("pipelined", PIPELINED)):
+            for name, c in (("graph", cls), ("eager", eager_engine(cls))):
+                eng = c(cfg, params, n_slots=6, max_len=512,
+                        cache_backend=backend, decode_ticks=ticks,
+                        logprobs=True, device=dev, **pipe)
+                reset_counts(table)
+                out = eng.run(reqs)
+                torch.cuda.synchronize()
+                st = dict(eng.stats)
+                runs[mode, name] = dict(
+                    out=out, lps=dict(eng.finished_logprobs),
+                    launches=read_counts(table), stats=st,
+                    prefill_graphs=prefill_graphs(eng),
+                    expected=expected_launches(
+                        table, cfg.n_layers, st, ticks,
+                        DECODE_KERNEL[backend]))
+                eng.close()
+                del eng
+        ref = runs["strict", "eager"]
+        for mode in ("strict", "pipelined"):
+            g, e = runs[mode, "graph"], runs[mode, "eager"]
+            ok = (g["out"] == e["out"] == ref["out"]
+                  and g["lps"] == e["lps"] == ref["lps"]
+                  and g["launches"] == e["launches"] == g["expected"]
+                  and e["launches"] == e["expected"]
+                  and g["stats"]["decode_graphs"] == 1
+                  and g["prefill_graphs"] > 0
+                  and e["stats"]["decode_graphs"] == 0
+                  and g["stats"]["decode_windows"]
+                  == e["stats"]["decode_windows"] > 1)
+            emit(phase, backend=backend, decode_ticks=ticks,
+                 ordering=mode, layers=cfg.n_layers, dtype=cfg.dtype,
+                 slots=6, requests=len(reqs),
+                 tokens=sum(len(v) for v in g["out"].values()),
+                 decode_windows=g["stats"]["decode_windows"],
+                 prefills=g["stats"]["prefills"],
+                 decode_graphs_captured=g["stats"]["decode_graphs"],
+                 prefill_graphs_captured=g["prefill_graphs"],
+                 tokens_identical_to_eager_strict=g["out"] == e["out"]
+                 == ref["out"],
+                 logprobs_identical_to_eager_strict=g["lps"] == e["lps"]
+                 == ref["lps"], launches=g["launches"],
+                 launches_equal_eager_and_expected=(
+                     g["launches"] == e["launches"] == g["expected"]),
+                 ok=ok)
+            if not ok:
+                failed.append((backend, ticks, mode))
+    return failed
+
+
+def continuation_parity(cfg, params, dev, table, backend, seed, phase):
+    """graph-parity's continuation pass over one cache: chunked prefill
+    (64-token chunks) and, over the pools, the prefix cache's suffix
+    prefills, as graph replays against the same programs run eagerly
+    (tokens, logprobs and launches equal). Returns the failures."""
+    from shellac_tpu_torch.inference.batching import (
+        BatchingEngine,
+        PagedBatchingEngine,
+    )
+
+    paged = backend.startswith("paged")
+    cls = PagedBatchingEngine if paged else BatchingEngine
+    creqs = prefix_requests(seed + 25, cfg.vocab_size, 10,
+                            system_len=96, tails=(8, 200), new=(4, 16))
+    kw = dict(n_slots=6, max_len=512, cache_backend=backend,
+              prefill_chunk=64, logprobs=True, device=dev)
+    if paged:
+        kw["prefix_cache"] = True
+    runs = {}
+    for name, c in (("graph", cls), ("eager", eager_engine(cls))):
+        eng = c(cfg, params, **kw)
+        reset_counts(table)
+        out = eng.run(creqs)
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            out=out, lps=dict(eng.finished_logprobs),
+            launches=read_counts(table), stats=dict(eng.stats),
+            chunk_graphs=sum(r.graph is not None for k, r in
+                             eng._prefill_graphs.items()
+                             if k.kind == "chunk"))
+        eng.close()
+        del eng
+    g, e = runs["graph"], runs["eager"]
+    ok = (g["out"] == e["out"] and g["lps"] == e["lps"]
+          and g["launches"] == e["launches"] and g["chunk_graphs"] > 0
+          and g["stats"]["prefill_chunks"] > 0
+          and (not paged or g["stats"]["prefix_hit_tokens"] > 0))
+    emit(phase, backend=backend, ordering="strict",
+         pass_name="continuation", prefill_chunk=64, prefix_cache=paged,
+         layers=cfg.n_layers, dtype=cfg.dtype, requests=len(creqs),
+         prefill_chunks=g["stats"]["prefill_chunks"],
+         prefix_hit_tokens=g["stats"].get("prefix_hit_tokens", 0),
+         chunk_graphs_captured=g["chunk_graphs"],
+         tokens_identical_to_eager=g["out"] == e["out"],
+         logprobs_identical_to_eager=g["lps"] == e["lps"],
+         launches=g["launches"],
+         launches_equal_eager=g["launches"] == e["launches"], ok=ok)
+    return [] if ok else [(backend, "continuation")]
+
+
 def phase_graph_parity(seed, dev, table):
     """The batching engines' programs (decode windows and per-bucket
     prefills) through their CUDA graphs against the same programs run
@@ -3187,97 +3347,10 @@ def phase_graph_parity(seed, dev, table):
     for backend in ("paged", "dense", "paged-int8", "dense-int8"):
         cls = (PagedBatchingEngine if backend.startswith("paged")
                else BatchingEngine)
-        for ticks in (1, 4):
-            runs = {}
-            for mode, pipe in (("strict", {}), ("pipelined", PIPELINED)):
-                for name, c in (("graph", cls), ("eager", eager_engine(cls))):
-                    eng = c(cfg, params, n_slots=6, max_len=512,
-                            cache_backend=backend, decode_ticks=ticks,
-                            logprobs=True, device=dev, **pipe)
-                    reset_counts(table)
-                    out = eng.run(reqs)
-                    torch.cuda.synchronize()
-                    st = dict(eng.stats)
-                    runs[mode, name] = dict(
-                        out=out, lps=dict(eng.finished_logprobs),
-                        launches=read_counts(table), stats=st,
-                        prefill_graphs=prefill_graphs(eng),
-                        expected=expected_launches(
-                            table, cfg.n_layers, st, ticks,
-                            DECODE_KERNEL[backend]))
-                    eng.close()
-                    del eng
-            ref = runs["strict", "eager"]
-            for mode in ("strict", "pipelined"):
-                g, e = runs[mode, "graph"], runs[mode, "eager"]
-                ok = (g["out"] == e["out"] == ref["out"]
-                      and g["lps"] == e["lps"] == ref["lps"]
-                      and g["launches"] == e["launches"] == g["expected"]
-                      and e["launches"] == e["expected"]
-                      and g["stats"]["decode_graphs"] == 1
-                      and g["prefill_graphs"] > 0
-                      and e["stats"]["decode_graphs"] == 0
-                      and g["stats"]["decode_windows"]
-                      == e["stats"]["decode_windows"] > 1)
-                emit("graph-parity", backend=backend, decode_ticks=ticks,
-                     ordering=mode, layers=2, dtype="bfloat16", slots=6,
-                     requests=len(reqs),
-                     tokens=sum(len(v) for v in g["out"].values()),
-                     decode_windows=g["stats"]["decode_windows"],
-                     prefills=g["stats"]["prefills"],
-                     decode_graphs_captured=g["stats"]["decode_graphs"],
-                     prefill_graphs_captured=g["prefill_graphs"],
-                     tokens_identical_to_eager_strict=g["out"] == e["out"]
-                     == ref["out"],
-                     logprobs_identical_to_eager_strict=g["lps"] == e["lps"]
-                     == ref["lps"], launches=g["launches"],
-                     launches_equal_eager_and_expected=(
-                         g["launches"] == e["launches"] == g["expected"]),
-                     ok=ok)
-                if not ok:
-                    failed.append((backend, ticks, mode))
-        # The continuation programs: chunked prefill (64-token chunks)
-        # and, over the pools, the prefix cache's suffix prefills, as
-        # graph replays against the same programs run eagerly.
-        creqs = prefix_requests(seed + 25, cfg.vocab_size, 10,
-                                system_len=96, tails=(8, 200), new=(4, 16))
-        kw = dict(n_slots=6, max_len=512, cache_backend=backend,
-                  prefill_chunk=64, logprobs=True, device=dev)
-        if backend.startswith("paged"):
-            kw["prefix_cache"] = True
-        runs = {}
-        for name, c in (("graph", cls), ("eager", eager_engine(cls))):
-            eng = c(cfg, params, **kw)
-            reset_counts(table)
-            out = eng.run(creqs)
-            torch.cuda.synchronize()
-            runs[name] = dict(
-                out=out, lps=dict(eng.finished_logprobs),
-                launches=read_counts(table), stats=dict(eng.stats),
-                chunk_graphs=sum(r.graph is not None for k, r in
-                                 eng._prefill_graphs.items()
-                                 if k.kind == "chunk"))
-            eng.close()
-            del eng
-        g, e = runs["graph"], runs["eager"]
-        ok = (g["out"] == e["out"] and g["lps"] == e["lps"]
-              and g["launches"] == e["launches"] and g["chunk_graphs"] > 0
-              and g["stats"]["prefill_chunks"] > 0
-              and (not backend.startswith("paged")
-                   or g["stats"]["prefix_hit_tokens"] > 0))
-        emit("graph-parity", backend=backend, ordering="strict",
-             pass_name="continuation", prefill_chunk=64,
-             prefix_cache=backend.startswith("paged"), layers=2,
-             dtype="bfloat16", requests=len(creqs),
-             prefill_chunks=g["stats"]["prefill_chunks"],
-             prefix_hit_tokens=g["stats"].get("prefix_hit_tokens", 0),
-             chunk_graphs_captured=g["chunk_graphs"],
-             tokens_identical_to_eager=g["out"] == e["out"],
-             logprobs_identical_to_eager=g["lps"] == e["lps"],
-             launches=g["launches"],
-             launches_equal_eager=g["launches"] == e["launches"], ok=ok)
-        if not ok:
-            failed.append((backend, "continuation"))
+        failed += window_prefill_parity(cfg, params, dev, table, backend,
+                                        reqs, "graph-parity")
+        failed += continuation_parity(cfg, params, dev, table, backend,
+                                      seed, "graph-parity")
         failed += constrained_parity(cfg, params, dev, table, cls, backend,
                                      seed)
         failed += beam_graph_parity(cfg, params, dev, table, cls, backend,
@@ -4198,6 +4271,684 @@ def beam_graph_parity(cfg, params, dev, table, cls, backend, seed):
 
 
 # --------------------------------------------------------------------------
+# MoE: moe (GPT-OSS-20B's shape), moe-parity, graph-parity-moe, kernels-moe
+# --------------------------------------------------------------------------
+
+# GPT-OSS's attention shape: 64 q heads over 8 kv heads of 64, a 128-token
+# window on alternate layers, sinks on every layer.
+GPTOSS_HEADS, GPTOSS_KV_HEADS, GPTOSS_HEAD_DIM, GPTOSS_WINDOW = 64, 8, 64, 128
+
+
+def gptoss_20b():
+    """GPT-OSS-20B: the published `openai/gpt-oss-20b` config (24 layers,
+    hidden 2880, 64 q heads over 8 kv heads of 64, 32 experts, 4 a token,
+    of width 2880, vocab 201088, a 128-token sliding window on the even
+    layers, yarn rope of factor 32 over 4096 positions without truncation,
+    theta 150000, RMS eps 1e-5, untied embeddings, router aux coefficient
+    0.9) through the JAX package's mapping (`_gptoss_config`,
+    shellac_tpu/models/convert.py:262): sinks, q/k/v/o biases, the
+    softmax-after-top-k gate with biased experts, the clamped (up + 1) *
+    glu activation, dropless routing. 20.9 B parameters."""
+    from shellac_tpu_torch.config import ModelConfig, MoEConfig, YarnConfig
+
+    return ModelConfig(
+        vocab_size=201088, d_model=2880, n_layers=24, n_heads=GPTOSS_HEADS,
+        n_kv_heads=GPTOSS_KV_HEADS, head_dim=GPTOSS_HEAD_DIM, d_ff=2880,
+        max_seq_len=131072, rope_theta=150000.0, norm_eps=1e-5,
+        tie_embeddings=False, attn_window=GPTOSS_WINDOW,
+        attn_pattern=("window", "full"), attn_bias=True, attn_out_bias=True,
+        attn_sink=True, remat=False,
+        rope_yarn=YarnConfig(factor=32.0,
+                             original_max_position_embeddings=4096,
+                             beta_fast=32.0, beta_slow=1.0, truncate=False),
+        moe=MoEConfig(num_experts=32, num_experts_per_token=4,
+                      d_ff_expert=2880, scoring="softmax_topk",
+                      expert_bias=True, gate_limit=7.0, expert_act="gptoss",
+                      router_aux_loss_weight=0.9, dropless=True),
+    ).validate()
+
+
+def moe_step_profile(cfg, params, tok, cache):
+    """Device ms of one cached forward (a decode step at tok's rows) by
+    kernel kind (`profile_call`: the port's kernels, GEMMs, the rest),
+    and of one of its MoE layers' experts called alone at the same rows
+    as the cached forward runs them (`transformer.moe_experts`): the
+    GEMMs (the experts' products and the router's) and every other
+    kernel (routing, dispatch, the activation and the combine), with the
+    number of MoE layers a step runs."""
+    from shellac_tpu_torch.models import transformer
+
+    def step():
+        return transformer.forward_with_cache(cfg, params, tok, cache)
+
+    step()
+    torch.cuda.synchronize()
+    out = profile_call(step)
+    layer = next(i for i, f in enumerate(transformer.moe_layers(cfg)) if f)
+    lp = params["layers"][layer]
+    g = torch.Generator(device=tok.device)
+    g.manual_seed(tok.shape[0])
+    hx = randn(g, (tok.shape[0], 1, cfg.d_model), cfg.compute_dtype,
+               tok.device)
+
+    def ffn():
+        return transformer.moe_experts(cfg, hx, lp, cached=True)
+
+    ffn()
+    torch.cuda.synchronize()
+    one = profile_call(ffn)
+    kinds = one["device_ms_by_kind"]
+    out["moe_layer"] = {
+        "layers": sum(transformer.moe_layers(cfg)),
+        "device_ms": one["device_ms"], "launches": one["launches"],
+        "gemm_ms": kinds.get("gemm", 0.0),
+        "routing_dispatch_activation_combine_ms": kinds.get("other", 0.0),
+        "top": one["top"][:6]}
+    return out
+
+
+def moe_choices(cfg, params, cur, cache, impl, pinned=None):
+    """One cached forward of `cur` (B, 1) over `cache` through attn_impl
+    `impl`: its logits (B, V) and, per MoE layer, each row's chosen
+    experts (B, k) and the gap between its k-th and (k+1)-th router
+    logit. With `pinned` (layers, B, k) each layer takes those experts
+    instead of its own choice, weighted by the softmax of its own logits
+    over them (GPT-OSS's softmax-after-top-k gate). Writes each row's k/v
+    at its length, which the next real step overwrites."""
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.ops import moe
+    from shellac_tpu_torch.ops.sampling import top_k
+
+    if cfg.moe.scoring != "softmax_topk":
+        raise ValueError("moe_choices pins the softmax_topk gate only")
+    chosen, gaps = [], []
+    inner = moe._route_scores
+
+    def recording(x, w_router, m, b_router=None, aux=True):
+        idx, weight, a, mets = inner(x, w_router, m, b_router, aux)
+        logits = x.float() @ w_router.float() + b_router.float()
+        top = top_k(logits, m.num_experts_per_token + 1)[0]
+        gaps.append(top[:, -2] - top[:, -1])
+        chosen.append(idx)
+        if pinned is not None:
+            idx = pinned[len(chosen) - 1]
+            weight = torch.softmax(logits.gather(-1, idx), dim=-1) \
+                * m.routed_scaling_factor
+        return idx, weight, a, mets
+
+    moe._route_scores = recording
+    try:
+        with torch.inference_mode():
+            logits, _ = transformer.forward_with_cache(
+                cfg, params, cur, cache, attn_impl=impl)
+    finally:
+        moe._route_scores = inner
+    return logits[:, 0], torch.stack(chosen), torch.stack(gaps)
+
+
+def check_moe_decode_logits(phase, cfg, params, engine):
+    """check_decode_logits for an MoE model in bf16 at depth: the decode
+    step's logits through the kernels against attn_impl="ref" on the same
+    cache state. Their attention outputs differ by bf16 rounding, which
+    can move a router logit past its neighbour where the k-th and
+    (k+1)-th are close; a row whose experts differ computes another
+    function from that layer on. So the plain run takes the kernel run's
+    experts at every layer (weighted by its own logits), and every active
+    row must agree within 5e-2 of the logits' scale (generate's and
+    serve's rule); how many rows' own choices differ, at which layer
+    first and by what gap, is printed."""
+    act = [i for i, r in enumerate(engine._slots) if r is not None]
+    cur = engine._cur[:, None]
+    got, chosen, _ = moe_choices(cfg, params, cur, engine._cache, "auto")
+    _, own, gap = moe_choices(cfg, params, cur, engine._cache, "ref")
+    ref, _, _ = moe_choices(cfg, params, cur, engine._cache, "ref",
+                            pinned=chosen)
+    same = (chosen.sort(dim=-1).values == own.sort(dim=-1).values).all(-1)
+    flipped = []
+    for a in act:
+        if not bool(same[:, a].all()):
+            layer = int((~same[:, a]).nonzero()[0])
+            flipped.append({"slot": a, "first_layer": layer,
+                            "ref_gap": gap[layer, a].item()})
+    scale = ref[act].abs().max().item()
+    err = (got[act] - ref[act]).abs().max().item()
+    ok = (len(act) > 0 and bool(torch.isfinite(got[act]).all().item())
+          and err <= 5e-2 * scale)
+    agree = int((got[act].argmax(-1) == ref[act].argmax(-1)).sum().item())
+    emit(phase, step="decode_logits_kernel_vs_ref", active_slots=len(act),
+         shape=list(got[act].shape), max_abs_err=err, ref_max_abs=scale,
+         tol="max_abs_err <= 5e-2 * max|ref|, the plain run on the kernel "
+         "run's experts", argmax_agree=agree,
+         rows_whose_own_experts_differ=flipped, ok=ok)
+    if not ok:
+        raise SystemExit(f"{phase}: decode logits through the kernels "
+                         "disagree with the plain path")
+
+
+def moe_prefill_paths(cfg, params, dev, rows):
+    """One MoE layer on a fresh prefill of `rows` tokens, bf16: the
+    reference's capacity buckets at C = T (E * T rows through the
+    experts) against the sorted-segment grouped product that the port
+    serves dropless bf16 calls with (`moe_ffn_grouped`, T * k rows,
+    `torch._grouped_mm` with device offsets), which computes the same
+    function: the ms of each (CUDA events around eager calls) and their
+    largest difference over the output's scale."""
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.ops.moe import moe_ffn, moe_ffn_grouped
+
+    m = cfg.moe
+    layer = next(i for i, f in enumerate(transformer.moe_layers(cfg)) if f)
+    lp = params["layers"][layer]
+    kw = dict(b_router=lp.get("b_router"), b_gate=lp.get("b_gate"),
+              b_up=lp.get("b_up"), b_down=lp.get("b_down"), aux=False)
+    g = torch.Generator(device=dev)
+    g.manual_seed(rows)
+    hx = randn(g, (1, rows, cfg.d_model), cfg.compute_dtype, dev)
+    args = (hx, lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"], m)
+    out = {"rows": rows,
+           "buckets_ms": eager_ms(lambda: moe_ffn(*args, drop_tokens=False,
+                                                  **kw), [()], 5)}
+    want = moe_ffn(*args, drop_tokens=False, **kw)[0].float()
+    out["grouped_ms"] = eager_ms(lambda: moe_ffn_grouped(*args, **kw),
+                                 [()], 5)
+    got = moe_ffn_grouped(*args, **kw)[0].float()
+    out["max_diff_over_scale"] = ((got - want).abs().max()
+                                  / want.abs().max()).item()
+    return out
+
+
+def phase_moe(seed, dev, table, card):
+    """GPT-OSS-20B's shape at full width and depth (random weights from
+    --seed, made on the card layer by layer): Engine.generate at
+    generate's shape, then PagedBatchingEngine on serve's requests under
+    the reference serve's scheduling. Returns the launch counts of both
+    runs together."""
+    from shellac_tpu_torch import Engine
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.inference.cache import init_cache
+    from shellac_tpu_torch.inference.graphs import StepGraph
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.obs import Registry
+
+    reset_peak()
+    cfg = gptoss_20b()
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    emit("moe", step="init_params", model="gpt-oss-20b",
+         params=transformer.num_params(params),
+         weight_bytes=torch.cuda.memory_allocated(),
+         seconds=time.perf_counter() - t0, card=card)
+
+    # Engine.generate: 8 prompts padded to 512, 64 new tokens, greedy.
+    toks, lens = prompts(seed, cfg.vocab_size, dev)
+    engine = Engine(cfg, params, max_len=MAX_LEN, temperature=0.0,
+                    device=dev)
+    captured = StepGraph.captures
+    # Warm-up: the first call runs both programs eagerly and captures the
+    # step, the second captures the prefill.
+    for _ in range(2):
+        engine.generate(toks, lens, max_new_tokens=4)
+    torch.cuda.synchronize()
+    warm_captures = StepGraph.captures - captured
+    reset_peak()
+    reset_counts(table)
+    captured = StepGraph.captures
+    t0 = time.perf_counter()
+    res = engine.generate(toks, lens, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    gen_counts = read_counts(table)
+    captured = StepGraph.captures - captured
+    peak = torch.cuda.max_memory_allocated()
+    expect = only(table, rms_norm=(2 * L + 1) * NEW_TOKENS,
+                  flash_attention_fwd=L,
+                  decode_attention_dense=L * (NEW_TOKENS - 1))
+    tokens_ok = (tuple(res.tokens.shape) == (PROMPTS, NEW_TOKENS)
+                 and bool(((res.tokens >= 0)
+                           & (res.tokens < cfg.vocab_size)).all().item())
+                 and bool(torch.isfinite(res.logprobs).all().item()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = engine.generate(toks, lens, max_new_tokens=1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tokens_ok = tokens_ok and bool(torch.equal(one.tokens[:, 0],
+                                               res.tokens[:, 0]))
+    with torch.inference_mode():
+        _, cache, _ = engine._prefill_impl(toks, lens)
+        tok = res.tokens[:, :1].long()
+        step_ms = graph_ms(
+            lambda: transformer.forward_with_cache(cfg, params, tok, cache),
+            [()], 1)
+        by_kind = moe_step_profile(cfg, params, tok, cache)
+    emit("moe", step="generate", model="gpt-oss-20b", prompts=PROMPTS,
+         pad=PAD, new_tokens=NEW_TOKENS, launches=gen_counts,
+         expected=expect, tokens_ok=tokens_ok, total_s=total_s,
+         tokens_per_s=PROMPTS * NEW_TOKENS / total_s,
+         prefill_wall_ms=prefill_ms,
+         decode_ms_per_token=(total_s * 1e3 - prefill_ms) / (NEW_TOKENS - 1),
+         decode_step_device_ms=step_ms, decode_step_by_kind=by_kind,
+         graphs_captured={"warm_up": warm_captures, "timed": captured},
+         max_memory_allocated=peak, card=card)
+    if gen_counts != expect or not tokens_ok or captured != 0:
+        raise SystemExit("moe generate: wrong launch counts, bad tokens or "
+                         "a capture in the timed call")
+    del engine, cache, res, one
+    reset_peak()
+
+    # A fresh 1024-token prefill (serve's largest bucket), its device ms.
+    with torch.inference_mode():
+        ptoks = torch.randint(0, cfg.vocab_size, (1, PROMPT_HI), device=dev)
+        pcache = init_cache(cfg, 1, PROMPT_HI, dev)
+        prefill_1024_ms = graph_ms(
+            lambda: transformer.forward_with_cache(
+                cfg, params, ptoks, pcache.replace(max_length=0),
+                fresh_cache=True), [()], 1)
+    del pcache
+    prefill_paths = moe_prefill_paths(cfg, params, dev, PROMPT_HI)
+    reset_peak()
+
+    # PagedBatchingEngine on serve's 48 requests, both pipelines, one
+    # prefill a step.
+    reg = Registry()
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        cache_backend="paged", decode_ticks=1, temperature=0.0, device=dev,
+        registry=reg, **PIPELINED)
+    reqs = serve_requests(seed + 1, cfg.vocab_size, REQUESTS,
+                          (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
+    engine.run(warm_requests(seed + 2, cfg.vocab_size))
+    torch.cuda.synchronize()
+    reset_peak()
+    before = dict(engine.stats)
+    totals0 = step_totals(reg)
+    reset_counts(table)
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_counts = read_counts(table)
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = step_breakdown(totals0, step_totals(reg), wall)
+    delta = {k: engine.stats[k] - before[k] for k in
+             ("prefills", "decode_windows", "engine_steps")}
+    expect = expected_launches(table, L, delta, 1, "paged_decode_attention")
+    tokens_ok = (set(results) == {r[0] for r in reqs} and all(
+        len(results[rid]) == m
+        and all(0 <= t < cfg.vocab_size for t in results[rid])
+        for rid, _, m in reqs))
+    ttft, tpot = [], []
+    for rid, _, m in reqs:
+        _, admitted, first, done = engine.finished_timings[rid]
+        ttft.append(first - admitted)
+        tpot.append((done - first) / max(m - 1, 1))
+    generated = sum(len(v) for v in results.values())
+    # Decode-only steps: 16 slots decoding, no admission.
+    full = serve_requests(seed + 3, cfg.vocab_size, SLOTS,
+                          (PROMPT_HI // 2, PROMPT_HI // 2),
+                          (NEW_HI // 2, NEW_HI // 2))
+    fill_decoding(engine, full)
+    walls = decode_step_walls(engine, steps=10)
+    prof = profile_call(engine.step)
+    with torch.inference_mode():
+        cur = engine._cur[:, None]
+        step_ms = graph_ms(lambda: transformer.forward_with_cache(
+            cfg, params, cur, engine._cache), [()], 1)
+        by_kind = moe_step_profile(cfg, params, cur, engine._cache)
+    check_moe_decode_logits("moe", cfg, params, engine)
+    graphs = {"decode": engine.stats["decode_graphs"],
+              "prefill": prefill_graphs(engine)}
+    engine.abort_all()
+    clean = pristine(engine)
+    engine.close()
+    emit("moe", step="serve", model="gpt-oss-20b", slots=SLOTS,
+         max_len=MAX_LEN, block_size=BLOCK, **PIPELINED,
+         requests=len(reqs), generated_tokens=generated, wall_s=wall,
+         tokens_per_s=generated / wall,
+         ttft_ms_p50=pct(ttft, 50) * 1e3, ttft_ms_p99=pct(ttft, 99) * 1e3,
+         tpot_ms_p50=pct(tpot, 50) * 1e3, tpot_ms_p99=pct(tpot, 99) * 1e3,
+         wall_ms_per_tick=walls, wall_ms_per_tick_p50=float(np.median(walls)),
+         decode_step_device_ms=step_ms,
+         device_busy_share=step_ms / float(np.median(walls)),
+         engine_step_device_ms_by_kind=prof["device_ms_by_kind"],
+         decode_step_by_kind=by_kind, prefill_1024_device_ms=prefill_1024_ms,
+         moe_path="sorted segments (torch._grouped_mm) for every "
+         "dropless bf16 call; capacity buckets where tokens may drop",
+         prefill_moe_layer_paths=prefill_paths,
+         step_breakdown=breakdown, engine_steps=delta["engine_steps"],
+         prefills=delta["prefills"], decode_windows=delta["decode_windows"],
+         launches=serve_counts, expected=expect, graphs_captured=graphs,
+         tokens_ok=tokens_ok, allocator_pristine=clean,
+         max_memory_allocated=peak, card=card)
+    if serve_counts != expect or not tokens_ok or not clean \
+            or graphs["prefill"] < 1 or graphs["decode"] != 1:
+        raise SystemExit("moe serve: wrong launch counts, bad tokens, a "
+                         "leaked block or a program not run as a graph")
+    del engine, params
+    reset_peak()
+    return {k: gen_counts[k] + serve_counts[k] for k in gen_counts}
+
+
+def phase_moe_parity(seed, dev):
+    """GPT-OSS-20B's shape cut to 2 layers, fp32: greedy tokens of Engine,
+    BatchingEngine and PagedBatchingEngine, each through the kernels and
+    with attn_impl="ref", must be identical; the cached forward's logits
+    (a fresh prefill, then decode steps) must equal the full forward's
+    at the same positions within 1e-3 of their scale."""
+    from shellac_tpu_torch import Engine
+    from shellac_tpu_torch.inference.batching import (
+        BatchingEngine,
+        PagedBatchingEngine,
+    )
+    from shellac_tpu_torch.inference.cache import init_cache
+    from shellac_tpu_torch.models import transformer
+
+    cfg = gptoss_20b().replace(n_layers=2, dtype="float32")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reqs = serve_requests(seed + 4, cfg.vocab_size, 14, (16, 300), (4, 24))
+    pad = max(t.size for _, t, _ in reqs)
+    batch = np.zeros((len(reqs), pad), np.int64)
+    for i, (_, t, _) in enumerate(reqs):
+        batch[i, :t.size] = t
+    btoks = torch.from_numpy(batch).to(dev)
+    blens = torch.tensor([t.size for _, t, _ in reqs], dtype=torch.int32,
+                         device=dev)
+    top = max(m for _, _, m in reqs)
+    out = {}
+    for impl in ("auto", "ref"):
+        res = Engine(cfg, params, max_len=512, temperature=0.0,
+                     attn_impl=impl, device=dev).generate(
+            btoks, blens, max_new_tokens=top)
+        out[f"engine_{impl}"] = {rid: res.tokens[i, :m].tolist()
+                                 for i, (rid, _, m) in enumerate(reqs)}
+        for name, cls in (("dense", BatchingEngine),
+                          ("paged", PagedBatchingEngine)):
+            eng = cls(cfg, params, n_slots=6, max_len=512, attn_impl=impl,
+                      device=dev)
+            out[f"{name}_{impl}"] = {k: list(v)
+                                     for k, v in eng.run(reqs).items()}
+            eng.close()
+            del eng
+        torch.cuda.empty_cache()
+    ref = out["paged_ref"]
+    identical = {name: o == ref for name, o in out.items()}
+
+    # The cached forward against the full forward: a 100-token prefill
+    # of 2 prompts, then 8 greedy decode steps.
+    rng = np.random.default_rng(seed + 5)
+    ptoks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100))).to(dev)
+    with torch.inference_mode():
+        cache = init_cache(cfg, 2, 512, dev)
+        lg, cache = transformer.forward_with_cache(cfg, params, ptoks, cache,
+                                                   fresh_cache=True)
+        cached, seq = [lg], ptoks
+        for _ in range(8):
+            nxt = cached[-1][:, -1].argmax(-1)[:, None]
+            seq = torch.cat([seq, nxt], dim=1)
+            lg, cache = transformer.forward_with_cache(cfg, params, nxt,
+                                                       cache)
+            cached.append(lg)
+        whole = transformer.forward(cfg, params, seq[:, :-1], device=dev)
+        cached = torch.cat(cached, dim=1)[:, :whole.shape[1]]
+    scale = whole.abs().max().item()
+    err = (cached - whole).abs().max().item()
+    logits_ok = bool(torch.isfinite(cached).all().item()) \
+        and err <= 1e-3 * scale
+    emit("moe-parity", model="gpt-oss-20b", layers=2, dtype="float32",
+         requests=len(reqs), slots=6,
+         tokens=sum(len(v) for v in ref.values()), identical=identical,
+         cached_vs_full_forward={"positions": int(whole.shape[1]),
+                                 "max_abs_err": err, "ref_max_abs": scale,
+                                 "tol": "max_abs_err <= 1e-3 * max|ref|",
+                                 "ok": logits_ok})
+    del params, cache
+    torch.cuda.empty_cache()
+    if not all(identical.values()) or not logits_ok:
+        raise SystemExit("moe-parity: greedy tokens differ across engines "
+                         "or paths, or cached logits differ from the full "
+                         "forward's")
+
+
+def phase_graph_parity_moe(seed, dev, table):
+    """graph-parity's window, prefill and continuation passes on
+    GPT-OSS-20B's shape cut to 2 layers, bf16, over the paged and dense
+    caches: MoE layers inside every window graph, prefill graph and
+    continuation graph, bit-equal to the eager programs, launches
+    exact."""
+    from shellac_tpu_torch.models import transformer
+
+    cfg = gptoss_20b().replace(n_layers=2)
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reqs = serve_requests(seed + 4, cfg.vocab_size, 14, (16, 300), (4, 24))
+    failed = []
+    for backend in ("paged", "dense"):
+        failed += window_prefill_parity(cfg, params, dev, table, backend,
+                                        reqs, "graph-parity-moe")
+        failed += continuation_parity(cfg, params, dev, table, backend,
+                                      seed, "graph-parity-moe")
+    del params
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"graph-parity-moe: the MoE model's CUDA graphs "
+                         f"differ from the eager programs: {failed}")
+
+
+def window_pairs(s, window):
+    """(query, key) pairs of one causal row of s queries, each attending
+    its last `window` positions (all of them without a window)."""
+    w = s if window is None else window
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def sink_mask(allowed, sinks, dtype):
+    """An additive mask that makes scaled_dot_product_attention compute
+    sink attention: k and v carry one zero key at the end, whose logit is
+    each head's sink. allowed (..., Sq, Lk) bool for the real keys;
+    returns (..., H, Sq, Lk + 1), -inf where a key is masked and each
+    head's sink on the extra key."""
+    lead, (sq, lk) = allowed.shape[:-2], allowed.shape[-2:]
+    m = torch.empty(lead + (sinks.shape[0], sq, lk + 1), dtype=dtype,
+                    device=allowed.device)
+    m[..., :-1] = torch.where(allowed, 0.0, float("-inf")).to(
+        dtype).unsqueeze(-3)
+    m[..., -1] = sinks.to(dtype)[:, None]
+    return m
+
+
+def phase_kernels_moe(gen, dev, shapes, card):
+    """Kernels 1, 2, 5 and 7 at GPT-OSS-20B's shapes (64 q heads over 8 kv
+    heads of 64, sinks, the 128-token window and full attention; RMSNorm
+    at width 2880), each against its plain version in bf16 and fp32, then
+    timed in bf16 (CUDA-graph replay) beside its plain version, its bound
+    and a library call: F.rms_norm for RMSNorm; for attention, whose sinks
+    no one library call computes on these inputs (library_ms null),
+    scaled_dot_product_attention with the sink as an extra zero key whose
+    logit an additive mask carries (the appended key and mask built
+    outside the timed call)."""
+    from shellac_tpu_torch.inference.cache import paged_gather_layer
+    from shellac_tpu_torch.ops.decode_attention import (
+        _decode_ref,
+        _paged_decode_ref,
+        decode_attention_cuda,
+        paged_decode_attention_cuda,
+    )
+    from shellac_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_ref,
+    )
+    from shellac_tpu_torch.ops.norms import rms_norm_cuda, rms_norm_ref
+
+    h, hkv, d, win = (GPTOSS_HEADS, GPTOSS_KV_HEADS, GPTOSS_HEAD_DIM,
+                      GPTOSS_WINDOW)
+    bf = torch.bfloat16
+    failed, rows_out = [], []
+    sinks = randn(gen, (h,), torch.float32, dev)
+    gidx = shapes["decode"]["index"]
+    sidx = shapes["paged"]["index"]
+    rms_cases = {"generate_prefill_4096x2880": (PROMPTS * PAD, 2880),
+                 "generate_decode_8x2880": (PROMPTS, 2880),
+                 "serve_decode_16x2880": (SLOTS, 2880)}
+    flash_cases = {f"{shape}_{kind}": (dict(b=b, s=s), w)
+                   for shape, b, s in (("generate_8x512", PROMPTS, PAD),
+                                       ("serve_b1_s1024", 1, PROMPT_HI))
+                   for kind, w in (("window", win), ("full", None))}
+    attn_kinds = {"window": win, "full": None}
+
+    def check(kernel, case, dtype, out, ref):
+        torch.cuda.synchronize()
+        r = compare(out, ref, dtype)
+        emit("kernels-moe", kernel=kernel, case=case, dtype=str(dtype), **r)
+        if not r["ok"]:
+            failed.append((kernel, case, str(dtype)))
+
+    for dtype in (bf, torch.float32):
+        for case, (rows, dm) in rms_cases.items():
+            x, sc = rms_inputs(gen, rows, dm, dtype, dev)
+            check("rms_norm", case, dtype, rms_norm_cuda(x, sc, 1e-5),
+                  rms_norm_ref(x, sc, 1e-5))
+        for case, (fs, w) in flash_cases.items():
+            q, k, v = flash_inputs(gen, dtype, dev, hkv=hkv, h=h, d=d, **fs)
+            kw = dict(causal=True, window=w, sinks=sinks)
+            check("flash_attention_fwd", case, dtype,
+                  flash_attention_cuda(q, k, v, **kw),
+                  flash_attention_ref(q, k, v, **kw))
+        for kind, w in attn_kinds.items():
+            q, ck, cv, idx = decode_inputs(gen, dtype, dev, b=PROMPTS, s=1,
+                                           h=h, hkv=hkv, L=MAX_LEN, d=d,
+                                           index=gidx)
+            check("decode_attention_dense", f"generate_b8_{kind}", dtype,
+                  decode_attention_cuda(q, ck, cv, idx, window=w,
+                                        sinks=sinks),
+                  _decode_ref(q, ck, cv, idx, w, d ** -0.5, sinks=sinks))
+            q, k, v, tab, idx, pk, pv = paged_inputs(
+                gen, dtype, dev, s=1, h=h, hkv=hkv, d=d, bs=BLOCK,
+                max_blocks=MAX_LEN // BLOCK, index=sidx, window=w)
+            check("paged_decode_attention", f"serve_16_{kind}", dtype,
+                  paged_decode_attention_cuda(q, pk, pv, tab, idx, window=w,
+                                              sinks=sinks),
+                  _paged_decode_ref(q, k, v, tab, idx, w, d ** -0.5,
+                                    sinks=sinks))
+            del q, k, v, pk, pv
+    if failed:
+        raise SystemExit(f"kernels-moe: kernels disagree with their plain "
+                         f"versions at GPT-OSS's shapes: {failed}")
+
+    # Timings, bf16.
+    def row(kernel, case, k_ms, p_ms, nbytes, flops, shape, lib=None,
+            sink_key=None):
+        bms, by = bound(nbytes, flops, bf)
+        r = {"kernel": kernel, "case": case, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bms, "bound_by": by,
+             "library_ms": lib, "shape": shape}
+        if sink_key is not None:
+            r["library_sink_key_ms"] = sink_key
+        emit("kernels-moe", step="timings", dtype="bf16", bytes=nbytes,
+             flops=flops, roofline_share=bms / k_ms, card=card, **r)
+        rows_out.append(r)
+
+    for case, (rows, dm) in rms_cases.items():
+        def make():
+            x, sc = rms_inputs(gen, rows, dm, bf, dev)
+            return x, sc, (1.0 + sc).to(bf)
+
+        sets = copies(make)
+        row("rms_norm", case,
+            graph_ms(lambda x, s, w: rms_norm_cuda(x, s, 1e-5), sets, 200),
+            graph_ms(lambda x, s, w: rms_norm_ref(x, s, 1e-5), sets, 50),
+            2 * rows * dm * 2 + dm * 4, 4 * rows * dm, [rows, dm],
+            lib=graph_ms(lambda x, s, w: F.rms_norm(x, (dm,), w, 1e-5),
+                         sets, 200))
+        del sets
+    for case, (fs, w) in flash_cases.items():
+        b, s = fs["b"], fs["s"]
+        sets = copies(lambda: flash_inputs(gen, bf, dev, hkv=hkv, h=h, d=d,
+                                           **fs))
+        pos = torch.arange(s, device=dev)
+        allowed = pos[None, :] <= pos[:, None]
+        if w is not None:
+            allowed &= pos[None, :] > pos[:, None] - w
+        mask = sink_mask(allowed, sinks, bf)
+        zero = torch.zeros((b, hkv, 1, d), dtype=bf, device=dev)
+        lib_sets = [(q.transpose(1, 2),
+                     torch.cat([k.transpose(1, 2), zero], 2),
+                     torch.cat([v.transpose(1, 2), zero], 2))
+                    for q, k, v in sets]
+        kw = dict(causal=True, window=w, sinks=sinks)
+        pairs = b * h * window_pairs(s, w)
+        row("flash_attention_fwd", case,
+            graph_ms(lambda q, k, v: flash_attention_cuda(q, k, v, **kw),
+                     sets, 20),
+            graph_ms(lambda q, k, v: flash_attention_ref(q, k, v, **kw),
+                     sets[:2], 4),
+            (2 * b * s * h * d + 2 * b * s * hkv * d) * 2 + h * 4,
+            4 * d * pairs, [b, s, h, hkv, d],
+            sink_key=graph_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), lib_sets, 20))
+        del sets, lib_sets, mask
+        torch.cuda.empty_cache()
+    for kind, w in attn_kinds.items():
+        live_rows = (gidx.long() + 1) if w is None \
+            else (gidx.long() + 1).clamp_max(w)
+        live = int(live_rows.sum().item())
+        nbytes = 2 * PROMPTS * h * d * 2 + 2 * live * hkv * d * 2 \
+            + PROMPTS * 4 + h * 4
+        sets = copies(lambda: decode_inputs(gen, bf, dev, b=PROMPTS, s=1,
+                                            h=h, hkv=hkv, L=MAX_LEN, d=d,
+                                            index=gidx), nbytes=nbytes)
+        pos = torch.arange(MAX_LEN, device=dev)[None, :]
+        allowed = pos <= gidx[:, None].long()
+        if w is not None:
+            allowed &= pos > gidx[:, None].long() - w
+        mask = sink_mask(allowed[:, None, :], sinks, bf)
+        zero = torch.zeros((PROMPTS, hkv, 1, d), dtype=bf, device=dev)
+        lib_sets = [(q.transpose(1, 2), torch.cat([ck, zero], 2),
+                     torch.cat([cv, zero], 2)) for q, ck, cv, _ in sets]
+        row("decode_attention_dense", f"generate_b8_{kind}",
+            graph_ms(lambda q, ck, cv, i: decode_attention_cuda(
+                q, ck, cv, i, window=w, sinks=sinks), sets, 200),
+            graph_ms(lambda q, ck, cv, i: _decode_ref(
+                q, ck, cv, i, w, d ** -0.5, sinks=sinks), sets, 50),
+            nbytes, 4 * d * h * live, [PROMPTS, 1, h, hkv, MAX_LEN, d],
+            sink_key=graph_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), lib_sets, 200))
+        del sets, lib_sets, mask
+        live_rows = (sidx.long() + 1) if w is None \
+            else (sidx.long() + 1).clamp_max(w)
+        live = int(live_rows.sum().item())
+        sets = copies(lambda: paged_inputs(
+            gen, bf, dev, s=1, h=h, hkv=hkv, d=d, bs=BLOCK,
+            max_blocks=MAX_LEN // BLOCK, index=sidx, window=w)[:5])
+        pages = int(((live_rows + BLOCK - 1) // BLOCK).sum().item())
+        pos = torch.arange(MAX_LEN, device=dev)[None, :]
+        allowed = pos <= sidx[:, None].long()
+        if w is not None:
+            allowed &= pos > sidx[:, None].long() - w
+        mask = sink_mask(allowed[:, None, :], sinks, bf)
+        zero = torch.zeros((SLOTS, hkv, 1, d), dtype=bf, device=dev)
+
+        def gather_sdpa(q, pk, pv, tab, i):
+            kk, vv = paged_gather_layer(pk, pv, tab)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), torch.cat([kk, zero], 2),
+                torch.cat([vv, zero], 2), attn_mask=mask, enable_gqa=True)
+
+        row("paged_decode_attention", f"serve_16_{kind}",
+            graph_ms(lambda q, pk, pv, tab, i: paged_decode_attention_cuda(
+                q, pk, pv, tab, i, window=w, sinks=sinks), sets, 200),
+            graph_ms(lambda q, pk, pv, tab, i: _paged_decode_ref(
+                q, pk, pv, tab, i, w, d ** -0.5, sinks=sinks), sets, 20),
+            2 * SLOTS * h * d * 2 + 2 * live * hkv * d * 2 + pages * 4
+            + SLOTS * 4 + h * 4, 4 * d * h * live,
+            [SLOTS, 1, h, hkv, BLOCK, MAX_LEN // BLOCK, d],
+            sink_key=graph_ms(gather_sdpa, sets, 50))
+        del sets, mask
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+# --------------------------------------------------------------------------
 # timings
 # --------------------------------------------------------------------------
 
@@ -4577,8 +5328,9 @@ def main():
                     help="comma-separated phases to run after the build "
                          "(generate, prefix-serve, sampling-controls, "
                          "constrained-serve, graph-parity, beam, "
-                         "beam-parity, kernels-beam); prints no kernels "
-                         "line and no ok line")
+                         "beam-parity, kernels-beam, moe, moe-parity, "
+                         "graph-parity-moe, kernels-moe); prints no "
+                         "kernels line and no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4621,6 +5373,12 @@ def main():
             "beam": lambda: phase_beam(args.seed, dev, table, card),
             "beam-parity": lambda: phase_beam_parity(args.seed, dev, table),
             "kernels-beam": lambda: phase_kernels_beam(gen, dev),
+            "moe": lambda: phase_moe(args.seed, dev, table, card),
+            "moe-parity": lambda: phase_moe_parity(args.seed, dev),
+            "graph-parity-moe": lambda: phase_graph_parity_moe(
+                args.seed, dev, table),
+            "kernels-moe": lambda: phase_kernels_moe(
+                gen, dev, main_shapes(args.seed, dev), card),
         }
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
@@ -4634,6 +5392,7 @@ def main():
     errs.update(phase_kernels_int8(gen, dev, shapes))
     errs.update(phase_kernels_train(gen, dev, shapes))
     phase_kernels_beam(gen, dev)
+    phase_kernels_moe(gen, dev, shapes, card)
     # The main paths, each with the counts set to 0 just before it; every
     # kernel of a path must have launched in its run.
     gen_counts, bf16_tokens = phase_generate(args.seed, dev, table, card)
@@ -4654,6 +5413,7 @@ def main():
                                                          table, card)
     paths["beam"] = phase_beam(args.seed, dev, table, card)
     paths["train"] = phase_train(args.seed, dev, table, card)
+    paths["moe"] = phase_moe(args.seed, dev, table, card)
     decode = ("rms_norm", "flash_attention_fwd")
     for path, kinds in (("generate", decode + ("decode_attention_dense",)),
                         ("generate-int8",
@@ -4675,6 +5435,8 @@ def main():
                                            "decode_attention_dense_int8",
                                            "paged_decode_attention",
                                            "paged_decode_attention_int8")),
+                        ("moe", decode + ("decode_attention_dense",
+                                          "paged_decode_attention")),
                         ("train", ("rms_norm", "flash_attention_fwd",
                                    "flash_attention_bwd_dkdv",
                                    "flash_attention_bwd_dq"))):
@@ -4685,7 +5447,9 @@ def main():
     phase_serve_parity(args.seed, dev)
     phase_serve_parity_int8(args.seed, dev, table)
     phase_beam_parity(args.seed, dev, table)
+    phase_moe_parity(args.seed, dev)
     phase_graph_parity(args.seed, dev, table)
+    phase_graph_parity_moe(args.seed, dev, table)
     phase_train_parity(args.seed, dev)
     times = phase_timings(gen, dev, shapes, card)
 

@@ -43,7 +43,7 @@ kept stay under BEAM_RESIDENT_BYTES of cache. The expansion math
 two cannot drift apart. `torch.topk` promises no order among equal
 values and `jax.lax.top_k` takes the lower index first, so the top-k
 here ranks an order-preserving integer key of each score joined with its
-index (`_top_k`).
+index (`ops/sampling.py` `top_k`).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ from shellac_tpu_torch.ops.dispatch import (
     copy_from_host,
     resolve_device,
 )
-from shellac_tpu_torch.ops.sampling import repetition_penalty, sample
+from shellac_tpu_torch.ops.sampling import repetition_penalty, sample, top_k
 
 
 @dataclass
@@ -568,21 +568,6 @@ BEAM_NEG = -1e30
 BEAM_INVALID = -1e20  # host-side validity threshold on final scores
 
 
-def _top_k(cand: torch.Tensor, k: int):
-    """`jax.lax.top_k` of a flat fp32 vector: the k largest values, best
-    first, equal values in index order. Each score maps to an int32 that
-    orders as the float does (negative floats flip their magnitude
-    bits), joined above its reversed index into one int64, so every key
-    is distinct and the integer top-k is exact. Returns (values, flat
-    indices)."""
-    n = cand.numel()
-    bits = cand.contiguous().view(torch.int32)
-    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
-    rank = key * (1 << 32) + (n - 1 - torch.arange(n, device=cand.device))
-    flat = torch.topk(rank, k).indices
-    return cand[flat], flat
-
-
 def _beam_mask(lp, row, eos_id):
     """Mask a (K, V) logprob block by each beam's DFA row ((K, V+1);
     -1 = disallowed, last column = EOS legality). Disallowed entries
@@ -621,7 +606,7 @@ def beam_first_expand(last_logits, k, ctrans=None, eos_id=None):
         lp0 = _beam_mask(lp0[None], ctrans[:1], eos_id)[0]
     scores0 = torch.where(torch.arange(k, device=dev) == 0, 0.0, BEAM_NEG)
     cand = (scores0[:, None] + lp0[None, :]).reshape(-1)
-    scores, flat = _top_k(cand, k)
+    scores, flat = top_k(cand, k)
     tok0 = flat % v
     cstate0 = torch.zeros((k,), dtype=torch.int64, device=dev)
     if ctrans is not None:
@@ -660,7 +645,7 @@ def beam_expand(logits, scores, finished, out, lens, i, eos_id,
         frozen[eos_id:eos_id + 1].fill_(0.0)
         lp = torch.where(finished[:, None], frozen[None], lp)
     cand = (scores[:, None] + lp).reshape(-1)
-    scores, flat = _top_k(cand, k)
+    scores, flat = top_k(cand, k)
     beam = flat // v
     tok = flat % v
     out = out.index_select(0, beam)

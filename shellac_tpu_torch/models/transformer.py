@@ -1,17 +1,22 @@
-"""Decoder-only transformer (LLaMA-style): the dense GQA path in PyTorch.
+"""Decoder-only transformer (LLaMA-style): GQA decoders, dense and MoE.
 
-The port of the JAX package's `models/transformer.py` for dense models
-(no MoE, no MLA). Parameters are a plain dictionary:
+The port of the JAX package's `models/transformer.py` for GQA models,
+dense and mixture-of-experts (no MLA). Parameters are a plain dictionary:
 
     {"embed": (V, D), "layers": [per-layer dict, ...], "final_norm": (D,),
      "lm_head": (D, V) when embeddings are untied}
 
-Layers are stored per layer (a list) and walked by a Python loop, where
-the JAX package stacks them for `lax.scan`; `models/from_jax.py` converts
-between the two. Two storage layouts, one forward:
+Layers are stored per layer (a list, in layer order) and walked by a
+Python loop, where the JAX package stacks them for `lax.scan`;
+`models/from_jax.py` converts between the two. A layer's dict holds the
+dense MLP's weights or an MoE layer's (router, stacked experts (E, D, F)
+and (E, F, D), their biases and shared experts); `moe_layers(cfg)` says
+which, for uniform MoE stacks, the interleaved layout (`moe_every`: every
+`moe_every`-th layer) and the first-k-dense one (`first_k_dense` dense
+layers, then MoE). Two storage layouts, one forward:
   - serving (`master=False`, the default): matmul weights, embeddings
-    and biases in the compute dtype, norm scales and attention sinks in
-    fp32 (what the JAX forward reads them as);
+    and biases in the compute dtype, norm scales, attention sinks and the
+    router in fp32 (what the JAX forward reads them as);
   - training (`master=True`): every leaf in cfg.params_dtype, the fp32
     master copy the optimizer updates.
 The forward casts each weight to the compute dtype at its use, as the
@@ -29,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -51,23 +56,26 @@ from shellac_tpu_torch.ops.decode_attention import (
     paged_decode_attention,
 )
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
+from shellac_tpu_torch.ops.moe import moe_ffn, moe_ffn_grouped
 from shellac_tpu_torch.ops.norms import rms_norm
 from shellac_tpu_torch.ops.rope import apply_rope, rope_angles
 
 Params = Dict[str, Any]
 
-# Parameters the JAX forward reads in fp32 (norm scales, sinks); every
-# other parameter is stored in the compute dtype.
+# Parameters the JAX forward reads in fp32 (norm scales, sinks, the
+# router); every other parameter is stored in the compute dtype.
 FP32_KEYS = frozenset({
     "attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
-    "post_attn_norm", "post_mlp_norm", "sinks",
+    "post_attn_norm", "post_mlp_norm", "sinks", "w_router", "b_router",
 })
+
+# The MoE diagnostics `forward(return_aux=True)` returns beside the summed
+# auxiliary loss, each a mean over the router layers.
+AUX_KEYS = ("aux", "balance_loss", "router_z_loss", "dropped_frac")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE models are not ported yet")
     if cfg.mla is not None:
         raise NotImplementedError("MLA models are not ported yet")
     if cfg.quant_training is not None:
@@ -78,9 +86,28 @@ def check_supported(cfg: ModelConfig) -> None:
         )
 
 
-def layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """name -> (shape, init) for one dense layer, in the JAX package's
-    order. init is ("dense", fan_in, scale) or ("zeros",)."""
+def moe_layers(cfg: ModelConfig) -> List[bool]:
+    """Whether each layer is an MoE layer, in layer order: all of them for
+    a uniform MoE stack; the last of each group of `moe_every` (the JAX
+    package's `grouped_moe` layout, dense first); every layer past the
+    first `first_k_dense` (its `first_k_layout`)."""
+    if cfg.moe is None:
+        return [False] * cfg.n_layers
+    if cfg.first_k_dense > 0:
+        return [i >= cfg.first_k_dense for i in range(cfg.n_layers)]
+    if cfg.n_layers % cfg.moe_every:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} must divide into groups of "
+            f"moe_every={cfg.moe_every}"
+        )
+    return [(i + 1) % cfg.moe_every == 0 for i in range(cfg.n_layers)]
+
+
+def layer_shapes(cfg: ModelConfig, moe_layer: bool = False
+                 ) -> Dict[str, tuple]:
+    """name -> (shape, init) for one layer (dense, or MoE with
+    `moe_layer`), in the JAX package's order. init is ("dense", fan_in,
+    scale) or ("zeros",)."""
     d, h, hkv, dh, f = (
         cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.dim_per_head, cfg.ff_dim,
     )
@@ -107,9 +134,28 @@ def layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         shapes["sinks"] = ((h,), ("zeros",))
     if cfg.attn_out_bias:
         shapes["bo"] = ((d,), ("zeros",))
-    shapes["w_gate"] = ((d, f), ("dense", d, 1.0))
-    shapes["w_up"] = ((d, f), ("dense", d, 1.0))
-    shapes["w_down"] = ((f, d), ("dense", f, out_scale))
+    if not moe_layer:
+        shapes["w_gate"] = ((d, f), ("dense", d, 1.0))
+        shapes["w_up"] = ((d, f), ("dense", d, 1.0))
+        shapes["w_down"] = ((f, d), ("dense", f, out_scale))
+        return shapes
+    m = cfg.moe
+    e, fe = m.num_experts, m.d_ff_expert or f
+    shapes["w_router"] = ((d, e), ("dense", d, 1.0))
+    shapes["w_gate"] = ((e, d, fe), ("dense", d, 1.0))
+    shapes["w_up"] = ((e, d, fe), ("dense", d, 1.0))
+    shapes["w_down"] = ((e, fe, d), ("dense", fe, out_scale))
+    if m.scoring in ("sigmoid", "softmax_topk"):
+        shapes["b_router"] = ((e,), ("zeros",))
+    if m.expert_bias:
+        shapes["b_gate"] = ((e, fe), ("zeros",))
+        shapes["b_up"] = ((e, fe), ("zeros",))
+        shapes["b_down"] = ((e, d), ("zeros",))
+    if m.num_shared_experts > 0:
+        sf = m.num_shared_experts * fe
+        shapes["w_gate_shared"] = ((d, sf), ("dense", d, 1.0))
+        shapes["w_up_shared"] = ((d, sf), ("dense", d, 1.0))
+        shapes["w_down_shared"] = ((sf, d), ("dense", sf, out_scale))
     return shapes
 
 
@@ -144,14 +190,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                             device=dev) * (scale * fan_in ** -0.5)
         return to_storage(cfg, name, t, master)
 
-    shapes = layer_shapes(cfg)
+    flags = moe_layers(cfg)
+    shapes = {flag: layer_shapes(cfg, flag) for flag in set(flags)}
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                         dtype=torch.float32, device=dev) * 0.02
     params: Params = {
         "embed": to_storage(cfg, "embed", embed, master),
         "layers": [
-            {n: make(n, shp, init) for n, (shp, init) in shapes.items()}
-            for _ in range(cfg.n_layers)
+            {n: make(n, shp, init) for n, (shp, init) in shapes[flag].items()}
+            for flag in flags
         ],
         "final_norm": make("final_norm", (cfg.d_model,), ("zeros",)),
     }
@@ -180,8 +227,10 @@ def _embed_tokens(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
 def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
            fresh_cache: bool = False, attn_kind: Optional[str] = None,
            page_tables: Optional[torch.Tensor] = None, segments=None,
-           kv_scales=None):
+           kv_scales=None, moe_layer: bool = False, aux: bool = False):
     """One pre-norm transformer block. x: (B, S, D) in compute dtype.
+    Returns (x, the MoE layer's aux dict, or None unless `moe_layer` and
+    `aux`).
 
     With `cache=(cache_k, cache_v, index)` the block writes the new k/v
     at `index` (in place) and attends the cache; with fresh_cache=True
@@ -193,7 +242,8 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
     decode reads dequantize them; a fresh prefill still attends the
     exact chunk, so only later reads see the int8 rounding.
     attn_kind "full" drops cfg.attn_window for this layer. `segments`
-    (B, S) int32 makes cache-free attention block-diagonal.
+    (B, S) int32 makes cache-free attention block-diagonal. `moe_layer`
+    runs the MLP half as the MoE layer (see `_block_mlp`).
     """
     window = None if attn_kind == "full" else cfg.attn_window
     cdt = cfg.compute_dtype
@@ -257,19 +307,76 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
     if cfg.post_norms:
         o = rms_norm(o, lp["post_attn_norm"], cfg.norm_eps).to(cdt)
     x = x + o
-    return _block_mlp(cfg, x, lp)
+    return _block_mlp(cfg, x, lp, moe_layer=moe_layer,
+                      cached=cache is not None and not fresh_cache, aux=aux)
 
 
-def _block_mlp(cfg: ModelConfig, x, lp):
-    """The dense MLP half of a block."""
+def _block_mlp(cfg: ModelConfig, x, lp, moe_layer: bool = False,
+               cached: bool = False, aux: bool = False):
+    """The MLP half of a block: the gated MLP, or with `moe_layer` the
+    routed experts (plus shared experts). Returns (x, aux dict or None).
+
+    The reference's rule (`_block_mlp`, shellac_tpu/models/transformer.py
+    :641): a cached continuation (`cached`: decode, a chunk continuation,
+    a prefix hit's suffix) never drops, since a dropped token's FFN output
+    would be zero and decode would part from prefill; a fresh prefill or a
+    cache-free forward drops at capacity unless cfg.moe.dropless;
+    grouped_dropless takes the sorted-segment path except when cached.
+    `moe_experts` picks the path.
+    """
     cdt = cfg.compute_dtype
     hx = rms_norm(x, lp["mlp_norm"], cfg.norm_eps).to(cdt)
-    gate = hx @ lp["w_gate"].to(cdt)
-    up = hx @ lp["w_up"].to(cdt)
-    down = _gated_act(cfg)(gate, up) @ lp["w_down"].to(cdt)
+    moe_out = None
+    if moe_layer:
+        m = cfg.moe
+        down, aux_loss, metrics = moe_experts(cfg, hx, lp, cached, aux)
+        if m.num_shared_experts > 0:
+            sg = hx @ lp["w_gate_shared"].to(cdt)
+            su = hx @ lp["w_up_shared"].to(cdt)
+            down = down + _gated_act(cfg)(sg, su) @ lp["w_down_shared"].to(
+                cdt)
+        if aux:
+            moe_out = {
+                "aux": aux_loss,
+                "balance_loss": metrics["moe_balance_loss"],
+                "router_z_loss": metrics["moe_router_z_loss"],
+                "dropped_frac": metrics["moe_dropped_frac"],
+            }
+    else:
+        gate = hx @ lp["w_gate"].to(cdt)
+        up = hx @ lp["w_up"].to(cdt)
+        down = _gated_act(cfg)(gate, up) @ lp["w_down"].to(cdt)
     if cfg.post_norms:
         down = rms_norm(down, lp["post_mlp_norm"], cfg.norm_eps).to(cdt)
-    return x + down
+    return x + down, moe_out
+
+
+def moe_experts(cfg: ModelConfig, hx, lp, cached: bool, aux: bool = False):
+    """An MoE layer's routed experts on hx (B, S, D): (out, aux_loss,
+    metrics), by `_block_mlp`'s rule (a cached call never drops).
+
+    Where nothing may drop, the sorted-segment product computes the
+    capacity-at-T buckets' function on T k rows instead of E T. On the
+    card in bf16 it records into CUDA graphs (torch's fp32 grouped
+    product reads its offsets on the host), so there it serves every
+    dropless call; elsewhere the reference's choice stands (the buckets,
+    or the grouped path under grouped_dropless off the cached path).
+    """
+    m = cfg.moe
+    # Strict lookups: a missing bias is a KeyError, not a silent zero.
+    bias_kw = dict(
+        b_router=(lp["b_router"]
+                  if m.scoring in ("sigmoid", "softmax_topk") else None),
+        b_gate=lp["b_gate"] if m.expert_bias else None,
+        b_up=lp["b_up"] if m.expert_bias else None,
+        b_down=lp["b_down"] if m.expert_bias else None,
+    )
+    args = (hx, lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"], m)
+    drop = not (cached or m.dropless)
+    if (m.grouped_dropless and not cached) or (
+            not drop and hx.is_cuda and hx.dtype == torch.bfloat16):
+        return moe_ffn_grouped(*args, aux=aux, **bias_kw)
+    return moe_ffn(*args, drop_tokens=drop, aux=aux, **bias_kw)
 
 
 def _layer_kind(cfg: ModelConfig, i: int) -> Optional[str]:
@@ -408,13 +515,19 @@ def forward(
     segment_ids: Optional[torch.Tensor] = None,  # (B, S) int — packed docs
     attn_impl: str = "auto",
     device: DeviceLike = None,
-) -> torch.Tensor:
+    return_aux: bool = False,
+):
     """Full forward pass; returns fp32 logits (B, S, V).
 
     With segment_ids, rows hold several packed documents: attention is
     block-diagonal over them and RoPE positions restart per segment, so
     each document computes as if it were alone in its row. Under autograd
     with cfg.remat, every block is recomputed in the backward pass.
+    With return_aux=True, returns (logits, aux), aux a dict of fp32
+    scalars as the reference's (:968, :983): "aux", the MoE auxiliary
+    loss summed over the MoE layers (0 for a dense model), and the
+    balance loss, router z loss and dropped fraction, each a mean over
+    the layers that have a router.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -440,16 +553,36 @@ def forward(
         )
     tables, local = _rope_tables(cfg, positions)
     x = _embed_tokens(cfg, params, tokens)
+    flags = moe_layers(cfg)
+    acc = None
     for i, lp in enumerate(params["layers"]):
         cos, sin = _layer_rope(cfg, i, tables, local)
         blk = functools.partial(_block, cfg, attn_impl,
                                 attn_kind=_layer_kind(cfg, i),
-                                segments=segments)
+                                segments=segments, moe_layer=flags[i],
+                                aux=return_aux)
         if remat:
-            x = checkpoint(blk, x, lp, cos, sin, use_reentrant=False)
+            x, mo = checkpoint(blk, x, lp, cos, sin, use_reentrant=False)
         else:
-            x = blk(x, lp, cos, sin)
-    return unembed(cfg, params, x)
+            x, mo = blk(x, lp, cos, sin)
+        if mo is not None:
+            acc = mo if acc is None else {k: acc[k] + mo[k] for k in acc}
+    logits = unembed(cfg, params, x)
+    if not return_aux:
+        return logits
+    return logits, _mean_aux(cfg, acc, sum(flags), dev)
+
+
+def _mean_aux(cfg: ModelConfig, acc, routers: int, dev) -> Dict[str, Any]:
+    """The summed aux loss and the per-router-layer diagnostics, scaled as
+    the reference scales each layout (a dense model's are all 0)."""
+    if acc is None:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        return {k: zero for k in AUX_KEYS}
+    if cfg.first_k_dense > 0:
+        return {k: v if k == "aux" else v / routers for k, v in acc.items()}
+    inv = cfg.moe_every / cfg.n_layers
+    return {k: v if k == "aux" else v * inv for k, v in acc.items()}
 
 
 def forward_with_cache(
@@ -497,13 +630,14 @@ def forward_with_cache(
                    else None)
     quant = cache_quant(cache) is not None
     x = _embed_tokens(cfg, params, tokens)
-    for i, lp in enumerate(params["layers"]):
+    for i, (lp, moe) in enumerate(zip(params["layers"], moe_layers(cfg))):
         cos, sin = _layer_rope(cfg, i, tables, local)
-        x = _block(cfg, attn_impl, x, lp, cos, sin,
-                   cache=(cache.k[i], cache.v[i], index),
-                   fresh_cache=fresh_cache, attn_kind=_layer_kind(cfg, i),
-                   page_tables=page_tables,
-                   kv_scales=(cache.ks[i], cache.vs[i]) if quant else None)
+        x, _ = _block(cfg, attn_impl, x, lp, cos, sin,
+                      cache=(cache.k[i], cache.v[i], index),
+                      fresh_cache=fresh_cache, attn_kind=_layer_kind(cfg, i),
+                      page_tables=page_tables,
+                      kv_scales=(cache.ks[i], cache.vs[i]) if quant else None,
+                      moe_layer=moe)
     logits = unembed(cfg, params, x)
     if new_tokens_len is None:
         new_lengths = index + s

@@ -7,6 +7,7 @@ precision at long positions. Same numerics as the JAX package's
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -24,8 +25,7 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 10000.0,
     scale = 1.0
     dev = positions.device
     if yarn is not None:
-        freq, scale = _yarn_inv_freq(head_dim, theta, yarn)
-        freq = freq.to(dev)
+        freq, scale = _yarn_table(head_dim, theta, yarn, dev)
     else:
         freq = 1.0 / (
             theta ** (torch.arange(0, half, dtype=torch.float32, device=dev)
@@ -52,6 +52,16 @@ def _llama3_inv_freq(inv_freq: torch.Tensor, l3) -> torch.Tensor:
     smoothed = (1 - smooth) * scaled / l3.factor + smooth * scaled
     medium = (~(wavelen < high_wl)) & (~(wavelen > low_wl))
     return torch.where(medium, smoothed, scaled)
+
+
+@functools.lru_cache(maxsize=16)
+def _yarn_table(dim: int, base: float, yarn, device: torch.device):
+    """The yarn inverse frequencies on `device` and the attention factor,
+    made once per (dim, base, config, device) and shared read-only: a
+    copy from host memory cannot be recorded in a CUDA graph, and every
+    program runs eagerly (filling this) before its capture."""
+    freq, scale = _yarn_inv_freq(dim, base, yarn)
+    return freq.to(device), scale
 
 
 def _yarn_inv_freq(dim: int, base: float, yarn):

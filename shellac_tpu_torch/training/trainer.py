@@ -9,7 +9,8 @@ non-finite-update guard. The JAX step is jitted with its state donated;
 this one updates the state in place and returns it.
 
 Not ported, raising NotImplementedError: lion, adafactor and muon;
-TrainConfig.quant; fused_loss_chunk; a mesh and pipeline_microbatches.
+TrainConfig.quant; fused_loss_chunk; a mesh and pipeline_microbatches;
+MoE models (the router's auxiliary losses are not in the step).
 """
 
 from __future__ import annotations
@@ -49,6 +50,15 @@ def _check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig):
     if train_cfg.grad_accum < 1:
         raise ValueError(f"grad_accum={train_cfg.grad_accum} must be >= 1")
     transformer.check_supported(model_cfg)
+    if model_cfg.moe is not None:
+        # The reference step adds the router's balance and z losses
+        # (forward's return_aux) to the loss; a step without them would
+        # train an MoE model on the wrong objective.
+        raise NotImplementedError(
+            "MoE training is not ported: the step does not add the "
+            "router's auxiliary losses (balance and z), nor run "
+            "grouped_dropless training or expert parallelism"
+        )
     if model_cfg.remat and model_cfg.remat_policy != "none":
         raise NotImplementedError(
             f"remat_policy {model_cfg.remat_policy!r} is not ported; only "

@@ -46,9 +46,14 @@ def pair():
     return jc, tc, jax.tree.map(jnp.asarray, p), params_from_jax(tc, p, CPU)
 
 
+_JAX_ENGINES = {}
+
+
 def _engines(pair, backend="dense", **kw):
     """(JAX engine, port engine) of one configuration, with the JAX
-    engine's top-2 logprobs for the margin rule."""
+    engine's top-2 logprobs for the margin rule. The JAX engine of a
+    configuration is built once (its compiled programs shared by the
+    tests), drained and its chunk and prefill counters zeroed for each."""
     jc, tc, jp, tp = pair
     paged = backend.startswith("paged")
     if paged:
@@ -56,7 +61,14 @@ def _engines(pair, backend="dense", **kw):
     kw.update(cache_backend=backend, logprobs=True, top_logprobs=2)
     jcls = jbatching.PagedBatchingEngine if paged else jbatching.BatchingEngine
     tcls = batching.PagedBatchingEngine if paged else batching.BatchingEngine
-    return jcls(jc, jp, **kw), tcls(tc, tp, device=CPU, **kw)
+    key = tuple(sorted(kw.items()))
+    if key not in _JAX_ENGINES:
+        _JAX_ENGINES[key] = jcls(jc, jp, **kw)
+    jeng = _JAX_ENGINES[key]
+    jeng.abort_all()
+    for k in ("prefill_chunks", "prefills"):
+        jeng.stats[k] = 0
+    return jeng, tcls(tc, tp, device=CPU, **kw)
 
 
 def _agree(jeng, want, teng, got):
@@ -81,11 +93,12 @@ def _agree(jeng, want, teng, got):
                                      "paged-int8"])
 def test_long_prompt_matches_jax(pair, backend):
     """50 tokens at chunk 16: four chunk programs and one prefill, both
-    engines; the tokens agree."""
+    engines; the tokens agree. (One prefill a step, as the tests below:
+    the dense JAX engine is theirs.)"""
     prompt = _rng("long", backend).integers(0, pair[1].vocab_size,
                                             50).astype(np.int32)
     jeng, teng = _engines(pair, backend, n_slots=2, max_len=96,
-                          prefill_chunk=16)
+                          prefill_chunk=16, max_prefills_per_step=1)
     want = jeng.run([("x", prompt, 8)])
     got = teng.run([("x", prompt, 8)])
     _agree(jeng, want, teng, got)

@@ -27,13 +27,17 @@ the same numbers for the same (seed, position) in any slot. Constrained
 windows and first tokens through their graphs give the eager programs'
 tokens, logprobs and launch counts, across a growth of the resident DFA
 table while a window is in flight (the graphs of the old table dropped
-and captured anew), and every output walks its DFA.
+and captured anew), and every output walks its DFA. MoE layers (the
+GPT-OSS layer and a model whose fresh prefills drop at capacity) inside
+Engine.generate's graphs, the window graphs and the prefill graphs give
+the eager programs' tokens, logprobs and launch counts.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from shellac_tpu_torch.config import YarnConfig
 from shellac_tpu_torch.inference import batching
 from shellac_tpu_torch.inference.engine import Engine
 from shellac_tpu_torch.inference.graphs import StepGraph, counted_wrappers
@@ -695,3 +699,115 @@ def test_beam_search_graphs_match_eager(backend, constrained):
     assert counts["graph"] == {n: c + warm.get(n, 0)
                                for n, c in counts["eager"].items()}
     assert captured == {"eager": [0, 0, 0], "graph": [2, 0, 0]}
+
+
+# --------------------------------------------------------------------------
+# MoE layers inside the graphs
+# --------------------------------------------------------------------------
+
+_MOE = {}
+
+
+def _moe_model(dev, name):
+    """An MoE preset at head_dim 64 (the kernels' width), 2 layers, bf16:
+    tiny-gptoss (GPT-OSS's layer: sinks, q/k/v/o biases, the window
+    pattern, the biased softmax-after-top-k gate, dropless; and GPT-OSS's
+    yarn rope, whose table must not be copied from the host inside a
+    capture) and tiny-moe (a fresh prefill drops at capacity, its padding
+    tokens included)."""
+    if name not in _MOE:
+        cfg = get_model_config(name).replace(
+            d_model=256, n_heads=4, head_dim=64, n_layers=2,
+            max_seq_len=512)
+        if name == "tiny-gptoss":
+            cfg = cfg.replace(rope_yarn=YarnConfig(
+                factor=32.0, original_max_position_embeddings=4096,
+                truncate=False))
+        _MOE[name] = cfg, transformer.init_params(cfg, seed=5, device=dev)
+    return _MOE[name]
+
+
+def test_moe_generate_graphs_match_eager():
+    """Engine.generate over MoE layers: the prefill and decode-step
+    graphs give the eager programs' tokens, logprobs and launch counts,
+    and a later call captures nothing."""
+    dev = _card()
+    cfg, params = _moe_model(dev, "tiny-gptoss")
+    toks, lens = _prompts(cfg.vocab_size)
+    eager = _EagerEngine(cfg, params, max_len=256, temperature=0.0,
+                         device=dev)
+    _reset()
+    want = eager.generate(toks.to(dev), lens.to(dev), max_new_tokens=12)
+    torch.cuda.synchronize()
+    want_counts = _counts()
+    eng = Engine(cfg, params, max_len=256, temperature=0.0, device=dev)
+    for call, captures in enumerate((1, 1, 0)):
+        _reset()
+        captured = StepGraph.captures
+        got = eng.generate(toks.to(dev), lens.to(dev), max_new_tokens=12)
+        torch.cuda.synchronize()
+        assert StepGraph.captures - captured == captures, call
+        assert torch.equal(got.tokens, want.tokens), call
+        assert torch.equal(got.logprobs, want.logprobs), call
+        assert _counts() == want_counts, call
+    assert want_counts["decode_attention_cuda"] == cfg.n_layers * 11
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+@pytest.mark.parametrize("name", ["tiny-gptoss", "tiny-moe"])
+def test_moe_window_graphs_match_eager(name, backend):
+    """Decode windows over MoE layers (3 ticks, both pipelines): the
+    graph's tokens, logprobs and launch counts equal the eager windows'
+    through slot churn."""
+    dev = _card()
+    cfg, params = _moe_model(dev, name)
+    reqs = _requests(cfg.vocab_size)
+    cls = _batching_cls(backend)
+    out, counts, engines = {}, {}, {}
+    for key, c in (("eager", _eager(cls)), ("graph", cls)):
+        eng = c(cfg, params, decode_ticks=3, logprobs=True, device=dev,
+                overlap_decode=True, overlap_prefill=True,
+                **_engine_kw(backend))
+        _reset()
+        out[key] = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts[key], engines[key] = _counts(), eng
+    assert out["graph"] == out["eager"]
+    for rid, _, _ in reqs:
+        assert (engines["graph"].finished_logprobs[rid]
+                == engines["eager"].finished_logprobs[rid])
+    assert counts["graph"] == counts["eager"]
+    assert engines["graph"].stats["decode_graphs"] == 1
+    assert engines["graph"].stats["decode_windows"] > 2
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+@pytest.mark.parametrize("name", ["tiny-gptoss", "tiny-moe"])
+def test_moe_prefill_graphs_match_eager(name, backend):
+    """Every bucket's prefill after its first runs as a graph replay over
+    MoE layers, with the eager prefill's first tokens, logprobs and
+    launch counts (tiny-moe's fresh prefills drop at capacity in both)."""
+    dev = _card()
+    cfg, params = _moe_model(dev, name)
+    rng = np.random.default_rng(5)
+    lens = [20, 100, 30, 9, 120, 25, 70, 12]
+    reqs = [(f"p{i}", rng.integers(0, cfg.vocab_size, n), 4)
+            for i, n in enumerate(lens)]
+    cls = _batching_cls(backend)
+    out, counts, engines = {}, {}, {}
+    for key, c in (("eager", _eager(cls)),
+                   ("graph", _eager(cls, prefill=False))):
+        eng = c(cfg, params, logprobs=True, top_logprobs=2, device=dev,
+                **_engine_kw(backend))
+        _reset()
+        out[key] = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts[key], engines[key] = _counts(), eng
+    g, e = engines["graph"], engines["eager"]
+    assert out["graph"] == out["eager"]
+    for rid, _, _ in reqs:
+        assert g.finished_logprobs[rid] == e.finished_logprobs[rid]
+        assert g.finished_top_logprobs[rid] == e.finished_top_logprobs[rid]
+    assert counts["graph"] == counts["eager"]
+    assert counts["graph"]["flash_attention_cuda"] == cfg.n_layers * 8
+    assert _prefill_graphs(g) == 3 and _prefill_graphs(e) == 0

@@ -46,12 +46,14 @@ def _close(out, ref, dtype):
 # threshold (rows / 8 against the SM count in bf16, rows / 4 in fp32);
 # prefill's 4096 and train's 12288 one warp a row (two in fp32). d = 128
 # (q/k norms, 4096 tokens x 16 heads) at 16 threads a row (bf16) or 32
-# (fp32); 37 x 1000 and 5 x 100 take the generic body.
+# (fp32); 37 x 1000 and 5 x 100 take the generic body, and so does
+# GPT-OSS-20B's width 2880 (its prefill's 4096 rows, serve's 16).
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(4096, 2048), (8, 2048), (37, 1000),
                                     (5, 128), (1, 2048), (16, 2048),
                                     (1024, 2048), (1500, 2048),
-                                    (12288, 2048), (65536, 128), (5, 100)])
+                                    (12288, 2048), (65536, 128), (5, 100),
+                                    (4096, 2880), (16, 2880)])
 def test_rms_norm_kernel(dtype, rows, d):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(rows + d)
@@ -132,6 +134,16 @@ _FLASH = {
     "g8": dict(b=1, s=520, h=16, hkv=2, d=128, causal=True),
     "d64_softcap_sinks": dict(b=2, s=400, h=4, hkv=2, d=64, causal=True,
                               softcap=30.0, sinks=True),
+    # GPT-OSS-20B's attention: 64 q heads over 8 kv heads of 64 with
+    # sinks, the 128-token window and full layers, at generate's prefill
+    # (8 x 512) and serve's largest admission (1 x 1024).
+    "gptoss_window_sinks": dict(b=2, s=512, h=64, hkv=8, d=64, causal=True,
+                                window=128, sinks=True),
+    "gptoss_full_sinks": dict(b=2, s=512, h=64, hkv=8, d=64, causal=True,
+                              sinks=True),
+    "gptoss_b1_s1024_window_sinks": dict(b=1, s=1024, h=64, hkv=8, d=64,
+                                         causal=True, window=128,
+                                         sinks=True),
 }
 
 
@@ -186,6 +198,13 @@ _DECODE = {
     "d64_g8_window_sinks": dict(s=2, h=16, hkv=2, L=777, d=64, b=2,
                                 index=[400, 775], window=97, softcap=20.0,
                                 sinks=True),
+    # GPT-OSS-20B's decode at generate's B 8: window 128 and full, sinks.
+    "gptoss_window_sinks": dict(s=1, h=64, hkv=8, L=2048, d=64, b=8,
+                                index=[128, 200, 333, 400, 450, 500, 550,
+                                       576], window=128, sinks=True),
+    "gptoss_full_sinks": dict(s=1, h=64, hkv=8, L=2048, d=64, b=8,
+                              index=[0, 127, 128, 129, 700, 1500, 2000,
+                                     2047], sinks=True),
 }
 
 
@@ -376,6 +395,14 @@ _PAGED = {
                        index=[17, 2046]),
     "s4_d64": dict(s=4, h=8, hkv=4, d=64, bs=16, max_len=2048,
                    index=[0, 300, 1000, 2044]),
+    # GPT-OSS-20B's decode at serve's 16 slots: window 128 and full,
+    # sinks.
+    "gptoss_serve_window_sinks": dict(s=1, h=64, hkv=8, d=64, bs=16,
+                                      max_len=2048, index=_SERVE_LENGTHS,
+                                      window=128, sinks=True),
+    "gptoss_serve_full_sinks": dict(s=1, h=64, hkv=8, d=64, bs=16,
+                                    max_len=2048, index=_SERVE_LENGTHS,
+                                    sinks=True),
 }
 
 

@@ -43,8 +43,19 @@ def _rng(*key):
     return np.random.default_rng(zlib.crc32(repr(key).encode()))
 
 
+_PAIRS = {}
+
+
 def _pair(name, **over):
-    """(jax cfg, port cfg, jax params, port params) for a preset in fp32."""
+    """(jax cfg, port cfg, jax params, port params) for a preset in fp32,
+    made once per (name, overrides) and shared by the tests."""
+    key = (name, tuple(sorted(over.items())))
+    if key not in _PAIRS:
+        _PAIRS[key] = _make_pair(name, **over)
+    return _PAIRS[key]
+
+
+def _make_pair(name, **over):
     jc = jget(name).replace(dtype="float32", **over)
     tc = get_model_config(name).replace(dtype="float32", **over)
     p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
@@ -111,24 +122,25 @@ def test_forward_and_cached_logits_match_jax(name):
     rng = _rng("fwd", name)
     b, s, max_len = 2, 24, 40
     toks = _tokens(rng, tc.vocab_size, b, s)
-    want = np.asarray(jt.forward(jc, jp, jnp.asarray(toks)))
+    want = np.asarray(jax.jit(lambda p, t: jt.forward(jc, p, t))(jp, toks))
     got = tt.forward(tc, tp, torch.from_numpy(toks), device=CPU).numpy()
     np.testing.assert_allclose(got, want, atol=LOGIT_ATOL)
 
-    # Ragged prefill into an empty cache, then single-token decode steps.
+    # Ragged prefill into an empty cache, then single-token decode steps
+    # (the JAX references jitted: one compile each).
     plen = np.array([s, 13], np.int32)
-    jcache = jinit_cache(jc, b, max_len)
+    prefill = jax.jit(lambda p, t, c, n: jt.forward_with_cache(
+        jc, p, t, c, new_tokens_len=n, fresh_cache=True))
+    decode = jax.jit(lambda p, t, c: jt.forward_with_cache(jc, p, t, c))
+    jl, jcache = prefill(jp, toks, jinit_cache(jc, b, max_len), plen)
     tcache = init_cache(tc, b, max_len, torch.device(CPU))
-    jl, jcache = jt.forward_with_cache(
-        jc, jp, jnp.asarray(toks), jcache, new_tokens_len=jnp.asarray(plen),
-        fresh_cache=True)
     tl, tcache = tt.forward_with_cache(
         tc, tp, torch.from_numpy(toks), tcache,
         new_tokens_len=torch.from_numpy(plen), fresh_cache=True)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL)
     for _ in range(3):
         nxt = _tokens(rng, tc.vocab_size, b, 1)
-        jl, jcache = jt.forward_with_cache(jc, jp, jnp.asarray(nxt), jcache)
+        jl, jcache = decode(jp, nxt, jcache)
         tl, tcache = tt.forward_with_cache(tc, tp, torch.from_numpy(nxt),
                                            tcache)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
@@ -152,7 +164,7 @@ def _greedy_margins(jc, jp, toks, plen, gen_tokens, penalty):
         n = int(plen[r])
         seqs[r, :n + steps - 1] = np.concatenate(
             [toks[r, :n], gen_tokens[r, :-1]])
-    logits = np.asarray(jt.forward(jc, jp, jnp.asarray(seqs)))
+    logits = np.asarray(jax.jit(lambda p, t: jt.forward(jc, p, t))(jp, seqs))
     margins = np.zeros((b, steps), np.float32)
     for r in range(b):
         n = int(plen[r])
@@ -192,7 +204,30 @@ def test_engine_greedy_matches_jax(name, penalty):
                                    atol=LOGIT_ATOL)
 
 
-@pytest.mark.parametrize("steps", [1, 2, 5])
+_STATIC_STEPS = [1, 2, 5]
+_STATIC = {}
+
+
+def _static_reference():
+    """The static-step cases' prompts and the JAX engine's greedy run of
+    the most steps over them, with its top-2 margins, made once and
+    shared: a greedy run of fewer steps is its prefix."""
+    if not _STATIC:
+        jc, tc, jp, _ = _pair("tiny-gqa")
+        toks = _tokens(_rng("static"), tc.vocab_size, 3, 12)
+        plen = np.array([12, 4, 9], np.int32)
+        want = JEngine(jc, jp, temperature=0.0, max_len=32).generate(
+            jnp.asarray(toks), jnp.asarray(plen),
+            max_new_tokens=max(_STATIC_STEPS))
+        jtoks = np.asarray(want.tokens)
+        _STATIC.update(toks=toks, plen=plen, jtoks=jtoks,
+                       jlp=np.asarray(want.logprobs),
+                       margins=_greedy_margins(jc, jp, toks, plen, jtoks,
+                                               1.0))
+    return _STATIC
+
+
+@pytest.mark.parametrize("steps", _STATIC_STEPS)
 def test_engine_static_step_matches_jax(steps):
     """Engine.generate's decode step reads its input token from a fixed
     tensor and writes the cache, `seen`, the next token and its logprob in
@@ -200,11 +235,8 @@ def test_engine_static_step_matches_jax(steps):
     warm-up step and the steps after it give the JAX engine's tokens and
     logprobs, and the cache keeps its tensors."""
     jc, tc, jp, tp = _pair("tiny-gqa")
-    rng = _rng("static", steps)
-    toks = _tokens(rng, tc.vocab_size, 3, 12)
-    plen = np.array([12, 4, 9], np.int32)
-    want = JEngine(jc, jp, temperature=0.0, max_len=32).generate(
-        jnp.asarray(toks), jnp.asarray(plen), max_new_tokens=steps)
+    ref = _static_reference()
+    toks, plen = ref["toks"], ref["plen"]
     eng = Engine(tc, tp, temperature=0.0, max_len=32, device=CPU)
     first, cache, seen = eng._prefill_impl(torch.from_numpy(toks),
                                            torch.from_numpy(plen))
@@ -215,8 +247,8 @@ def test_engine_static_step_matches_jax(steps):
     assert all(t.data_ptr() == p for t, p in held)
     np.testing.assert_array_equal(cache.lengths.numpy(), plen + steps - 1)
     assert got.tokens.dtype == torch.int32 and got.tokens.is_contiguous()
-    jtoks, jlp = np.asarray(want.tokens), np.asarray(want.logprobs)
-    low = _greedy_margins(jc, jp, toks, plen, jtoks, 1.0) < MARGIN
+    jtoks, jlp = ref["jtoks"][:, :steps], ref["jlp"][:, :steps]
+    low = ref["margins"][:, :steps] < MARGIN
     upto = np.where(low.any(1), low.argmax(1) + 1, steps)
     assert upto.sum() >= 0.75 * 3 * steps, upto
     for r in range(3):
@@ -286,7 +318,7 @@ def test_entry_points_need_a_card_unless_told_cpu():
         params_from_jax(cfg, jp)
 
 
-@pytest.mark.parametrize("name", ["tiny-moe", "tiny-mla"])
+@pytest.mark.parametrize("name", ["tiny-deepseek", "tiny-mla"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError):
         tt.init_params(get_model_config(name), device=CPU)

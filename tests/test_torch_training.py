@@ -490,6 +490,17 @@ def test_unported_train_step_arguments_raise():
                         TrainConfig(), device=CPU)
 
 
+@pytest.mark.parametrize("name", ["tiny-moe", "tiny-gptoss"])
+def test_train_step_refuses_moe(name):
+    """A step without the router's auxiliary losses would train an MoE
+    model on the wrong objective: both entry points refuse, naming them."""
+    tc = get_model_config(name)
+    with pytest.raises(NotImplementedError, match="auxiliary losses"):
+        make_train_step(tc, TrainConfig(), device=CPU)
+    with pytest.raises(NotImplementedError, match="auxiliary losses"):
+        init_train_state(tc, TrainConfig(), device=CPU)
+
+
 def test_decode_wrappers_are_inference_only():
     """Under autograd the decode kernels' wrappers raise before anything
     else (CPU tensors that require grad reach the check first)."""

@@ -7,7 +7,6 @@ precision at long positions. Same numerics as the JAX package's
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -54,14 +53,25 @@ def _llama3_inv_freq(inv_freq: torch.Tensor, l3) -> torch.Tensor:
     return torch.where(medium, smoothed, scaled)
 
 
-@functools.lru_cache(maxsize=16)
+# (dim, base, yarn config, device) -> (inverse frequencies on the device,
+# attention factor). Never evicted: a captured CUDA graph reads a table's
+# storage on every replay and holds no reference to it, so a table freed
+# while a graph over it lives would be read after the allocator reused it.
+_YARN_TABLES: dict = {}
+
+
 def _yarn_table(dim: int, base: float, yarn, device: torch.device):
     """The yarn inverse frequencies on `device` and the attention factor,
-    made once per (dim, base, config, device) and shared read-only: a
-    copy from host memory cannot be recorded in a CUDA graph, and every
-    program runs eagerly (filling this) before its capture."""
-    freq, scale = _yarn_inv_freq(dim, base, yarn)
-    return freq.to(device), scale
+    made once per (dim, base, config, device) and shared read-only for
+    the life of the process: a copy from host memory cannot be recorded
+    in a CUDA graph, and every program runs eagerly (filling this)
+    before its capture."""
+    key = (dim, base, yarn, device)
+    table = _YARN_TABLES.get(key)
+    if table is None:
+        freq, scale = _yarn_inv_freq(dim, base, yarn)
+        table = _YARN_TABLES[key] = (freq.to(device), scale)
+    return table
 
 
 def _yarn_inv_freq(dim: int, base: float, yarn):

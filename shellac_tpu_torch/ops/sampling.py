@@ -22,11 +22,12 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """`jax.lax.top_k` over the last axis of an fp32 tensor: the k
     largest values, largest first, equal values in index order. Each
     value maps to an int32 that orders as the float does (negative floats
-    flip their magnitude bits; -0.0 is made +0.0 first), joined above its
-    reversed index into one int64, so every key in a row is distinct and
-    the integer top-k is exact. Returns (values, indices)."""
+    flip their magnitude bits, so -0.0 maps to -1, just below +0.0's 0,
+    as `jax.lax.top_k` ranks them), joined above its reversed index into
+    one int64, so every key in a row is distinct and the integer top-k is
+    exact. Returns (values, indices)."""
     n = x.shape[-1]
-    bits = (x.float() + 0.0).contiguous().view(torch.int32)
+    bits = x.float().contiguous().view(torch.int32)
     key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
     rev = n - 1 - torch.arange(n, device=x.device)
     idx = torch.topk(key * (1 << 32) + rev, k, dim=-1).indices

@@ -727,6 +727,35 @@ def _moe_model(dev, name):
     return _MOE[name]
 
 
+def test_yarn_graph_replays_after_17_other_tables():
+    """A program captured over a yarn table replays bit-equal after 17
+    other (dim, base, yarn) keys were used: the table it reads is never
+    freed or reused."""
+    from shellac_tpu_torch.ops import rope
+
+    dev = _card()
+    yarn = YarnConfig(factor=32.0, original_max_position_embeddings=4096,
+                      truncate=False)
+    pos = torch.arange(1024, device=dev)
+    x = torch.randn(1024, 4, 64, device=dev, dtype=torch.bfloat16)
+
+    def program():
+        cos, sin = rope.rope_angles(pos, 64, 150000.0, yarn=yarn)
+        return rope.apply_rope(x, cos, sin)
+
+    step = StepGraph(program, dev)
+    want = step().clone()
+    torch.testing.assert_close(step(), want, rtol=0, atol=0)
+    for i in range(17):
+        other = YarnConfig(factor=2.0 + i,
+                           original_max_position_embeddings=4096)
+        rope.rope_angles(pos, 64, 1000.0 + i, yarn=other)
+        # Fill memory the allocator might hand out again.
+        torch.full((64 * 1024,), float("nan"), device=dev)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(step(), want, rtol=0, atol=0)
+
+
 def test_moe_generate_graphs_match_eager():
     """Engine.generate over MoE layers: the prefill and decode-step
     graphs give the eager programs' tokens, logprobs and launch counts,

@@ -144,6 +144,29 @@ def test_top_k_orders_ties_as_jax():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(vals))
 
 
+def test_top_k_orders_signed_zeros_as_jax():
+    """`jax.lax.top_k` ranks +0.0 above -0.0; rows whose top k cuts
+    through mixed signed zeros (and rows with NaNs of both signs) must
+    give its indices."""
+    rng = _rng("signed zeros")
+    rows = [
+        [-0.0, -0.0, -0.0, 0.0, 0.0, 0.0, -0.0, 0.0],
+        [0.0, -0.0, 0.0, -0.0, 0.0, -0.0, 0.0, -0.0],
+        [-1.0, -0.0, 2.0, 0.0, -0.0, 0.0, -3.0, 1.0],
+        [-0.0, -1e-45, 0.0, 1e-45, -0.0, -1e-45, 0.0, 1e-45],
+        [np.nan, -0.0, -np.nan, 0.0, -0.0, 0.0, 1.0, -1.0],
+    ]
+    signs = np.where(rng.random((11, 8)) < 0.5, -0.0, 0.0)
+    x = np.concatenate([np.asarray(rows, np.float32),
+                        signs.astype(np.float32)])
+    for k in (1, 3, 5, 8):
+        vals, idx = jax.lax.top_k(jnp.asarray(x), k)
+        tv, ti = top_k(_t(x), k)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(idx), str(k))
+        np.testing.assert_array_equal(np.signbit(tv.numpy()),
+                                      np.signbit(np.asarray(vals)), str(k))
+
+
 # name -> MoEConfig fields of the FFN cases.
 _FFNS = {
     "silu": dict(num_experts=4, num_experts_per_token=2,

@@ -111,6 +111,18 @@ _SCALINGS = {
 }
 
 
+def test_yarn_tables_outlive_other_keys():
+    """A yarn table, which captured graphs read without holding it, stays
+    the same object after 17 other (dim, base, yarn, device) keys."""
+    yarn = YarnConfig(factor=32.0, original_max_position_embeddings=4096,
+                      truncate=False)
+    first = trope._yarn_table(64, 150000.0, yarn, torch.device("cpu"))
+    for i in range(17):
+        trope._yarn_table(64, 1000.0 + i, yarn, torch.device("cpu"))
+    again = trope._yarn_table(64, 150000.0, yarn, torch.device("cpu"))
+    assert again is first and again[0] is first[0]
+
+
 @pytest.mark.parametrize("kind", sorted(_SCALINGS))
 def test_rope_matches_jax(kind):
     jkw, tkw = _SCALINGS[kind]

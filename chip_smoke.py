@@ -234,7 +234,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 version): equal sequences, scores within 1e-4; dense
                 against paged and dense-int8 against paged-int8 reported.
  11g. moe    — GPT-OSS-20B's shape (`gptoss_20b()`: the published
-                config through the JAX package's `_gptoss_config`
+                config's keys through the port's `config_from_hf`
                 mapping; 24 layers, d 2880, 64 q heads over 8 kv heads
                 of 64, 32 experts top-4 of width 2880, vocab 201088, a
                 128-token window on alternate layers, sinks, q/k/v/o
@@ -274,6 +274,37 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 versions and library calls (F.rms_norm; for attention,
                 whose sinks no single library call takes on these inputs,
                 SDPA with the sink as an extra zero key).
+ 11k. real-weights — real weights and text in, everything written under
+                one temporary directory that is removed at the end:
+                shellac-1b at full width and depth with real norm scales
+                (0.1 N(0, 1) from --seed), exported through
+                `to_state_dict` as an HF Llama directory (config.json
+                written here, two bf16 safetensors shards and their
+                index), read onto the card by `from_hf` and converted by
+                `convert` into a native directory (seconds and GB/s from
+                disk to the card, the page cache warm); every leaf must
+                come back bit for bit, norm scales as the conversion
+                rounds them (s' = float32(bf16(s + 1)) - 1); `generate
+                --native-dir --tokenizer tests/fixtures/tokenizer --text`
+                in process: the logits at the generated positions against
+                the source model's within 5e-2 of their scale, greedy
+                tokens equal where the source's top-2 margin allows;
+                `serve --native-dir --tokenizer <dir>` in process (its
+                HTTP loop on a thread): two rounds of 8 concurrent chat
+                completions through the directory's chat template (prompt
+                tokens equal to the template's; server TTFT and TPOT from
+                each request's timeline, the first round a cold start) and one response_format JSON-schema
+                request over the BPE vocab that must obey the schema (the
+                DFA's compile ms and states at vocab 32768); the train
+                recipe's state (fp32 masters, AdamW, after one step)
+                saved asynchronously by the Checkpointer (bytes, call and
+                commit seconds), restored onto the card, one train step
+                from it bit-equal to one from the live state, then the
+                newest step torn and restore(fallback=True) landing on the
+                one before; 2 layers of GPT-OSS-20B at full width (its
+                config from the published keys through `config_from_hf`)
+                in GPT-OSS's HF key layout, read back by `from_hf` bit
+                for bit, logits and greedy tokens of Engine equal.
  12. cli-serve — `python -m shellac_tpu_torch serve --config F
                 --cache-backend paged --slots 4 --port 0 --logprobs` (F:
                 shellac-1b cut to 2 layers) as a subprocess, on the CLI's
@@ -306,8 +337,8 @@ Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}. `--only PHASES` (generate,
 prefix-serve, sampling-controls, constrained-serve, graph-parity, beam,
 beam-parity, kernels-beam, moe, moe-parity, graph-parity-moe,
-kernels-moe) runs those after the build and prints neither of the last
-two lines.
+kernels-moe, real-weights) runs those after the build and prints neither
+of the last two lines.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -4279,33 +4310,40 @@ def beam_graph_parity(cfg, params, dev, table, cls, backend, seed):
 GPTOSS_HEADS, GPTOSS_KV_HEADS, GPTOSS_HEAD_DIM, GPTOSS_WINDOW = 64, 8, 64, 128
 
 
+# The published `openai/gpt-oss-20b` config.json, the keys that define its
+# shape (its MXFP4 quantization_config is left out: the phases make bf16
+# weights from --seed).
+GPTOSS_20B_HF = {
+    "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss",
+    "vocab_size": 201088, "hidden_size": 2880, "intermediate_size": 2880,
+    "num_hidden_layers": 24, "num_attention_heads": 64,
+    "num_key_value_heads": 8, "head_dim": 64, "num_local_experts": 32,
+    "num_experts_per_tok": 4, "experts_per_token": 4, "sliding_window": 128,
+    "layer_types": ["sliding_attention", "full_attention"] * 12,
+    "max_position_embeddings": 131072, "initial_context_length": 4096,
+    "rope_theta": 150000, "rope_scaling": {
+        "rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+        "beta_slow": 1.0, "truncate": False,
+        "original_max_position_embeddings": 4096},
+    "rms_norm_eps": 1e-05, "tie_word_embeddings": False,
+    "attention_bias": True, "router_aux_loss_coef": 0.9,
+    "swiglu_limit": 7.0, "hidden_act": "silu", "torch_dtype": "bfloat16",
+}
+
+
 def gptoss_20b():
-    """GPT-OSS-20B: the published `openai/gpt-oss-20b` config (24 layers,
+    """GPT-OSS-20B: the published config's keys (GPTOSS_20B_HF: 24 layers,
     hidden 2880, 64 q heads over 8 kv heads of 64, 32 experts, 4 a token,
     of width 2880, vocab 201088, a 128-token sliding window on the even
     layers, yarn rope of factor 32 over 4096 positions without truncation,
     theta 150000, RMS eps 1e-5, untied embeddings, router aux coefficient
-    0.9) through the JAX package's mapping (`_gptoss_config`,
-    shellac_tpu/models/convert.py:262): sinks, q/k/v/o biases, the
-    softmax-after-top-k gate with biased experts, the clamped (up + 1) *
-    glu activation, dropless routing. 20.9 B parameters."""
-    from shellac_tpu_torch.config import ModelConfig, MoEConfig, YarnConfig
+    0.9) through the port's mapping (`models/convert.py`
+    `config_from_hf`): sinks, q/k/v/o biases, the softmax-after-top-k
+    gate with biased experts, the clamped (up + 1) * glu activation,
+    dropless routing; no remat (serving). 20.9 B parameters."""
+    from shellac_tpu_torch.models.convert import HFConfig, config_from_hf
 
-    return ModelConfig(
-        vocab_size=201088, d_model=2880, n_layers=24, n_heads=GPTOSS_HEADS,
-        n_kv_heads=GPTOSS_KV_HEADS, head_dim=GPTOSS_HEAD_DIM, d_ff=2880,
-        max_seq_len=131072, rope_theta=150000.0, norm_eps=1e-5,
-        tie_embeddings=False, attn_window=GPTOSS_WINDOW,
-        attn_pattern=("window", "full"), attn_bias=True, attn_out_bias=True,
-        attn_sink=True, remat=False,
-        rope_yarn=YarnConfig(factor=32.0,
-                             original_max_position_embeddings=4096,
-                             beta_fast=32.0, beta_slow=1.0, truncate=False),
-        moe=MoEConfig(num_experts=32, num_experts_per_token=4,
-                      d_ff_expert=2880, scoring="softmax_topk",
-                      expert_bias=True, gate_limit=7.0, expert_act="gptoss",
-                      router_aux_loss_weight=0.9, dropless=True),
-    ).validate()
+    return config_from_hf(HFConfig(GPTOSS_20B_HF)).replace(remat=False)
 
 
 def moe_step_profile(cfg, params, tok, cache):
@@ -4953,6 +4991,527 @@ def phase_kernels_moe(gen, dev, shapes, card):
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# real-weights: HF checkpoints in, the native directory, a real tokenizer
+# with its chat template over HTTP, the Checkpointer
+# --------------------------------------------------------------------------
+
+# The HF tokenizer directory the phase serves with (a byte-level BPE of
+# 4096 tokens with a chat template, made by
+# scripts/make_tokenizer_fixture.py).
+TOKENIZER_DIR = ("tests", "fixtures", "tokenizer")
+REAL_TEXT = "Continuous batching keeps every slot of the card busy, "
+REAL_NEW, REAL_CHATS, REAL_CHAT_TOKENS = 32, 8, 32
+# Greedy tokens are compared where the source model's top-2 margin is at
+# least twice the logit tolerance (5e-2 of the logits' scale).
+LOGIT_TOL = 5e-2
+# Norm scales the export makes real (the init's are zeros, which round
+# trip exactly).
+NORM_STD = 0.1
+NORM_KEYS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
+             "post_attn_norm", "post_mlp_norm")
+
+
+def llama_hf_config(cfg):
+    """A ModelConfig of the Llama family as the keys of an HF Llama
+    config.json, as a Llama checkpoint carries them."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+            "intermediate_size": cfg.ff_dim,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.kv_heads,
+            "head_dim": cfg.dim_per_head,
+            "max_position_embeddings": cfg.max_seq_len,
+            "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "attention_bias": False, "hidden_act": "silu",
+            "torch_dtype": "bfloat16", "bos_token_id": 0, "eos_token_id": 1}
+
+
+def write_hf(path, hf_config, cfg, params, shards=2):
+    """`params` as an HF checkpoint directory: bf16 safetensors in
+    `shards` files with their index (the tied lm_head left out, as
+    save_pretrained leaves it) and config.json. Returns the bytes of the
+    tensors written."""
+    import os
+
+    from shellac_tpu_torch.models.convert import to_state_dict
+    from shellac_tpu_torch.utils.safetensors import save_sharded
+
+    sd = to_state_dict(cfg, params, dtype=torch.bfloat16)
+    if cfg.tie_embeddings:
+        del sd["lm_head.weight"]
+    save_sharded(sd, path, shards=shards)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config, f, indent=2)
+    return sum(t.numel() * t.element_size() for t in sd.values())
+
+
+def params_round_trip(got, want):
+    """Every leaf of `got` against `want`: matrices, embeddings, biases,
+    sinks and the router bit-equal; norm scales equal to the rounding the
+    conversion makes (the reference's too): s + 1 exported in bf16, then
+    s' = float32(that) - 1. Returns (ok, leaves checked, max |s' - s|)."""
+    pairs = [(k, got[k], want[k]) for k in got if k != "layers"]
+    for lg, lw in zip(got["layers"], want["layers"]):
+        pairs += [(k, lg[k], lw[k]) for k in lw]
+    ok = len(got["layers"]) == len(want["layers"]) and set(got) == set(want)
+    norm_err = 0.0
+    for name, g, w in pairs:
+        if name in NORM_KEYS:
+            expect = (w.float() + 1.0).to(torch.bfloat16).float() - 1.0
+            ok = ok and g.dtype == w.dtype and torch.equal(g.float(), expect)
+            norm_err = max(norm_err, (g.float() - w.float()).abs().max().item())
+        else:
+            ok = ok and g.dtype == w.dtype and torch.equal(g, w)
+    return ok, len(pairs), norm_err
+
+
+def timed_load(fn, nbytes):
+    """fn() with its seconds to the card and the GB/s of `nbytes`."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return out, {"seconds": sec, "bytes": nbytes, "gb_per_s": nbytes / sec / 1e9}
+
+
+def first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def logits_at(cfg, params, dev, seq, start):
+    from shellac_tpu_torch.models import transformer
+
+    toks = torch.tensor([seq], dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        return transformer.forward(cfg, params, toks, device=dev)[0, start:]
+
+
+def real_generate(seed, dev, tmp, card, tok_dir):
+    """shellac-1b with real norm scales, exported through to_state_dict as
+    an HF Llama directory (two shards), loaded by from_hf, converted by
+    `convert` and served by `generate --native-dir --text`: weights round
+    trip, logits and greedy tokens against the source model. Returns the
+    native directory and its config."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from shellac_tpu_torch import Engine, cli, get_model_config
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.models.convert import config_from_hf, from_hf
+    from shellac_tpu_torch.training.tokenizer import HFTokenizer
+
+    cfg = get_model_config("shellac-1b")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 16)
+    norms = [params["final_norm"]] + [lp[n] for lp in params["layers"]
+                                      for n in ("attn_norm", "mlp_norm")]
+    for t in norms:
+        t.copy_(NORM_STD * torch.randn(t.shape, generator=gen, device=dev))
+    hf_dir, native = os.path.join(tmp, "hf"), os.path.join(tmp, "native")
+    t0 = time.perf_counter()
+    nbytes = write_hf(hf_dir, llama_hf_config(cfg), cfg, params)
+    export_s = time.perf_counter() - t0
+    mapped = config_from_hf(hf_dir)
+    fields = ("vocab_size", "d_model", "n_layers", "n_heads", "kv_heads",
+              "dim_per_head", "ff_dim", "max_seq_len", "rope_theta",
+              "norm_eps", "tie_embeddings", "activation", "attn_window")
+    config_ok = all(getattr(mapped, f) == getattr(cfg, f) for f in fields)
+    (hcfg, hparams), load_hf = timed_load(
+        lambda: from_hf(hf_dir, device=dev), nbytes)
+    hf_ok, n_leaves, hf_norm_err = params_round_trip(hparams, params)
+    del hparams
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["convert", "--hf-dir", hf_dir, "--out", native])
+    convert_s = time.perf_counter() - t0
+    report = json.loads(out.getvalue())
+    shutil.rmtree(hf_dir)
+    native_bytes = os.path.getsize(os.path.join(native, cli.NATIVE_PARAMS))
+    (ncfg, nparams), load_native = timed_load(
+        lambda: cli._load_native(native, dev), native_bytes)
+    native_ok, _, native_norm_err = params_round_trip(nparams, params)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["generate", "--native-dir", native, "--tokenizer", tok_dir,
+                  "--text", REAL_TEXT, "--max-new", str(REAL_NEW),
+                  "--temperature", "0"])
+    generate_s = time.perf_counter() - t0
+    got = json.loads(out.getvalue())
+    tok = HFTokenizer(tok_dir)
+    prompt = tok.encode(REAL_TEXT)
+    src = Engine(cfg, params, temperature=0.0, device=dev).generate(
+        torch.from_numpy(prompt[None].astype(np.int64)).to(dev),
+        max_new_tokens=REAL_NEW)
+    want = src.tokens[0].tolist()
+    seq = list(map(int, prompt)) + want
+    ref = logits_at(cfg, params, dev, seq, len(prompt) - 1)
+    mine = logits_at(ncfg, nparams, dev, seq, len(prompt) - 1)
+    scale = ref.abs().max().item()
+    logit_err = (mine - ref).abs().max().item()
+    d = first_diff(got["tokens"], want)
+    margin = (None if d is None
+              else top2_margin(cfg, params, dev, prompt, want[:d]))
+    tokens_ok = d is None or margin < 2 * LOGIT_TOL * scale
+    ok = (config_ok and hf_ok and native_ok and ncfg == hcfg
+          and report["params"] == transformer.num_params(params)
+          and bool(torch.isfinite(mine).all().item())
+          and logit_err <= LOGIT_TOL * scale and tokens_ok
+          and got["text"] == tok.decode(got["tokens"]))
+    emit("real-weights", step="shellac-1b", model="shellac-1b",
+         norm_std=NORM_STD, hf_dir={"shards": 2, "bytes": nbytes,
+                                    "export_s": export_s},
+         config_maps_back=config_ok, load_hf_to_card=load_hf,
+         convert=dict(report, seconds=convert_s), native_bytes=native_bytes,
+         load_native_to_card=load_native, page_cache="warm (just written)",
+         leaves_checked=n_leaves, leaves_round_trip=hf_ok and native_ok,
+         norm_max_abs_change={"from_hf": hf_norm_err,
+                              "native": native_norm_err},
+         generate={"seconds": generate_s, "prompt_tokens": len(prompt),
+                   "tokens": got["tokens"], "text": got["text"]},
+         source_tokens=want, first_diff=d, top2_margin_at_diff=margin,
+         logits_max_abs_err=logit_err, logits_scale=scale,
+         tol=f"max_abs_err <= {LOGIT_TOL} * max|ref|; tokens equal unless "
+             f"the source's top-2 margin < {2 * LOGIT_TOL} * max|ref|",
+         ok=ok, card=card)
+    del params, nparams, src, ref, mine
+    reset_peak()
+    if not ok:
+        raise SystemExit("real-weights: the shellac-1b round trip through "
+                         "the HF directory and convert is not exact")
+    return native, cfg
+
+
+def real_serve(seed, dev, native, cfg, card, tok_dir):
+    """`serve --native-dir ... --tokenizer <dir>` (cmd_serve in process,
+    its HTTP loop on a thread): concurrent chat completions through the
+    directory's chat template, each one's server TTFT and TPOT, and one
+    response_format JSON-schema request over the BPE vocab; the DFA's
+    compile ms and states over the vocab."""
+    import threading
+
+    from shellac_tpu_torch import cli
+    from shellac_tpu_torch.inference import server as server_mod
+    from shellac_tpu_torch.inference.constraints import (
+        compile_token_dfa,
+        constraint_pattern,
+    )
+    from shellac_tpu_torch.training.tokenizer import HFTokenizer
+
+    tok = HFTokenizer(tok_dir)
+    t0 = time.perf_counter()
+    dfa = compile_token_dfa(constraint_pattern({"json_schema": CON_SCHEMA}),
+                            tok, cfg.vocab_size, tok.eos_token_id)
+    dfa_ms = (time.perf_counter() - t0) * 1e3
+    handles = {}
+
+    def start(c, p, *, host, port, tokenizer, **kw):
+        srv = server_mod.InferenceServer(c, p, tokenizer=tokenizer, **kw)
+        httpd = server_mod.make_http_server(srv, host, port)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        handles.update(srv=srv, httpd=httpd)
+
+    serve = server_mod.serve
+    server_mod.serve = start
+    t0 = time.perf_counter()
+    try:
+        cli.main(["serve", "--native-dir", native, "--tokenizer", tok_dir,
+                  "--cache-backend", "paged", "--slots", str(SLOTS),
+                  "--port", "0", "--eos-id", str(tok.eos_token_id),
+                  "--seed", str(seed)])
+    finally:
+        server_mod.serve = serve
+    up_s = time.perf_counter() - t0
+    srv, httpd = handles["srv"], handles["httpd"]
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    topics = ["kernels", "graphs", "caches", "batching", "tokenizers",
+              "checkpoints", "routers", "schedulers"]
+    chats = [[{"role": "system", "content": "Answer in one line."},
+              {"role": "user", "content": f"Tell me about {t}."}]
+             for t in topics[:REAL_CHATS]]
+    got = {}
+
+    def post(i, body):
+        t1 = time.perf_counter()
+        status, hdr, raw, _ = http_call(base, "/v1/chat/completions", body)
+        got[i] = (status, hdr.get("x-request-id"), raw,
+                  time.perf_counter() - t1)
+
+    def round_of_chats(tag):
+        calls = [threading.Thread(target=post, args=((tag, i), {
+            "messages": m, "max_tokens": REAL_CHAT_TOKENS}))
+            for i, m in enumerate(chats)]
+        for t in calls:
+            t.start()
+        for t in calls:
+            t.join(timeout=600)
+
+    try:
+        # The first round captures the engine's graphs (each prefill
+        # bucket on its second use, the window variants) and warms
+        # cuBLAS: its TTFT is a cold start. The second round is timed.
+        round_of_chats("cold")
+        round_of_chats("warm")
+        post("json", {"messages": chats[0], "max_tokens": 128,
+                      "response_format": {"type": "json_schema",
+                                          "json_schema": {
+                                              "name": "w",
+                                              "schema": CON_SCHEMA}}})
+        timelines, prompt_ok = {"cold": [], "warm": []}, True
+        for tag in timelines:
+            for i, m in enumerate(chats):
+                status, rid, raw, wall = got.get((tag, i),
+                                                 (None, None, b"", None))
+                if status != 200:
+                    prompt_ok = False
+                    continue
+                body = json.loads(raw)
+                want_prompt = len(tok.encode(tok.apply_chat_template(
+                    m, add_generation_prompt=True)))
+                prompt_ok = (prompt_ok and body["usage"]["prompt_tokens"]
+                             == want_prompt)
+                _, _, ev_raw, _ = http_call(base, f"/debug/request/{rid}")
+                ev = {e["event"]: e for e in json.loads(ev_raw)["events"]}
+                ttft = ev["first-token"]["ttft_s"]
+                e2e, n = ev["finish"]["e2e_s"], ev["finish"]["n_tokens"]
+                timelines[tag].append({
+                    "ttft_ms": ttft * 1e3, "wall_ms": wall * 1e3,
+                    "tpot_ms": (e2e - ttft) / max(n - 1, 1) * 1e3,
+                    "tokens": n})
+        status, _, raw, _ = got.get("json", (None, None, b"", None))
+        content = (json.loads(raw)["choices"][0]["message"]["content"]
+                   if status == 200 else None)
+        try:
+            json_ok = content is not None and schema_ok(json.loads(content))
+        except ValueError:
+            json_ok = False
+        _, _, metrics, _ = http_call(base, "/metrics")
+        text = metrics.decode()
+        server_compile_s = metric_value(
+            text, "shellac_constraint_compile_seconds_sum")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    def p50_99(tag, key):
+        xs = [t[key] for t in timelines[tag]]
+        return {"p50": pct(xs, 50), "p99": pct(xs, 99)} if xs else None
+
+    ok = (all(len(t) == REAL_CHATS for t in timelines.values())
+          and prompt_ok and json_ok and dfa.n_states > 0)
+    emit("real-weights", step="serve", command="serve --native-dir <tmp> "
+         f"--tokenizer {'/'.join(TOKENIZER_DIR)} --cache-backend paged "
+         f"--slots {SLOTS} --port 0 --eos-id {tok.eos_token_id}",
+         seconds_to_serving=up_s, tokenizer_vocab=tok.vocab_size,
+         chat_requests={k: len(v) for k, v in timelines.items()},
+         chat_prompt_tokens_match=prompt_ok,
+         chat_ttft_ms={k: p50_99(k, "ttft_ms") for k in timelines},
+         chat_tpot_ms={k: p50_99(k, "tpot_ms") for k in timelines},
+         chats=timelines,
+         json_schema={"status": status, "content": content, "ok": json_ok},
+         dfa={"compile_ms": dfa_ms, "states": dfa.n_states,
+              "vocab": cfg.vocab_size, "tokenizer_vocab": tok.vocab_size,
+              "server_compile_s": server_compile_s},
+         ok=ok, card=card)
+    reset_peak()
+    if not ok:
+        raise SystemExit("real-weights: serving with the HF tokenizer's chat "
+                         "template or its JSON-schema constraint failed")
+
+
+def real_checkpoint(seed, dev, tmp, card):
+    """The train recipe's state (shellac-1b, fp32 masters, AdamW) through
+    the Checkpointer on the card: an asynchronous save (call and commit
+    seconds), a restore onto the card, one train step from the restored
+    state against one from the live state (bit for bit), then a corrupted
+    newest step that restore(fallback=True) walks past."""
+    import os
+
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.training import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+    from shellac_tpu_torch.training.checkpoint import (
+        ITEM,
+        Checkpointer,
+        abstract_train_state,
+    )
+    from shellac_tpu_torch.training.train_state import named_leaves
+
+    cfg = get_model_config("shellac-1b")
+    tcfg = TrainConfig(warmup_steps=10, total_steps=1000)
+    state = init_train_state(cfg, tcfg, seed=seed, device=dev)
+    step = make_train_step(cfg, tcfg, device=dev)
+    batch = train_batch(seed + 1, cfg.vocab_size, 2, 512, dev)
+    state, _ = step(state, batch)  # moments and count no longer zero
+    torch.cuda.synchronize()
+    ck = Checkpointer(os.path.join(tmp, "ckpt"), max_to_keep=3)
+    t0 = time.perf_counter()
+    ck.save(1, state)
+    call_s = time.perf_counter() - t0
+    ck.wait()
+    commit_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(tmp, "ckpt", "1", ITEM))
+    kept = {"step": state.step,
+            "embed": state.params["embed"].detach().clone(),
+            "nu.wq": state.opt_state.nu["layers"][0]["wq"].clone()}
+    abstract = abstract_train_state(cfg, tcfg)
+    (restored, restore) = timed_load(
+        lambda: ck.restore(abstract_state=abstract, device=dev), nbytes)
+    live_next, m_live = step(state, batch)
+    rest_next, m_rest = step(restored, batch)
+
+    def leaves(s):
+        return ([s.step, s.opt_state.count]
+                + [x for _, x in named_leaves(s.params)]
+                + [x for _, x in named_leaves(s.opt_state.mu)]
+                + [x for _, x in named_leaves(s.opt_state.nu)])
+
+    pairs = list(zip(leaves(live_next), leaves(rest_next)))
+    differ = sum(not (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                      else a == b) for a, b in pairs)
+    loss_equal = m_live["loss"].item() == m_rest["loss"].item()
+    del restored, rest_next
+    reset_peak()
+    ck.save(2, live_next, wait=True)
+    item = os.path.join(tmp, "ckpt", "2", ITEM)
+    with open(item, "r+b") as f:  # a torn write: the second half gone
+        f.truncate(os.path.getsize(item) // 2)
+    t0 = time.perf_counter()
+    fb = ck.restore(abstract_state=abstract, device=dev, fallback=True)
+    torch.cuda.synchronize()
+    fallback_s = time.perf_counter() - t0
+    fb_ok = (ck.latest_step() == 1
+             and os.path.isdir(os.path.join(tmp, "ckpt", "2.corrupt"))
+             and fb.step == kept["step"]
+             and torch.equal(fb.params["embed"],
+                                              kept["embed"])
+             and torch.equal(fb.opt_state.nu["layers"][0]["wq"],
+                             kept["nu.wq"]))
+    ok = differ == 0 and loss_equal and fb_ok
+    emit("real-weights", step="checkpoint", model="shellac-1b",
+         state="fp32 masters, adamw mu (bf16) and nu (fp32), after one step",
+         checkpoint_bytes=nbytes, save_call_s=call_s, save_commit_s=commit_s,
+         save_gb_per_s=nbytes / commit_s / 1e9, restore_to_card=restore,
+         page_cache="warm (just written)", leaves_compared=len(pairs),
+         leaves_differing_after_a_step=differ,
+         loss={"live": m_live["loss"].item(), "restored": m_rest["loss"].item()},
+         fallback={"landed_on": ck.latest_step(), "seconds": fallback_s,
+                   "ok": fb_ok}, ok=ok, card=card)
+    del state, live_next, fb, kept
+    reset_peak()
+    if not ok:
+        raise SystemExit("real-weights: a step from the restored state is "
+                         "not the live step's, or the fallback restore "
+                         "missed the intact step")
+
+
+def real_gptoss(seed, dev, tmp, card):
+    """2 layers of GPT-OSS-20B at full width, the config built from the
+    published keys through config_from_hf, with the values a bf16
+    checkpoint holds: exported in GPT-OSS's HF key layout (fused
+    interleaved gate_up, router, sinks, biases), read back by from_hf,
+    every leaf bit-equal, the logits and greedy tokens of Engine equal."""
+    import os
+    import shutil
+
+    from shellac_tpu_torch import Engine
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.models.convert import (
+        HFConfig,
+        config_from_hf,
+        from_hf,
+    )
+
+    hf_config = dict(GPTOSS_20B_HF, num_hidden_layers=2,
+                     layer_types=GPTOSS_20B_HF["layer_types"][:2])
+    cfg = gptoss_20b().replace(n_layers=2)
+    config_ok = config_from_hf(HFConfig(hf_config)).replace(
+        remat=False) == cfg
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    # The values a bf16 checkpoint holds: the leaves the port keeps in
+    # fp32 (router, its bias, sinks) rounded through bf16 first; the norm
+    # scales stay zeros, which round trip exactly.
+    for lp in params["layers"]:
+        for name in ("w_router", "b_router", "sinks"):
+            lp[name].copy_(lp[name].to(torch.bfloat16).float())
+    path = os.path.join(tmp, "gptoss")
+    t0 = time.perf_counter()
+    nbytes = write_hf(path, hf_config, cfg, params)
+    export_s = time.perf_counter() - t0
+    reset_peak()
+    (lcfg, lparams), load = timed_load(lambda: from_hf(path, device=dev),
+                                       nbytes)
+    shutil.rmtree(path)
+    exact, n_leaves, _ = params_round_trip(lparams, params)
+    prompt = np.random.default_rng(seed + 20).integers(
+        0, cfg.vocab_size, 64).tolist()
+    ref = logits_at(cfg, params, dev, prompt, 0)
+    mine = logits_at(lcfg.replace(remat=False), lparams, dev, prompt, 0)
+    scale = ref.abs().max().item()
+    err = (mine - ref).abs().max().item()
+    toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
+    a = Engine(cfg, params, temperature=0.0, device=dev).generate(
+        toks, max_new_tokens=8).tokens[0].tolist()
+    b = Engine(lcfg, lparams, temperature=0.0, device=dev).generate(
+        toks, max_new_tokens=8).tokens[0].tolist()
+    ok = (config_ok and exact and err <= LOGIT_TOL * scale and a == b
+          and bool(torch.isfinite(mine).all().item()))
+    emit("real-weights", step="gptoss", model="GPT-OSS-20B, 2 layers",
+         params=transformer.num_params(params), config_from_published=config_ok,
+         hf_dir={"shards": 2, "bytes": nbytes, "export_s": export_s},
+         load_hf_to_card=load, page_cache="warm (just written)",
+         leaves_checked=n_leaves, leaves_bit_equal=exact,
+         logits_max_abs_err=err, logits_scale=scale, greedy_tokens=b,
+         greedy_equal=a == b, ok=ok, card=card)
+    del params, lparams, ref, mine
+    reset_peak()
+    if not ok:
+        raise SystemExit("real-weights: GPT-OSS's key layout does not round "
+                         "trip through from_hf")
+
+
+def phase_real_weights(seed, dev, table, card):
+    """The real-weights path: shellac-1b through an HF directory, convert
+    and generate --native-dir; serve --native-dir with the fixture's
+    tokenizer over HTTP; the Checkpointer on the train recipe's state;
+    GPT-OSS's key layout. Everything is written under one temporary
+    directory, removed at the end. Returns the kernel launches of the
+    path (kernels 1, 2 and 5 in generate, 1, 2 and 7 in serve, 1-4 in the
+    train steps)."""
+    import os
+    import shutil
+    import tempfile
+
+    tok_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           *TOKENIZER_DIR)
+    tmp = tempfile.mkdtemp(prefix="shellac-real-weights-")
+    reset_peak()
+    reset_counts(table)
+    try:
+        native, cfg = real_generate(seed, dev, tmp, card, tok_dir)
+        real_serve(seed, dev, native, cfg, card, tok_dir)
+        real_checkpoint(seed, dev, tmp, card)
+        real_gptoss(seed, dev, tmp, card)
+        counts = read_counts(table)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("real-weights", step="main_path", launches=counts,
+         disk_removed=not os.path.exists(tmp), card=card)
+    return counts
+
+
 def eager_ms(fn, arg_sets, iters):
     """Mean ms per eager call by CUDA events, cycling through arg_sets.
     Includes the host's launch cost wherever that outruns the device."""
@@ -5329,7 +5888,8 @@ def main():
                          "(generate, prefix-serve, sampling-controls, "
                          "constrained-serve, graph-parity, beam, "
                          "beam-parity, kernels-beam, moe, moe-parity, "
-                         "graph-parity-moe, kernels-moe); prints no "
+                         "graph-parity-moe, kernels-moe, real-weights); "
+                         "prints no "
                          "kernels line and no ok line")
     args = ap.parse_args()
 
@@ -5379,6 +5939,8 @@ def main():
                 args.seed, dev, table),
             "kernels-moe": lambda: phase_kernels_moe(
                 gen, dev, main_shapes(args.seed, dev), card),
+            "real-weights": lambda: phase_real_weights(args.seed, dev,
+                                                       table, card),
         }
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
@@ -5414,6 +5976,7 @@ def main():
     paths["beam"] = phase_beam(args.seed, dev, table, card)
     paths["train"] = phase_train(args.seed, dev, table, card)
     paths["moe"] = phase_moe(args.seed, dev, table, card)
+    paths["real-weights"] = phase_real_weights(args.seed, dev, table, card)
     decode = ("rms_norm", "flash_attention_fwd")
     for path, kinds in (("generate", decode + ("decode_attention_dense",)),
                         ("generate-int8",
@@ -5437,6 +6000,10 @@ def main():
                                            "paged_decode_attention_int8")),
                         ("moe", decode + ("decode_attention_dense",
                                           "paged_decode_attention")),
+                        ("real-weights", decode + (
+                            "decode_attention_dense", "paged_decode_attention",
+                            "flash_attention_bwd_dkdv",
+                            "flash_attention_bwd_dq")),
                         ("train", ("rms_norm", "flash_attention_fwd",
                                    "flash_attention_bwd_dkdv",
                                    "flash_attention_bwd_dq"))):

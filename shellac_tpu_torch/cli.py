@@ -1,25 +1,33 @@
 """Command-line interface: `python -m shellac_tpu_torch <command>`.
 
 Commands (ports of `shellac_tpu/cli.py`):
-  generate  autoregressive sampling from random weights (`cmd_generate`
-            :578) through `Engine`, or its beam search (`--num-beams`,
+  generate  autoregressive sampling (`cmd_generate` :578) through
+            `Engine`, or its beam search (`--num-beams`,
             `--length-penalty`, `--eos-id`, `--json-schema`: :677-745)
   batch     offline batch generation, JSONL in and out, through the
             continuous-batching engine (`cmd_batch` :758)
   serve     the HTTP server over the continuous-batching engine
             (`cmd_serve` :859): prints {"serving": "http://host:port"},
             then serves until interrupted (SIGINT exits 0)
+  convert   an HF checkpoint directory into a native directory
+            (`cmd_convert` :1268)
 
 Everything runs on the card unless `--device cpu` is given. The model is
 a preset (`--model`) or a `--config` JSON file of ModelConfig overrides,
-which may name a `preset` to start from; weights are a random init from
-`--seed`. Only the flags the port supports exist; among those kept for
-the reference's command lines, `--ckpt-dir` (checkpoints) raises
-NotImplementedError. The serving defaults are the reference's: both
-overlap pipelines on, `--decode-ticks auto` (the startup autotuner),
-`--max-prefills-per-step 1`, whole-prompt prefills (`--prefill-chunk`
-takes a size or `auto`). `serve --prefix-cache` (:1605) needs a paged
-backend and exits otherwise (:889).
+which may name a `preset` to start from, with weights from `--ckpt-dir`
+(the newest step of a Checkpointer directory; `--ema` takes its EMA
+weights, `_restore_params` :144) or else a random init from `--seed`; or
+`--native-dir`, a directory `convert` wrote (`_load_native` :111):
+`config.json` (`dataclasses.asdict` of the ModelConfig, as the JAX
+package's `convert` writes it) and `params.safetensors` (the port's
+parameters in serving storage, one tensor per leaf, named by its path:
+`embed`, `layers.0.wq`, ..., `final_norm`, `lm_head`). `--tokenizer` is
+`byte`, a trained BPE `.json` file or an HF tokenizer directory. The
+serving defaults are the reference's: both overlap pipelines on,
+`--decode-ticks auto` (the startup autotuner), `--max-prefills-per-step
+1`, whole-prompt prefills (`--prefill-chunk` takes a size or `auto`).
+`serve --prefix-cache` (:1605) needs a paged backend and exits otherwise
+(:889).
 """
 
 from __future__ import annotations
@@ -69,15 +77,137 @@ def _model_config(args):
     return PRESETS[args.model].validate()
 
 
+NATIVE_PARAMS = "params.safetensors"
+
+
+def _native_config(raw: dict):
+    """A ModelConfig from `dataclasses.asdict` output, every nested config
+    dataclass rehydrated (the reference's `_load_native` :111-136)."""
+    from shellac_tpu_torch.config import (
+        Llama3RopeConfig,
+        MLAConfig,
+        ModelConfig,
+        MoEConfig,
+        YarnConfig,
+    )
+
+    raw = dict(raw)
+    nested = {"moe": MoEConfig, "mla": MLAConfig, "rope_yarn": YarnConfig,
+              "rope_llama3": Llama3RopeConfig}
+    kw = {}
+    for name, cls in nested.items():
+        d = raw.pop(name, None)
+        kw[name] = cls(**d) if d else None
+    return ModelConfig(**raw, **kw).validate()
+
+
+def native_tensors(params):
+    """The native directory's tensors of `params`: each leaf named by its
+    path (`embed`, `layers.<i>.<name>`, `final_norm`, `lm_head`)."""
+    flat = {k: v for k, v in params.items() if k != "layers"}
+    for i, lp in enumerate(params["layers"]):
+        flat.update({f"layers.{i}.{n}": t for n, t in lp.items()})
+    return flat
+
+
+def _load_native(native_dir, device):
+    """(cfg, params on `device`) from a directory `convert` wrote."""
+    import os
+
+    from shellac_tpu_torch.models.transformer import check_supported
+    from shellac_tpu_torch.ops.dispatch import resolve_device
+    from shellac_tpu_torch.utils.safetensors import SafetensorsFile
+
+    with open(os.path.join(native_dir, "config.json")) as f:
+        cfg = _native_config(json.load(f))
+    check_supported(cfg)
+    dev = resolve_device(device)
+    f = SafetensorsFile(os.path.join(native_dir, NATIVE_PARAMS))
+    flat = {k: f.tensor(k).to(dev, copy=True) for k in f.keys()}
+    params = {"embed": flat.pop("embed"), "final_norm": flat.pop("final_norm"),
+              "layers": [{} for _ in range(cfg.n_layers)]}
+    if "lm_head" in flat:
+        params["lm_head"] = flat.pop("lm_head")
+    for name, t in flat.items():
+        _, i, leaf = name.split(".", 2)
+        params["layers"][int(i)][leaf] = t
+    _check_params(cfg, params, native_dir)
+    return cfg, {k: params[k] for k in ("embed", "layers", "final_norm",
+                                        "lm_head") if k in params}
+
+
+def _check_params(cfg, params, where):
+    """Raise unless `params` has this config's leaves and shapes."""
+    from shellac_tpu_torch.models.transformer import layer_shapes, moe_layers
+
+    want = {"embed": (cfg.vocab_size, cfg.d_model),
+            "final_norm": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        want["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    for i, flag in enumerate(moe_layers(cfg)):
+        want.update({f"layers.{i}.{n}": shp
+                     for n, (shp, _) in layer_shapes(cfg, flag).items()})
+    got = {k: tuple(v.shape) for k, v in params.items() if k != "layers"}
+    for i, lp in enumerate(params["layers"]):
+        got.update({f"layers.{i}.{n}": tuple(v.shape)
+                    for n, v in lp.items()})
+    if got != want:
+        bad = sorted(set(got) ^ set(want)) or sorted(
+            k for k in want if got[k] != want[k])
+        raise SystemExit(f"{where}: parameters do not match the config "
+                         f"({bad[:4]})")
+
+
 def _restore_params(args, cfg):
-    """A random init from --seed on --device (checkpoints are not ported
-    yet)."""
+    """Params from --ckpt-dir (its newest step; with --ema the averaged
+    weights), or a random init from --seed, on --device in serving
+    storage."""
     from shellac_tpu_torch.models import transformer
 
     if getattr(args, "ckpt_dir", None):
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoints are not ported yet")
+        from shellac_tpu_torch.config import TrainConfig
+        from shellac_tpu_torch.ops.dispatch import resolve_device
+        from shellac_tpu_torch.training.checkpoint import (
+            Checkpointer,
+            abstract_train_state,
+        )
+
+        dev = resolve_device(args.device)
+        ckpt = Checkpointer(args.ckpt_dir)
+        step = ckpt.latest_step()
+        has_ema = step is not None and any(
+            p.startswith("ema_params/") for p, _, _ in
+            ckpt.item_metadata(step))
+        if getattr(args, "ema", False) and not has_ema:
+            raise SystemExit("--ema: checkpoint has no EMA parameters "
+                             "(train with TrainConfig.ema_decay)")
+        # Any decay makes the requested structure carry ema_params, so it
+        # matches a checkpoint that has them. The state is read to the
+        # host; only the weights served go to the device.
+        tcfg = TrainConfig(ema_decay=0.999 if has_ema else None)
+        state = ckpt.restore(step, abstract_state=abstract_train_state(
+            cfg, tcfg), device="cpu")
+        tree = state.ema_params if getattr(args, "ema", False) \
+            else state.params
+
+        def serving(name, t):
+            return transformer.to_storage(cfg, name, t.detach()).to(dev)
+
+        params = {k: (v if k == "layers" else serving(k, v))
+                  for k, v in tree.items()}
+        params["layers"] = [{n: serving(n, t) for n, t in lp.items()}
+                            for lp in tree["layers"]]
+        return params
     return transformer.init_params(cfg, seed=args.seed, device=args.device)
+
+
+def _model(args):
+    """(cfg, params): a native directory, or a config with checkpointed or
+    random weights."""
+    if getattr(args, "native_dir", None):
+        return _load_native(args.native_dir, args.device)
+    cfg = _model_config(args)
+    return cfg, _restore_params(args, cfg)
 
 
 def _stop_seqs(args):
@@ -111,8 +241,7 @@ def cmd_generate(args):
     from shellac_tpu_torch.inference.engine import Engine
     from shellac_tpu_torch.training.tokenizer import get_tokenizer
 
-    cfg = _model_config(args)
-    params = _restore_params(args, cfg)
+    cfg, params = _model(args)
     tok = get_tokenizer(args.tokenizer)
     if args.text is not None:
         prompt = tok.encode(args.text)[None, :].astype(np.int32)
@@ -194,8 +323,7 @@ def cmd_batch(args):
     from shellac_tpu_torch.inference.cache import engine_class
     from shellac_tpu_torch.training.tokenizer import get_tokenizer
 
-    cfg = _model_config(args)
-    params = _restore_params(args, cfg)
+    cfg, params = _model(args)
     tok = get_tokenizer(args.tokenizer)
     eng = engine_class(args.cache_backend)(
         cfg, params, n_slots=args.slots,
@@ -269,6 +397,8 @@ def cmd_batch(args):
 
 
 def cmd_serve(args):
+    import os
+
     from shellac_tpu_torch.inference.cache import engine_class
     from shellac_tpu_torch.inference.server import serve
     from shellac_tpu_torch.training.tokenizer import get_tokenizer
@@ -282,8 +412,7 @@ def cmd_serve(args):
     if args.prefix_cache and not args.cache_backend.startswith("paged"):
         raise SystemExit("--prefix-cache requires a paged cache backend "
                          "(--cache-backend paged|paged-int8)")
-    cfg = _model_config(args)
-    params = _restore_params(args, cfg)
+    cfg, params = _model(args)
     paged_extra = ({"prefix_cache": args.prefix_cache}
                    if args.cache_backend.startswith("paged") else {})
     engine = engine_class(args.cache_backend)(
@@ -302,13 +431,36 @@ def cmd_serve(args):
         serve(
             cfg, params, host=args.host, port=args.port,
             tokenizer=get_tokenizer(args.tokenizer),
-            model_name=(args.model or "shellac_tpu"),
+            model_name=(os.path.basename(os.path.normpath(args.native_dir))
+                        if args.native_dir else args.model or "shellac_tpu"),
             engine=engine, max_pending=args.max_pending, autotune=True,
         )
     except KeyboardInterrupt:
         # SIGINT is the stop signal: serve() closed the server on its
         # way out.
         pass
+    return 0
+
+
+def cmd_convert(args):
+    """HF checkpoint directory -> native directory: config.json and the
+    port's parameters (serving storage) in params.safetensors."""
+    import dataclasses
+    import os
+
+    from shellac_tpu_torch.models.convert import from_hf
+    from shellac_tpu_torch.utils.safetensors import save_file
+
+    cfg, params = from_hf(args.hf_dir, device=args.device)
+    out = os.path.abspath(args.out)
+    os.makedirs(out, exist_ok=True)
+    flat = native_tensors(params)
+    save_file(flat, os.path.join(out, NATIVE_PARAMS), {"format": "pt"})
+    with open(os.path.join(out, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+    print(json.dumps({"out": out,
+                      "params": sum(t.numel() for t in flat.values()),
+                      "model_type": "moe" if cfg.moe else "dense"}))
     return 0
 
 
@@ -328,9 +480,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cuda (the default; raises without a card) "
                              "or cpu")
         sp.add_argument("--tokenizer", default="byte",
-                        help='"byte" (other tokenizers are not ported yet)')
+                        help='"byte", a trained BPE .json file, or a local '
+                             "HF tokenizer directory")
         sp.add_argument("--ckpt-dir",
-                        help="checkpoint directory (not ported yet: raises)")
+                        help="Checkpointer directory: serve its newest "
+                             "step's weights")
+        sp.add_argument("--native-dir", dest="native_dir",
+                        help="directory written by `convert` (its config "
+                             "replaces --model/--config)")
 
     def overlap(sp):
         sp.add_argument(
@@ -371,6 +528,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "token-DFA constraint for beam search: every "
                         "returned beam satisfies the schema. Needs "
                         "--num-beams and --eos-id")
+    g.add_argument("--ema", action="store_true",
+                   help="generate with the EMA-averaged weights of "
+                        "--ckpt-dir")
     g.set_defaults(fn=cmd_generate)
 
     backends = ["dense", "dense-int8", "paged", "paged-int8"]
@@ -441,6 +601,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="track per-token logprobs so requests may ask "
                         "for them")
     s.set_defaults(fn=cmd_serve)
+
+    c = sub.add_parser("convert",
+                       help="HF checkpoint dir -> native params + config")
+    c.add_argument("--hf-dir", required=True, dest="hf_dir")
+    c.add_argument("--out", required=True)
+    c.add_argument("--device", default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
+    c.set_defaults(fn=cmd_convert)
     return p
 
 

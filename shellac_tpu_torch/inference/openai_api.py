@@ -277,12 +277,12 @@ def render_chat(messages: List[dict], tokenizer,
     if tools:
         norm.insert(0, {"role": "system",
                         "content": tools_prompt_block(tools)})
-    hf_tok = getattr(tokenizer, "_tok", None)
-    if hf_tok is not None and getattr(hf_tok, "chat_template", None):
+    if getattr(tokenizer, "chat_template", None):
         try:
-            return hf_tok.apply_chat_template(
-                norm, tokenize=False, add_generation_prompt=True
-            )
+            return tokenizer.apply_chat_template(
+                norm, add_generation_prompt=True)
+        except NotImplementedError:
+            raise  # no jinja2 here: a 501, never another rendering
         except Exception as e:
             # A template without a `tool` role (or other rendering
             # fault) must surface as a 400, not a 500.

@@ -7,8 +7,9 @@ engines give in process on the same seed, and exits 0 on SIGINT.
 subprocesses already cover `python -m`) print or write the tokens of the
 port's `Engine` and batching engines on the same seed. The serving defaults (the overlap
 pipelines, `--decode-ticks auto`, `--max-prefills-per-step`) are the
-reference parser's. The options the port lacks raise
-NotImplementedError, and without `--device cpu` the commands want a card.
+reference parser's. What the port lacks (a tokenizer.json that is not
+byte-level BPE, an MLA model) raises NotImplementedError, and without
+`--device cpu` the commands want a card.
 """
 
 import json
@@ -187,11 +188,23 @@ def test_batch_gives_the_batching_engine_tokens(capsys, tmp_path, backend):
     assert summary["tokens_generated"] == sum(len(v) for v in want.values())
 
 
-@pytest.mark.parametrize("argv", [
-    ["generate", "--device", "cpu", "--prompt", "1", "--ckpt-dir", "ck"],
-    ["generate", "--device", "cpu", "--prompt", "1", "--tokenizer", "t.json"],
-])
-def test_unported_options_raise(argv):
+@pytest.mark.parametrize("kind", ["tokenizer", "native-mla"])
+def test_unported_options_raise(tmp_path, kind):
+    """What the port still lacks raises NotImplementedError: a
+    tokenizer.json that is not byte-level BPE, and a native directory of
+    an MLA model."""
+    import dataclasses
+
+    argv = ["generate", "--device", "cpu", "--text", "hi"]
+    if kind == "tokenizer":
+        path = tmp_path / "t.json"
+        path.write_text(json.dumps({"model": {"type": "Unigram",
+                                              "vocab": []}}))
+        argv += ["--tokenizer", str(path)]
+    else:
+        (tmp_path / "config.json").write_text(json.dumps(
+            dataclasses.asdict(get_model_config("tiny-mla"))))
+        argv += ["--native-dir", str(tmp_path)]
     with pytest.raises(NotImplementedError):
         cli.main(argv)
 

@@ -361,8 +361,12 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(n)\n"
         "roots = ('jax', 'jaxlib', 'optax', 'flax', 'shellac_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
+        "need = {'shellac_tpu_torch.' + n for n in ('models.convert', "
+        "'utils.safetensors', 'training.checkpoint', "
+        "'training.resilience', 'training.tokenizer')}\n"
+        "print(len(names), bad, need - set(names))\n"
+        "sys.exit(1 if bad or need - set(names) or len(names) < 20 "
+        "else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -13,9 +13,11 @@ tests/test_decode_attention.py uses; norms and rope 1e-5 (elementwise
 fp32 with a reduction); sampling masks exact.
 """
 
+import functools
 import importlib
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -207,8 +209,8 @@ def test_attention_ref_odd_length_matches_jax(causal):
     sinks = _randn(rng, 4)
     kw = dict(causal=causal, softcap=30.0,
               window=9 if causal else None)
-    want = np.asarray(jref(*map(jnp.asarray, (q, k, v)),
-                           sinks=jnp.asarray(sinks), **kw))
+    want = np.asarray(jax.jit(functools.partial(jref, **kw))(
+        *map(jnp.asarray, (q, k, v)), sinks=jnp.asarray(sinks)))
     got = tfa.flash_attention(_t(q), _t(k), _t(v), sinks=_t(sinks), **kw)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
@@ -222,10 +224,9 @@ def test_attention_ref_positions_and_mask_match_jax():
     qp = np.array([[5, 6, 7], [17, 18, 19]], np.int32)
     kp = np.tile(np.arange(20, dtype=np.int32), (2, 1))
     km = kp < np.array([[8], [20]])
-    want = np.asarray(jref(*map(jnp.asarray, (q, k, v)), window=4,
-                           q_positions=jnp.asarray(qp),
-                           kv_positions=jnp.asarray(kp),
-                           kv_mask=jnp.asarray(km)))
+    want = np.asarray(jax.jit(functools.partial(jref, window=4))(
+        *map(jnp.asarray, (q, k, v)), q_positions=jnp.asarray(qp),
+        kv_positions=jnp.asarray(kp), kv_mask=jnp.asarray(km)))
     got = tatt.attention_ref(_t(q), _t(k), _t(v), window=4,
                              q_positions=_t(qp), kv_positions=_t(kp),
                              kv_mask=_t(km))

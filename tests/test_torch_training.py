@@ -185,7 +185,7 @@ def test_flash_function_plain_matches_jax_grad(case):
         return jnp.sum(out * jnp.asarray(w))
 
     argn = (0, 1, 2, 3) if sink else (0, 1, 2)
-    want = jax.grad(jloss, argnums=argn)(
+    want = jax.jit(jax.grad(jloss, argnums=argn))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         None if sinks is None else jnp.asarray(sinks))
     tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
@@ -212,7 +212,7 @@ def test_rms_norm_function_grads_match_jax(shape):
     def jloss(x, s):
         return jnp.sum(j_rms_norm_ref(x, s, 1e-5) * jnp.asarray(w))
 
-    jdx, jds = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+    jdx, jds = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(x),
                                                jnp.asarray(scale))
     tx, ts = _t(x).requires_grad_(), _t(scale).requires_grad_()
     y = tnorms.RMSNormFunction.apply(tx, ts, 1e-5, tnorms.rms_norm_ref)
@@ -238,7 +238,7 @@ def test_cross_entropy_matches_jax(masked, z):
                                None if mask is None else jnp.asarray(mask),
                                z)
 
-    (jl, jm), jg = jax.value_and_grad(jloss, has_aux=True)(
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         jnp.asarray(logits))
     tl = _t(logits).requires_grad_()
     loss, metrics = cross_entropy(tl, _t(targets),

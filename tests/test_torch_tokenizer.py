@@ -146,6 +146,25 @@ def test_vocab_and_specials_match_reference(toks):
         ttok.BPETokenizer.train(["x"], 300, "y.json")
 
 
+def test_bpe_file_without_specials_is_refused(toks, tmp_path):
+    """A tokenizer.json that BPETokenizer.train did not write (no
+    <|bos|>/<|eos|>/<|pad|>) is refused as the reference refuses it."""
+    with open(toks["path"]) as f:
+        spec = json.load(f)
+    drop = {"<|eos|>", "<|pad|>"}
+    spec["added_tokens"] = [t for t in spec["added_tokens"]
+                            if t["content"] not in drop]
+    spec["model"]["vocab"] = {t: i for t, i in spec["model"]["vocab"].items()
+                              if t not in drop}
+    path = tmp_path / "plain.json"
+    path.write_text(json.dumps(spec))
+    with pytest.raises(ValueError) as want:
+        jtok.BPETokenizer(str(path))
+    with pytest.raises(ValueError) as got:
+        ttok.BPETokenizer(str(path))
+    assert str(got.value) == str(want.value)
+
+
 CHATS = [
     [{"role": "user", "content": "Hi <there> & \"you\""}],
     [{"role": "system", "content": "  Be brief.  "},

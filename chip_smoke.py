@@ -293,7 +293,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 HTTP loop on a thread): two rounds of 8 concurrent chat
                 completions through the directory's chat template (prompt
                 tokens equal to the template's; server TTFT and TPOT from
-                each request's timeline, the first round a cold start) and one response_format JSON-schema
+                each request's timeline, split into the queue wait and
+                the prefill to the first token, with what the client
+                waited beyond the server's clock, the first round a cold
+                start) and one response_format JSON-schema
                 request over the BPE vocab that must obey the schema (the
                 DFA's compile ms and states at vocab 32768); the train
                 recipe's state (fp32 masters, AdamW, after one step)
@@ -5238,6 +5241,12 @@ def real_serve(seed, dev, native, cfg, card, tok_dir):
     chats = [[{"role": "system", "content": "Answer in one line."},
               {"role": "user", "content": f"Tell me about {t}."}]
              for t in topics[:REAL_CHATS]]
+    # A chat template's first render compiles it; later ones reuse it.
+    fresh, template_ms = HFTokenizer(tok_dir), []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        fresh.apply_chat_template(chats[0], add_generation_prompt=True)
+        template_ms.append((time.perf_counter() - t1) * 1e3)
     got = {}
 
     def post(i, body):
@@ -5275,16 +5284,28 @@ def real_serve(seed, dev, native, cfg, card, tok_dir):
                     prompt_ok = False
                     continue
                 body = json.loads(raw)
+                t1 = time.perf_counter()
                 want_prompt = len(tok.encode(tok.apply_chat_template(
                     m, add_generation_prompt=True)))
+                render_s = time.perf_counter() - t1
                 prompt_ok = (prompt_ok and body["usage"]["prompt_tokens"]
                              == want_prompt)
                 _, _, ev_raw, _ = http_call(base, f"/debug/request/{rid}")
                 ev = {e["event"]: e for e in json.loads(ev_raw)["events"]}
                 ttft = ev["first-token"]["ttft_s"]
+                wait = ev["prefill"]["queue_wait_s"]
                 e2e, n = ev["finish"]["e2e_s"], ev["finish"]["n_tokens"]
+                # The server's clock starts once the handler has rendered
+                # and tokenized the prompt: TTFT is the queue wait, then
+                # the prefill to the first token. What the client waits
+                # beyond e2e is the handler's (render, tokenize, HTTP).
                 timelines[tag].append({
-                    "ttft_ms": ttft * 1e3, "wall_ms": wall * 1e3,
+                    "ttft_ms": ttft * 1e3, "queue_wait_ms": wait * 1e3,
+                    "prefill_ms": (ttft - wait) * 1e3,
+                    "pending_at_admit": ev["admit"]["pending"],
+                    "handler_ms": (wall - e2e) * 1e3,
+                    "render_encode_ms": render_s * 1e3,
+                    "wall_ms": wall * 1e3,
                     "tpot_ms": (e2e - ttft) / max(n - 1, 1) * 1e3,
                     "tokens": n})
         status, _, raw, _ = got.get("json", (None, None, b"", None))
@@ -5298,6 +5319,12 @@ def real_serve(seed, dev, native, cfg, card, tok_dir):
         text = metrics.decode()
         server_compile_s = metric_value(
             text, "shellac_constraint_compile_seconds_sum")
+        # The window a decode step runs (the startup autotuner's choice)
+        # and the admissions a step takes.
+        sched = {"decode_ticks": srv.engine.decode_ticks,
+                 "max_prefills_per_step": srv.engine.max_prefills_per_step,
+                 "overlap_decode": srv.engine.overlap_decode,
+                 "overlap_prefill": srv.engine.overlap_prefill}
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -5315,6 +5342,13 @@ def real_serve(seed, dev, native, cfg, card, tok_dir):
          chat_requests={k: len(v) for k, v in timelines.items()},
          chat_prompt_tokens_match=prompt_ok,
          chat_ttft_ms={k: p50_99(k, "ttft_ms") for k in timelines},
+         chat_queue_wait_ms={k: p50_99(k, "queue_wait_ms")
+                             for k in timelines},
+         chat_prefill_ms={k: p50_99(k, "prefill_ms") for k in timelines},
+         chat_handler_ms={k: p50_99(k, "handler_ms") for k in timelines},
+         scheduling=sched,
+         chat_template_ms={"first": template_ms[0],
+                           "again": template_ms[1]},
          chat_tpot_ms={k: p50_99(k, "tpot_ms") for k in timelines},
          chats=timelines,
          json_schema={"status": status, "content": content, "ok": json_ok},

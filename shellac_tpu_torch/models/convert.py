@@ -604,7 +604,7 @@ _BIAS_MAP = {
 def params_from_state_dict(
     state_dict: Mapping[str, Any], cfg: ModelConfig,
     device: DeviceLike = None, master: bool = False,
-    norm_offset: float = -1.0, moe_naming: str = "auto",
+    norm_offset: float = -1.0,
 ) -> Params:
     """An HF Llama-family state dict as port parameters on `device`.
 
@@ -632,16 +632,15 @@ def params_from_state_dict(
         return sd[key].detach().to(dev).float()
 
     moe = cfg.moe is not None
-    if moe and moe_naming == "auto":
-        # Mixtral ships block_sparse_moe.*, Qwen3-MoE keeps the dense
-        # projection names under mlp.experts.*, GPT-OSS fuses all experts
-        # into single stacked tensors.
-        if f"{prefix}layers.0.mlp.experts.gate_up_proj" in sd:
-            moe_naming = "gpt_oss"
-        elif f"{prefix}layers.0.mlp.experts.0.gate_proj.weight" in sd:
-            moe_naming = "qwen3_moe"
-        else:
-            moe_naming = "mixtral"
+    # Mixtral ships block_sparse_moe.*, Qwen3-MoE keeps the dense
+    # projection names under mlp.experts.*, GPT-OSS fuses all experts
+    # into single stacked tensors.
+    if f"{prefix}layers.0.mlp.experts.gate_up_proj" in sd:
+        moe_naming = "gpt_oss"
+    elif f"{prefix}layers.0.mlp.experts.0.gate_proj.weight" in sd:
+        moe_naming = "qwen3_moe"
+    else:
+        moe_naming = "mixtral"
     if moe and cfg.moe_every > 1:
         raise NotImplementedError(
             "interleaved dense/MoE stacks (moe_every > 1) have no HF "

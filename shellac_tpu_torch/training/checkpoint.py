@@ -396,14 +396,12 @@ class Checkpointer:
             self._write_error = e
 
     def _keep_newest(self) -> None:
+        """Delete the steps past max_to_keep. Their manifests stay, as the
+        reference's do, until a later construction's orphan sweep."""
         steps = self.all_steps()
         for old in steps[:max(len(steps) - self.max_to_keep, 0)]:
             shutil.rmtree(os.path.join(self._root, str(old)),
                           ignore_errors=True)
-            try:
-                os.remove(self._manifest_path(old))
-            except OSError:
-                pass
 
     def _join(self) -> None:
         """Wait for the save in flight; raise what it raised."""

@@ -30,6 +30,8 @@ reference's lack it, so constrained decoding takes the decode fallback
 
 from __future__ import annotations
 
+import functools
+import heapq
 import json
 import os
 import unicodedata
@@ -113,6 +115,9 @@ _WHITE_SPACE = frozenset(
     + [chr(c) for c in range(0x2000, 0x200B)]
     + [chr(c) for c in (0x2028, 0x2029, 0x202F, 0x205F, 0x3000)])
 _CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+# `tokenizers`' BPE cache: this many pieces, none longer than this.
+_CACHE_SIZE = 10_000
+_CACHE_MAX_PIECE = 256
 
 
 def _kind(c: str) -> str:
@@ -223,7 +228,9 @@ class ByteLevelBPE:
         self.id_to_token: Dict[int, str] = {i: t for t, i in
                                             self.vocab.items()}
         self.id_to_token.update({i: t for t, i in self.added.items()})
-        self._cache: Dict[str, List[int]] = {}
+        # A bounded LRU of pieces' ids, per tokenizer.
+        self._cached_ids = functools.lru_cache(maxsize=_CACHE_SIZE)(
+            self._word_ids)
 
     @property
     def vocab_size(self) -> int:
@@ -267,42 +274,59 @@ class ByteLevelBPE:
             pieces = out
         return pieces
 
-    def _bpe(self, word: str) -> List[int]:
-        if word in self._cache:
-            return self._cache[word]
+    def _bpe(self, word: str) -> Tuple[int, ...]:
+        # Long pieces (a base64 blob, a row of dashes) skip the cache, as
+        # in `tokenizers`, so that user text cannot fill it.
+        if len(word) > _CACHE_MAX_PIECE:
+            return self._word_ids(word)
+        return self._cached_ids(word)
+
+    def _word_ids(self, word: str) -> Tuple[int, ...]:
         if self.ignore_merges and word in self.vocab:
-            ids = [self.vocab[word]]
-        else:
-            syms = list(word)
-            while len(syms) > 1:
-                best = None
-                for k in range(len(syms) - 1):
-                    r = self.ranks.get((syms[k], syms[k + 1]))
-                    if r is not None and (best is None or r < best[0]):
-                        best = (r, k)
-                if best is None:
-                    break
-                pair = (syms[best[1]], syms[best[1] + 1])
-                merged, k = [], 0
-                while k < len(syms):
-                    if k < len(syms) - 1 and (syms[k], syms[k + 1]) == pair:
-                        merged.append(pair[0] + pair[1])
-                        k += 2
-                    else:
-                        merged.append(syms[k])
-                        k += 1
-                syms = merged
-            ids = []
-            for s in syms:
-                if s in self.vocab:
-                    ids.append(self.vocab[s])
-                elif self.unk is not None and self.unk in self.vocab:
-                    ids.append(self.vocab[self.unk])
-                else:
-                    raise ValueError(f"BPE symbol {s!r} is not in the "
-                                     "vocab and there is no unk_token")
-        self._cache[word] = ids
-        return ids
+            return (self.vocab[word],)
+        ids = []
+        for s in self._merge(word):
+            if s in self.vocab:
+                ids.append(self.vocab[s])
+            elif self.unk is not None and self.unk in self.vocab:
+                ids.append(self.vocab[self.unk])
+            else:
+                raise ValueError(f"BPE symbol {s!r} is not in the "
+                                 "vocab and there is no unk_token")
+        return tuple(ids)
+
+    def _merge(self, word: str) -> List[str]:
+        """`tokenizers`' merge of one piece: a heap of (rank, position)
+        pairs, the lowest rank and then the leftmost first, over a linked
+        list of symbols; a popped pair that no longer stands is skipped.
+        O(n log n) in the piece's length."""
+        syms: List[Optional[str]] = list(word)
+        n = len(syms)
+        nxt = list(range(1, n + 1))
+        prev = list(range(-1, n - 1))
+        ranks = self.ranks
+        heap = [(r, k) for k in range(n - 1)
+                if (r := ranks.get((syms[k], syms[k + 1]))) is not None]
+        heapq.heapify(heap)
+        while heap:
+            r, k = heapq.heappop(heap)
+            j = nxt[k]
+            if syms[k] is None or j >= n or \
+                    ranks.get((syms[k], syms[j])) != r:
+                continue
+            syms[k] += syms[j]
+            syms[j] = None
+            nxt[k] = nxt[j]
+            if nxt[k] < n:
+                prev[nxt[k]] = k
+                r2 = ranks.get((syms[k], syms[nxt[k]]))
+                if r2 is not None:
+                    heapq.heappush(heap, (r2, k))
+            if prev[k] >= 0:
+                r2 = ranks.get((syms[prev[k]], syms[k]))
+                if r2 is not None:
+                    heapq.heappush(heap, (r2, prev[k]))
+        return [s for s in syms if s is not None]
 
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
@@ -443,6 +467,7 @@ class HFTokenizer:
         self.clean_up_tokenization_spaces = bool(
             config.get("clean_up_tokenization_spaces", False))
         self.chat_template = _chat_template(path, config)
+        self._template = None
         self.vocab_size = self._tok.vocab_size
 
     def _id_of(self, key: str) -> Optional[int]:
@@ -480,8 +505,10 @@ class HFTokenizer:
         `apply_chat_template(..., tokenize=False)` renders it."""
         if not self.chat_template:
             raise ValueError(f"{self.path} has no chat template")
-        template = _compile_chat_template(self.chat_template)
-        return template.render(
+        if self._template is None:
+            # Compiled once per tokenizer, as transformers caches it.
+            self._template = _compile_chat_template(self.chat_template)
+        return self._template.render(
             messages=messages, tools=tools, documents=documents,
             add_generation_prompt=add_generation_prompt,
             **{**self.special_tokens_map, **kwargs})

@@ -21,7 +21,6 @@ import torch
 
 from shellac_tpu.inference import batching as jbatching
 from shellac_tpu.inference.cache import layout as jlayout
-from shellac_tpu.models import transformer as jt
 from shellac_tpu.models.registry import get_model_config as jget
 from shellac_tpu_torch.inference import batching
 from shellac_tpu_torch.inference.cache import (
@@ -39,6 +38,8 @@ from shellac_tpu_torch.models.registry import get_model_config
 from shellac_tpu_torch.obs import Registry, ServeMetrics
 from shellac_tpu_torch.ops import decode_attention as da
 from shellac_tpu_torch.ops import sampling
+
+import jax_params
 
 jda = importlib.import_module("shellac_tpu.ops.decode_attention")
 jsampling = importlib.import_module("shellac_tpu.ops.sampling")
@@ -218,7 +219,7 @@ def _pair(name):
     noise on the norms so they are not trivial."""
     jc = jget(name).replace(dtype="float32")
     tc = get_model_config(name).replace(dtype="float32")
-    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    p = jax_params.init_params(jc)
     rng = _rng("params", name)
     for k, v in p["layers"].items():
         if k.endswith("norm"):

@@ -70,6 +70,8 @@ from shellac_tpu_torch.models.registry import get_model_config
 from shellac_tpu_torch.obs import Registry
 from shellac_tpu_torch.training.tokenizer import ByteTokenizer
 
+import jax_params
+
 CPU = "cpu"
 TOL = 1e-4
 MARGIN = 2 * TOL
@@ -104,7 +106,7 @@ WHOLE = _ids(45, "whole")
 def model():
     jc = jget("tiny").replace(dtype="float32", vocab_size=VOCAB)
     tc = get_model_config("tiny").replace(dtype="float32", vocab_size=VOCAB)
-    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    p = jax_params.init_params(jc)
     return jc, tc, jax.tree.map(jnp.asarray, p), params_from_jax(tc, p, CPU)
 
 

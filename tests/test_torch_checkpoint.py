@@ -169,8 +169,16 @@ class TestCheckpoint:
         # The first save, then every second step.
         assert saved == [1, 2, 4, 6]
         assert ckpt.all_steps() == [4, 6]
-        assert sorted(os.listdir(os.path.join(d, "manifests"))) == [
-            "4.json", "6.json"]
+        # The manifests of the steps max_to_keep deleted stay until a
+        # construction finds them orphaned past DEBRIS_TTL_S.
+        mdir = os.path.join(d, "manifests")
+        assert sorted(os.listdir(mdir)) == [
+            "1.json", "2.json", "4.json", "6.json"]
+        old = time.time() - 2 * 3600.0
+        for name in os.listdir(mdir):
+            os.utime(os.path.join(mdir, name), (old, old))
+        ckpt = Checkpointer(d, max_to_keep=2, save_interval_steps=2)
+        assert sorted(os.listdir(mdir)) == ["4.json", "6.json"]
         assert not ckpt.save(6, state)  # already saved
         assert not ckpt.save(5, state)  # below the latest
         assert ckpt.save(5, state, force=True, wait=True)
@@ -352,3 +360,216 @@ def test_cli_ckpt_dir_and_ema(tmp_path):
     with pytest.raises(SystemExit, match="EMA"):
         cli.main(["generate", "--device", CPU, "--ckpt-dir", plain,
                   "--prompt", "1", "--ema"])
+
+
+# ---- the reference's decisions, scenario for scenario ----------------
+
+
+class _Side:
+    """One Checkpointer (the reference's over orbax, or the port's) with
+    its own state, abstract state and obs registry, driven through the
+    same calls."""
+
+    SERIES = ("shellac_train_ckpt_quarantined_total",
+              "shellac_train_ckpt_fallback_restores_total",
+              "shellac_train_last_good_step")
+
+    def __init__(self, ref, root, **kw):
+        self.ref, self.root = ref, root
+        if ref:
+            from shellac_tpu.obs import Registry as JRegistry
+            from shellac_tpu.obs import set_default_registry as jset
+            from shellac_tpu.training.checkpoint import Checkpointer as JCk
+
+            self.registry, self._set = JRegistry(), jset
+            state = _jax_state()
+            self._state = lambda s: state.__class__(
+                step=state.step * 0 + s, params=state.params,
+                opt_state=state.opt_state, ema_params=state.ema_params)
+            self._abstract = _jax_abstract
+            self._make = JCk
+        else:
+            self.registry, self._set = Registry(), set_default_registry
+            state = _state()
+
+            def at(s):
+                state.step = s
+                return state
+
+            self._state = at
+            self._abstract = lambda over: abstract_train_state(
+                _cfg().replace(**over), TrainConfig(warmup_steps=0))
+            self._make = Checkpointer
+        self.old = self._set(self.registry)
+        self.ck = self._make(root, **kw)
+
+    def reopen(self, **kw):
+        self.ck.close()
+        self.ck = self._make(self.root, **kw)
+
+    def save(self, step, **kw):
+        return bool(self.ck.save(step, self._state(step), wait=True, **kw))
+
+    def restore(self, step=None, other=False, **kw):
+        """The landed step; `other` asks for a wider model's state."""
+        kw["abstract_state"] = self._abstract(
+            dict(d_model=128, vocab_size=512) if other else {})
+        if not self.ref:
+            kw["device"] = CPU
+        return int(self.ck.restore(step, **kw).step)
+
+    def series(self):
+        return {s: self.registry.value(s) for s in self.SERIES}
+
+    def corrupt_dirs(self):
+        return sorted(n for n in os.listdir(self.root) if "corrupt" in n)
+
+    def close(self):
+        self.ck.close()
+        self._set(self.old)
+
+
+_JAX_STATE = []
+
+
+def _jax_abstract(over=None):
+    """The reference's TrainState of `tiny` in fp32 (with `over` on its
+    config), as shapes and dtypes."""
+    import jax
+
+    from shellac_tpu.config import TrainConfig as JTrainConfig
+    from shellac_tpu.models.registry import get_model_config as jcfg
+    from shellac_tpu.training import init_train_state as jinit
+
+    return jax.eval_shape(lambda: jinit(
+        jcfg("tiny").replace(dtype="float32", **(over or {})),
+        JTrainConfig(warmup_steps=0), jax.random.PRNGKey(0)))
+
+
+def _jax_state():
+    """A reference TrainState to save, made once: zeros in its
+    structure (what the Checkpointer decides depends on the structure
+    alone), so no initializer is compiled."""
+    if not _JAX_STATE:
+        import jax
+        import jax.numpy as jnp
+
+        _JAX_STATE.append(jax.tree.map(
+            lambda a: jnp.zeros(a.shape, a.dtype), _jax_abstract()))
+    return _JAX_STATE[0]
+
+
+def _outcome(fn):
+    """fn()'s value, or its error's type and message."""
+    try:
+        return fn()
+    except Exception as e:
+        return type(e).__name__, str(e)
+
+
+def _scenario_interval(side, chaos):
+    out = [(s, force, side.save(s, force=force), side.ck.all_steps(),
+            latest_step_on_disk(side.root))
+           for s, force in ((1, False), (2, False), (3, False), (4, False),
+                            (4, False), (3, False), (5, True), (6, False),
+                            (7, False), (8, False), (9, True))]
+    out.append(sorted(os.listdir(os.path.join(side.root, "manifests"))))
+    return out
+
+
+def _saved(side, steps=(1, 2, 3)):
+    for s in steps:
+        side.save(s)
+
+
+def _scenario_scramble_newest(side, chaos):
+    _saved(side)
+    chaos.scramble_step(side.root, 3)
+    landed = side.restore(fallback=True)
+    out = [landed, side.ck.all_steps(), side.ck.verify(3),
+           side.ck.verify(2), side.corrupt_dirs(), side.series()]
+    side.reopen()
+    return out + [side.ck.latest_step(), side.ck.verify(3) is not None]
+
+
+def _scenario_tampered_digest(side, chaos):
+    _saved(side)
+    chaos.tamper_manifest(side.root, 3, tree_digest="deadbeef")
+    reason = side.ck.verify(3)
+    return [reason, side.restore(fallback=True), side.corrupt_dirs(),
+            side.series()]
+
+
+def _scenario_rotten_manifest(side, chaos):
+    _saved(side)
+    with open(os.path.join(side.root, "manifests", "3.json"), "w") as f:
+        f.write("{")
+    return [side.ck.verify(3), side.restore(fallback=True),
+            side.corrupt_dirs(), side.series()]
+
+
+def _scenario_exhausted(side, chaos):
+    _saved(side, (1, 2, 3))
+    for s in (1, 2):
+        chaos.scramble_step(side.root, s)
+    return [_outcome(lambda: side.restore(2, fallback=True)),
+            side.ck.all_steps(), side.corrupt_dirs(), side.series()]
+
+
+def _scenario_mismatch(side, chaos):
+    _saved(side, (1, 2))
+    return [_outcome(lambda: side.restore(other=True, fallback=True)),
+            # Without the walk, orbax's own error: its type only.
+            _outcome(lambda: side.restore(other=True))[0],
+            side.ck.all_steps(), side.ck.verify(2), side.corrupt_dirs(),
+            side.series()]
+
+
+def _scenario_requarantine(side, chaos):
+    _saved(side, (1, 2))
+    chaos.scramble_step(side.root, 2)
+    out = [side.restore(fallback=True), side.save(2), side.ck.latest_step()]
+    chaos.scramble_step(side.root, 2)
+    out += [side.restore(fallback=True), side.corrupt_dirs(), side.series()]
+    side.reopen()
+    return out + [side.ck.latest_step()]
+
+
+def _scenario_empty(side, chaos):
+    return [_outcome(lambda: side.restore()),
+            _outcome(lambda: side.restore(fallback=True)), side.series()]
+
+
+SCENARIOS = {
+    "interval": (_scenario_interval,
+                 dict(max_to_keep=2, save_interval_steps=2)),
+    "scramble_newest": (_scenario_scramble_newest, dict(max_to_keep=5)),
+    "tampered_digest": (_scenario_tampered_digest, dict(max_to_keep=5)),
+    "rotten_manifest": (_scenario_rotten_manifest, dict(max_to_keep=5)),
+    "exhausted": (_scenario_exhausted, dict(max_to_keep=5)),
+    "mismatch": (_scenario_mismatch, dict(max_to_keep=5)),
+    "requarantine": (_scenario_requarantine, dict(max_to_keep=5)),
+    "empty": (_scenario_empty, {}),
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_decisions_match_reference(tmp_path, scenario):
+    """The reference's Checkpointer (orbax) and the port's through the
+    same calls: which saves are taken, which steps stand, which step a
+    fallback lands on, which are quarantined and under what name, the
+    reasons and error messages (the directory's name aside) and the
+    shellac_train_* series."""
+    from shellac_tpu.training import chaos
+
+    fn, kw = SCENARIOS[scenario]
+    got = {}
+    for ref in (True, False):
+        root = str(tmp_path / ("ref" if ref else "port"))
+        side = _Side(ref, root, **kw)
+        try:
+            got[ref] = json.loads(json.dumps(fn(side, chaos)).replace(
+                root, "<dir>"))
+        finally:
+            side.close()
+    assert got[False] == got[True]

@@ -24,11 +24,12 @@ import numpy as np
 import pytest
 
 from shellac_tpu.inference import batching as jbatching
-from shellac_tpu.models import transformer as jt
 from shellac_tpu.models.registry import get_model_config as jget
 from shellac_tpu_torch.inference import batching
 from shellac_tpu_torch.models.from_jax import params_from_jax
 from shellac_tpu_torch.models.registry import get_model_config
+
+import jax_params
 
 CPU = "cpu"
 MARGIN = 2 * 1e-4
@@ -42,7 +43,7 @@ def _rng(*key):
 def pair():
     jc = jget("tiny").replace(dtype="float32")
     tc = get_model_config("tiny").replace(dtype="float32")
-    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    p = jax_params.init_params(jc)
     return jc, tc, jax.tree.map(jnp.asarray, p), params_from_jax(tc, p, CPU)
 
 

@@ -47,6 +47,8 @@ from shellac_tpu_torch.models.from_jax import params_from_jax
 from shellac_tpu_torch.models.registry import get_model_config
 from shellac_tpu_torch.ops import decode_attention as da
 
+import jax_params
+
 jda = importlib.import_module("shellac_tpu.ops.decode_attention")
 # The JAX cached forward, jitted: one compile per shape runs faster here
 # than op-by-op dispatch.
@@ -308,7 +310,7 @@ def _pair(name):
     noise on the norms so they are not trivial."""
     jc = jget(name).replace(dtype="float32")
     tc = get_model_config(name).replace(dtype="float32")
-    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    p = jax_params.init_params(jc)
     rng = _rng("params", name)
     for k, v in p["layers"].items():
         if k.endswith("norm"):

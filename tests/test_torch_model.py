@@ -33,6 +33,8 @@ from shellac_tpu_torch.models import transformer as tt
 from shellac_tpu_torch.models.from_jax import params_from_jax
 from shellac_tpu_torch.models.registry import get_model_config
 
+import jax_params
+
 REPO = Path(__file__).resolve().parent.parent
 LOGIT_ATOL = 1e-4
 MARGIN = 2 * LOGIT_ATOL
@@ -58,7 +60,7 @@ def _pair(name, **over):
 def _make_pair(name, **over):
     jc = jget(name).replace(dtype="float32", **over)
     tc = get_model_config(name).replace(dtype="float32", **over)
-    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    p = jax_params.init_params(jc)
     rng = _rng("params", name)
     for k, v in p["layers"].items():
         if k in ("sinks", "bq", "bk", "bv", "bo") or k.endswith("norm"):
@@ -79,7 +81,11 @@ def test_params_from_jax_round_trip():
     name = "tiny-gemma2"
     jc = jget(name)  # bf16 compute, fp32 master params
     tc = get_model_config(name)
-    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(1)))
+    # The JAX layout (eval_shape, no draw to compile) filled from numpy.
+    rng = _rng("round_trip", name)
+    p = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(a.dtype),
+        jax.eval_shape(lambda: jt.init_params(jc, jax.random.PRNGKey(1))))
     tp = params_from_jax(tc, p, CPU)
     assert len(tp["layers"]) == tc.n_layers
     np.testing.assert_array_equal(
@@ -105,7 +111,8 @@ def test_params_from_jax_round_trip():
 
 def test_init_params_layout_matches_jax():
     jc, tc = jget("tiny-gemma3"), get_model_config("tiny-gemma3")
-    jp = jt.init_params(jc, jax.random.PRNGKey(0))
+    # The layout alone: shapes from eval_shape, with no draw to compile.
+    jp = jax.eval_shape(lambda: jt.init_params(jc, jax.random.PRNGKey(0)))
     tp = tt.init_params(tc, seed=0, device=CPU)
     assert tp["embed"].shape == jp["embed"].shape
     for k, v in jp["layers"].items():
@@ -312,8 +319,9 @@ def test_entry_points_need_a_card_unless_told_cpu():
         tt.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tt.forward(cfg, params, torch.zeros(1, 4, dtype=torch.int64))
-    jp = jax.tree.map(np.asarray, jt.init_params(jget("tiny"),
-                                                 jax.random.PRNGKey(0)))
+    # Any tree of the layout: zeros, with no draw to compile.
+    jp = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), jax.eval_shape(
+        lambda: jt.init_params(jget("tiny"), jax.random.PRNGKey(0))))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax(cfg, jp)
 

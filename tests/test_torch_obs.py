@@ -17,12 +17,12 @@ import threading
 import urllib.request
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from shellac_tpu.inference.server import InferenceServer as JServer
 from shellac_tpu.inference.server import make_http_server as jmake_http
-from shellac_tpu.models import transformer as jt
 from shellac_tpu.models.registry import get_model_config as jget
 from shellac_tpu.obs import metrics as jmetrics
 from shellac_tpu.obs import trace as jtrace
@@ -32,6 +32,8 @@ from shellac_tpu_torch.models.from_jax import params_from_jax
 from shellac_tpu_torch.models.registry import get_model_config
 from shellac_tpu_torch.obs import metrics, trace
 from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+import jax_params
 
 CPU = "cpu"
 
@@ -256,7 +258,7 @@ def _drive(srv, make_http):
 def served():
     jc = jget("tiny").replace(dtype="float32")
     tc = get_model_config("tiny").replace(dtype="float32")
-    jp = jt.init_params(jc, jax.random.PRNGKey(0))
+    jp = jax.tree.map(jnp.asarray, jax_params.init_params(jc))
     tp = params_from_jax(tc, jax.tree.map(np.asarray, jp), device=CPU)
     kw = dict(tokenizer=ByteTokenizer(), n_slots=2, max_len=64,
               temperature=0.0)

@@ -36,7 +36,6 @@ import pytest
 import torch
 
 from shellac_tpu.inference import batching as jbatching
-from shellac_tpu.models import transformer as jt
 from shellac_tpu.models.registry import get_model_config as jget
 from shellac_tpu_torch.inference import batching
 from shellac_tpu_torch.inference.engine import Engine
@@ -44,6 +43,8 @@ from shellac_tpu_torch.models import transformer as tt
 from shellac_tpu_torch.models.from_jax import params_from_jax
 from shellac_tpu_torch.models.registry import get_model_config
 from shellac_tpu_torch.ops.sampling import sample_batched
+
+import jax_params
 
 CPU = "cpu"
 MARGIN = 2 * 1e-4
@@ -59,7 +60,7 @@ def _rng(*key):
 def pair():
     jc = jget("tiny").replace(dtype="float32")
     tc = get_model_config("tiny").replace(dtype="float32")
-    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    p = jax_params.init_params(jc)
     return jc, tc, jax.tree.map(jnp.asarray, p), params_from_jax(tc, p, CPU)
 
 

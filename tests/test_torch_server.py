@@ -39,12 +39,12 @@ import urllib.request
 from urllib.parse import urlparse
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 from shellac_tpu.inference import openai_api as jopenai
 from shellac_tpu.inference.server import InferenceServer as JServer
 from shellac_tpu.inference.server import make_http_server as jmake_http
-from shellac_tpu.models import transformer as jt
 from shellac_tpu.models.registry import get_model_config as jget
 from shellac_tpu.obs import metrics as jmetrics
 from shellac_tpu_torch.inference import batching, openai_api
@@ -58,6 +58,8 @@ from shellac_tpu_torch.models.from_jax import params_from_jax
 from shellac_tpu_torch.models.registry import get_model_config
 from shellac_tpu_torch.obs import Registry
 from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+import jax_params
 
 CPU = "cpu"
 MARGIN = 2 * 1e-4
@@ -84,7 +86,7 @@ def _start(srv, make_http):
 def pair():
     jc = jget("tiny").replace(dtype="float32")
     tc = get_model_config("tiny").replace(dtype="float32")
-    jp = jt.init_params(jc, jax.random.PRNGKey(0))
+    jp = jax.tree.map(jnp.asarray, jax_params.init_params(jc))
     tp = params_from_jax(tc, jax.tree.map(np.asarray, jp), device=CPU)
     kw = dict(tokenizer=TOK, model_name="tiny", n_slots=2, max_len=64,
               temperature=0.0, logprobs=True, top_logprobs=2)
@@ -421,7 +423,8 @@ def test_prefix_cached_stats_keys_match_the_reference(pair):
 
     jc = jget("tiny").replace(dtype="float32")
     kw = dict(n_slots=2, max_len=64, block_size=8, prefix_cache=True)
-    jeng = JPaged(jc, jt.init_params(jc, jax.random.PRNGKey(0)), **kw)
+    jeng = JPaged(jc, jax.tree.map(jnp.asarray,
+                                   jax_params.init_params(jc)), **kw)
     reg = Registry()
     teng = batching.PagedBatchingEngine(pair["tc"], pair["tp"], device=CPU,
                                         registry=reg, **kw)

@@ -129,6 +129,50 @@ def test_hf_matches_reference(toks, group):
             repr(text)
 
 
+def _long_runs():
+    rng = random.Random(2)
+    letters = "".join(c for c in CORPUS.lower() if c.isascii() and
+                      c.isalpha())
+    return {
+        "words": "thequickbrownfoxjumpsoverthelazydog" * 600,
+        "letters": "".join(rng.choice(letters) for _ in range(20000)),
+        "dashes": "-" * 20000,
+        "spaces": " " * 20000 + "x",
+    }
+
+
+@pytest.mark.parametrize("run", sorted(_long_runs()))
+def test_long_single_class_run_matches_reference(toks, run):
+    """A 20k-character run of one character class is one GPT-2 piece:
+    both port tokenizers give the reference's ids within a time budget
+    (the merge is O(n log n), tens of ms on a CPU; a rescan of the piece
+    after each merge took seconds), and
+    such a piece stays out of the bounded cache."""
+    import time
+
+    text = _long_runs()[run]
+    for a, b in (("bpe", "ref_bpe"), ("hf", "ref_hf")):
+        cache = toks[a]._tok._cached_ids
+        before = cache.cache_info().currsize
+        t0 = time.perf_counter()
+        got = toks[a].encode(text)
+        seconds = time.perf_counter() - t0
+        np.testing.assert_array_equal(got, toks[b].encode(text))
+        assert seconds < 1.0, (a, seconds)
+        assert cache.cache_info().currsize <= before + 1
+        assert cache.cache_info().maxsize == 10_000
+
+
+def test_piece_cache_is_bounded(toks):
+    """Distinct pieces past the cache's 10k evict the oldest; the ids
+    stay the reference's."""
+    tok = ttok.BPETokenizer(toks["path"])
+    words = " ".join(f"w{i:05d}x" for i in range(10_050))
+    np.testing.assert_array_equal(tok.encode(words),
+                                  toks["ref_bpe"].encode(words))
+    assert tok._tok._cached_ids.cache_info().currsize == 10_000
+
+
 def test_vocab_and_specials_match_reference(toks):
     for a, b in (("bpe", "ref_bpe"), ("hf", "ref_hf")):
         assert toks[a].vocab_size == toks[b].vocab_size
@@ -198,9 +242,11 @@ def test_chat_template_without_jinja2_is_unported(toks, monkeypatch):
     the server), never a different rendering."""
     import sys
 
+    # A tokenizer of its own: the module's has its template compiled.
+    tok = ttok.HFTokenizer(toks["hf_dir"])
     monkeypatch.setitem(sys.modules, "jinja2", None)
     with pytest.raises(NotImplementedError, match="jinja2"):
-        openai_api.render_chat(CHATS[0], toks["hf"])
+        openai_api.render_chat(CHATS[0], tok)
 
 
 @pytest.mark.parametrize("kind", ["json", "regex"])

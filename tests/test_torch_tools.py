@@ -34,7 +34,6 @@ from shellac_tpu.inference import batching as jbatching
 from shellac_tpu.inference import constraints as jcon
 from shellac_tpu.inference import openai_api as jopenai
 from shellac_tpu.inference import tools as jtools
-from shellac_tpu.models import transformer as jt
 from shellac_tpu.models.registry import get_model_config as jget
 from shellac_tpu_torch.inference import constraints as tcon
 from shellac_tpu_torch.inference import openai_api, tools
@@ -47,6 +46,8 @@ from shellac_tpu_torch.models.from_jax import params_from_jax
 from shellac_tpu_torch.models.registry import get_model_config
 from shellac_tpu_torch.obs import Registry
 from shellac_tpu_torch.training.tokenizer import ByteTokenizer
+
+import jax_params
 
 CPU = "cpu"
 MARGIN = 2 * 1e-4
@@ -218,7 +219,7 @@ def test_rendering_equals_the_reference():
 def model():
     jc = jget("tiny").replace(dtype="float32", vocab_size=VOCAB)
     tc = get_model_config("tiny").replace(dtype="float32", vocab_size=VOCAB)
-    p = jax.tree.map(np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    p = jax_params.init_params(jc)
     return jc, tc, jax.tree.map(jnp.asarray, p), params_from_jax(tc, p, CPU)
 
 

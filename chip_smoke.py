@@ -12,8 +12,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 decode body's dense instances, kernel 5's four over bf16
                 caches and kernel 6's four over int8 caches (D 64 and
                 128, at 2 and 16 rows); kernel 7's eight, bf16 and int8
-                pools) must show 0 spill stores, and no wgmma may be
-                serialized (C7520).
+                pools; kernel 2's D 192 instance and the wide decode
+                body's eight at MLA's D 576, dense and paged, q bf16 or
+                fp32 over caches of q's dtype or int8) must show 0 spill
+                stores, and no wgmma may be serialized (C7520).
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32 (RMSNorm
                 at 1, 8, 16, 4096 and 12288 rows of 2048, 65536 rows of
@@ -308,6 +310,46 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 config from the published keys through `config_from_hf`)
                 in GPT-OSS's HF key layout, read back by `from_hf` bit
                 for bit, logits and greedy tokens of Engine equal.
+ 11l. mla     — DeepSeek's latent attention served: shellac-mla-2b (full
+                width and depth: d 2048, 20 layers, 16 heads, latent 512 +
+                rope 64, nope 128, v 128; random weights from --seed)
+                through Engine.generate at generate's shape over the
+                dense and dense-int8 latent caches (first tokens equal),
+                PagedBatchingEngine on serve's requests over the paged
+                and paged-int8 latent pools (the reference serve's
+                scheduling), a round of 24 requests on one 1024-token
+                system prompt over the prefix-caching pool, and a K = 4
+                beam search over that pool (its best beam beside the
+                single-request Engine's); then DeepSeek-V2-Lite's shape
+                (its published config keys through `config_from_hf`:
+                27 layers, 64 routed experts, 6 a token, 2 shared, the
+                first layer dense, yarn rope; 15.7 B random parameters)
+                through generate and serve over the bf16 caches. Each
+                run: exact launch counts (3 RMSNorms an MLA layer), the
+                decode through kernels 5-7 at D 576 and every fresh
+                prefill through kernel 2 at 192, inside the engines'
+                CUDA graphs; tokens/s, TTFT and TPOT p50/p99, a decode
+                step's device ms by kind, the cache's bytes beside a GQA
+                cache of the same heads, graphs captured, peak memory;
+                one decode step's logits through the kernels against the
+                plain path (MoE experts pinned).
+ 11m. mla-parity — shellac-mla-2b cut to 2 layers, fp32: Engine, the dense
+                and the paged batching engines over the latent caches,
+                through the kernels and with attn_impl="ref", identical
+                greedy tokens; the cached forward (expanded prefill,
+                absorbed decode) against the full forward within 1e-3 of
+                its scale.
+ 11n. kernels-mla — kernels 1, 2 and 5-7 at MLA's widths (RMSNorm at 512;
+                the flash forward at 192; the absorbed decode at 576 over
+                the dense cache, bf16 (16 heads and DeepSeek-V2/V3's 128)
+                and int8, and the pools, bf16 blocks
+                of 16 and int8 of 64, poisoned with NaN wherever no slot
+                attends) against their plain versions in bf16 and fp32,
+                then timed against their bounds, plain versions and
+                library calls (F.rms_norm; SDPA at 192; masked SDPA over
+                the latent as k and v at 576, after a dequantize or a
+                gather where the kernel reads int8 or a pool). Their rows
+                join the kernels line as `<kernel>_d192` / `_d576`.
  12. cli-serve — `python -m shellac_tpu_torch serve --config F
                 --cache-backend paged --slots 4 --port 0 --logprobs` (F:
                 shellac-1b cut to 2 layers) as a subprocess, on the CLI's
@@ -340,8 +382,8 @@ Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}. `--only PHASES` (generate,
 prefix-serve, sampling-controls, constrained-serve, graph-parity, beam,
 beam-parity, kernels-beam, moe, moe-parity, graph-parity-moe,
-kernels-moe, real-weights) runs those after the build and prints neither
-of the last two lines.
+kernels-moe, real-weights, mla, mla-parity, kernels-mla) runs those after
+the build and prints neither of the last two lines.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -423,13 +465,16 @@ def card_line() -> str:
 
 
 # Instances of the Hopper redesigns the build must show, by kind: the
-# wgmma kernels (D 64 and 128, with and without segments), kernel 1's
-# register-resident RMSNorm (bf16 and fp32: many rows and few rows at
-# d 2048, one instance at d 128), the split-K decode body (D 64 and 128,
-# at 2 and 16 rows) over the dense caches (kernel 5's bf16, kernel 6's
-# int8) and kernel 7's bf16 and int8 pools.
-REDESIGNED = {"flash_fwd": 4, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
-              "rms_norm_rows": 6, "decode_split": 8, "paged_split": 8}
+# wgmma kernels (D 64 and 128, with and without segments; the forward
+# also at MLA's 192 without), kernel 1's register-resident RMSNorm (bf16
+# and fp32: many rows and few rows at d 2048, one instance at d 128), the
+# split-K decode body (D 64 and 128, at 2 and 16 rows) over the dense
+# caches (kernel 5's bf16, kernel 6's int8) and kernel 7's bf16 and int8
+# pools, and the wide body at MLA's 576 (q bf16 or fp32, over a cache of
+# q's dtype or int8) over the dense caches and the pools.
+REDESIGNED = {"flash_fwd": 5, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
+              "rms_norm_rows": 6, "decode_split": 8, "paged_split": 8,
+              "decode_wide": 4, "paged_wide": 4}
 
 
 def spill_report(ptxas):
@@ -449,8 +494,10 @@ def spill_report(ptxas):
         if "_wgmma" in fn:
             kind = next((k for k in ("flash_fwd", "flash_bwd_dkdv",
                                      "flash_bwd_dq") if k in fn), fn)
-        elif "decode_split" in fn:  # the tiles policy names the kernel
-            kind = "paged_split" if "PagedTiles" in fn else "decode_split"
+        elif "decode_split" in fn or "decode_wide" in fn:
+            # The tiles policy names the kernel.
+            body = "split" if "decode_split" in fn else "wide"
+            kind = ("paged_" if "PagedTiles" in fn else "decode_") + body
         else:
             kind = "rms_norm_rows" if "rms_norm_rows" in fn else None
             if kind is None:
@@ -1149,7 +1196,8 @@ def decode_loops(engine, eager, toks, lens):
                                      for t, _, _ in graph),
         graph_loop_device_ms=prof["device_ms"],
         graph_loop_wall_ms=prof["wall_ms"],
-        graph_loop_device_busy_share=prof["device_busy_share"])
+        graph_loop_device_busy_share=prof["device_busy_share"],
+        graph_loop_trace_lost=prof["trace_lost"])
 
 
 def phase_generate(seed, dev, table, card):
@@ -1407,19 +1455,43 @@ def profile_step(cfg, params, toks, lens, engine, dev):
 
 def profile_call(fn, top=12):
     """Device time by kernel of one call of fn, from torch.profiler
-    (CUPTI), beside its wall time; a trace with no device time fails."""
+    (CUPTI), beside its wall time and its device time by CUDA events.
+
+    On the H100 host a profile window now and then holds no device
+    activity at all though its runtime calls are there (a decode window's
+    cudaGraphLaunch and its results' cudaMemcpyAsync): 4 of 530 profiled
+    engine steps in three probes (PR 17; PR 14 and PR 6 met the same),
+    each with an "Activity Buffer Request" inside the window. The window
+    opens on a kernel of its own (`torch.cuda._sleep`'s spin kernel; none
+    of 300 steps opened on a kernel lost its trace), which the counts and
+    times leave out. A trace that still holds no device time is reported
+    as lost (`trace_lost`): device_ms, device_busy_share and launches
+    None, no kinds, and `event_ms`, the CUDA events' span, which holds the
+    device's idle gaps too. A call the events show no time for fails."""
     from torch.profiler import ProfilerActivity, profile
 
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)
+        start.record()
         t0 = time.perf_counter()
         fn()
+        stop.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    event_ms = start.elapsed_time(stop)
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and "spin_kernel" not in e.key]
     device_us = sum(r[1] for r in rows)
     if device_us <= 0:
-        raise SystemExit("profile: the trace holds no device time")
+        if event_ms <= 0:
+            raise SystemExit("profile: the call ran nothing on the device")
+        return dict(wall_ms=wall * 1e3, device_ms=None,
+                    device_busy_share=None, launches=None,
+                    device_ms_by_kind={}, top=[], event_ms=event_ms,
+                    trace_lost=True)
     rows.sort(key=lambda r: -r[1])
     kinds = {}
     for key, us, _ in rows:
@@ -1427,18 +1499,26 @@ def profile_call(fn, top=12):
         kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
     return dict(wall_ms=wall * 1e3, device_ms=device_us / 1e3,
                 device_busy_share=device_us / 1e3 / (wall * 1e3),
+                event_ms=event_ms, trace_lost=False,
                 launches=sum(r[2] for r in rows), device_ms_by_kind=kinds,
                 top=[{"kernel": k[:80], "ms": us / 1e3, "count": n,
                       "share": us / device_us} for k, us, n in rows[:top]])
 
 
+def over(ms, wall_ms):
+    """A profiled device ms over a wall ms: None where the trace was
+    lost."""
+    return None if ms is None else ms / wall_ms
+
+
 def kernel_kind(name):
     """A profiler kernel name's kind: one of the port's kernels, a GEMM
     (cuBLAS/CUTLASS), or other."""
-    if "decode_kernel" in name or "decode_split" in name:
-        # decode_core.cuh's body (PagedRows or DenseRows) or the split-K
-        # body (PagedTiles or DenseTiles); the int8 instances store
-        # `signed char`.
+    if any(b in name for b in ("decode_kernel", "decode_split",
+                                "decode_wide")):
+        # decode_core.cuh's body (PagedRows or DenseRows), the split-K
+        # body or the wide one (PagedTiles or DenseTiles); the int8
+        # instances store `signed char`.
         kind = ("paged_decode_attention" if "Paged" in name
                 else "decode_attention_dense")
         return kind + ("_int8" if "signed char" in name else "")
@@ -1669,8 +1749,9 @@ def phase_serve(seed, dev, table, card, backend="paged"):
     eager.abort_all()
     del eager
     summary["wall_ms_per_tick_p50"] = float(np.median(graph_walls))
-    summary["device_busy_share"] = (prof["device_ms"]
-                                    / float(np.median(graph_walls)))
+    summary["device_busy_share"] = over(prof["device_ms"],
+                                        float(np.median(graph_walls)))
+    summary["trace_lost"] = prof["trace_lost"]
     summary["decode_graphs"] = engine.stats["decode_graphs"]
     summary["prefill_graphs"] = prefill_graphs(engine)
     emit(phase, step="decode_tick_wall", active_slots=SLOTS,
@@ -1682,8 +1763,10 @@ def phase_serve(seed, dev, table, card, backend="paged"):
          ttft_ms_16_admissions_eager=eager_ttft,
          # The profiled step's device ms over an unprofiled step's wall
          # ms (the profiler's own host cost inflates its wall time).
-         device_busy_share=prof["device_ms"] / float(np.median(graph_walls)),
-         profiled_device_busy_share=prof["device_busy_share"], card=card)
+         device_busy_share=over(prof["device_ms"],
+                                float(np.median(graph_walls))),
+         profiled_device_busy_share=prof["device_busy_share"],
+         trace_lost=prof["trace_lost"], card=card)
     check_decode_logits(phase, cfg, params, engine)
     engine.abort_all()
     if not pristine(engine):
@@ -1836,8 +1919,9 @@ def phase_serve_overlap(seed, dev, table, card, ref):
          wall_ms_per_tick=walls,
          wall_ms_per_tick_p50=float(np.median(walls)),
          device_ms_per_step=prof["device_ms"],
-         device_busy_share=prof["device_ms"] / float(np.median(walls)),
+         device_busy_share=over(prof["device_ms"], float(np.median(walls))),
          profiled_device_busy_share=prof["device_busy_share"],
+         trace_lost=prof["trace_lost"],
          max_memory_allocated=peak, graphs_captured=graphs,
          steps_to_fill_16_slots=fill_steps, step_breakdown=breakdown,
          engine_steps=delta["engine_steps"], prefills=delta["prefills"],
@@ -2468,9 +2552,11 @@ def prefix_warm_requests(seed, vocab):
     return out
 
 
-def prefix_run(engine, table, reqs, n_layers, decode_kernel):
-    """One timed run of `reqs` on a warm engine: its results, metrics and
-    launch counts, with the counts its programs must make."""
+def prefix_run(engine, table, reqs, n_layers, decode_kernel, norms=2):
+    """One timed run of `reqs` on a warm engine (each hit's shared prefix
+    SYSTEM tokens; `norms` RMSNorms a layer, as `expected_launches`):
+    its results, metrics and launch counts, with the counts its programs
+    must make."""
     from shellac_tpu_torch.inference.graphs import StepGraph
 
     torch.cuda.synchronize()
@@ -2489,7 +2575,7 @@ def prefix_run(engine, table, reqs, n_layers, decode_kernel):
     windows = delta["decode_windows"]
     L = n_layers
     expect = only(table,
-                  rms_norm=(2 * L + 1) * (delta["prefills"] + windows),
+                  rms_norm=(norms * L + 1) * (delta["prefills"] + windows),
                   flash_attention_fwd=L * (delta["prefills"] - hits),
                   **{decode_kernel: L * windows})
     ttft, tpot = [], []
@@ -2531,6 +2617,7 @@ def suffix_device_ms(engine, params, cfg, vocab, seed, dev, system):
         engine.submit(f"probe-{name}", prompt, 2)
         prof = profile_call(engine.step)
         out[f"{name}_prefill_device_ms"] = prof["device_ms"]
+        out[f"{name}_prefill_trace_lost"] = prof["trace_lost"]
         while engine.pending:
             engine.step()
     cache = engine._cache
@@ -3018,7 +3105,8 @@ def phase_constrained_serve(seed, dev, table, card):
                                device_ms=prof["device_ms"],
                                wall_ms=prof["wall_ms"],
                                device_ms_by_kind=prof["device_ms_by_kind"],
-                               launches=prof["launches"])
+                               launches=prof["launches"],
+                               trace_lost=prof["trace_lost"])
             engine.abort_all()
         clean = pristine(engine)
         ok = (all(c["obey"] == c["requests"] and c["ended_with_eos"] > 0
@@ -3224,13 +3312,15 @@ PIPELINED = dict(overlap_decode=True, overlap_prefill=True,
                  max_prefills_per_step=1)
 
 
-def expected_launches(table, L, stats, ticks, decode_kernel):
+def expected_launches(table, L, stats, ticks, decode_kernel, norms=2):
     """Launch counts a batching run makes from its own counters: per
-    prefill and per decode tick 2L + 1 RMSNorms, per prefill L flash
-    forwards, per tick L decode attentions."""
+    prefill and per decode tick `norms` L + 1 RMSNorms (2 a layer, 3 or 4
+    in an MLA layer: `mla_norms`), per prefill L flash forwards, per tick
+    L decode attentions."""
     windows = stats["decode_windows"]
     return only(table,
-                rms_norm=(2 * L + 1) * (stats["prefills"] + windows * ticks),
+                rms_norm=(norms * L + 1) * (stats["prefills"]
+                                            + windows * ticks),
                 flash_attention_fwd=L * stats["prefills"],
                 **{decode_kernel: L * windows * ticks})
 
@@ -3622,9 +3712,7 @@ def profile_lm_head(cfg, params, dev):
 
     fn()
     torch.cuda.synchronize()
-    # The window opens on a tiny kernel: on the H100 host the first
-    # kernel of a profile window has gone missing from its trace.
-    prof = profile_call(lambda: (torch.ones(1, device=dev).add_(1), fn()))
+    prof = profile_call(fn)
     with torch.no_grad():
         fwd_ms = eager_ms(fwd, [()], 3)
     return dict(prof, event_ms_forward=fwd_ms,
@@ -3947,6 +4035,7 @@ def beam_pass(eng, table, L, backend, prompt, k, card, name, prefix=False,
                     profiled_search_busy_share=p["device_busy_share"],
                     profiled_device_ms_by_kind=p["device_ms_by_kind"],
                     profiled_gather_copy_ms=gather_copy_ms(p),
+                    profiled_trace_lost=p["trace_lost"],
                     profiled_top=p["top"][:12])
     step_ms = (second["event_ms"] - one["event_ms"]) / (BEAM_NEW - 1)
     scores = second["scores"]
@@ -4382,6 +4471,7 @@ def moe_step_profile(cfg, params, tok, cache):
     out["moe_layer"] = {
         "layers": sum(transformer.moe_layers(cfg)),
         "device_ms": one["device_ms"], "launches": one["launches"],
+        "trace_lost": one["trace_lost"],
         "gemm_ms": kinds.get("gemm", 0.0),
         "routing_dispatch_activation_combine_ms": kinds.get("other", 0.0),
         "top": one["top"][:6]}
@@ -4393,28 +4483,42 @@ def moe_choices(cfg, params, cur, cache, impl, pinned=None):
     `impl`: its logits (B, V) and, per MoE layer, each row's chosen
     experts (B, k) and the gap between its k-th and (k+1)-th router
     logit. With `pinned` (layers, B, k) each layer takes those experts
-    instead of its own choice, weighted by the softmax of its own logits
-    over them (GPT-OSS's softmax-after-top-k gate). Writes each row's k/v
-    at its length, which the next real step overwrites."""
+    instead of its own choice, weighted as its gate weighs them: the
+    softmax of its own logits over them (GPT-OSS's softmax-after-top-k
+    gate), or their own softmax probabilities times the routed scale
+    (DeepSeek-V2's softmax gate, ungrouped). Writes each row's k/v at its
+    length, which the next real step overwrites."""
     from shellac_tpu_torch.models import transformer
     from shellac_tpu_torch.ops import moe
     from shellac_tpu_torch.ops.sampling import top_k
 
-    if cfg.moe.scoring != "softmax_topk":
-        raise ValueError("moe_choices pins the softmax_topk gate only")
+    if cfg.moe.scoring not in ("softmax_topk", "softmax") \
+            or cfg.moe.n_group > 1:
+        raise ValueError("moe_choices pins the softmax_topk and ungrouped "
+                         "softmax gates only")
     chosen, gaps = [], []
     inner = moe._route_scores
 
     def recording(x, w_router, m, b_router=None, aux=True):
         idx, weight, a, mets = inner(x, w_router, m, b_router, aux)
-        logits = x.float() @ w_router.float() + b_router.float()
-        top = top_k(logits, m.num_experts_per_token + 1)[0]
+        logits = x.float() @ w_router.float()
+        if m.scoring == "softmax_topk":
+            logits = logits + b_router.float()
+            sel = logits
+        else:
+            sel = torch.softmax(logits, dim=-1)
+        top = top_k(sel, m.num_experts_per_token + 1)[0]
         gaps.append(top[:, -2] - top[:, -1])
         chosen.append(idx)
         if pinned is not None:
             idx = pinned[len(chosen) - 1]
-            weight = torch.softmax(logits.gather(-1, idx), dim=-1) \
-                * m.routed_scaling_factor
+            if m.scoring == "softmax_topk":
+                weight = torch.softmax(logits.gather(-1, idx), dim=-1)
+            else:
+                weight = sel.gather(-1, idx)
+                if m.norm_topk_prob:
+                    weight = weight / weight.sum(dim=-1, keepdim=True)
+            weight = weight * m.routed_scaling_factor
         return idx, weight, a, mets
 
     moe._route_scores = recording
@@ -4654,6 +4758,7 @@ def phase_moe(seed, dev, table, card):
          decode_step_device_ms=step_ms,
          device_busy_share=step_ms / float(np.median(walls)),
          engine_step_device_ms_by_kind=prof["device_ms_by_kind"],
+         engine_step_trace_lost=prof["trace_lost"],
          decode_step_by_kind=by_kind, prefill_1024_device_ms=prefill_1024_ms,
          moe_path="sorted segments (torch._grouped_mm) for every "
          "dropless bf16 call; capacity buckets where tokens may drop",
@@ -4987,6 +5092,760 @@ def phase_kernels_moe(gen, dev, shapes, card):
         del sets, mask
         torch.cuda.empty_cache()
     return rows_out
+
+
+# --------------------------------------------------------------------------
+# mla: DeepSeek's latent attention (shellac-mla-2b, DeepSeek-V2-Lite)
+# --------------------------------------------------------------------------
+
+MLA_HEADS, MLA_LATENT, MLA_QK = 16, 576, 192
+# DeepSeek-V2-Lite's published config.json (huggingface.co/deepseek-ai/
+# DeepSeek-V2-Lite), the keys the port's mapping reads.
+DEEPSEEK_V2_LITE_HF = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408,
+    "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "n_shared_experts": 2,
+    "n_routed_experts": 64, "routed_scaling_factor": 1.0,
+    "kv_lora_rank": 512, "q_lora_rank": None, "qk_rope_head_dim": 64,
+    "v_head_dim": 128, "qk_nope_head_dim": 128, "topk_method": "greedy",
+    "n_group": 1, "topk_group": 1, "num_experts_per_tok": 6,
+    "moe_layer_freq": 1, "first_k_dense_replace": 1,
+    "norm_topk_prob": False, "scoring_func": "softmax",
+    "aux_loss_alpha": 0.001, "seq_aux": True,
+    "max_position_embeddings": 163840, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000, "rope_scaling": {
+        "beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+        "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096,
+        "type": "yarn"},
+    "tie_word_embeddings": False, "attention_bias": False,
+    "hidden_act": "silu", "torch_dtype": "bfloat16",
+}
+
+
+def deepseek_v2_lite():
+    """DeepSeek-V2-Lite: the published config's keys (DEEPSEEK_V2_LITE_HF:
+    27 layers, hidden 2048, 16 heads of MLA over a 512 latent with a
+    64-wide rope slice, the first layer dense (intermediate 10944), then
+    64 routed experts of 1408, 6 a token, 2 shared, softmax gate without
+    renormalizing, vocab 102400, yarn rope of factor 40 over 4096
+    positions) through the port's mapping (`models/convert.py`
+    `config_from_hf`). About 15.7 B parameters."""
+    from shellac_tpu_torch.models.convert import HFConfig, config_from_hf
+
+    return config_from_hf(HFConfig(dict(DEEPSEEK_V2_LITE_HF)))
+
+
+def mla_norms(cfg):
+    """RMSNorm launches an MLA layer makes: attn, kv_a and mlp norms, and
+    q_a's with low-rank queries."""
+    return 3 + (cfg.mla.q_lora_rank is not None) + 2 * cfg.post_norms
+
+
+def latent_bytes(cfg, kv_quant):
+    """Cache bytes a token costs over all layers: the latent row, and what
+    a GQA cache of the same heads (k at the qk width, v at v_head_dim, one
+    head each) would hold, in the same storage (int8 with its fp32
+    scales)."""
+    m, L = cfg.mla, cfg.n_layers
+    item = 1 if kv_quant else 2
+    scales = 8 if kv_quant else 0  # ks and vs, fp32, per kv head
+    return {"latent": L * (m.cache_dim * item + scales),
+            "gqa_same_heads": L * cfg.n_heads * (
+                (m.qk_head_dim + m.v_head_dim) * item + scales)}
+
+
+def mla_generate(cfg, params, model, seed, dev, table, card, kv_quant):
+    """Engine.generate at generate's shape (8 prompts padded to 512, 64
+    new tokens, greedy) over the dense latent cache: exact launches,
+    tokens/s, the prefill wall, a decode step's device ms and its kernels
+    by kind, the cache's bytes beside a GQA cache's. Returns (counts,
+    tokens)."""
+    from shellac_tpu_torch import Engine
+    from shellac_tpu_torch.inference.graphs import StepGraph
+    from shellac_tpu_torch.models import transformer
+
+    L = cfg.n_layers
+    toks, lens = prompts(seed, cfg.vocab_size, dev)
+    engine = Engine(cfg, params, max_len=MAX_LEN, temperature=0.0,
+                    kv_quant=kv_quant, device=dev)
+    captured = StepGraph.captures
+    for _ in range(2):
+        engine.generate(toks, lens, max_new_tokens=4)
+    torch.cuda.synchronize()
+    warm_captures = StepGraph.captures - captured
+    reset_peak()
+    reset_counts(table)
+    captured = StepGraph.captures
+    t0 = time.perf_counter()
+    res = engine.generate(toks, lens, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts(table)
+    captured = StepGraph.captures - captured
+    peak = torch.cuda.max_memory_allocated()
+    decode = "decode_attention_dense" + ("_int8" if kv_quant else "")
+    expect = only(table, rms_norm=(mla_norms(cfg) * L + 1) * NEW_TOKENS,
+                  flash_attention_fwd=L, **{decode: L * (NEW_TOKENS - 1)})
+    tokens_ok = (tuple(res.tokens.shape) == (PROMPTS, NEW_TOKENS)
+                 and bool(((res.tokens >= 0)
+                           & (res.tokens < cfg.vocab_size)).all().item())
+                 and bool(torch.isfinite(res.logprobs).all().item()))
+    t0 = time.perf_counter()
+    one = engine.generate(toks, lens, max_new_tokens=1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tokens_ok = tokens_ok and bool(torch.equal(one.tokens[:, 0],
+                                               res.tokens[:, 0]))
+    with torch.inference_mode():
+        _, cache, _ = engine._prefill_impl(toks, lens)
+        tok = res.tokens[:, :1].long()
+
+        def step():
+            return transformer.forward_with_cache(cfg, params, tok, cache)
+
+        step_ms = graph_ms(step, [()], 1)
+        prof = profile_call(step)
+    per_token = latent_bytes(cfg, kv_quant)
+    emit("mla", step="generate", model=model, cache="dense-int8"
+         if kv_quant else "dense", prompts=PROMPTS, pad=PAD,
+         new_tokens=NEW_TOKENS, launches=counts, expected=expect,
+         tokens_ok=tokens_ok, total_s=total_s,
+         tokens_per_s=PROMPTS * NEW_TOKENS / total_s,
+         prefill_wall_ms=prefill_ms,
+         decode_ms_per_token=(total_s * 1e3 - prefill_ms) / (NEW_TOKENS - 1),
+         decode_step_device_ms=step_ms,
+         decode_step_by_kind=prof["device_ms_by_kind"],
+         decode_step_trace_lost=prof["trace_lost"],
+         cache_bytes=pool_bytes(cache),
+         cache_bytes_per_token=per_token,
+         gqa_over_latent=per_token["gqa_same_heads"] / per_token["latent"],
+         graphs_captured={"warm_up": warm_captures, "timed": captured},
+         max_memory_allocated=peak, card=card)
+    if counts != expect or not tokens_ok or captured != 0:
+        raise SystemExit(f"mla generate ({model}, {kv_quant}): wrong launch "
+                         "counts, bad tokens or a capture in the timed call")
+    out = res.tokens
+    del engine, cache, res, one
+    reset_peak()
+    return counts, out
+
+
+def mla_serve(cfg, params, model, seed, dev, table, card, backend,
+              requests=REQUESTS):
+    """PagedBatchingEngine on serve's requests (16 slots, prompts 64-1024)
+    over a latent pool, the reference serve's scheduling: tokens/s, TTFT
+    and TPOT p50/p99, a 16-slot decode step's device ms by kind, the
+    pool's bytes beside a GQA pool's, graphs, exact launches, the pool
+    pristine after the drain. Returns the counts."""
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.obs import Registry
+
+    L = cfg.n_layers
+    reg = Registry()
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN,
+        block_size=BLOCK if backend == "paged" else BLOCK_INT8,
+        cache_backend=backend, decode_ticks=1, temperature=0.0, device=dev,
+        registry=reg, **PIPELINED)
+    reqs = serve_requests(seed + 1, cfg.vocab_size, requests,
+                          (PROMPT_LO, PROMPT_HI), (NEW_LO, NEW_HI))
+    engine.run(warm_requests(seed + 2, cfg.vocab_size))
+    torch.cuda.synchronize()
+    reset_peak()
+    before = dict(engine.stats)
+    totals0 = step_totals(reg)
+    reset_counts(table)
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(table)
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = step_breakdown(totals0, step_totals(reg), wall)
+    delta = {k: engine.stats[k] - before[k] for k in
+             ("prefills", "decode_windows", "engine_steps")}
+    expect = expected_launches(table, L, delta, 1, DECODE_KERNEL[backend],
+                               norms=mla_norms(cfg))
+    tokens_ok = (set(results) == {r[0] for r in reqs} and all(
+        len(results[rid]) == m
+        and all(0 <= t < cfg.vocab_size for t in results[rid])
+        for rid, _, m in reqs))
+    ttft, tpot = [], []
+    for rid, _, m in reqs:
+        _, admitted, first, done = engine.finished_timings[rid]
+        ttft.append(first - admitted)
+        tpot.append((done - first) / max(m - 1, 1))
+    generated = sum(len(v) for v in results.values())
+    full = serve_requests(seed + 3, cfg.vocab_size, SLOTS,
+                          (PROMPT_HI // 2, PROMPT_HI // 2),
+                          (NEW_HI // 2, NEW_HI // 2))
+    fill_decoding(engine, full)
+    walls = decode_step_walls(engine, steps=10)
+    prof = profile_call(engine.step)
+    with torch.inference_mode():
+        cur = engine._cur[:, None]
+
+        def step():
+            return transformer.forward_with_cache(cfg, params, cur,
+                                                  engine._cache)
+
+        step_ms = graph_ms(step, [()], 1)
+        step_prof = profile_call(step)
+    if cfg.moe is not None:
+        check_moe_decode_logits("mla", cfg, params, engine)
+    else:
+        check_decode_logits("mla", cfg, params, engine)
+    graphs = {"decode": engine.stats["decode_graphs"],
+              "prefill": prefill_graphs(engine)}
+    engine.abort_all()
+    clean = pristine(engine)
+    per_token = latent_bytes(cfg, backend.endswith("int8"))
+    pool = pool_bytes(engine._cache)
+    engine.close()
+    emit("mla", step="serve", model=model, cache=backend, slots=SLOTS,
+         max_len=MAX_LEN, **PIPELINED, requests=len(reqs),
+         generated_tokens=generated, wall_s=wall,
+         tokens_per_s=generated / wall,
+         ttft_ms_p50=pct(ttft, 50) * 1e3, ttft_ms_p99=pct(ttft, 99) * 1e3,
+         tpot_ms_p50=pct(tpot, 50) * 1e3, tpot_ms_p99=pct(tpot, 99) * 1e3,
+         wall_ms_per_tick_p50=float(np.median(walls)),
+         decode_step_device_ms=step_ms,
+         device_busy_share=step_ms / float(np.median(walls)),
+         engine_step_device_ms_by_kind=prof["device_ms_by_kind"],
+         engine_step_trace_lost=prof["trace_lost"],
+         decode_step_by_kind=step_prof["device_ms_by_kind"],
+         decode_step_trace_lost=step_prof["trace_lost"],
+         step_breakdown=breakdown,
+         pool_bytes=pool, pool_bytes_gqa_same_heads=int(
+             pool * per_token["gqa_same_heads"] / per_token["latent"]),
+         cache_bytes_per_token=per_token, prefills=delta["prefills"],
+         decode_windows=delta["decode_windows"], launches=counts,
+         expected=expect, graphs_captured=graphs, tokens_ok=tokens_ok,
+         allocator_pristine=clean, max_memory_allocated=peak, card=card)
+    if counts != expect or not tokens_ok or not clean \
+            or graphs["prefill"] < 1 or graphs["decode"] != 1:
+        raise SystemExit(f"mla serve ({model}, {backend}): wrong launch "
+                         "counts, bad tokens, a leaked block or a program "
+                         "not run as a graph")
+    del engine
+    reset_peak()
+    return counts
+
+
+def mla_prefix_and_beam(cfg, params, model, seed, dev, table, card):
+    """The paged latent pool with the prefix cache: a round on one shared
+    1024-token system prompt (hits reuse its latent blocks: their suffixes
+    skip kernel 2), then a K = 4 beam search over the pool, the best beam
+    beside the single-request Engine's. Returns the counts of both."""
+    from shellac_tpu_torch import Engine
+    from shellac_tpu_torch.inference.batching import PagedBatchingEngine
+
+    L = cfg.n_layers
+    engine = PagedBatchingEngine(
+        cfg, params, n_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        cache_backend="paged", decode_ticks=1, prefix_cache=True,
+        temperature=0.0, device=dev, **PIPELINED)
+    engine.run(prefix_warm_requests(seed + 6, cfg.vocab_size))
+    reqs = prefix_requests(seed + 7, cfg.vocab_size, 24)
+    results, counts, expect, m = prefix_run(
+        engine, table, reqs, L, "paged_decode_attention",
+        norms=mla_norms(cfg))
+    tokens_ok = all(len(results[rid]) == n for rid, _, n in reqs)
+    emit("mla", step="prefix_serve", model=model, **m, tokens_ok=tokens_ok,
+         card=card)
+    if counts != expect or not tokens_ok or m["hit_requests"] < 1:
+        raise SystemExit("mla prefix-serve: wrong launch counts, bad tokens "
+                         "or no hit")
+    prompt = reqs[0][1][:300]
+    k, steps = 4, 32
+    engine.beam_search(prompt, num_beams=k, max_new_tokens=steps)
+    torch.cuda.synchronize()
+    reset_counts(table)
+    t0 = time.perf_counter()
+    seqs, scores = engine.beam_search(prompt, num_beams=k,
+                                      max_new_tokens=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    beam_counts = read_counts(table)
+    single = Engine(cfg, params, max_len=MAX_LEN, device=dev)
+    want, _ = single.beam_search(prompt, num_beams=k, max_new_tokens=steps)
+    ok = (len(seqs) == k and all(len(q) == steps for q in seqs)
+          and all(np.isfinite(scores))
+          and list(scores) == sorted(scores, reverse=True)
+          and beam_counts["paged_decode_attention"] > 0)
+    emit("mla", step="beam", model=model, num_beams=k, steps=steps,
+         prompt_tokens=int(prompt.size), wall_ms=wall * 1e3,
+         ms_per_step=wall * 1e3 / steps, scores=list(scores),
+         best_equals_single_engine=seqs[0] == want[0], launches=beam_counts,
+         ok=ok, card=card)
+    engine.abort_all()
+    # The prefix registry keeps its blocks; no slot may keep any.
+    clean = all(not b for b in engine.cache_backend._slot_blocks)
+    engine.close()
+    del engine, single
+    reset_peak()
+    if not ok or not clean:
+        raise SystemExit("mla beam: bad beams or a leaked block")
+    return {n: counts[n] + beam_counts[n] for n in counts}
+
+
+def phase_mla(seed, dev, table, card):
+    """shellac-mla-2b at full width and depth (20 layers, random weights
+    from --seed): generate over the dense and dense-int8 latent caches,
+    serve over the paged and paged-int8 latent pools, a prefix-hit round
+    and a K = 4 beam search over the paged pool; then DeepSeek-V2-Lite's
+    shape (its published keys, random weights): generate and serve over
+    the bf16 caches. The decode runs kernels 5-7 at D 576 and the
+    prefill kernel 2 at 192, all inside the engines' CUDA graphs.
+    Returns the launch counts of every run together."""
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.models.registry import get_model_config
+
+    total = {k["name"]: 0 for k in table}
+
+    def add(counts):
+        for n in total:
+            total[n] += counts[n]
+
+    reset_peak()
+    for model, make in (("shellac-mla-2b",
+                         lambda: get_model_config("shellac-mla-2b")),
+                        ("deepseek-v2-lite", deepseek_v2_lite)):
+        cfg = make()
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        emit("mla", step="init_params", model=model,
+             params=transformer.num_params(params),
+             weight_bytes=torch.cuda.memory_allocated(),
+             seconds=time.perf_counter() - t0, layers=cfg.n_layers,
+             d_model=cfg.d_model, heads=cfg.n_heads,
+             latent=cfg.mla.cache_dim, qk_head_dim=cfg.mla.qk_head_dim,
+             moe=None if cfg.moe is None else {
+                 "experts": cfg.moe.num_experts,
+                 "per_token": cfg.moe.num_experts_per_token,
+                 "shared": cfg.moe.num_shared_experts,
+                 "first_k_dense": cfg.first_k_dense}, card=card)
+        if model == "shellac-mla-2b":
+            counts, bf16_tokens = mla_generate(cfg, params, model, seed,
+                                               dev, table, card, None)
+            add(counts)
+            counts, int8_tokens = mla_generate(cfg, params, model, seed,
+                                               dev, table, card, "int8")
+            add(counts)
+            # The first token comes from the exact prefill in both.
+            if not torch.equal(bf16_tokens[:, 0], int8_tokens[:, 0]):
+                raise SystemExit("mla generate-int8: first tokens differ "
+                                 "from bf16's")
+            emit("mla", step="generate_int8_agreement", model=model,
+                 greedy_tokens_equal=int((bf16_tokens == int8_tokens)
+                                         .sum().item()),
+                 of=int(bf16_tokens.numel()))
+            for backend in ("paged", "paged-int8"):
+                add(mla_serve(cfg, params, model, seed, dev, table, card,
+                              backend))
+            add(mla_prefix_and_beam(cfg, params, model, seed, dev, table,
+                                    card))
+        else:
+            counts, _ = mla_generate(cfg, params, model, seed, dev, table,
+                                     card, None)
+            add(counts)
+            add(mla_serve(cfg, params, model, seed, dev, table, card,
+                          "paged", requests=REQUESTS // 2))
+        del params
+        reset_peak()
+    emit("mla", step="main_path", launches=total, card=card)
+    return total
+
+
+def mla_inputs(gen, dtype, dev, b, L, index, quant=False, heads=None):
+    """The absorbed decode's inputs: q (b, 1, heads (16), 576) and a dense
+    latent cache (b, 1, L, 576) that serves as k and v (int8 with one
+    scale a row, shared, when `quant`)."""
+    q = randn(gen, (b, 1, heads or MLA_HEADS, MLA_LATENT), dtype, dev)
+    if quant:
+        c, sc = quant_rows(gen, (b, 1, L, MLA_LATENT), dev)
+        return q, c, sc, index
+    return q, randn(gen, (b, 1, L, MLA_LATENT), dtype, dev), index
+
+
+def mla_paged_inputs(gen, dtype, dev, bs, index, quant=False):
+    """A latent pool (n_blocks, 1, bs, 576) serving as k and v, shuffled
+    pages (`paged_tables`), and its poisoned copy (NaN rows, or NaN
+    scales in int8, wherever no slot attends). Returns (q, pool, scales
+    or None, tables, index, poisoned pool, poisoned scales or None)."""
+    tables, index, live, n_blocks = paged_tables(
+        gen, dev, 1, bs, MAX_LEN // bs, index)
+    q = randn(gen, (len(index), 1, MLA_HEADS, MLA_LATENT), dtype, dev)
+    dead = ~live[:, None, :]
+    if quant:
+        pool, sc = quant_rows(gen, (n_blocks, 1, bs, MLA_LATENT), dev)
+        psc = sc.masked_fill(dead, float("nan"))
+        return q, pool, sc, tables, index, pool, psc
+    pool = randn(gen, (n_blocks, 1, bs, MLA_LATENT), dtype, dev)
+    return (q, pool, None, tables, index,
+            pool.masked_fill(dead[..., None], float("nan")), None)
+
+
+def phase_kernels_mla(gen, dev, shapes, card):
+    """Kernels 1, 2 and 5-7 at MLA's widths against their plain versions
+    in bf16 and fp32: RMSNorm at kv_a_norm's 512; the flash forward at
+    192 (the expanded prefill: 16 heads of q, k and v, v zero-padded from
+    128) at generate's prefill and serve's largest admission; the
+    absorbed decode at 576 (16 q rows against one latent row a token,
+    the same array as k and v) over generate's dense cache (bf16, also at
+    128 heads, and int8) and serve's pools (bf16 blocks of 16, int8 of 64), the pools
+    poisoned with NaN wherever no slot attends. Then each timed in bf16
+    by CUDA-graph replay beside its plain version, its bound and a
+    library call: F.rms_norm; scaled_dot_product_attention at 192 and,
+    at 576, masked scaled_dot_product_attention over the latent as k and
+    v (for the int8 and paged kernels, which no one call computes, a
+    dequantize, a gather or both before it). Returns (errs, rows): the
+    bf16 max_abs_err and the timing of each kernel's main-path case."""
+    from shellac_tpu_torch.inference.cache import paged_gather_scales
+    from shellac_tpu_torch.ops.decode_attention import (
+        _decode_ref,
+        _dequantize,
+        _paged_decode_ref,
+        decode_attention_cuda,
+        decode_attention_quant_cuda,
+        paged_decode_attention_cuda,
+        paged_decode_attention_quant_cuda,
+    )
+    from shellac_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_ref,
+    )
+    from shellac_tpu_torch.ops.norms import rms_norm_cuda, rms_norm_ref
+
+    bf = torch.bfloat16
+    scale = MLA_QK ** -0.5
+    gidx, sidx = shapes["decode"]["index"], shapes["paged"]["index"]
+    failed, errs, rows_out = [], {}, {}
+    rms_cases = {"serve_decode_16x512": (SLOTS, 512),
+                 "prefill_4096x512": (PROMPTS * PAD, 512)}
+    flash_cases = {"generate_8x512": (PROMPTS, PAD),
+                   "serve_b1_s1024": (1, PROMPT_HI)}
+
+    def flash192(dtype, b, s):
+        q, k, v = flash_inputs(gen, dtype, dev, b, s, MLA_HEADS, MLA_HEADS,
+                               MLA_QK)
+        return q, k, F.pad(v[..., :128], (0, MLA_QK - 128))
+
+    def check(kernel, case, dtype, out, ref):
+        torch.cuda.synchronize()
+        r = compare(out, ref, dtype)
+        emit("kernels-mla", kernel=kernel, case=case, dtype=str(dtype), **r)
+        if dtype == bf:
+            errs.setdefault(kernel, r["max_abs_err"])
+        if not r["ok"]:
+            failed.append((kernel, case, str(dtype)))
+
+    for dtype in (bf, torch.float32):
+        for case, (rows, d) in rms_cases.items():
+            x, sc = rms_inputs(gen, rows, d, dtype, dev)
+            check("rms_norm_d512", case, dtype, rms_norm_cuda(x, sc, 1e-5),
+                  rms_norm_ref(x, sc, 1e-5))
+        for case, (b, s) in flash_cases.items():
+            q, k, v = flash192(dtype, b, s)
+            check("flash_attention_fwd_d192", case, dtype,
+                  flash_attention_cuda(q, k, v),
+                  flash_attention_ref(q, k, v))
+        q, c, idx = mla_inputs(gen, dtype, dev, PROMPTS, MAX_LEN, gidx)
+        check("decode_attention_dense_d576", "generate_b8", dtype,
+              decode_attention_cuda(q, c, c, idx, scale=scale),
+              _decode_ref(q, c, c, idx, None, scale))
+        # DeepSeek-V2/V3's 128 heads: 8 CTAs of 16 rows a slot.
+        q, c, idx = mla_inputs(gen, dtype, dev, PROMPTS, MAX_LEN, gidx,
+                               heads=128)
+        check("decode_attention_dense_d576", "generate_b8_128_heads", dtype,
+              decode_attention_cuda(q, c, c, idx, scale=scale),
+              _decode_ref(q, c, c, idx, None, scale))
+        q, c, sc, idx = mla_inputs(gen, dtype, dev, PROMPTS, MAX_LEN, gidx,
+                                   quant=True)
+        check("decode_attention_dense_int8_d576", "generate_b8", dtype,
+              decode_attention_quant_cuda(q, c, c, sc, sc, idx, scale=scale),
+              _decode_ref(q, c, c, idx, None, scale, k_scale=sc,
+                          v_scale=sc))
+        q, pool, _, tab, idx, pp, _ = mla_paged_inputs(gen, dtype, dev,
+                                                       BLOCK, sidx)
+        check("paged_decode_attention_d576", "serve_16_bs16", dtype,
+              paged_decode_attention_cuda(q, pp, pp, tab, idx, scale=scale),
+              _paged_decode_ref(q, pool, pool, tab, idx, None, scale))
+        q, pool, sc, tab, idx, _, psc = mla_paged_inputs(
+            gen, dtype, dev, BLOCK_INT8, sidx, quant=True)
+        check("paged_decode_attention_int8_d576", "serve_16_bs64", dtype,
+              paged_decode_attention_quant_cuda(q, pool, pool, psc, psc, tab,
+                                                idx, scale=scale),
+              _paged_decode_ref(q, pool, pool, tab, idx, None, scale,
+                                k_scale=sc, v_scale=sc))
+        del q, pool, c
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"kernels-mla: kernels disagree with their plain "
+                         f"versions at MLA's widths: {failed}")
+
+    def row(kernel, case, k_ms, p_ms, nbytes, flops, shape, lib=None,
+            calls=None):
+        bms, by = bound(nbytes, flops, bf)
+        r = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+             "library_ms": lib, "shape": shape}
+        if calls is not None:
+            r["library_calls_ms"], r["library_calls_what"] = calls
+        emit("kernels-mla", step="timings", kernel=kernel, case=case,
+             dtype="bf16", bytes=nbytes, flops=flops,
+             roofline_share=bms / k_ms, card=card, **r)
+        rows_out.setdefault(kernel, r)
+
+    for case, (rows, d) in rms_cases.items():
+        def make():
+            x, sc = rms_inputs(gen, rows, d, bf, dev)
+            return x, sc, (1.0 + sc).to(bf)
+
+        sets = copies(make)
+        row("rms_norm_d512", case,
+            graph_ms(lambda x, s, w: rms_norm_cuda(x, s, 1e-5), sets, 200),
+            graph_ms(lambda x, s, w: rms_norm_ref(x, s, 1e-5), sets, 50),
+            2 * rows * d * 2 + d * 4, 4 * rows * d, [rows, d],
+            lib=graph_ms(lambda x, s, w: F.rms_norm(x, (d,), w, 1e-5),
+                         sets, 200))
+        del sets
+    for case, (b, s) in flash_cases.items():
+        sets = copies(lambda: flash192(bf, b, s))
+        lib_sets = [tuple(t.transpose(1, 2) for t in qkv) for qkv in sets]
+        pairs = b * MLA_HEADS * s * (s + 1) // 2
+        row("flash_attention_fwd_d192", case,
+            graph_ms(lambda q, k, v: flash_attention_cuda(q, k, v), sets,
+                     20),
+            graph_ms(lambda q, k, v: flash_attention_ref(q, k, v), sets[:2],
+                     4),
+            4 * b * s * MLA_HEADS * MLA_QK * 2, 4 * MLA_QK * pairs,
+            [b, s, MLA_HEADS, MLA_HEADS, MLA_QK],
+            lib=graph_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), lib_sets, 20))
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+
+    def decode_bytes(b, live, item, scales, heads=MLA_HEADS):
+        # q and out once each, the live latent rows once (k and v are one
+        # array), their scales, the index.
+        return (2 * b * heads * MLA_LATENT * 2
+                + live * (MLA_LATENT * item + scales) + b * 4)
+
+    live = int((gidx.long() + 1).sum().item())
+    flops = 4 * MLA_LATENT * MLA_HEADS * live
+    pos = torch.arange(MAX_LEN, device=dev)[None, :]
+    gmask = (pos <= gidx[:, None].long())[:, None, None, :]
+    for quant in (False, True):
+        name = ("decode_attention_dense_int8_d576" if quant
+                else "decode_attention_dense_d576")
+        nbytes = decode_bytes(PROMPTS, live, 1 if quant else 2,
+                              4 if quant else 0)
+        sets = copies(lambda: mla_inputs(gen, bf, dev, PROMPTS, MAX_LEN,
+                                         gidx, quant), nbytes=nbytes)
+        if quant:
+            k_ms = graph_ms(lambda q, c, sc, i: decode_attention_quant_cuda(
+                q, c, c, sc, sc, i, scale=scale), sets, 200)
+            p_ms = graph_ms(lambda q, c, sc, i: _decode_ref(
+                q, c, c, i, None, scale, k_scale=sc, v_scale=sc), sets, 20)
+
+            def deq_sdpa(q, c, sc, i):
+                kv = _dequantize(c, sc, bf)
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kv, kv, attn_mask=gmask,
+                    scale=scale, enable_gqa=True)
+
+            row(name, "generate_b8", k_ms, p_ms, nbytes, flops,
+                [PROMPTS, 1, MLA_HEADS, 1, MAX_LEN, MLA_LATENT],
+                calls=(graph_ms(deq_sdpa, sets, 20),
+                       "dequantize + masked SDPA, two calls"))
+        else:
+            row(name, "generate_b8",
+                graph_ms(lambda q, c, i: decode_attention_cuda(
+                    q, c, c, i, scale=scale), sets, 200),
+                graph_ms(lambda q, c, i: _decode_ref(q, c, c, i, None,
+                                                     scale), sets, 20),
+                nbytes, flops, [PROMPTS, 1, MLA_HEADS, 1, MAX_LEN,
+                                MLA_LATENT],
+                lib=graph_ms(lambda q, c, i: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), c, c, attn_mask=gmask, scale=scale,
+                    enable_gqa=True), sets, 20))
+        del sets
+        torch.cuda.empty_cache()
+    # DeepSeek-V2/V3's 128 heads over the same latent: 8 CTAs of 16 rows
+    # a slot, each reading the latent's tiles.
+    nbytes = decode_bytes(PROMPTS, live, 2, 0, heads=128)
+    sets = copies(lambda: mla_inputs(gen, bf, dev, PROMPTS, MAX_LEN, gidx,
+                                     heads=128), nbytes=nbytes)
+    row("decode_attention_dense_d576", "generate_b8_128_heads",
+        graph_ms(lambda q, c, i: decode_attention_cuda(
+            q, c, c, i, scale=scale), sets, 200),
+        graph_ms(lambda q, c, i: _decode_ref(q, c, c, i, None, scale), sets,
+                 20),
+        nbytes, flops * 128 // MLA_HEADS,
+        [PROMPTS, 1, 128, 1, MAX_LEN, MLA_LATENT],
+        lib=graph_ms(lambda q, c, i: F.scaled_dot_product_attention(
+            q.transpose(1, 2), c, c, attn_mask=gmask, scale=scale,
+            enable_gqa=True), sets, 20))
+    del sets
+    torch.cuda.empty_cache()
+
+    def gather_latent(pool, tables):
+        # Each slot's pages of the one latent pool, (B, 1, pages * bs, D).
+        b, mb = tables.shape
+        x = pool[tables.reshape(-1).long()]
+        return x.reshape(b, mb * pool.shape[2], MLA_LATENT)[:, None]
+
+    live = int((sidx.long() + 1).sum().item())
+    flops = 4 * MLA_LATENT * MLA_HEADS * live
+    smask = (pos <= sidx[:, None].long())[:, None, None, :]
+    for quant in (False, True):
+        bs = BLOCK_INT8 if quant else BLOCK
+        name = ("paged_decode_attention_int8_d576" if quant
+                else "paged_decode_attention_d576")
+        pages = int(((sidx.long() + bs) // bs).sum().item())
+        nbytes = decode_bytes(SLOTS, live, 1 if quant else 2,
+                              4 if quant else 0) + pages * 4
+        sets = copies(lambda: mla_paged_inputs(gen, bf, dev, bs, sidx,
+                                               quant)[:5], nbytes=nbytes)
+        if quant:
+            k_ms = graph_ms(lambda q, p, sc, t, i:
+                            paged_decode_attention_quant_cuda(
+                                q, p, p, sc, sc, t, i, scale=scale),
+                            sets, 200)
+            p_ms = graph_ms(lambda q, p, sc, t, i: _paged_decode_ref(
+                q, p, p, t, i, None, scale, k_scale=sc, v_scale=sc),
+                sets, 10)
+
+            def route(q, p, sc, t, i):
+                kv = _dequantize(gather_latent(p, t),
+                                 paged_gather_scales(sc, t), bf)
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kv, kv, attn_mask=smask,
+                    scale=scale, enable_gqa=True)
+            what = "gather + dequantize + masked SDPA, three calls"
+        else:
+            k_ms = graph_ms(lambda q, p, sc, t, i:
+                            paged_decode_attention_cuda(
+                                q, p, p, t, i, scale=scale), sets, 200)
+            p_ms = graph_ms(lambda q, p, sc, t, i: _paged_decode_ref(
+                q, p, p, t, i, None, scale), sets, 10)
+
+            def route(q, p, sc, t, i):
+                kv = gather_latent(p, t)
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kv, kv, attn_mask=smask,
+                    scale=scale, enable_gqa=True)
+            what = "gather + masked SDPA, two calls"
+        row(name, f"serve_16_bs{bs}", k_ms, p_ms, nbytes, flops,
+            [SLOTS, 1, MLA_HEADS, 1, bs, MAX_LEN // bs, MLA_LATENT],
+            calls=(graph_ms(route, sets, 20), what))
+        del sets
+        torch.cuda.empty_cache()
+    return errs, rows_out
+
+
+def phase_mla_parity(seed, dev):
+    """shellac-mla-2b cut to 2 layers, fp32: greedy tokens of Engine,
+    BatchingEngine and PagedBatchingEngine over the latent caches, each
+    through the kernels (576 and 192) and with attn_impl="ref", must be
+    identical; the cached forward's logits (the expanded prefill, then
+    absorbed decode steps) must equal the full forward's at the same
+    positions within 1e-3 of their scale."""
+    from shellac_tpu_torch import Engine
+    from shellac_tpu_torch.inference.batching import (
+        BatchingEngine,
+        PagedBatchingEngine,
+    )
+    from shellac_tpu_torch.inference.cache import init_cache
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config("shellac-mla-2b").replace(n_layers=2,
+                                                     dtype="float32")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    reqs = serve_requests(seed + 4, cfg.vocab_size, 14, (16, 300), (4, 24))
+    pad = max(t.size for _, t, _ in reqs)
+    batch = np.zeros((len(reqs), pad), np.int64)
+    for i, (_, t, _) in enumerate(reqs):
+        batch[i, :t.size] = t
+    btoks = torch.from_numpy(batch).to(dev)
+    blens = torch.tensor([t.size for _, t, _ in reqs], dtype=torch.int32,
+                         device=dev)
+    top = max(m for _, _, m in reqs)
+    out = {}
+    for impl in ("auto", "ref"):
+        res = Engine(cfg, params, max_len=512, temperature=0.0,
+                     attn_impl=impl, device=dev).generate(
+            btoks, blens, max_new_tokens=top)
+        out[f"engine_{impl}"] = {rid: res.tokens[i, :m].tolist()
+                                 for i, (rid, _, m) in enumerate(reqs)}
+        for name, cls in (("dense", BatchingEngine),
+                          ("paged", PagedBatchingEngine)):
+            eng = cls(cfg, params, n_slots=6, max_len=512, attn_impl=impl,
+                      device=dev)
+            out[f"{name}_{impl}"] = {k: list(v)
+                                     for k, v in eng.run(reqs).items()}
+            eng.close()
+            del eng
+        torch.cuda.empty_cache()
+    ref = out["paged_ref"]
+    identical = {name: o == ref for name, o in out.items()}
+    rng = np.random.default_rng(seed + 5)
+    ptoks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100))).to(dev)
+    with torch.inference_mode():
+        cache = init_cache(cfg, 2, 512, dev)
+        lg, cache = transformer.forward_with_cache(cfg, params, ptoks, cache,
+                                                   fresh_cache=True)
+        cached, seq = [lg], ptoks
+        for _ in range(8):
+            nxt = cached[-1][:, -1].argmax(-1)[:, None]
+            seq = torch.cat([seq, nxt], dim=1)
+            lg, cache = transformer.forward_with_cache(cfg, params, nxt,
+                                                       cache)
+            cached.append(lg)
+        whole = transformer.forward(cfg, params, seq[:, :-1], device=dev)
+        cached = torch.cat(cached, dim=1)[:, :whole.shape[1]]
+    scale = whole.abs().max().item()
+    err = (cached - whole).abs().max().item()
+    logits_ok = bool(torch.isfinite(cached).all().item()) \
+        and err <= 1e-3 * scale
+    emit("mla-parity", model="shellac-mla-2b", layers=2, dtype="float32",
+         requests=len(reqs), slots=6,
+         tokens=sum(len(v) for v in ref.values()), identical=identical,
+         cached_vs_full_forward={"positions": int(whole.shape[1]),
+                                 "max_abs_err": err, "ref_max_abs": scale,
+                                 "tol": "max_abs_err <= 1e-3 * max|ref|",
+                                 "ok": logits_ok})
+    del params, cache
+    torch.cuda.empty_cache()
+    if not all(identical.values()) or not logits_ok:
+        raise SystemExit("mla-parity: greedy tokens differ across engines "
+                         "or paths, or cached logits differ from the full "
+                         "forward's")
+
+
+# The MLA instances' rows in the kernels line: (name, the wrapper whose
+# mla-phase count is theirs, source, the TPU kernel).
+MLA_ROWS = (
+    ("flash_attention_fwd_d192", "flash_attention_fwd",
+     "shellac_tpu_torch/csrc/flash_attention.cu",
+     "shellac_tpu/ops/flash_attention.py:226"),
+    ("decode_attention_dense_d576", "decode_attention_dense",
+     "shellac_tpu_torch/csrc/decode_wide.cuh",
+     "shellac_tpu/ops/decode_attention.py:315"),
+    ("decode_attention_dense_int8_d576", "decode_attention_dense_int8",
+     "shellac_tpu_torch/csrc/decode_wide.cuh",
+     "shellac_tpu/ops/decode_attention.py:334"),
+    ("paged_decode_attention_d576", "paged_decode_attention",
+     "shellac_tpu_torch/csrc/decode_wide.cuh",
+     "shellac_tpu/ops/decode_attention.py:562"),
+    ("paged_decode_attention_int8_d576", "paged_decode_attention_int8",
+     "shellac_tpu_torch/csrc/decode_wide.cuh",
+     "shellac_tpu/ops/decode_attention.py:562 (quant)"),
+)
 
 
 # --------------------------------------------------------------------------
@@ -5922,7 +6781,8 @@ def main():
                          "(generate, prefix-serve, sampling-controls, "
                          "constrained-serve, graph-parity, beam, "
                          "beam-parity, kernels-beam, moe, moe-parity, "
-                         "graph-parity-moe, kernels-moe, real-weights); "
+                         "graph-parity-moe, kernels-moe, real-weights, "
+                         "mla, mla-parity, kernels-mla); "
                          "prints no "
                          "kernels line and no ok line")
     args = ap.parse_args()
@@ -5975,6 +6835,10 @@ def main():
                 gen, dev, main_shapes(args.seed, dev), card),
             "real-weights": lambda: phase_real_weights(args.seed, dev,
                                                        table, card),
+            "mla": lambda: phase_mla(args.seed, dev, table, card),
+            "mla-parity": lambda: phase_mla_parity(args.seed, dev),
+            "kernels-mla": lambda: phase_kernels_mla(
+                gen, dev, main_shapes(args.seed, dev), card),
         }
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
@@ -5989,6 +6853,7 @@ def main():
     errs.update(phase_kernels_train(gen, dev, shapes))
     phase_kernels_beam(gen, dev)
     phase_kernels_moe(gen, dev, shapes, card)
+    mla_errs, mla_times = phase_kernels_mla(gen, dev, shapes, card)
     # The main paths, each with the counts set to 0 just before it; every
     # kernel of a path must have launched in its run.
     gen_counts, bf16_tokens = phase_generate(args.seed, dev, table, card)
@@ -6011,6 +6876,7 @@ def main():
     paths["train"] = phase_train(args.seed, dev, table, card)
     paths["moe"] = phase_moe(args.seed, dev, table, card)
     paths["real-weights"] = phase_real_weights(args.seed, dev, table, card)
+    paths["mla"] = phase_mla(args.seed, dev, table, card)
     decode = ("rms_norm", "flash_attention_fwd")
     for path, kinds in (("generate", decode + ("decode_attention_dense",)),
                         ("generate-int8",
@@ -6034,6 +6900,11 @@ def main():
                                            "paged_decode_attention_int8")),
                         ("moe", decode + ("decode_attention_dense",
                                           "paged_decode_attention")),
+                        ("mla", decode + (
+                            "decode_attention_dense",
+                            "decode_attention_dense_int8",
+                            "paged_decode_attention",
+                            "paged_decode_attention_int8")),
                         ("real-weights", decode + (
                             "decode_attention_dense", "paged_decode_attention",
                             "flash_attention_bwd_dkdv",
@@ -6049,6 +6920,7 @@ def main():
     phase_serve_parity_int8(args.seed, dev, table)
     phase_beam_parity(args.seed, dev, table)
     phase_moe_parity(args.seed, dev)
+    phase_mla_parity(args.seed, dev)
     phase_graph_parity(args.seed, dev, table)
     phase_graph_parity_moe(args.seed, dev, table)
     phase_train_parity(args.seed, dev)
@@ -6065,6 +6937,15 @@ def main():
             "launches": sum(c[n] for c in paths.values()),
             "launches_by_path": {p: c[n] for p, c in paths.items()},
             "max_abs_err": errs[n], **times[n],
+        })
+    # MLA's instances of kernels 2 and 5-7: the mla path's launches of
+    # their wrappers (every launch there is at 192 or 576).
+    for n, wrapper, source, replaces in MLA_ROWS:
+        kernels.append({
+            "name": n, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": paths["mla"][wrapper],
+            "launches_by_path": {"mla": paths["mla"][wrapper]},
+            "max_abs_err": mla_errs[n], **mla_times[n],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,7 +17,10 @@
 // unaligned cache), and an int8 tile's scales are per-lane loads at the
 // same row indices. An fp32 q (the parity path) runs the warp-parallel
 // body of decode_core.cuh with DenseRows, one 256-thread block per (slot,
-// kv head).
+// kv head). MLA's absorbed decode (D 576, every head's row against one
+// latent row, one array as k and v) takes decode_wide.cuh with
+// DenseTiles, in bf16 and fp32 q, over the bf16, fp32 or int8 latent
+// cache.
 //
 // Bound on the H100: bytes (2 * live * D * 2 bytes per slot and kv head
 // in bf16, 2 * live * (D + 4) in int8), but at a decode step's sizes
@@ -27,6 +30,7 @@
 // clusters of 4 or 8 there, so all its CTAs are resident together.
 #include "decode_core.cuh"
 #include "decode_split.cuh"
+#include "decode_wide.cuh"
 
 namespace shellac {
 namespace {
@@ -90,6 +94,15 @@ extern "C" int shellac_decode_attention(const void* q, const void* k,
                                         float softcap, int dtype,
                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const shellac::DenseTiles tiles{L, Hkv, 0};
+  if (D == shellac::wide::kD && dtype == shellac::kF32)
+    return shellac::wide::launch<float, float>(
+        q, k, v, nullptr, nullptr, index, sinks, out, B, s, H, Hkv, D, scale,
+        window, softcap, tiles, st);
+  if (D == shellac::wide::kD && dtype == shellac::kBF16)
+    return shellac::wide::launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, nullptr, nullptr, index, sinks, out, B, s, H, Hkv, D, scale,
+        window, softcap, tiles, st);
   if (dtype == shellac::kF32)
     return shellac::launch_dense<float, float>(q, k, v, nullptr, nullptr,
                                                index, sinks, out, B, s, H,
@@ -98,7 +111,7 @@ extern "C" int shellac_decode_attention(const void* q, const void* k,
   if (dtype == shellac::kBF16)
     return shellac::split::launch<__nv_bfloat16>(
         q, k, v, nullptr, nullptr, index, sinks, out, B, s, H, Hkv, D, scale,
-        window, softcap, shellac::DenseTiles{L, Hkv, 0}, st);
+        window, softcap, tiles, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -110,6 +123,15 @@ extern "C" int shellac_decode_attention_int8(
     int s, int H, int Hkv, int L, int D, float scale, int window,
     float softcap, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const shellac::DenseTiles tiles{L, Hkv, 0};
+  if (D == shellac::wide::kD && dtype == shellac::kF32)
+    return shellac::wide::launch<float, int8_t>(
+        q, k, v, ks, vs, index, sinks, out, B, s, H, Hkv, D, scale, window,
+        softcap, tiles, st);
+  if (D == shellac::wide::kD && dtype == shellac::kBF16)
+    return shellac::wide::launch<__nv_bfloat16, int8_t>(
+        q, k, v, ks, vs, index, sinks, out, B, s, H, Hkv, D, scale, window,
+        softcap, tiles, st);
   if (dtype == shellac::kF32)
     return shellac::launch_dense<float, int8_t>(q, k, v, ks, vs, index,
                                                 sinks, out, B, s, H, Hkv, L,
@@ -118,6 +140,6 @@ extern "C" int shellac_decode_attention_int8(
   if (dtype == shellac::kBF16)
     return shellac::split::launch<int8_t>(
         q, k, v, ks, vs, index, sinks, out, B, s, H, Hkv, D, scale, window,
-        softcap, shellac::DenseTiles{L, Hkv, 0}, st);
+        softcap, tiles, st);
   return (int)cudaErrorInvalidValue;
 }

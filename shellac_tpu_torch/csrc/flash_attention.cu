@@ -60,8 +60,12 @@
 //     store per panel; rows past S are neither loaded (TMA fills zeros)
 //     nor stored. Shared memory: two q tiles and the ring, 192 KB at D
 //     128 (2 x 32 + 2 x (32 + 32)), 128 KB at D 64 (2 x 16 + 3 x (16 +
-//     16)); registers 168 a thread at launch, then 2 x 128 x 240 + 128 x
-//     24 = 64,512; no spills (`ptxas -v`).
+//     16)), 192 KB at D 192 (MLA's expanded prefill, q and k 192 wide, v
+//     padded to 192: 2 x 48 + 1 x (48 + 48), a ring of ONE stage, where
+//     K_i loads while V_{i-1} is read and V_i once P_{i-1} V_{i-1} is
+//     done; P V there is three n64 wgmmas a 16-row step, one a panel);
+//     registers 168 a thread at launch, then 2 x 128 x 240 + 128 x 24 =
+//     64,512; no spills (`ptxas -v`).
 //     Left for later: a 64-row q tile for grids that fill few of the 132
 //     SMs (serve's B = 1 admissions run 128 work tiles), a dynamic tile
 //     scheduler, K and V multicast to both q heads of a GQA pair in a
@@ -283,7 +287,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int D>
 struct Smem {
   static constexpr int kPanels = D / 64;
-  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kStages = D == 64 ? 3 : D == 128 ? 2 : 1;
   static constexpr int kQBytes = kBM * D * 2;   // a q tile, later out
   static constexpr int kKVBytes = kBN * D * 2;  // one K or one V tile
   static constexpr int kQ = 0;                  // two q tiles
@@ -318,19 +322,26 @@ __device__ __forceinline__ void qk_tile(float* s, const unsigned char* qs,
 
 // O += P V for this consumer warpgroup: P the bf16 A fragments, V read
 // MN-major (16 kv rows per step; the D columns span D / 64 panels, kBN
-// rows apart).
+// rows apart). D 192 takes one n64 product a panel, into the panel's 32
+// accumulators (the fragment of 8-column block j is o[4 j .. 4 j + 3] at
+// every width).
 template <int D>
 __device__ __forceinline__ void pv_tile(float* o, uint32_t (*pa)[4],
                                         const unsigned char* vs) {
   using namespace hopper;
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint64_t db = smem_desc(vs + kk * 16 * kPanelBytesPerRow,
-                                  kBN * kPanelBytesPerRow, 1024);
-    if constexpr (D == 128)
-      wgmma_rs_n128_mn(o, pa[kk], db);
-    else
-      wgmma_rs_n64_mn(o, pa[kk], db);
+    const unsigned char* v = vs + kk * 16 * kPanelBytesPerRow;
+    if constexpr (D == 128) {
+      wgmma_rs_n128_mn(o, pa[kk],
+                       smem_desc(v, kBN * kPanelBytesPerRow, 1024));
+    } else {
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p)
+        wgmma_rs_n64_mn(o + 32 * p, pa[kk],
+                        smem_desc(v + p * kBN * kPanelBytesPerRow,
+                                  kBN * kPanelBytesPerRow, 1024));
+    }
   }
 }
 
@@ -813,6 +824,10 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v,
     return (g ? launch<T, 128, true> : launch<T, 128, false>)(
         q, k, v, sinks, seg, out, lse, B, S, H, Hkv, scale, causal, window,
         softcap, stream);
+  // MLA's expanded prefill: no segments on its serving path.
+  if (D == 192 && !g)
+    return launch<T, 192, false>(q, k, v, sinks, seg, out, lse, B, S, H,
+                                 Hkv, scale, causal, window, softcap, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -45,7 +45,9 @@
 // An fp32 q (the parity path) runs the shared warp-parallel body of
 // decode_core.cuh with PagedRows: each block stages its slot's live
 // table entries in shared memory, and each lane turns its position into
-// (page, offset) with one division per chunk.
+// (page, offset) with one division per chunk. MLA's latent pools (D 576, one
+// pool as k and v) take decode_wide.cuh with PagedTiles, in bf16 and fp32 q, over pools
+// in q's dtype or int8.
 //
 // Bound on the H100: bytes, the live k/v rows of every slot (and their
 // scales in int8). Serving decodes 16 slots x 8 kv heads; the split body
@@ -53,6 +55,7 @@
 // are half the size, so more CTAs fit at once.
 #include "decode_core.cuh"
 #include "decode_split.cuh"
+#include "decode_wide.cuh"
 
 namespace shellac {
 namespace {
@@ -130,6 +133,12 @@ cudaError_t launch_paged(const void* q, const void* k, const void* v,
                          int B, int s, int H, int Hkv, int bs,
                          int max_blocks, int D, float scale, int window,
                          float softcap, cudaStream_t stream) {
+  if (D == wide::kD) {
+    const PagedTiles tiles{static_cast<const int*>(tables), max_blocks, bs,
+                           Hkv, nullptr, 0, 0, 0};
+    return wide::launch<T, KT>(q, k, v, ks, vs, index, sinks, out, B, s, H,
+                               Hkv, D, scale, window, softcap, tiles, stream);
+  }
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const PagedTiles tiles{static_cast<const int*>(tables), max_blocks, bs,
                            Hkv, nullptr, 0, 0, 0};

@@ -10,6 +10,13 @@ Ports `shellac_tpu/inference/cache/layout.py` (`KVCache`, `init_cache`,
 `init_quant_paged_cache` :449, `quant_paged_update_layer` :479,
 `paged_gather_scales` :505).
 
+MLA (DeepSeek) models cache their latent instead (layout.py :44, :101,
+:341, :449): one row a token, `cfg.cache_head_dim` = kv_lora_rank +
+qk_rope_head_dim wide, under `cfg.cache_kv_heads` = 1 head, and a
+zero-width v (`cfg.cache_v_head_dim` = 0) whose int8 scales are unit; the
+model reads the k array as both k and v, and in int8 its one scale a row
+serves both roles. Every shape below is sized by those three fields.
+
 Dense layout: stacked over layers and HEAD-MAJOR, (L, B, Hkv, max_len, Dh), as
 in the JAX package: each (slot, kv head) reads one contiguous
 (positions, head_dim) stream, which is what the decode kernel walks. The
@@ -65,13 +72,14 @@ class KVCache:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> KVCache:
-    """An all-zero dense cache in the compute dtype."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA latent caches are not ported yet")
-    shape = (cfg.n_layers, batch, cfg.kv_heads, max_len, cfg.dim_per_head)
+    """An all-zero dense cache in the compute dtype (an MLA model's holds
+    its latent rows: see the module's note)."""
+    head = (cfg.n_layers, batch, cfg.cache_kv_heads, max_len)
     return KVCache(
-        k=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        k=torch.zeros((*head, cfg.cache_head_dim), dtype=cfg.compute_dtype,
+                      device=device),
+        v=torch.zeros((*head, cfg.cache_v_head_dim), dtype=cfg.compute_dtype,
+                      device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
 
@@ -171,13 +179,11 @@ class QuantKVCache:
 def init_quant_cache(cfg: ModelConfig, batch: int, max_len: int,
                      device: torch.device) -> QuantKVCache:
     """An all-zero int8 cache with all-zero scales."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA latent caches are not ported yet")
-    head = (cfg.n_layers, batch, cfg.kv_heads, max_len)
+    head = (cfg.n_layers, batch, cfg.cache_kv_heads, max_len)
     return QuantKVCache(
-        k=torch.zeros((*head, cfg.dim_per_head), dtype=torch.int8,
+        k=torch.zeros((*head, cfg.cache_head_dim), dtype=torch.int8,
                       device=device),
-        v=torch.zeros((*head, cfg.dim_per_head), dtype=torch.int8,
+        v=torch.zeros((*head, cfg.cache_v_head_dim), dtype=torch.int8,
                       device=device),
         ks=torch.zeros(head, dtype=torch.float32, device=device),
         vs=torch.zeros(head, dtype=torch.float32, device=device),
@@ -286,13 +292,12 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_blocks: int,
                      block_size: int, max_blocks_per_slot: int,
                      device: torch.device) -> PagedKVCache:
     """An all-zero pool in the compute dtype, every table entry at 0."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA latent caches are not ported yet")
-    shape = (cfg.n_layers, n_blocks, cfg.kv_heads, block_size,
-             cfg.dim_per_head)
+    head = (cfg.n_layers, n_blocks, cfg.cache_kv_heads, block_size)
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        k=torch.zeros((*head, cfg.cache_head_dim), dtype=cfg.compute_dtype,
+                      device=device),
+        v=torch.zeros((*head, cfg.cache_v_head_dim), dtype=cfg.compute_dtype,
+                      device=device),
         tables=torch.zeros((n_slots, max_blocks_per_slot), dtype=torch.int32,
                            device=device),
         lengths=torch.zeros((n_slots,), dtype=torch.int32, device=device),
@@ -390,13 +395,11 @@ def init_quant_paged_cache(cfg: ModelConfig, n_slots: int, n_blocks: int,
     """An all-zero int8 pool. The scale pools are zeroed too (never left
     uninitialized), so an idle slot's read of scratch block 0 multiplies
     by 0, not by whatever the memory held."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA latent caches are not ported yet")
-    head = (cfg.n_layers, n_blocks, cfg.kv_heads, block_size)
+    head = (cfg.n_layers, n_blocks, cfg.cache_kv_heads, block_size)
     return QuantPagedKVCache(
-        k=torch.zeros((*head, cfg.dim_per_head), dtype=torch.int8,
+        k=torch.zeros((*head, cfg.cache_head_dim), dtype=torch.int8,
                       device=device),
-        v=torch.zeros((*head, cfg.dim_per_head), dtype=torch.int8,
+        v=torch.zeros((*head, cfg.cache_v_head_dim), dtype=torch.int8,
                       device=device),
         ks=torch.zeros(head, dtype=torch.float32, device=device),
         vs=torch.zeros(head, dtype=torch.float32, device=device),

@@ -379,9 +379,12 @@ class Engine:
         so a row that another row adopts is read before it is
         overwritten. The gather moves 8-byte words (a bf16 or int8 row
         viewed as int64), which index_select copies several times faster
-        than 1- or 2-byte elements."""
+        than 1- or 2-byte elements. An MLA cache's zero-width v has no
+        words to move."""
         for name in kv_field_names(cache_quant(cache)):
             t = getattr(cache, name)
+            if t.numel() == 0:
+                continue
             if t.shape[-1] * t.element_size() % 8 == 0:
                 t = t.view(torch.int64)
             t.copy_(t.index_select(1, idx))

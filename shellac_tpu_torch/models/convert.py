@@ -4,9 +4,12 @@ The port of `shellac_tpu/models/convert.py`: `config_from_hf` (:30) with
 its family mappings (`_gemma2_config` :145, `_gemma3_config` :189,
 `_gptoss_config` :262, `_rope_from_hf` :447, `_hf_attn_window` :499,
 `_norm_offset` :527), `params_from_state_dict` (:610), `to_state_dict`
-(:861) and `from_hf` (:1026). DeepSeek (MLA, `_deepseek_config` :321 and
-`_first_k_params` :792) raises NotImplementedError: the port has no MLA
-yet.
+(:861) and `from_hf` (:1026), DeepSeek-V2/V3 (MLA) included:
+`_deepseek_config` (:321), the latent attention's weights
+(`_collect_mla_layer` :560) and the first-k-dense layout's
+(`_first_k_params` :792). As in the reference, an MLA model with MoE
+layers imports but does not export (no HF architecture holds DeepSeek
+attention beside Mixtral experts); a dense-MLP MLA model exports.
 
 The reference reads a `transformers` config object and state dict; the
 port depends on no `transformers`, so a directory is read here directly:
@@ -34,6 +37,7 @@ import torch
 
 from shellac_tpu_torch.config import (
     Llama3RopeConfig,
+    MLAConfig,
     ModelConfig,
     MoEConfig,
     YarnConfig,
@@ -135,6 +139,31 @@ _HF_DEFAULTS: Dict[str, Dict[str, Any]] = {
                       "beta_slow": 1.0, "truncate": False,
                       "original_max_position_embeddings": 4096},
         sliding_window=128, layer_types=None, attention_bias=True),
+    # DeepSeek, as transformers' DeepseekV2Config and DeepseekV3Config set
+    # their defaults (V2 keeps no scoring_func or moe_layer_freq: the
+    # mapping's getattr defaults hold).
+    "deepseek_v2": dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+        moe_intermediate_size=1407, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=32, n_shared_experts=2,
+        n_routed_experts=64, routed_scaling_factor=1.0, kv_lora_rank=512,
+        q_lora_rank=1536, qk_rope_head_dim=64, v_head_dim=128,
+        qk_nope_head_dim=128, topk_method="greedy", n_group=None,
+        topk_group=None, num_experts_per_tok=None, first_k_dense_replace=0,
+        norm_topk_prob=False, max_position_embeddings=2048, rms_norm_eps=1e-6,
+        tie_word_embeddings=False, rope_theta=10000.0, rope_scaling=None,
+        attention_bias=False),
+    "deepseek_v3": dict(
+        vocab_size=129280, hidden_size=7168, intermediate_size=18432,
+        moe_intermediate_size=2048, num_hidden_layers=61,
+        num_attention_heads=128, num_key_value_heads=128, n_shared_experts=1,
+        n_routed_experts=256, routed_scaling_factor=2.5, kv_lora_rank=512,
+        q_lora_rank=1536, qk_rope_head_dim=64, v_head_dim=128,
+        qk_nope_head_dim=128, n_group=8, topk_group=4, num_experts_per_tok=8,
+        first_k_dense_replace=3, norm_topk_prob=True,
+        max_position_embeddings=4096, rms_norm_eps=1e-6,
+        tie_word_embeddings=False, rope_theta=10000.0, rope_scaling=None,
+        attention_bias=False),
 }
 _MLA_TYPES = ("deepseek_v2", "deepseek_v3")
 
@@ -149,10 +178,6 @@ class HFConfig:
         mt = raw.get("model_type")
         if mt is None:
             raise ValueError("config.json has no model_type")
-        if mt in _MLA_TYPES:
-            raise NotImplementedError(
-                f"model_type {mt!r}: MLA (DeepSeek) conversion is not "
-                "ported yet")
         if mt == "gemma3":
             text = dict(raw.get("text_config") or {})
             if not raw.get("text_config"):
@@ -233,8 +258,7 @@ def config_from_hf(hf_cfg) -> ModelConfig:
     )
     is_gemma = model_type == "gemma"
     if model_type in _MLA_TYPES:
-        raise NotImplementedError(
-            f"{model_type}: MLA (DeepSeek) conversion is not ported yet")
+        return _deepseek_config(hf_cfg)
     if model_type == "gemma2":
         return _gemma2_config(hf_cfg)
     if model_type in ("gemma3_text", "gemma3"):
@@ -307,6 +331,104 @@ def config_from_hf(hf_cfg) -> ModelConfig:
             getattr(hf_cfg, "rope_scaling", None),
             hf_cfg.max_position_embeddings,
         ),
+    ).validate()
+
+
+def _deepseek_config(hf_cfg) -> ModelConfig:
+    """DeepSeek-V2/V3 (MLA), the reference's `_deepseek_config` (:321):
+    MLA attention (yarn rope optional), the first-k-dense layout, V2's
+    softmax gate (greedy or group-limited, un-normalized scaled
+    probabilities: HF's V2 gate never renormalizes, whatever the config
+    says) and V3's sigmoid gate (selection-only correction biases,
+    normalized weights), narrow experts and shared experts. What the
+    layouts cannot represent raises."""
+    n_layers = hf_cfg.num_hidden_layers
+    first_k = getattr(hf_cfg, "first_k_dense_replace", n_layers)
+    is_v3 = getattr(hf_cfg, "model_type", "") == "deepseek_v3"
+    moe = None
+    if first_k < n_layers and getattr(hf_cfg, "n_routed_experts", None):
+        if getattr(hf_cfg, "moe_layer_freq", 1) != 1:
+            raise NotImplementedError(
+                "moe_layer_freq != 1 is not representable by the "
+                "first_k_dense layout")
+        if first_k == 0:
+            raise NotImplementedError(
+                "all-MoE DeepSeek (first_k_dense_replace=0) conversion is "
+                "not wired; every published checkpoint keeps >= 1 dense "
+                "layer")
+        common = dict(
+            num_experts=hf_cfg.n_routed_experts,
+            num_experts_per_token=hf_cfg.num_experts_per_tok,
+            d_ff_expert=hf_cfg.moe_intermediate_size,
+            num_shared_experts=getattr(hf_cfg, "n_shared_experts", 0) or 0,
+            routed_scaling_factor=float(
+                getattr(hf_cfg, "routed_scaling_factor", 1.0)),
+            dropless=True,
+        )
+        if is_v3:
+            declared = getattr(hf_cfg, "scoring_func", "sigmoid")
+            if declared != "sigmoid":
+                raise NotImplementedError(
+                    f"deepseek_v3 with scoring_func={declared!r} (the HF "
+                    "reference gate is sigmoid)")
+            declared_tm = getattr(hf_cfg, "topk_method", "noaux_tc")
+            if declared_tm != "noaux_tc":
+                raise NotImplementedError(
+                    f"deepseek_v3 with topk_method={declared_tm!r} (the HF "
+                    "reference gate is noaux_tc)")
+            moe = MoEConfig(
+                scoring="sigmoid",
+                norm_topk_prob=bool(getattr(hf_cfg, "norm_topk_prob", True)),
+                n_group=getattr(hf_cfg, "n_group", 1) or 1,
+                topk_group=getattr(hf_cfg, "topk_group", 1) or 1,
+                **common,
+            )
+        else:
+            if getattr(hf_cfg, "scoring_func", "softmax") != "softmax":
+                raise NotImplementedError(
+                    f"DeepSeek-V2 scoring_func={hf_cfg.scoring_func!r} "
+                    "(have: softmax)")
+            if getattr(hf_cfg, "topk_method", "greedy") not in (
+                    "greedy", "group_limited_greedy"):
+                raise NotImplementedError(
+                    f"DeepSeek topk_method={hf_cfg.topk_method!r}")
+            grouped = hf_cfg.topk_method == "group_limited_greedy"
+            moe = MoEConfig(
+                norm_topk_prob=False,
+                n_group=(getattr(hf_cfg, "n_group", 1) or 1) if grouped
+                else 1,
+                topk_group=(getattr(hf_cfg, "topk_group", 1) or 1)
+                if grouped else 1,
+                **common,
+            )
+    elif first_k < n_layers:
+        raise NotImplementedError(
+            "first_k_dense_replace set but n_routed_experts missing")
+    if getattr(hf_cfg, "attention_bias", False):
+        raise NotImplementedError(
+            "DeepSeek attention_bias=True is not supported; converting "
+            "would silently drop the bias tensors")
+    return ModelConfig(
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_layers=n_layers,
+        n_heads=hf_cfg.num_attention_heads,
+        d_ff=hf_cfg.intermediate_size,
+        max_seq_len=hf_cfg.max_position_embeddings,
+        rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
+        norm_eps=hf_cfg.rms_norm_eps,
+        tie_embeddings=bool(getattr(hf_cfg, "tie_word_embeddings", False)),
+        mla=MLAConfig(
+            kv_lora_rank=hf_cfg.kv_lora_rank,
+            q_lora_rank=getattr(hf_cfg, "q_lora_rank", None),
+            qk_nope_head_dim=hf_cfg.qk_nope_head_dim,
+            qk_rope_head_dim=hf_cfg.qk_rope_head_dim,
+            v_head_dim=hf_cfg.v_head_dim,
+        ),
+        moe=moe,
+        first_k_dense=first_k if moe is not None else 0,
+        **_rope_from_hf(getattr(hf_cfg, "rope_scaling", None),
+                        hf_cfg.max_position_embeddings),
     ).validate()
 
 
@@ -613,11 +735,11 @@ def params_from_state_dict(
     (-1.0 for Llama-convention RMSNorm, 0.0 for Gemma: `_norm_offset`).
     """
     check_supported(cfg)
-    if cfg.first_k_dense:
+    if cfg.first_k_dense and cfg.mla is None:
         # The reference's `_first_k_params` serves DeepSeek only.
         raise NotImplementedError(
             "first_k_dense conversion is wired for MLA (DeepSeek) "
-            "checkpoints only, and MLA is not ported yet")
+            "checkpoints only")
     dev = resolve_device(device)
     sd = state_dict
     # Accept both bare and "model."-prefixed keys.
@@ -659,7 +781,9 @@ def params_from_state_dict(
     for i, moe_layer in enumerate(flags):
         base = f"layers.{i}."
         lp: Dict[str, torch.Tensor] = {}
-        if fused_qkv:
+        if cfg.mla is not None:
+            lp.update(_mla_layer(cfg, get, base, norm_offset))
+        elif fused_qkv:
             w = get(base + "self_attn.qkv_proj.weight").T  # (d, q + 2kv)
             lp["wq"], lp["wk"], lp["wv"] = (
                 w[:, :qd], w[:, qd:qd + kvd], w[:, qd + kvd:])
@@ -680,7 +804,21 @@ def params_from_state_dict(
             lp["bo"] = get(base + "self_attn.o_proj.bias")
         if cfg.attn_sink:
             lp["sinks"] = get(base + "self_attn.sinks")
-        if moe_layer and moe_naming == "gpt_oss":
+        if moe_layer and cfg.first_k_dense:
+            # DeepSeek: the router stored (E, D), its V3 correction bias,
+            # experts under their dense names, and the shared experts.
+            lp["w_router"] = get(base + "mlp.gate.weight").T
+            if cfg.moe.scoring == "sigmoid":
+                lp["b_router"] = get(
+                    base + "mlp.gate.e_score_correction_bias")
+            for ours, proj in _QWEN3_EXPERT_MAP.items():
+                lp[ours] = stack(base + "mlp.experts.{}." + proj + ".weight",
+                                 cfg.moe.num_experts)
+            if cfg.moe.num_shared_experts > 0:
+                for ours, proj in _QWEN3_EXPERT_MAP.items():
+                    lp[ours + "_shared"] = get(
+                        base + f"mlp.shared_experts.{proj}.weight").T
+        elif moe_layer and moe_naming == "gpt_oss":
             lp["w_router"] = get(base + "mlp.router.weight").T
             lp["b_router"] = get(base + "mlp.router.bias")
             # gate_up (E, D, 2F) interleaves gate and up on the last dim;
@@ -743,6 +881,32 @@ def params_from_state_dict(
                                    "lm_head") if k in params}
 
 
+def _mla_layer(cfg, get, base, norm_offset) -> Dict[str, torch.Tensor]:
+    """One DeepSeek layer's attention weights (the reference's
+    `_collect_mla_layer` :560). HF's kv_b_proj is one (H * (nope + v),
+    kv_lora_rank) matrix; the port splits it into the key expansion
+    `wkv_b_k` (kv_lora_rank, H, nope) and the value expansion `wkv_b_v`
+    (kv_lora_rank, H, v) that the absorbed decode contracts apart."""
+    m = cfg.mla
+    a = base + "self_attn."
+    kv_b = get(a + "kv_b_proj.weight").T.reshape(
+        m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    lp = {
+        "wkv_a": get(a + "kv_a_proj_with_mqa.weight").T,
+        "kv_a_norm": get(a + "kv_a_layernorm.weight") + norm_offset,
+        "wkv_b_k": kv_b[..., :m.qk_nope_head_dim],
+        "wkv_b_v": kv_b[..., m.qk_nope_head_dim:],
+        "wo": get(a + "o_proj.weight").T,
+    }
+    if m.q_lora_rank is None:
+        lp["wq"] = get(a + "q_proj.weight").T
+    else:
+        lp["wq_a"] = get(a + "q_a_proj.weight").T
+        lp["q_a_norm"] = get(a + "q_a_layernorm.weight") + norm_offset
+        lp["wq_b"] = get(a + "q_b_proj.weight").T
+    return lp
+
+
 def _stored(cfg, found: Dict[str, torch.Tensor], shapes, where,
             master: bool) -> Dict[str, torch.Tensor]:
     """fp32 tensors checked against the port's shapes, in storage."""
@@ -769,6 +933,11 @@ def to_state_dict(cfg: ModelConfig, params: Params,
     to the Mixtral, Qwen3-MoE or GPT-OSS naming."""
     check_supported(cfg)
     moe = cfg.moe is not None
+    if cfg.mla is not None and moe:
+        raise NotImplementedError(
+            "MLA + MoE export would mix DeepSeek attention names with "
+            "Mixtral MLP names, which no HF architecture loads; dense-MLP "
+            "MLA models export")
     if moe and cfg.moe.num_shared_experts > 0:
         raise NotImplementedError(
             "shared experts have no HF (Mixtral) state_dict equivalent"
@@ -797,9 +966,12 @@ def to_state_dict(cfg: ModelConfig, params: Params,
     }
     for i, lp in enumerate(params["layers"]):
         base = f"model.layers.{i}."
-        for ours, (theirs, transpose) in _ATTN_MAP.items():
-            w = f32(lp[ours])
-            sd[base + theirs] = w.T if transpose else w
+        if cfg.mla is not None:
+            sd.update(_mla_export(cfg, lp, base, f32))
+        else:
+            for ours, (theirs, transpose) in _ATTN_MAP.items():
+                w = f32(lp[ours])
+                sd[base + theirs] = w.T if transpose else w
         if cfg.qk_norm:
             sd[base + "self_attn.q_norm.weight"] = f32(lp["q_norm"]) + noff
             sd[base + "self_attn.k_norm.weight"] = f32(lp["k_norm"]) + noff
@@ -860,6 +1032,27 @@ def to_state_dict(cfg: ModelConfig, params: Params,
     else:
         sd["lm_head.weight"] = f32(params["lm_head"]).T
     return {k: v.to(dtype).contiguous() for k, v in sd.items()}
+
+
+def _mla_export(cfg, lp, base, f32) -> Dict[str, torch.Tensor]:
+    """An MLA layer's attention under DeepSeek's names: the two
+    expansions fused back into HF's kv_b_proj, norms as s + 1."""
+    m = cfg.mla
+    a = base + "self_attn."
+    kv_b = torch.cat([f32(lp["wkv_b_k"]), f32(lp["wkv_b_v"])], dim=-1)
+    sd = {
+        a + "kv_a_proj_with_mqa.weight": f32(lp["wkv_a"]).T,
+        a + "kv_a_layernorm.weight": f32(lp["kv_a_norm"]) + 1.0,
+        a + "kv_b_proj.weight": kv_b.reshape(m.kv_lora_rank, -1).T,
+        a + "o_proj.weight": f32(lp["wo"]).T,
+    }
+    if m.q_lora_rank is None:
+        sd[a + "q_proj.weight"] = f32(lp["wq"]).T
+    else:
+        sd[a + "q_a_proj.weight"] = f32(lp["wq_a"]).T
+        sd[a + "q_a_layernorm.weight"] = f32(lp["q_a_norm"]) + 1.0
+        sd[a + "q_b_proj.weight"] = f32(lp["wq_b"]).T
+    return sd
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

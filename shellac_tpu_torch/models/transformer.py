@@ -1,7 +1,8 @@
 """Decoder-only transformer (LLaMA-style): GQA decoders, dense and MoE.
 
-The port of the JAX package's `models/transformer.py` for GQA models,
-dense and mixture-of-experts (no MLA). Parameters are a plain dictionary:
+The port of the JAX package's `models/transformer.py`: GQA and MLA
+(DeepSeek's latent attention) models, dense and mixture-of-experts.
+Parameters are a plain dictionary:
 
     {"embed": (V, D), "layers": [per-layer dict, ...], "final_norm": (D,),
      "lm_head": (D, V) when embeddings are untied}
@@ -58,7 +59,11 @@ from shellac_tpu_torch.ops.decode_attention import (
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
 from shellac_tpu_torch.ops.moe import moe_ffn, moe_ffn_grouped
 from shellac_tpu_torch.ops.norms import rms_norm
-from shellac_tpu_torch.ops.rope import apply_rope, rope_angles
+from shellac_tpu_torch.ops.rope import (
+    apply_rope,
+    apply_rope_interleaved,
+    rope_angles,
+)
 
 Params = Dict[str, Any]
 
@@ -67,6 +72,7 @@ Params = Dict[str, Any]
 FP32_KEYS = frozenset({
     "attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
     "post_attn_norm", "post_mlp_norm", "sinks", "w_router", "b_router",
+    "kv_a_norm", "q_a_norm",
 })
 
 # The MoE diagnostics `forward(return_aux=True)` returns beside the summed
@@ -76,8 +82,6 @@ AUX_KEYS = ("aux", "balance_loss", "router_z_loss", "dropped_frac")
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA models are not ported yet")
     if cfg.quant_training is not None:
         raise NotImplementedError("quantized training dots are not ported")
     if cfg.activation not in ("swiglu", "geglu"):
@@ -112,14 +116,17 @@ def layer_shapes(cfg: ModelConfig, moe_layer: bool = False
         cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.dim_per_head, cfg.ff_dim,
     )
     out_scale = (2 * cfg.n_layers) ** -0.5
-    shapes = {
-        "attn_norm": ((d,), ("zeros",)),
-        "wq": ((d, h * dh), ("dense", d, 1.0)),
-        "wk": ((d, hkv * dh), ("dense", d, 1.0)),
-        "wv": ((d, hkv * dh), ("dense", d, 1.0)),
-        "wo": ((h * dh, d), ("dense", h * dh, out_scale)),
-        "mlp_norm": ((d,), ("zeros",)),
-    }
+    if cfg.mla is not None:
+        shapes = _mla_shapes(cfg, out_scale)
+    else:
+        shapes = {
+            "attn_norm": ((d,), ("zeros",)),
+            "wq": ((d, h * dh), ("dense", d, 1.0)),
+            "wk": ((d, hkv * dh), ("dense", d, 1.0)),
+            "wv": ((d, hkv * dh), ("dense", d, 1.0)),
+            "wo": ((h * dh, d), ("dense", h * dh, out_scale)),
+            "mlp_norm": ((d,), ("zeros",)),
+        }
     if cfg.qk_norm:
         shapes["q_norm"] = ((dh,), ("zeros",))
         shapes["k_norm"] = ((dh,), ("zeros",))
@@ -156,6 +163,33 @@ def layer_shapes(cfg: ModelConfig, moe_layer: bool = False
         shapes["w_gate_shared"] = ((d, sf), ("dense", d, 1.0))
         shapes["w_up_shared"] = ((d, sf), ("dense", d, 1.0))
         shapes["w_down_shared"] = ((sf, d), ("dense", sf, out_scale))
+    return shapes
+
+
+def _mla_shapes(cfg: ModelConfig, out_scale: float) -> Dict[str, tuple]:
+    """An MLA layer's attention leaves (JAX init_params :133-165): the
+    query projection (full, or low-rank through `q_a_norm`), the latent
+    projection `wkv_a` (d -> kv_lora_rank + rope), its norm, and the
+    per-head expansions of the latent into no-position keys and values."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    r = m.kv_lora_rank
+    shapes = {
+        "attn_norm": ((d,), ("zeros",)),
+        "wkv_a": ((d, m.cache_dim), ("dense", d, 1.0)),
+        "kv_a_norm": ((r,), ("zeros",)),
+        "wkv_b_k": ((r, h, m.qk_nope_head_dim), ("dense", r, 1.0)),
+        "wkv_b_v": ((r, h, m.v_head_dim), ("dense", r, 1.0)),
+        "wo": ((h * m.v_head_dim, d),
+               ("dense", h * m.v_head_dim, out_scale)),
+        "mlp_norm": ((d,), ("zeros",)),
+    }
+    if m.q_lora_rank is None:
+        shapes["wq"] = ((d, h * m.qk_head_dim), ("dense", d, 1.0))
+    else:
+        shapes["wq_a"] = ((d, m.q_lora_rank), ("dense", d, 1.0))
+        shapes["q_a_norm"] = ((m.q_lora_rank,), ("zeros",))
+        shapes["wq_b"] = ((m.q_lora_rank, h * m.qk_head_dim),
+                          ("dense", m.q_lora_rank, 1.0))
     return shapes
 
 
@@ -243,14 +277,34 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
     exact chunk, so only later reads see the int8 rounding.
     attn_kind "full" drops cfg.attn_window for this layer. `segments`
     (B, S) int32 makes cache-free attention block-diagonal. `moe_layer`
-    runs the MLP half as the MoE layer (see `_block_mlp`).
+    runs the MLP half as the MoE layer (see `_block_mlp`). An MLA
+    model's attention is `_mla_attention`, over a latent cache.
     """
+    cdt = cfg.compute_dtype
+    hx = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(cdt)
+    attend = _mla_attention if cfg.mla is not None else _gqa_attention
+    o = attend(cfg, attn_impl, hx, lp, cos, sin, cache, fresh_cache,
+               attn_kind, page_tables, segments, kv_scales)
+    o = o @ lp["wo"].to(cdt)
+    if cfg.attn_out_bias:
+        o = o + lp["bo"].to(cdt)
+    if cfg.post_norms:
+        o = rms_norm(o, lp["post_attn_norm"], cfg.norm_eps).to(cdt)
+    x = x + o
+    return _block_mlp(cfg, x, lp, moe_layer=moe_layer,
+                      cached=cache is not None and not fresh_cache, aux=aux)
+
+
+def _gqa_attention(cfg: ModelConfig, attn_impl: str, hx, lp, cos, sin,
+                   cache, fresh_cache, attn_kind, page_tables, segments,
+                   kv_scales):
+    """A GQA block's attention on the normed hx (B, S, D): q/k/v
+    projections, RoPE, the cache write and the attention (see `_block`).
+    Returns o (B, S, H * Dh) before the output projection."""
     window = None if attn_kind == "full" else cfg.attn_window
     cdt = cfg.compute_dtype
-    b, s, _ = x.shape
+    b, s, _ = hx.shape
     h, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.dim_per_head
-
-    hx = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(cdt)
     q = hx @ lp["wq"].to(cdt)
     k = hx @ lp["wk"].to(cdt)
     v = hx @ lp["wv"].to(cdt)
@@ -275,20 +329,7 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
                       q_segments=segments, kv_segments=segments, **akw)
     else:
         cache_k, cache_v, index = cache
-        scales = {}
-        if kv_scales is not None:
-            ks_l, vs_l = kv_scales
-            if page_tables is not None:
-                quant_paged_update_layer(cache_k, cache_v, ks_l, vs_l, k, v,
-                                         index, page_tables)
-            else:
-                quant_update_layer(cache_k, cache_v, ks_l, vs_l, k, v,
-                                   index)
-            scales = dict(k_scale=ks_l, v_scale=vs_l)
-        elif page_tables is not None:
-            paged_update_layer(cache_k, cache_v, k, v, index, page_tables)
-        else:
-            update_layer(cache_k, cache_v, k, v, index)
+        scales = _write_cache(cache, k, v, page_tables, kv_scales)
         if fresh_cache:
             # Empty-cache prefill: attend within the new chunk only; every
             # row starts at position 0, so causal masking already excludes
@@ -301,14 +342,105 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
         else:
             o = decode_attention(q, cache_k, cache_v, index, impl=attn_impl,
                                  **akw, **scales)
-    o = o.reshape(b, s, h * dh) @ lp["wo"].to(cdt)
-    if cfg.attn_out_bias:
-        o = o + lp["bo"].to(cdt)
-    if cfg.post_norms:
-        o = rms_norm(o, lp["post_attn_norm"], cfg.norm_eps).to(cdt)
-    x = x + o
-    return _block_mlp(cfg, x, lp, moe_layer=moe_layer,
-                      cached=cache is not None and not fresh_cache, aux=aux)
+    return o.reshape(b, s, h * dh)
+
+
+def _write_cache(cache, k, v, page_tables, kv_scales):
+    """Write the new k, v (B, S, Hkv, Dh) into one layer's cache (dense or
+    paged, compute dtype or int8), in place. Returns the decode
+    attention's scale keywords: {} or the int8 k_scale and v_scale."""
+    cache_k, cache_v, index = cache
+    if kv_scales is None:
+        if page_tables is not None:
+            paged_update_layer(cache_k, cache_v, k, v, index, page_tables)
+        else:
+            update_layer(cache_k, cache_v, k, v, index)
+        return {}
+    ks_l, vs_l = kv_scales
+    if page_tables is not None:
+        quant_paged_update_layer(cache_k, cache_v, ks_l, vs_l, k, v, index,
+                                 page_tables)
+    else:
+        quant_update_layer(cache_k, cache_v, ks_l, vs_l, k, v, index)
+    return dict(k_scale=ks_l, v_scale=vs_l)
+
+
+def _mla_attention(cfg: ModelConfig, attn_impl: str, hx, lp, cos, sin,
+                   cache, fresh_cache, attn_kind, page_tables, segments,
+                   kv_scales):
+    """Multi-head latent attention (DeepSeek) on the normed hx (B, S, D).
+    Returns o (B, S, H * v_head_dim) before the output projection.
+
+    Port of the JAX package's `_mla_attention` (models/transformer.py
+    :783-940), numerics as HF's DeepseekV2Attention: the qk_rope slice of
+    q and the one shared key slice k_pe rotate in adjacent pairs, the
+    score scale is qk_head_dim ** -0.5. Two forms:
+      - expanded (the cache-free forward and a fresh prefill): the normed
+        latent c expands per head into k_nope and v; k = [k_nope, k_pe],
+        v padded to the qk width so the flash kernel applies, the pad
+        sliced off after;
+      - absorbed (decode, chunk continuations, prefix-hit suffixes): the
+        cache holds ONE row per token, [c, k_pe] (kv_lora_rank + rope
+        wide, cache_kv_heads 1, a zero-width v), and the queries project
+        into latent space (q_nope @ W_bk, then q_pe), so attention is MQA
+        against the latent with the same cache array as k AND v; the
+        weighted sum's first kv_lora_rank lanes re-expand through W_bv.
+        Exact algebra, and the cache is n_heads-fold smaller than the
+        expanded k/v. An int8 latent cache keeps one scale a row, which
+        serves both roles.
+    """
+    m = cfg.mla
+    cdt = cfg.compute_dtype
+    b, s, _ = hx.shape
+    h, r = cfg.n_heads, m.kv_lora_rank
+    scale = m.qk_head_dim ** -0.5
+    if m.q_lora_rank is None:
+        q = hx @ lp["wq"].to(cdt)
+    else:
+        qa = rms_norm(hx @ lp["wq_a"].to(cdt), lp["q_a_norm"],
+                      cfg.norm_eps).to(cdt)
+        q = qa @ lp["wq_b"].to(cdt)
+    q = q.reshape(b, s, h, m.qk_head_dim)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_pe = apply_rope_interleaved(q[..., m.qk_nope_head_dim:], cos, sin)
+    ckv = hx @ lp["wkv_a"].to(cdt)  # (b, s, kv_lora_rank + rope)
+    c = rms_norm(ckv[..., :r], lp["kv_a_norm"], cfg.norm_eps).to(cdt)
+    k_pe = apply_rope_interleaved(ckv[..., None, r:], cos, sin)  # (b,s,1,·)
+    w_bk = lp["wkv_b_k"].to(cdt)  # (r, h, nope)
+    w_bv = lp["wkv_b_v"].to(cdt)  # (r, h, v)
+
+    def expanded():
+        k_nope = (c @ w_bk.reshape(r, -1)).reshape(b, s, h, -1)
+        v = (c @ w_bv.reshape(r, -1)).reshape(b, s, h, -1)
+        k = torch.cat([k_nope, k_pe.expand(b, s, h, m.qk_rope_head_dim)],
+                      dim=-1)
+        qf = torch.cat([q_nope, q_pe], dim=-1)
+        vp = torch.nn.functional.pad(v, (0, m.qk_head_dim - m.v_head_dim))
+        o = attention(qf, k, vp, causal=True, impl=attn_impl,
+                      q_segments=segments, kv_segments=segments)
+        return o[..., :m.v_head_dim]
+
+    if cache is None:
+        return expanded().reshape(b, s, h * m.v_head_dim)
+    latent = torch.cat([c[:, :, None, :], k_pe], dim=-1)  # (b, s, 1, ·)
+    scales = _write_cache(cache, latent, latent[..., :0], page_tables,
+                          kv_scales)
+    if fresh_cache:
+        return expanded().reshape(b, s, h * m.v_head_dim)
+    if scales:
+        scales["v_scale"] = scales["k_scale"]
+    cache_k, _, index = cache
+    q_lat = torch.cat(
+        [torch.einsum("bshn,rhn->bshr", q_nope, w_bk), q_pe], dim=-1)
+    if page_tables is not None:
+        o_lat = paged_decode_attention(q_lat, cache_k, cache_k, page_tables,
+                                       index, scale=scale, impl=attn_impl,
+                                       **scales)
+    else:
+        o_lat = decode_attention(q_lat, cache_k, cache_k, index, scale=scale,
+                                 impl=attn_impl, **scales)
+    o = torch.einsum("bshr,rhv->bshv", o_lat[..., :r], w_bv)
+    return o.reshape(b, s, h * m.v_head_dim)
 
 
 def _block_mlp(cfg: ModelConfig, x, lp, moe_layer: bool = False,

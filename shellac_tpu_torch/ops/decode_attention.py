@@ -20,7 +20,11 @@ On CUDA tensors each launches its kernel (`csrc/decode_attention.cu`,
 range, or raises on a shape the kernel does not take. A bf16 q takes the
 split-K body of `csrc/decode_split.cuh` over the dense cache and the
 paged pool, each in bf16 or int8; the fp32 parity path takes the
-one-block-per-(slot, kv head) body of `csrc/decode_core.cuh`. An int8
+one-block-per-(slot, kv head) body of `csrc/decode_core.cuh`. MLA's
+absorbed decode (D 576: every q head against one latent row a token,
+the same array as k and v, with no window, softcap or sinks) takes the
+wide body of `csrc/decode_wide.cuh` in bf16 and fp32, over bf16, fp32
+and int8 caches. An int8
 cache on the card launches its int8 kernel or raises: nothing
 dequantizes the whole cache there (the JAX package's
 `QuantFallbackWarning` fallback is not ported). On CPU tensors each
@@ -45,9 +49,12 @@ from shellac_tpu_torch.ops.dispatch import refuse_grad
 
 _KERNEL_DTYPES = {torch.float32: _build.DTYPE_F32,
                   torch.bfloat16: _build.DTYPE_BF16}
-KERNEL_HEAD_DIMS = (64, 128)
-# Most q rows one block holds per kv head (G * s): the kernel keeps one
-# fp32 accumulator per row per thread in registers.
+# 576: MLA's absorbed decode (kv_lora_rank 512 + qk_rope_head_dim 64), the
+# wide body of csrc/decode_wide.cuh.
+KERNEL_HEAD_DIMS = (64, 128, 576)
+WIDE_HEAD_DIM = 576
+# Most q rows one block holds per kv head (G * s) at D 64 and 128; the
+# wide body takes any number, 16 a CTA.
 KERNEL_MAX_ROWS = 16
 # Most table entries per slot: the fp32 paged body stages a slot's live
 # entries in shared memory.
@@ -89,13 +96,15 @@ def _decode_ref(q, cache_k, cache_v, index, window, scale, softcap=None,
     )
 
 
-def _check_kernel_args(name, q, k, v, index, window, sinks, quant,
+def _check_kernel_args(name, q, k, v, index, window, softcap, sinks, quant,
                        k_scale, v_scale, scale_shape):
     """What both decode kernels need (after `refuse_grad`), in the
     compute dtype or int8:
     CUDA, contiguous tensors; q fp32 or bf16; the cache in q's dtype or
-    int8 with fp32 scales of `scale_shape`; D 64 or 128 in both; whole
-    GQA groups of at most KERNEL_MAX_ROWS rows; 16-byte aligned caches.
+    int8 with fp32 scales of `scale_shape`; D 64, 128 or 576 in both; whole
+    GQA groups, of at most KERNEL_MAX_ROWS rows at D 64 and 128; at D 576
+    MLA's latent: v the same storage as k (and v_scale as k_scale), no
+    window, softcap or sinks; 16-byte aligned caches.
     Raises ValueError naming what is wrong."""
     tensors = [q, k, v, index] + ([k_scale, v_scale] if quant else [])
     if not all(t.is_cuda for t in tensors):
@@ -116,7 +125,14 @@ def _check_kernel_args(name, q, k, v, index, window, sinks, quant,
                          f"{KERNEL_HEAD_DIMS}")
     if h % hkv != 0:
         raise ValueError(f"n_heads={h} not divisible by n_kv_heads={hkv}")
-    if (h // hkv) * s > KERNEL_MAX_ROWS:
+    if d == WIDE_HEAD_DIM:
+        if v.data_ptr() != k.data_ptr() or (
+                quant and v_scale.data_ptr() != k_scale.data_ptr()):
+            raise ValueError(f"{name}: at D {d} v must be k's storage (and "
+                             "v_scale k_scale's): MLA's latent")
+        if window is not None or softcap is not None or sinks is not None:
+            raise ValueError(f"{name}: at D {d} no window, softcap or sinks")
+    elif (h // hkv) * s > KERNEL_MAX_ROWS:
         raise ValueError(
             f"{name}: G*s = {(h // hkv) * s} rows per kv head > "
             f"{KERNEL_MAX_ROWS}"
@@ -152,8 +168,9 @@ def _dense_cuda(wrapper, q, cache_k, cache_v, index, window, scale, softcap,
     refuse_grad(name, q, cache_k, cache_v, sinks, k_scale, v_scale)
     if cache_k.dim() != 4 or q.dim() != 4 or cache_k.shape[0] != q.shape[0]:
         raise ValueError(f"{name}: q (B,s,H,D), cache (B,Hkv,L,D)")
-    _check_kernel_args(name, q, cache_k, cache_v, index, window, sinks,
-                       quant, k_scale, v_scale, tuple(cache_k.shape[:3]))
+    _check_kernel_args(name, q, cache_k, cache_v, index, window, softcap,
+                       sinks, quant, k_scale, v_scale,
+                       tuple(cache_k.shape[:3]))
     b, s, h, d = q.shape
     _, hkv, max_len, _ = cache_k.shape
     if scale is None:
@@ -243,16 +260,17 @@ def decode_attention(
 
 
 def paged_decode_supported(q, pool_k, *, quant: bool = False) -> bool:
-    """Whether the CUDA paged kernel takes these shapes: D 64 or 128 in
+    """Whether the CUDA paged kernel takes these shapes: D 64, 128 or 576 in
     both q and the pool, q fp32 or bf16, the pool in q's dtype (or int8
     with quant), whole GQA groups, at most KERNEL_MAX_ROWS q rows per kv
-    head. Any block size, int8 included."""
+    head below D 576. Any block size, int8 included."""
     b, s, h, d = q.shape
     hkv, dk = pool_k.shape[1], pool_k.shape[3]
     kv_dtype = torch.int8 if quant else q.dtype
     return (d in KERNEL_HEAD_DIMS and dk == d
             and q.dtype in _KERNEL_DTYPES and pool_k.dtype == kv_dtype
-            and h % hkv == 0 and (h // hkv) * s <= KERNEL_MAX_ROWS)
+            and h % hkv == 0
+            and (d == WIDE_HEAD_DIM or (h // hkv) * s <= KERNEL_MAX_ROWS))
 
 
 def _paged_decode_ref(q, pool_k, pool_v, tables, index, window, scale,
@@ -279,8 +297,9 @@ def _paged_cuda(wrapper, q, pool_k, pool_v, tables, index, window, scale,
         raise ValueError(f"{name} needs CUDA tensors")
     if q.dim() != 4 or pool_k.dim() != 4:
         raise ValueError(f"{name}: q (B,s,H,D), pools (n_blocks,Hkv,bs,D)")
-    _check_kernel_args(name, q, pool_k, pool_v, index, window, sinks,
-                       quant, k_scale, v_scale, tuple(pool_k.shape[:3]))
+    _check_kernel_args(name, q, pool_k, pool_v, index, window, softcap,
+                       sinks, quant, k_scale, v_scale,
+                       tuple(pool_k.shape[:3]))
     b, s, h, d = q.shape
     _, hkv, bs, _ = pool_k.shape
     if tables.dtype != torch.int32 or tables.dim() != 2 \

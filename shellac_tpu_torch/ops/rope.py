@@ -1,4 +1,5 @@
-"""Rotary position embeddings (non-interleaved / NeoX half-rotation form).
+"""Rotary position embeddings: the NeoX half rotation (`apply_rope`) and
+MLA's adjacent-pair rotation (`apply_rope_interleaved`).
 
 Frequencies are computed in fp32 regardless of compute dtype: bf16 loses
 precision at long positions. Same numerics as the JAX package's
@@ -133,3 +134,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     out1 = x1f * c - x2f * s
     out2 = x2f * c + x1f * s
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor) -> torch.Tensor:
+    """Rotate ADJACENT pairs of the head dim (the complex / GPT-J form).
+
+    DeepSeek's MLA rope treats (x[2i], x[2i+1]) as one complex number,
+    unlike `apply_rope`'s half rotation; port of the JAX package's
+    `apply_rope_interleaved` (ops/rope.py:116). Shapes as `apply_rope`:
+    x (..., S, H, D), cos/sin broadcastable to (..., S, 1, D/2). fp32
+    rotation, cast back to x's dtype.
+    """
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)

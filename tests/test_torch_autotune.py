@@ -14,6 +14,8 @@ tokens; fixed settings are not tuned; a tight cache narrows the sweep
 instead of failing.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

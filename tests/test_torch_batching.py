@@ -10,6 +10,8 @@ of 1e-4, so a token cannot flip on fp32 summation order; most tokens
 must qualify.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import importlib
 import zlib
 

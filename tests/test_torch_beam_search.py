@@ -38,6 +38,8 @@ beams with their `beam_score`, and refuses what does not compose with
 beams; `generate --num-beams` prints the engine's beams.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import functools
 import json
 import threading

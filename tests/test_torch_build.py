@@ -10,6 +10,8 @@ arguments, `c_void_p` exactly where the C side takes a pointer, `c_int`
 for an int and `c_float` for a float.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import ctypes
 import re
 

@@ -15,6 +15,8 @@ ways: scrambled bytes of the same length, a deleted payload, a tampered
 manifest, a backdated tmp directory.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import io
 import json
 import os

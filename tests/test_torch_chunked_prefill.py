@@ -16,6 +16,8 @@ math up to fp32 summation order: the port's chunked tokens also equal
 its whole-prompt engine's where that margin allows.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import zlib
 
 import jax

@@ -2,9 +2,11 @@
 
 `serve` runs as a subprocess on `--port 0`: it prints its
 {"serving": url} line, answers requests with the tokens the port's
-engines give in process on the same seed, and exits 0 on SIGINT.
-`generate` and `batch` (run in process through `cli.main`, as the
-subprocesses already cover `python -m`) print or write the tokens of the
+engines give in process on the same seed, and exits 0 on SIGINT. A
+second `serve` runs in process through `cli.main`, stopped by shutting
+its HTTP server down. `generate` and `batch` (run in process through
+`cli.main`, as the subprocess already covers `python -m`) print or write
+the tokens of the
 port's `Engine` and batching engines on the same seed. The serving defaults (the overlap
 pipelines, `--decode-ticks auto`, `--max-prefills-per-step`) are the
 reference parser's. What the port lacks (a tokenizer.json that is not
@@ -12,11 +14,14 @@ byte-level BPE, an MLA model) raises NotImplementedError, and without
 `--device cpu` the commands want a card.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
-import os
 import signal
 import subprocess
 import sys
+import threading
+import time
 import urllib.request
 from pathlib import Path
 
@@ -38,8 +43,9 @@ REPO = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 TOK = ByteTokenizer()
 # The package is found from the working directory; the interpreter's
-# startup hooks (PYTHONPATH) are left out, as the port needs none.
-ENV = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+# startup hooks (PYTHONPATH) are left out, as the port needs none, and
+# the subprocess keeps one torch thread as the tests do.
+ENV = torch_threads.ENV
 
 
 def _cli(capsys, *args):
@@ -114,12 +120,46 @@ def test_serve_answers_and_stops_on_sigint():
     assert 'shellac_engine_cache_backend_info{backend="dense"} 1' in metrics
 
 
-def test_serve_config_over_the_paged_engine(tmp_path):
+class _ServedInProcess:
+    """`serve` run through `cli.main` on a thread of this process (the
+    subprocess above covers `python -m` and SIGINT); stopped by shutting
+    its HTTP server down, after which `cli.main` must return 0."""
+
+    def __init__(self, monkeypatch, *args):
+        from shellac_tpu_torch.inference import server
+
+        made = []
+        make = server.make_http_server
+
+        def capture(srv, host, port):
+            made.append(make(srv, host, port))
+            return made[-1]
+
+        monkeypatch.setattr(server, "make_http_server", capture)
+        self.rc = []
+        self.thread = threading.Thread(target=lambda: self.rc.append(
+            cli.main(["serve", "--device", "cpu", "--port", "0", *args])))
+        self.thread.start()
+        while not made and self.thread.is_alive():
+            time.sleep(0.05)
+        assert made, "serve stopped before it served"
+        self.httpd = made[0]
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.thread.join(timeout=60)
+        assert not self.thread.is_alive()
+        return self.rc[0]
+
+
+def test_serve_config_over_the_paged_engine(tmp_path, monkeypatch):
     conf = tmp_path / "cfg.json"
     conf.write_text(json.dumps({"preset": "tiny", "dtype": "float32",
                                 "n_layers": 1}))
-    srv = _Served("--config", str(conf), "--cache-backend", "paged",
-                  "--slots", "2", "--max-len", "64", "--seed", "2")
+    srv = _ServedInProcess(monkeypatch, "--config", str(conf),
+                           "--cache-backend", "paged", "--slots", "2",
+                           "--max-len", "64", "--seed", "2")
     msgs = [{"role": "user", "content": "hi"}]
     try:
         native = json.loads(_post(srv.base, "/generate",
@@ -128,8 +168,8 @@ def test_serve_config_over_the_paged_engine(tmp_path):
         chat = json.loads(_post(srv.base, "/v1/chat/completions",
                                 {"messages": msgs, "max_tokens": 4}))
     finally:
-        rc, err = srv.stop()
-    assert rc == 0, err
+        rc = srv.stop()
+    assert rc == 0
     cfg, params = _model(2, dtype="float32", n_layers=1)
     from shellac_tpu_torch.inference.openai_api import render_chat
 
@@ -192,7 +232,7 @@ def test_batch_gives_the_batching_engine_tokens(capsys, tmp_path, backend):
 def test_unported_options_raise(tmp_path, kind):
     """What the port still lacks raises NotImplementedError: a
     tokenizer.json that is not byte-level BPE, and a native directory of
-    an MLA model."""
+    an MLA model that sets quantized training dots (MLA itself serves)."""
     import dataclasses
 
     argv = ["generate", "--device", "cpu", "--text", "hi"]
@@ -203,7 +243,8 @@ def test_unported_options_raise(tmp_path, kind):
         argv += ["--tokenizer", str(path)]
     else:
         (tmp_path / "config.json").write_text(json.dumps(
-            dataclasses.asdict(get_model_config("tiny-mla"))))
+            dataclasses.asdict(get_model_config("tiny-mla").replace(
+                quant_training="int8"))))
         argv += ["--native-dir", str(tmp_path)]
     with pytest.raises(NotImplementedError):
         cli.main(argv)

@@ -19,6 +19,8 @@ of 1e-4 (tests/test_torch_model.py's rule); every port output walks its
 DFA without meeting -1.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import zlib
 
 import jax

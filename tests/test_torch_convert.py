@@ -11,8 +11,11 @@ JAX package's field by field; the port's `from_hf(dir)` gives exactly
 serving storage; the port's fp32 forward gives the `transformers` logits
 within LOGITS_ATOL; `to_state_dict` equals the JAX export; and a
 config.json with every key that equals its class default deleted maps to
-the config `AutoConfig` gives. Also: a sharded directory, DeepSeek
-(MLA) raising NotImplementedError, the missing-weight message, the
+the config `AutoConfig` gives. DeepSeek-V2 and V3 (MLA; first-k-dense
+MoE, the V3 gate's correction biases, low-rank queries) convert as the
+JAX package converts them and give transformers' logits, and export where
+the reference exports (dense-MLP MLA only). Also: a sharded directory,
+what DeepSeek conversion still refuses, the missing-weight message, the
 safetensors reader and writer against the `safetensors` package both
 ways, `convert` then `generate --native-dir` through `cli.main`, a
 config.json written by the JAX `convert` rehydrating in the port, and
@@ -20,6 +23,8 @@ config.json written by the JAX `convert` rehydrating in the port, and
 through the port's mapping, equal to the JAX package's mapping of them and
 to the config that was written there by hand.
 """
+
+import torch_threads  # noqa: F401  (first: one torch thread)
 
 import dataclasses
 import io
@@ -231,19 +236,148 @@ def test_sharded_directory_loads_as_one(tmp_path):
 
 
 def test_deepseek_raises(tmp_path):
-    hf = transformers.DeepseekV2Config(
-        vocab_size=128, hidden_size=64, intermediate_size=176,
-        num_hidden_layers=2, num_attention_heads=4, kv_lora_rank=16,
-        q_lora_rank=None, qk_nope_head_dim=16, qk_rope_head_dim=8,
-        v_head_dim=16, first_k_dense_replace=2)
+    """DeepSeek converts (tests/test_torch_mla.py), but what the reference
+    cannot represent still raises, as it does there: an all-MoE stack, an
+    attention bias, and a quantized checkpoint."""
+    tiny = dict(vocab_size=128, hidden_size=64, intermediate_size=176,
+                num_hidden_layers=2, num_attention_heads=4, kv_lora_rank=16,
+                q_lora_rank=None, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                v_head_dim=16, first_k_dense_replace=2)
+    for over, match in ((dict(first_k_dense_replace=0), "all-MoE"),
+                        (dict(attention_bias=True), "attention_bias")):
+        hf = transformers.DeepseekV2Config(**{**tiny, **over})
+        with pytest.raises(NotImplementedError, match=match):
+            jconv.config_from_hf(hf)
+        with pytest.raises(NotImplementedError, match=match):
+            tconv.config_from_hf(hf)
+    hf = transformers.DeepseekV2Config(**tiny)
+    hf.quantization_config = {"quant_method": "fp8"}
     hf.save_pretrained(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tconv.config_from_hf(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tconv.config_from_hf(hf)
-    with pytest.raises(NotImplementedError, match="MLA"):
+    with pytest.raises(NotImplementedError, match="quantized"):
         tconv.from_hf(str(tmp_path), device=CPU)
 
+
+# --------------------------------------------------------------------------
+# DeepSeek conversion
+# --------------------------------------------------------------------------
+
+_DS_TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=96,
+                num_hidden_layers=3, num_attention_heads=4,
+                num_key_value_heads=4, kv_lora_rank=32,
+                qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+                moe_intermediate_size=32, max_position_embeddings=256,
+                rms_norm_eps=1e-6, attn_implementation="eager")
+
+# name -> (config class, model class, config kwargs over _DS_TINY, seed)
+DEEPSEEK = {
+    # V2: greedy softmax gate, full-rank queries, first layer dense.
+    "deepseek-v2": ("DeepseekV2Config", "DeepseekV2ForCausalLM",
+                    dict(q_lora_rank=None, first_k_dense_replace=1,
+                         n_routed_experts=4, num_experts_per_tok=2,
+                         n_shared_experts=1, routed_scaling_factor=1.5),
+                    20),
+    # V3: sigmoid gate with correction biases and groups, low-rank q.
+    "deepseek-v3": ("DeepseekV3Config", "DeepseekV3ForCausalLM",
+                    dict(q_lora_rank=24, first_k_dense_replace=1,
+                         n_routed_experts=8, num_experts_per_tok=2,
+                         n_shared_experts=1, n_group=2, topk_group=1,
+                         routed_scaling_factor=2.5), 21),
+    # Every layer dense: the MLA model that exports back.
+    "deepseek-v2-dense": ("DeepseekV2Config", "DeepseekV2ForCausalLM",
+                          dict(q_lora_rank=24, first_k_dense_replace=3,
+                               n_routed_experts=4, num_experts_per_tok=2),
+                          22),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(DEEPSEEK))
+def deepseek(request, tmp_path_factory):
+    """A tiny DeepSeek model built from its transformers class (nothing
+    downloaded), saved once, with the JAX package's conversion of it."""
+    name = request.param
+    cfg_cls, model_cls, over, seed = DEEPSEEK[name]
+    hf_cfg = getattr(transformers, cfg_cls)(**{**_DS_TINY, **over})
+    torch.manual_seed(seed)
+    model = getattr(transformers, model_cls)(hf_cfg).eval()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if "norm" in pname:
+                p.add_(0.3 * torch.randn(p.shape, generator=gen))
+        for pname, b in model.named_buffers():
+            if "e_score_correction_bias" in pname:
+                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+    path = str(tmp_path_factory.mktemp(name))
+    model.save_pretrained(path, safe_serialization=True)
+    jcfg, jparams = jconv.from_hf(path)
+    return dict(name=name, model=model, dir=path, jcfg=jcfg, 
+                jparams=jax.tree.map(np.asarray, jparams))
+
+
+def test_deepseek_from_hf_matches_jax_and_transformers(deepseek):
+    """The DeepSeek config and weights convert as the JAX package converts
+    them (the two-stack tree of a first-k-dense model lands per layer),
+    and the port's forward on them gives transformers' logits."""
+    cfg, params = tconv.from_hf(deepseek["dir"], device=CPU, master=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(deepseek["jcfg"])
+    assert tconv.config_from_hf(deepseek["model"].config) == cfg
+    want = params_from_jax(cfg, deepseek["jparams"], device=CPU, master=True)
+    for got_l, want_l in zip(params["layers"], want["layers"]):
+        assert set(got_l) == set(want_l)
+        for k in want_l:
+            assert torch.equal(got_l[k], want_l[k]), k
+    for k in ("embed", "final_norm", "lm_head"):
+        assert torch.equal(params[k], want[k]), k
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)))
+    with torch.no_grad():
+        ref = deepseek["model"](tokens).logits
+        got = tt.forward(cfg.replace(dtype="float32"), params, tokens,
+                         device=CPU)
+    torch.testing.assert_close(got, ref, atol=LOGITS_ATOL, rtol=0)
+
+
+def test_deepseek_to_state_dict_matches_jax(deepseek):
+    """A dense-MLP MLA model exports under DeepSeek's names, as the JAX
+    package exports it, and loads back into transformers strictly; MLA
+    with MoE layers is refused by both."""
+    cfg, params = tconv.from_hf(deepseek["dir"], device=CPU, master=True)
+    jtree = jax.tree.map(np.asarray, deepseek["jparams"])
+    if cfg.moe is not None:
+        with pytest.raises(NotImplementedError):
+            jconv.to_state_dict(deepseek["jcfg"], jtree)
+        with pytest.raises(NotImplementedError, match="MLA"):
+            tconv.to_state_dict(cfg, params)
+        return
+    got = tconv.to_state_dict(cfg, params)
+    want = jconv.to_state_dict(deepseek["jcfg"], jtree)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    deepseek["model"].load_state_dict(got)
+
+
+
+def test_deepseek_convert_then_generate_native_dir(deepseek, tmp_path):
+    """`convert` of a DeepSeek directory writes a native one that
+    `generate --native-dir` serves over the latent cache: the tokens of
+    Engine on from_hf's parameters."""
+    out = str(tmp_path / "native")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert cli.main(["convert", "--hf-dir", deepseek["dir"], "--out",
+                         out, "--device", CPU]) == 0
+        assert cli.main(["generate", "--device", CPU, "--native-dir", out,
+                         "--prompt", "5,9,2,31", "--max-new", "6",
+                         "--temperature", "0"]) == 0
+    _, gen = [json.loads(x) for x in buf.getvalue().splitlines()]
+    cfg, params = tconv.from_hf(deepseek["dir"], device=CPU)
+    ncfg, nparams = cli._load_native(out, CPU)
+    assert ncfg == cfg and ncfg.mla is not None
+    _tree_equal(nparams, params)
+    want = Engine(cfg, params, temperature=0.0, device=CPU).generate(
+        torch.tensor([[5, 9, 2, 31]]), max_new_tokens=6)
+    assert gen["tokens"] == want.tokens[0].tolist()
 
 def test_missing_key_message():
     model = _model("llama-gqa")

@@ -33,6 +33,8 @@ Engine.generate's graphs, the window graphs and the prefill graphs give
 the eager programs' tokens, logprobs and launch counts.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch
@@ -840,3 +842,129 @@ def test_moe_prefill_graphs_match_eager(name, backend):
     assert counts["graph"] == counts["eager"]
     assert counts["graph"]["flash_attention_cuda"] == cfg.n_layers * 8
     assert _prefill_graphs(g) == 3 and _prefill_graphs(e) == 0
+
+
+# --------------------------------------------------------------------------
+# MLA (latent caches) inside the graphs
+# --------------------------------------------------------------------------
+
+_MLA = {}
+
+
+def _mla_model(dev):
+    """shellac-mla-2b's width (16 heads, latent 512 + rope 64: the decode
+    kernels at D 576, the flash forward at 192), 2 layers, bf16."""
+    if "m" not in _MLA:
+        cfg = get_model_config("shellac-mla-2b").replace(n_layers=2)
+        _MLA["m"] = cfg, transformer.init_params(cfg, seed=9, device=dev)
+    return _MLA["m"]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_mla_generate_graphs_match_eager(kv_quant):
+    """Engine.generate over the dense latent cache: the decode-step graph
+    replays give the eager loop's tokens, logprobs and launch counts, the
+    decode through the D 576 kernel and the prefill through kernel 2 at
+    192."""
+    dev = _card()
+    cfg, params = _mla_model(dev)
+    toks, lens = _prompts(cfg.vocab_size)
+    out, counts = {}, {}
+    for key, cls in (("eager", _EagerEngine), ("graph", Engine)):
+        eng = cls(cfg, params, max_len=256, temperature=0.0,
+                  kv_quant=kv_quant, device=dev)
+        eng.generate(toks.to(dev), lens.to(dev), max_new_tokens=10)
+        _reset()
+        out[key] = eng.generate(toks.to(dev), lens.to(dev),
+                                max_new_tokens=10)
+        torch.cuda.synchronize()
+        counts[key] = _counts()
+    assert torch.equal(out["graph"].tokens, out["eager"].tokens)
+    assert torch.equal(out["graph"].logprobs, out["eager"].logprobs)
+    assert counts["graph"] == counts["eager"]
+    decode = ("decode_attention_quant_cuda" if kv_quant
+              else "decode_attention_cuda")
+    assert counts["graph"][decode] == cfg.n_layers * 9
+    assert counts["graph"]["flash_attention_cuda"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_mla_window_graphs_match_eager(backend):
+    """Decode windows over the four latent caches (3 ticks, both
+    pipelines): the graph's tokens, logprobs and launch counts equal the
+    eager windows' through slot churn."""
+    dev = _card()
+    cfg, params = _mla_model(dev)
+    reqs = _requests(cfg.vocab_size)
+    cls = _batching_cls(backend)
+    out, counts, engines = {}, {}, {}
+    for key, c in (("eager", _eager(cls)), ("graph", cls)):
+        eng = c(cfg, params, decode_ticks=3, logprobs=True, device=dev,
+                overlap_decode=True, overlap_prefill=True,
+                **_engine_kw(backend))
+        _reset()
+        out[key] = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts[key], engines[key] = _counts(), eng
+    assert out["graph"] == out["eager"]
+    for rid, _, _ in reqs:
+        assert (engines["graph"].finished_logprobs[rid]
+                == engines["eager"].finished_logprobs[rid])
+    assert counts["graph"] == counts["eager"]
+    assert engines["graph"].stats["decode_graphs"] == 1
+    assert engines["graph"].stats["decode_windows"] > 2
+
+
+def test_profiled_engine_steps_keep_their_device_time(monkeypatch):
+    """`chip_smoke.profile_call` over engine steps under the reference
+    serve's pipelines (a decode window in flight at each profile's
+    start), as chip_smoke's serve, prefix-serve and mla phases profile
+    them. On the H100 host about 1 in 130 such profiles held the step's
+    runtime calls but no device activity, and the phase stopped with
+    "the trace holds no device time". Every step must report device
+    time from its trace, without the window's opening kernel, or say that
+    CUPTI lost the trace: no device ms, and the CUDA events' span beside
+    it (a lost trace simulated by a profiler that records nothing)."""
+    import chip_smoke
+
+    dev = _card()
+    cfg, params = _model(dev)
+    eng = batching.PagedBatchingEngine(
+        cfg, params, n_slots=4, max_len=512, block_size=16, decode_ticks=1,
+        device=dev, overlap_decode=True, overlap_prefill=True,
+        max_prefills_per_step=1)
+    rng = np.random.default_rng(5)
+    for i in range(4):
+        eng.submit(f"r{i}", rng.integers(0, cfg.vocab_size, 64), 400)
+    while eng._queue or eng._pflights or any(
+            r is not None and not r.out for r in eng._slots):
+        eng.step()
+    for _ in range(100):
+        p = chip_smoke.profile_call(eng.step)
+        assert p["event_ms"] > 0
+        if p["trace_lost"]:
+            assert p["device_ms"] is None and p["launches"] is None
+        else:
+            assert p["device_ms"] > 0 and p["device_ms_by_kind"]
+            assert not any("spin_kernel" in r["kernel"] for r in p["top"])
+
+    class Lost:
+        """A profile window that recorded no device activity."""
+
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(torch.profiler, "profile", Lost)
+    p = chip_smoke.profile_call(eng.step)
+    assert p["trace_lost"] and p["device_ms"] is None and p["event_ms"] > 0
+    eng.abort_all()
+    eng.close()

@@ -11,6 +11,8 @@ plus rtol 2e-2 (outputs are rounded to bf16, and attention rounds p to
 bf16 before the p.V product).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import pytest
 import torch
 
@@ -1084,3 +1086,210 @@ def test_decode_kernels_at_the_beam_shapes(dtype, case):
             pv.masked_fill(rows[..., None], float("nan")), tables, idx)
         ref = da._paged_decode_ref(q, pk, pv, tables, idx, None, scale)
     _close(out, ref, dtype)
+
+
+# --------------------------------------------------------------------------
+# MLA's widths: the absorbed decode at D 576, the expanded prefill at 192
+# --------------------------------------------------------------------------
+
+# shellac-mla-2b's and DeepSeek-V2-Lite's attention: 16 q heads against
+# ONE latent row a token, 576 wide (kv_lora_rank 512 + rope 64), with the
+# same array as k and v; DeepSeek-V2/V3's 128 heads (8 CTAs of 16 rows a
+# slot), and rows that leave the last CTA part full (24 heads at s 2).
+# Lengths ragged from 0, across a tile and past one CTA's share of a
+# cluster (a split of up to 8 x 32-position tiles), to the table's end.
+# The wide body takes only the latent: two arrays, or a window, softcap or
+# sinks, are refused ("refused").
+_MLA_LENGTHS = [0, 1, 31, 32, 300, 511, 1023, 2047]
+_MLA = {
+    "dense_same": dict(paged=False, same=True),
+    "dense_two_arrays": dict(paged=False, same=False, refused=True),
+    "dense_b1_short": dict(paged=False, same=True, index=[5]),
+    "dense_window_softcap_sinks": dict(paged=False, same=True, window=300,
+                                       softcap=30.0, sinks=True,
+                                       refused=True),
+    "dense_128_heads": dict(paged=False, same=True, heads=128),
+    "dense_24_heads_s2": dict(paged=False, same=True, heads=24, s=2,
+                              index=[0, 1, 31, 300, 1022, 2046]),
+    "paged_same_bs16": dict(paged=True, same=True, bs=16),
+    "paged_same_bs64": dict(paged=True, same=True, bs=64),
+    "paged_128_heads_bs64": dict(paged=True, same=True, bs=64, heads=128),
+    "paged_two_arrays_bs32": dict(paged=True, same=False, bs=32,
+                                  refused=True),
+    "paged_window_mid_page": dict(paged=True, same=True, bs=16, window=200,
+                                  index=[700, 129, 2047, 64], refused=True),
+}
+
+
+def _mla_inputs(case, dtype, dev, quant=False):
+    """q (B, s, heads, 576) (s 1 and 16 heads unless the case says), the
+    latent cache (dense (B, 1, 2048, 576) or a paged pool, NaN on every
+    row no slot attends), its v (the same tensor or another), index,
+    and the call's keyword arguments; int8 with one scale a row (`quant`,
+    shared by k and v when `same`). Returns (args, kwargs, plain_args):
+    the kernel call's positional args and the plain version's on the
+    clean storage."""
+    c = dict(_MLA[case])
+    paged, same = c.pop("paged"), c.pop("same")
+    c.pop("refused", None)
+    heads, s = c.pop("heads", 16), c.pop("s", 1)
+    index = torch.tensor(c.pop("index", _MLA_LENGTHS), dtype=torch.int32)
+    b, L, d = len(index), 2048, 576
+    gen = torch.Generator(device=dev).manual_seed(len(case) + 576)
+    q = _randn(gen, (b, s, heads, d), dtype, dev)
+    if c.pop("sinks", False):
+        c["sinks"] = _randn(gen, (heads,), torch.float32, dev)
+    c["scale"] = 192 ** -0.5
+    if paged:
+        bs = c.pop("bs")
+        k, v, tables, pk, pv = _paged_pool(gen, dtype, dev, index, s, 1, bs,
+                                           d, L // bs, window=c.get("window"))
+        if same:
+            v, pv = k, pk
+        store, poisoned = (k, v), (pk, pv)
+        extra = (tables,)
+    else:
+        k = _randn(gen, (b, 1, L, d), dtype, dev)
+        v = k if same else _randn(gen, (b, 1, L, d), dtype, dev)
+        pos = torch.arange(L, device=dev)[None, :]
+        lo = (index.to(dev)[:, None] - c["window"] + 1
+              if "window" in c else torch.zeros_like(pos))
+        dead = ((pos >= index.to(dev)[:, None] + s)
+                | (pos < lo))[:, None, :, None]
+        pk = k.masked_fill(dead, float("nan"))
+        pv = pk if same else v.masked_fill(dead, float("nan"))
+        store, poisoned = (k, v), (pk, pv)
+        extra = ()
+    idx = index.to(dev)
+    if not quant:
+        return (q, *poisoned, *extra, idx), c, (q, *store, *extra, idx)
+    from shellac_tpu_torch.inference.cache import quantize_kv
+
+    def quantized(x):
+        xq, xs = quantize_kv(x.float()[None])
+        return xq[0].contiguous(), xs[0].contiguous()
+
+    kq, ks = quantized(store[0])
+    vq, vs = (kq, ks) if same else quantized(store[1])
+    # The kernel reads the same values with NaN scales on the dead rows.
+    pks = torch.where(torch.isnan(poisoned[0][..., 0].float()),
+                      float("nan"), ks)
+    pvs = pks if same else torch.where(
+        torch.isnan(poisoned[1][..., 0].float()), float("nan"), vs)
+    c.update(k_scale=pks, v_scale=pvs)
+    plain = dict(k_scale=ks, v_scale=vs)
+    return (q, kq, vq, *extra, idx), c, ((q, kq, vq, *extra, idx), plain)
+
+
+def _mla_plain(args, c, plain_scales=None):
+    """The plain decode (dense or through the pool) on the clean inputs."""
+    kw = dict(window=c.get("window"), scale=c["scale"],
+              softcap=c.get("softcap"), sinks=c.get("sinks"),
+              **(plain_scales or {}))
+    if len(args) == 5:
+        return da._paged_decode_ref(*args, **kw)
+    return da._decode_ref(*args, **kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_MLA))
+def test_mla_decode_at_576(dtype, case):
+    """Kernels 5 and 7 at D 576 (the wide body) against their plain
+    versions on clean storage: one launch of the dense or paged wrapper,
+    which reads storage poisoned with NaN everywhere no slot attends. A
+    refused case raises and launches nothing."""
+    dev = _card()
+    args, c, plain = _mla_inputs(case, dtype, dev)
+    wrapper = (da.paged_decode_attention_cuda if len(args) == 5
+               else da.decode_attention_cuda)
+    fn = da.paged_decode_attention if len(args) == 5 else da.decode_attention
+    before = wrapper.launches
+    if _MLA[case].get("refused"):
+        with pytest.raises(ValueError, match="576"):
+            fn(*args, **c)
+        assert wrapper.launches == before
+        return
+    out = fn(*args, **c)
+    assert wrapper.launches == before + 1
+    _close(out, _mla_plain(plain, c), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["dense_same", "dense_two_arrays",
+                                  "dense_window_softcap_sinks",
+                                  "dense_128_heads", "paged_same_bs64",
+                                  "paged_128_heads_bs64",
+                                  "paged_two_arrays_bs32",
+                                  "paged_window_mid_page"])
+def test_mla_int8_decode_at_576(dtype, case):
+    """Kernels 6 and 7's int8 branch at D 576 over the int8 latent (one
+    scale a row, shared by k and v): NaN scales on every row no slot
+    attends change nothing. A refused case raises and launches nothing."""
+    dev = _card()
+    args, c, (plain, scales) = _mla_inputs(case, dtype, dev, quant=True)
+    paged = len(args) == 5
+    wrapper = (da.paged_decode_attention_quant_cuda if paged
+               else da.decode_attention_quant_cuda)
+    before = wrapper.launches
+    fn = da.paged_decode_attention if paged else da.decode_attention
+    if _MLA[case].get("refused"):
+        with pytest.raises(ValueError, match="576"):
+            fn(*args, **c)
+        assert wrapper.launches == before
+        return
+    out = fn(*args, **c)
+    assert wrapper.launches == before + 1
+    _close(out, _mla_plain(plain, c, scales), dtype)
+
+
+@pytest.mark.parametrize("case", ["dense_same", "paged_same_bs16"])
+def test_mla_decode_is_deterministic(case):
+    """The wide body's calls and CUDA-graph replays are bitwise equal."""
+    dev = _card()
+    args, c, _ = _mla_inputs(case, torch.bfloat16, dev)
+    fn = da.paged_decode_attention if len(args) == 5 else da.decode_attention
+
+    def call():
+        return fn(*args, **c)
+
+    first = call()
+    assert torch.equal(first, call())
+    assert torch.equal(first, _replayed(call))
+
+
+# The expanded prefill: q, k and v (padded) 192 wide, H = Hkv = 16.
+_FLASH_192 = {
+    "generate_8x512": dict(b=8, s=512),
+    "serve_b1_s1024": dict(b=1, s=1024),
+    "tail_s333": dict(b=2, s=333),
+    "b1_s1": dict(b=1, s=1),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_FLASH_192))
+def test_flash_forward_at_192(dtype, case):
+    """Kernel 2 at D 192 (one-stage ring in bf16) against its plain
+    version; v carries MLA's zero pad past 128, which the output keeps."""
+    dev = _card()
+    b, s = _FLASH_192[case]["b"], _FLASH_192[case]["s"]
+    gen = torch.Generator(device=dev).manual_seed(s + 192)
+    q = _randn(gen, (b, s, 16, 192), dtype, dev)
+    k = _randn(gen, (b, s, 16, 192), dtype, dev)
+    v = torch.nn.functional.pad(_randn(gen, (b, s, 16, 128), dtype, dev),
+                                (0, 64))
+    before = fa.flash_attention_cuda.launches
+    out = fa.flash_attention(q, k, v)
+    assert fa.flash_attention_cuda.launches == before + 1
+    _close(out, fa.flash_attention_ref(q, k, v), dtype)
+    assert not out[..., 128:].any()
+
+
+def test_flash_192_refuses_segments_and_grad():
+    dev = _card()
+    x = torch.zeros(1, 16, 4, 192, device=dev, dtype=torch.bfloat16)
+    seg = torch.zeros(1, 16, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="segments"):
+        fa.flash_attention_cuda(x, x, x, segments=seg)
+    with pytest.raises(NotImplementedError, match="backward"):
+        fa.flash_attention(x.clone().requires_grad_(), x, x)

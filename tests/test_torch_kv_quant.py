@@ -10,6 +10,8 @@ Greedy engine tokens are compared where the JAX top-2 margin is at least
 twice that tolerance, as in tests/test_torch_model.py.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import importlib
 import zlib
 

@@ -11,7 +11,8 @@ it, and most steps must qualify; a mismatch is then a real divergence,
 not backend greedy drift.
 """
 
-import os
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import subprocess
 import sys
 import zlib
@@ -328,8 +329,20 @@ def test_entry_points_need_a_card_unless_told_cpu():
 
 @pytest.mark.parametrize("name", ["tiny-deepseek", "tiny-mla"])
 def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError):
-        tt.init_params(get_model_config(name), device=CPU)
+    """The MLA presets the port once refused construct and run: a forward,
+    and a prefill then a decode step through their latent cache, whose
+    last logits equal the forward's over the same tokens."""
+    cfg = get_model_config(name).replace(dtype="float32")
+    params = tt.init_params(cfg, device=CPU)
+    toks = torch.arange(1, 8).reshape(1, 7)
+    full = tt.forward(cfg, params, toks, device=CPU)
+    assert full.shape == (1, 7, cfg.vocab_size)
+    cache = init_cache(cfg, 1, 16, torch.device(CPU))
+    assert cache.k.shape[2:] == (1, 16, cfg.mla.cache_dim)
+    _, cache = tt.forward_with_cache(cfg, params, toks[:, :6], cache,
+                                     fresh_cache=True)
+    step, _ = tt.forward_with_cache(cfg, params, toks[:, 6:], cache)
+    torch.testing.assert_close(step[0, -1], full[0, -1], atol=1e-4, rtol=0)
 
 
 def test_unported_options_raise():
@@ -376,8 +389,8 @@ def test_import_leaves_jax_out():
         "sys.exit(1 if bad or need - set(names) or len(names) < 20 "
         "else 0)\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=torch_threads.ENV,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 

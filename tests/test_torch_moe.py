@@ -17,6 +17,8 @@ and a prefix hit) against the JAX engines on `tiny-gptoss` (dropless) and
 compared while the JAX top-2 margin is at least twice the logit tolerance.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import zlib
 
 import jax

@@ -11,6 +11,8 @@ and a request's flight-recorder timeline has the same events in the same
 order.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import math
 import threading

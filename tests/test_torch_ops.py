@@ -13,6 +13,8 @@ tests/test_decode_attention.py uses; norms and rope 1e-5 (elementwise
 fp32 with a reduction); sampling masks exact.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import functools
 import importlib
 import zlib

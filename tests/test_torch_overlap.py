@@ -21,6 +21,8 @@ hooks in pipeline order (its wall-clock savings are not asserted: the
 JAX twin of that check has flaked under load).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import zlib
 
 import jax

@@ -15,6 +15,8 @@ host code. Also: a prefix hit lowers the simulated prefill cost
 (`SimulatedHostLatency(prefill_token_s=)`) by the matched tokens.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import zlib
 
 import jax

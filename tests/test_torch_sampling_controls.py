@@ -27,6 +27,8 @@ storage, whose logits its paged cache computes too):
     the same seed gives the first call's tokens, and a fresh engine's.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import zlib
 
 import jax

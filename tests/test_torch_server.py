@@ -30,6 +30,8 @@ of shellac-1b, a stream in flight over the first graph capture) is in
 tests/test_torch_graphs.py, which imports no JAX.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import socket
 import threading

@@ -19,6 +19,8 @@ read raise NotImplementedError; and `serve --native-dir --tokenizer
 <dir>` builds its server over the directory's tokenizer.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import os
 import random

@@ -20,6 +20,8 @@ compositions answer 400; the constraint and tool metric families are
 exported. Schemas are bounded (enums), so greedy decoding ends with EOS.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import threading
 import urllib.error

@@ -29,6 +29,8 @@ a gradient element near eps, so 0.1% of a leaf's elements may leave the
 atol (each still within 2 * lr * 2^-7).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
+
 import importlib
 import zlib
 

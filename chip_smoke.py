@@ -12,10 +12,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 decode body's dense instances, kernel 5's four over bf16
                 caches and kernel 6's four over int8 caches (D 64 and
                 128, at 2 and 16 rows); kernel 7's eight, bf16 and int8
-                pools; kernel 2's D 192 instance and the wide decode
-                body's eight at MLA's D 576, dense and paged, q bf16 or
-                fp32 over caches of q's dtype or int8) must show 0 spill
-                stores, and no wgmma may be serialized (C7520).
+                pools; kernel 2's D 192 instances, with and without
+                segments, and the wide decode body's eight at MLA's D
+                576, dense and paged, q bf16 or fp32 over caches of q's
+                dtype or int8; the CUDA-core bodies at D 192: kernels 3
+                and 4 in bf16 and fp32, kernel 2 in fp32) must show 0
+                spill stores, and no wgmma may be serialized (C7520).
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32 (RMSNorm
                 at 1, 8, 16, 4096 and 12288 rows of 2048, 65536 rows of
@@ -378,11 +380,34 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 the paged kernel and its int8 branch at serve's and
                 serve-int8's ragged steps and with every slot live to 2048;
                 every row carries its achieved TFLOP/s.
+ Training, whole (the `train-*` phases and `cli-train`):
+  kernels-train  — kernels 2 (with packed segments), 3 and 4 at MLA's head
+                width 192 against their plain versions in bf16 and fp32
+                at MLA's training shape (6 x 2048, 16 heads, v padded from
+                128), packed, and at S 1999, the Function against autograd
+                through the plain attention; their card ms, plain ms,
+                bound and SDPA (backward) ms;
+  train-families — shellac-mla-2b at full size, DeepSeek-V2-Lite's width
+                at 4 layers and GPT-OSS-20B's at 2 (fused loss, and the
+                peak memory without it): a few timed adamw steps with
+                remat, tokens/s, model TFLOP/s (6 N + 12 L D S, N active),
+                peak memory, device ms by kernel kind;
+  train-options  — shellac-1b at 6 x 2048 under lion, adafactor, muon,
+                int8 and int8_bwd dots, remat "dots" and "dots_no_batch",
+                grad_accum 2 at 12 x 2048 and the EMA; shellac-270m's
+                forward on (2, 512);
+  train-parity   — also 2-layer fp32 steps of shellac-mla-2b and
+                DeepSeek-V2-Lite through the kernels against the plain
+                attention;
+  cli-train      — `python -m shellac_tpu_torch train` with a checkpoint,
+                a resume and `eval`, the resumed run against an
+                uninterrupted one.
 Then the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}. `--only PHASES` (generate,
 prefix-serve, sampling-controls, constrained-serve, graph-parity, beam,
 beam-parity, kernels-beam, moe, moe-parity, graph-parity-moe,
-kernels-moe, real-weights, mla, mla-parity, kernels-mla) runs those after
+kernels-moe, real-weights, mla, mla-parity, kernels-mla, kernels-train,
+train-families, train-options, train-parity, cli-train) runs those after
 the build and prints neither of the last two lines.
 
 Imports nothing of JAX or of the JAX package.
@@ -464,15 +489,18 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 
 
-# Instances of the Hopper redesigns the build must show, by kind: the
-# wgmma kernels (D 64 and 128, with and without segments; the forward
-# also at MLA's 192 without), kernel 1's register-resident RMSNorm (bf16
+# Instances the build must show, by kind: the wgmma kernels (D 64 and
+# 128, with and without segments; the forward also at MLA's 192, with
+# and without), the CUDA-core bodies at 192 (kernels 3 and 4 in bf16 and
+# fp32, kernel 2 in fp32 with and without segments), kernel 1's register-resident RMSNorm (bf16
 # and fp32: many rows and few rows at d 2048, one instance at d 128), the
 # split-K decode body (D 64 and 128, at 2 and 16 rows) over the dense
 # caches (kernel 5's bf16, kernel 6's int8) and kernel 7's bf16 and int8
 # pools, and the wide body at MLA's 576 (q bf16 or fp32, over a cache of
 # q's dtype or int8) over the dense caches and the pools.
-REDESIGNED = {"flash_fwd": 5, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
+REDESIGNED = {"flash_fwd": 6, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
+              "flash_bwd_dkdv_simt": 2, "flash_bwd_dq_simt": 2,
+              "flash_fwd_f32": 2,
               "rms_norm_rows": 6, "decode_split": 8, "paged_split": 8,
               "decode_wide": 4, "paged_wide": 4}
 
@@ -494,6 +522,13 @@ def spill_report(ptxas):
         if "_wgmma" in fn:
             kind = next((k for k in ("flash_fwd", "flash_bwd_dkdv",
                                      "flash_bwd_dq") if k in fn), fn)
+        elif "Li192E" in fn and ("_simt" in fn or "flash_fwd_f32" in fn):
+            # The CUDA-core instances at MLA's D 192 (kernels 3 and 4 in
+            # bf16 and fp32, kernel 2's fp32 body with and without
+            # segments).
+            kind = next(k for k in ("flash_bwd_dkdv_simt",
+                                    "flash_bwd_dq_simt", "flash_fwd_f32")
+                        if k in fn)
         elif "decode_split" in fn or "decode_wide" in fn:
             # The tiles policy names the kernel.
             body = "split" if "decode_split" in fn else "wide"
@@ -3794,6 +3829,564 @@ def phase_train_parity(seed, dev):
 
 
 # --------------------------------------------------------------------------
+# training, whole: kernels 3 and 4 at MLA's 192, the families, the options
+# --------------------------------------------------------------------------
+
+# MLA's training shape (shellac-mla-2b, bench.py's 6 x 2048): 16 heads of
+# q, k and v, 192 wide, v padded from 128 (its dO's pad lanes are zero).
+MLA_TRAIN_CASES = {
+    "mla_train": (TRAIN_BATCH, TRAIN_SEQ, False),
+    "mla_packed": (TRAIN_BATCH, TRAIN_SEQ, True),
+    "mla_odd_s1999": (2, 1999, True),
+}
+# The rows of the kernels' instances at 192 in the kernels line: name,
+# wrapper (its launches counted on the MLA families' steps), source, the
+# TPU kernel it replaces.
+TRAIN_192_ROWS = (
+    ("flash_attention_fwd_d192_segments", "flash_attention_fwd",
+     "shellac_tpu_torch/csrc/flash_attention.cu",
+     "shellac_tpu/ops/flash_attention.py:226"),
+    ("flash_attention_bwd_dkdv_d192", "flash_attention_bwd_dkdv",
+     "shellac_tpu_torch/csrc/flash_attention_bwd.cu",
+     "shellac_tpu/ops/flash_attention.py:401"),
+    ("flash_attention_bwd_dq_d192", "flash_attention_bwd_dq",
+     "shellac_tpu_torch/csrc/flash_attention_bwd.cu",
+     "shellac_tpu/ops/flash_attention.py:454"),
+)
+
+
+def mla_train_inputs(gen, dtype, dev, b, s):
+    q, k, v = flash_inputs(gen, dtype, dev, b, s, MLA_HEADS, MLA_HEADS,
+                           MLA_QK)
+    do = randn(gen, (b, s, MLA_HEADS, MLA_QK), dtype, dev)
+    pad = (0, MLA_QK - 128)
+    return (q, k, F.pad(v[..., :128], pad).contiguous(),
+            F.pad(do[..., :128], pad).contiguous())
+
+
+def live_pairs(b, h, s, seg):
+    """(q, k) pairs a causal call needs: within each row's documents."""
+    if seg is None:
+        return b * h * s * (s + 1) // 2
+    lens = torch.unique_consecutive(seg[0], return_counts=True)[1].tolist()
+    return b * h * sum(n * (n + 1) // 2 for n in lens)
+
+
+def phase_kernels_train_192(gen, dev, card):
+    """Kernels 2 (with packed segments), 3 and 4 at MLA's head width 192
+    against their plain versions in bf16 and fp32 at MLA's training
+    shape, packed, and at an odd S; the autograd Function's (dq, dk, dv)
+    against autograd through the plain attention. Then their card ms (CUDA
+    graph), plain ms, bound and library ms at 6 x 2048: SDPA with the
+    documents' block-diagonal causal mask for the forward, SDPA's
+    backward (dq, dk and dv in one call) for kernels 3 and 4. Returns
+    (errs, times) of TRAIN_192_ROWS."""
+    from shellac_tpu_torch.ops import flash_attention as fa
+
+    bf, f32 = torch.bfloat16, torch.float32
+    failed, errs, times = [], {}, {}
+
+    def check(kernel, case, dtype, res, main):
+        emit("kernels-train", kernel=kernel, case=case, dtype=str(dtype),
+             **res)
+        if main:
+            errs[kernel] = max(errs.get(kernel, 0.0), res["max_abs_err"])
+        if not res["ok"]:
+            failed.append((kernel, case, str(dtype)))
+
+    for dtype in (bf, f32):
+        for case, (b, s, packed) in MLA_TRAIN_CASES.items():
+            main = dtype == bf and case != "mla_odd_s1999"
+            q, k, v, do = mla_train_inputs(gen, dtype, dev, b, s)
+            seg = packed_segments(b, s, dev) if packed else None
+            out, lse = fa.flash_attention_cuda(q, k, v, segments=seg,
+                                               with_lse=True)
+            rout, rlse = fa.flash_forward_ref(q, k, v, segments=seg)
+            torch.cuda.synchronize()
+            fwd = ("flash_attention_fwd_d192_segments" if packed
+                   else "flash_attention_fwd_d192")
+            check(fwd, f"{case}/out", dtype, compare(out, rout, dtype),
+                  main and packed)
+            check(fwd, f"{case}/lse", dtype, compare(lse, rlse, dtype),
+                  False)
+            del rout, rlse
+            delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                                 out.float()).contiguous()
+            dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta,
+                                            segments=seg)
+            dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=seg)
+            torch.cuda.synchronize()
+            rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta,
+                                             segments=seg)
+            check("flash_attention_bwd_dkdv_d192", f"{case}/dk", dtype,
+                  compare_scaled(dk, rdk, dtype), main)
+            check("flash_attention_bwd_dkdv_d192", f"{case}/dv", dtype,
+                  compare_scaled(dv, rdv, dtype), main)
+            del rdk, rdv
+            rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, segments=seg)
+            check("flash_attention_bwd_dq_d192", f"{case}/dq", dtype,
+                  compare_scaled(dq, rdq, dtype), main)
+            del rdq, dk, dv, dq, out, lse, delta
+            grads = {}
+            for impl, fn in (("function", fa.flash_attention),
+                             ("autograd_ref", fa.flash_attention_ref)):
+                ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                grads[impl] = torch.autograd.grad(fn(*ins, segments=seg),
+                                                  ins, do)
+                del ins
+            torch.cuda.synchronize()
+            for name, g, w in zip(("dq", "dk", "dv"), grads["function"],
+                                  grads["autograd_ref"]):
+                check("flash_attention_function_d192", f"{case}/{name}",
+                      dtype, compare_scaled(g, w, dtype), False)
+            del grads, q, k, v, do
+            torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"kernels-train: the kernels at 192 disagree with "
+                         f"their plain versions: {failed}")
+
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, MLA_HEADS, MLA_QK
+    shape = [b, s, h, h, d]
+    qbytes, rowbytes = b * s * h * d * 2, b * h * s * 4
+
+    def row(kernel, case, k_ms, p_ms, lib_ms, nbytes, flops, what):
+        bms, by = bound(nbytes, flops, bf)
+        r = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+             "library_ms": lib_ms, "library_what": what, "shape": shape}
+        emit("kernels-train", step="timings", kernel=kernel, case=case,
+             dtype="bf16", bytes=nbytes, flops=flops,
+             roofline_share=bms / k_ms,
+             achieved_tflops=flops / (k_ms * 1e-3) / 1e12, card=card, **r)
+        times[kernel] = r
+
+    seg = packed_segments(b, s, dev)
+
+    def make():
+        q, k, v, do = mla_train_inputs(gen, bf, dev, b, s)
+        out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                             out.float()).contiguous()
+        return q, k, v, do, lse, delta
+
+    sets = copies(make)
+    same = seg[:, :, None] == seg[:, None, :]
+    mask = (same & torch.ones(s, s, dtype=torch.bool, device=dev).tril())[
+        :, None]
+    pairs = live_pairs(b, h, s, seg)
+    row("flash_attention_fwd_d192_segments", "mla_packed_6x2048",
+        graph_ms(lambda q, k, v, do, lse, dl: fa.flash_attention_cuda(
+            q, k, v, segments=seg, with_lse=True), sets, 10),
+        eager_ms(lambda q, k, v, do, lse, dl: fa.flash_forward_ref(
+            q, k, v, segments=seg), sets[:1], 2),
+        graph_ms(lambda q, k, v, do, lse, dl: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask), sets, 10),
+        4 * qbytes + rowbytes + b * s * 4, 4 * d * pairs,
+        "SDPA with the block-diagonal causal mask")
+    del mask, same
+
+    def sdpa_graph(q, k, v, do, lse, dl):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return qt, kt, vt, out, do.transpose(1, 2)
+
+    lib_sets = [sdpa_graph(*a) for a in sets]
+    lib = eager_ms(lambda qt, kt, vt, out, dot: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), lib_sets, 5)
+    del lib_sets
+    pairs = live_pairs(b, h, s, None)
+    row("flash_attention_bwd_dkdv_d192", "mla_causal_6x2048",
+        graph_ms(lambda q, k, v, do, lse, dl: fa.flash_bwd_dkdv_cuda(
+            q, k, v, do, lse, dl), sets, 3),
+        eager_ms(lambda q, k, v, do, lse, dl: fa.flash_bwd_dkdv_ref(
+            q, k, v, do, lse, dl), sets[:1], 2),
+        lib, 6 * qbytes + 2 * rowbytes, 8 * d * pairs,
+        "SDPA backward (dq, dk and dv in one call, eager)")
+    row("flash_attention_bwd_dq_d192", "mla_causal_6x2048",
+        graph_ms(lambda q, k, v, do, lse, dl: fa.flash_bwd_dq_cuda(
+            q, k, v, do, lse, dl), sets, 3),
+        eager_ms(lambda q, k, v, do, lse, dl: fa.flash_bwd_dq_ref(
+            q, k, v, do, lse, dl), sets[:1], 2),
+        lib, 5 * qbytes + 2 * rowbytes, 6 * d * pairs,
+        "SDPA backward (dq, dk and dv in one call, eager)")
+    del sets
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def active_params(cfg, params):
+    """Parameters a token activates: every leaf but the routed experts,
+    and num_experts_per_token / num_experts of theirs."""
+    from shellac_tpu_torch.models import transformer
+
+    n = transformer.num_params(params)
+    if cfg.moe is None:
+        return n
+    routed = sum(lp[k].numel() for lp in params["layers"]
+                 for k in ("w_gate", "w_up", "w_down", "b_gate", "b_up",
+                           "b_down") if "w_router" in lp and k in lp)
+    m = cfg.moe
+    return n - routed + routed * m.num_experts_per_token // m.num_experts
+
+
+def train_run(name, cfg, tcfg, b, s, seed, dev, table, card, phase,
+              steps=3, profile=True, extra=None):
+    """A few timed steps of make_train_step: step ms, tokens/s, model
+    TFLOP/s (6 N + 12 L D S a token, N the active parameters) and its
+    share of the bf16 peak, peak memory, the losses, launches; a profile
+    of one step by kernel kind. Returns (state, step, batch, counts)."""
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.training import init_train_state, make_train_step
+
+    reset_peak()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, seed=seed, device=dev)
+    step = make_train_step(cfg, tcfg, device=dev)
+    batch = train_batch(seed, cfg.vocab_size, b, s, dev)
+    state, m = step(state, batch)  # warm-up
+    warm = m["loss"].item()
+    init_s = time.perf_counter() - t0
+    before = read_counts(table)
+    losses, skipped = [], []
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        skipped.append(m["update_skipped"].item())
+    step_ms = (time.perf_counter() - t_all) / steps * 1e3
+    counts = {k: v - before[k] for k, v in read_counts(table).items()}
+    n_all = transformer.num_params(state.params)
+    n_act = active_params(cfg, state.params)
+    flops_tok = 6 * n_act + 12 * cfg.n_layers * cfg.d_model * s
+    tflops = flops_tok * b * s / (step_ms * 1e-3) / 1e12
+    moe = {k: m[k].item() for k in m if k.startswith("moe_")}
+    ok = all(np.isfinite(losses)) and not any(skipped)
+    line = dict(model=name, batch=b, seq=s, steps=steps, params=n_all,
+                active_params=n_act,
+                flops_formula="6 N + 12 L D S, N the active parameters",
+                optimizer=tcfg.optimizer, remat=cfg.remat,
+                remat_policy=cfg.remat_policy, quant=tcfg.quant,
+                grad_accum=tcfg.grad_accum, ema=tcfg.ema_decay,
+                fused_loss_chunk=tcfg.fused_loss_chunk,
+                init_and_warm_s=init_s, warm_loss=warm, losses=losses,
+                update_skipped=skipped, step_ms=step_ms,
+                tokens_per_s=b * s / (step_ms * 1e-3),
+                model_flops_per_token=flops_tok, model_tflops_per_s=tflops,
+                peak_share=tflops * 1e12 / PEAK_FLOPS_S[torch.bfloat16],
+                peak=BF16_PEAK_NAME,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches=counts, ok=ok, card=card, **moe, **(extra or {}))
+    if profile:
+        line["profile"] = profile_call(lambda: step(state, batch), top=12)
+    emit(phase, **line)
+    if not ok:
+        raise SystemExit(f"{phase}: {name}: a non-finite loss or a skipped "
+                         "update")
+    return state, step, batch, counts
+
+
+def phase_train_families(seed, dev, table, card):
+    """The MLA and MoE families trained on the card with adamw and remat,
+    random weights: shellac-mla-2b at full width and depth (6 x 2048, and
+    one packed step through kernel 2's 192 instance with segments);
+    DeepSeek-V2-Lite's width cut to 4 layers (the dense first layer and 3
+    MoE layers: MLA and MoE in one step), 4 x 2048; GPT-OSS-20B's width
+    cut to 2 layers (a window and a full layer), 4 x 2048, with the fused
+    loss (chunk 12568 = 201088 / 16), and one step without it for the
+    peak memory. Full depth needs more than one card under adamw (14
+    bytes a parameter). Returns {family: launches} and the packed step's
+    launches."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.models.convert import HFConfig, config_from_hf
+    from shellac_tpu_torch.training import TrainConfig, make_train_step
+
+    tcfg = TrainConfig(warmup_steps=10, total_steps=1000)
+    out = {}
+    reset_counts(table)
+    cfg = get_model_config("shellac-mla-2b")
+    state, step, batch, out["mla-2b"] = train_run(
+        "shellac-mla-2b", cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ, seed, dev,
+        table, card, "train-families", extra={"cut": "none"})
+    before = read_counts(table)
+    packed = dict(batch, segment_ids=packed_segments(TRAIN_BATCH, TRAIN_SEQ,
+                                                     dev))
+    state, m = step(state, packed)
+    seg_counts = {k: v - before[k] for k, v in read_counts(table).items()}
+    ok = np.isfinite(m["loss"].item()) and all(
+        seg_counts[n] > 0 for n in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dkdv",
+                                    "flash_attention_bwd_dq"))
+    emit("train-families", model="shellac-mla-2b", step="packed_segments",
+         loss=m["loss"].item(), launches=seg_counts, ok=ok)
+    if not ok:
+        raise SystemExit("train-families: the packed MLA step failed")
+    del state, step, batch, packed
+    cfg = config_from_hf(HFConfig(dict(DEEPSEEK_V2_LITE_HF,
+                                       num_hidden_layers=4)))
+    state, step, batch, out["deepseek-v2-lite-4l"] = train_run(
+        "deepseek-v2-lite (4 of 27 layers)", cfg, tcfg, 4, TRAIN_SEQ, seed,
+        dev, table, card, "train-families",
+        extra={"cut": "layers 27 -> 4 (1 dense, 3 MoE)"})
+    del state, step, batch
+    cfg = gptoss_20b().replace(n_layers=2, remat=True)
+    fused = tcfg.replace(fused_loss_chunk=12568)
+    state, step, batch, out["gpt-oss-20b-2l"] = train_run(
+        "gpt-oss-20b (2 of 24 layers)", cfg, fused, 4, TRAIN_SEQ, seed, dev,
+        table, card, "train-families",
+        extra={"cut": "layers 24 -> 2 (a window and a full layer)"})
+    fused_peak = torch.cuda.max_memory_allocated()
+    reset_peak()
+    plain = make_train_step(cfg, tcfg, device=dev)
+    before = read_counts(table)
+    state, m = plain(state, batch)
+    loss = m["loss"].item()
+    plain_peak = torch.cuda.max_memory_allocated()
+    extra = {k: v - before[k] for k, v in read_counts(table).items()}
+    for k in out["gpt-oss-20b-2l"]:
+        out["gpt-oss-20b-2l"][k] += extra[k]
+    grads_peak = loss_grads_peaks(cfg, state.params, batch, 12568)
+    emit("train-families", model="gpt-oss-20b (2 of 24 layers)",
+         step="unfused_loss", loss=loss,
+         step_max_memory_allocated_unfused=plain_peak,
+         step_max_memory_allocated_fused=fused_peak,
+         **grads_peak, card=card)
+    del state, step, batch, plain
+    reset_peak()
+    return out, seg_counts
+
+
+def loss_grads_peaks(cfg, params, batch, chunk):
+    """Peak memory of the loss and its gradients alone (the forward, the
+    loss, the backward; no optimizer update), over a baseline of the
+    model and its state, with the fused loss and with the whole logits."""
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.training import cross_entropy, fused_cross_entropy
+    from shellac_tpu_torch.training.train_state import leaves
+
+    out = {}
+    for name in ("fused", "unfused"):
+        reset_peak()
+        base = torch.cuda.memory_allocated()
+        if name == "fused":
+            h = transformer.forward(cfg, params, batch["inputs"],
+                                    return_hidden=True)
+            loss, _ = fused_cross_entropy(
+                h, transformer.output_weights(cfg, params),
+                batch["targets"], vocab_chunk=chunk)
+        else:
+            loss, _ = cross_entropy(transformer.forward(
+                cfg, params, batch["inputs"]), batch["targets"])
+        grads = torch.autograd.grad(loss, leaves(params))
+        torch.cuda.synchronize()
+        out[f"loss_and_grads_peak_over_state_{name}"] = (
+            torch.cuda.max_memory_allocated() - base)
+        del grads, loss
+    return out
+
+
+def phase_train_options(seed, dev, table, card):
+    """The train step's options at shellac-1b, bench.py's 6 x 2048, each
+    from the same seed on the same batch against adamw with remat "none":
+    lion, adafactor and muon; quant int8 and int8_bwd; remat "dots" and
+    "dots_no_batch"; grad_accum 2 at 12 x 2048; the EMA. Each prints its
+    step ms, peak memory and the loss after the same number of steps.
+    Then transformer.forward at shellac-270m on (2, 512) tokens
+    (`__graft_entry__.py` entry()'s call): logits (2, 512, 32768)."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.models import transformer
+    from shellac_tpu_torch.training import TrainConfig
+
+    base = get_model_config("shellac-1b")
+    tcfg = TrainConfig(warmup_steps=1, total_steps=1000)
+    runs = {
+        "adamw": (base, tcfg, TRAIN_BATCH),
+        "lion": (base, tcfg.replace(optimizer="lion"), TRAIN_BATCH),
+        "adafactor": (base, tcfg.replace(optimizer="adafactor"),
+                      TRAIN_BATCH),
+        "muon": (base, tcfg.replace(optimizer="muon"), TRAIN_BATCH),
+        "quant_int8": (base, tcfg.replace(quant="int8"), TRAIN_BATCH),
+        "quant_int8_bwd": (base, tcfg.replace(quant="int8_bwd"),
+                           TRAIN_BATCH),
+        "remat_dots": (base.replace(remat_policy="dots"), tcfg, TRAIN_BATCH),
+        "remat_dots_no_batch": (base.replace(remat_policy="dots_no_batch"),
+                                tcfg, TRAIN_BATCH),
+        "grad_accum_2": (base, tcfg.replace(grad_accum=2), 2 * TRAIN_BATCH),
+        "ema": (base, tcfg.replace(ema_decay=0.999), TRAIN_BATCH),
+    }
+    counts = None
+    reset_counts(table)
+    for name, (cfg, tc, b) in runs.items():
+        state, step, batch, c = train_run(
+            f"shellac-1b/{name}", cfg, tc, b, TRAIN_SEQ, seed, dev, table,
+            card, "train-options", steps=2, profile=False)
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+        del state, step, batch
+    reset_peak()
+    cfg = get_model_config("shellac-270m")
+    params = transformer.init_params(cfg, seed=seed, device=dev)
+    tokens = torch.zeros((2, 512), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        before = read_counts(table)
+        logits = transformer.forward(cfg, params, tokens, device=dev)
+        got = {k: v - before[k] for k, v in read_counts(table).items()}
+        ms = eager_ms(lambda: transformer.forward(cfg, params, tokens,
+                                                  device=dev), [()], 5)
+    ok = (tuple(logits.shape) == (2, 512, 32768)
+          and bool(torch.isfinite(logits).all().item()))
+    emit("train-options", model="shellac-270m", step="forward",
+         shape=list(logits.shape), dtype=str(logits.dtype), forward_ms=ms,
+         launches=got, ok=ok, card=card)
+    if not ok:
+        raise SystemExit("train-options: shellac-270m's forward failed")
+    for k in counts:
+        counts[k] += got[k]
+    del params, logits
+    reset_peak()
+    return counts
+
+
+def phase_train_parity_families(seed, dev):
+    """Three fp32 steps of the MLA and MoE families, 2 layers at full
+    width (shellac-mla-2b; DeepSeek-V2-Lite's dense first layer and an
+    MoE layer), batch 2 x 512, through the kernels (kernels 2-4 at 192)
+    and through the plain attention (attn_impl="ref"), each held to the
+    other as `phase_train_parity` holds shellac-1b."""
+    from shellac_tpu_torch import get_model_config
+    from shellac_tpu_torch.models.convert import HFConfig, config_from_hf
+    from shellac_tpu_torch.training import TrainConfig, make_train_step
+    from shellac_tpu_torch.training import init_train_state
+
+    tcfg = TrainConfig(warmup_steps=1, total_steps=1000)
+    b, s = 2, 512
+    families = {
+        "shellac-mla-2b": get_model_config("shellac-mla-2b"),
+        "deepseek-v2-lite": config_from_hf(HFConfig(dict(
+            DEEPSEEK_V2_LITE_HF, num_hidden_layers=2))),
+    }
+    failed = []
+    for name, cfg in families.items():
+        cfg = cfg.replace(n_layers=2, dtype="float32")
+        batches = [train_batch(seed + 20 + i, cfg.vocab_size, b, s, dev)
+                   for i in range(3)]
+        batches[2]["segment_ids"] = packed_segments(b, s, dev)
+        runs = {}
+        for impl in ("auto", "ref"):
+            state = init_train_state(cfg, tcfg, seed=seed, device=dev)
+            step = make_train_step(cfg, tcfg, attn_impl=impl, device=dev)
+            out = []
+            for bt in batches:
+                state, m = step(state, bt)
+                out.append((m["loss"].item(), m["grad_norm"].item()))
+            runs[impl] = out
+            del state, step
+            torch.cuda.empty_cache()
+        ok = all(abs(a[0] - r[0]) <= 1e-4 * abs(r[0])
+                 and abs(a[1] - r[1]) <= 1e-3 * abs(r[1])
+                 and np.isfinite(a).all()
+                 for a, r in zip(runs["auto"], runs["ref"]))
+        emit("train-parity", model=name, layers=2, dtype="float32", batch=b,
+             seq=s, kernels=runs["auto"], ref=runs["ref"],
+             tol="loss 1e-4 rel, grad_norm 1e-3 rel", ok=ok)
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise SystemExit(f"train-parity failed: {failed}")
+
+
+def phase_cli_train(seed, dev, card):
+    """`python -m shellac_tpu_torch train` in subprocesses on shellac-1b cut
+    to 2 layers (a --config file), 2 x 512, 6 steps with --ckpt-dir
+    (checkpoints at step 4 and at the end); then the run is cut back to
+    its step-4 checkpoint (its step-6 directory removed, as a run that
+    died after step 4 leaves it) and resumed on the same flags; then
+    `eval` on the checkpoint, in process (`cli.main`). The resumed run's
+    last two losses and its final weights are held to the uninterrupted
+    run's."""
+    import os
+    import shutil
+    import tempfile
+
+    from shellac_tpu_torch.training.checkpoint import Checkpointer
+    from shellac_tpu_torch.training.train_state import named_leaves
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run(argv):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "shellac_tpu_torch", *argv],
+                           cwd=here, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise SystemExit(f"cli-train: {argv[0]} exit {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+        return (r.returncode, json.loads(r.stdout.strip().splitlines()[-1]),
+                time.perf_counter() - t0)
+
+    def cli_in_process(argv):
+        import contextlib
+        import io
+
+        from shellac_tpu_torch import cli
+
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        return (rc, json.loads(buf.getvalue().strip().splitlines()[-1]),
+                time.perf_counter() - t0)
+
+    def losses(path):
+        return {json.loads(x)["step"]: json.loads(x)["loss"]
+                for x in open(path) if '"loss"' in x}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = os.path.join(tmp, "cfg.json")
+        with open(conf, "w") as f:
+            json.dump({"preset": "shellac-1b", "n_layers": 2}, f)
+        ck = os.path.join(tmp, "ck")
+        common = ["--config", conf, "--seed", str(seed), "--batch", "2",
+                  "--seq", "512"]
+        train = ["train", *common, "--steps", "6", "--ckpt-dir", ck,
+                 "--ckpt-every", "4", "--log-every", "1", "--warmup-steps",
+                 "2"]
+        whole_log, resumed_log = (os.path.join(tmp, "whole.jsonl"),
+                                  os.path.join(tmp, "resumed.jsonl"))
+        rc1, out1, s1 = run(train + ["--log-path", whole_log])
+        whole = Checkpointer(ck).restore(device="cpu")
+        steps = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+        shutil.rmtree(os.path.join(ck, "6"))
+        rc2, out2, s2 = run(train + ["--log-path", resumed_log])
+        rc3, ev, s3 = cli_in_process(["eval", *common, "--ckpt-dir", ck,
+                                      "--batches", "2"])
+        resumed = Checkpointer(ck).restore(device="cpu")
+        want, got = losses(whole_log), losses(resumed_log)
+        worst = 0.0
+        for (_, x), (_, y) in zip(named_leaves(resumed.params),
+                                  named_leaves(whole.params)):
+            scale = y.abs().max().clamp_min(1e-30)
+            worst = max(worst, ((x - y).abs().max() / scale).item())
+        loss_err = max(abs(got[k] - want[k]) / abs(want[k]) for k in got)
+        ok = (rc1 == rc2 == rc3 == 0 and out1 == out2 == {"final_step": 6}
+              and steps == [4, 6] and sorted(got) == [5, 6]
+              and resumed.step == whole.step == 6 and loss_err <= 1e-3
+              and worst <= 1e-3 and np.isfinite(ev["loss"])
+              and ev["batches"] == 2)
+        emit("cli-train", whole=out1, resumed=out2, checkpoints=steps,
+             eval=ev, seconds=[s1, s2, s3],
+             losses=[want[k] for k in sorted(want)],
+             resumed_losses=[got[k] for k in sorted(got)],
+             loss_max_rel_err=loss_err, params_max_err_over_scale=worst,
+             bit_equal=worst == 0.0 and loss_err == 0.0,
+             tol="losses 1e-3 rel, params 1e-3 of each leaf's max-abs",
+             ok=ok, card=card)
+        if not ok:
+            raise SystemExit("cli-train: the resumed run does not match the "
+                             "uninterrupted one, or a command failed")
+
+
+# --------------------------------------------------------------------------
 # beam search: beam, beam-parity, the kernels at the beam's shapes
 # --------------------------------------------------------------------------
 
@@ -6782,7 +7375,9 @@ def main():
                          "constrained-serve, graph-parity, beam, "
                          "beam-parity, kernels-beam, moe, moe-parity, "
                          "graph-parity-moe, kernels-moe, real-weights, "
-                         "mla, mla-parity, kernels-mla); "
+                         "mla, mla-parity, kernels-mla, kernels-train, "
+                         "train-families, train-options, train-parity, "
+                         "cli-train); "
                          "prints no "
                          "kernels line and no ok line")
     args = ap.parse_args()
@@ -6839,6 +7434,17 @@ def main():
             "mla-parity": lambda: phase_mla_parity(args.seed, dev),
             "kernels-mla": lambda: phase_kernels_mla(
                 gen, dev, main_shapes(args.seed, dev), card),
+            "kernels-train": lambda: (
+                phase_kernels_train(gen, dev, main_shapes(args.seed, dev)),
+                phase_kernels_train_192(gen, dev, card)),
+            "train-families": lambda: phase_train_families(
+                args.seed, dev, table, card),
+            "train-options": lambda: phase_train_options(
+                args.seed, dev, table, card),
+            "train-parity": lambda: (phase_train_parity(args.seed, dev),
+                                     phase_train_parity_families(
+                                         args.seed, dev)),
+            "cli-train": lambda: phase_cli_train(args.seed, dev, card),
         }
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
@@ -6851,6 +7457,7 @@ def main():
     errs = phase_kernels(gen, dev, shapes)
     errs.update(phase_kernels_int8(gen, dev, shapes))
     errs.update(phase_kernels_train(gen, dev, shapes))
+    train192_errs, train192_times = phase_kernels_train_192(gen, dev, card)
     phase_kernels_beam(gen, dev)
     phase_kernels_moe(gen, dev, shapes, card)
     mla_errs, mla_times = phase_kernels_mla(gen, dev, shapes, card)
@@ -6877,7 +7484,15 @@ def main():
     paths["moe"] = phase_moe(args.seed, dev, table, card)
     paths["real-weights"] = phase_real_weights(args.seed, dev, table, card)
     paths["mla"] = phase_mla(args.seed, dev, table, card)
+    families, mla_packed = phase_train_families(args.seed, dev, table, card)
+    paths["train-families"] = {
+        n: sum(c[n] for c in families.values()) + mla_packed[n]
+        for n in mla_packed}
+    paths["train-options"] = phase_train_options(args.seed, dev, table,
+                                                 card)
     decode = ("rms_norm", "flash_attention_fwd")
+    trained = ("rms_norm", "flash_attention_fwd", "flash_attention_bwd_dkdv",
+               "flash_attention_bwd_dq")
     for path, kinds in (("generate", decode + ("decode_attention_dense",)),
                         ("generate-int8",
                          decode + ("decode_attention_dense_int8",)),
@@ -6909,9 +7524,9 @@ def main():
                             "decode_attention_dense", "paged_decode_attention",
                             "flash_attention_bwd_dkdv",
                             "flash_attention_bwd_dq")),
-                        ("train", ("rms_norm", "flash_attention_fwd",
-                                   "flash_attention_bwd_dkdv",
-                                   "flash_attention_bwd_dq"))):
+                        ("train", trained),
+                        ("train-families", trained),
+                        ("train-options", trained)):
         missing = [n for n in kinds if paths[path][n] == 0]
         if missing:
             raise SystemExit(f"{path}: kernels never launched: {missing}")
@@ -6924,6 +7539,8 @@ def main():
     phase_graph_parity(args.seed, dev, table)
     phase_graph_parity_moe(args.seed, dev, table)
     phase_train_parity(args.seed, dev)
+    phase_train_parity_families(args.seed, dev)
+    phase_cli_train(args.seed, dev, card)
     times = phase_timings(gen, dev, shapes, card)
 
     kernels = []
@@ -6946,6 +7563,20 @@ def main():
             "replaces": replaces, "launches": paths["mla"][wrapper],
             "launches_by_path": {"mla": paths["mla"][wrapper]},
             "max_abs_err": mla_errs[n], **mla_times[n],
+        })
+    # Kernels 2-4's instances at 192 with MLA training: the launches of
+    # their wrappers on the MLA families' steps (every one at 192 there);
+    # the forward with segments on the packed MLA step.
+    mla_counts = {n: families["mla-2b"][n] + families["deepseek-v2-lite-4l"][n]
+                  + mla_packed[n] for n in mla_packed}
+    for n, wrapper, source, replaces in TRAIN_192_ROWS:
+        launches = (mla_packed[wrapper] if n.endswith("_segments")
+                    else mla_counts[wrapper])
+        kernels.append({
+            "name": n, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": {"train-families": launches},
+            "max_abs_err": train192_errs[n], **train192_times[n],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

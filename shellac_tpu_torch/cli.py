@@ -11,8 +11,19 @@ Commands (ports of `shellac_tpu/cli.py`):
             then serves until interrupted (SIGINT exits 0)
   convert   an HF checkpoint directory into a native directory
             (`cmd_convert` :1268)
+  train     train a model through `training/loop.py` `fit` (`cmd_train`
+            :210, `_train_config` :196, `_data_iter` :90, `_resume_skip`
+            :181): token shards (`--data`) or a synthetic stream,
+            checkpoints and resume (`--ckpt-dir`), the anomaly sentinel,
+            `--optimizer`, `--quant`, `--ema-decay`; prints
+            {"final_step": N} last
+  eval      the loss and perplexity of a checkpoint (`cmd_eval` :536)
+  tokenize  text files into a token shard (`cmd_tokenize` :549)
 
-Everything runs on the card unless `--device cpu` is given. The model is
+Everything runs on the card unless `--device cpu` is given. Not ported
+(each raises NotImplementedError with a message): `train --mesh`,
+`--lora-rank` and `--base-ckpt`, `eval --lora-dir`, `tokenize
+--train-bpe`; the `dpo` and `distill` commands are absent. The model is
 a preset (`--model`) or a `--config` JSON file of ModelConfig overrides,
 which may name a `preset` to start from, with weights from `--ckpt-dir`
 (the newest step of a Checkpointer directory; `--ema` takes its EMA
@@ -464,6 +475,116 @@ def cmd_convert(args):
     return 0
 
 
+def _data_iter(args, cfg, batch_size, seq_len, num_batches=None, skip=0):
+    """Token shards (`--data`), or the reference's synthetic corpus: a
+    noisy periodic stream from `--seed`, so the loss has structure to
+    fall on."""
+    from shellac_tpu_torch.training.data import shard_batches, token_batches
+
+    if args.data:
+        return shard_batches(args.data, batch_size=batch_size,
+                             seq_len=seq_len, seed=args.seed,
+                             num_batches=num_batches, skip=skip)
+    rng = np.random.default_rng(args.seed)
+    n = max(seq_len * 64, 1 << 16)
+    base = np.arange(n, dtype=np.int32) % min(97, cfg.vocab_size)
+    noise = rng.integers(0, cfg.vocab_size, size=n)
+    corpus = np.where(rng.random(n) < 0.1, noise, base).astype(np.int32)
+    return token_batches(corpus, batch_size=batch_size, seq_len=seq_len,
+                         seed=args.seed, num_batches=num_batches, skip=skip)
+
+
+def _train_config(args):
+    from shellac_tpu_torch.config import TrainConfig
+
+    kw = {}
+    for field in ("learning_rate", "warmup_steps", "weight_decay",
+                  "grad_accum", "seed", "optimizer", "quant", "ema_decay"):
+        v = getattr(args, field, None)
+        if v is not None:
+            kw[field] = v
+    kw["total_steps"] = args.steps
+    return TrainConfig(**kw)
+
+
+def _unported(args, flags):
+    for flag, attr in flags:
+        if getattr(args, attr, None):
+            raise NotImplementedError(
+                f"{flag} is not ported (the port trains on one card, "
+                "without LoRA, and tokenizes with a given tokenizer)")
+
+
+def cmd_train(args):
+    from shellac_tpu_torch.training.loop import fit
+
+    _unported(args, (("--mesh", "mesh"), ("--lora-rank", "lora_rank"),
+                     ("--base-ckpt", "base_ckpt")))
+    cfg = _model_config(args)
+    tcfg = _train_config(args)
+
+    def data_factory(step):
+        # fit builds the stream at the step the run starts from (a resume
+        # included), and again from the restored step after a rollback:
+        # the skip replays exactly the batches the rolled-back steps
+        # consumed, so a recovered run ends identical to an unfaulted one.
+        return _data_iter(args, cfg, args.batch, args.seq, skip=step)
+
+    state = fit(cfg, tcfg, None, device=args.device,
+                checkpoint_dir=args.ckpt_dir,
+                checkpoint_every=args.ckpt_every, log_path=args.log_path,
+                log_every=args.log_every,
+                heartbeat_path=args.heartbeat_file,
+                anomaly_action=args.anomaly_action,
+                max_restores=args.max_restores, data_factory=data_factory)
+    _dump_metrics(args)
+    print(json.dumps({"final_step": int(state.step)}))
+    return 0
+
+
+def _dump_metrics(args):
+    """train --metrics-file: the shared registry's snapshot as JSON."""
+    path = getattr(args, "metrics_file", None)
+    if not path:
+        return
+    from shellac_tpu_torch.obs import get_registry
+
+    with open(path, "w") as f:
+        json.dump(get_registry().snapshot(), f, indent=2)
+        f.write("\n")
+
+
+def cmd_eval(args):
+    from shellac_tpu_torch.training.evaluate import evaluate
+
+    _unported(args, (("--lora-dir", "lora_dir"),))
+    cfg, params = _model(args)
+    data = _data_iter(args, cfg, args.batch, args.seq,
+                      num_batches=args.batches)
+    out = evaluate(cfg, params, data, max_batches=args.batches,
+                   device=args.device)
+    print(json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in out.items()}))
+    return 0
+
+
+def cmd_tokenize(args):
+    from shellac_tpu_torch.training.data import write_token_shard
+    from shellac_tpu_torch.training.tokenizer import get_tokenizer
+
+    _unported(args, (("--train-bpe", "train_bpe"),))
+    tok = get_tokenizer(args.tokenizer)
+    docs = []
+    for path in args.input:
+        with open(path, encoding="utf-8") as f:
+            docs.append(f.read())
+    tokens = tok.encode_documents(docs)
+    write_token_shard(args.output, tokens)
+    print(json.dumps({"output": args.output, "tokens": int(tokens.size),
+                      "vocab_size": tok.vocab_size}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="shellac_tpu_torch",
                                 description=__doc__.split("\n")[0])
@@ -601,6 +722,87 @@ def build_parser() -> argparse.ArgumentParser:
                    help="track per-token logprobs so requests may ask "
                         "for them")
     s.set_defaults(fn=cmd_serve)
+
+    def model_args(sp):
+        sp.add_argument("--model", default="tiny", help="preset name")
+        sp.add_argument("--config", help="JSON file of ModelConfig overrides "
+                        '(may include {"preset": name})')
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--device", default="cuda",
+                        help="cuda (the default; raises without a card) "
+                             "or cpu")
+
+    t = sub.add_parser("train", help="train a model")
+    model_args(t)
+    t.add_argument("--steps", type=int, default=100)
+    t.add_argument("--batch", type=int, default=8)
+    t.add_argument("--seq", type=int, default=128)
+    t.add_argument("--data", nargs="*", default=None,
+                   help="token shard files (default: synthetic stream)")
+    t.add_argument("--mesh", default="",
+                   help="mesh axes (not ported: raises)")
+    t.add_argument("--ckpt-dir")
+    t.add_argument("--ckpt-every", type=int, default=500)
+    t.add_argument("--log-path")
+    t.add_argument("--log-every", type=int, default=10)
+    t.add_argument("--metrics-file", default=None, dest="metrics_file",
+                   help="write the shared metrics registry's snapshot "
+                        "(shellac_train_* series) as JSON at the end")
+    t.add_argument("--heartbeat-file", default=None, dest="heartbeat_file",
+                   help="liveness file the loop touches at 1 Hz at step "
+                        "boundaries, with forced beats around restores")
+    t.add_argument("--anomaly-action", default="rollback",
+                   dest="anomaly_action",
+                   choices=["warn", "skip", "rollback", "fatal"],
+                   help="what the anomaly sentinel does about a "
+                        "non-finite or spiking loss (rollback restores "
+                        "the last-good checkpoint and replays the stream)")
+    t.add_argument("--max-restores", type=int, default=2,
+                   dest="max_restores",
+                   help="skip/rollback recoveries allowed an hour before "
+                        "the sentinel escalates to fatal")
+    t.add_argument("--learning-rate", type=float, dest="learning_rate")
+    t.add_argument("--warmup-steps", type=int, dest="warmup_steps")
+    t.add_argument("--weight-decay", type=float, dest="weight_decay")
+    t.add_argument("--grad-accum", type=int, dest="grad_accum")
+    t.add_argument("--optimizer",
+                   choices=["adamw", "lion", "adafactor", "muon"])
+    t.add_argument("--quant", choices=["int8", "int8_bwd"], default=None,
+                   help="int8 training dots (int8_bwd quantizes the "
+                        "backward products too)")
+    t.add_argument("--ema-decay", type=float, default=None, dest="ema_decay",
+                   help="keep an EMA of the weights (e.g. 0.999)")
+    t.add_argument("--lora-rank", type=int, default=None, dest="lora_rank",
+                   help="LoRA fine-tuning (not ported: raises)")
+    t.add_argument("--base-ckpt", default=None, dest="base_ckpt",
+                   help="LoRA base weights (not ported: raises)")
+    t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("eval", help="perplexity of a checkpoint")
+    model_args(e)
+    e.add_argument("--ema", action="store_true",
+                   help="evaluate the EMA-averaged weights")
+    e.add_argument("--batch", type=int, default=8)
+    e.add_argument("--seq", type=int, default=128)
+    e.add_argument("--batches", type=int, default=16)
+    e.add_argument("--data", nargs="*", default=None)
+    e.add_argument("--ckpt-dir")
+    e.add_argument("--lora-dir", default=None, dest="lora_dir",
+                   help="LoRA adapters (not ported: raises)")
+    e.set_defaults(fn=cmd_eval)
+
+    k = sub.add_parser("tokenize",
+                       help="encode text files into a token shard")
+    k.add_argument("--input", nargs="+", required=True, help="text files")
+    k.add_argument("--output", required=True, help="shard path to write")
+    k.add_argument("--tokenizer", default="byte",
+                   help='"byte", a trained BPE .json, or a local HF '
+                        "tokenizer dir")
+    k.add_argument("--train-bpe", type=int, default=None, dest="train_bpe",
+                   metavar="VOCAB_SIZE",
+                   help="train a BPE on the inputs first (not ported: "
+                        "raises)")
+    k.set_defaults(fn=cmd_tokenize)
 
     c = sub.add_parser("convert",
                        help="HF checkpoint dir -> native params + config")

@@ -824,10 +824,12 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v,
     return (g ? launch<T, 128, true> : launch<T, 128, false>)(
         q, k, v, sinks, seg, out, lse, B, S, H, Hkv, scale, causal, window,
         softcap, stream);
-  // MLA's expanded prefill: no segments on its serving path.
-  if (D == 192 && !g)
-    return launch<T, 192, false>(q, k, v, sinks, seg, out, lse, B, S, H,
-                                 Hkv, scale, causal, window, softcap, stream);
+  // MLA's expanded prefill (serving), and its training with packed
+  // segments.
+  if (D == 192)
+    return (g ? launch<T, 192, true> : launch<T, 192, false>)(
+        q, k, v, sinks, seg, out, lse, B, S, H, Hkv, scale, causal, window,
+        softcap, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -73,8 +73,11 @@
 // both q heads of a GQA pair in one dq block, and a split of the long
 // dk/dv work tiles for grids that fill few SMs (B = 1 runs 128 work
 // tiles of 4 to 64 steps).
-//   - fp32: scalar fp32 FMAs over 4 x 4 register tiles per thread (the
-//     tensor cores would round fp32 inputs to tf32); the parity path.
+//   - fp32, and bf16 at D 192 (MLA training), `flash_bwd_dkdv_simt` and
+//     `flash_bwd_dq_simt`: scalar fp32 FMAs over 4 x 4 register tiles per
+//     thread (the tensor cores would round fp32 inputs to tf32); the
+//     parity path, and at 192 the simple body that fits where the wgmma
+//     bodies' shared memory does not (see the note at the bodies).
 #include <cuda.h>
 
 #include "common.cuh"
@@ -853,8 +856,20 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 bodies
+// CUDA-core bodies: fp32, and bf16 at D 192
 // ---------------------------------------------------------------------------
+//
+// One body per kernel over the element type T: rows are staged into shared
+// memory as fp32 (row stride D + 1), every product is a scalar fp32 FMA
+// over 4 x 4 register tiles, and p and ds are rounded through T before
+// their products, as the wgmma bodies and the plain versions round them.
+// In fp32 this is the parity path (the tensor cores would round fp32 to
+// tf32). In bf16 it serves MLA's head width 192 (q and k 192 wide, v and
+// dO padded from 128 to 192), where the wgmma bodies' shared memory does
+// not fit: dkdv's two K/V buffers and two q/dO stages would take 288 KB,
+// dq's 2 x 48 + 3 x 48 KB more than an SM's 227 KB. Shared memory here is
+// 165 KB (dkdv) and 214 KB (dq) at D 192, one block an SM; the
+// accumulators are 2 x 4 x 12 (dkdv) and 4 x 12 (dq) fp32 a thread.
 
 constexpr int kF32Threads = 256;  // 16 x 16 thread grid over a tile
 constexpr int kKV3 = 64;  // dkdv: kv rows per block
@@ -862,16 +877,16 @@ constexpr int kQ3 = 32;   // dkdv: q rows per inner step
 constexpr int kQ4 = 64;   // dq: q rows per block
 constexpr int kKV4 = 64;  // dq: kv rows per inner step
 
-// Stage rows [r0, r0 + rows) of a (S, stride) fp32 matrix block into smem
-// with row stride D + 1; rows past S are zero.
-template <int D>
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
+// Stage rows [r0, r0 + rows) of a (S, stride) matrix block of T into
+// fp32 smem with row stride D + 1; rows past S are zero.
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const T* src,
                                                size_t stride, int r0,
                                                int rows, int S) {
   for (int i = threadIdx.x; i < rows * D; i += kF32Threads) {
     const int r = i / D, c = i % D;
     dst[r * (D + 1) + c] =
-        r0 + r < S ? src[(size_t)(r0 + r) * stride + c] : 0.f;
+        r0 + r < S ? to_f32(src[(size_t)(r0 + r) * stride + c]) : 0.f;
   }
 }
 
@@ -886,9 +901,9 @@ constexpr size_t dkdv_f32_smem() {
 
 // Thread (tx, ty) owns kv rows 4 ty + i. It computes the transposed
 // score tile at q columns tx + 16 j, then dk, dv at head dims tx + 16 j.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dkdv_f32(BwdArgs a) {
+flash_bwd_dkdv_simt(BwdArgs a) {
   constexpr int KP = D + 1;
   constexpr int PP = kQ3 + 1;
   constexpr int RK = kKV3 / 16;  // kv rows per thread
@@ -916,9 +931,9 @@ flash_bwd_dkdv_f32(BwdArgs a) {
   const size_t kvoff = (size_t)b * S * kstride + (size_t)hk * D;
   const int* segb = a.seg == nullptr ? nullptr : a.seg + (size_t)b * S;
 
-  stage_rows_f32<D>(Ks, static_cast<const float*>(a.k) + kvoff, kstride, k0,
+  stage_rows_f32<T, D>(Ks, static_cast<const T*>(a.k) + kvoff, kstride, k0,
                     kKV3, S);
-  stage_rows_f32<D>(Vs, static_cast<const float*>(a.v) + kvoff, kstride, k0,
+  stage_rows_f32<T, D>(Vs, static_cast<const T*>(a.v) + kvoff, kstride, k0,
                     kKV3, S);
   for (int i = tid; i < kKV3; i += kF32Threads)
     kseg_s[i] = segb != nullptr && k0 + i < S ? segb[k0 + i] : 0;
@@ -940,9 +955,9 @@ flash_bwd_dkdv_f32(BwdArgs a) {
     for (int qt = qt_first; qt <= qt_last; ++qt) {
       const int q0 = qt * kQ3;
       __syncthreads();  // the previous q tile, Pt and dSt are consumed
-      stage_rows_f32<D>(Qs, static_cast<const float*>(a.q) + qoff, qstride,
+      stage_rows_f32<T, D>(Qs, static_cast<const T*>(a.q) + qoff, qstride,
                         q0, kQ3, S);
-      stage_rows_f32<D>(dOs, static_cast<const float*>(a.dout) + qoff,
+      stage_rows_f32<T, D>(dOs, static_cast<const T*>(a.dout) + qoff,
                         qstride, q0, kQ3, S);
       for (int i = tid; i < kQ3; i += kF32Threads) {
         const bool in = q0 + i < S;
@@ -986,8 +1001,8 @@ flash_bwd_dkdv_f32(BwdArgs a) {
           float p, ds;
           p_ds(a, st[i][j], dpt[i][j], q0 + ql, k0 + kl,
                qseg_s[ql] == kseg_s[kl], lse_s[ql], delta_s[ql], p, ds);
-          Pt[kl * PP + ql] = p;
-          dSt[kl * PP + ql] = ds;
+          Pt[kl * PP + ql] = round_through<T>(p);
+          dSt[kl * PP + ql] = round_through<T>(ds);
         }
       }
       __syncthreads();
@@ -1016,16 +1031,16 @@ flash_bwd_dkdv_f32(BwdArgs a) {
     }
   }
 
-  float* dkb = static_cast<float*>(a.dk) + kvoff;
-  float* dvb = static_cast<float*>(a.dv) + kvoff;
+  T* dkb = static_cast<T*>(a.dk) + kvoff;
+  T* dvb = static_cast<T*>(a.dv) + kvoff;
 #pragma unroll
   for (int i = 0; i < RK; ++i) {
     const int row = k0 + ty * RK + i;
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < DV; ++j) {
-      dkb[(size_t)row * kstride + tx + 16 * j] = dk[i][j];
-      dvb[(size_t)row * kstride + tx + 16 * j] = dv[i][j];
+      dkb[(size_t)row * kstride + tx + 16 * j] = from_f32<T>(dk[i][j]);
+      dvb[(size_t)row * kstride + tx + 16 * j] = from_f32<T>(dv[i][j]);
     }
   }
 }
@@ -1041,9 +1056,9 @@ constexpr size_t dq_f32_smem() {
 
 // Thread (tx, ty) owns q rows 4 ty + i. It computes the score tile at kv
 // columns tx + 16 j, then dq at head dims tx + 16 j.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dq_f32(BwdArgs a) {
+flash_bwd_dq_simt(BwdArgs a) {
   constexpr int KP = D + 1;
   constexpr int SP = kKV4 + 1;
   constexpr int RQ = kQ4 / 16;   // q rows per thread
@@ -1068,9 +1083,9 @@ flash_bwd_dq_f32(BwdArgs a) {
   const size_t kvoff = (size_t)b * S * kstride + (size_t)hk * D;
   const int* segb = a.seg == nullptr ? nullptr : a.seg + (size_t)b * S;
 
-  stage_rows_f32<D>(Qs, static_cast<const float*>(a.q) + qoff, qstride, q0,
+  stage_rows_f32<T, D>(Qs, static_cast<const T*>(a.q) + qoff, qstride, q0,
                     kQ4, S);
-  stage_rows_f32<D>(dOs, static_cast<const float*>(a.dout) + qoff, qstride,
+  stage_rows_f32<T, D>(dOs, static_cast<const T*>(a.dout) + qoff, qstride,
                     q0, kQ4, S);
   float lse_r[RQ], delta_r[RQ], dq[RQ][DV];
   int qseg[RQ];
@@ -1091,9 +1106,9 @@ flash_bwd_dq_f32(BwdArgs a) {
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * kKV4;
     __syncthreads();  // the previous kv tile and dSs are consumed
-    stage_rows_f32<D>(Ks, static_cast<const float*>(a.k) + kvoff, kstride,
+    stage_rows_f32<T, D>(Ks, static_cast<const T*>(a.k) + kvoff, kstride,
                       k0, kKV4, S);
-    stage_rows_f32<D>(Vs, static_cast<const float*>(a.v) + kvoff, kstride,
+    stage_rows_f32<T, D>(Vs, static_cast<const T*>(a.v) + kvoff, kstride,
                       k0, kKV4, S);
     for (int i = tid; i < kKV4; i += kF32Threads)
       kseg_s[i] = segb != nullptr && k0 + i < S ? segb[k0 + i] : 0;
@@ -1133,7 +1148,7 @@ flash_bwd_dq_f32(BwdArgs a) {
         float p, ds;
         p_ds(a, sc[i][j], dp[i][j], q0 + ql, k0 + kl,
              qseg[i] == kseg_s[kl], lse_r[i], delta_r[i], p, ds);
-        dSs[ql * SP + kl] = ds;
+        dSs[ql * SP + kl] = round_through<T>(ds);
       }
     }
     __syncthreads();
@@ -1152,14 +1167,14 @@ flash_bwd_dq_f32(BwdArgs a) {
     }
   }
 
-  float* dqb = static_cast<float*>(a.dq) + qoff;
+  T* dqb = static_cast<T*>(a.dq) + qoff;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + ty * RQ + i;
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < DV; ++j)
-      dqb[(size_t)row * qstride + tx + 16 * j] = dq[i][j];
+      dqb[(size_t)row * qstride + tx + 16 * j] = from_f32<T>(dq[i][j]);
   }
 }
 
@@ -1229,24 +1244,40 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_dkdv_simt(const BwdArgs& a, int B, cudaStream_t s) {
+  return run(flash_bwd_dkdv_simt<T, D>,
+             dim3((a.S + kKV3 - 1) / kKV3, a.Hkv, B), kF32Threads,
+             dkdv_f32_smem<D>(), a, s);
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_simt(const BwdArgs& a, int B, cudaStream_t s) {
+  return run(flash_bwd_dq_simt<T, D>, dim3((a.S + kQ4 - 1) / kQ4, a.H, B),
+             kF32Threads, dq_f32_smem<D>(), a, s);
+}
+
 template <int D>
 cudaError_t launch_dkdv(const BwdArgs& a, int B, int dtype,
                         cudaStream_t s) {
-  if (dtype == kF32)
-    return run(flash_bwd_dkdv_f32<D>,
-               dim3((a.S + kKV3 - 1) / kKV3, a.Hkv, B), kF32Threads,
-               dkdv_f32_smem<D>(), a, s);
-  return a.seg != nullptr ? launch_dkdv_wgmma<D, true>(a, B, s)
-                          : launch_dkdv_wgmma<D, false>(a, B, s);
+  if (dtype == kF32) return launch_dkdv_simt<float, D>(a, B, s);
+  if constexpr (D == 192) {
+    return launch_dkdv_simt<__nv_bfloat16, D>(a, B, s);
+  } else {
+    return a.seg != nullptr ? launch_dkdv_wgmma<D, true>(a, B, s)
+                            : launch_dkdv_wgmma<D, false>(a, B, s);
+  }
 }
 
 template <int D>
 cudaError_t launch_dq(const BwdArgs& a, int B, int dtype, cudaStream_t s) {
-  if (dtype == kF32)
-    return run(flash_bwd_dq_f32<D>, dim3((a.S + kQ4 - 1) / kQ4, a.H, B),
-               kF32Threads, dq_f32_smem<D>(), a, s);
-  return a.seg != nullptr ? launch_dq_wgmma<D, true>(a, B, s)
-                          : launch_dq_wgmma<D, false>(a, B, s);
+  if (dtype == kF32) return launch_dq_simt<float, D>(a, B, s);
+  if constexpr (D == 192) {
+    return launch_dq_simt<__nv_bfloat16, D>(a, B, s);
+  } else {
+    return a.seg != nullptr ? launch_dq_wgmma<D, true>(a, B, s)
+                            : launch_dq_wgmma<D, false>(a, B, s);
+  }
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v,
@@ -1293,6 +1324,7 @@ extern "C" int shellac_flash_attention_bwd_dkdv(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return (int)launch_dkdv<64>(a, B, dtype, s);
   if (D == 128) return (int)launch_dkdv<128>(a, B, dtype, s);
+  if (D == 192) return (int)launch_dkdv<192>(a, B, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1310,5 +1342,6 @@ extern "C" int shellac_flash_attention_bwd_dq(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return (int)launch_dq<64>(a, B, dtype, s);
   if (D == 128) return (int)launch_dq<128>(a, B, dtype, s);
+  if (D == 192) return (int)launch_dq<192>(a, B, dtype, s);
   return (int)cudaErrorInvalidValue;
 }

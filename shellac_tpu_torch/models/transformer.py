@@ -25,10 +25,12 @@ JAX forward does; for stored compute-dtype weights the cast is a no-op.
 
 Compute: bf16 matmuls, fp32 norm statistics, softmax and logits, a bf16
 residual stream, as in the JAX package. Under autograd with cfg.remat
-each block is recomputed in the backward pass
-(`torch.utils.checkpoint`, the JAX package's `jax.checkpoint` with
-remat_policy "none"). Packed `segment_ids` restart RoPE positions per
-segment and make attention block-diagonal over segments.
+each block is recomputed in the backward pass (`torch.utils.checkpoint`,
+the JAX package's `jax.checkpoint`); cfg.remat_policy says what the
+recompute may keep (`remat_saves`). With cfg.quant_training the dense
+projections run as int8 dots (`ops/qtrain.py` `quant_dot`). Packed
+`segment_ids` restart RoPE positions per segment and make attention
+block-diagonal over segments.
 """
 
 from __future__ import annotations
@@ -38,7 +40,11 @@ import functools
 from typing import Any, Dict, List, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from shellac_tpu_torch.config import ModelConfig
 from shellac_tpu_torch.inference.cache.layout import (
@@ -59,6 +65,7 @@ from shellac_tpu_torch.ops.decode_attention import (
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
 from shellac_tpu_torch.ops.moe import moe_ffn, moe_ffn_grouped
 from shellac_tpu_torch.ops.norms import rms_norm
+from shellac_tpu_torch.ops.qtrain import quant_dot
 from shellac_tpu_torch.ops.rope import (
     apply_rope,
     apply_rope_interleaved,
@@ -81,9 +88,7 @@ AUX_KEYS = ("aux", "balance_loss", "router_z_loss", "dropped_frac")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for configurations the port lacks."""
-    if cfg.quant_training is not None:
-        raise NotImplementedError("quantized training dots are not ported")
+    """Raise for configurations the port lacks."""
     if cfg.activation not in ("swiglu", "geglu"):
         raise ValueError(
             f"unknown activation {cfg.activation!r}; have swiglu, geglu"
@@ -105,6 +110,23 @@ def moe_layers(cfg: ModelConfig) -> List[bool]:
             f"moe_every={cfg.moe_every}"
         )
     return [(i + 1) % cfg.moe_every == 0 for i in range(cfg.n_layers)]
+
+
+def stack_prefixes(cfg: ModelConfig) -> List[tuple]:
+    """Each layer's leading axes in the JAX package's stacked tree: (L,)
+    for one stack; (first_k_dense,) and (L - first_k_dense,) for the
+    first-k-dense stacks; (G, moe_every - 1) and (G,) for the interleaved
+    ones (G = L / moe_every groups). The optimizer's masks are judged on
+    that layout (`training/optimizer.py`)."""
+    flags = moe_layers(cfg)
+    n = cfg.n_layers
+    if cfg.moe is None or (cfg.moe_every == 1 and cfg.first_k_dense == 0):
+        return [(n,)] * n
+    if cfg.first_k_dense > 0:
+        k = cfg.first_k_dense
+        return [(k,) if i < k else (n - k,) for i in range(n)]
+    g = n // cfg.moe_every
+    return [(g,) if moe else (g, cfg.moe_every - 1) for moe in flags]
 
 
 def layer_shapes(cfg: ModelConfig, moe_layer: bool = False
@@ -258,6 +280,51 @@ def _embed_tokens(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
     return x
 
 
+def _proj(cfg: ModelConfig, x, w):
+    """A dense projection: a compute-dtype matmul, or an int8 dot when the
+    training step opted in (cfg.quant_training; the reference's `pdot`,
+    :453-456)."""
+    return quant_dot(x, w.to(cfg.compute_dtype), cfg.quant_training)
+
+
+# The matmuls a remat policy may keep: every product for "dots"; for
+# "dots_no_batch" only those without a batch dimension (the projections),
+# not the batched products (the plain attention's einsums, the capacity
+# buckets' expert products). An einsum without batch dimensions runs as
+# a bmm of batch 1. The flash kernels and the grouped expert product are
+# not dots, as `jax.checkpoint_policies` counts no Pallas call and no
+# ragged dot.
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._int_mm.default}
+_BATCHED_DOTS = {torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default}
+
+
+def remat_saves(policy: str, func, args) -> bool:
+    """Whether `policy` keeps the output of the aten op `func` called on
+    `args` through a block's recompute (the reference's `_remat_policy`,
+    :404-417: checkpoint_dots and checkpoint_dots_with_no_batch_dims)."""
+    if func in _DOTS:
+        return True
+    if func in _BATCHED_DOTS:
+        return policy == "dots" or args[0].shape[0] == 1
+    return False
+
+
+def _remat_context(policy: str):
+    """The selective-checkpoint context_fn for a remat policy."""
+    if policy not in ("dots", "dots_no_batch"):
+        raise ValueError(
+            f"unknown remat_policy {policy!r}; have none, dots, "
+            "dots_no_batch"
+        )
+
+    def choose(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if remat_saves(policy, func, args)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, choose)
+
+
 def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
            fresh_cache: bool = False, attn_kind: Optional[str] = None,
            page_tables: Optional[torch.Tensor] = None, segments=None,
@@ -285,7 +352,7 @@ def _block(cfg: ModelConfig, attn_impl: str, x, lp, cos, sin, cache=None,
     attend = _mla_attention if cfg.mla is not None else _gqa_attention
     o = attend(cfg, attn_impl, hx, lp, cos, sin, cache, fresh_cache,
                attn_kind, page_tables, segments, kv_scales)
-    o = o @ lp["wo"].to(cdt)
+    o = _proj(cfg, o, lp["wo"])
     if cfg.attn_out_bias:
         o = o + lp["bo"].to(cdt)
     if cfg.post_norms:
@@ -305,9 +372,9 @@ def _gqa_attention(cfg: ModelConfig, attn_impl: str, hx, lp, cos, sin,
     cdt = cfg.compute_dtype
     b, s, _ = hx.shape
     h, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.dim_per_head
-    q = hx @ lp["wq"].to(cdt)
-    k = hx @ lp["wk"].to(cdt)
-    v = hx @ lp["wv"].to(cdt)
+    q = _proj(cfg, hx, lp["wq"])
+    k = _proj(cfg, hx, lp["wk"])
+    v = _proj(cfg, hx, lp["wv"])
     if cfg.attn_bias:
         q = q + lp["bq"].to(cdt)
         k = k + lp["bk"].to(cdt)
@@ -395,15 +462,15 @@ def _mla_attention(cfg: ModelConfig, attn_impl: str, hx, lp, cos, sin,
     h, r = cfg.n_heads, m.kv_lora_rank
     scale = m.qk_head_dim ** -0.5
     if m.q_lora_rank is None:
-        q = hx @ lp["wq"].to(cdt)
+        q = _proj(cfg, hx, lp["wq"])
     else:
-        qa = rms_norm(hx @ lp["wq_a"].to(cdt), lp["q_a_norm"],
+        qa = rms_norm(_proj(cfg, hx, lp["wq_a"]), lp["q_a_norm"],
                       cfg.norm_eps).to(cdt)
-        q = qa @ lp["wq_b"].to(cdt)
+        q = _proj(cfg, qa, lp["wq_b"])
     q = q.reshape(b, s, h, m.qk_head_dim)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_pe = apply_rope_interleaved(q[..., m.qk_nope_head_dim:], cos, sin)
-    ckv = hx @ lp["wkv_a"].to(cdt)  # (b, s, kv_lora_rank + rope)
+    ckv = _proj(cfg, hx, lp["wkv_a"])  # (b, s, kv_lora_rank + rope)
     c = rms_norm(ckv[..., :r], lp["kv_a_norm"], cfg.norm_eps).to(cdt)
     k_pe = apply_rope_interleaved(ckv[..., None, r:], cos, sin)  # (b,s,1,·)
     w_bk = lp["wkv_b_k"].to(cdt)  # (r, h, nope)
@@ -475,9 +542,9 @@ def _block_mlp(cfg: ModelConfig, x, lp, moe_layer: bool = False,
                 "dropped_frac": metrics["moe_dropped_frac"],
             }
     else:
-        gate = hx @ lp["w_gate"].to(cdt)
-        up = hx @ lp["w_up"].to(cdt)
-        down = _gated_act(cfg)(gate, up) @ lp["w_down"].to(cdt)
+        gate = _proj(cfg, hx, lp["w_gate"])
+        up = _proj(cfg, hx, lp["w_up"])
+        down = _proj(cfg, _gated_act(cfg)(gate, up), lp["w_down"])
     if cfg.post_norms:
         down = rms_norm(down, lp["post_mlp_norm"], cfg.norm_eps).to(cdt)
     return x + down, moe_out
@@ -648,8 +715,13 @@ def forward(
     attn_impl: str = "auto",
     device: DeviceLike = None,
     return_aux: bool = False,
+    return_hidden: bool = False,
 ):
     """Full forward pass; returns fp32 logits (B, S, V).
+
+    With return_hidden=True it skips the LM head and returns the
+    post-final-norm hidden states (B, S, D) in compute dtype, the seam
+    the fused (vocab-chunked) loss uses (the reference's :973-976).
 
     With segment_ids, rows hold several packed documents: attention is
     block-diagonal over them and RoPE positions restart per segment, so
@@ -678,11 +750,9 @@ def forward(
     else:
         positions = torch.as_tensor(positions, device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
+    remat_kw = {}
     if remat and cfg.remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported; only 'none' "
-            "(recompute each whole block)"
-        )
+        remat_kw["context_fn"] = _remat_context(cfg.remat_policy)
     tables, local = _rope_tables(cfg, positions)
     x = _embed_tokens(cfg, params, tokens)
     flags = moe_layers(cfg)
@@ -694,15 +764,20 @@ def forward(
                                 segments=segments, moe_layer=flags[i],
                                 aux=return_aux)
         if remat:
-            x, mo = checkpoint(blk, x, lp, cos, sin, use_reentrant=False)
+            x, mo = checkpoint(blk, x, lp, cos, sin, use_reentrant=False,
+                               **remat_kw)
         else:
             x, mo = blk(x, lp, cos, sin)
         if mo is not None:
             acc = mo if acc is None else {k: acc[k] + mo[k] for k in acc}
-    logits = unembed(cfg, params, x)
+    if return_hidden:
+        out = rms_norm(x, params["final_norm"], cfg.norm_eps).to(
+            cfg.compute_dtype)
+    else:
+        out = unembed(cfg, params, x)
     if not return_aux:
-        return logits
-    return logits, _mean_aux(cfg, acc, sum(flags), dev)
+        return out
+    return out, _mean_aux(cfg, acc, sum(flags), dev)
 
 
 def _mean_aux(cfg: ModelConfig, acc, routers: int, dev) -> Dict[str, Any]:

@@ -13,9 +13,11 @@ call, the forward alone otherwise. On CPU tensors it takes
 attention), differentiated by torch autograd.
 
 The kernels take any S (the ragged tail is masked in-kernel), head_dim
-64 and 128, bf16 and fp32; the forward also takes 192 (MLA's expanded
-prefill: q and k 192 wide, v padded to 192) without segments, and the
-backward kernels do not (MLA training is not ported). Beside each kernel
+64, 128 and 192 (MLA's expanded attention: q and k 192 wide, v padded to
+192, as the JAX package pads it), bf16 and fp32, with or without packed
+segments. In bf16 the backward at 192 is the CUDA-core body of
+`csrc/flash_attention_bwd.cu` (the wgmma bodies' shared memory does not
+fit there); every other bf16 shape runs the wgmma bodies. Beside each kernel
 stands its plain version computing the same outputs from the same inputs
 by the same recomputation (`flash_forward_ref`, `flash_bwd_dkdv_ref`,
 `flash_bwd_dq_ref`): the tests and `chip_smoke.py` hold the kernels to
@@ -33,9 +35,8 @@ from shellac_tpu_torch.ops.attention import NEG_INF, attention_ref
 
 _KERNEL_DTYPES = {torch.float32: _build.DTYPE_F32,
                   torch.bfloat16: _build.DTYPE_BF16}
-KERNEL_HEAD_DIMS = (64, 128)
-# The forward alone also takes MLA's qk width (segments unmasked there).
-FORWARD_HEAD_DIMS = KERNEL_HEAD_DIMS + (192,)
+# 192: MLA's qk width (q and k 192 wide, v padded up to it).
+KERNEL_HEAD_DIMS = (64, 128, 192)
 
 
 def sink_rebase(m, l, sink):
@@ -176,10 +177,8 @@ def flash_bwd_dsinks(sinks, lse, delta):
 # --------------------------------------------------------------------------
 
 
-def _check(name, q, k, v, *, causal, window, sinks, segments,
-           dims=KERNEL_HEAD_DIMS):
-    """Raise on what the flash kernels do not take (head dims `dims`);
-    returns the shapes."""
+def _check(name, q, k, v, *, causal, window, sinks, segments):
+    """Raise on what the flash kernels do not take; returns the shapes."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{name} needs CUDA tensors")
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
@@ -191,10 +190,8 @@ def _check(name, q, k, v, *, causal, window, sinks, segments,
     _, sk, hkv, dk = k.shape
     if k.shape[0] != b or sk != s or dk != d:
         raise ValueError(f"{name}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if d not in dims:
-        raise ValueError(f"{name}: head_dim {d} not in {dims}")
-    if d not in KERNEL_HEAD_DIMS and segments is not None:
-        raise ValueError(f"{name}: head_dim {d} takes no segments")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
     if h % hkv != 0:
         raise ValueError(f"n_heads={h} not divisible by n_kv_heads={hkv}")
     if window is not None and (window < 1 or not causal):
@@ -244,8 +241,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, scale=None, window=None,
     `flash_attention_cuda.launches` counts the kernel's launches.
     """
     b, s, h, hkv, d = _check("flash_attention_cuda", q, k, v, causal=causal,
-                             window=window, sinks=sinks, segments=segments,
-                             dims=FORWARD_HEAD_DIMS)
+                             window=window, sinks=sinks, segments=segments)
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
@@ -416,10 +412,6 @@ def flash_attention(q, k, v, *, causal=True, scale=None, window=None,
         if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, sinks)
         ):
-            if q.shape[-1] not in KERNEL_HEAD_DIMS:
-                raise NotImplementedError(
-                    f"flash_attention: no backward kernel at head_dim "
-                    f"{q.shape[-1]} (MLA training is not ported)")
             return FlashAttentionFunction.apply(
                 q, k, v, segments, sinks, causal, float(scale), window,
                 softcap, KERNELS,

@@ -5,7 +5,7 @@ The port of `shellac_tpu/training/checkpoint.py` (`latest_step_on_disk`
 `torch.load(weights_only=True)` instead of orbax. A step is one
 directory, `<root>/<step>/state.pt`, holding the state as nested
 dictionaries and lists of CPU tensors and ints (the port's TrainState:
-params, the adamw count, mu and nu, step, the EMA). The reference's
+params, the optimizer's count and moments, step, the EMA). The reference's
 integrity contract holds:
 
   - every `save` writes a per-step manifest (leaf count, digest of the
@@ -37,8 +37,13 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-from shellac_tpu_torch.config import ModelConfig, TrainConfig, resolve_dtype
+from shellac_tpu_torch.config import ModelConfig, TrainConfig
 from shellac_tpu_torch.ops.dispatch import DeviceLike, resolve_device
+from shellac_tpu_torch.training.optimizer import (
+    FactoredState,
+    LionState,
+    init_opt_state,
+)
 from shellac_tpu_torch.training.train_state import AdamWState, TrainState
 
 # A save is written under `<step><marker><ns>` and renamed to `<step>`
@@ -63,22 +68,30 @@ def _metrics():
     return ResilienceMetrics()
 
 
+# The optimizer states by their saved keys (adamw and muon share one).
+_OPT_STATES = {("mu", "nu"): AdamWState, ("mu",): LionState,
+               ("v", "v_col", "v_row"): FactoredState}
+
+
 def _as_tree(state: TrainState) -> dict:
     """The saved form of a TrainState: dicts, lists, tensors and ints."""
+    opt = state.opt_state
     return {
         "step": int(state.step),
         "params": state.params,
-        "opt_state": {"count": int(state.opt_state.count),
-                      "mu": state.opt_state.mu, "nu": state.opt_state.nu},
+        "opt_state": {"count": int(opt.count),
+                      **{k: v for k, v in vars(opt).items()
+                         if k != "count"}},
         "ema_params": state.ema_params,
     }
 
 
 def _from_tree(tree: dict) -> TrainState:
-    opt = tree["opt_state"]
+    opt = dict(tree["opt_state"])
+    count = int(opt.pop("count"))
+    cls = _OPT_STATES[tuple(sorted(opt))]
     return TrainState(step=int(tree["step"]), params=tree["params"],
-                      opt_state=AdamWState(count=int(opt["count"]),
-                                           mu=opt["mu"], nu=opt["nu"]),
+                      opt_state=cls(count=count, **opt),
                       ema_params=tree.get("ema_params"))
 
 
@@ -140,7 +153,11 @@ def abstract_train_state(model_cfg: ModelConfig,
                          train_cfg: TrainConfig) -> TrainState:
     """The structure `init_train_state` gives, as `meta` tensors (shapes
     and dtypes, no storage): the `abstract_state` of a restore."""
-    from shellac_tpu_torch.models.transformer import layer_shapes, moe_layers
+    from shellac_tpu_torch.models.transformer import (
+        layer_shapes,
+        moe_layers,
+        stack_prefixes,
+    )
 
     pdt = model_cfg.params_dtype
 
@@ -159,9 +176,8 @@ def abstract_train_state(model_cfg: ModelConfig,
 
     return TrainState(
         step=0, params=tree(pdt),
-        opt_state=AdamWState(count=0,
-                             mu=tree(resolve_dtype(train_cfg.mu_dtype)),
-                             nu=tree(torch.float32)),
+        opt_state=init_opt_state(train_cfg, tree(pdt),
+                                 stack_prefixes(model_cfg)),
         ema_params=tree(pdt) if train_cfg.ema_decay is not None else None)
 
 

@@ -2,15 +2,17 @@
 
 Port of `shellac_tpu/training/trainer.py` (`init_train_state` :33,
 `make_train_step` :58-207) for one card: the forward (remat per
-cfg.remat, packed segments), the fp32 cross-entropy, gradients by
-autograd (the flash and RMSNorm kernels carry their own backward), the
-adamw chain, gradient accumulation, the parameter EMA and the
+cfg.remat and cfg.remat_policy, packed segments, int8 projections under
+TrainConfig.quant), the fp32 cross-entropy or the vocab-chunked fused
+loss (TrainConfig.fused_loss_chunk), the MoE router's auxiliary loss
+added to it, gradients by autograd (the flash and RMSNorm kernels carry
+their own backward), the optimizer chain (adamw, lion, adafactor or
+muon), gradient accumulation, the parameter EMA and the
 non-finite-update guard. The JAX step is jitted with its state donated;
 this one updates the state in place and returns it.
 
-Not ported, raising NotImplementedError: lion, adafactor and muon;
-TrainConfig.quant; fused_loss_chunk; a mesh and pipeline_microbatches;
-MoE models (the router's auxiliary losses are not in the step).
+Not ported, raising NotImplementedError: a mesh and
+pipeline_microbatches (one card).
 """
 
 from __future__ import annotations
@@ -22,12 +24,15 @@ import torch
 from shellac_tpu_torch.config import ModelConfig, TrainConfig
 from shellac_tpu_torch.models import transformer
 from shellac_tpu_torch.ops.dispatch import DeviceLike, check_on, resolve_device
-from shellac_tpu_torch.training.losses import cross_entropy
+from shellac_tpu_torch.training.losses import (
+    cross_entropy,
+    fused_cross_entropy,
+)
 from shellac_tpu_torch.training.optimizer import (
-    adamw_update,
     check_optimizer,
     global_norm,
-    init_adamw,
+    init_opt_state,
+    opt_update,
 )
 from shellac_tpu_torch.training.train_state import (
     TrainState,
@@ -38,45 +43,28 @@ from shellac_tpu_torch.training.train_state import (
 
 def _check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig):
     check_optimizer(train_cfg)
-    if train_cfg.quant is not None:
-        raise NotImplementedError(
-            f"quantized training (quant={train_cfg.quant!r}) is not ported"
-        )
-    if train_cfg.fused_loss_chunk is not None:
-        raise NotImplementedError(
-            "the vocab-chunked fused cross-entropy (fused_loss_chunk) is "
-            "not ported"
-        )
     if train_cfg.grad_accum < 1:
         raise ValueError(f"grad_accum={train_cfg.grad_accum} must be >= 1")
     transformer.check_supported(model_cfg)
-    if model_cfg.moe is not None:
-        # The reference step adds the router's balance and z losses
-        # (forward's return_aux) to the loss; a step without them would
-        # train an MoE model on the wrong objective.
-        raise NotImplementedError(
-            "MoE training is not ported: the step does not add the "
-            "router's auxiliary losses (balance and z), nor run "
-            "grouped_dropless training or expert parallelism"
-        )
-    if model_cfg.remat and model_cfg.remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy {model_cfg.remat_policy!r} is not ported; only "
-            "'none'"
-        )
 
 
-def train_state_from_params(train_cfg: TrainConfig, params) -> TrainState:
+def train_state_from_params(train_cfg: TrainConfig, params,
+                            model_cfg: Optional[ModelConfig] = None
+                            ) -> TrainState:
     """A fresh TrainState over master `params` (every leaf then requires
-    grad): zero moments, and an EMA copy when train_cfg.ema_decay is set."""
+    grad): the optimizer's zero state, and an EMA copy when
+    train_cfg.ema_decay is set. `model_cfg` gives the layers' stacked
+    layout for the optimizer's masks (one stack when omitted)."""
     check_optimizer(train_cfg)
     for p in leaves(params):
         p.requires_grad_(True)
     ema = None
     if train_cfg.ema_decay is not None:
         ema = clone_tree(params)
+    prefixes = (None if model_cfg is None
+                else transformer.stack_prefixes(model_cfg))
     return TrainState(step=0, params=params,
-                      opt_state=init_adamw(train_cfg, params),
+                      opt_state=init_opt_state(train_cfg, params, prefixes),
                       ema_params=ema)
 
 
@@ -89,7 +77,7 @@ def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
     dev = resolve_device(device)
     params = transformer.init_params(model_cfg, seed=seed, device=dev,
                                      master=True)
-    return train_state_from_params(train_cfg, params)
+    return train_state_from_params(train_cfg, params, model_cfg)
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -104,10 +92,18 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     their means (tokens times grad_accum).
 
     metrics (0-dim tensors on the device): loss, perplexity, tokens,
-    grad_norm (of the unclipped gradients) and update_skipped (1 when the
+    grad_norm (of the unclipped gradients), update_skipped (1 when the
     gradients or the loss were not finite: the parameters, the optimizer
-    state and the EMA then stay exactly as they were). The state's
-    tensors are updated in place.
+    state and the EMA then stay exactly as they were), and for an MoE
+    model moe_aux_loss (added to the loss), moe_balance_loss,
+    moe_router_z_loss and moe_dropped_frac. The state's tensors are
+    updated in place.
+
+    TrainConfig.quant runs the dense projections as int8 dots for this
+    step only (the model config keeps quant_training unset).
+    TrainConfig.fused_loss_chunk takes the vocab-chunked loss, except
+    where the reference falls back to the unfused one: a logit softcap,
+    or a vocab the chunk does not divide.
     """
     if mesh is not None or pipeline_microbatches is not None:
         raise NotImplementedError(
@@ -115,17 +111,43 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             "step runs on one card"
         )
     _check_train_config(model_cfg, train_cfg)
+    if train_cfg.quant is not None:
+        model_cfg = model_cfg.replace(
+            quant_training=train_cfg.quant).validate()
     dev = resolve_device(device)
     accum = train_cfg.grad_accum
+    prefixes = transformer.stack_prefixes(model_cfg)
+    fused_chunk = train_cfg.fused_loss_chunk
+    if fused_chunk is not None and (
+            model_cfg.logit_softcap is not None
+            or model_cfg.vocab_size % fused_chunk):
+        # Softcap changes the logit function itself; an indivisible vocab
+        # has no even chunking. Both take the unfused path (:79-87).
+        fused_chunk = None
 
     def loss_fn(params, batch):
-        logits = transformer.forward(
+        out, aux = transformer.forward(
             model_cfg, params, batch["inputs"],
             segment_ids=batch.get("segment_ids"), attn_impl=attn_impl,
-            device=dev,
+            device=dev, return_aux=True,
+            return_hidden=fused_chunk is not None,
         )
-        return cross_entropy(logits, batch["targets"], batch.get("mask"),
-                             train_cfg.z_loss_weight)
+        if fused_chunk is not None:
+            loss, metrics = fused_cross_entropy(
+                out, transformer.output_weights(model_cfg, params),
+                batch["targets"], batch.get("mask"),
+                train_cfg.z_loss_weight, vocab_chunk=fused_chunk)
+        else:
+            loss, metrics = cross_entropy(
+                out, batch["targets"], batch.get("mask"),
+                train_cfg.z_loss_weight)
+        if model_cfg.moe is not None:
+            metrics["moe_aux_loss"] = aux["aux"]
+            metrics["moe_balance_loss"] = aux["balance_loss"]
+            metrics["moe_router_z_loss"] = aux["router_z_loss"]
+            metrics["moe_dropped_frac"] = aux["dropped_frac"]
+            loss = loss + aux["aux"]
+        return loss, metrics
 
     def grads_of(params, batch):
         loss, metrics = loss_fn(params, batch)
@@ -178,8 +200,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 (), 0.0 if ok else 1.0, dtype=torch.float32, device=dev)
         opt_state = state.opt_state
         if ok:
-            opt_state = adamw_update(train_cfg, state.params, grads,
-                                     opt_state, g_norm)
+            opt_state = opt_update(train_cfg, state.params, grads,
+                                   opt_state, g_norm, prefixes)
             if state.ema_params is not None:
                 d = train_cfg.ema_decay
                 with torch.no_grad():

@@ -228,24 +228,20 @@ def test_batch_gives_the_batching_engine_tokens(capsys, tmp_path, backend):
     assert summary["tokens_generated"] == sum(len(v) for v in want.values())
 
 
-@pytest.mark.parametrize("kind", ["tokenizer", "native-mla"])
+@pytest.mark.parametrize("kind", ["tokenizer", "train-mesh"])
 def test_unported_options_raise(tmp_path, kind):
     """What the port still lacks raises NotImplementedError: a
-    tokenizer.json that is not byte-level BPE, and a native directory of
-    an MLA model that sets quantized training dots (MLA itself serves)."""
-    import dataclasses
-
-    argv = ["generate", "--device", "cpu", "--text", "hi"]
+    tokenizer.json that is not byte-level BPE, and training over a mesh
+    (an MLA model trains on one card)."""
     if kind == "tokenizer":
         path = tmp_path / "t.json"
         path.write_text(json.dumps({"model": {"type": "Unigram",
                                               "vocab": []}}))
-        argv += ["--tokenizer", str(path)]
+        argv = ["generate", "--device", "cpu", "--text", "hi",
+                "--tokenizer", str(path)]
     else:
-        (tmp_path / "config.json").write_text(json.dumps(
-            dataclasses.asdict(get_model_config("tiny-mla").replace(
-                quant_training="int8"))))
-        argv += ["--native-dir", str(tmp_path)]
+        argv = ["train", "--device", "cpu", "--model", "tiny-mla",
+                "--mesh", "fsdp=2"]
     with pytest.raises(NotImplementedError):
         cli.main(argv)
 

@@ -1285,11 +1285,155 @@ def test_flash_forward_at_192(dtype, case):
     assert not out[..., 128:].any()
 
 
-def test_flash_192_refuses_segments_and_grad():
+# MLA training at 192: packed segments and a ragged S, v (and so dO's
+# live lanes) 128 wide padded to 192 as the model pads them.
+_BWD_192 = {
+    "causal_s300": dict(b=2, s=300, bounds=None),
+    "segments_s1000": dict(b=1, s=1000, bounds=(0, 50, 130, 131, 600, 1000)),
+    "odd_s129": dict(b=1, s=129, bounds=(0, 64, 129)),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(_BWD_192))
+def test_flash_192_backward_and_segments(dtype, case):
+    """Kernels 2 (with segments), 3 and 4 at D 192 against their plain
+    versions, and the autograd Function against autograd through the
+    plain attention, on MLA's padded v."""
     dev = _card()
-    x = torch.zeros(1, 16, 4, 192, device=dev, dtype=torch.bfloat16)
-    seg = torch.zeros(1, 16, device=dev, dtype=torch.int32)
-    with pytest.raises(ValueError, match="segments"):
-        fa.flash_attention_cuda(x, x, x, segments=seg)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.flash_attention(x.clone().requires_grad_(), x, x)
+    c = _BWD_192[case]
+    b, s = c["b"], c["s"]
+    gen = torch.Generator(device=dev).manual_seed(s + 192)
+    q = _randn(gen, (b, s, 8, 192), dtype, dev)
+    k = _randn(gen, (b, s, 8, 192), dtype, dev)
+    v = torch.nn.functional.pad(_randn(gen, (b, s, 8, 128), dtype, dev),
+                                (0, 64))
+    do = _randn(gen, (b, s, 8, 192), dtype, dev)
+    seg = None
+    if c["bounds"] is not None:
+        seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        for i in range(len(c["bounds"]) - 1):
+            seg[:, c["bounds"][i]:c["bounds"][i + 1]] = i
+    out, lse = fa.flash_attention_cuda(q, k, v, segments=seg, with_lse=True)
+    rout, rlse = fa.flash_forward_ref(q, k, v, segments=seg)
+    _close(out, rout, dtype)
+    _close(lse, rlse, torch.float32 if dtype == torch.float32 else dtype)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         rout.float()).contiguous()
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, rlse, delta, segments=seg)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, rlse, delta, segments=seg)
+    rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, rlse, delta, segments=seg)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, do, rlse, delta, segments=seg)
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+        assert got.dtype == dtype
+        _scaled_close(got, ref, dtype, name)
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref_ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.flash_bwd_dkdv_cuda.launches, fa.flash_bwd_dq_cuda.launches)
+    got = torch.autograd.grad(fa.flash_attention(*ins, segments=seg), ins,
+                              do)
+    assert (fa.flash_bwd_dkdv_cuda.launches,
+            fa.flash_bwd_dq_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(
+        fa.flash_attention_ref(*ref_ins, segments=seg), ref_ins, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _scaled_close(g, w, dtype, name)
+
+
+# ------------------------------------------------ training on the card
+
+
+@pytest.mark.parametrize("kind", ["int8", "int8_bwd"])
+def test_int8_training_dots_on_the_card(kind):
+    """`torch._int_mm` on the card gives the CPU's int8 dots (the int32
+    sums are exact, the quantization the same fp32 arithmetic), forward
+    and both backward rules; a product outside the card's int8 matmul
+    shapes raises instead of falling back."""
+    from shellac_tpu_torch.ops import qtrain
+
+    dev = _card()
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn((3, 24, 128), generator=gen)
+    w = torch.randn((128, 256), generator=gen) * 0.1
+    g = torch.randn((3, 24, 256), generator=gen)
+    res = {}
+    for where in ("cpu", dev):
+        xi = x.to(where).requires_grad_()
+        wi = w.to(where).requires_grad_()
+        out = qtrain.quant_dot(xi, wi, kind)
+        res[str(where)] = (out,) + torch.autograd.grad(out, (xi, wi),
+                                                       g.to(where))
+    for a, b in zip(res["cpu"], res[str(dev)]):
+        torch.testing.assert_close(b.cpu(), a,
+                                   atol=1e-5 * a.abs().max().item(), rtol=0)
+    small = torch.randn((1, 8, 128), device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        qtrain.quant_dot(small, w.to(dev), kind)
+
+
+def test_device_prefetch_stages_batches_in_order():
+    """Batches reach the card through pinned buffers in order, a batch of
+    another shape through pageable memory, the last one intact."""
+    import numpy as np
+
+    from shellac_tpu_torch.training.data import device_prefetch
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    batches = [{"inputs": rng.integers(0, 99, size=(2, 8)).astype(np.int32),
+                "targets": rng.integers(0, 99, size=(2, 8))}
+               for _ in range(6)]
+    batches[3] = {k: v[:1] for k, v in batches[3].items()}
+    got = list(device_prefetch(iter(batches), device=dev, depth=2))
+    assert len(got) == len(batches)
+    for a, b in zip(got, batches):
+        for k in b:
+            assert a[k].is_cuda
+            np.testing.assert_array_equal(a[k].cpu().numpy(), b[k])
+
+
+def test_mla_training_at_192_through_the_kernels():
+    """Two fp32 train steps of an MLA model at DeepSeek's head widths
+    (qk 128 + 64 = 192, v 128) through kernels 2-4 on the card, and the
+    same steps on the CPU's plain versions: losses and gradient norms
+    within 1e-4."""
+    from shellac_tpu_torch.config import MLAConfig, TrainConfig
+    from shellac_tpu_torch.models import transformer as tt
+    from shellac_tpu_torch.models.registry import get_model_config
+    from shellac_tpu_torch.training import (
+        make_train_step,
+        train_state_from_params,
+    )
+    from shellac_tpu_torch.training.train_state import map_tree
+
+    dev = _card()
+    cfg = get_model_config("tiny-mla").replace(
+        dtype="float32", d_model=128, n_heads=2, remat=True,
+        mla=MLAConfig(kv_lora_rank=64, q_lora_rank=None,
+                      qk_nope_head_dim=128, qk_rope_head_dim=64,
+                      v_head_dim=128))
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    params = tt.init_params(cfg, seed=3, device="cpu", master=True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 97),
+                         generator=torch.Generator().manual_seed(1))
+    seg = torch.zeros((2, 96), dtype=torch.int32)
+    seg[:, 40:] = 1
+    runs = {}
+    for where in ("cpu", dev):
+        state = train_state_from_params(
+            tcfg, map_tree(lambda t: t.clone().to(where), params), cfg)
+        step = make_train_step(cfg, tcfg, device=where)
+        batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:],
+                 "segment_ids": seg}
+        before = fa.flash_bwd_dq_cuda.launches
+        out = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[str(where)] = out
+        if where == dev:
+            assert fa.flash_bwd_dq_cuda.launches - before == 2 * cfg.n_layers
+    for a, b in zip(runs["cpu"], runs[str(dev)]):
+        assert abs(a[0] - b[0]) <= 1e-4 * abs(a[0])
+        assert abs(a[1] - b[1]) <= 1e-4 * abs(a[1])

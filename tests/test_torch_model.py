@@ -353,10 +353,6 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError):
             Engine(cfg, params, device=CPU, **kw)
     assert Engine(cfg, params, kv_quant="int8", device=CPU).kv_quant == "int8"
-    toks = torch.zeros(1, 4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        tt.forward(cfg.replace(remat=True, remat_policy="dots"), params,
-                   toks, device=CPU)
 
 
 def test_cache_write_past_max_len_raises():
@@ -384,7 +380,9 @@ def test_import_leaves_jax_out():
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "need = {'shellac_tpu_torch.' + n for n in ('models.convert', "
         "'utils.safetensors', 'training.checkpoint', "
-        "'training.resilience', 'training.tokenizer')}\n"
+        "'training.resilience', 'training.tokenizer', 'ops.qtrain', "
+        "'training.data', 'training.evaluate', 'training.loop', "
+        "'obs.train', 'utils.metrics', 'utils.tracing')}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) or len(names) < 20 "
         "else 0)\n"

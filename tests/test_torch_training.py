@@ -468,18 +468,6 @@ def test_training_entry_points_need_a_card_unless_told_cpu():
         make_train_step(tc, TrainConfig())
 
 
-@pytest.mark.parametrize("over", [
-    {"optimizer": "lion"}, {"optimizer": "adafactor"}, {"optimizer": "muon"},
-    {"quant": "int8"}, {"fused_loss_chunk": 64},
-])
-def test_unported_train_options_raise(over):
-    tc = get_model_config("tiny")
-    with pytest.raises(NotImplementedError):
-        make_train_step(tc, TrainConfig(**over), device=CPU)
-    with pytest.raises(NotImplementedError):
-        init_train_state(tc, TrainConfig(**over), device=CPU)
-
-
 def test_unported_train_step_arguments_raise():
     tc = get_model_config("tiny")
     with pytest.raises(NotImplementedError):
@@ -487,20 +475,6 @@ def test_unported_train_step_arguments_raise():
     with pytest.raises(NotImplementedError):
         make_train_step(tc, TrainConfig(), device=CPU,
                         pipeline_microbatches=2)
-    with pytest.raises(NotImplementedError):
-        make_train_step(tc.replace(remat=True, remat_policy="dots"),
-                        TrainConfig(), device=CPU)
-
-
-@pytest.mark.parametrize("name", ["tiny-moe", "tiny-gptoss"])
-def test_train_step_refuses_moe(name):
-    """A step without the router's auxiliary losses would train an MoE
-    model on the wrong objective: both entry points refuse, naming them."""
-    tc = get_model_config(name)
-    with pytest.raises(NotImplementedError, match="auxiliary losses"):
-        make_train_step(tc, TrainConfig(), device=CPU)
-    with pytest.raises(NotImplementedError, match="auxiliary losses"):
-        init_train_state(tc, TrainConfig(), device=CPU)
 
 
 def test_decode_wrappers_are_inference_only():

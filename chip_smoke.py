@@ -7,17 +7,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
   2. build    — compile every kernel in shellac_tpu_torch/csrc/ from source
                 (nvcc -Xptxas -v register/shared-memory/spill lines); every
                 instance of the Hopper redesigns (the wgmma kernels 2, 3
-                and 4, D 64 and 128, with and without segments; kernel 1's
-                six register-resident RMSNorm instances; the split-K
+                and 4, D 64, 128 and 192, with and without segments;
+                kernel 1's six register-resident RMSNorm instances; the split-K
                 decode body's dense instances, kernel 5's four over bf16
                 caches and kernel 6's four over int8 caches (D 64 and
                 128, at 2 and 16 rows); kernel 7's eight, bf16 and int8
-                pools; kernel 2's D 192 instances, with and without
-                segments, and the wide decode body's eight at MLA's D
-                576, dense and paged, q bf16 or fp32 over caches of q's
-                dtype or int8; the CUDA-core bodies at D 192: kernels 3
-                and 4 in bf16 and fp32, kernel 2 in fp32) must show 0
-                spill stores, and no wgmma may be serialized (C7520).
+                pools; the wide decode body's eight at MLA's D 576,
+                dense and paged, q bf16 or fp32 over caches of q's dtype
+                or int8; the fp32 CUDA-core bodies at D 192: kernels 2,
+                3 and 4) must show 0 spill stores, and no wgmma may be
+                serialized (C7520).
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32 (RMSNorm
                 at 1, 8, 16, 4096 and 12288 rows of 2048, 65536 rows of
@@ -385,13 +384,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 width 192 against their plain versions in bf16 and fp32
                 at MLA's training shape (6 x 2048, 16 heads, v padded from
                 128), packed, and at S 1999, the Function against autograd
-                through the plain attention; their card ms, plain ms,
+                through the plain attention; that a bf16 call of kernel 3
+                or 4 runs its wgmma body alone; their card ms, plain ms,
                 bound and SDPA (backward) ms;
   train-families — shellac-mla-2b at full size, DeepSeek-V2-Lite's width
                 at 4 layers and GPT-OSS-20B's at 2 (fused loss, and the
                 peak memory without it): a few timed adamw steps with
                 remat, tokens/s, model TFLOP/s (6 N + 12 L D S, N active),
-                peak memory, device ms by kernel kind;
+                peak memory, device ms by kernel kind and kernels 3 and
+                4's share of it;
   train-options  — shellac-1b at 6 x 2048 under lion, adafactor, muon,
                 int8 and int8_bwd dots, remat "dots" and "dots_no_batch",
                 grad_accum 2 at 12 x 2048 and the EMA; shellac-270m's
@@ -489,17 +490,17 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 
 
-# Instances the build must show, by kind: the wgmma kernels (D 64 and
-# 128, with and without segments; the forward also at MLA's 192, with
-# and without), the CUDA-core bodies at 192 (kernels 3 and 4 in bf16 and
-# fp32, kernel 2 in fp32 with and without segments), kernel 1's register-resident RMSNorm (bf16
-# and fp32: many rows and few rows at d 2048, one instance at d 128), the
+# Instances the build must show, by kind: the wgmma kernels (D 64, 128
+# and MLA's 192, with and without segments), the fp32 CUDA-core bodies
+# at 192 (kernels 3 and 4, kernel 2 with and without segments), kernel
+# 1's register-resident RMSNorm (bf16 and fp32: many rows and few rows
+# at d 2048, one instance at d 128), the
 # split-K decode body (D 64 and 128, at 2 and 16 rows) over the dense
 # caches (kernel 5's bf16, kernel 6's int8) and kernel 7's bf16 and int8
 # pools, and the wide body at MLA's 576 (q bf16 or fp32, over a cache of
 # q's dtype or int8) over the dense caches and the pools.
-REDESIGNED = {"flash_fwd": 6, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4,
-              "flash_bwd_dkdv_simt": 2, "flash_bwd_dq_simt": 2,
+REDESIGNED = {"flash_fwd": 6, "flash_bwd_dkdv": 6, "flash_bwd_dq": 6,
+              "flash_bwd_dkdv_simt": 1, "flash_bwd_dq_simt": 1,
               "flash_fwd_f32": 2,
               "rms_norm_rows": 6, "decode_split": 8, "paged_split": 8,
               "decode_wide": 4, "paged_wide": 4}
@@ -523,9 +524,8 @@ def spill_report(ptxas):
             kind = next((k for k in ("flash_fwd", "flash_bwd_dkdv",
                                      "flash_bwd_dq") if k in fn), fn)
         elif "Li192E" in fn and ("_simt" in fn or "flash_fwd_f32" in fn):
-            # The CUDA-core instances at MLA's D 192 (kernels 3 and 4 in
-            # bf16 and fp32, kernel 2's fp32 body with and without
-            # segments).
+            # The fp32 CUDA-core instances at MLA's D 192 (kernels 3 and
+            # 4, kernel 2 with and without segments).
             kind = next(k for k in ("flash_bwd_dkdv_simt",
                                     "flash_bwd_dq_simt", "flash_fwd_f32")
                         if k in fn)
@@ -3944,6 +3944,7 @@ def phase_kernels_train_192(gen, dev, card):
     if failed:
         raise SystemExit(f"kernels-train: the kernels at 192 disagree with "
                          f"their plain versions: {failed}")
+    check_bodies_192(gen, dev)
 
     b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, MLA_HEADS, MLA_QK
     shape = [b, s, h, h, d]
@@ -4015,6 +4016,35 @@ def phase_kernels_train_192(gen, dev, card):
     return errs, times
 
 
+def check_bodies_192(gen, dev):
+    """A bf16 call of kernel 3 or 4 at 192 launches its wgmma body and no
+    CUDA-core body (by the profiler's kernel names; a trace that holds
+    no kernel is taken again, twice at most)."""
+    from shellac_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = mla_train_inputs(gen, torch.bfloat16, dev, 1, 512)
+    out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         out.float()).contiguous()
+    bodies = {}
+    for name, fn in (
+            ("flash_bwd_dkdv", lambda: fa.flash_bwd_dkdv_cuda(
+                q, k, v, do, lse, delta)),
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, do, lse, delta))):
+        for _ in range(3):
+            top = profile_call(fn, top=4)["top"]
+            if top:
+                break
+        bodies[name] = [(t["kernel"], t["count"]) for t in top]
+    ok = all(len(v) == 1 and v[0][1] == 1 and f"{n}_wgmma" in v[0][0]
+             and "_simt" not in v[0][0] for n, v in bodies.items())
+    emit("kernels-train", step="bodies_bf16_d192", bodies=bodies, ok=ok)
+    if not ok:
+        raise SystemExit(f"kernels-train: a bf16 call at 192 did not run "
+                         f"its wgmma body alone: {bodies}")
+
+
 def active_params(cfg, params):
     """Parameters a token activates: every leaf but the routed experts,
     and num_experts_per_token / num_experts of theirs."""
@@ -4079,7 +4109,13 @@ def train_run(name, cfg, tcfg, b, s, seed, dev, table, card, phase,
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
                 launches=counts, ok=ok, card=card, **moe, **(extra or {}))
     if profile:
-        line["profile"] = profile_call(lambda: step(state, batch), top=12)
+        prof = profile_call(lambda: step(state, batch), top=12)
+        line["profile"] = prof
+        # Kernels 3 and 4's share of the step's device time.
+        kinds = prof["device_ms_by_kind"]
+        line["flash_bwd_device_share"] = None if prof["trace_lost"] else (
+            (kinds.get("flash_attention_bwd_dkdv", 0.0)
+             + kinds.get("flash_attention_bwd_dq", 0.0)) / prof["device_ms"])
     emit(phase, **line)
     if not ok:
         raise SystemExit(f"{phase}: {name}: a non-finite loss or a skipped "

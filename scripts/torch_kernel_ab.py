@@ -26,9 +26,10 @@ main paths give each kernel on shellac-1b (H 16, Hkv 8, D 128, d_model
     (8 x 512) and serve's B = 1 admissions (S 64, 256 and 1024); beside
     scaled_dot_product_attention;
   - bwd (causal): the train step (6 x 2048), B = 1 at S 2048, and 8 x 512;
-    beside the backward call of scaled_dot_product_attention, which
-    computes dq, dk and dv together (timed eagerly, since autograd is not
-    captured);
+    and MLA's training step on shellac-mla-2b (6 x 2048, H = Hkv = 16, q
+    and k 192 wide, v and dO 128 wide padded to 192); beside the backward
+    call of scaled_dot_product_attention, which computes dq, dk and dv
+    together (timed eagerly, since autograd is not captured);
   - decode (s 1, L 2048): generate's ragged step (B 8, lengths 129-577 as
     chip_smoke.py draws them), every slot live to 2048 (B 8), and B 16
     ragged over the whole cache; beside masked scaled_dot_product_attention;
@@ -87,10 +88,11 @@ FWD_SHAPES = {  # name: (B, S, with lse)
     "serve_1x256": (1, 256, False),
     "serve_1x64": (1, 64, False),
 }
-BWD_SHAPES = {  # name: (B, S)
-    "train_6x2048": (6, 2048),
-    "b1_2048": (1, 2048),
-    "b8_512": (8, 512),
+BWD_SHAPES = {  # name: (B, S, H, Hkv, D, v's live width)
+    "train_6x2048": (6, 2048, 16, 8, 128, 128),
+    "b1_2048": (1, 2048, 16, 8, 128, 128),
+    "b8_512": (8, 512, 16, 8, 128, 128),
+    "mla_6x2048_d192": (6, 2048, 16, 16, 192, 128),
 }
 RMS_SHAPES = {  # name: rows (d 2048)
     "train_12288x2048": 12288,
@@ -618,13 +620,16 @@ def run_bwd(libs, gen, dev, card):
 
     bf = torch.bfloat16
     ok = True
-    for name, (b, s) in BWD_SHAPES.items():
+    for name, (b, s, h, hkv, d, dv_live) in BWD_SHAPES.items():
         def make():
-            q = torch.randn((b, s, H, D), generator=gen, device=dev).to(bf)
-            k = torch.randn((b, s, HKV, D), generator=gen, device=dev).to(bf)
-            v = torch.randn((b, s, HKV, D), generator=gen, device=dev).to(bf)
-            do = torch.randn((b, s, H, D), generator=gen, device=dev).to(bf)
-            out, lse = torch.empty_like(q), torch.empty((b, H, s),
+            def rnd(heads, width):
+                x = torch.randn((b, s, heads, width), generator=gen,
+                                device=dev).to(bf)
+                return F.pad(x, (0, d - width)).contiguous()
+
+            q, k = rnd(h, d), rnd(hkv, d)
+            v, do = rnd(hkv, dv_live), rnd(h, dv_live)
+            out, lse = torch.empty_like(q), torch.empty((b, h, s),
                                                         device=dev)
             call_fwd(libs["new"], q, k, v, out, lse)
             dl = torch.einsum("bshd,bshd->bhs", do.float(),
@@ -664,12 +669,12 @@ def run_bwd(libs, gen, dev, card):
         sdpa = eager_ms(lambda qt, kt, vt, out, dot: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), lib_sets, iters)
         del lib_sets
-        pairs = b * H * s * (s + 1) // 2
-        qb, kb, rb = b * s * H * D * 2, b * s * HKV * D * 2, b * H * s * 4
+        pairs = b * h * s * (s + 1) // 2
+        qb, kb, rb = b * s * h * d * 2, b * s * hkv * d * 2, b * h * s * 4
         rows = {}
         for kern, times, eager, flops, nbytes in (
-                ("dkdv", t3, e3, 8 * D * pairs, 2 * qb + 4 * kb + 2 * rb),
-                ("dq", t4, e4, 6 * D * pairs, 3 * qb + 2 * kb + 2 * rb)):
+                ("dkdv", t3, e3, 8 * d * pairs, 2 * qb + 4 * kb + 2 * rb),
+                ("dq", t4, e4, 6 * d * pairs, 3 * qb + 2 * kb + 2 * rb)):
             bms, by = bound(flops, nbytes)
             new_ms = min(times["new"])
             rows[kern] = {
@@ -679,8 +684,8 @@ def run_bwd(libs, gen, dev, card):
                 "parent_over_new": min(times["parent"]) / new_ms}
         pair_new = min(a + b_ for a, b_ in zip(t3["new"], t4["new"]))
         print(json.dumps({
-            "pass": "bwd", "shape": name, "b": b, "s": s, "h": H,
-            "hkv": HKV, "d": D, "causal": True, **rows,
+            "pass": "bwd", "shape": name, "b": b, "s": s, "h": h,
+            "hkv": hkv, "d": d, "v_live": dv_live, "causal": True, **rows,
             "sdpa_backward_eager_ms": sdpa,
             "new_pair_over_sdpa_backward": pair_new / sdpa,
             "errors": errs, "card": card}), flush=True)

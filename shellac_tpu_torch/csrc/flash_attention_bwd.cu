@@ -73,11 +73,30 @@
 // both q heads of a GQA pair in one dq block, and a split of the long
 // dk/dv work tiles for grids that fill few SMs (B = 1 runs 128 work
 // tiles of 4 to 64 steps).
-//   - fp32, and bf16 at D 192 (MLA training), `flash_bwd_dkdv_simt` and
-//     `flash_bwd_dq_simt`: scalar fp32 FMAs over 4 x 4 register tiles per
-//     thread (the tensor cores would round fp32 inputs to tf32); the
-//     parity path, and at 192 the simple body that fits where the wgmma
-//     bodies' shared memory does not (see the note at the bodies).
+//   - bf16 at D 192 (MLA training: q and k 192 wide, v and so dO padded
+//     from 128, which the bodies do not assume): the same two kernels,
+//     laid out for a budget of 232,448 bytes of shared memory and 240
+//     registers a consumer thread. A consumer that owned 64 kv rows and
+//     both outputs would hold dK and dV (96 fp32 each at m64n192) with
+//     s^T and dp^T (32 each): 256 registers before any address. So the
+//     dkdv work tile is 64 kv rows, taken by both consumers, split by
+//     output: warpgroup 0 computes s^T = K q^T, p^T (written to shared
+//     memory as fp32, times the softcap's derivative where there is
+//     one; 16 KB) and dV += p^T dO; warpgroup 1 computes dp^T = V dO^T,
+//     waits on a named barrier for p^T, forms ds^T and adds
+//     dK += ds^T q. Each does one 192-deep product and one n192 product
+//     (three n64 products, one a 64-column panel, as the forward's P V
+//     at 192) a q tile, so neither waits on the other by design; a
+//     second named barrier says p^T was read. Warpgroup 0 reads no V and
+//     warpgroup 1 no K, so dV leaves through the K buffer and dK through
+//     the V buffer. K/V double-buffered (2 x 48 KB), a ring of 2 q/dO
+//     stages (2 x 48 KB) and p^T: 211 KB; 3072 work tiles at 6 x 2048 x
+//     16 heads. dq keeps the D 128 layout with one q and one dO buffer
+//     (2 x 48 KB) and a ring of 2 K/V stages (2 x 48 KB): 193 KB; dq,
+//     s, dp and the fragments are 176 registers a thread.
+//   - fp32, `flash_bwd_dkdv_simt` and `flash_bwd_dq_simt`: scalar fp32
+//     FMAs over 4 x 4 register tiles per thread (the tensor cores would
+//     round fp32 inputs to tf32); the parity path.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -174,18 +193,24 @@ __device__ __forceinline__ void ss_n64(float* acc, const unsigned char* a,
 
 // acc (m64 x nD) += F B: F the bf16 A fragments of a 64 x 64 tile (four
 // k-steps of 16), B a 64-row tile (the k index) of D columns read
-// MN-major, its panels kStep rows apart.
+// MN-major, its panels kStep rows apart. D 192 takes one n64 product a
+// panel, into the panel's 32 accumulators (the fragment of 8-column
+// block j is acc[4 j .. 4 j + 3] at every width).
 template <int D>
 __device__ __forceinline__ void rs_nd(float* acc, uint32_t (*f)[4],
                                       const unsigned char* b) {
   using namespace hopper;
 #pragma unroll
   for (int kk = 0; kk < kStep / 16; ++kk) {
-    const uint64_t db = smem_desc(b + kk * 16 * kRow, kStep * kRow, 1024);
-    if constexpr (D == 128)
-      wgmma_rs_n128_mn(acc, f[kk], db);
-    else
-      wgmma_rs_n64_mn(acc, f[kk], db);
+    const unsigned char* bk = b + kk * 16 * kRow;
+    if constexpr (D == 128) {
+      wgmma_rs_n128_mn(acc, f[kk], smem_desc(bk, kStep * kRow, 1024));
+    } else {
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p)
+        wgmma_rs_n64_mn(acc + 32 * p, f[kk],
+                        smem_desc(bk + p * kStep * kRow, kStep * kRow, 1024));
+    }
   }
 }
 
@@ -199,10 +224,10 @@ __device__ __forceinline__ void pack_frags(uint32_t (*f)[4], const float* s) {
       f[kk][e] = hopper::pack_bf16x2(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-// This thread's rows (rl, rl + 8 of a 128-row tile) of an m64 x nD
+// This thread's rows (rl, rl + 8 of a ROWS-row tile) of an m64 x nD
 // accumulator, as bf16, into `tile` in the swizzled layout a TMA store
-// reads (D / 64 panels of kTile rows).
-template <int D>
+// reads (D / 64 panels of ROWS rows).
+template <int D, int ROWS>
 __device__ __forceinline__ void stage_out(unsigned char* tile,
                                           const float* acc, int rl, int t4) {
 #pragma unroll
@@ -210,7 +235,7 @@ __device__ __forceinline__ void stage_out(unsigned char* tile,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = rl + 8 * r;
-      const int byte = (nd / 8) * kTile * kRow + row * kRow +
+      const int byte = (nd / 8) * ROWS * kRow + row * kRow +
                        (((nd % 8) ^ (row % 8)) << 4) + t4 * 4;
       *reinterpret_cast<uint32_t*>(tile + byte) = hopper::pack_bf16x2(
           acc[4 * nd + 2 * r], acc[4 * nd + 2 * r + 1]);
@@ -349,26 +374,103 @@ __device__ __forceinline__ void tma_tile(const CUtensorMap* map,
                           head, r0 + half * 64, b);
 }
 
-// Store this consumer's 64 rows (at row wg * 64 of a kTile-row tile) to
+// Store this consumer's 64 rows (at row wg * 64 of a ROWS-row tile) to
 // rows r0.. through `map`.
-template <int D>
+template <int D, int ROWS>
 __device__ __forceinline__ void tma_store_rows(const CUtensorMap* map,
                                                const unsigned char* tile,
                                                int wg, int head, int r0,
                                                int b) {
 #pragma unroll
   for (int p = 0; p < D / 64; ++p)
-    hopper::tma_store_4d(map, tile + p * kTile * kRow + wg * 64 * kRow,
+    hopper::tma_store_4d(map, tile + p * ROWS * kRow + wg * 64 * kRow,
                          p * 64, head, r0, b);
+}
+
+// Segment ids of the 64 rows from r0, two a lane (a row past S takes the
+// first row's id), into `ids` where it is not null; returns {every row
+// live and of one document, the first row's id}.
+__device__ __forceinline__ int2 rows64_info(const int* segb, int r0, int S,
+                                            int lane, int* ids) {
+  const int ref = r0 < S ? segb[r0] : 0;
+  const int r = r0 + 2 * lane;
+  const int s0 = r < S ? segb[r] : ref;
+  const int s1 = r + 1 < S ? segb[r + 1] : ref;
+  if (ids != nullptr)
+    *reinterpret_cast<int2*>(ids + 2 * lane) = make_int2(s0, s1);
+  const bool all =
+      __all_sync(0xffffffffu, r + 1 < S && s0 == ref && s1 == ref);
+  return make_int2(all, ref);
+}
+
+// dkdv at D 192, warpgroup 0: an s^T tile (rows kv, columns q) into p^T
+// in place. Each p, times the softcap's derivative where there is a cap,
+// goes to `hand` (this thread's 32 values at hand[j * 128 + tid]), from
+// which warpgroup 1 forms ds^T. Arguments as `p_ds_kv_rows`.
+template <bool SEG>
+__device__ __forceinline__ void p_kv_rows(
+    float* s, float* hand, int tid, bool boundary, const PdsOpts& o,
+    const float* lse2, const int* qsg, int q0, const int* krow,
+    const int* kseg, int S, int causal, int window, int t4) {
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    const int cl = 8 * jb + 2 * t4;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + cl);
+    int2 qs = make_int2(0, 0);
+    if (SEG && boundary) qs = *reinterpret_cast<const int2*>(qsg + cl);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * jb + e, r = e >> 1, c = e & 1;
+      bool ok = true;
+      if (boundary) {
+        const int col = q0 + cl + c, row = krow[r];
+        ok = col < S && row < S;
+        if (causal) ok = ok && row <= col;
+        if (window > 0) ok = ok && col - row < window;
+        if (SEG) ok = ok && (c ? qs.y : qs.x) == kseg[r];
+      }
+      float t = 0.f, z;
+      if (o.capped) {
+        t = tanhf(s[j] * o.mul);
+        z = t * o.post;
+      } else {
+        z = s[j] * o.mul;
+      }
+      const float p = ok ? hopper::ex2(z - (c ? l2.y : l2.x)) : 0.f;
+      s[j] = p;
+      hand[j * 128 + tid] = o.capped ? p * (1.f - t * t) : p;
+    }
+  }
+}
+
+// dkdv at D 192, warpgroup 1: a dp^T tile into ds^T in place from the
+// handed p^T and the stage's delta rows `dlt`.
+__device__ __forceinline__ void ds_kv_rows(float* dp, const float* hand,
+                                           int tid, const float* dlt,
+                                           float scale, int t4) {
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    const float2 de =
+        *reinterpret_cast<const float2*>(dlt + 8 * jb + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * jb + e;
+      dp[j] = hand[j * 128 + tid] * (dp[j] - (e & 1 ? de.y : de.x)) * scale;
+    }
+  }
 }
 
 // ------------------------------------------------------------------ dkdv
 
 template <int D>
 struct DkdvSmem {
+  // D 192 splits the consumers by output over 64-row kv tiles (see the
+  // kernel) and hands p^T from one to the other through shared memory.
+  static constexpr bool kSplit = D == 192;
+  static constexpr int kKVRows = kSplit ? kStep : kTile;  // a work tile
   static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kKVBytes = kTile * D * 2;  // a K or V tile
-  static constexpr int kQBytes = kStep * D * 2;   // a q or dO tile
+  static constexpr int kKVBytes = kKVRows * D * 2;  // a K or V tile
+  static constexpr int kQBytes = kStep * D * 2;     // a q or dO tile
   static constexpr int kK = 0;                    // [2] K tiles, later dK
   static constexpr int kV = kK + 2 * kKVBytes;    // [2] V tiles, later dV
   static constexpr int kQ = kV + 2 * kKVBytes;    // [stage] q tiles
@@ -380,31 +482,39 @@ struct DkdvSmem {
   static constexpr int kKVInfo = kQInfo + kStages * 8;  // [2 bufs][2 wg]
   // mbarriers: kv_full[2], kv_empty[2], then full[stage], empty[stage].
   static constexpr int kBar = kKVInfo + 4 * 8;
-  static constexpr int kBytes = kBar + (4 + 2 * kStages) * 8;
+  // D 192: the handed p^T, fp32 [32][128] (element j of thread tid).
+  static constexpr int kHand = kBar + (4 + 2 * kStages) * 8;
+  static constexpr int kBytes = kHand + (kSplit ? 32 * 128 * 4 : 0);
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
   static_assert(kAlloc <= kSmemMax, "dkdv shared memory");
 };
 
-// A work tile: (kv head, batch, 128-row kv tile), numbered longest first:
-// under the causal mask the kv tile at k0 is seen by the q tiles from
-// k0 on, so t walks the kv tiles upwards, and within one the kv heads
-// (fastest) and the batches.
+// A work tile: (kv head, batch, ROWS-row kv tile), numbered longest
+// first: under the causal mask the kv tile at k0 is seen by the q tiles
+// from k0 on, so t walks the kv tiles upwards, and within one the kv
+// heads (fastest) and the batches.
 struct KvWork {
   int hk, b, k0, qt_first, nq;
 };
 
+template <int ROWS>
 __device__ __forceinline__ KvWork kv_work(int t, int S, int Hkv, int B,
                                           int causal, int window) {
   const int hb = Hkv * B;
   KvWork w;
   w.hk = t % Hkv;
   w.b = (t % hb) / Hkv;
-  w.k0 = (t / hb) * kTile;
+  w.k0 = (t / hb) * ROWS;
   int last;
-  live_q_tiles(S, causal, window, w.k0, kTile, kStep, w.qt_first, last);
+  live_q_tiles(S, causal, window, w.k0, ROWS, kStep, w.qt_first, last);
   w.nq = last - w.qt_first + 1;
   return w;
 }
+
+// Named barriers of the D 192 dkdv body's p^T hand-off (1 and 2 are the
+// consumers' epilogues).
+constexpr int kBarHandFull = 3;   // warpgroup 0 wrote p^T
+constexpr int kBarHandEmpty = 4;  // warpgroup 1 read it
 
 template <int D, bool SEG>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -422,6 +532,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   using namespace hopper;
   using L = DkdvSmem<D>;
   constexpr int ST = L::kStages;
+  constexpr int KR = L::kKVRows;
   extern __shared__ unsigned char wg_smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
@@ -438,7 +549,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   uint64_t* full = kv_empty + 2;
   uint64_t* empty = full + ST;
   const int G = H / Hkv;
-  const int n_work = (S + kTile - 1) / kTile * Hkv * B;
+  const int n_work = (S + KR - 1) / KR * Hkv * B;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -466,22 +577,27 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
                                              gridDim.x)) < n_work;
          ++n_local) {
-      const KvWork w = kv_work(t, S, Hkv, B, causal, window);
+      const KvWork w = kv_work<KR>(t, S, Hkv, B, causal, window);
       const int kb = n_local & 1;
       const int* segb = SEG ? seg + (size_t)w.b * S : nullptr;
       // The K/V buffer is free once both consumers' dK/dV stores have
       // read it.
       mbar_wait(kv_empty + kb, ((n_local >> 1) & 1) ^ 1);
       if (SEG) {
-        halves_info(segb, w.k0, S, lane, kvinfo + 2 * kb);
+        if constexpr (L::kSplit) {
+          const int2 info = rows64_info(segb, w.k0, S, lane, nullptr);
+          if (lane == 0) kvinfo[2 * kb] = info;
+        } else {
+          halves_info(segb, w.k0, S, lane, kvinfo + 2 * kb);
+        }
         __syncwarp();
       }
       if (lane == 0) {
         mbar_arrive_expect_tx(kv_full + kb, 2 * L::kKVBytes);
-        tma_tile<D>(&kmap, kv_full + kb, Ks + kb * L::kKVBytes, kTile,
-                    w.hk, w.k0, w.b);
-        tma_tile<D>(&vmap, kv_full + kb, Vs + kb * L::kKVBytes, kTile,
-                    w.hk, w.k0, w.b);
+        tma_tile<D>(&kmap, kv_full + kb, Ks + kb * L::kKVBytes, KR, w.hk,
+                    w.k0, w.b);
+        tma_tile<D>(&vmap, kv_full + kb, Vs + kb * L::kKVBytes, KR, w.hk,
+                    w.k0, w.b);
       }
       for (int i = 0; i < G * w.nq; ++i, ++it) {
         const int h = w.hk * G + i / w.nq;
@@ -505,14 +621,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         *reinterpret_cast<float2*>(l2 + 2 * lane) = lv;
         *reinterpret_cast<float2*>(l2 + kStep + 2 * lane) = dv;
         if (SEG) {
-          const int ref = q0 < S ? segb[q0] : 0;
-          const int s0 = r < S ? segb[r] : ref;
-          const int s1 = r + 1 < S ? segb[r + 1] : ref;
-          *reinterpret_cast<int2*>(qseg_s + st * kStep + 2 * lane) =
-              make_int2(s0, s1);
-          const bool all = __all_sync(
-              0xffffffffu, r + 1 < S && s0 == ref && s1 == ref);
-          if (lane == 0) qinfo[st] = make_int2(all, ref);
+          const int2 info =
+              rows64_info(segb, q0, S, lane, qseg_s + st * kStep);
+          if (lane == 0) qinfo[st] = info;
         }
         __syncwarp();
         if (lane == 0) {
@@ -531,94 +642,189 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   setmaxnreg_inc<kConsumerRegs>();
   const int g = lane / 4;
   const int t4 = lane % 4;
-  const int rl = wg * 64 + warp * 16 + g;  // tile rows rl and rl + 8
   const PdsOpts o = pds_opts(scale, softcap);
   int it = 0;  // position in the q/dO ring, as the producer counts it
 
-  for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
-                                           gridDim.x)) < n_work;
-       ++n_local) {
-    const KvWork w = kv_work(t, S, Hkv, B, causal, window);
-    const int kb = n_local & 1;
-    const int lo = w.k0 + wg * 64;  // this warpgroup's kv rows
-    const int krow[2] = {w.k0 + rl, w.k0 + rl + 8};
-    int kseg[2] = {0, 0};
-    if (SEG) {
-      const int* segb = seg + (size_t)w.b * S;
+  if constexpr (L::kSplit) {
+    // D 192: both warpgroups take the work tile's 64 kv rows, one output
+    // each. Warpgroup 0 computes s^T = K q^T, p^T (handed to warpgroup 1
+    // through shared memory) and dV += p^T dO; warpgroup 1 dp^T = V dO^T,
+    // ds^T from the handed p^T, and dK += ds^T q. Warpgroup 0 reads no V
+    // and warpgroup 1 no K, so dV leaves through the K buffer and dK
+    // through the V buffer.
+    float* hand = reinterpret_cast<float*>(sm + L::kHand);
+    const int rl = warp * 16 + g;  // tile rows rl and rl + 8
+    bool handed = false;           // warpgroup 0: p^T handed before
+    for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
+                                             gridDim.x)) < n_work;
+         ++n_local) {
+      const KvWork w = kv_work<KR>(t, S, Hkv, B, causal, window);
+      const int kb = n_local & 1;
+      const int krow[2] = {w.k0 + rl, w.k0 + rl + 8};
+      int kseg[2] = {0, 0};
+      if (SEG) {
+        const int* segb = seg + (size_t)w.b * S;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (krow[i] < S) kseg[i] = segb[krow[i]];
-    }
-    float dk[D / 2], dv[D / 2];
+        for (int i = 0; i < 2; ++i)
+          if (krow[i] < S) kseg[i] = segb[krow[i]];
+      }
+      float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    mbar_wait(kv_full + kb, (n_local >> 1) & 1);
-    const int2 kvi = SEG ? kvinfo[2 * kb + wg] : make_int2(1, 0);
-    unsigned char* kt = Ks + kb * L::kKVBytes;  // later this tile's dK
-    unsigned char* vt = Vs + kb * L::kKVBytes;  // later its dV
-    const unsigned char* ka = kt + wg * 64 * kRow;
-    const unsigned char* va = vt + wg * 64 * kRow;
+      mbar_wait(kv_full + kb, (n_local >> 1) & 1);
+      const int2 kvi = SEG ? kvinfo[2 * kb] : make_int2(1, 0);
+      unsigned char* kt = Ks + kb * L::kKVBytes;  // later this tile's dV
+      unsigned char* vt = Vs + kb * L::kKVBytes;  // later its dK
+      const unsigned char* a_op = wg == 0 ? kt : vt;
 
-    for (int i = 0; i < G * w.nq; ++i, ++it) {
-      const int q0 = (w.qt_first + i % w.nq) * kStep;
-      const int st = it % ST;
-      mbar_wait(full + st, (it / ST) & 1);
-      const bool dead = lo >= S || (causal && q0 + kStep - 1 < lo) ||
-                        (window > 0 && q0 - (lo + 63) >= window);
-      if (dead) {
-        mbar_arrive_if(empty + st, lane == 0);
-        continue;
+      for (int i = 0; i < G * w.nq; ++i, ++it) {
+        const int q0 = (w.qt_first + i % w.nq) * kStep;
+        const int st = it % ST;
+        mbar_wait(full + st, (it / ST) & 1);
+        const unsigned char* qs = Qs + st * L::kQBytes;
+        const unsigned char* os = Os + st * L::kQBytes;
+        float x[32];  // s^T, then p^T (0); dp^T, then ds^T (1)
+        wgmma_fence();
+        ss_n64<D>(x, a_op, kStep * kRow, wg == 0 ? qs : os, kStep * kRow);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin<32>(x);
+        const float* l2 = rowsf + st * 2 * kStep;
+        if (wg == 0) {
+          const int2 qi = SEG ? qinfo[st] : make_int2(1, 0);
+          const bool boundary =
+              q0 + kStep > S || w.k0 + 64 > S ||
+              (causal && q0 < w.k0 + 63) ||
+              (window > 0 && q0 + kStep - 1 - w.k0 >= window) ||
+              (SEG && !(qi.x && kvi.x && qi.y == kvi.y));
+          // The previous p^T has been read before this one is written.
+          if (handed) named_barrier(kBarHandEmpty, 256);
+          handed = true;
+          p_kv_rows<SEG>(x, hand, tid, boundary, o, l2, qseg_s + st * kStep,
+                         q0, krow, kseg, S, causal, window, t4);
+          named_barrier_arrive_if(kBarHandFull, 256, 1);
+        } else {
+          named_barrier(kBarHandFull, 256);
+          ds_kv_rows(x, hand, tid, l2 + kStep, o.scale, t4);
+          named_barrier_arrive_if(kBarHandEmpty, 256, 1);
+        }
+        uint32_t f[4][4];
+        pack_frags(f, x);
+        wgmma_fence();
+        rs_nd<D>(acc, f, wg == 0 ? os : qs);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin<D / 2>(acc);
+        pin<16>(&f[0][0]);
+        mbar_arrive_if(empty + st, lane == 0);  // q, dO and the rows read
       }
-      const unsigned char* qs = Qs + st * L::kQBytes;
-      const unsigned char* os = Os + st * L::kQBytes;
-      float s[32], dp[32];
-      wgmma_fence();
-      ss_n64<D>(s, ka, kTile * kRow, qs, kStep * kRow);
-      ss_n64<D>(dp, va, kTile * kRow, os, kStep * kRow);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin<32>(s);
-      pin<32>(dp);
-      const int2 qi = SEG ? qinfo[st] : make_int2(1, 0);
-      const bool boundary =
-          q0 + kStep > S || lo + 64 > S || (causal && q0 < lo + 63) ||
-          (window > 0 && q0 + kStep - 1 - lo >= window) ||
-          (SEG && !(qi.x && kvi.x && qi.y == kvi.y));
-      const float* l2 = rowsf + st * 2 * kStep;
-      p_ds_kv_rows<SEG>(s, dp, boundary, o, l2, l2 + kStep,
-                        qseg_s + st * kStep, q0, krow, kseg, S, causal,
-                        window, t4);
-      uint32_t pf[4][4], sf[4][4];
-      pack_frags(pf, s);
-      pack_frags(sf, dp);
-      wgmma_fence();
-      rs_nd<D>(dv, pf, os);
-      rs_nd<D>(dk, sf, qs);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin<D / 2>(dv);
-      pin<D / 2>(dk);
-      pin<16>(&pf[0][0]);
-      pin<16>(&sf[0][0]);
-      mbar_arrive_if(empty + st, lane == 0);  // q, dO and the rows read
+
+      // --------------------------------------------------- epilogue
+      unsigned char* out = wg == 0 ? kt : vt;
+      stage_out<D, kStep>(out, acc, rl, t4);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (tid == 0) {
+        if (w.k0 < S) {
+          tma_store_rows<D, kStep>(wg == 0 ? &dvmap : &dkmap, out, 0, w.hk,
+                                   w.k0, w.b);
+          tma_store_commit();
+          tma_store_wait_read();
+        }
+        mbar_arrive_if(kv_empty + kb, 1);  // the producer may refill it
+      }
     }
-
-    // ----------------------------------------------------- epilogue
-    // dK and dV into this warpgroup's rows of the K and V tiles (only its
-    // own wgmmas read them), then TMA stores.
-    stage_out<D>(kt, dk, rl, t4);
-    stage_out<D>(vt, dv, rl, t4);
-    fence_proxy_async();
-    named_barrier(1 + wg, 128);
-    if (tid == 0) {
-      if (lo < S) {
-        tma_store_rows<D>(&dkmap, kt, wg, w.hk, lo, w.b);
-        tma_store_rows<D>(&dvmap, vt, wg, w.hk, lo, w.b);
-        tma_store_commit();
-        tma_store_wait_read();
+    // Take warpgroup 1's last arrival on the hand-off barrier.
+    if (wg == 0 && handed) named_barrier(kBarHandEmpty, 256);
+    return;
+  } else {
+    const int rl = wg * 64 + warp * 16 + g;  // tile rows rl and rl + 8
+    for (int n_local = 0, t; (t = work_index(n_local, blockIdx.x,
+                                             gridDim.x)) < n_work;
+         ++n_local) {
+      const KvWork w = kv_work<KR>(t, S, Hkv, B, causal, window);
+      const int kb = n_local & 1;
+      const int lo = w.k0 + wg * 64;  // this warpgroup's kv rows
+      const int krow[2] = {w.k0 + rl, w.k0 + rl + 8};
+      int kseg[2] = {0, 0};
+      if (SEG) {
+        const int* segb = seg + (size_t)w.b * S;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (krow[i] < S) kseg[i] = segb[krow[i]];
       }
-      mbar_arrive_if(kv_empty + kb, 1);  // the producer may refill it
+      float dk[D / 2], dv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+      mbar_wait(kv_full + kb, (n_local >> 1) & 1);
+      const int2 kvi = SEG ? kvinfo[2 * kb + wg] : make_int2(1, 0);
+      unsigned char* kt = Ks + kb * L::kKVBytes;  // later this tile's dK
+      unsigned char* vt = Vs + kb * L::kKVBytes;  // later its dV
+      const unsigned char* ka = kt + wg * 64 * kRow;
+      const unsigned char* va = vt + wg * 64 * kRow;
+
+      for (int i = 0; i < G * w.nq; ++i, ++it) {
+        const int q0 = (w.qt_first + i % w.nq) * kStep;
+        const int st = it % ST;
+        mbar_wait(full + st, (it / ST) & 1);
+        const bool dead = lo >= S || (causal && q0 + kStep - 1 < lo) ||
+                          (window > 0 && q0 - (lo + 63) >= window);
+        if (dead) {
+          mbar_arrive_if(empty + st, lane == 0);
+          continue;
+        }
+        const unsigned char* qs = Qs + st * L::kQBytes;
+        const unsigned char* os = Os + st * L::kQBytes;
+        float s[32], dp[32];
+        wgmma_fence();
+        ss_n64<D>(s, ka, kTile * kRow, qs, kStep * kRow);
+        ss_n64<D>(dp, va, kTile * kRow, os, kStep * kRow);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin<32>(s);
+        pin<32>(dp);
+        const int2 qi = SEG ? qinfo[st] : make_int2(1, 0);
+        const bool boundary =
+            q0 + kStep > S || lo + 64 > S || (causal && q0 < lo + 63) ||
+            (window > 0 && q0 + kStep - 1 - lo >= window) ||
+            (SEG && !(qi.x && kvi.x && qi.y == kvi.y));
+        const float* l2 = rowsf + st * 2 * kStep;
+        p_ds_kv_rows<SEG>(s, dp, boundary, o, l2, l2 + kStep,
+                          qseg_s + st * kStep, q0, krow, kseg, S, causal,
+                          window, t4);
+        uint32_t pf[4][4], sf[4][4];
+        pack_frags(pf, s);
+        pack_frags(sf, dp);
+        wgmma_fence();
+        rs_nd<D>(dv, pf, os);
+        rs_nd<D>(dk, sf, qs);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin<D / 2>(dv);
+        pin<D / 2>(dk);
+        pin<16>(&pf[0][0]);
+        pin<16>(&sf[0][0]);
+        mbar_arrive_if(empty + st, lane == 0);  // q, dO and the rows read
+      }
+
+      // --------------------------------------------------- epilogue
+      // dK and dV into this warpgroup's rows of the K and V tiles (only
+      // its own wgmmas read them), then TMA stores.
+      stage_out<D, kTile>(kt, dk, rl, t4);
+      stage_out<D, kTile>(vt, dv, rl, t4);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (tid == 0) {
+        if (lo < S) {
+          tma_store_rows<D, kTile>(&dkmap, kt, wg, w.hk, lo, w.b);
+          tma_store_rows<D, kTile>(&dvmap, vt, wg, w.hk, lo, w.b);
+          tma_store_commit();
+          tma_store_wait_read();
+        }
+        mbar_arrive_if(kv_empty + kb, 1);  // the producer may refill it
+      }
     }
   }
 }
@@ -627,12 +833,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
 
 template <int D>
 struct DqSmem {
-  static constexpr int kStages = D == 64 ? 4 : 3;
+  // q and dO double-buffered at D 64 and 128; at D 192 one buffer each,
+  // which leaves room for a ring of two K/V stages (192 KB in all).
+  static constexpr int kQBufs = D == 192 ? 1 : 2;
+  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 3 : 2;
   static constexpr int kQBytes = kTile * D * 2;   // a q or dO tile
   static constexpr int kKVBytes = kStep * D * 2;  // a K or V tile
-  static constexpr int kQ = 0;                    // [2] q tiles, later dq
-  static constexpr int kO = kQ + 2 * kQBytes;     // [2] dO tiles
-  static constexpr int kK = kO + 2 * kQBytes;     // [stage] K tiles
+  static constexpr int kQ = 0;                    // [bufs] q tiles, later dq
+  static constexpr int kO = kQ + kQBufs * kQBytes;  // [bufs] dO tiles
+  static constexpr int kK = kO + kQBufs * kQBytes;  // [stage] K tiles
   static constexpr int kV = kK + kStages * kKVBytes;  // [stage] V tiles
   static constexpr int kKSeg = kV + kStages * kKVBytes;  // [stage][kStep]
   static constexpr int kKInfo = kKSeg + kStages * kStep * 4;  // [stage]
@@ -679,6 +888,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
   using namespace hopper;
   using L = DqSmem<D>;
   constexpr int ST = L::kStages;
+  constexpr int QB = L::kQBufs;
   extern __shared__ unsigned char wg_smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
@@ -724,9 +934,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
          ++n_local) {
       const QWork w = q_work(t, S, H, B, causal, window);
       const int hk = w.h / G;
-      const int qb = n_local & 1;
+      const int qb = QB == 2 ? n_local & 1 : 0;
+      const int qpar = QB == 2 ? (n_local >> 1) & 1 : n_local & 1;
       const int* segb = SEG ? seg + (size_t)w.b * S : nullptr;
-      mbar_wait(q_empty + qb, ((n_local >> 1) & 1) ^ 1);
+      mbar_wait(q_empty + qb, qpar ^ 1);
       if (SEG) {
         halves_info(segb, w.q0, S, lane, qinfo + 2 * qb);
         __syncwarp();
@@ -745,15 +956,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         if (SEG) {
           // The tile's kv ids for the boundary tiles' compares, and
           // whether every column is live and of one document.
-          const int ref = segb[k0];
-          const int c = k0 + 2 * lane;
-          const int s0 = c < S ? segb[c] : ref;
-          const int s1 = c + 1 < S ? segb[c + 1] : ref;
-          *reinterpret_cast<int2*>(kseg_s + st * kStep + 2 * lane) =
-              make_int2(s0, s1);
-          const bool all = __all_sync(
-              0xffffffffu, c + 1 < S && s0 == ref && s1 == ref);
-          if (lane == 0) kinfo[st] = make_int2(all, ref);
+          const int2 info =
+              rows64_info(segb, k0, S, lane, kseg_s + st * kStep);
+          if (lane == 0) kinfo[st] = info;
           __syncwarp();
         }
         if (lane == 0) {
@@ -780,7 +985,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                                            gridDim.x)) < n_work;
        ++n_local) {
     const QWork w = q_work(t, S, H, B, causal, window);
-    const int qb = n_local & 1;
+    const int qb = QB == 2 ? n_local & 1 : 0;
     const int lo = w.q0 + wg * 64;  // this warpgroup's q rows
     const int qrow[2] = {w.q0 + rl, w.q0 + rl + 8};
     const size_t hrow = ((size_t)w.b * H + w.h) * S;
@@ -797,7 +1002,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-    mbar_wait(q_full + qb, (n_local >> 1) & 1);
+    mbar_wait(q_full + qb, QB == 2 ? (n_local >> 1) & 1 : n_local & 1);
     const int2 qi = SEG ? qinfo[2 * qb + wg] : make_int2(1, 0);
     unsigned char* qtile = Qs + qb * L::kQBytes;  // later this tile's dq
     const unsigned char* qa = qtile + wg * 64 * kRow;
@@ -841,12 +1046,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
     }
 
     // ----------------------------------------------------- epilogue
-    stage_out<D>(qtile, dq, rl, t4);
+    stage_out<D, kTile>(qtile, dq, rl, t4);
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (tid == 0) {
       if (lo < S) {
-        tma_store_rows<D>(&dqmap, qtile, wg, w.h, lo, w.b);
+        tma_store_rows<D, kTile>(&dqmap, qtile, wg, w.h, lo, w.b);
         tma_store_commit();
         tma_store_wait_read();
       }
@@ -856,20 +1061,14 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core bodies: fp32, and bf16 at D 192
+// CUDA-core bodies: fp32
 // ---------------------------------------------------------------------------
 //
-// One body per kernel over the element type T: rows are staged into shared
-// memory as fp32 (row stride D + 1), every product is a scalar fp32 FMA
-// over 4 x 4 register tiles, and p and ds are rounded through T before
-// their products, as the wgmma bodies and the plain versions round them.
-// In fp32 this is the parity path (the tensor cores would round fp32 to
-// tf32). In bf16 it serves MLA's head width 192 (q and k 192 wide, v and
-// dO padded from 128 to 192), where the wgmma bodies' shared memory does
-// not fit: dkdv's two K/V buffers and two q/dO stages would take 288 KB,
-// dq's 2 x 48 + 3 x 48 KB more than an SM's 227 KB. Shared memory here is
-// 165 KB (dkdv) and 214 KB (dq) at D 192, one block an SM; the
-// accumulators are 2 x 4 x 12 (dkdv) and 4 x 12 (dq) fp32 a thread.
+// The parity path (the tensor cores would round fp32 to tf32): rows are
+// staged into shared memory (row stride D + 1) and every product is a
+// scalar fp32 FMA over 4 x 4 register tiles. Shared memory is 165 KB
+// (dkdv) and 214 KB (dq) at D 192, one block an SM; the accumulators are
+// 2 x 4 x D / 16 (dkdv) and 4 x D / 16 (dq) fp32 a thread.
 
 constexpr int kF32Threads = 256;  // 16 x 16 thread grid over a tile
 constexpr int kKV3 = 64;  // dkdv: kv rows per block
@@ -877,16 +1076,16 @@ constexpr int kQ3 = 32;   // dkdv: q rows per inner step
 constexpr int kQ4 = 64;   // dq: q rows per block
 constexpr int kKV4 = 64;  // dq: kv rows per inner step
 
-// Stage rows [r0, r0 + rows) of a (S, stride) matrix block of T into
-// fp32 smem with row stride D + 1; rows past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows_f32(float* dst, const T* src,
+// Stage rows [r0, r0 + rows) of a (S, stride) matrix block into smem
+// with row stride D + 1; rows past S are zero.
+template <int D>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
                                                size_t stride, int r0,
                                                int rows, int S) {
   for (int i = threadIdx.x; i < rows * D; i += kF32Threads) {
     const int r = i / D, c = i % D;
     dst[r * (D + 1) + c] =
-        r0 + r < S ? to_f32(src[(size_t)(r0 + r) * stride + c]) : 0.f;
+        r0 + r < S ? src[(size_t)(r0 + r) * stride + c] : 0.f;
   }
 }
 
@@ -901,7 +1100,7 @@ constexpr size_t dkdv_f32_smem() {
 
 // Thread (tx, ty) owns kv rows 4 ty + i. It computes the transposed
 // score tile at q columns tx + 16 j, then dk, dv at head dims tx + 16 j.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_bwd_dkdv_simt(BwdArgs a) {
   constexpr int KP = D + 1;
@@ -931,9 +1130,9 @@ flash_bwd_dkdv_simt(BwdArgs a) {
   const size_t kvoff = (size_t)b * S * kstride + (size_t)hk * D;
   const int* segb = a.seg == nullptr ? nullptr : a.seg + (size_t)b * S;
 
-  stage_rows_f32<T, D>(Ks, static_cast<const T*>(a.k) + kvoff, kstride, k0,
+  stage_rows_f32<D>(Ks, static_cast<const float*>(a.k) + kvoff, kstride, k0,
                     kKV3, S);
-  stage_rows_f32<T, D>(Vs, static_cast<const T*>(a.v) + kvoff, kstride, k0,
+  stage_rows_f32<D>(Vs, static_cast<const float*>(a.v) + kvoff, kstride, k0,
                     kKV3, S);
   for (int i = tid; i < kKV3; i += kF32Threads)
     kseg_s[i] = segb != nullptr && k0 + i < S ? segb[k0 + i] : 0;
@@ -955,9 +1154,9 @@ flash_bwd_dkdv_simt(BwdArgs a) {
     for (int qt = qt_first; qt <= qt_last; ++qt) {
       const int q0 = qt * kQ3;
       __syncthreads();  // the previous q tile, Pt and dSt are consumed
-      stage_rows_f32<T, D>(Qs, static_cast<const T*>(a.q) + qoff, qstride,
+      stage_rows_f32<D>(Qs, static_cast<const float*>(a.q) + qoff, qstride,
                         q0, kQ3, S);
-      stage_rows_f32<T, D>(dOs, static_cast<const T*>(a.dout) + qoff,
+      stage_rows_f32<D>(dOs, static_cast<const float*>(a.dout) + qoff,
                         qstride, q0, kQ3, S);
       for (int i = tid; i < kQ3; i += kF32Threads) {
         const bool in = q0 + i < S;
@@ -1001,8 +1200,8 @@ flash_bwd_dkdv_simt(BwdArgs a) {
           float p, ds;
           p_ds(a, st[i][j], dpt[i][j], q0 + ql, k0 + kl,
                qseg_s[ql] == kseg_s[kl], lse_s[ql], delta_s[ql], p, ds);
-          Pt[kl * PP + ql] = round_through<T>(p);
-          dSt[kl * PP + ql] = round_through<T>(ds);
+          Pt[kl * PP + ql] = p;
+          dSt[kl * PP + ql] = ds;
         }
       }
       __syncthreads();
@@ -1031,16 +1230,16 @@ flash_bwd_dkdv_simt(BwdArgs a) {
     }
   }
 
-  T* dkb = static_cast<T*>(a.dk) + kvoff;
-  T* dvb = static_cast<T*>(a.dv) + kvoff;
+  float* dkb = static_cast<float*>(a.dk) + kvoff;
+  float* dvb = static_cast<float*>(a.dv) + kvoff;
 #pragma unroll
   for (int i = 0; i < RK; ++i) {
     const int row = k0 + ty * RK + i;
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < DV; ++j) {
-      dkb[(size_t)row * kstride + tx + 16 * j] = from_f32<T>(dk[i][j]);
-      dvb[(size_t)row * kstride + tx + 16 * j] = from_f32<T>(dv[i][j]);
+      dkb[(size_t)row * kstride + tx + 16 * j] = dk[i][j];
+      dvb[(size_t)row * kstride + tx + 16 * j] = dv[i][j];
     }
   }
 }
@@ -1056,7 +1255,7 @@ constexpr size_t dq_f32_smem() {
 
 // Thread (tx, ty) owns q rows 4 ty + i. It computes the score tile at kv
 // columns tx + 16 j, then dq at head dims tx + 16 j.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_bwd_dq_simt(BwdArgs a) {
   constexpr int KP = D + 1;
@@ -1083,9 +1282,9 @@ flash_bwd_dq_simt(BwdArgs a) {
   const size_t kvoff = (size_t)b * S * kstride + (size_t)hk * D;
   const int* segb = a.seg == nullptr ? nullptr : a.seg + (size_t)b * S;
 
-  stage_rows_f32<T, D>(Qs, static_cast<const T*>(a.q) + qoff, qstride, q0,
+  stage_rows_f32<D>(Qs, static_cast<const float*>(a.q) + qoff, qstride, q0,
                     kQ4, S);
-  stage_rows_f32<T, D>(dOs, static_cast<const T*>(a.dout) + qoff, qstride,
+  stage_rows_f32<D>(dOs, static_cast<const float*>(a.dout) + qoff, qstride,
                     q0, kQ4, S);
   float lse_r[RQ], delta_r[RQ], dq[RQ][DV];
   int qseg[RQ];
@@ -1106,9 +1305,9 @@ flash_bwd_dq_simt(BwdArgs a) {
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * kKV4;
     __syncthreads();  // the previous kv tile and dSs are consumed
-    stage_rows_f32<T, D>(Ks, static_cast<const T*>(a.k) + kvoff, kstride,
+    stage_rows_f32<D>(Ks, static_cast<const float*>(a.k) + kvoff, kstride,
                       k0, kKV4, S);
-    stage_rows_f32<T, D>(Vs, static_cast<const T*>(a.v) + kvoff, kstride,
+    stage_rows_f32<D>(Vs, static_cast<const float*>(a.v) + kvoff, kstride,
                       k0, kKV4, S);
     for (int i = tid; i < kKV4; i += kF32Threads)
       kseg_s[i] = segb != nullptr && k0 + i < S ? segb[k0 + i] : 0;
@@ -1148,7 +1347,7 @@ flash_bwd_dq_simt(BwdArgs a) {
         float p, ds;
         p_ds(a, sc[i][j], dp[i][j], q0 + ql, k0 + kl,
              qseg[i] == kseg_s[kl], lse_r[i], delta_r[i], p, ds);
-        dSs[ql * SP + kl] = round_through<T>(ds);
+        dSs[ql * SP + kl] = ds;
       }
     }
     __syncthreads();
@@ -1167,14 +1366,14 @@ flash_bwd_dq_simt(BwdArgs a) {
     }
   }
 
-  T* dqb = static_cast<T*>(a.dq) + qoff;
+  float* dqb = static_cast<float*>(a.dq) + qoff;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + ty * RQ + i;
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < DV; ++j)
-      dqb[(size_t)row * qstride + tx + 16 * j] = from_f32<T>(dq[i][j]);
+      dqb[(size_t)row * qstride + tx + 16 * j] = dq[i][j];
   }
 }
 
@@ -1207,10 +1406,11 @@ cudaError_t launch_dkdv_wgmma(const BwdArgs& a, int B, cudaStream_t s) {
     return err;
   auto kernel = flash_bwd_dkdv_wgmma<D, SEG>;
   constexpr size_t smem = DkdvSmem<D>::kAlloc;
+  constexpr int rows = DkdvSmem<D>::kKVRows;
   if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
   int ctas;
-  if ((err = hopper::persistent_ctas(
-           (a.S + kTile - 1) / kTile * a.Hkv * B, &ctas)) != cudaSuccess)
+  if ((err = hopper::persistent_ctas((a.S + rows - 1) / rows * a.Hkv * B,
+                                     &ctas)) != cudaSuccess)
     return err;
   kernel<<<ctas, kWgThreads, smem, s>>>(qm, km, vm, om, dkm, dvm, a.lse,
                                         a.delta, a.seg, B, a.S, a.H, a.Hkv,
@@ -1244,40 +1444,32 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkdv_simt(const BwdArgs& a, int B, cudaStream_t s) {
-  return run(flash_bwd_dkdv_simt<T, D>,
+  return run(flash_bwd_dkdv_simt<D>,
              dim3((a.S + kKV3 - 1) / kKV3, a.Hkv, B), kF32Threads,
              dkdv_f32_smem<D>(), a, s);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq_simt(const BwdArgs& a, int B, cudaStream_t s) {
-  return run(flash_bwd_dq_simt<T, D>, dim3((a.S + kQ4 - 1) / kQ4, a.H, B),
+  return run(flash_bwd_dq_simt<D>, dim3((a.S + kQ4 - 1) / kQ4, a.H, B),
              kF32Threads, dq_f32_smem<D>(), a, s);
 }
 
 template <int D>
 cudaError_t launch_dkdv(const BwdArgs& a, int B, int dtype,
                         cudaStream_t s) {
-  if (dtype == kF32) return launch_dkdv_simt<float, D>(a, B, s);
-  if constexpr (D == 192) {
-    return launch_dkdv_simt<__nv_bfloat16, D>(a, B, s);
-  } else {
-    return a.seg != nullptr ? launch_dkdv_wgmma<D, true>(a, B, s)
-                            : launch_dkdv_wgmma<D, false>(a, B, s);
-  }
+  if (dtype == kF32) return launch_dkdv_simt<D>(a, B, s);
+  return a.seg != nullptr ? launch_dkdv_wgmma<D, true>(a, B, s)
+                          : launch_dkdv_wgmma<D, false>(a, B, s);
 }
 
 template <int D>
 cudaError_t launch_dq(const BwdArgs& a, int B, int dtype, cudaStream_t s) {
-  if (dtype == kF32) return launch_dq_simt<float, D>(a, B, s);
-  if constexpr (D == 192) {
-    return launch_dq_simt<__nv_bfloat16, D>(a, B, s);
-  } else {
-    return a.seg != nullptr ? launch_dq_wgmma<D, true>(a, B, s)
-                            : launch_dq_wgmma<D, false>(a, B, s);
-  }
+  if (dtype == kF32) return launch_dq_simt<D>(a, B, s);
+  return a.seg != nullptr ? launch_dq_wgmma<D, true>(a, B, s)
+                          : launch_dq_wgmma<D, false>(a, B, s);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v,

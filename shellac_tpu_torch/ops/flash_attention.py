@@ -15,11 +15,14 @@ attention), differentiated by torch autograd.
 The kernels take any S (the ragged tail is masked in-kernel), head_dim
 64, 128 and 192 (MLA's expanded attention: q and k 192 wide, v padded to
 192, as the JAX package pads it), bf16 and fp32, with or without packed
-segments. In bf16 the backward at 192 is the CUDA-core body of
-`csrc/flash_attention_bwd.cu` (the wgmma bodies' shared memory does not
-fit there); every other bf16 shape runs the wgmma bodies. Beside each kernel
-stands its plain version computing the same outputs from the same inputs
-by the same recomputation (`flash_forward_ref`, `flash_bwd_dkdv_ref`,
+segments. Every bf16 shape runs the `wgmma` bodies; at 192 the dk/dv
+body splits its two consumer warpgroups by output (dV and dK) over
+64-row kv tiles, and the dq body single-buffers q and dO, so that
+their registers and shared memory fit (the note at the head of
+`csrc/flash_attention_bwd.cu`). fp32 runs the CUDA-core parity bodies.
+Beside each kernel stands its plain version computing the same outputs
+from the same inputs by the same recomputation (`flash_forward_ref`,
+`flash_bwd_dkdv_ref`,
 `flash_bwd_dq_ref`): the tests and `chip_smoke.py` hold the kernels to
 them, and the Function takes either set (`KERNELS`, `PLAIN`).
 """

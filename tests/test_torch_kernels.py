@@ -786,12 +786,15 @@ _BWD = {
 }
 
 
-def _scaled_close(out, ref, dtype, what=""):
+def _scaled_close(out, ref, dtype, what="", scale=None):
+    """out within atol of ref's largest magnitude (or of `scale`, given
+    for a reference that is exactly zero) plus rtol of ref."""
     torch.cuda.synchronize()
     atol, rtol = TOL[dtype]
     out, ref = out.float(), ref.float()
     assert torch.isfinite(out).all(), what
-    bound = atol * ref.abs().max() + rtol * ref.abs()
+    bound = atol * (ref.abs().max() if scale is None else scale) \
+        + rtol * ref.abs()
     err = (out - ref).abs()
     assert (err <= bound).all(), (what, err.max().item())
 
@@ -1286,12 +1289,42 @@ def test_flash_forward_at_192(dtype, case):
 
 
 # MLA training at 192: packed segments and a ragged S, v (and so dO's
-# live lanes) 128 wide padded to 192 as the model pads them.
+# live lanes) 128 wide padded to 192 as the model pads them; and what
+# the bf16 bodies must not assume: v and dO live past 128 ("pad" False),
+# GQA, a window with a softcap, S of 1 and one past a 64-row kv tile.
 _BWD_192 = {
     "causal_s300": dict(b=2, s=300, bounds=None),
     "segments_s1000": dict(b=1, s=1000, bounds=(0, 50, 130, 131, 600, 1000)),
     "odd_s129": dict(b=1, s=129, bounds=(0, 64, 129)),
+    "unpadded_v_s300": dict(b=2, s=300, bounds=None, pad=False),
+    "gqa_h8_hkv2": dict(b=2, s=260, bounds=None, hkv=2),
+    "window_softcap": dict(b=1, s=500, bounds=None, hkv=4, window=100,
+                           softcap=5.0),
+    "s1": dict(b=2, s=1, bounds=None),
+    "s65": dict(b=1, s=65, bounds=None, hkv=2),
 }
+
+
+def _bwd_192_inputs(case, dtype, dev):
+    """q, k, v, dO at 192 (H 8), segments and the options of a case."""
+    c = _BWD_192[case]
+    b, s, hkv = c["b"], c["s"], c.get("hkv", 8)
+    gen = torch.Generator(device=dev).manual_seed(s + 192)
+    q = _randn(gen, (b, s, 8, 192), dtype, dev)
+    k = _randn(gen, (b, s, hkv, 192), dtype, dev)
+    if c.get("pad", True):
+        v = torch.nn.functional.pad(_randn(gen, (b, s, hkv, 128), dtype,
+                                           dev), (0, 64))
+    else:
+        v = _randn(gen, (b, s, hkv, 192), dtype, dev)
+    do = _randn(gen, (b, s, 8, 192), dtype, dev)
+    seg = None
+    if c["bounds"] is not None:
+        seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        for i in range(len(c["bounds"]) - 1):
+            seg[:, c["bounds"][i]:c["bounds"][i + 1]] = i
+    opts = {k_: c[k_] for k_ in ("window", "softcap") if k_ in c}
+    return q, k, v, do, seg, opts
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1299,46 +1332,115 @@ _BWD_192 = {
 def test_flash_192_backward_and_segments(dtype, case):
     """Kernels 2 (with segments), 3 and 4 at D 192 against their plain
     versions, and the autograd Function against autograd through the
-    plain attention, on MLA's padded v."""
+    plain attention."""
     dev = _card()
-    c = _BWD_192[case]
-    b, s = c["b"], c["s"]
-    gen = torch.Generator(device=dev).manual_seed(s + 192)
-    q = _randn(gen, (b, s, 8, 192), dtype, dev)
-    k = _randn(gen, (b, s, 8, 192), dtype, dev)
-    v = torch.nn.functional.pad(_randn(gen, (b, s, 8, 128), dtype, dev),
-                                (0, 64))
-    do = _randn(gen, (b, s, 8, 192), dtype, dev)
-    seg = None
-    if c["bounds"] is not None:
-        seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
-        for i in range(len(c["bounds"]) - 1):
-            seg[:, c["bounds"][i]:c["bounds"][i + 1]] = i
-    out, lse = fa.flash_attention_cuda(q, k, v, segments=seg, with_lse=True)
-    rout, rlse = fa.flash_forward_ref(q, k, v, segments=seg)
+    q, k, v, do, seg, opts = _bwd_192_inputs(case, dtype, dev)
+    out, lse = fa.flash_attention_cuda(q, k, v, segments=seg, with_lse=True,
+                                       **opts)
+    rout, rlse = fa.flash_forward_ref(q, k, v, segments=seg, **opts)
     _close(out, rout, dtype)
     _close(lse, rlse, torch.float32 if dtype == torch.float32 else dtype)
     delta = torch.einsum("bshd,bshd->bhs", do.float(),
                          rout.float()).contiguous()
-    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, rlse, delta, segments=seg)
-    dq = fa.flash_bwd_dq_cuda(q, k, v, do, rlse, delta, segments=seg)
-    rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, rlse, delta, segments=seg)
-    rdq = fa.flash_bwd_dq_ref(q, k, v, do, rlse, delta, segments=seg)
+    before = (fa.flash_bwd_dkdv_cuda.launches, fa.flash_bwd_dq_cuda.launches)
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, rlse, delta, segments=seg,
+                                    **opts)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, rlse, delta, segments=seg, **opts)
+    assert (fa.flash_bwd_dkdv_cuda.launches,
+            fa.flash_bwd_dq_cuda.launches) == (before[0] + 1, before[1] + 1)
+    rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, rlse, delta, segments=seg,
+                                     **opts)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, do, rlse, delta, segments=seg, **opts)
     for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
                            ("dv", dv, rdv)):
         assert got.dtype == dtype
-        _scaled_close(got, ref, dtype, name)
+        _scaled_close(got, ref, dtype, name, _zero_scale(ref, rdv))
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     ref_ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     before = (fa.flash_bwd_dkdv_cuda.launches, fa.flash_bwd_dq_cuda.launches)
-    got = torch.autograd.grad(fa.flash_attention(*ins, segments=seg), ins,
-                              do)
+    got = torch.autograd.grad(fa.flash_attention(*ins, segments=seg, **opts),
+                              ins, do)
     assert (fa.flash_bwd_dkdv_cuda.launches,
             fa.flash_bwd_dq_cuda.launches) == (before[0] + 1, before[1] + 1)
     want = torch.autograd.grad(
-        fa.flash_attention_ref(*ref_ins, segments=seg), ref_ins, do)
+        fa.flash_attention_ref(*ref_ins, segments=seg, **opts), ref_ins, do)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        _scaled_close(g, w, dtype, name)
+        _scaled_close(g, w, dtype, name, _zero_scale(w, want[2]))
+
+
+def _zero_scale(ref, dv):
+    """At S 1 the softmax has one key, so dq and dk are exactly zero and
+    their rounding is measured against the call's dv."""
+    return dv.float().abs().max() if not ref.any() else None
+
+
+def _kernel_names(fn):
+    """Names of the kernels one call of fn launched, by torch.profiler.
+    The window opens on `torch.cuda._sleep`'s spin kernel, which is left
+    out; a trace that holds no kernel at all (the profiler now and then
+    loses a window's device activity) is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.self_device_time_total > 0
+                 for _ in range(e.count) if "spin_kernel" not in e.key]
+        if names:
+            return names
+    raise AssertionError("the profiler recorded no kernel in three tries")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("segments", [False, True])
+def test_flash_192_backward_bodies(dtype, segments):
+    """A call of kernel 3 or 4 at 192 launches one kernel: in bf16 the
+    wgmma body (`flash_bwd_dkdv_wgmma<192, SEG>`, `flash_bwd_dq_wgmma`),
+    never a CUDA-core body; in fp32 the CUDA-core parity body."""
+    dev = _card()
+    case = "segments_s1000" if segments else "causal_s300"
+    q, k, v, do, seg, opts = _bwd_192_inputs(case, dtype, dev)
+    rout, rlse = fa.flash_forward_ref(q, k, v, segments=seg, **opts)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         rout.float()).contiguous()
+    body = "wgmma" if dtype == torch.bfloat16 else "simt"
+    for kernel, call in (
+            ("flash_bwd_dkdv", lambda: fa.flash_bwd_dkdv_cuda(
+                q, k, v, do, rlse, delta, segments=seg)),
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, do, rlse, delta, segments=seg))):
+        names = _kernel_names(call)
+        assert len(names) == 1, names
+        # Demangled (`..._wgmma<192, false>`) or mangled (`ILi192ELb0E`).
+        name = names[0].replace("ILi", "<").replace("ELb", ", ")
+        assert f"{kernel}_{body}<192" in name, names
+        if body == "wgmma":
+            flag = ("true", "1E") if segments else ("false", "0E")
+            assert any(f"192, {f}" in name for f in flag), names
+
+
+@pytest.mark.parametrize("case", ["gqa_h8_hkv2", "segments_s1000",
+                                  "window_softcap"])
+def test_flash_192_backward_is_deterministic(case):
+    """At 192 too every dk/dv and dq tile is written by one block with no
+    atomics: two calls give bitwise-equal bf16 results."""
+    dev = _card()
+    q, k, v, do, seg, opts = _bwd_192_inputs(case, torch.bfloat16, dev)
+    _, lse = fa.flash_forward_ref(q, k, v, segments=seg, **opts)
+    delta = torch.randn(lse.shape, device=dev)
+    runs = []
+    for _ in range(2):
+        dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta,
+                                        segments=seg, **opts)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=seg,
+                                  **opts)
+        runs.append((dq, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------ training on the card

@@ -16,8 +16,9 @@ Also here: the plain versions of kernels 3 and 4 at MLA's head width 192
 (q and k 192 wide, v padded from 128), through `FlashAttentionFunction`
 with the plain implementations, against `jax.grad` through the JAX
 package's flash attention in interpret mode (which pads 192 to 256):
-causal, packed segments, and a ragged S (37, where the JAX flash kernel
-needs S % 8 == 0, against `jax.grad` of its reference attention).
+causal, packed segments, GQA with a window, and a ragged S (37, where
+the JAX flash kernel needs S % 8 == 0, against `jax.grad` of its
+reference attention).
 Tolerance atol/rtol 2e-5, as every port attention parity test.
 
 Tolerances of the steps (fp32 on both sides, summation order differs): loss,
@@ -232,32 +233,35 @@ def test_moe_aux_loss_reaches_the_router():
 
 # --------------------------------------------- kernels 3 and 4 at 192
 
-# (s, segment bounds or None); v 128 wide padded to 192, H = Hkv as MLA.
+# (s, segment bounds or None, q heads over kv heads, window); v 128 wide
+# padded to 192; H = Hkv as MLA, and a GQA case with a window (the bf16
+# kernels take both at 192).
 _BWD_192 = {
-    "causal": (32, None),
-    "segments": (32, (0, 11, 12, 32)),
-    "ragged_s37": (37, (0, 20, 37)),
+    "causal": (32, None, (2, 2), None),
+    "segments": (32, (0, 11, 12, 32), (2, 2), None),
+    "ragged_s37": (37, (0, 20, 37), (2, 2), None),
+    "gqa_window": (32, None, (4, 2), 9),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_BWD_192))
 def test_flash_backward_at_192_matches_jax(case):
-    s, bounds = _BWD_192[case]
+    s, bounds, (h, hkv), window = _BWD_192[case]
     rng = _rng("bwd192", case)
-    b, h = 1, 2
-    q, k = _randn(rng, b, s, h, 192), _randn(rng, b, s, h, 192)
-    v = np.pad(_randn(rng, b, s, h, 128), ((0, 0),) * 3 + ((0, 64),))
+    b = 1
+    q, k = _randn(rng, b, s, h, 192), _randn(rng, b, s, hkv, 192)
+    v = np.pad(_randn(rng, b, s, hkv, 128), ((0, 0),) * 3 + ((0, 64),))
     w = _randn(rng, b, s, h, 192)  # the loss weights: sum(out * w)
     seg = None if bounds is None else _packed(b, s, bounds)
     jseg = None if seg is None else jnp.asarray(seg)
 
     def jloss(q, k, v):
         if s % 8 == 0:
-            out = jfa.flash_attention(q, k, v, segments=jseg, block_q=32,
-                                      block_k=32, interpret=True)
+            out = jfa.flash_attention(q, k, v, window=window, segments=jseg,
+                                      block_q=32, block_k=32, interpret=True)
         else:
-            out = jatt.attention_ref(q, k, v, causal=True, q_segments=jseg,
-                                     kv_segments=jseg)
+            out = jatt.attention_ref(q, k, v, causal=True, window=window,
+                                     q_segments=jseg, kv_segments=jseg)
         return jnp.sum(out * jnp.asarray(w))
 
     want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
@@ -265,7 +269,7 @@ def test_flash_backward_at_192_matches_jax(case):
     tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
     out = tfa.FlashAttentionFunction.apply(
         tq, tk, tv, None if seg is None else _t(seg), None, True,
-        192 ** -0.5, None, None, tfa.PLAIN)
+        192 ** -0.5, window, None, tfa.PLAIN)
     (out * _t(w)).sum().backward()
     for name, g, jg in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad),
                            want):

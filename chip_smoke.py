@@ -8,15 +8,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 (nvcc -Xptxas -v register/shared-memory/spill lines); every
                 instance of the Hopper redesigns (the wgmma kernels 2, 3
                 and 4, D 64, 128 and 192, with and without segments;
-                kernel 1's six register-resident RMSNorm instances; the split-K
-                decode body's dense instances, kernel 5's four over bf16
-                caches and kernel 6's four over int8 caches (D 64 and
-                128, at 2 and 16 rows); kernel 7's eight, bf16 and int8
-                pools; the wide decode body's eight at MLA's D 576,
-                dense and paged, q bf16 or fp32 over caches of q's dtype
-                or int8; the fp32 CUDA-core bodies at D 192: kernels 2,
-                3 and 4) must show 0 spill stores, and no wgmma may be
-                serialized (C7520).
+                kernel 1's 34 register-resident RMSNorm instances, bf16
+                and fp32, that take every width of whole 16-byte vectors;
+                the split-K decode body's dense instances, kernel 5's
+                four over bf16 caches and kernel 6's four over int8
+                caches (D 64 and 128, at 2 and 16 rows); kernel 7's
+                eight, bf16 and int8 pools; at MLA's D 576 the
+                tensor-core wide body's four (bf16 q over bf16 and int8
+                caches, dense and paged) and the CUDA-core wide body's
+                four (fp32 q); the fp32 CUDA-core bodies at D 192:
+                kernels 2, 3 and 4) must show 0 spill stores, and no
+                wgmma may be serialized (C7520).
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes of the main paths, in bf16 and fp32 (RMSNorm
                 at 1, 8, 16, 4096 and 12288 rows of 2048, 65536 rows of
@@ -350,7 +352,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                 library calls (F.rms_norm; SDPA at 192; masked SDPA over
                 the latent as k and v at 576, after a dequantize or a
                 gather where the kernel reads int8 or a pool). Their rows
-                join the kernels line as `<kernel>_d192` / `_d576`.
+                join the kernels line as `<kernel>_d192` / `_d576`. A
+                bf16 call at 576 must launch the tensor-core body
+                (`decode_wide_mma`) alone, over either cache and pool,
+                an fp32 call the CUDA-core one (`bodies_d576`, by the
+                profiler's kernel names).
  12. cli-serve — `python -m shellac_tpu_torch serve --config F
                 --cache-backend paged --slots 4 --port 0 --logprobs` (F:
                 shellac-1b cut to 2 layers) as a subprocess, on the CLI's
@@ -493,17 +499,20 @@ def card_line() -> str:
 # Instances the build must show, by kind: the wgmma kernels (D 64, 128
 # and MLA's 192, with and without segments), the fp32 CUDA-core bodies
 # at 192 (kernels 3 and 4, kernel 2 with and without segments), kernel
-# 1's register-resident RMSNorm (bf16 and fp32: many rows and few rows
-# at d 2048, one instance at d 128), the
+# 1's register-resident RMSNorm (bf16 and fp32, 17 each: many rows at
+# 16, 32, 64, 128 and 256 threads a row, few rows at a CTA a row, and the
+# exact-fit twins of the six that d 2048 and 128 land on), the
 # split-K decode body (D 64 and 128, at 2 and 16 rows) over the dense
 # caches (kernel 5's bf16, kernel 6's int8) and kernel 7's bf16 and int8
-# pools, and the wide body at MLA's 576 (q bf16 or fp32, over a cache of
-# q's dtype or int8) over the dense caches and the pools.
+# pools, and at MLA's 576 the tensor-core wide body (bf16 q over bf16 and
+# int8 caches) and the CUDA-core one (fp32 q, over fp32 and int8 caches),
+# each over the dense caches and the pools.
 REDESIGNED = {"flash_fwd": 6, "flash_bwd_dkdv": 6, "flash_bwd_dq": 6,
               "flash_bwd_dkdv_simt": 1, "flash_bwd_dq_simt": 1,
               "flash_fwd_f32": 2,
-              "rms_norm_rows": 6, "decode_split": 8, "paged_split": 8,
-              "decode_wide": 4, "paged_wide": 4}
+              "rms_norm_rows": 34, "decode_split": 8, "paged_split": 8,
+              "decode_wide_mma": 2, "paged_wide_mma": 2,
+              "decode_wide": 2, "paged_wide": 2}
 
 
 def spill_report(ptxas):
@@ -530,8 +539,11 @@ def spill_report(ptxas):
                                     "flash_bwd_dq_simt", "flash_fwd_f32")
                         if k in fn)
         elif "decode_split" in fn or "decode_wide" in fn:
-            # The tiles policy names the kernel.
-            body = "split" if "decode_split" in fn else "wide"
+            # The tiles policy names the kernel; at 576 the tensor-core
+            # body (`decode_wide_mma`) and the CUDA-core one
+            # (`decode_wide_kernel`) count apart.
+            body = ("split" if "decode_split" in fn else
+                    "wide_mma" if "decode_wide_mma" in fn else "wide")
             kind = ("paged_" if "PagedTiles" in fn else "decode_") + body
         else:
             kind = "rms_norm_rows" if "rms_norm_rows" in fn else None
@@ -1552,8 +1564,9 @@ def kernel_kind(name):
     if any(b in name for b in ("decode_kernel", "decode_split",
                                 "decode_wide")):
         # decode_core.cuh's body (PagedRows or DenseRows), the split-K
-        # body or the wide one (PagedTiles or DenseTiles); the int8
-        # instances store `signed char`.
+        # body or the wide ones (`decode_wide_mma`, `decode_wide_kernel`;
+        # PagedTiles or DenseTiles); the int8 instances store `signed
+        # char`.
         kind = ("paged_decode_attention" if "Paged" in name
                 else "decode_attention_dense")
         return kind + ("_int8" if "signed char" in name else "")
@@ -6215,6 +6228,7 @@ def phase_kernels_mla(gen, dev, shapes, card):
     if failed:
         raise SystemExit(f"kernels-mla: kernels disagree with their plain "
                          f"versions at MLA's widths: {failed}")
+    check_bodies_576(gen, dev, gidx, sidx)
 
     def row(kernel, case, k_ms, p_ms, nbytes, flops, shape, lib=None,
             calls=None):
@@ -6374,6 +6388,57 @@ def phase_kernels_mla(gen, dev, shapes, card):
         del sets
         torch.cuda.empty_cache()
     return errs, rows_out
+
+
+def check_bodies_576(gen, dev, gidx, sidx):
+    """A bf16 call of kernel 5, 6 or 7 at 576 launches the tensor-core body
+    (`decode_wide_mma`) and nothing else; an fp32 call the CUDA-core
+    parity body (`decode_wide_kernel`). By the profiler's kernel names (a
+    trace that holds no kernel is taken again, twice at most)."""
+    from shellac_tpu_torch.ops.decode_attention import (
+        decode_attention_cuda,
+        decode_attention_quant_cuda,
+        paged_decode_attention_cuda,
+        paged_decode_attention_quant_cuda,
+    )
+
+    scale = MLA_QK ** -0.5
+    bodies, ok = {}, True
+    for dtype, body in ((torch.bfloat16, "decode_wide_mma"),
+                        (torch.float32, "decode_wide_kernel")):
+        q, c, idx = mla_inputs(gen, dtype, dev, PROMPTS, MAX_LEN, gidx)
+        _, c8, sc, _ = mla_inputs(gen, dtype, dev, PROMPTS, MAX_LEN, gidx,
+                                  quant=True)
+        qp, pool, _, tab, pidx, _, _ = mla_paged_inputs(gen, dtype, dev,
+                                                        BLOCK, sidx)
+        qp8, pool8, psc, tab8, _, _, _ = mla_paged_inputs(
+            gen, dtype, dev, BLOCK_INT8, sidx, quant=True)
+        calls = {
+            "decode_attention_dense": lambda: decode_attention_cuda(
+                q, c, c, idx, scale=scale),
+            "decode_attention_dense_int8": lambda: decode_attention_quant_cuda(
+                q, c8, c8, sc, sc, idx, scale=scale),
+            "paged_decode_attention": lambda: paged_decode_attention_cuda(
+                qp, pool, pool, tab, pidx, scale=scale),
+            "paged_decode_attention_int8":
+                lambda: paged_decode_attention_quant_cuda(
+                    qp8, pool8, pool8, psc, psc, tab8, pidx, scale=scale),
+        }
+        for name, fn in calls.items():
+            for _ in range(3):
+                top = profile_call(fn, top=4)["top"]
+                if top:
+                    break
+            got = [(t["kernel"], t["count"]) for t in top]
+            bodies[f"{name}_{str(dtype)[6:]}"] = got
+            ok = ok and len(got) == 1 and got[0][1] == 1 and body in got[0][0]
+        del q, c, c8, sc, qp, pool, qp8, pool8, psc
+        torch.cuda.empty_cache()
+    emit("kernels-mla", step="bodies_d576", bodies=bodies, ok=ok)
+    if not ok:
+        raise SystemExit(f"kernels-mla: a call at 576 did not run its body "
+                         f"alone (bf16: decode_wide_mma; fp32: "
+                         f"decode_wide_kernel): {bodies}")
 
 
 def phase_mla_parity(seed, dev):

@@ -2,10 +2,10 @@
 (RMSNorm), kernel 2 (the flash forward), kernels 3 and 4 (the flash
 backward's dk/dv and dq), kernels 5 and 6 (dense flash-decode over bf16
 and int8 caches) and kernel 7 (paged flash-decode, over bf16 and int8
-pools).
+pools), at the dense widths and at MLA's 576.
 
     python3 scripts/torch_kernel_ab.py --parent DIR [--seed 0]
-        [--only rms,fwd,bwd,decode,dense-int8,paged,generate]
+        [--only rms,fwd,bwd,decode,dense-int8,paged,mla,generate]
         [--also NAME=DIR ...]
 
 DIR is a checkout of an earlier commit of this repository (for example
@@ -20,7 +20,9 @@ same C entry points (`shellac_rms_norm`, `shellac_flash_attention`,
 main paths give each kernel on shellac-1b (H 16, Hkv 8, D 128, d_model
 2048):
   - rms: train 12288 x 2048, prefill 4096 x 2048, serve's largest
-    admission 1024 x 2048, decode's 8 and 16 rows; beside
+    admission 1024 x 2048, decode's 8 and 16 rows; the q/k norms' 65536 x
+    128; MLA's kv_a_norm at 512 (serve's 16 rows, prefill's 4096) and
+    GPT-OSS-20B's width 2880 (the same rows); beside
     torch.nn.functional.rms_norm;
   - fwd (causal): the train step (6 x 2048, with lse), generate's prefill
     (8 x 512) and serve's B = 1 admissions (S 64, 256 and 1024); beside
@@ -32,17 +34,28 @@ main paths give each kernel on shellac-1b (H 16, Hkv 8, D 128, d_model
     together (timed eagerly, since autograd is not captured);
   - decode (s 1, L 2048): generate's ragged step (B 8, lengths 129-577 as
     chip_smoke.py draws them), every slot live to 2048 (B 8), and B 16
-    ragged over the whole cache; beside masked scaled_dot_product_attention;
+    ragged over the whole cache; and generate's step at GPT-OSS-20B's
+    heads (64 q over 8 kv heads of 64); beside masked
+    scaled_dot_product_attention;
   - dense-int8: the same three steps over an int8 cache with fp32 scales
     (kernel 6); beside the nearest library route, two calls: a
     dequantize of k and v and masked scaled_dot_product_attention;
   - paged (s 1, 16 slots, a 2048-position table): serve's ragged lengths
     (64-1152, as chip_smoke.py draws them) and every slot live to 2048,
     each over a bf16 pool of 16-token blocks and an int8 pool of 64-token
-    blocks (fp32 scales) in shuffled pages; beside the nearest library
+    blocks (fp32 scales) in shuffled pages, and serve's lengths at
+    GPT-OSS-20B's heads over bf16 blocks of 16; beside the nearest library
     route, several calls: a gather of the pages and masked
     scaled_dot_product_attention (bf16), with a dequantize between them
     (int8);
+  - mla (D 576, s 1, one latent row a token as k and v, L 2048): the
+    dense cache at generate's step (B 8, lengths 129-577) with 16 q heads
+    (shellac-mla-2b, DeepSeek-V2-Lite), the same over an int8 latent, and
+    with DeepSeek-V2/V3's 128 heads; serve's 16 slots over a bf16 pool of
+    16-token blocks and an int8 pool of 64-token blocks; every slot live
+    to 2048 (dense B 8, the bf16 pool at 16 slots); beside masked
+    scaled_dot_product_attention over the latent as k and v (after a
+    gather, a dequantize or both, as several calls);
   - generate: shellac-1b (random bf16 weights from --seed) generates
     greedily from chip_smoke.py's 8 prompts for 64 tokens, once on each
     side's kernels; prints whether the tokens agree and, for a row where
@@ -94,26 +107,49 @@ BWD_SHAPES = {  # name: (B, S, H, Hkv, D, v's live width)
     "b8_512": (8, 512, 16, 8, 128, 128),
     "mla_6x2048_d192": (6, 2048, 16, 16, 192, 128),
 }
-RMS_SHAPES = {  # name: rows (d 2048)
-    "train_12288x2048": 12288,
-    "prefill_4096x2048": 4096,
-    "serve_prefill_1024x2048": 1024,
-    "generate_decode_8x2048": 8,
-    "serve_decode_16x2048": 16,
+RMS_SHAPES = {  # name: (rows, d)
+    "train_12288x2048": (12288, 2048),
+    "prefill_4096x2048": (4096, 2048),
+    "serve_prefill_1024x2048": (1024, 2048),
+    "generate_decode_8x2048": (8, 2048),
+    "serve_decode_16x2048": (16, 2048),
+    "qk_norm_65536x128": (65536, 128),
+    "mla_serve_decode_16x512": (16, 512),
+    "mla_prefill_4096x512": (4096, 512),
+    "gptoss_serve_decode_16x2880": (16, 2880),
+    "gptoss_prefill_4096x2880": (4096, 2880),
 }
-DECODE_SHAPES = {  # name: (B, lengths: "generate" | "full" | "ragged")
-    "generate_8_ragged": (8, "generate"),
-    "full_live_8x2048": (8, "full"),
-    "b16_ragged": (16, "ragged"),
+# shellac-1b's heads (16 q over 8 kv heads of 128) and GPT-OSS-20B's.
+HEADS_1B, HEADS_GPTOSS = (16, 8, 128), (64, 8, 64)
+DECODE_SHAPES = {  # name: (B, lengths: "generate" | "full" | "ragged",
+    #                  (H, Hkv, D))
+    "generate_8_ragged": (8, "generate", HEADS_1B),
+    "full_live_8x2048": (8, "full", HEADS_1B),
+    "b16_ragged": (16, "ragged", HEADS_1B),
+    "gptoss_generate_8_ragged_d64": (8, "generate", HEADS_GPTOSS),
 }
-PAGED_SHAPES = {  # name: (pool "bf16" | "int8", block size, lengths)
-    "serve_ragged_bs16": ("bf16", 16, "serve"),
-    "serve_ragged_int8_bs64": ("int8", 64, "serve"),
-    "full_live_bs16": ("bf16", 16, "full"),
-    "full_live_int8_bs64": ("int8", 64, "full"),
+PAGED_SHAPES = {  # name: (pool "bf16" | "int8", block size, lengths,
+    #                  (H, Hkv, D))
+    "serve_ragged_bs16": ("bf16", 16, "serve", HEADS_1B),
+    "serve_ragged_int8_bs64": ("int8", 64, "serve", HEADS_1B),
+    "full_live_bs16": ("bf16", 16, "full", HEADS_1B),
+    "full_live_int8_bs64": ("int8", 64, "full", HEADS_1B),
+    "gptoss_serve_ragged_bs16_d64": ("bf16", 16, "serve", HEADS_GPTOSS),
 }
+MLA_SHAPES = {  # name: (cache "dense" | "paged", "bf16" | "int8", slots,
+    #                q heads, block size, lengths "step" | "full")
+    "dense_b8_generate": ("dense", "bf16", 8, 16, None, "step"),
+    "dense_b8_generate_int8": ("dense", "int8", 8, 16, None, "step"),
+    "dense_b8_generate_128_heads": ("dense", "bf16", 8, 128, None, "step"),
+    "paged_16_serve_bs16": ("paged", "bf16", 16, 16, 16, "step"),
+    "paged_16_serve_int8_bs64": ("paged", "int8", 16, 16, 64, "step"),
+    "dense_b8_full_live": ("dense", "bf16", 8, 16, None, "full"),
+    "paged_16_full_live_bs16": ("paged", "bf16", 16, 16, 16, "full"),
+}
+H, HKV, D = HEADS_1B  # the flash forward's shapes
 SLOTS = 16
-H, HKV, D, D_MODEL, L = 16, 8, 128, 2048, 2048
+MLA_D = 576
+L = 2048
 BF16 = 1  # dtype code of csrc/common.cuh
 
 
@@ -248,11 +284,10 @@ def run_rms(libs, gen, dev, card):
 
     bf = torch.bfloat16
     ok = True
-    for name, rows in RMS_SHAPES.items():
+    for name, (rows, d) in RMS_SHAPES.items():
         def make():
-            x = torch.randn((rows, D_MODEL), generator=gen,
-                            device=dev).to(bf)
-            sc = 0.1 * torch.randn((D_MODEL,), generator=gen, device=dev)
+            x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
+            sc = 0.1 * torch.randn((d,), generator=gen, device=dev)
             return x, sc, torch.empty_like(x), (1.0 + sc).to(bf)
 
         first = make()
@@ -273,14 +308,14 @@ def run_rms(libs, gen, dev, card):
         # graph reuses one block (L2-resident at these sizes); the
         # kernel is timed that way too beside it.
         library = graph_ms(lambda x, s, o, w: F.rms_norm(
-            x, (D_MODEL,), w, 1e-5), sets, iters)
+            x, (d,), w, 1e-5), sets, iters)
         new_alloc = graph_ms(lambda x, s, o, w: call_rms(
             libs["new"], x, s, torch.empty_like(x)), sets, iters)
-        nbytes = 2 * rows * D_MODEL * 2 + D_MODEL * 4
-        bms, by = bound(4 * rows * D_MODEL, nbytes)
+        nbytes = 2 * rows * d * 2 + d * 4
+        bms, by = bound(4 * rows * d, nbytes)
         new_ms = min(times["new"])
         print(json.dumps({
-            "pass": "rms", "shape": name, "rows": rows, "d": D_MODEL,
+            "pass": "rms", "shape": name, "rows": rows, "d": d,
             "ms": times, "eager_ms": eager, "f_rms_norm_ms": library,
             "new_allocating_ms": new_alloc,
             "bound_ms": bms, "bound_by": by, "roofline_share": bms / new_ms,
@@ -329,7 +364,7 @@ def run_decode_int8(libs, gen, dev, card, seed):
 
     bf = torch.bfloat16
     ok = True
-    for name, (b, kind) in DECODE_SHAPES.items():
+    for name, (b, kind, (H, HKV, D)) in DECODE_SHAPES.items():
         lengths = decode_lengths(kind, b, seed).astype(np.int32)
         idx = torch.from_numpy(lengths).to(dev)
 
@@ -390,7 +425,7 @@ def run_decode(libs, gen, dev, card, seed):
 
     bf = torch.bfloat16
     ok = True
-    for name, (b, kind) in DECODE_SHAPES.items():
+    for name, (b, kind, (H, HKV, D)) in DECODE_SHAPES.items():
         lengths = decode_lengths(kind, b, seed).astype(np.int32)
         idx = torch.from_numpy(lengths).to(dev)
 
@@ -457,12 +492,13 @@ def call_paged(lib, q, pk, pv, pks, pvs, tab, idx, out):
                    idx.data_ptr(), *tail))
 
 
-def paged_set(gen, dev, lengths, bs, quant):
+def paged_set(gen, dev, lengths, bs, quant, heads):
     """q, a pool (bf16, or int8 with fp32 scale pools) holding each slot's
     pages for positions [0, length + 1) in shuffled blocks, the tables,
-    index and an output buffer."""
+    index and an output buffer; heads (H, Hkv, D)."""
     from shellac_tpu_torch.inference.cache import quantize_kv
 
+    H, HKV, D = heads
     need = [-(-(int(n) + 1) // bs) for n in lengths]
     n_blocks = 1 + sum(need) + 64
     ids = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
@@ -499,7 +535,8 @@ def run_paged(libs, gen, dev, card, seed):
 
     bf = torch.bfloat16
     ok = True
-    for name, (pool, bs, kind) in PAGED_SHAPES.items():
+    for name, (pool, bs, kind, heads) in PAGED_SHAPES.items():
+        H, HKV, D = heads
         quant = pool == "int8"
         lengths = (np.full(SLOTS, L - 1) if kind == "full" else
                    np.random.default_rng(seed + 1).integers(
@@ -511,8 +548,8 @@ def run_paged(libs, gen, dev, card, seed):
         row_bytes = (2 * D + 8) if quant else 2 * D * 2
         nbytes = (2 * SLOTS * H * D * 2 + live * HKV * row_bytes
                   + pages * 4 + SLOTS * 4)
-        first = paged_set(gen, dev, lengths, bs, quant)
-        sets = [first] + [paged_set(gen, dev, lengths, bs, quant)
+        first = paged_set(gen, dev, lengths, bs, quant, heads)
+        sets = [first] + [paged_set(gen, dev, lengths, bs, quant, heads)
                           for _ in range(n_copies(first, nbytes) - 1)]
         q, pk, pv, pks, pvs, tab, idx, _ = first
         ref = _paged_decode_ref(q, pk, pv, tab, idx, None, D ** -0.5,
@@ -548,6 +585,128 @@ def run_paged(libs, gen, dev, card, seed):
             "ms": times, "eager_ms": eager, "library_calls_ms": calls,
             "library_calls_what": ("gather + dequantize + SDPA" if quant
                                    else "gather + SDPA"),
+            "bound_ms": bms, "bound_by": by, "roofline_share": bms / new_ms,
+            "parent_over_new": min(times["parent"]) / new_ms,
+            "new_over_library_calls": new_ms / calls,
+            "errors": errs, "card": card}), flush=True)
+        del sets, first
+        torch.cuda.empty_cache()
+    return ok
+
+
+def mla_set(gen, dev, cache, pool, b, heads, bs, lengths):
+    """q (b, 1, heads, 576) bf16 and one latent array serving as k and v:
+    a dense cache (b, 1, L, 576) or a pool of shuffled pages holding each
+    slot's positions [0, length + 1) (int8 with one fp32 scale a row when
+    `pool` is "int8"); (tables or None, scales or None, index, out)."""
+    from shellac_tpu_torch.inference.cache import quantize_kv
+
+    q = torch.randn((b, 1, heads, MLA_D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    if cache == "dense":
+        shape, tab = (b, 1, L, MLA_D), None
+    else:
+        need = [-(-(int(n) + 1) // bs) for n in lengths]
+        n_blocks = 1 + sum(need) + 64
+        ids = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
+        tab = torch.zeros((b, L // bs), dtype=torch.int32, device=dev)
+        at = 0
+        for i, n in enumerate(need):
+            tab[i, :n] = ids[at:at + n].to(torch.int32)
+            at += n
+        shape = (n_blocks, 1, bs, MLA_D)
+    x = torch.randn(shape, generator=gen, device=dev)
+    if pool == "int8":
+        c, sc = (t[0] for t in quantize_kv(x[None]))
+    else:
+        c, sc = x.to(torch.bfloat16), None
+    idx = torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)
+    return q, c, sc, tab, idx, torch.empty_like(q)
+
+
+def call_mla(lib, q, c, sc, tab, idx, out):
+    if tab is not None:
+        call_paged(lib, q, c, c, sc, sc, tab, idx, out)
+    elif sc is not None:
+        call_decode_int8(lib, q, c, c, sc, sc, idx, out)
+    else:
+        call_decode(lib, q, c, c, idx, out)
+
+
+def run_mla(libs, gen, dev, card, seed):
+    """Kernels 5-7 at MLA's 576: the absorbed decode's latent as k and v."""
+    from shellac_tpu_torch.inference.cache import (
+        paged_gather_layer,
+        paged_gather_scales,
+    )
+    from shellac_tpu_torch.ops.decode_attention import (
+        _decode_ref,
+        _dequantize,
+        _paged_decode_ref,
+    )
+
+    bf = torch.bfloat16
+    scale = MLA_D ** -0.5
+    ok = True
+    for name, (cache, pool, b, heads, bs, kind) in MLA_SHAPES.items():
+        lengths = (np.full(b, L - 1) if kind == "full" else
+                   decode_lengths("generate", b, seed) if cache == "dense"
+                   else np.random.default_rng(seed + 1).integers(
+                       64, 1024 + 128 + 1, size=b))
+        quant = pool == "int8"
+        live = int((lengths + 1).sum())
+        pages = (0 if cache == "dense" else
+                 int(sum(-(-(int(n) + 1) // bs) for n in lengths)))
+        # Bytes: q and out, the live latent rows once (k and v are one
+        # array) and their scales, the live table entries, index.
+        nbytes = (2 * b * heads * MLA_D * 2
+                  + live * (MLA_D * (1 if quant else 2) + (4 if quant else 0))
+                  + pages * 4 + b * 4)
+        first = mla_set(gen, dev, cache, pool, b, heads, bs, lengths)
+        sets = [first] + [mla_set(gen, dev, cache, pool, b, heads, bs,
+                                  lengths)
+                          for _ in range(n_copies(first, nbytes) - 1)]
+        q, c, sc, tab, idx, _ = first
+        kw = {} if sc is None else dict(k_scale=sc, v_scale=sc)
+        ref = (_decode_ref(q, c, c, idx, None, scale, **kw) if tab is None
+               else _paged_decode_ref(q, c, c, tab, idx, None, scale, **kw))
+        errs = {}
+        for who, lib in libs.items():
+            out = torch.empty_like(q)
+            call_mla(lib, q, c, sc, tab, idx, out)
+            torch.cuda.synchronize()
+            errs[who] = close(out, ref)
+            ok = ok and errs[who]["ok"]
+        del ref
+        times, eager = ab(libs, lambda lib: lambda *a: call_mla(lib, *a),
+                          sets, 200)
+        mask = (torch.arange(L, device=dev)[None, :]
+                < (idx + 1)[:, None].long())[:, None, None, :]
+
+        def library(q, c, sc, tab, i, o):
+            if tab is not None:
+                kv = paged_gather_layer(c, c, tab)[0]
+                if sc is not None:
+                    kv = _dequantize(kv, paged_gather_scales(sc, tab), bf)
+            else:
+                kv = c if sc is None else _dequantize(c, sc, bf)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kv, kv, attn_mask=mask, scale=scale,
+                enable_gqa=True)
+
+        calls = graph_ms(library, sets, 20)
+        bms, by = bound(4 * MLA_D * heads * live, nbytes)
+        new_ms = min(times["new"])
+        what = ("masked SDPA" if cache == "dense" and not quant else
+                " + ".join(w for w, on in (("gather", tab is not None),
+                                            ("dequantize", quant)) if on)
+                + " + masked SDPA")
+        print(json.dumps({
+            "pass": "mla", "shape": name, "cache": cache, "pool": pool,
+            "b": b, "s": 1, "h": heads, "hkv": 1, "d": MLA_D, "bs": bs,
+            "index": [int(n) for n in lengths],
+            "ms": times, "eager_ms": eager, "library_calls_ms": calls,
+            "library_calls_what": what,
             "bound_ms": bms, "bound_by": by, "roofline_share": bms / new_ms,
             "parent_over_new": min(times["parent"]) / new_ms,
             "new_over_library_calls": new_ms / calls,
@@ -772,7 +931,8 @@ def load_libs(checkouts):
     return libs
 
 
-PASSES = ("rms", "fwd", "bwd", "decode", "dense-int8", "paged", "generate")
+PASSES = ("rms", "fwd", "bwd", "decode", "dense-int8", "paged", "mla",
+          "generate")
 
 
 def main():
@@ -818,6 +978,8 @@ def main():
         ok = run_decode_int8(libs, gen, dev, card, args.seed) and ok
     if "paged" in passes:
         ok = run_paged(libs, gen, dev, card, args.seed) and ok
+    if "mla" in passes:
+        ok = run_mla(libs, gen, dev, card, args.seed) and ok
     if "generate" in passes:
         run_generate(libs, dev, card, args.seed)
     return 0 if ok else 1

@@ -3,6 +3,7 @@ parent, this tree, this tree, parent, and set their end-to-end numbers
 side by side.
 
     python3 scripts/torch_smoke_ab.py --parent DIR [--out DIR]
+        [--only PHASES]
 
 DIR is a checkout of an earlier commit of this repository (for example
 unpacked with `git archive` into a directory that .gitignore lists). Each
@@ -16,9 +17,15 @@ LM head's GEMMs where the run reports them apart), the device ms of
 serve's and serve-int8's profiled engine step (and their device ms by
 kernel kind) and of generate's graph-captured decode step (and its
 profiled step's device ms by kernel kind), the host metrics of serve, serve-int8 and generate, the launch
-counts of every main path, and every kernel's timings. Exits non-zero without a card, if a run fails, or if the first
-train step's loss of a run of this tree differs from the parent's first
-run by more than 1e-3 relative.
+counts of every main path, and every kernel's timings; the MLA models'
+serve (shellac-mla-2b over the bf16 and int8 pools, DeepSeek-V2-Lite's
+shape) and GPT-OSS-20B's: tokens/s, TPOT p50, the 16-slot decode step's
+device ms and its device ms by kernel kind. `--only PHASES` passes
+chip_smoke.py's `--only` (for example `mla,moe`: those phases after the
+build, whose lines are the only ones filled). Exits non-zero without a
+card, if a run fails, or if the first train step's loss of a run of this
+tree differs from the parent's first run by more than 1e-3 relative
+(where the train phase ran).
 """
 
 from __future__ import annotations
@@ -35,11 +42,15 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def run_smoke(checkout: Path, out: Path) -> dict:
-    """One chip_smoke.py run: its exit code and JSON lines by key."""
+def run_smoke(checkout: Path, out: Path, only=None) -> dict:
+    """One chip_smoke.py run: its exit code and JSON lines by key, (phase,
+    step or kernel, case) and, for a line that names its model, (phase,
+    step, model, cache)."""
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout,
-                         capture_output=True, text=True, timeout=1500)
+    res = subprocess.run(
+        [sys.executable, "chip_smoke.py"] + (["--only", only] if only
+                                             else []),
+        cwd=checkout, capture_output=True, text=True, timeout=1500)
     out.write_text(res.stdout + "\n--- stderr ---\n" + res.stderr)
     lines = {}
     for ln in res.stdout.splitlines():
@@ -51,6 +62,9 @@ def run_smoke(checkout: Path, out: Path) -> dict:
             key = (rec["phase"], rec.get("step") or rec.get("kernel"),
                    rec.get("case"))
             lines.setdefault(key, rec)
+            if "model" in rec:
+                lines.setdefault((rec["phase"], rec.get("step"),
+                                  rec["model"], rec.get("cache")), rec)
         elif isinstance(rec, dict) and "ok" in rec:
             lines["ok"] = rec["ok"]
     return {"rc": res.returncode, "seconds": time.perf_counter() - t0,
@@ -199,12 +213,25 @@ METRICS = {  # name: (key of the line, fields inside it)
     "kernel7_int8_ms_full_live": (("timings", "paged_decode_attention_int8",
                                    "full_live_int8"), ("ms",)),
 }
+# The MLA and MoE serve lines: (model, cache) -> metric prefix.
+for (_model, _cache), _name in {
+        ("shellac-mla-2b", "paged"): "mla_2b_serve",
+        ("shellac-mla-2b", "paged-int8"): "mla_2b_serve_int8",
+        ("deepseek-v2-lite", "paged"): "deepseek_v2_lite_serve"}.items():
+    for _f in ("tokens_per_s", "tpot_ms_p50", "decode_step_device_ms",
+               "decode_step_by_kind"):
+        METRICS[f"{_name}_{_f}"] = (("mla", "serve", _model, _cache), (_f,))
+for _f in ("tokens_per_s", "tpot_ms_p50", "decode_step_device_ms"):
+    METRICS[f"moe_serve_{_f}"] = (("moe", "serve", "gpt-oss-20b", None),
+                                  (_f,))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "smoke_ab")
+    ap.add_argument("--only", default=None,
+                    help="chip_smoke.py's --only (comma-separated phases)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_smoke_ab: no CUDA device", file=sys.stderr)
@@ -213,7 +240,8 @@ def main():
     sides = {"parent": args.parent.resolve(), "new": ROOT}
     runs = {"parent": [], "new": []}
     for n, who in enumerate(("parent", "new", "new", "parent")):
-        run = run_smoke(sides[who], args.out / f"smoke_{n}_{who}.jsonl")
+        run = run_smoke(sides[who], args.out / f"smoke_{n}_{who}.jsonl",
+                        args.only)
         runs[who].append(run)
         print(json.dumps({"run": n, "side": who, "rc": run["rc"],
                           "ok": run["lines"].get("ok"),
@@ -223,6 +251,8 @@ def main():
             who: [pick(r, key, *fields) for r in rs]
             for who, rs in runs.items()}}), flush=True)
     ok = all(r["rc"] == 0 for rs in runs.values() for r in rs)
+    if args.only and "train" not in args.only.split(","):
+        return 0 if ok else 1
     key, fields = METRICS["train_first_step_loss"]
     first = pick(runs["parent"][0], key, *fields)
     for r in runs["new"]:

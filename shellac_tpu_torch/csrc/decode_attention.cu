@@ -19,8 +19,9 @@
 // body of decode_core.cuh with DenseRows, one 256-thread block per (slot,
 // kv head). MLA's absorbed decode (D 576, every head's row against one
 // latent row, one array as k and v) takes decode_wide.cuh with
-// DenseTiles, in bf16 and fp32 q, over the bf16, fp32 or int8 latent
-// cache.
+// DenseTiles (its `row_of`): a bf16 q its tensor-core body over the bf16
+// or int8 latent cache, an fp32 q its CUDA-core body over the fp32 or
+// int8 one.
 //
 // Bound on the H100: bytes (2 * live * D * 2 bytes per slot and kv head
 // in bf16, 2 * live * (D + 4) in int8), but at a decode step's sizes
@@ -80,6 +81,8 @@ struct DenseTiles {
   __device__ size_t lane_row(int p0, int lane) const {
     return base + p0 + lane;
   }
+  // Any one lane: the row of position pos (the wide body's copies).
+  __device__ size_t row_of(int pos) const { return base + pos; }
 };
 
 }  // namespace

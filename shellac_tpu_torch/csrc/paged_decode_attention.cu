@@ -45,9 +45,11 @@
 // An fp32 q (the parity path) runs the shared warp-parallel body of
 // decode_core.cuh with PagedRows: each block stages its slot's live
 // table entries in shared memory, and each lane turns its position into
-// (page, offset) with one division per chunk. MLA's latent pools (D 576, one
-// pool as k and v) take decode_wide.cuh with PagedTiles, in bf16 and fp32 q, over pools
-// in q's dtype or int8.
+// (page, offset) with one division per chunk. MLA's latent pools (D 576,
+// one pool as k and v) take decode_wide.cuh with PagedTiles (its
+// `row_of`: each copying thread reads its row's page id itself), a bf16
+// q the tensor-core body, an fp32 q the CUDA-core one, over pools in q's
+// dtype or int8.
 //
 // Bound on the H100: bytes, the live k/v rows of every slot (and their
 // scales in int8). Serving decodes 16 slots x 8 kv heads; the split body
@@ -123,6 +125,12 @@ struct PagedTiles {
     const int pg = pos / bs;
     const int id = __shfl_sync(0xffffffffu, page, (pg - first_pg) & 31);
     return ((size_t)id * Hkv + hk) * bs + (pos - pg * bs);
+  }
+  // Any one lane: the row of position pos, from its own table read (the
+  // wide body's copies, one row a lane).
+  __device__ size_t row_of(int pos) const {
+    const int pg = pos / bs;
+    return ((size_t)row[pg] * Hkv + hk) * bs + (pos - pg * bs);
   }
 };
 

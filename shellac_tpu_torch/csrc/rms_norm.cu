@@ -10,28 +10,33 @@
 // scale vector is d floats, shared by every row), against a handful of
 // flops per element.
 //
-// Design. The widths of the main paths (d = 2048, the residual stream;
-// d = 128, the q/k norms of configurations that have them) take
-// `rms_norm_rows`, which holds a row in registers: each of TPR threads of
-// a row issues all VPT of its 16-byte loads at once, reduces, scales and
-// stores, so x is read from HBM exactly once and no loop with a run-time
-// trip count sits between a load and its use. The thread's share of
-// (1 + scale) is loaded as 16-byte vectors once and kept in registers for
-// every row the thread handles (a grid-stride loop over rows), and the
-// thread loads its next row before it reduces and stores the current one.
-// The host picks the threads per row from the row count alone:
-//   - few rows (decode's 8 or 16, any count that would leave SMs idle at
-//     one warp a row): one 256-thread CTA a row, one 16-byte load a
-//     thread (bf16; two in fp32) and a two-level reduction (shuffles,
-//     then the warps' sums through shared memory), so a row costs one
-//     load round trip;
-//   - many rows (prefill, training): one warp a row in bf16 (8 loads a
-//     lane), two warps in fp32 (8 loads a thread), 16 threads a row at
-//     d = 128 in bf16, with as many CTAs as fit on the card at once.
+// Design. Every width of whole 16-byte vectors (d a multiple of 8 in
+// bf16, of 4 in fp32) up to 2048 vectors (16384 bf16 columns, 8192 fp32)
+// takes `rms_norm_rows`, which holds a row in registers: each of TPR
+// threads of a row issues all of its (at most VPT) 16-byte loads at
+// once, reduces, scales and stores, so x is read from HBM exactly once
+// and no loop with a run-time trip count sits between a load and its
+// use. A width that is not a multiple of TPR vectors (GPT-OSS's 2880 is
+// 360 bf16 vectors) leaves the last vectors of some threads out: a
+// predicate on each vector, the loop still unrolled. The thread's share
+// of (1 + scale) is loaded as 16-byte vectors once and kept in registers
+// for every row the thread handles (a grid-stride loop over rows), and
+// the thread loads its next row before it reduces and stores the current
+// one. The host picks the instance from the row's vectors and the row
+// count:
+//   - many rows (prefill, training): the fewest threads a row with at
+//     most 8 vectors a thread, from 16 (d <= 128 in bf16) through a warp
+//     (up to 2048 bf16 columns) to 256, with as many CTAs as fit on the
+//     card at once;
+//   - few rows (decode's 8 or 16, any count that would leave SMs idle
+//     at that many threads a row): one 256-thread CTA a row, 1, 2, 4 or
+//     8 vectors a thread, and a two-level reduction (shuffles, then the
+//     warps' sums through shared memory), so a row costs one load round
+//     trip.
 // Loads bypass L1 (`ld.global.nc.L1::no_allocate`) and stores stream
-// (`st.global.cs`): the data is touched once. Other widths (or unaligned
-// pointers) take `rms_norm_kernel`, one warp a row with two passes over
-// the row, which the second pass reads from L1.
+// (`st.global.cs`): the data is touched once. Unaligned pointers and
+// widths that are not whole vectors take `rms_norm_kernel`, one warp a
+// row with two passes over the row, which the second pass reads from L1.
 #include "common.cuh"
 
 namespace shellac {
@@ -110,17 +115,19 @@ __device__ __forceinline__ void store_once(void* p, uint4 u) {
                : "memory");
 }
 
-// TPR threads a row (a power of two dividing kRowsBlock), VPT 16-byte
-// vectors a thread: d = TPR * VPT * (16 / sizeof(T)). Vector v of thread
-// t of a row holds columns [(v * TPR + t) * kN, +kN), so the row's threads
-// read one contiguous 16 * TPR bytes per vector index.
-template <typename T, int TPR, int VPT>
+// TPR threads a row (a power of two dividing kRowsBlock), at most VPT
+// 16-byte vectors a thread: any d of whole vectors up to TPR * VPT * kN
+// (kTail), or exactly that d (!kTail: no predicate, a constant stride).
+// Vector v of thread t of a row holds columns [(v * TPR + t) * kN, +kN),
+// so the row's threads read one contiguous 16 * TPR bytes per vector
+// index; vectors past d are neither loaded nor stored.
+template <typename T, int TPR, int VPT, bool kTail>
 __global__ void __launch_bounds__(kRowsBlock)
 rms_norm_rows(const T* __restrict__ x, const float* __restrict__ scale,
-              T* __restrict__ out, int rows, float eps) {
+              T* __restrict__ out, int rows, int d_in, float eps) {
   constexpr int kN = 16 / sizeof(T);
-  constexpr int kD = TPR * VPT * kN;
   constexpr int kRowsPer = kRowsBlock / TPR;  // rows a block holds at once
+  const int d = kTail ? d_in : TPR * VPT * kN;
   constexpr int kWarpsPerRow = TPR > 32 ? TPR / 32 : 1;
   static_assert(kRowsBlock % TPR == 0, "TPR divides the block");
   __shared__ float part[kRowsPer * kWarpsPerRow];
@@ -128,6 +135,8 @@ rms_norm_rows(const T* __restrict__ x, const float* __restrict__ scale,
   const int t = threadIdx.x % TPR;
   const int slot = threadIdx.x / TPR;
   const int step = gridDim.x * kRowsPer;
+  const int nv = d / kN;  // vectors a row
+  auto in = [&](int v) { return !kTail || v * TPR + t < nv; };
 
   float w[VPT][kN];  // 1 + scale, fp32, this thread's columns
 #pragma unroll
@@ -136,7 +145,7 @@ rms_norm_rows(const T* __restrict__ x, const float* __restrict__ scale,
         reinterpret_cast<const float4*>(scale + (v * TPR + t) * kN);
 #pragma unroll
     for (int q = 0; q < kN / 4; ++q) {
-      const float4 f = s[q];
+      const float4 f = in(v) ? s[q] : make_float4(0.f, 0.f, 0.f, 0.f);
       w[v][4 * q] = 1.f + f.x;
       w[v][4 * q + 1] = 1.f + f.y;
       w[v][4 * q + 2] = 1.f + f.z;
@@ -145,11 +154,11 @@ rms_norm_rows(const T* __restrict__ x, const float* __restrict__ scale,
   }
 
   auto load_row = [&](int row, uint4* u) {
-    const T* xr = x + (size_t)row * kD;
+    const T* xr = x + (size_t)row * d;
 #pragma unroll
     for (int v = 0; v < VPT; ++v)
-      u[v] = row < rows ? load_once(xr + (v * TPR + t) * kN)
-                        : make_uint4(0, 0, 0, 0);
+      u[v] = row < rows && in(v) ? load_once(xr + (v * TPR + t) * kN)
+                                 : make_uint4(0, 0, 0, 0);
   };
   // The next row's loads are in flight while this one is reduced and
   // stored.
@@ -190,10 +199,10 @@ rms_norm_rows(const T* __restrict__ x, const float* __restrict__ scale,
         ss += part[slot * kWarpsPerRow + i];
       __syncthreads();  // part is rewritten by the next row
     }
-    const float inv = rsqrtf(ss / (float)kD + eps);
+    const float inv = rsqrtf(ss / (float)d + eps);
 
     if (row < rows) {
-      T* orow = out + (size_t)row * kD;
+      T* orow = out + (size_t)row * d;
 #pragma unroll
       for (int v = 0; v < VPT; ++v) {
         const T* e = reinterpret_cast<const T*>(&u[v]);
@@ -202,18 +211,18 @@ rms_norm_rows(const T* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll
         for (int j = 0; j < kN; ++j)
           oe[j] = from_f32<T>(to_f32(e[j]) * inv * w[v][j]);
-        store_once(orow + (v * TPR + t) * kN, o);
+        if (in(v)) store_once(orow + (v * TPR + t) * kN, o);
       }
     }
   }
 }
 
-// Launch rms_norm_rows<T, TPR, VPT> with as many blocks as the rows need,
-// at most as many as fit on the card at once (the rest loop).
-template <typename T, int TPR, int VPT>
+// Launch rms_norm_rows<T, TPR, VPT, kTail> with as many blocks as the
+// rows need, at most as many as fit on the card at once (the rest loop).
+template <typename T, int TPR, int VPT, bool kTail>
 cudaError_t launch_rows(const T* x, const float* scale, T* out, int rows,
-                        float eps, cudaStream_t stream) {
-  auto kernel = rms_norm_rows<T, TPR, VPT>;
+                        int d, float eps, cudaStream_t stream) {
+  auto kernel = rms_norm_rows<T, TPR, VPT, kTail>;
   static int resident = 0;  // blocks of this instance the card holds
   cudaError_t err;
   if (resident == 0) {
@@ -227,38 +236,71 @@ cudaError_t launch_rows(const T* x, const float* scale, T* out, int rows,
   constexpr int kRowsPer = kRowsBlock / TPR;
   const int need = (rows + kRowsPer - 1) / kRowsPer;
   const int grid = need < resident ? need : resident;
-  kernel<<<grid, kRowsBlock, 0, stream>>>(x, scale, out, rows, eps);
+  kernel<<<grid, kRowsBlock, 0, stream>>>(x, scale, out, rows, d, eps);
   return cudaGetLastError();
 }
 
-// The register-resident instances: (many-rows TPR, VPT), (few-rows TPR,
-// VPT) for d = 2048, one instance for d = 128. Returns false where the
-// width or alignment has none.
+// The most 16-byte vectors a row the register-resident instances take.
+constexpr int kMaxVectors = kRowsBlock * 8;
+
+// Threads a row for many rows: the fewest with at most 8 vectors each
+// (16 while a row has at most 16 vectors).
+inline int many_tpr(int nv) {
+  if (nv <= 16) return 16;
+  if (nv <= 256) return 32;
+  return nv <= 512 ? 64 : nv <= 1024 ? 128 : 256;
+}
+
+// The register-resident instances, in bf16 and fp32 alike (nv vectors a
+// row): many rows <16, 1> (nv <= 16), <32, 1 | 2 | 4 | 8> (up to 32, 64,
+// 128, 256), <64, 8>, <128, 8>, <256, 8> (up to 512, 1024, 2048); few
+// rows, a CTA a row, <256, 1 | 2 | 4 | 8> (up to 256, 512, 1024, 2048).
+// The six the main paths' d 2048 and 128 land on in bf16 or fp32 (<16,
+// 1>, <32, 1>, <32, 8>, <64, 8>, <256, 1>, <256, 2>) also have an
+// exact-fit twin without the tail's predicates, taken where d is their
+// span: the predicated body measured 3-4% slower at 4096 and 12288 rows
+// of 2048 on an H100. Returns false where the width or alignment has
+// none.
 template <typename T>
 bool launch_held(const T* x, const float* scale, T* out, int rows, int d,
                  float eps, cudaStream_t stream, cudaError_t* err) {
-  constexpr bool kBF16 = sizeof(T) == 2;
-  if (((uintptr_t)x | (uintptr_t)out | (uintptr_t)scale) % 16) return false;
-  if (d == 128) {
-    if constexpr (kBF16)
-      *err = launch_rows<T, 16, 1>(x, scale, out, rows, eps, stream);
-    else
-      *err = launch_rows<T, 32, 1>(x, scale, out, rows, eps, stream);
-    return true;
-  }
-  if (d != 2048) return false;
+  constexpr int kN = 16 / sizeof(T);
+  if (((uintptr_t)x | (uintptr_t)out | (uintptr_t)scale) % 16 || d % kN)
+    return false;
+  const int nv = d / kN;
+  if (nv == 0 || nv > kMaxVectors) return false;
+  const int tpr = many_tpr(nv);
   int sms = 0;
   if ((*err = sm_count(&sms)) != cudaSuccess) return true;
-  // One warp (bf16) or two (fp32) a row would leave SMs without a block:
-  // give each row a CTA instead.
-  constexpr int kManyRows = kRowsBlock / (kBF16 ? 32 : 64);  // a block
-  const bool few = (rows + kManyRows - 1) / kManyRows < sms;
-  if constexpr (kBF16)
-    *err = few ? launch_rows<T, 256, 1>(x, scale, out, rows, eps, stream)
-               : launch_rows<T, 32, 8>(x, scale, out, rows, eps, stream);
+  // A row wider than a warp's single vectors, at so few rows that the
+  // many-rows instance would leave SMs without a block: a CTA a row.
+  const bool few =
+      nv > 32 && (rows + kRowsBlock / tpr - 1) / (kRowsBlock / tpr) < sms;
+#define SHELLAC_RMS(TPR, VPT) \
+  launch_rows<T, TPR, VPT, true>(x, scale, out, rows, d, eps, stream)
+#define SHELLAC_RMS_EXACT(TPR, VPT)                                       \
+  (nv == (TPR) * (VPT)                                                    \
+       ? launch_rows<T, TPR, VPT, false>(x, scale, out, rows, d, eps,     \
+                                         stream)                          \
+       : SHELLAC_RMS(TPR, VPT))
+  if (few)
+    *err = nv <= 256   ? SHELLAC_RMS_EXACT(256, 1)
+           : nv <= 512 ? SHELLAC_RMS_EXACT(256, 2)
+           : nv <= 1024 ? SHELLAC_RMS(256, 4)
+                        : SHELLAC_RMS(256, 8);
+  else if (tpr == 16)
+    *err = SHELLAC_RMS_EXACT(16, 1);
+  else if (tpr == 32)
+    *err = nv <= 32    ? SHELLAC_RMS_EXACT(32, 1)
+           : nv <= 64  ? SHELLAC_RMS(32, 2)
+           : nv <= 128 ? SHELLAC_RMS(32, 4)
+                       : SHELLAC_RMS_EXACT(32, 8);
   else
-    *err = few ? launch_rows<T, 256, 2>(x, scale, out, rows, eps, stream)
-               : launch_rows<T, 64, 8>(x, scale, out, rows, eps, stream);
+    *err = tpr == 64    ? SHELLAC_RMS_EXACT(64, 8)
+           : tpr == 128 ? SHELLAC_RMS(128, 8)
+                        : SHELLAC_RMS(256, 8);
+#undef SHELLAC_RMS_EXACT
+#undef SHELLAC_RMS
   return true;
 }
 

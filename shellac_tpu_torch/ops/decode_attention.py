@@ -104,7 +104,7 @@ def _check_kernel_args(name, q, k, v, index, window, softcap, sinks, quant,
     int8 with fp32 scales of `scale_shape`; D 64, 128 or 576 in both; whole
     GQA groups, of at most KERNEL_MAX_ROWS rows at D 64 and 128; at D 576
     MLA's latent: v the same storage as k (and v_scale as k_scale), no
-    window, softcap or sinks; 16-byte aligned caches.
+    window, softcap or sinks; 16-byte aligned q and caches.
     Raises ValueError naming what is wrong."""
     tensors = [q, k, v, index] + ([k_scale, v_scale] if quant else [])
     if not all(t.is_cuda for t in tensors):
@@ -150,9 +150,9 @@ def _check_kernel_args(name, q, k, v, index, window, softcap, sinks, quant,
                 )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous tensors")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError(f"{name}: caches must be 16-byte aligned (the "
-                         "kernel loads 16 bytes at a time)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: q and the caches must be 16-byte "
+                         "aligned (the kernel loads 16 bytes at a time)")
     if sinks is not None:
         if sinks.dtype != torch.float32 or sinks.shape != (h,) \
                 or not sinks.is_cuda or not sinks.is_contiguous():

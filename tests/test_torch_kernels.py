@@ -48,14 +48,23 @@ def _close(out, ref, dtype):
 # threshold (rows / 8 against the SM count in bf16, rows / 4 in fp32);
 # prefill's 4096 and train's 12288 one warp a row (two in fp32). d = 128
 # (q/k norms, 4096 tokens x 16 heads) at 16 threads a row (bf16) or 32
-# (fp32); 37 x 1000 and 5 x 100 take the generic body, and so does
-# GPT-OSS-20B's width 2880 (its prefill's 4096 rows, serve's 16).
+# (fp32). Every other width of whole 16-byte vectors takes them too, with
+# a predicated tail where the width is not a multiple of the instance's
+# span: MLA's 512, shellac-270m's 1024, shellac-7b's 4096, DeepSeek-V3's
+# 7168, GPT-OSS-20B's 2880 (360 bf16 vectors over 64 threads a row) and
+# 1000 (125 bf16 vectors over a warp), at decode's 8 and 16 rows, prefill's
+# 4096 and train's 12288. 5 x 100 (not whole bf16 vectors) takes the
+# generic body in bf16.
+_RMS_WIDE = [(r, d) for d in (512, 1024, 4096, 7168, 1000)
+             for r in (8, 16, 4096, 12288)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(4096, 2048), (8, 2048), (37, 1000),
                                     (5, 128), (1, 2048), (16, 2048),
                                     (1024, 2048), (1500, 2048),
                                     (12288, 2048), (65536, 128), (5, 100),
-                                    (4096, 2880), (16, 2880)])
+                                    (4096, 2880), (16, 2880)] + _RMS_WIDE)
 def test_rms_norm_kernel(dtype, rows, d):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(rows + d)
@@ -1100,14 +1109,26 @@ def test_decode_kernels_at_the_beam_shapes(dtype, case):
 # same array as k and v; DeepSeek-V2/V3's 128 heads (8 CTAs of 16 rows a
 # slot), and rows that leave the last CTA part full (24 heads at s 2).
 # Lengths ragged from 0, across a tile and past one CTA's share of a
-# cluster (a split of up to 8 x 32-position tiles), to the table's end.
-# The wide body takes only the latent: two arrays, or a window, softcap or
-# sinks, are refused ("refused").
+# cluster (a split of up to 8 x 32-position tiles), to the table's end;
+# live counts (index + 1) at one and two tiles +-1 ("tile_edges"). One
+# slot of a few positions leaves all but one CTA of its cluster without a
+# tile ("b1_short"). Pools of blocks smaller than the tile (16, 8, 1): a
+# tile is copied row by row, each row's page from the table. The wide
+# body takes only the latent: two arrays, or a window, softcap or sinks,
+# are refused ("refused").
 _MLA_LENGTHS = [0, 1, 31, 32, 300, 511, 1023, 2047]
+_MLA_TILE_EDGES = [30, 31, 32, 62, 63, 64, 95, 2046]
 _MLA = {
     "dense_same": dict(paged=False, same=True),
     "dense_two_arrays": dict(paged=False, same=False, refused=True),
     "dense_b1_short": dict(paged=False, same=True, index=[5]),
+    "dense_tile_edges": dict(paged=False, same=True, index=_MLA_TILE_EDGES),
+    "paged_tile_edges_bs16": dict(paged=True, same=True, bs=16,
+                                  index=_MLA_TILE_EDGES),
+    "paged_b1_short_bs16": dict(paged=True, same=True, bs=16, index=[5]),
+    "paged_same_bs8": dict(paged=True, same=True, bs=8),
+    "paged_same_bs1": dict(paged=True, same=True, bs=1,
+                           index=[0, 31, 33, 300]),
     "dense_window_softcap_sinks": dict(paged=False, same=True, window=300,
                                        softcap=30.0, sinks=True,
                                        refused=True),
@@ -1223,7 +1244,10 @@ def test_mla_decode_at_576(dtype, case):
                                   "dense_128_heads", "paged_same_bs64",
                                   "paged_128_heads_bs64",
                                   "paged_two_arrays_bs32",
-                                  "paged_window_mid_page"])
+                                  "paged_window_mid_page",
+                                  "dense_tile_edges", "dense_24_heads_s2",
+                                  "paged_tile_edges_bs16",
+                                  "paged_same_bs8"])
 def test_mla_int8_decode_at_576(dtype, case):
     """Kernels 6 and 7's int8 branch at D 576 over the int8 latent (one
     scale a row, shared by k and v): NaN scales on every row no slot
@@ -1245,11 +1269,15 @@ def test_mla_int8_decode_at_576(dtype, case):
     _close(out, _mla_plain(plain, c, scales), dtype)
 
 
-@pytest.mark.parametrize("case", ["dense_same", "paged_same_bs16"])
+@pytest.mark.parametrize("case", ["dense_same", "paged_same_bs16",
+                                  "paged_same_bs64_int8"])
 def test_mla_decode_is_deterministic(case):
-    """The wide body's calls and CUDA-graph replays are bitwise equal."""
+    """The wide body's calls and CUDA-graph replays are bitwise equal,
+    over the bf16 caches and the int8 pool (`_int8`)."""
     dev = _card()
-    args, c, _ = _mla_inputs(case, torch.bfloat16, dev)
+    quant = case.endswith("_int8")
+    args, c, _ = _mla_inputs(case.removesuffix("_int8"), torch.bfloat16,
+                             dev, quant=quant)
     fn = da.paged_decode_attention if len(args) == 5 else da.decode_attention
 
     def call():
@@ -1258,6 +1286,27 @@ def test_mla_decode_is_deterministic(case):
     first = call()
     assert torch.equal(first, call())
     assert torch.equal(first, _replayed(call))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["dense_same", "paged_same_bs16",
+                                  "dense_same_int8", "paged_same_bs64_int8"])
+def test_mla_decode_bodies(dtype, case):
+    """A call at 576 launches one kernel: in bf16 the tensor-core body
+    (`decode_wide_mma`) over the dense cache and the pool, bf16 and int8,
+    never the CUDA-core one; in fp32 the CUDA-core parity body
+    (`decode_wide_kernel`)."""
+    dev = _card()
+    quant = case.endswith("_int8")
+    args, c, _ = _mla_inputs(case.removesuffix("_int8"), dtype, dev,
+                             quant=quant)
+    fn = da.paged_decode_attention if len(args) == 5 else da.decode_attention
+    names = _kernel_names(lambda: fn(*args, **c))
+    assert len(names) == 1, names
+    body = "decode_wide_mma" if dtype == torch.bfloat16 else \
+        "decode_wide_kernel"
+    assert body in names[0], names
+    assert ("signed char" in names[0]) == quant, names
 
 
 # The expanded prefill: q, k and v (padded) 192 wide, H = Hkv = 16.
